@@ -1,0 +1,548 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (tpu_kquant_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py            # from the repository root; one GPU
+
+Phases, each fatal on failure:
+ 1. the card's name and power limit (nvidia-smi), torch / CUDA / nvcc versions;
+ 2. build the CUDA kernels from tpu_kquant_torch/csrc (nvcc, in parallel);
+ 3. hold each kernel against its plain PyTorch version on the card at the
+    main path's TinyLlama-1.1B shapes (tolerance 2e-2 of max|ref|), and time
+    the kernel and the plain version; as yardsticks the port never calls,
+    qmm's ``library_ms`` is torch.matmul on the pre-dequantized bf16 weight,
+    and the fused kernels, which no single PyTorch call computes
+    (``library_ms`` null), get ``matmul_ms``: their matmuls on pre-dequantized
+    bf16 weights;
+ 4. end to end at TinyLlama-1.1B width (random Q4_K_M fixture from a seed):
+    load onto the card, check a 2-layer cut against the plain versions on
+    the CPU, answer three greedy requests of different prompt lengths with
+    the launch counters set to 0 just before and read just after, then time
+    pp512 and tg128.
+The second-to-last line is the kernels' JSON; the last line is
+{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+TOL = 2e-2
+L2_BYTES = 50e6
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def gpu_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True, check=True)
+    return r.stdout.strip().splitlines()[0]
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+    return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
+
+
+def time_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean ms per call of fn(i) as the host drives it (eager): CUDA events
+    around `iters` calls, so host time between launches counts."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean device ms per call of fn(i): `iters` calls captured in one CUDA
+    graph and replayed `reps` times, so no host time enters."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del g
+    return ms
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _rand_weights(rng, kind: str, N: int, K: int, dev):
+    """Random packed weights in the loader's layout (codes and bf16 pairs)."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.quant.qtensor import QTensor
+
+    def pairs(a, b):
+        bits = [torch.from_numpy(v).to(torch.bfloat16).view(torch.int16).numpy()
+                .view(np.uint16).astype(np.uint32) for v in (a, b)]
+        return (bits[0] | (bits[1] << 16)).view(np.float32)
+
+    if kind == "q4":  # uniform 4-bit codes, centred by the mins
+        s = rng.random((K // 32, N), dtype=np.float32) * 0.004 + 0.002
+        return QTensor("q4", "kmajor", (N, K), {
+            "qs": rng.integers(0, 256, (K // 2, N), dtype=np.uint8),
+            "sm": pairs(s, s * 7.5)}).to(dev)
+    s = rng.random((K // 16, N), dtype=np.float32) * 0.002 + 0.001
+    return QTensor("q6w", "kmajor", (N, K), {
+        "qs": rng.integers(-32, 32, (K, N)).astype(np.int8),
+        "sp": pairs(s[0::2], s[1::2])}).to(dev)
+
+
+def _rotation(w0, make, one_bytes: int) -> list:
+    """w0 and enough fresh copies to exceed L2 twice, so every timed launch
+    reads its weights from device memory, as the model's layer loop does."""
+    n = min(32, max(1, math.ceil(2 * L2_BYTES / one_bytes)))
+    return [w0] + [make() for _ in range(n - 1)]
+
+
+def _err(got, ref) -> tuple[float, float]:
+    d = (got.float() - ref.float()).abs().max().item()
+    return d, d / max(ref.float().abs().max().item(), 1e-30)
+
+
+def check_kernels(dev) -> dict:
+    """Kernel vs plain version at the main path's shapes, with the timings
+    of the module docstring. Returns {kernel: [case dicts]}; raises on any
+    disagreement."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.ops.attn_in import attn_in_plain, fused_attn_in
+    from tpu_kquant_torch.ops.ffn import fused_oproj_ffn, oproj_ffn_plain
+    from tpu_kquant_torch.ops.qmm import qmm, qmm_plain
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    rng = np.random.default_rng(0)
+    torch.manual_seed(0)
+    out: dict = {"qmm": [], "attn_in": [], "oproj_ffn": []}
+    dim, H, Hkv, hd, F, V = 2048, 32, 4, 64, 5632, 32000
+
+    def act(R, K, scale=1.0):
+        return (torch.randn(R, K, device=dev) * scale).to(torch.bfloat16)
+
+    # qmm: decode lm head and wqk at R = 1, prefill gate/up and down at R = 512
+    for label, kind, N, K, R, odt in (
+            ("lm head q6w-sp R=1", "q6w", V, dim, 1, torch.float32),
+            ("wqk q4-sm R=1", "q4", (H + Hkv) * hd, dim, 1, torch.bfloat16),
+            ("w_gateup q4-sm R=512", "q4", 2 * F, dim, 512, torch.bfloat16),
+            ("w_down q6w-sp R=512", "q6w", dim, F, 512, torch.bfloat16)):
+        w0 = _rand_weights(rng, kind, N, K, dev)
+        ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
+        x = act(R, K)
+        got = qmm(x, w0, odt)
+        torch.cuda.synchronize()
+        ref = qmm_plain(x, w0, odt)
+        ad, rel = _err(got, ref)
+        wd = [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]
+        nb = w0.n_bytes + x.numel() * 2 + R * N * got.element_size()
+        b, by = bound_ms(nb, 2.0 * R * K * N)
+        out["qmm"].append({
+            "case": label, "max_abs_err": ad, "rel_err": rel,
+            "ms": graph_ms(lambda i: qmm(x, ws[i % len(ws)], odt), 40),
+            "eager_ms": time_ms(lambda i: qmm(x, ws[i % len(ws)], odt), 40),
+            "plain_ms": graph_ms(lambda i: qmm_plain(x, w0, odt), 4, reps=3),
+            "library_ms": graph_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), 40),
+            "bound_ms": b, "bound_by": by})
+        del wd, ws
+
+    # attn_in at R = 1
+    mk_in = lambda: (_rand_weights(rng, "q4", (H + Hkv) * hd, dim, dev),
+                     _rand_weights(rng, "q6w", Hkv * hd, dim, dev))
+    w0 = mk_in()
+    nbw = sum(w.n_bytes for w in w0)
+    ws = _rotation(w0, mk_in, nbw)
+    x = act(1, dim, 0.5)
+    nw = torch.rand(dim, device=dev) + 0.5
+    cos, sin = torch.rand(1, hd // 2, device=dev), torch.rand(1, hd // 2, device=dev)
+    g0, g1 = fused_attn_in(x, nw, 1e-5, *w0, cos, sin, hd)
+    torch.cuda.synchronize()
+    r0, r1 = attn_in_plain(x, nw, 1e-5, *w0, cos, sin, hd)
+    e0, e1 = _err(g0, r0), _err(g1, r1)
+    wcat = [torch.cat([dequant_kmajor(w, torch.bfloat16) for w in pair], dim=1).contiguous()
+            for pair in ws]
+    n_out = w0[0].shape[0] + w0[1].shape[0]
+    b, by = bound_ms(nbw + dim * 2 + dim * 4 + 2 * (hd // 2) * 4 + n_out * 2, 2.0 * dim * n_out)
+    out["attn_in"].append({
+        "case": "wqk q4-sm + wv q6w-sp R=1", "max_abs_err": max(e0[0], e1[0]),
+        "rel_err": max(e0[1], e1[1]),
+        "ms": graph_ms(lambda i: fused_attn_in(x, nw, 1e-5, *ws[i % len(ws)], cos, sin, hd), 64),
+        "eager_ms": time_ms(lambda i: fused_attn_in(x, nw, 1e-5, *ws[i % len(ws)], cos, sin, hd),
+                            64),
+        "plain_ms": graph_ms(lambda i: attn_in_plain(x, nw, 1e-5, *w0, cos, sin, hd), 4, 3),
+        "library_ms": None,
+        "matmul_ms": graph_ms(lambda i: torch.matmul(x, wcat[i % len(wcat)]), 64),
+        "bound_ms": b, "bound_by": by})
+    del ws, wcat
+
+    # oproj_ffn at R = 1 (wo as the fixture stores it: q6w-sp)
+    mk_ffn = lambda: (_rand_weights(rng, "q6w", dim, H * hd, dev),
+                      _rand_weights(rng, "q4", 2 * F, dim, dev),
+                      _rand_weights(rng, "q6w", dim, F, dev))
+    w0 = mk_ffn()
+    nbw = sum(w.n_bytes for w in w0)
+    ws = _rotation(w0, mk_ffn, nbw)
+    x, at = act(1, dim, 0.5), act(1, H * hd, 0.5)
+    nw = torch.rand(dim, device=dev) + 0.5
+
+    def ffn(i, plain=False):
+        wo, gu, dn = w0 if plain else ws[i % len(ws)]
+        f = oproj_ffn_plain if plain else fused_oproj_ffn
+        return f(x, at, wo, nw, 1e-5, gu, dn)
+
+    got = ffn(0)
+    torch.cuda.synchronize()
+    ref = ffn(0, plain=True)
+    ad, rel = _err(got, ref)
+    wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in trio] for trio in ws]
+    xs = [at, x, act(1, F)]
+    b, by = bound_ms(nbw + 3 * dim * 2 + H * hd * 2 + dim * 4,
+                     2.0 * (H * hd * dim + dim * 2 * F + F * dim))
+    out["oproj_ffn"].append({
+        "case": "wo q6w-sp + w_gateup q4-sm + w_down q6w-sp R=1", "max_abs_err": ad,
+        "rel_err": rel, "ms": graph_ms(ffn, 64), "eager_ms": time_ms(ffn, 64),
+        "plain_ms": graph_ms(lambda i: ffn(i, plain=True), 4, 3),
+        "library_ms": None,
+        "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in zip(xs, wd[i % len(wd)])],
+                              64),
+        "bound_ms": b, "bound_by": by})
+    del ws, wd
+
+    for name, cases in out.items():
+        for c in cases:
+            lib = c["library_ms"] if c["library_ms"] is not None else c["matmul_ms"]
+            log(f"  {name:9s} {c['case']:48s} rel err {c['rel_err']:.2e}  kernel "
+                f"{c['ms'] * 1e3:8.1f} us (eager {c['eager_ms'] * 1e3:7.1f})  plain "
+                f"{c['plain_ms'] * 1e3:8.1f} us  {'library' if c['library_ms'] else 'matmuls'} "
+                f"{lib * 1e3:8.1f} us  bound {c['bound_ms'] * 1e3:8.2f} us ({c['bound_by']})")
+            if not math.isfinite(c["rel_err"]) or c["rel_err"] > TOL:
+                raise SystemExit(f"FAIL: {name} {c['case']} disagrees with its plain "
+                                 f"version: {c['rel_err']:.3e} > {TOL}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: end to end
+# ---------------------------------------------------------------------------
+
+
+def expected_launches(cfg, rows: int) -> dict:
+    """Launches of one forward over `rows` = B*T rows at the main path's
+    dispatch: fused decode kernels at rows <= 32, qmm projections above."""
+    L = cfg.n_layers
+    if rows <= 32:
+        return {"attn_in": L, "oproj_ffn": L, "qmm": 1}
+    return {"attn_in": 0, "oproj_ffn": 0, "qmm": 5 * L + 1}
+
+
+def _add(a: dict, b: dict, n: int = 1) -> dict:
+    return {k: a.get(k, 0) + n * b.get(k, 0) for k in set(a) | set(b)}
+
+
+def counts() -> dict:
+    from tpu_kquant_torch.ops import _build
+
+    return {k: c.launches for k, c in _build.COUNTERS.items()}
+
+
+def reset_counts() -> None:
+    from tpu_kquant_torch.ops import _build
+
+    for c in _build.COUNTERS.values():
+        c.reset()
+
+
+def check_counts(what: str, want: dict) -> dict:
+    got = counts()
+    log(f"  launches in {what}: {got} (expected {want})")
+    for k, v in want.items():
+        if got.get(k, 0) != v:
+            raise SystemExit(f"FAIL: {what}: kernel {k} launched {got.get(k, 0)} times, "
+                             f"expected {v}")
+    return got
+
+
+def reference_check(cfg, params, dev) -> None:
+    """A 2-layer cut of the loaded model on the card (kernels) against the
+    same cut on the CPU (plain versions): prefill at 8 rows (fused kernels)
+    and 40 rows (qmm), then 4 greedy decode steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+
+    cut = dataclasses.replace(cfg, n_layers=2)
+    p_gpu = {**params, "layers": params["layers"][:2]}
+    p_cpu = {k: (v.to("cpu") if k != "layers" else [{n: q.to("cpu") for n, q in lay.items()}
+                                                  for lay in v])
+             for k, v in p_gpu.items()}
+    rng = np.random.default_rng(1)
+    for n in (8, 40):
+        prompt = rng.integers(10, cfg.vocab_size, n).tolist()
+        outs = []
+        for p, d in ((p_gpu, dev), (p_cpu, "cpu")):
+            eng = InferenceEngine(cut, p, max_seq=128, device=d)
+            cache = eng.new_cache(1)
+            logits, cache, lens = eng.prefill([prompt], cache)
+            first = torch.argmax(logits, -1)
+            toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=d), cache, 4)
+            outs.append((logits[0].float().cpu(), [int(first[0])] + toks[0].cpu().tolist()))
+        (lg, tg), (lc, tc) = outs
+        rel = ((lg - lc).abs().max() / lc.abs().max()).item()
+        top5 = set(torch.topk(lc, 5).indices.tolist())
+        log(f"  2-layer cut, prompt {n}: logits rel err {rel:.2e}; greedy card {tg} cpu {tc}")
+        if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
+            raise SystemExit(f"FAIL: card and CPU disagree on the 2-layer cut (prompt {n})")
+
+
+def end_to_end(dev, profile: Path | None = None) -> dict:
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config, write_fixture_gguf
+    from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
+    from tpu_kquant_torch.runtime.loader import load_model
+
+    cfg0 = tinyllama_1b_config()
+    path = ROOT / ".cache" / "tkq_torch_fixture" / "tinyllama-1.1b-q4_k_m-seed0.gguf"
+    t0 = time.perf_counter()
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        write_fixture_gguf(tmp, cfg0, seed=0)
+        os.replace(tmp, path)
+    t1 = time.perf_counter()
+    cfg, params, reader = load_model(str(path), scale_dtype="bf16", device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"  fixture {path.name}: write {t1 - t0:.1f} s, load + repack {t2 - t1:.1f} s; "
+        f"depth {cfg.n_layers} of 22 layers, dim {cfg.dim}, vocab {cfg.vocab_size}")
+
+    reference_check(cfg, params, dev)
+
+    # bounds of the two timed workloads, from the loaded weights: decode
+    # reads every matmul weight once per token (KV and activations left
+    # out); pp512 does 2 * 512 * N * K matmul flops per weight
+    mats = [qt for lay in params["layers"] for qt in lay.values() if qt.kind != "dense"]
+    mats.append(params["output"])
+    w_bytes = sum(qt.n_bytes for qt in mats)
+    macs = sum(qt.shape[0] * qt.shape[1] for qt in mats)
+    tg_bound = bound_ms(w_bytes, 2.0 * macs)
+    pp_bound = bound_ms(w_bytes, 2.0 * 512 * macs)
+    log(f"  bounds: decode {tg_bound[0]:.4f} ms/token ({tg_bound[1]}: {w_bytes / 1e6:.1f} MB of "
+        f"weights), pp512 {pp_bound[0]:.4f} ms ({pp_bound[1]}: {2 * 512 * macs / 1e12:.3f} "
+        f"TFLOP of matmuls)")
+
+    # the main path: three requests of different prompt lengths, greedy
+    rng = np.random.default_rng(2)
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev)
+    prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in (5, 40, 200)]
+    reset_counts()
+    answers = []
+    want: dict = {}
+    for pr in prompts:
+        ans = eng.generate([pr], max_new_tokens=16)[0]
+        answers.append(ans)
+        want = _add(want, expected_launches(cfg, min(_bucket(len(pr)), eng.max_seq)))
+        want = _add(want, expected_launches(cfg, 1), 15)
+    torch.cuda.synchronize()
+    main_counts = check_counts("the three requests", want)
+    for pr, ans in zip(prompts, answers):
+        log(f"  request of {len(pr)} tokens -> {ans}")
+        if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
+            raise SystemExit("FAIL: a request did not get 16 valid tokens")
+
+    # pp512: bucketed prefill of a 512-token prompt (warmed once; median of 3)
+    prompt = rng.integers(10, cfg.vocab_size, 512).tolist()
+    eng.prefill([prompt], eng.new_cache(1))
+    pp = []
+    for _ in range(3):
+        cache = eng.new_cache(1)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache, lens = eng.prefill([prompt], cache)
+        torch.cuda.synchronize()
+        pp.append(time.perf_counter() - t0)
+        check_counts("pp512", expected_launches(cfg, 512))
+    pp_s = sorted(pp)[1]
+    if not (logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()):
+        raise SystemExit("FAIL: pp512 logits are not finite [1, vocab]")
+
+    # tg128: 128 greedy decode steps after the 512-token prefill (warmed
+    # once; median of 3, each after a fresh prefill)
+    first = torch.argmax(logits, -1)
+    eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 4)
+    tg = []
+    for _ in range(3):
+        logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+        first = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
+        torch.cuda.synchronize()
+        tg.append(time.perf_counter() - t0)
+        check_counts("tg128", {k: 128 * v for k, v in expected_launches(cfg, 1).items()})
+    tg_s = sorted(tg)[1]
+    step_logits, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
+    if not torch.isfinite(step_logits).all():
+        raise SystemExit("FAIL: decode logits are not finite")
+    if profile is not None:
+        profile_steps(eng, cfg, dev, profile)
+    res = {"depth": cfg.n_layers, "pp512_tok_s": 512 / pp_s, "pp512_ms": pp_s * 1e3,
+           "pp512_ms_all": [t * 1e3 for t in pp],
+           "tg128_tok_s": 128 / tg_s, "tg128_ms_per_tok": tg_s / 128 * 1e3,
+           "tg128_tok_s_all": [128 / t for t in tg],
+           "main_path_launches": main_counts, "tg_bound_ms_per_tok": tg_bound[0],
+           "pp512_bound_ms": pp_bound[0], "weight_bytes": w_bytes}
+    log(f"  [{gpu_line()}] depth {cfg.n_layers}: pp512 {res['pp512_tok_s']:.1f} tok/s "
+        f"({res['pp512_ms']:.2f} ms), tg128 {res['tg128_tok_s']:.1f} tok/s "
+        f"({res['tg128_ms_per_tok']:.3f} ms/token); medians of 3: pp512 runs "
+        f"{', '.join(f'{512 / t:.1f}' for t in pp)} tok/s, tg128 runs "
+        f"{', '.join(f'{v:.1f}' for v in res['tg128_tok_s_all'])} tok/s")
+    return res
+
+
+def profile_steps(eng, cfg, dev, out: Path) -> None:
+    """--profile DIR: torch.profiler over one pp512 prefill and 8 decode
+    steps; kernel tables go to DIR/profile_*.txt, busy shares to the log."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out.mkdir(parents=True, exist_ok=True)
+    prompt = np.random.default_rng(3).integers(10, cfg.vocab_size, 512).tolist()
+    logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+    first = torch.argmax(logits, -1)
+    pos = torch.tensor(lens, device=dev)
+    eng.decode_greedy(first, pos, cache, 2)
+    for what, run in (("prefill", lambda: eng.prefill([prompt], eng.new_cache(1))),
+                      ("decode", lambda: eng.decode_greedy(first, pos + 2, cache, 8))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avg = prof.key_averages()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        (out / f"profile_{what}.txt").write_text(avg.table(
+            sort_by="self_device_time_total", row_limit=40))
+        by_name: dict = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  profile {what}: wall {wall * 1e3:.2f} ms (profiler on), device kernels "
+            f"{dev_ms:.2f} ms ({100 * dev_ms / (wall * 1e3):.1f}% busy); top: "
+            + "; ".join(f"{k[:36]} {v:.2f} ms" for k, v in top))
+
+
+REPLACES = {
+    "qmm": ("tpu_kquant_torch/csrc/qmm.cu", "tpu_kquant/ops/pallas_qmm.py:287"),
+    "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
+    "oproj_ffn": ("tpu_kquant_torch/csrc/oproj_ffn.cu", "tpu_kquant/ops/pallas_ffn.py:983"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", type=Path, metavar="DIR",
+                    help="also profile one pp512 prefill and 8 decode steps; "
+                         "write the kernel tables into DIR")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is false; this smoke test needs a CUDA card")
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from tpu_kquant_torch.ops import _build
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    log("== phase 1: device")
+    log(f"  {gpu_line()}")
+    nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[-1]
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {nvcc}, "
+        f"python {sys.version.split()[0]}")
+
+    log("== phase 2: build")
+    log(f"  built {', '.join(_build.SOURCES)} in {_build.build_all():.1f} s "
+        f"into {_build.BUILD_DIR.relative_to(ROOT)}")
+
+    log(f"== phase 3: kernels vs plain versions on the card [{gpu_line()}]")
+    cases = check_kernels(dev)
+
+    log("== phase 4: end to end")
+    e2e = end_to_end(dev, args.profile)
+
+    kernels = []
+    for name, cs in cases.items():
+        src, rep = REPLACES[name]
+        head = cs[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": e2e["main_path_launches"].get(name, 0),
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "case": head["case"], "cases": cs})
+    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    log(gpu_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+
+CUDA kernels have no CPU mode, so every test here is marked ``cuda`` and
+skips without a card. The file imports neither JAX nor the JAX package, so
+it runs on a machine with only PyTorch and the CUDA toolkit:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+(``--noconftest`` skips tests/conftest.py, which sets up JAX.) Tolerance:
+2e-2 of max|ref|; the kernels sum in another order and the GEMV path keeps
+dequantized weights in f32 where the plain version rounds them to bf16.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_kquant_torch.models.fixtures import tiny_config, write_fixture_gguf
+from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.ops import attn_in as t_attn_in
+from tpu_kquant_torch.ops import ffn as t_ffn
+from tpu_kquant_torch.ops import qmm as t_qmm
+from tpu_kquant_torch.quant.qtensor import QTensor
+from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
+from tpu_kquant_torch.runtime.loader import load_model
+
+TOL = 2e-2
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _pairs(a, b):
+    bits = [torch.from_numpy(v).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+            .astype(np.uint32) for v in (a, b)]
+    return (bits[0] | (bits[1] << 16)).view(np.float32)
+
+
+def q4(N, K, rng, dev):
+    s = rng.random((K // 32, N), dtype=np.float32) * 0.01
+    return QTensor("q4", "kmajor", (N, K), {
+        "qs": rng.integers(0, 256, (K // 2, N), dtype=np.uint8),
+        "sm": _pairs(s, s * 7.5)}).to(dev)
+
+
+def q6w(N, K, rng, dev):
+    s = rng.random((K // 16, N), dtype=np.float32) * 0.004
+    return QTensor("q6w", "kmajor", (N, K), {
+        "qs": rng.integers(-32, 32, (K, N)).astype(np.int8),
+        "sp": _pairs(s[0::2], s[1::2])}).to(dev)
+
+
+def _rel(got, ref):
+    return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,K,R", [("q4", 2304, 2048, 1), ("q6w", 32000, 2048, 3),
+                                        ("q4", 11264, 2048, 512), ("q6w", 2048, 5632, 40),
+                                        ("q4", 2048, 2048, 32), ("q6w", 256, 2048, 33),
+                                        ("q4", 2064, 1024, 7), ("q6w", 400, 512, 64)])
+def test_qmm_kernel_matches_plain(card, kind, N, K, R):
+    rng = np.random.default_rng(N + R)
+    qt = (q4 if kind == "q4" else q6w)(N, K, rng, card)
+    x = torch.randn(R, K, device=card).to(torch.bfloat16)
+    launches = t_qmm.counter.launches
+    y = t_qmm.qmm(x, qt)
+    torch.cuda.synchronize()
+    assert t_qmm.counter.launches == launches + 1
+    assert _rel(y, t_qmm.qmm_plain(x, qt)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 5, 16])
+def test_attn_in_kernel_matches_plain(card, R):
+    rng = np.random.default_rng(R)
+    D, hd, H, Hkv = 2048, 64, 32, 4
+    wqk, wv = q4((H + Hkv) * hd, D, rng, card), q6w(Hkv * hd, D, rng, card)
+    x = torch.randn(R, D, device=card).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(R, hd // 2, device=card), torch.rand(R, hd // 2, device=card)
+    got = t_attn_in.fused_attn_in(x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    torch.cuda.synchronize()
+    ref = t_attn_in.attn_in_plain(x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wo_kind,R", [("q4", 1), ("q6w", 3), ("q6w", 16)])
+def test_oproj_ffn_kernel_matches_plain(card, wo_kind, R):
+    rng = np.random.default_rng(R)
+    D, F = 2048, 5632
+    ws = [(q4 if wo_kind == "q4" else q6w)(D, D, rng, card), q4(2 * F, D, rng, card),
+          q6w(D, F, rng, card)]
+    x = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    attn = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    got = t_ffn.fused_oproj_ffn(x, attn, ws[0], nw, 1e-5, ws[1], ws[2])
+    torch.cuda.synchronize()
+    assert _rel(got, t_ffn.oproj_ffn_plain(x, attn, ws[0], nw, 1e-5, ws[1], ws[2])) < TOL
+
+
+@pytest.mark.cuda
+def test_engine_on_card_matches_cpu(card, tmp_path):
+    """The whole slice on the card (kernels) against the CPU (plain
+    versions) on one fixture: a ragged batch of two prompts (32 rows: the
+    decode kernels), a 40-token prompt (the qmm tiles), then decode steps
+    fed the same tokens on both sides."""
+    cfg = tiny_config(n_layers=2, dim=1024, n_heads=16, n_kv_heads=4, ffn_dim=1024,
+                      vocab_size=512)
+    path = write_fixture_gguf(tmp_path / "w1024.gguf", cfg, seed=5)
+    engines = [InferenceEngine(*load_model(path, device=d)[:2], max_batch=2, max_seq=64,
+                               device=d) for d in (card, "cpu")]
+    rng = np.random.default_rng(0)
+    for rows in ([rng.integers(3, 512, 11).tolist(), rng.integers(3, 512, 5).tolist()],
+                 [rng.integers(3, 512, 40).tolist()]):
+        launches = {k: c.launches for k, c in _build.COUNTERS.items()}
+        outs = []
+        for eng in engines:
+            logits, cache, lens = eng.prefill(rows, eng.new_cache(len(rows)))
+            steps = [logits]
+            pos = torch.tensor(lens, device=eng.device)
+            for t in (7, 99, 300):
+                tok = torch.full((len(rows),), t, device=eng.device)
+                step, cache = eng.decode_step(tok, pos, cache)
+                steps.append(step)
+                pos = pos + 1
+            outs.append([x.float().cpu() for x in steps])
+        for got, ref in zip(*outs):
+            assert torch.isfinite(got).all() and _rel(got, ref) < 5e-2
+            top3 = torch.topk(ref, 3, dim=-1).indices
+            assert (top3 == got.argmax(-1, keepdim=True)).any(-1).all()
+        used = {k: c.launches - launches[k] for k, c in _build.COUNTERS.items()}
+        fused = len(rows) * _bucket(max(map(len, rows))) <= 32
+        assert used["attn_in"] == 2 * (3 + fused) and used["oproj_ffn"] == 2 * (3 + fused)
+        assert used["qmm"] == 3 + (1 if fused else 11)

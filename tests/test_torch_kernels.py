@@ -1,0 +1,221 @@
+"""The port's kernel modules against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; these tests hold
+those plain versions against the Pallas kernels in interpret mode (and the
+XLA path) on the same packed bytes. The CUDA kernels themselves run only on
+a card: tests/test_torch_cuda.py holds them against the plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from tools_kernel_bench import mk_q4, mk_q6w
+from tpu_kquant.gguf.constants import GGMLType
+from tpu_kquant.ops.pallas_qmm import qmm_pallas
+from tpu_kquant.ops.qmatmul import qmatmul
+from tpu_kquant.quant import quantize
+from tpu_kquant.quant import repack as jrepack
+from tpu_kquant.quant.qtensor import QTensor as JQTensor
+from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.ops import attn_in as t_attn_in
+from tpu_kquant_torch.ops import ffn as t_ffn
+from tpu_kquant_torch.ops import qmm as t_qmm
+from tpu_kquant_torch.quant.qtensor import QTensor
+
+torch.set_num_threads(1)
+
+
+def _port(qt) -> QTensor:
+    return QTensor(qt.kind, qt.layout, tuple(qt.shape),
+                   {k: np.array(v) for k, v in qt.arrays.items()}).to("cpu")
+
+
+def _packed(kind, N, K, seed):
+    """q4-sm or q6w-sp weights quantized from random floats (loader layout)."""
+    rng = np.random.default_rng(seed)
+    qtype = GGMLType.Q4_K if kind == "q4" else GGMLType.Q6_K
+    raw = quantize(rng.standard_normal((N, K)).astype(np.float32) * 0.1, qtype)
+    qt = jrepack.widen_q6(jrepack.repack(raw, qtype, (N, K)))
+    qt = jrepack.pack_scale_kpairs(jrepack.pack_scale_pairs(
+        JQTensor(qt.kind, qt.layout, qt.shape, {k: np.asarray(v) for k, v in qt.arrays.items()})))
+    return JQTensor(qt.kind, qt.layout, qt.shape, {k: jnp.asarray(v) for k, v in qt.arrays.items()})
+
+
+# shapes of tests/test_pallas_qmm.py: (N, K, rows)
+QMM_SHAPES = [(256, 512, 4), (128, 2048, 8)]
+
+
+@pytest.mark.parametrize("kind", ["q4", "q6w"])
+@pytest.mark.parametrize("shape", QMM_SHAPES)
+def test_qmm_plain_matches_pallas_f32(kind, shape):
+    """f32 activations: both sides decode the same bf16 pairs; the Pallas
+    kernel rounds its q6w operands to bf16 for the MXU (2^-9 relative per
+    product), so that case is held at the reference's own 2e-2."""
+    N, K, B = shape
+    qt = _packed(kind, N, K, seed=N + K)
+    x = np.random.default_rng(1).standard_normal((B, K)).astype(np.float32)
+    got = t_qmm.qmm_plain(torch.from_numpy(x), _port(qt)).numpy()
+    xla = np.asarray(qmatmul(jnp.asarray(x), qt, impl="xla"))
+    pallas = np.asarray(qmm_pallas(jnp.asarray(x), qt, interpret=True))
+    scale = np.abs(xla).max()
+    np.testing.assert_allclose(got, xla, rtol=0, atol=1e-4 * scale)
+    tol = 1e-4 if kind == "q4" else 2e-2
+    np.testing.assert_allclose(got, pallas, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.parametrize("kind", ["q4", "q6w"])
+@pytest.mark.parametrize("shape", QMM_SHAPES)
+def test_qmm_plain_matches_pallas_bf16(kind, shape):
+    N, K, B = shape
+    qt = _packed(kind, N, K, seed=N + K + 1)
+    x = np.random.default_rng(2).standard_normal((B, K)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    got = t_qmm.qmm_plain(xt, _port(qt), torch.float32).numpy()
+    for ref in (qmatmul(xj, qt, impl="xla", out_dtype=jnp.float32),
+                qmm_pallas(xj, qt, out_dtype=jnp.float32, interpret=True)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=3e-2 * np.abs(ref).max())
+
+
+def test_qmm_wrapper_runs_plain_version_on_cpu():
+    qt = _packed("q4", 256, 512, seed=3)
+    x = torch.randn(3, 512).to(torch.bfloat16)
+    c = t_qmm.counter
+    launches, plain = c.launches, c.plain_calls
+    y = t_qmm.qmm(x, _port(qt))
+    assert c.plain_calls == plain + 1 and c.launches == launches
+    assert y.dtype == torch.bfloat16 and y.shape == (3, 256)
+    torch.testing.assert_close(y, t_qmm.qmm_plain(x, _port(qt)), rtol=0, atol=0)
+
+
+def test_wrappers_raise_off_the_cpu_without_a_card():
+    """A non-CPU tensor never takes the plain version: the wrapper launches
+    the kernel or raises (here: a meta tensor, which no kernel takes)."""
+    qt = _port(_packed("q4", 256, 512, seed=4))
+    with pytest.raises(ValueError, match="device"):
+        t_qmm.qmm(torch.empty(2, 512, dtype=torch.bfloat16, device="meta"), qt)
+    with pytest.raises(NotImplementedError):
+        t_qmm.qmm(torch.empty(2, 512, device="meta"),
+                  QTensor("q8", "kmajor", (256, 512), {"qs": None, "sp": None}))
+
+
+@pytest.mark.parametrize("kind,N,K,rows", [(0, 32000, 2048, 1), (0, 2304, 2048, 3),
+                                           (1, 256, 2048, 8), (1, 2048, 5632, 1),
+                                           (0, 2048, 2048, 32), (1, 96, 64, 5)])
+def test_gemv_split_covers_k(kind, N, K, rows):
+    cps, splits = t_qmm.gemv_split(kind, N, K, rows)
+    n_chunks = (K // 2 if kind == 0 else K) // 32
+    assert cps * splits >= n_chunks > cps * (splits - 1)
+    rt = t_qmm.pick_rt(rows)
+    assert 4 * rt * (cps * (64 if kind == 0 else 32) + 1024) <= 200 * 1024
+
+
+def _rope_inputs(rng, R, hd):
+    cos = rng.random((R, hd // 2)).astype(np.float32)
+    sin = rng.random((R, hd // 2)).astype(np.float32)
+    return cos, sin
+
+
+@pytest.mark.parametrize("tk", [128, 256])
+def test_attn_in_plain_matches_manual_kernel(tk):
+    """Shapes of tests/test_manual_kernels.py (D=512); tolerance 3e-2 of
+    max|ref|, that test's own: interpret mode runs f32 dots where the TPU's
+    MXU rounds to bf16."""
+    from tpu_kquant.ops.pallas_attn_in import _attn_in_manual_call, rope_tables_full
+
+    rng = np.random.default_rng(1)
+    D, hd, H, Hkv = 512, 64, 4, 2
+    wqk = mk_q4((H + Hkv) * hd, D, rng)
+    wv = mk_q6w(Hkv * hd, D, rng)
+    x = (rng.standard_normal((1, D)) * 0.1).astype(np.float32)
+    nw = (rng.random(D) + 0.5).astype(np.float32)
+    cos, sin = _rope_inputs(rng, 1, hd)
+    cf, sf = rope_tables_full(jnp.asarray(cos)[None], jnp.asarray(sin)[None], H + Hkv, hd)
+    o0, o1 = _attn_in_manual_call(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(nw), wqk.arrays["qs"], wqk.arrays["sm"],
+        wv.arrays["qs"], wv.arrays["sp"], cf, sf, (H + Hkv) * hd, Hkv * hd, D, hd // 2,
+        1e-5, 0.0, "bfloat16", True, tk)
+    c = t_attn_in.counter
+    plain = c.plain_calls
+    g0, g1 = t_attn_in.fused_attn_in(
+        torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(nw), 1e-5, _port(wqk),
+        _port(wv), torch.from_numpy(cos), torch.from_numpy(sin), hd)
+    assert c.plain_calls == plain + 1
+    for got, ref in ((g0, o0), (g1, o1)):
+        ref = np.asarray(ref, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=3e-2 * np.abs(ref).max())
+
+
+def test_attn_in_gate_matches_reference():
+    from tpu_kquant.ops.pallas_attn_in import attn_in_supported
+
+    rng = np.random.default_rng(0)
+    for D, n0, n1, rows in ((512, 384, 128, 1), (1024, 1280, 256, 32), (1024, 1280, 256, 33),
+                            (64, 96, 32, 1), (1536, 1280, 256, 8)):
+        ws = [mk_q4(n0, D, rng), mk_q6w(n1, D, rng)]
+        assert t_attn_in.attn_in_supported(_port(ws[0]), _port(ws[1]), rows, D, 64) == \
+            attn_in_supported(ws, rows, D), (D, rows)
+
+
+@pytest.mark.parametrize("tko_tf", [(128, 256), (256, 512)])
+def test_oproj_ffn_plain_matches_manual_kernel(tko_tf):
+    """Shapes of tests/test_manual_kernels.py; tolerance 3e-2 as there."""
+    from tpu_kquant.ops.pallas_ffn import _oproj_ffn_manual_call
+
+    tko, tf = tko_tf
+    rng = np.random.default_rng(2)
+    D, K, F = 512, 512, 1024
+    wo, gu, dn = mk_q4(D, K, rng), mk_q4(2 * F, D, rng), mk_q6w(D, F, rng)
+    x = (rng.standard_normal((1, D)) * 0.1).astype(np.float32)
+    attn = (rng.standard_normal((1, K)) * 0.1).astype(np.float32)
+    nw = (rng.random(D) + 0.5).astype(np.float32)
+    ref = np.asarray(_oproj_ffn_manual_call(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(attn, jnp.bfloat16), jnp.asarray(nw),
+        wo.arrays["qs"], wo.arrays["sm"], gu.arrays["qs"], gu.arrays["sm"], dn.arrays["qs"],
+        dn.arrays["sp"], D, K, F, 1e-5, "silu", "bfloat16", True, tko, tf), np.float32)
+    got = t_ffn.fused_oproj_ffn(torch.from_numpy(x).to(torch.bfloat16),
+                                torch.from_numpy(attn).to(torch.bfloat16), _port(wo),
+                                torch.from_numpy(nw), 1e-5, _port(gu), _port(dn))
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=3e-2 * np.abs(ref).max())
+
+
+def test_oproj_ffn_plain_with_q6w_oproj_matches_grid_kernel():
+    """The fixture recipe stores attn_output as Q6_K, so o_proj is q6w-sp on
+    the main path; the reference runs its Mosaic-grid kernel there."""
+    from tpu_kquant.ops.pallas_ffn import fused_oproj_ffn
+
+    rng = np.random.default_rng(3)
+    D, K, F = 512, 1024, 1024
+    wo, gu, dn = mk_q6w(D, K, rng), mk_q4(2 * F, D, rng), mk_q6w(D, F, rng)
+    x = (rng.standard_normal((2, D)) * 0.1).astype(np.float32)
+    attn = (rng.standard_normal((2, K)) * 0.1).astype(np.float32)
+    nw = (rng.random(D) + 0.5).astype(np.float32)
+    ref = np.asarray(fused_oproj_ffn(jnp.asarray(x, jnp.bfloat16), jnp.asarray(attn, jnp.bfloat16),
+                                     wo, jnp.asarray(nw), 1e-5, gu, dn, interpret=True),
+                     np.float32)
+    args = (_port(wo), torch.from_numpy(nw), 1e-5, _port(gu), _port(dn))
+    assert t_ffn.oproj_ffn_supported(args[0], args[3], args[4], 2)
+    got = t_ffn.fused_oproj_ffn(torch.from_numpy(x).to(torch.bfloat16),
+                                torch.from_numpy(attn).to(torch.bfloat16), *args)
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0, atol=3e-2 * np.abs(ref).max())
+
+
+def test_oproj_ffn_gate_matches_reference():
+    from tpu_kquant.ops.pallas_ffn import oproj_ffn_supported
+
+    rng = np.random.default_rng(0)
+    for D, K, F, rows in ((512, 1024, 1024, 1), (1024, 1024, 1024, 32), (512, 512, 1024, 1),
+                          (512, 1024, 1024, 33), (512, 1024, 640, 4)):
+        ws = [mk_q6w(D, K, rng), mk_q4(2 * F, D, rng), mk_q6w(D, F, rng)]
+        assert t_ffn.oproj_ffn_supported(*[_port(w) for w in ws], rows) == \
+            oproj_ffn_supported(*ws, rows), (D, K, F, rows)
+
+
+def test_kernel_sources_are_registered():
+    for name in _build.SOURCES:
+        assert (_build.CSRC / f"{name}.cu").is_file()
+    assert set(_build.COUNTERS) >= {"qmm", "attn_in", "oproj_ffn"}

@@ -1,0 +1,128 @@
+// attn_in: rms_norm -> [wqk | wv] -> bf16 round -> NEOX rope on the qk
+// columns, in one launch, for decode rows (R <= 32).
+//
+// Replaces the TPU kernels tpu_kquant/ops/pallas_attn_in.py:fused_attn_in,
+// manual variant _attn_in_manual_call (kernel _attn_in_manual_kernel) and
+// Mosaic-grid variant _attn_in_call (_attn_in_kernel), for the Q4_K_M
+// layout: wqk q4-sm, wv q6w-sp, no biases.
+//
+// Bound: memory. At TinyLlama width it reads wqk [2304, 2048] q4-sm (2.95 MB)
+// and wv [256, 2048] q6w-sp (0.59 MB): 3.5 MB, 1.1 us at 3.35 TB/s.
+//
+// Design: the norm needs the whole row and the rope pairs columns i and
+// i + head_dim/2, so nothing is split along K here. Every block recomputes
+// rstd over the full row (4 KB of bf16 per row, from L2), stages the
+// normalised row in shared memory in f32 (the norm weight is applied
+// without bf16 rounding, as the reference kernel does), and owns 128 output
+// columns, a whole number of heads: after the GEMV core and the warp
+// reduction the block rounds to bf16 and applies the half rotation in
+// shared memory. Blocks past the qk tiles compute wv's columns, unroped.
+// Grid: (ceil(n0/128) + ceil(n1/128), 1, ceil(R / RT)).
+#include "common.cuh"
+
+namespace tkq {
+
+struct AttnInArgs {
+  const __nv_bfloat16* x;  // [R, D]
+  const float* nw;         // [D]
+  float eps;
+  const uint8_t* qk_qs;    // q4 [D/2, n0]
+  const uint32_t* qk_sm;   // [D/32, n0]
+  const uint8_t* v_qs;     // q6w [D, n1]
+  const uint32_t* v_sp;    // [D/32, n1]
+  const float* cosv;       // [R, hd/2]
+  const float* sinv;       // [R, hd/2]
+  __nv_bfloat16* out0;     // [R, n0] roped qk
+  __nv_bfloat16* out1;     // [R, n1] v
+  int R, D, n0, n1, hd;
+};
+
+template <int RT>
+__global__ void __launch_bounds__(THREADS) attn_in_kernel(AttnInArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float rstd[RT];
+  const int tiles0 = (a.n0 + TN - 1) / TN;
+  const bool is_qk = blockIdx.x < tiles0;
+  const int tile = is_qk ? blockIdx.x : blockIdx.x - tiles0;
+  const int N = is_qk ? a.n0 : a.n1;
+  const int r0 = blockIdx.z * RT;
+  float* xs = smem;
+  float* red = smem + RT * a.D;  // the staged row spans D for both kinds
+
+  block_rstd<RT>(rstd, a.x, a.R, a.D, r0, a.eps);
+  const int lane = threadIdx.x % 32;
+  const int n = tile * TN + lane * 4;
+  float acc[RT][4] = {};
+  if (is_qk) {
+    const int nc = a.D / 2 / CH;
+    stage_x<KQ4, RT>(xs, a.x, 0, a.R, a.D, r0, 0, nc, a.nw, rstd);
+    gemv_warp<KQ4, RT>(acc, a.qk_qs, a.qk_sm, N, a.D, n, n < N, 0, nc, xs, a.D);
+  } else {
+    const int nc = a.D / CH;
+    stage_x<KQ6W, RT>(xs, a.x, 0, a.R, a.D, r0, 0, nc, a.nw, rstd);
+    gemv_warp<KQ6W, RT>(acc, a.v_qs, a.v_sp, N, a.D, n, n < N, 0, nc, xs, a.D);
+  }
+  block_reduce<RT>(red, acc);
+  // red[0 .. RT*TN) holds the f32 sums; round to bf16 as the unfused path
+  // does before rope
+  for (int i = threadIdx.x; i < RT * TN; i += THREADS) red[RT * TN + i] = round_bf16(red[i]);
+  __syncthreads();
+  const float* y = red + RT * TN;
+  const int half = a.hd / 2;
+  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
+    const int r = r0 + i / TN, tc = i % TN, col = tile * TN + tc;
+    if (r >= a.R || col >= N) continue;
+    if (!is_qk) {
+      a.out1[(size_t)r * N + col] = __float2bfloat16_rn(y[i]);
+      continue;
+    }
+    const int d = col % a.hd;  // position inside the head
+    const int f = d < half ? d : d - half;
+    const float c = a.cosv[(size_t)r * half + f], s = a.sinv[(size_t)r * half + f];
+    const float v = d < half ? y[i] * c - y[i + half] * s : y[i] * c + y[i - half] * s;
+    a.out0[(size_t)r * N + col] = __float2bfloat16_rn(v);
+  }
+}
+
+template <int RT>
+cudaError_t launch_attn_in(const AttnInArgs& a, cudaStream_t st) {
+  // staged row + warp partials + rounded copy
+  const size_t smem = sizeof(float) * (RT * a.D + WARPS * RT * TN + RT * TN);
+  cudaError_t e = cudaFuncSetAttribute(attn_in_kernel<RT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.n0 + TN - 1) / TN + (a.n1 + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
+  attn_in_kernel<RT><<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tkq
+
+using namespace tkq;
+
+// Requires D % 64 == 0, n0 and n1 multiples of 4, 128 % hd == 0 (a column
+// tile holds whole heads), R <= 32.
+extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, const void* qk_qs,
+                           const void* qk_sm, const void* v_qs, const void* v_sp,
+                           const float* cosv, const float* sinv, void* out0, void* out1, int R,
+                           int D, int n0, int n1, int hd, void* stream) {
+  AttnInArgs a{static_cast<const __nv_bfloat16*>(x),
+               nw,
+               eps,
+               static_cast<const uint8_t*>(qk_qs),
+               static_cast<const uint32_t*>(qk_sm),
+               static_cast<const uint8_t*>(v_qs),
+               static_cast<const uint32_t*>(v_sp),
+               cosv,
+               sinv,
+               static_cast<__nv_bfloat16*>(out0),
+               static_cast<__nv_bfloat16*>(out1),
+               R, D, n0, n1, hd};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (pick_rt(R)) {
+    case 1: return (int)launch_attn_in<1>(a, st);
+    case 2: return (int)launch_attn_in<2>(a, st);
+    case 4: return (int)launch_attn_in<4>(a, st);
+    default: return (int)launch_attn_in<8>(a, st);
+  }
+}

@@ -1,0 +1,117 @@
+// oproj_ffn: x2 = bf16(x + attn @ Wo^T); y = x2 + down(silu(gate(n(x2))) *
+// up(n(x2))) for decode rows (R <= 32), n = rms_norm, gate and up rounded
+// to bf16, their product rounded to bf16.
+//
+// Replaces the TPU kernels tpu_kquant/ops/pallas_ffn.py:fused_oproj_ffn,
+// manual variant _oproj_ffn_manual_call (kernel _oproj_ffn_manual_kernel)
+// and Mosaic-grid variant _oproj_ffn_call (_oproj_ffn_kernel), for the
+// Q4_K_M layouts: wo q4-sm or q6w-sp (the fixture recipe stores
+// attn_output as Q6_K), fused w_gateup q4-sm, w_down q6w-sp.
+//
+// Bound: memory. At TinyLlama width it reads wo [2048, 2048] (q6w-sp:
+// 4.7 MB), w_gateup [11264, 2048] q4-sm (14.4 MB) and w_down [2048, 5632]
+// q6w-sp (13.0 MB): 32.1 MB, 9.6 us at 3.35 TB/s.
+//
+// Design: the norm needs the whole x2 row and down needs the whole
+// activation row, and a TPU kernel's sequential grid does not exist here, so
+// one source issues the phases as separate launches on the stream:
+//   (A) o_proj: split-K GEMV over Wo; its reduce adds the residual x and
+//       rounds to bf16 -> x2 [R, dim];
+//   (B) gate/up: a block recomputes rms(x2) per row, stages the normalised
+//       row, computes its 128 columns j of gate and F + j of up with the GEMV
+//       core, rounds both to bf16, writes bf16(silu(gate) * up) -> act [R, F];
+//   (C) down: split-K GEMV over Wd on act; its reduce adds x2 -> y.
+// A and C are a GEMV launch plus a reduce launch each (five launches in
+// all); a persistent single launch with a grid barrier is later work.
+#include "common.cuh"
+
+namespace tkq {
+
+struct GateUpArgs {
+  const __nv_bfloat16* x2;  // [R, dim]
+  const float* nw;          // [dim]
+  float eps;
+  const uint8_t* qs;        // q4 [dim/2, 2F]
+  const uint32_t* sm;       // [dim/32, 2F]
+  __nv_bfloat16* act;       // [R, F]
+  int R, dim, F;
+};
+
+template <int RT>
+__global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float rstd[RT];
+  const int r0 = blockIdx.z * RT;
+  float* xs = smem;
+  float* red_g = smem + RT * a.dim;
+  float* red_u = red_g + WARPS * RT * TN;
+  const int N = 2 * a.F;
+  const int nc = a.dim / 2 / CH;
+  block_rstd<RT>(rstd, a.x2, a.R, a.dim, r0, a.eps);
+  stage_x<KQ4, RT>(xs, a.x2, 0, a.R, a.dim, r0, 0, nc, a.nw, rstd);
+  const int lane = threadIdx.x % 32;
+  const int ng = blockIdx.x * TN + lane * 4;  // gate columns; up = F + gate
+  {
+    float acc[RT][4] = {};
+    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, ng, ng < a.F, 0, nc, xs, a.dim);
+    block_reduce<RT>(red_g, acc);
+  }
+  {
+    float acc[RT][4] = {};
+    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, a.F + ng, ng < a.F, 0, nc, xs, a.dim);
+    block_reduce<RT>(red_u, acc);
+  }
+  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
+    const int r = r0 + i / TN, col = blockIdx.x * TN + i % TN;
+    if (r >= a.R || col >= a.F) continue;
+    const float g = round_bf16(red_g[i]), u = round_bf16(red_u[i]);
+    const float silu = g / (1.f + expf(-g));
+    a.act[(size_t)r * a.F + col] = __float2bfloat16_rn(silu * u);
+  }
+}
+
+template <int RT>
+cudaError_t launch_gate_up(const GateUpArgs& a, cudaStream_t st) {
+  const size_t smem = sizeof(float) * (RT * a.dim + 2 * WARPS * RT * TN);
+  cudaError_t e = cudaFuncSetAttribute(gate_up_kernel<RT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.F + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
+  gate_up_kernel<RT><<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tkq
+
+using namespace tkq;
+
+// x, attn, x2 (scratch), act (scratch), out: bf16; ws: f32 scratch of
+// max(splits_o * R * dim, splits_d * R * dim) floats. wo_kind: 0 = q4-sm,
+// 1 = q6w-sp. cps_* / splits_*: the K split of phases A and C. Requires
+// K % 64 == 0, dim % 64 == 0, F % 32 == 0, dim and F multiples of 4, R <= 32.
+extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
+                             int wo_kind, const void* wo_qs, const void* wo_sm, const void* gu_qs,
+                             const void* gu_sm, const void* dn_qs, const void* dn_sp, void* x2,
+                             void* act, float* ws, void* out, int R, int dim, int K, int F,
+                             int cps_o, int splits_o, int cps_d, int splits_d, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_sm),
+              R, dim, K, cps_o, ws, x2, 0, xb};
+  cudaError_t e = wo_kind == KQ4 ? launch_gemv<KQ4>(ao, splits_o, st)
+                                 : launch_gemv<KQ6W>(ao, splits_o, st);
+  if (e != cudaSuccess) return (int)e;
+  GateUpArgs ag{static_cast<const __nv_bfloat16*>(x2), nw, eps,
+                static_cast<const uint8_t*>(gu_qs), static_cast<const uint32_t*>(gu_sm),
+                static_cast<__nv_bfloat16*>(act), R, dim, F};
+  switch (pick_rt(R)) {
+    case 1: e = launch_gate_up<1>(ag, st); break;
+    case 2: e = launch_gate_up<2>(ag, st); break;
+    case 4: e = launch_gate_up<4>(ag, st); break;
+    default: e = launch_gate_up<8>(ag, st); break;
+  }
+  if (e != cudaSuccess) return (int)e;
+  GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_sp),
+              R, dim, F, cps_d, ws, out, 0, static_cast<const __nv_bfloat16*>(x2)};
+  return (int)launch_gemv<KQ6W>(ad, splits_d, st);
+}

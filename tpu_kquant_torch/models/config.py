@@ -1,0 +1,136 @@
+"""Model hyperparameters from GGUF metadata (the port's copy of
+``tpu_kquant.models.config``, with its own ``RopeParams``)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeParams:
+    head_dim: int
+    n_rot: int  # rotated dims (usually == head_dim)
+    freq_base: float = 10000.0
+    freq_scale: float = 1.0  # 1 / scaling factor
+    ext_factor: float = 0.0  # YaRN extrapolation mix (0 = plain/linear)
+    attn_factor: float = 1.0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    n_ctx_orig: int = 0  # original training context (YaRN)
+    # pairing of the rotation: 'norm' = adjacent pairs (2i, 2i+1), as
+    # llama/mistral GGUF exports store q/k; 'neox' = split halves (i, i + D/2)
+    mode: str = "norm"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch: str
+    n_layers: int
+    dim: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    ffn_dim: int
+    vocab_size: int
+    max_seq_len: int
+    norm_eps: float = 1e-5
+    rope: RopeParams = None  # type: ignore[assignment]
+    n_experts: int = 0
+    n_experts_used: int = 0
+    tie_embeddings: bool = False
+    attn_bias: bool = False
+    sliding_window: int = 0  # 0 = full attention
+    swa_pattern: int = 1
+    act_fn: str = "silu"  # FFN gate activation ('silu' | 'gelu')
+    post_norms: bool = False
+    embed_scale: float = 1.0
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @staticmethod
+    def from_gguf(md: dict[str, Any]) -> "ModelConfig":
+        arch = md["general.architecture"]
+
+        def g(key: str, default=None):
+            return md.get(f"{arch}.{key}", default)
+
+        if arch == "mamba":
+            raise NotImplementedError("recurrent (mamba) models are not ported yet")
+        n_heads = int(g("attention.head_count"))
+        dim = int(g("embedding_length"))
+        head_dim = int(g("attention.key_length", dim // n_heads))
+        n_rot = int(g("rope.dimension_count", head_dim))
+        scaling_type = g("rope.scaling.type", "")
+        factor = float(g("rope.scaling.factor", 1.0) or 1.0)
+        freq_scale = 1.0 / factor if factor not in (0.0, 1.0) else 1.0
+        mode = ("neox" if arch in ("qwen2", "phi3", "stablelm", "gptneox",
+                                   "gemma", "gemma2") else "norm")
+        rope = RopeParams(
+            head_dim=head_dim,
+            n_rot=n_rot,
+            freq_base=float(g("rope.freq_base", 10000.0)),
+            freq_scale=freq_scale,
+            ext_factor=1.0 if scaling_type == "yarn" else 0.0,
+            n_ctx_orig=int(g("rope.scaling.original_context_length",
+                             g("context_length", 0))),
+            mode=mode,
+        )
+        vocab = md.get(f"{arch}.vocab_size")
+        if vocab is None:
+            vocab = len(md.get("tokenizer.ggml.tokens", []))
+        quirks: dict[str, Any] = {}
+        if arch in ("gemma", "gemma2"):
+            quirks.update(act_fn="gelu", embed_scale=float(dim) ** 0.5,
+                          tie_embeddings=True)
+        if arch == "gemma2":
+            quirks.update(
+                post_norms=True, swa_pattern=2,
+                attn_logit_softcap=float(g("attn_logit_softcapping", 50.0)),
+                final_logit_softcap=float(g("final_logit_softcapping", 30.0)),
+            )
+        return ModelConfig(
+            **quirks,
+            arch=arch,
+            n_layers=int(g("block_count")),
+            dim=dim,
+            n_heads=n_heads,
+            n_kv_heads=int(g("attention.head_count_kv", n_heads)),
+            head_dim=head_dim,
+            ffn_dim=int(g("feed_forward_length")),
+            vocab_size=int(vocab),
+            max_seq_len=int(g("context_length", 4096)),
+            norm_eps=float(g("attention.layer_norm_rms_epsilon", 1e-5)),
+            rope=rope,
+            n_experts=int(g("expert_count", 0) or 0),
+            n_experts_used=int(g("expert_used_count", 0) or 0),
+            sliding_window=int(g("attention.sliding_window", 0) or 0),
+        )
+
+    def to_gguf_metadata(self) -> dict[str, Any]:
+        """Inverse of from_gguf, used by the fixture writer."""
+        a = self.arch
+        md: dict[str, Any] = {
+            "general.architecture": a,
+            f"{a}.block_count": self.n_layers,
+            f"{a}.context_length": self.max_seq_len,
+            f"{a}.embedding_length": self.dim,
+            f"{a}.feed_forward_length": self.ffn_dim,
+            f"{a}.attention.head_count": self.n_heads,
+            f"{a}.attention.head_count_kv": self.n_kv_heads,
+            f"{a}.attention.key_length": self.head_dim,
+            f"{a}.attention.layer_norm_rms_epsilon": self.norm_eps,
+            f"{a}.rope.freq_base": self.rope.freq_base,
+            f"{a}.rope.dimension_count": self.rope.n_rot,
+            f"{a}.vocab_size": self.vocab_size,
+        }
+        if self.n_experts:
+            md[f"{a}.expert_count"] = self.n_experts
+            md[f"{a}.expert_used_count"] = self.n_experts_used
+        if self.sliding_window:
+            md[f"{a}.attention.sliding_window"] = self.sliding_window
+        return md

@@ -1,0 +1,134 @@
+"""Llama-family forward pass: the port of ``tpu_kquant.models.llama``
+(``llama_forward`` / ``llama_layer``, unrolled over layers).
+
+Params: {'tok_embd': QTensor(rowmajor), 'output_norm', 'output',
+         'layers': [{'attn_norm', 'wqk' (or 'wq', 'wk'), 'wv', 'wo',
+                     'ffn_norm', 'w_gateup' (or 'w_gate', 'w_up'), 'w_down'}]}
+
+Dispatch follows the reference: at rows <= 32 a layer runs the attn_in and
+oproj_ffn kernels where their gates pass (on the CPU, their plain
+versions); otherwise every projection is a qmatmul. Attention is plain
+PyTorch (ops.attention).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from tpu_kquant_torch.models.config import ModelConfig
+from tpu_kquant_torch.ops.activations import swiglu
+from tpu_kquant_torch.ops.attention import attention_decode
+from tpu_kquant_torch.ops.attn_in import attn_in_supported, fused_attn_in
+from tpu_kquant_torch.ops.ffn import fused_oproj_ffn, oproj_ffn_supported
+from tpu_kquant_torch.ops.norms import rms_norm
+from tpu_kquant_torch.ops.qmatmul import qmatmul
+from tpu_kquant_torch.ops.rope import apply_rope, rope_cos_sin
+from tpu_kquant_torch.quant.codecs import dequant_rows
+from tpu_kquant_torch.runtime.kv_cache import KVCache
+
+
+def _norm_w(qt) -> torch.Tensor:
+    return qt.arrays["w"]
+
+
+def llama_layer(
+    layer: dict[str, Any],
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, T, dim] bf16
+    positions: torch.Tensor,  # [B, T]
+    cos: torch.Tensor,  # [B, T, head_dim/2] f32
+    sin: torch.Tensor,
+    kv_write: Callable,  # (k, v) -> (k_all, v_all, scales[, kv_cur])
+    kv_attend_len: int | None = None,  # attention reads only cache slots
+    #   [0, kv_attend_len): valid ONLY when every query position is below it
+    #   (bucketed prefill, positions = arange(T))
+) -> torch.Tensor:
+    """One transformer block; returns the new residual stream."""
+    B, T, dim = x.shape
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in layer and \
+            attn_in_supported(layer["wqk"], layer["wv"], B * T, dim, D):
+        qk, v = fused_attn_in(x, _norm_w(layer["attn_norm"]), cfg.norm_eps, layer["wqk"],
+                              layer["wv"], cos, sin, D)
+        q = qk[..., : H * D].reshape(B, T, H, D)
+        k = qk[..., H * D:].reshape(B, T, Hkv, D)
+        v = v.reshape(B, T, Hkv, D)
+    else:
+        h = rms_norm(x, _norm_w(layer["attn_norm"]), cfg.norm_eps)
+        if "wqk" in layer:
+            qk = qmatmul(h, layer["wqk"])
+            q = qk[..., : H * D].reshape(B, T, H, D)
+            k = qk[..., H * D:].reshape(B, T, Hkv, D)
+        else:
+            q = qmatmul(h, layer["wq"]).reshape(B, T, H, D)
+            k = qmatmul(h, layer["wk"]).reshape(B, T, Hkv, D)
+        v = qmatmul(h, layer["wv"]).reshape(B, T, Hkv, D)
+        q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :], cfg.rope.mode)
+        k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :], cfg.rope.mode)
+
+    view = kv_write(k, v)
+    k_all, v_all = view[0], view[1]
+    kv_cur = view[3] if len(view) == 4 else None
+    if kv_attend_len is not None and kv_cur is None and kv_attend_len < k_all.shape[2]:
+        k_all = k_all[:, :, :kv_attend_len]
+        v_all = v_all[:, :, :kv_attend_len]
+    attn = attention_decode(q, k_all, v_all, positions, kv_cur=kv_cur).reshape(B, T, H * D)
+
+    if "w_gateup" in layer and oproj_ffn_supported(layer["wo"], layer["w_gateup"],
+                                                   layer["w_down"], B * T):
+        return fused_oproj_ffn(x, attn, layer["wo"], _norm_w(layer["ffn_norm"]),
+                               cfg.norm_eps, layer["w_gateup"], layer["w_down"])
+    x = x + qmatmul(attn, layer["wo"])
+    h = rms_norm(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps)
+    if "w_gateup" in layer:
+        gu = qmatmul(h, layer["w_gateup"])
+        F = gu.shape[-1] // 2
+        act = swiglu(gu[..., :F], gu[..., F:])
+    else:
+        act = swiglu(qmatmul(h, layer["w_gate"]), qmatmul(h, layer["w_up"]))
+    return x + qmatmul(act, layer["w_down"])
+
+
+def llama_forward(
+    params: dict[str, Any],
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, T] int64
+    positions: torch.Tensor,  # [B, T] int64, contiguous per row
+    cache: KVCache,
+    logits_last_only: bool = False,
+    kv_attend_len: int | None = None,  # see llama_layer
+) -> tuple[torch.Tensor, KVCache]:
+    """Returns (logits [B, T, vocab] f32 (or [B, 1, vocab]), cache). The
+    cache is updated in place."""
+    if cfg.act_fn != "silu" or cfg.post_norms or cfg.is_moe or cfg.attn_bias \
+            or cfg.sliding_window or cfg.attn_logit_softcap or cfg.final_logit_softcap:
+        raise NotImplementedError(f"{cfg.arch} quirks are not ported yet")
+    x = dequant_rows(params["tok_embd"], tokens, dtype=torch.bfloat16)
+    if cfg.embed_scale != 1.0:
+        x = x * torch.tensor(cfg.embed_scale, dtype=torch.bfloat16)
+    cos, sin = rope_cos_sin(positions, cfg.rope)
+
+    # deferred batched KV append at decode: each layer's attention takes its
+    # current (k, v) as kv_cur and all layers' rows are written in one
+    # append after the loop, instead of two writes per layer
+    pending: list | None = [] if tokens.shape[1] == 1 else None
+    for i, layer in enumerate(params["layers"]):
+        def kv_write(k_new, v_new, _i=i):
+            if pending is not None:
+                pending.append((k_new, v_new))
+                return (*cache.layer_view(_i), (k_new, v_new))
+            cache.append(_i, k_new, v_new, positions)
+            return cache.layer_view(_i)
+
+        x = llama_layer(layer, cfg, x, positions, cos, sin, kv_write,
+                        kv_attend_len=kv_attend_len)
+    if pending:
+        cache.append_all(torch.stack([kv[0] for kv in pending]),
+                         torch.stack([kv[1] for kv in pending]), positions)
+
+    x = rms_norm(x, _norm_w(params["output_norm"]), cfg.norm_eps)
+    if logits_last_only:
+        x = x[:, -1:, :]
+    return qmatmul(x, params["output"], out_dtype=torch.float32), cache

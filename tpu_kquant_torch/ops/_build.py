@@ -1,0 +1,143 @@
+"""Build and load the CUDA kernels of ``tpu_kquant_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled on first use by its own ``nvcc`` process
+(all sources at once, in parallel) into a shared library with a plain C
+interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o .cache/tkq_torch_build/<name>-<hash>.so <name>.cu
+
+and loaded with ``ctypes``. The file name carries a hash of the sources, so
+an edited kernel is rebuilt and a stale library is never loaded. Nothing is
+built when the package is imported; only a kernel's first launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "tkq_torch_build"
+SOURCES = ("qmm", "attn_in", "oproj_ffn")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+
+class LaunchCounter:
+    """Counts of one kernel's wrapper calls: ``launches`` where it launched
+    the CUDA kernel, ``plain_calls`` where it ran the plain PyTorch version
+    (CPU tensors). Nothing else touches them."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+        self.plain_calls = 0
+        COUNTERS[name] = self
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.plain_calls = 0
+
+
+COUNTERS: dict[str, LaunchCounter] = {}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: on PATH, under $CUDA_HOME, or /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (CUDA toolkit required)")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every missing library, one nvcc per source, all in parallel.
+    Returns the wall seconds spent (0 when everything was built already)."""
+    todo = [(n, _lib_path(n)) for n in SOURCES if not _lib_path(n).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    errors = []
+    for name, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"--- nvcc {name}.cu failed ({proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str, fn: str, argtypes: list) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (all sources are built first
+    if needed), with entry point ``fn`` declared to take ``argtypes`` and
+    return an int error code."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all()
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+            lib.tkq_error_string.argtypes = [ctypes.c_int]
+            lib.tkq_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a kernel's C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.tkq_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg}) at launch")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address for a ctypes call."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on ``device``."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require(cond: bool, what: str) -> None:
+    """Raise ValueError unless a kernel's input condition holds."""
+    if not cond:
+        raise ValueError(what)

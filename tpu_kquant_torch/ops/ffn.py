@@ -1,0 +1,101 @@
+"""oproj_ffn: x2 = x + attn @ Wo^T; y = x2 + down(silu(gate(n(x2))) * up(n(x2))).
+
+Kernel: ``csrc/oproj_ffn.cu`` (replaces ``tpu_kquant/ops/pallas_ffn.py:
+fused_oproj_ffn``, manual and Mosaic-grid variants), decode rows only, for
+the Q4_K_M layouts (wo q4-sm or q6w-sp, w_gateup q4-sm, w_down q6w-sp).
+
+``oproj_ffn_plain`` is the same function in plain PyTorch with the kernel's
+rounding points: x2, gate, up and their activated product are rounded to
+bf16, the sums are f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.ops.qmm import gemv_split, kernel_kind
+from tpu_kquant_torch.quant.codecs import dequant_kmajor
+from tpu_kquant_torch.quant.qtensor import QTensor
+
+counter = _build.LaunchCounter("oproj_ffn")
+
+MAX_ROWS = 32
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, _I, _I, _P]
+
+
+def oproj_ffn_supported(wo: QTensor, gu: QTensor, dn: QTensor, rows: int) -> bool:
+    """The dispatch gate: decode rows and the kernel's layout. The width
+    rules are the reference's (pallas_ffn.oproj_ffn_supported: dim % 512,
+    F % 256, K % 1024) so both packages fuse at the same shapes."""
+    if rows > MAX_ROWS:
+        return False
+    if kernel_kind(wo) is None or kernel_kind(gu) != 0 or kernel_kind(dn) != 1:
+        return False
+    dim, K = int(wo.shape[0]), int(wo.shape[1])
+    Fd = int(dn.shape[1])
+    return (gu.shape == (2 * Fd, dim) and dn.shape[0] == dim and dim % 512 == 0
+            and Fd % 256 == 0 and K % 1024 == 0)
+
+
+def oproj_ffn_plain(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
+                    eps: float, gu: QTensor, dn: QTensor) -> torch.Tensor:
+    """x [R, dim], attn [R, K] bf16 -> y [R, dim] bf16."""
+    x2 = (x.float() + attn.float() @ dequant_kmajor(wo)).to(torch.bfloat16).float()
+    xn = x2 * torch.rsqrt((x2 * x2).mean(-1, keepdim=True) + eps) * norm_w.float()
+    gu_out = xn @ dequant_kmajor(gu)
+    Fd = gu_out.shape[-1] // 2
+    g = gu_out[:, :Fd].to(torch.bfloat16).float()
+    u = gu_out[:, Fd:].to(torch.bfloat16).float()
+    act = (F.silu(g) * u).to(torch.bfloat16).float()
+    return (x2 + act @ dequant_kmajor(dn)).to(torch.bfloat16)
+
+
+def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
+                    eps: float, gu: QTensor, dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
+    """x [..., dim], attn [..., K] bf16 -> [..., dim] bf16."""
+    if act_fn != "silu":
+        raise NotImplementedError(f"activation {act_fn!r} is not ported yet")
+    dim, K = int(wo.shape[0]), int(wo.shape[1])
+    Fd = int(dn.shape[1])
+    lead = x.shape[:-1]
+    x2d, a2d = x.reshape(-1, dim), attn.reshape(-1, K)
+    if x.device.type == "cpu":
+        counter.plain_calls += 1
+        return oproj_ffn_plain(x2d, a2d, wo, norm_w, eps, gu, dn).reshape(*lead, dim)
+    R = x2d.shape[0]
+    req = _build.require
+    req(x.device.type == "cuda", f"oproj_ffn: unsupported device {x.device}")
+    req(oproj_ffn_supported(wo, gu, dn, R), "oproj_ffn: unsupported layout or shape")
+    req(x.dtype == torch.bfloat16 and attn.dtype == torch.bfloat16, "oproj_ffn: x/attn dtype")
+    req(a2d.shape[0] == R, "oproj_ffn: x and attn rows differ")
+    req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "oproj_ffn: norm weight")
+    wo_kind = kernel_kind(wo)
+    arrs = (wo.arrays["qs"], wo.arrays["sm" if wo_kind == 0 else "sp"], gu.arrays["qs"],
+            gu.arrays["sm"], dn.arrays["qs"], dn.arrays["sp"])
+    req(arrs[0].dtype == (torch.uint8 if wo_kind == 0 else torch.int8)
+        and arrs[2].dtype == torch.uint8 and arrs[4].dtype == torch.int8, "oproj_ffn: code dtypes")
+    req(all(a.device == x.device and a.is_contiguous() for a in arrs),
+        "oproj_ffn: weights must be contiguous on x's device")
+    x2d, a2d, nw = x2d.contiguous(), a2d.contiguous(), norm_w.contiguous()
+    cps_o, splits_o = gemv_split(wo_kind, dim, K, R)
+    cps_d, splits_d = gemv_split(1, dim, Fd, R)
+    dev = x.device
+    x2 = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
+    act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(max(splits_o, splits_d) * R * dim, dtype=torch.float32, device=dev)
+    out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
+    lib = _build.load("oproj_ffn", "tkq_oproj_ffn", _ARGTYPES)
+    P = _build.ptr
+    rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *(P(a) for a in arrs), P(x2),
+                           P(act), P(ws), P(out), R, dim, K, Fd, cps_o, splits_o, cps_d,
+                           splits_d, _build.stream_ptr(dev))
+    _build.check(lib, rc, "oproj_ffn")
+    counter.launches += 1
+    return out.reshape(*lead, dim)

@@ -1,0 +1,114 @@
+"""qmm: y = x @ dequant(W)^T over packed q4-sm / q6w-sp weights.
+
+Kernel: ``csrc/qmm.cu`` (replaces ``tpu_kquant/ops/pallas_qmm.py:qmm_pallas``).
+Rows <= 32 take its split-K GEMV (memory bound: every packed byte read
+once); more rows take its tiled bf16 WMMA kernel (compute bound at prefill).
+
+``qmm_plain`` is the same function in plain PyTorch: dequantize, then one
+matmul in f32. Its compute dtype follows the activations, like the
+reference's XLA path: bf16 activations meet bf16-rounded weights, f32
+activations f32 weights. ``qmm`` runs the plain version only for CPU
+tensors; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.quant.codecs import dequant_kmajor
+from tpu_kquant_torch.quant.qtensor import QTensor
+
+counter = _build.LaunchCounter("qmm")
+
+KIND_CODE = {("q4", "sm"): 0, ("q6w", "sp"): 1}
+GEMV_MAX_ROWS = 32
+_TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+_SMEM_CAP = 200 * 1024
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+
+
+def qmm_plain(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version: dequantize W^T [K, N], multiply in f32."""
+    out_dtype = out_dtype or x.dtype
+    cdt = torch.float32 if x.dtype == torch.float32 else torch.bfloat16
+    w = dequant_kmajor(qt, dtype=cdt).float()
+    return (x.to(cdt).float() @ w).to(out_dtype)
+
+
+def kernel_kind(qt: QTensor) -> int | None:
+    """The kernel's kind code for ``qt``, or None if it reads another layout."""
+    if qt.layout != "kmajor" or qt.fold != 1 or len(qt.shape) != 2:
+        return None
+    for (kind, scl), code in KIND_CODE.items():
+        if qt.kind == kind and scl in qt.arrays:
+            return code
+    return None
+
+
+def pick_rt(rows: int) -> int:
+    """Rows per GEMV block (csrc/common.cuh pick_rt)."""
+    return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
+
+
+def gemv_split(kind: int, N: int, K: int, rows: int) -> tuple[int, int]:
+    """(chunks per split, splits) of a GEMV's K range: enough blocks to cover
+    the card, at least 8 chunks (one per warp) per split, and the staged
+    activations within shared memory."""
+    n_chunks = (K // 2 if kind == 0 else K) // 32
+    rt = pick_rt(rows)
+    blocks = -(-N // 128) * -(-rows // rt)
+    splits = max(1, min(-(-_TARGET_BLOCKS // blocks), n_chunks // 8))
+    cps = -(-n_chunks // splits)
+    span = (2 if kind == 0 else 1) * 32
+    while cps > 1 and 4 * rt * (cps * span + 8 * 128) > _SMEM_CAP:
+        splits += 1
+        cps = -(-n_chunks // splits)
+    return cps, -(-n_chunks // cps)
+
+
+def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """y[..., N] = x[..., K] @ W^T for a kmajor weight W (N, K)."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        counter.plain_calls += 1
+        return qmm_plain(x, qt, out_dtype)
+    kind = kernel_kind(qt)
+    if kind is None:
+        raise NotImplementedError(
+            f"the qmm kernel reads q4-sm and q6w-sp kmajor weights, not {qt.kind} "
+            f"with {sorted(qt.arrays)} (load with scale_dtype='bf16')")
+    N, K = qt.shape
+    req = _build.require
+    req(x.device.type == "cuda", f"qmm: unsupported device {x.device}")
+    req(x.shape[-1] == K, f"qmm: x has {x.shape[-1]} features, W has K={K}")
+    req(x.dtype in (torch.bfloat16, torch.float32), f"qmm: x dtype {x.dtype}")
+    req(out_dtype in (torch.bfloat16, torch.float32), f"qmm: out dtype {out_dtype}")
+    req(K % (64 if kind == 0 else 32) == 0 and N % 16 == 0, f"qmm: shape (N={N}, K={K})")
+    qs, scl = qt.arrays["qs"], qt.arrays["sm" if kind == 0 else "sp"]
+    req(qs.dtype == (torch.uint8 if kind == 0 else torch.int8) and scl.dtype == torch.float32,
+        "qmm: packed array dtypes")
+    req(qs.shape == ((K // 2 if kind == 0 else K), N) and scl.shape == (K // 32, N),
+        "qmm: packed array shapes")
+    req(qs.device == x.device and scl.device == x.device, "qmm: weight on another device")
+    req(qs.is_contiguous() and scl.is_contiguous(), "qmm: packed arrays must be contiguous")
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, K).contiguous()
+    R = x2d.shape[0]
+    out = torch.empty((R, N), dtype=out_dtype, device=x.device)
+    if R == 0:
+        return out.reshape(*lead, N)
+    cps, splits = gemv_split(kind, N, K, R) if R <= GEMV_MAX_ROWS else (0, 1)
+    ws = torch.empty(splits * R * N if splits > 1 else 0, dtype=torch.float32, device=x.device)
+    lib = _build.load("qmm", "tkq_qmm", _ARGTYPES)
+    P = _build.ptr
+    rc = lib.tkq_qmm(kind, P(x2d), int(x2d.dtype == torch.float32), P(qs), P(scl), P(out),
+                     int(out_dtype == torch.float32), P(ws), R, N, K, cps, splits,
+                     _build.stream_ptr(x.device))
+    _build.check(lib, rc, "qmm")
+    counter.launches += 1
+    return out.reshape(*lead, N)

@@ -1,0 +1,145 @@
+"""Inference engine around the llama forward: the port of
+``tpu_kquant.runtime.engine.InferenceEngine`` for greedy decoding on a bf16
+KV cache.
+
+prefill(tokens [B, T]): bucketed T, right-padded. Padded slots write stale
+K/V beyond a row's length, which is safe because a later decode step
+always overwrites slot p before any query can attend it (mask j <= q_pos).
+Only here may attention be bounded to the first T slots (kv_attend_len):
+every query position is below T.
+decode_step(tokens [B]): one token per row; never bounds attention.
+The greedy loop is a plain Python loop of decode steps; capturing it in a
+CUDA graph is later work. Sampling, int8 KV, rings, sessions and context
+shift raise NotImplementedError in this slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from tpu_kquant_torch.models.config import ModelConfig
+from tpu_kquant_torch.models.llama import llama_forward
+from tpu_kquant_torch.ops.sampling import greedy
+from tpu_kquant_torch.runtime.kv_cache import KVCache
+from tpu_kquant_torch.runtime.loader import resolve_device
+
+PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+def _bucket(n: int) -> int:
+    for b in PREFILL_BUCKETS:
+        if n <= b:
+            return b
+    return -(-n // 2048) * 2048
+
+
+def _param_device(params: dict[str, Any]) -> torch.device:
+    return next(iter(params["tok_embd"].arrays.values())).device
+
+
+class InferenceEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: dict[str, Any],
+        max_batch: int = 1,
+        max_seq: int | None = None,
+        kv_quantized: bool = False,
+        kv_layout: str = "unified",
+        device: str | torch.device = "cuda",
+    ):
+        """params must already live on ``device`` (load_model(device=...))."""
+        if kv_quantized:
+            raise NotImplementedError("int8 KV is not ported yet")
+        if kv_layout != "unified":
+            raise NotImplementedError(f"kv_layout {kv_layout!r} is not ported yet")
+        self.device = resolve_device(device)
+        pdev = _param_device(params)
+        if pdev.type != self.device.type:
+            raise ValueError(f"params are on {pdev}, the engine runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.max_seq = max_seq or cfg.max_seq_len
+
+    def new_cache(self, batch: int | None = None) -> KVCache:
+        return KVCache.create(self.cfg.n_layers, batch or self.max_batch, self.max_seq,
+                              self.cfg.n_kv_heads, self.cfg.head_dim, device=self.device)
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.tensor(np.array(a), dtype=torch.long, device=self.device)
+
+    # -- steps -----------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, token_rows: list[list[int]], cache: KVCache):
+        """Right-padded bucketed prefill. Returns (last_logits [B, V] f32,
+        cache, lengths [B] numpy)."""
+        B = len(token_rows)
+        lens = np.array([len(t) for t in token_rows], np.int64)
+        if int(lens.max()) > self.max_seq:
+            raise ValueError(f"prompt length {int(lens.max())} exceeds max_seq {self.max_seq}")
+        T = min(_bucket(int(lens.max())), self.max_seq)
+        toks = np.zeros((B, T), np.int64)
+        for i, row in enumerate(token_rows):
+            toks[i, : len(row)] = row
+        positions = np.broadcast_to(np.arange(T), (B, T))
+        kw = {"kv_attend_len": T} if T > 1 else {}
+        logits, cache = llama_forward(self.params, self.cfg, self._tensor(toks),
+                                      self._tensor(positions), cache, **kw)
+        last = logits[torch.arange(B, device=self.device), self._tensor(lens - 1)]
+        return last, cache, lens
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache):
+        """tokens [B], positions [B] -> (logits [B, V] f32, cache)."""
+        logits, cache = llama_forward(self.params, self.cfg, tokens.long()[:, None],
+                                      positions.long()[:, None], cache, logits_last_only=True)
+        return logits[:, 0, :], cache
+
+    @torch.no_grad()
+    def decode_greedy(self, first_tok: torch.Tensor, start_pos: torch.Tensor,
+                      cache: KVCache, n_steps: int):
+        """[B] first tokens at positions start_pos -> ([B, n_steps] greedy
+        tokens that follow, cache). Stays on the device: the host reads
+        nothing until the caller does."""
+        tok, pos = first_tok.long(), start_pos.long()
+        out = []
+        for _ in range(n_steps):
+            logits, cache = self.decode_step(tok, pos, cache)
+            tok = greedy(logits).long()
+            pos = pos + 1
+            out.append(tok)
+        if not out:
+            return torch.empty((first_tok.shape[0], 0), dtype=torch.long,
+                               device=self.device), cache
+        return torch.stack(out, dim=1), cache
+
+    # -- generation ------------------------------------------------------------
+    def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
+                 temperature: float = 0.0, eos_id: int | None = None,
+                 context_shift: bool = False, **sampler) -> list[list[int]]:
+        """Greedy generation; returns the new ids per row (cut after eos_id).
+        Generation stops at the KV capacity."""
+        if temperature != 0.0 or sampler:
+            raise NotImplementedError("sampling is not ported yet: greedy only")
+        if context_shift:
+            raise NotImplementedError("context shift is not ported yet")
+        B = len(prompts)
+        cache = self.new_cache(B)
+        logits, cache, lens = self.prefill(prompts, cache)
+        max_new_tokens = min(max_new_tokens, self.max_seq - int(lens.max()))
+        if max_new_tokens <= 0:
+            return [[] for _ in range(B)]
+        first = greedy(logits).long()
+        rest, cache = self.decode_greedy(first, self._tensor(lens), cache, max_new_tokens - 1)
+        toks = torch.cat([first[:, None], rest], dim=1).cpu().numpy()
+        out = []
+        for i in range(B):
+            row = [int(t) for t in toks[i]]
+            if eos_id is not None and eos_id in row:
+                row = row[: row.index(eos_id) + 1]
+            out.append(row)
+        return out

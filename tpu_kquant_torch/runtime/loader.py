@@ -1,0 +1,189 @@
+"""GGUF -> (ModelConfig, params) loader: the llama branch of
+``tpu_kquant.runtime.loader.load_model``.
+
+Each tensor is repacked on the host (quant.repack) into the layout the
+kernels read, then copied to ``device`` still packed. Q and K are fused into
+``wqk`` and gate and up into ``w_gateup`` (one launch each instead of two);
+NORM-mode rope is canonicalised to NEOX by permuting q/k output features, so
+every rope downstream is a half rotation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from tpu_kquant_torch.gguf import GGUFReader
+from tpu_kquant_torch.models.config import ModelConfig
+from tpu_kquant_torch.quant.qtensor import QTensor
+from tpu_kquant_torch.quant.repack import (
+    pack_scale_kpairs,
+    pack_scale_pairs,
+    repack,
+    widen_q6,
+)
+
+LLAMA_FAMILY = {"llama", "mistral", "tinyllama"}
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The device an entry point runs on; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch versions on the CPU")
+    return dev
+
+
+def _rope_neox_perm(n_feats: int, head_dim: int) -> np.ndarray:
+    """Per-head un-interleave: the output-feature permutation that turns
+    NORM rope pairing (2i, 2i+1) into NEOX pairing (i, i + D/2). Applied to
+    q and k alike it leaves QK^T unchanged."""
+    within = np.concatenate([np.arange(0, head_dim, 2), np.arange(1, head_dim, 2)])
+    base = np.arange(0, n_feats, head_dim)
+    return (base[:, None] + within[None, :]).reshape(-1)
+
+
+def permute_out_features(qt: QTensor, perm: np.ndarray) -> QTensor:
+    """Reorder a kmajor weight's output features (N is the last axis of
+    every packed array, so the bit layout is untouched)."""
+    if qt.layout != "kmajor":
+        raise ValueError(f"cannot permute layout {qt.layout!r}")
+    arrays = {k: np.ascontiguousarray(np.asarray(v)[:, perm]) for k, v in qt.arrays.items()}
+    return QTensor(qt.kind, qt.layout, qt.shape, arrays)
+
+
+def fuse_kmajor(qts: list[QTensor]) -> QTensor | None:
+    """Concatenate same-kind kmajor QTensors along N, or None if they differ."""
+    if not all(q.layout == "kmajor" and q.kind == qts[0].kind for q in qts):
+        return None
+    if not all(q.shape[-1] == qts[0].shape[-1] for q in qts):
+        return None
+    if not all(set(q.arrays) == set(qts[0].arrays) for q in qts):
+        return None
+    arrays = {k: np.concatenate([np.asarray(q.arrays[k]) for q in qts], axis=1)
+              for k in qts[0].arrays}
+    n_total = sum(int(np.prod(q.shape[:-1])) for q in qts)
+    return QTensor(qts[0].kind, "kmajor", (n_total, qts[0].shape[-1]), arrays)
+
+
+def _repack_named(r: GGUFReader, name: str, layout: str, pack_pairs: bool) -> QTensor:
+    ti = r.tensors[name]
+    qt = widen_q6(repack(r.tensor_bytes(name), ti.ggml_type, ti.shape, layout=layout))
+    if pack_pairs:
+        qt = pack_scale_pairs(qt)
+        if layout == "kmajor":
+            qt = pack_scale_kpairs(qt)
+    return qt
+
+
+def load_model(
+    path: str,
+    scale_dtype: str = "bf16",
+    device: str | torch.device = "cuda",
+) -> tuple[ModelConfig, dict[str, Any], GGUFReader]:
+    """Load a llama-family GGUF model onto ``device``.
+
+    scale_dtype: 'bf16' packs the per-group scale/min side arrays into bf16
+    pairs (``sm``/``sp``), the layout the CUDA kernels read; 'f32' keeps f32
+    ``scales``/``mins`` (byte-parity with the reference's default; on the
+    card only the plain dequant path could read it, so forward raises there).
+    Q6_K matmul weights are stored as int8 codes ('q6w', quant.repack.widen_q6).
+
+    Returns (cfg, params, reader); the reader holds the metadata."""
+    dev = resolve_device(device)
+    if scale_dtype not in ("bf16", "f32"):
+        raise ValueError(f"scale_dtype must be 'bf16' or 'f32', got {scale_dtype!r}")
+    pack_pairs = scale_dtype == "bf16"
+    r = GGUFReader(path)
+    cfg = ModelConfig.from_gguf(r.metadata)
+    if cfg.arch not in LLAMA_FAMILY:
+        raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
+    if cfg.is_moe or "blk.0.attn_q.bias" in r.tensors or "blk.0.attn_qkv.weight" in r.tensors:
+        raise NotImplementedError("MoE, attention biases and fused-QKV exports "
+                                  "are not ported yet")
+
+    canon_rope = (cfg.rope.mode == "norm" and cfg.rope.n_rot == cfg.head_dim
+                  and cfg.head_dim % 2 == 0)
+    if canon_rope:
+        cfg = dataclasses.replace(cfg, rope=dataclasses.replace(cfg.rope, mode="neox"))
+        q_perm = _rope_neox_perm(cfg.n_heads * cfg.head_dim, cfg.head_dim)
+        k_perm = _rope_neox_perm(cfg.n_kv_heads * cfg.head_dim, cfg.head_dim)
+
+    def host(name: str, layout: str = "kmajor") -> QTensor:
+        return _repack_named(r, name, layout, pack_pairs)
+
+    def rp(name: str, layout: str = "kmajor") -> QTensor:
+        return host(name, layout).to(dev)
+
+    params: dict[str, Any] = {
+        "tok_embd": rp("token_embd.weight", "rowmajor"),
+        "output_norm": rp("output_norm.weight", "dense"),
+    }
+    if "output.weight" in r.tensors:
+        params["output"] = rp("output.weight")
+    else:  # tied embeddings: token_embd repacked kmajor for the lm head
+        params["output"] = rp("token_embd.weight", "kmajor")
+
+    layers = []
+    for i in range(cfg.n_layers):
+        p = f"blk.{i}."
+        layer: dict[str, Any] = {
+            "attn_norm": rp(p + "attn_norm.weight", "dense"),
+            "wo": rp(p + "attn_output.weight"),
+            "ffn_norm": rp(p + "ffn_norm.weight", "dense"),
+        }
+        wq = host(p + "attn_q.weight")
+        wk = host(p + "attn_k.weight")
+        if canon_rope:
+            wq = permute_out_features(wq, q_perm)
+            wk = permute_out_features(wk, k_perm)
+        fused_qk = fuse_kmajor([wq, wk])
+        if fused_qk is not None:
+            layer["wqk"] = fused_qk.to(dev)
+        else:
+            layer["wq"], layer["wk"] = wq.to(dev), wk.to(dev)
+        layer["wv"] = rp(p + "attn_v.weight")
+        fused_gu = fuse_kmajor([host(p + "ffn_gate.weight"), host(p + "ffn_up.weight")])
+        if fused_gu is not None:
+            layer["w_gateup"] = fused_gu.to(dev)
+        else:
+            layer["w_gate"] = rp(p + "ffn_gate.weight")
+            layer["w_up"] = rp(p + "ffn_up.weight")
+        layer["w_down"] = rp(p + "ffn_down.weight")
+        layers.append(layer)
+    params["layers"] = layers
+    return cfg, params, r
+
+
+def params_from_numpy(params_np: Any, device: str | torch.device = "cuda") -> Any:
+    """Turn parameters exported as numpy (the reference package's params with
+    every array converted by ``np.asarray``) into the port's parameters on
+    ``device``. A quantized tensor may be any object with ``kind``,
+    ``layout``, ``shape`` and ``arrays`` attributes, or a dict with those
+    keys; dicts and lists are walked; bare arrays become tensors."""
+    dev = resolve_device(device)
+
+    def conv(v: Any) -> Any:
+        if isinstance(v, dict) and {"kind", "layout", "shape", "arrays"} <= set(v):
+            v = QTensor(v["kind"], v["layout"], tuple(v["shape"]),
+                        dict(v["arrays"]), v.get("tp"), v.get("fold", 1))
+        elif all(hasattr(v, a) for a in ("kind", "layout", "shape", "arrays")):
+            v = QTensor(v.kind, v.layout, tuple(v.shape), dict(v.arrays),
+                        getattr(v, "tp", None), getattr(v, "fold", 1))
+        if isinstance(v, QTensor):
+            return QTensor(v.kind, v.layout, v.shape,
+                           {k: np.asarray(a) for k, a in v.arrays.items()},
+                           v.tp, v.fold).to(dev)
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return type(v)(conv(x) for x in v)
+        if isinstance(v, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        return v
+
+    return conv(params_np)
