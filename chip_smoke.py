@@ -7,7 +7,8 @@ Phases, each fatal on failure:
  1. the card's name and power limit (nvidia-smi), torch / CUDA / nvcc versions;
  2. build the CUDA kernels from tpu_kquant_torch/csrc (nvcc, in parallel);
  3. hold each kernel against its plain PyTorch version on the card at the
-    main path's TinyLlama-1.1B shapes (tolerance 2e-2 of max|ref|), and time
+    main path's TinyLlama-1.1B shapes (tolerance 2e-2 of max|ref|; for the
+    prefill kernel 2e-2 of each output row's own max|ref|), and time
     the kernel and the plain version; as yardsticks the port never calls,
     qmm's ``library_ms`` is torch.matmul on the pre-dequantized bf16 weight,
     and the fused kernels, which no single PyTorch call computes
@@ -17,7 +18,14 @@ Phases, each fatal on failure:
     load onto the card, check a 2-layer cut against the plain versions on
     the CPU, answer three greedy requests of different prompt lengths with
     the launch counters set to 0 just before and read just after, then time
-    pp512 and tg128.
+    pp512 and tg128;
+ 5. long prompts, on a bf16 and then an int8 KV cache of 2240 slots (2048 +
+    128 + 64, bench.py's sizing): a 2-layer cut prefilling a 1100-token
+    prompt (bucket 2048: the flash prefill kernel) on the card against the
+    CPU, three greedy requests of 1000, 1500 and 2048 tokens with the counts
+    set to 0 just before and read just after, then pp2048 and tg128 at depth
+    2048. The prefill kernel's ``library_ms`` is scaled_dot_product_attention
+    on bf16 (the int8 case on the dequantized cache), timed here only.
 The second-to-last line is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
 """
@@ -140,6 +148,16 @@ def _err(got, ref) -> tuple[float, float]:
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
+def row_rel_err(got, ref) -> float:
+    """Max over the rows of the last axis of max|got - ref| / max|ref| in
+    that row. Causal attention's output shrinks along the prompt (a row
+    that attends n slots has |out| ~ n^-1/2, and row 0 is v[0]), so one
+    max|ref| over the whole output is set by the first rows and would let a
+    fault in the late tiles pass; each row here is held to its own scale."""
+    d = (got.float() - ref.float()).abs().amax(-1)
+    return (d / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
 def check_kernels(dev) -> dict:
     """Kernel vs plain version at the main path's shapes, with the timings
     of the module docstring. Returns {kernel: [case dicts]}; raises on any
@@ -247,17 +265,121 @@ def check_kernels(dev) -> dict:
         "bound_ms": b, "bound_by": by})
     del ws, wd
 
+    out["prefill"] = check_prefill(dev)
+
     for name, cases in out.items():
         for c in cases:
             lib = c["library_ms"] if c["library_ms"] is not None else c["matmul_ms"]
             log(f"  {name:9s} {c['case']:48s} rel err {c['rel_err']:.2e}  kernel "
                 f"{c['ms'] * 1e3:8.1f} us (eager {c['eager_ms'] * 1e3:7.1f})  plain "
-                f"{c['plain_ms'] * 1e3:8.1f} us  {'library' if c['library_ms'] else 'matmuls'} "
+                f"{c['plain_ms'] * 1e3:8.1f} us  "
+                f"{'library' if c['library_ms'] is not None else 'matmuls'} "
                 f"{lib * 1e3:8.1f} us  bound {c['bound_ms'] * 1e3:8.2f} us ({c['bound_by']})")
+            if "global_rel_err" in c:
+                log(f"  {'':9s} rel err per row {c['rel_err']:.2e}, of the whole max|ref| "
+                    f"{c['global_rel_err']:.2e}; SDPA per row {c['library_rel_err']:.2e}")
             if not math.isfinite(c["rel_err"]) or c["rel_err"] > TOL:
                 raise SystemExit(f"FAIL: {name} {c['case']} disagrees with its plain "
                                  f"version: {c['rel_err']:.3e} > {TOL}")
     return out
+
+
+# flash prefill at TinyLlama's heads (32 / 4 of 64):
+# (label, B, T, S, q_starts, int8 KV, window)
+PREFILL_CASES = (
+    ("T=S=2048 bf16 (pp2048 layer)", 1, 2048, 2048, [0], False, 0),
+    ("T=S=2048 int8 (pp2048 layer)", 1, 2048, 2048, [0], True, 0),
+    ("T=256 S=2240 q_start 1024 bf16", 1, 256, 2240, [1024], False, 0),
+    ("T=512 S=2048 q_start 1024 window 300 int8", 1, 512, 2048, [1024], True, 300),
+    ("B=3 T=40 S=320 q_start 0/100/200 bf16", 3, 40, 320, [0, 100, 200], False, 0),
+)
+
+
+def prefill_work(B, T, S, H, Hkv, D, starts, window, kv_bytes) -> tuple[float, float]:
+    """(bytes, flops) the flash prefill needs for these inputs: q and the
+    output once, the cache slots some query attends once (`kv_bytes` per
+    slot and head, scales included), and 4 D flops per head for every
+    unmasked (query, slot) pair."""
+    import numpy as np
+
+    pairs, n_bytes = 0, 2 * (2 * B * T * H * D)
+    for qs in starts:
+        pos = qs + np.arange(T)
+        lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros_like(pos)
+        pairs += int(np.maximum(np.minimum(pos, S - 1) - lo + 1, 0).sum())
+        first = max(qs - window + 1, 0) if window > 0 else 0
+        n_bytes += 2 * Hkv * (min(qs + T - 1, S - 1) - first + 1) * kv_bytes
+    return float(n_bytes), 4.0 * pairs * H * D
+
+
+def check_prefill(dev) -> list:
+    """The flash prefill kernel against its plain version (and SDPA as the
+    library yardstick) at the PREFILL_CASES. K/V are strided views of a
+    2-layer cache with 64 spare slots, as the llama path hands them over."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_kquant_torch.ops.prefill import attention_prefill, attention_prefill_plain
+
+    H, Hkv, D = 32, 4, 64
+    g = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for label, B, T, S, starts, int8, window in PREFILL_CASES:
+        q = torch.randn(B, T, H, D, device=dev, generator=g).to(torch.bfloat16)
+        shape = (2, B, Hkv, S + 64, D)
+        if int8:
+            kc, vc = (torch.randint(-127, 128, shape, device=dev, generator=g,
+                                    dtype=torch.int8) for _ in range(2))
+            ksc, vsc = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 0.001
+                        for _ in range(2))
+            scales = (ksc[1, :, :, :S], vsc[1, :, :, :S])
+        else:
+            kc, vc = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                      for _ in range(2))
+            scales = None
+        k, v = kc[1, :, :, :S], vc[1, :, :, :S]
+        qs = torch.tensor(starts, device=dev)
+        args = (q, k, v, qs, scales)
+        got = attention_prefill(*args, sliding_window=window)
+        torch.cuda.synchronize()
+        ref = attention_prefill_plain(*args, sliding_window=window)
+        ad, glob = _err(got, ref)
+        rel = row_rel_err(got, ref)
+        # the library yardstick: SDPA on bf16 [B, H, T, D] (dequantized for
+        # int8); causal flag where the mask is plain causal, else the mask
+        kb, vb = k, v
+        if int8:
+            kb = (k.float() * scales[0][..., None]).to(torch.bfloat16)
+            vb = (v.float() * scales[1][..., None]).to(torch.bfloat16)
+        qt = q.transpose(1, 2)
+        if T == S and window == 0 and not any(starts):
+            sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kb, vb, is_causal=True, enable_gqa=True)
+        else:
+            pos = qs[:, None] + torch.arange(T, device=dev)
+            kv = torch.arange(S, device=dev)
+            m = kv[None, None, :] <= pos[:, :, None]
+            if window > 0:
+                m &= kv[None, None, :] > pos[:, :, None] - window
+            m = m[:, None]
+            sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kb, vb, attn_mask=m, enable_gqa=True)
+        lib_err = row_rel_err(sdpa(0).transpose(1, 2), ref)
+        nb, fl = prefill_work(B, T, S, H, Hkv, D, starts, window,
+                              D * k.element_size() + (4 if int8 else 0))
+        b, by = bound_ms(nb, fl)
+        run = lambda i: attention_prefill(*args, sliding_window=window)  # noqa: E731
+        cases.append({
+            "case": label, "max_abs_err": ad, "rel_err": rel, "global_rel_err": glob,
+            "library_rel_err": lib_err,
+            "ms": graph_ms(run, 20), "eager_ms": time_ms(run, 20),
+            "plain_ms": graph_ms(lambda i: attention_prefill_plain(
+                *args, sliding_window=window), 2, reps=3),
+            "library_ms": graph_ms(sdpa, 20), "bound_ms": b, "bound_by": by,
+            "bytes": nb, "flops": fl})
+        del ref, got
+        torch.cuda.empty_cache()
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -266,12 +388,21 @@ def check_kernels(dev) -> dict:
 
 
 def expected_launches(cfg, rows: int) -> dict:
-    """Launches of one forward over `rows` = B*T rows at the main path's
-    dispatch: fused decode kernels at rows <= 32, qmm projections above."""
+    """Launches of one forward of batch 1 over `rows` tokens at the main
+    path's dispatch: fused decode kernels at rows <= 32, qmm projections
+    above; the flash prefill kernel in every layer where the plain
+    attention's logits (S = rows: prefill attends its first T slots) would
+    pass the budget."""
+    from tpu_kquant_torch.ops import attention
+    from tpu_kquant_torch.ops.prefill import prefill_supported
+
     L = cfg.n_layers
+    flash = rows > 1 and prefill_supported(rows, rows, cfg.head_dim) and \
+        attention.logits_mb(1, rows, cfg.n_heads, rows) > attention.ATTN_PLAIN_MAX_MB
+    out = {"prefill": L if flash else 0}
     if rows <= 32:
-        return {"attn_in": L, "oproj_ffn": L, "qmm": 1}
-    return {"attn_in": 0, "oproj_ffn": 0, "qmm": 5 * L + 1}
+        return {**out, "attn_in": L, "oproj_ffn": L, "qmm": 1}
+    return {**out, "attn_in": 0, "oproj_ffn": 0, "qmm": 5 * L + 1}
 
 
 def _add(a: dict, b: dict, n: int = 1) -> dict:
@@ -301,10 +432,12 @@ def check_counts(what: str, want: dict) -> dict:
     return got
 
 
-def reference_check(cfg, params, dev) -> None:
+def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
+                    kv_quantized: bool = False) -> None:
     """A 2-layer cut of the loaded model on the card (kernels) against the
-    same cut on the CPU (plain versions): prefill at 8 rows (fused kernels)
-    and 40 rows (qmm), then 4 greedy decode steps."""
+    same cut on the CPU (plain versions): prefill of each prompt length
+    (8 rows: fused kernels; 40: qmm; 1100: bucket 2048, the flash prefill),
+    then 4 greedy decode steps."""
     import dataclasses
 
     import numpy as np
@@ -318,11 +451,12 @@ def reference_check(cfg, params, dev) -> None:
                                                   for lay in v])
              for k, v in p_gpu.items()}
     rng = np.random.default_rng(1)
-    for n in (8, 40):
+    kv = "int8" if kv_quantized else "bf16"
+    for n in lengths:
         prompt = rng.integers(10, cfg.vocab_size, n).tolist()
         outs = []
         for p, d in ((p_gpu, dev), (p_cpu, "cpu")):
-            eng = InferenceEngine(cut, p, max_seq=128, device=d)
+            eng = InferenceEngine(cut, p, max_seq=max_seq, kv_quantized=kv_quantized, device=d)
             cache = eng.new_cache(1)
             logits, cache, lens = eng.prefill([prompt], cache)
             first = torch.argmax(logits, -1)
@@ -331,9 +465,11 @@ def reference_check(cfg, params, dev) -> None:
         (lg, tg), (lc, tc) = outs
         rel = ((lg - lc).abs().max() / lc.abs().max()).item()
         top5 = set(torch.topk(lc, 5).indices.tolist())
-        log(f"  2-layer cut, prompt {n}: logits rel err {rel:.2e}; greedy card {tg} cpu {tc}")
+        log(f"  2-layer cut, {kv} KV, prompt {n}: logits rel err {rel:.2e}; greedy card {tg} "
+            f"cpu {tc}")
         if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
-            raise SystemExit(f"FAIL: card and CPU disagree on the 2-layer cut (prompt {n})")
+            raise SystemExit(f"FAIL: card and CPU disagree on the 2-layer cut ({kv} KV, "
+                             f"prompt {n})")
 
 
 def end_to_end(dev, profile: Path | None = None) -> dict:
@@ -436,7 +572,7 @@ def end_to_end(dev, profile: Path | None = None) -> dict:
            "tg128_tok_s": 128 / tg_s, "tg128_ms_per_tok": tg_s / 128 * 1e3,
            "tg128_tok_s_all": [128 / t for t in tg],
            "main_path_launches": main_counts, "tg_bound_ms_per_tok": tg_bound[0],
-           "pp512_bound_ms": pp_bound[0], "weight_bytes": w_bytes}
+           "pp512_bound_ms": pp_bound[0], "weight_bytes": w_bytes, "model": (cfg, params)}
     log(f"  [{gpu_line()}] depth {cfg.n_layers}: pp512 {res['pp512_tok_s']:.1f} tok/s "
         f"({res['pp512_ms']:.2f} ms), tg128 {res['tg128_tok_s']:.1f} tok/s "
         f"({res['tg128_ms_per_tok']:.3f} ms/token); medians of 3: pp512 runs "
@@ -445,22 +581,23 @@ def end_to_end(dev, profile: Path | None = None) -> dict:
     return res
 
 
-def profile_steps(eng, cfg, dev, out: Path) -> None:
-    """--profile DIR: torch.profiler over one pp512 prefill and 8 decode
-    steps; kernel tables go to DIR/profile_*.txt, busy shares to the log."""
+def profile_steps(eng, cfg, dev, out: Path, n_prompt: int = 512, tag: str = "") -> None:
+    """--profile DIR: torch.profiler over one prefill of `n_prompt` tokens
+    and 8 decode steps; kernel tables go to DIR/profile_*.txt, busy shares
+    to the log."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out.mkdir(parents=True, exist_ok=True)
-    prompt = np.random.default_rng(3).integers(10, cfg.vocab_size, 512).tolist()
+    prompt = np.random.default_rng(3).integers(10, cfg.vocab_size, n_prompt).tolist()
     logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
     first = torch.argmax(logits, -1)
     pos = torch.tensor(lens, device=dev)
     eng.decode_greedy(first, pos, cache, 2)
-    for what, run in (("prefill", lambda: eng.prefill([prompt], eng.new_cache(1))),
-                      ("decode", lambda: eng.decode_greedy(first, pos + 2, cache, 8))):
+    for what, run in ((f"prefill{tag}", lambda: eng.prefill([prompt], eng.new_cache(1))),
+                      (f"decode{tag}", lambda: eng.decode_greedy(first, pos + 2, cache, 8))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -481,18 +618,130 @@ def profile_steps(eng, cfg, dev, out: Path) -> None:
             + "; ".join(f"{k[:36]} {v:.2f} ms" for k, v in top))
 
 
+# ---------------------------------------------------------------------------
+# phase 5: long prompts on bf16 and int8 KV
+# ---------------------------------------------------------------------------
+
+LONG_MAX_SEQ = 2048 + 128 + 64  # bench.py's sizing: prompt + tg128 + 64
+
+
+def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
+    """Phase 5 (module docstring), for each KV kind. Returns the timings and
+    the launch counts of the request runs."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
+
+    # pp2048 bound: the matmuls' flops (2 * 2048 * N * K per weight) plus the
+    # flash prefill's causal flops in every layer, against the weights' bytes
+    mats = [qt for lay in params["layers"] for qt in lay.values() if qt.kind != "dense"]
+    mats.append(params["output"])
+    w_bytes = sum(qt.n_bytes for qt in mats)
+    macs = sum(qt.shape[0] * qt.shape[1] for qt in mats)
+    H, Hkv, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    _, attn_fl = prefill_work(1, 2048, 2048, H, Hkv, D, [0], 0, 2 * D)
+    pp_bound = bound_ms(w_bytes, 2.0 * 2048 * macs + L * attn_fl)
+    rng = np.random.default_rng(4)
+    res: dict = {"launches": {}, "pp2048_bound_ms": pp_bound[0]}
+    for quant in (False, True):
+        kv = "int8" if quant else "bf16"
+        reference_check(cfg, params, dev, lengths=(1100,), max_seq=LONG_MAX_SEQ,
+                        kv_quantized=quant)
+        eng = InferenceEngine(cfg, params, max_batch=1, max_seq=LONG_MAX_SEQ,
+                              kv_quantized=quant, device=dev)
+        # the main path: three long requests, counted
+        prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in (1000, 1500, 2048)]
+        torch.cuda.synchronize()
+        reset_counts()
+        want: dict = {}
+        answers = []
+        for pr in prompts:
+            answers.append(eng.generate([pr], max_new_tokens=16)[0])
+            want = _add(want, expected_launches(cfg, min(_bucket(len(pr)), eng.max_seq)))
+            want = _add(want, expected_launches(cfg, 1), 15)
+        torch.cuda.synchronize()
+        res["launches"][kv] = check_counts(f"the three long requests ({kv} KV)", want)
+        for pr, ans in zip(prompts, answers):
+            log(f"  {kv} KV: request of {len(pr)} tokens -> {ans}")
+            if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
+                raise SystemExit("FAIL: a long request did not get 16 valid tokens")
+
+        # pp2048 (warmed once; median of 3)
+        prompt = rng.integers(10, cfg.vocab_size, 2048).tolist()
+        eng.prefill([prompt], eng.new_cache(1))
+        pp = []
+        for _ in range(3):
+            cache = eng.new_cache(1)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, cache, lens = eng.prefill([prompt], cache)
+            torch.cuda.synchronize()
+            pp.append(time.perf_counter() - t0)
+            check_counts(f"pp2048 ({kv} KV)", expected_launches(cfg, 2048))
+        if not (logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()):
+            raise SystemExit("FAIL: pp2048 logits are not finite [1, vocab]")
+
+        # tg128 at depth 2048: 128 greedy steps after the 2048-token prefill
+        # (warmed once; median of 3, each after a fresh prefill)
+        eng.decode_greedy(torch.argmax(logits, -1), torch.tensor(lens, device=dev), cache, 4)
+        tg = []
+        for _ in range(3):
+            logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+            first = torch.argmax(logits, -1)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
+            torch.cuda.synchronize()
+            tg.append(time.perf_counter() - t0)
+            check_counts(f"tg128@2048 ({kv} KV)",
+                         {k: 128 * v for k, v in expected_launches(cfg, 1).items()})
+        step, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
+        if not torch.isfinite(step).all():
+            raise SystemExit(f"FAIL: decode logits at depth 2176 are not finite ({kv} KV)")
+        # decode bound per token: every weight byte plus the cache rows up to
+        # depth ~2112 (the mean over the 128 steps), read once
+        kv_row = 2 * L * Hkv * (D * (1 if quant else 2) + (4 if quant else 0))
+        tg_bound = bound_ms(w_bytes + kv_row * (2048 + 64), 2.0 * macs)
+        pp_s, tg_s = sorted(pp)[1], sorted(tg)[1]
+        res[kv] = {"pp2048_tok_s": 2048 / pp_s, "pp2048_ms": pp_s * 1e3,
+                   "pp2048_tok_s_all": [2048 / t for t in pp],
+                   "tg128_at_2048_tok_s": 128 / tg_s, "tg128_at_2048_ms_per_tok": tg_s / 128 * 1e3,
+                   "tg128_at_2048_tok_s_all": [128 / t for t in tg],
+                   "tg_bound_ms_per_tok": tg_bound[0]}
+        r = res[kv]
+        log(f"  [{gpu_line()}] {kv} KV: pp2048 {r['pp2048_tok_s']:.1f} tok/s "
+            f"({r['pp2048_ms']:.2f} ms; bound {pp_bound[0]:.3f} ms, {pp_bound[1]}), tg128@2048 "
+            f"{r['tg128_at_2048_tok_s']:.1f} tok/s ({r['tg128_at_2048_ms_per_tok']:.3f} ms/token; "
+            f"bound {tg_bound[0]:.4f}); medians of 3: pp2048 runs "
+            f"{', '.join(f'{v:.1f}' for v in r['pp2048_tok_s_all'])}, tg128@2048 runs "
+            f"{', '.join(f'{v:.1f}' for v in r['tg128_at_2048_tok_s_all'])} tok/s")
+        for x in (r["pp2048_tok_s"], r["tg128_at_2048_tok_s"]):
+            if not (math.isfinite(x) and x > 0):
+                raise SystemExit(f"FAIL: a long-prompt rate is not finite ({kv} KV)")
+        if profile is not None:
+            profile_steps(eng, cfg, dev, profile, n_prompt=2048, tag=f"2048_{kv}")
+        del eng, cache
+        torch.cuda.empty_cache()
+    return res
+
+
 REPLACES = {
     "qmm": ("tpu_kquant_torch/csrc/qmm.cu", "tpu_kquant/ops/pallas_qmm.py:287"),
     "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
     "oproj_ffn": ("tpu_kquant_torch/csrc/oproj_ffn.cu", "tpu_kquant/ops/pallas_ffn.py:983"),
+    "prefill": ("tpu_kquant_torch/csrc/prefill.cu", "tpu_kquant/ops/pallas_prefill.py:168"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
-                    help="also profile one pp512 prefill and 8 decode steps; "
-                         "write the kernel tables into DIR")
+                    help="also profile one pp512 prefill and 8 decode steps (and, in "
+                         "phase 5, a pp2048 prefill and 8 steps at depth 2048 per KV "
+                         "kind); write the kernel tables into DIR")
     args = ap.parse_args()
 
     import torch
@@ -525,13 +774,20 @@ def main() -> int:
     log("== phase 4: end to end")
     e2e = end_to_end(dev, args.profile)
 
+    log("== phase 5: long prompts (bf16 and int8 KV)")
+    long = long_prompts(*e2e.pop("model"), dev, args.profile)
+
+    # launches: qmm, attn_in and oproj_ffn from phase 4's requests, prefill
+    # from phase 5's (both KV kinds); each run was counted from 0
+    launches = dict(e2e["main_path_launches"])
+    launches["prefill"] = sum(c["prefill"] for c in long["launches"].values())
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]
         head = cs[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": e2e["main_path_launches"].get(name, 0),
+            "launches": launches.get(name, 0),
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "case": head["case"], "cases": cs})

@@ -8,7 +8,10 @@ it runs on a machine with only PyTorch and the CUDA toolkit:
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.) Tolerance:
 2e-2 of max|ref|; the kernels sum in another order and the GEMV path keeps
-dequantized weights in f32 where the plain version rounds them to bf16.
+dequantized weights in f32 where the plain version rounds them to bf16. The
+prefill kernel is held to 2e-2 of each output row's own max|ref|: causal
+attention's output shrinks along the prompt, so the whole output's max|ref|
+(set by the first rows) would let a fault in the late tiles pass.
 """
 
 import numpy as np
@@ -17,8 +20,10 @@ import torch
 
 from tpu_kquant_torch.models.fixtures import tiny_config, write_fixture_gguf
 from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.ops import attention as t_attention
 from tpu_kquant_torch.ops import attn_in as t_attn_in
 from tpu_kquant_torch.ops import ffn as t_ffn
+from tpu_kquant_torch.ops import prefill as t_prefill
 from tpu_kquant_torch.ops import qmm as t_qmm
 from tpu_kquant_torch.quant.qtensor import QTensor
 from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
@@ -56,6 +61,11 @@ def q6w(N, K, rng, dev):
 
 def _rel(got, ref):
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def _row_rel(got, ref):
+    d = (got.float() - ref.float()).abs().amax(-1)
+    return (d / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
 @pytest.mark.cuda
@@ -138,3 +148,90 @@ def test_engine_on_card_matches_cpu(card, tmp_path):
         fused = len(rows) * _bucket(max(map(len, rows))) <= 32
         assert used["attn_in"] == 2 * (3 + fused) and used["oproj_ffn"] == 2 * (3 + fused)
         assert used["qmm"] == 3 + (1 if fused else 11)
+
+
+# flash prefill cases: chip_smoke.py's phase-3 shapes (TinyLlama: 32 / 4
+# heads of 64), plus head_dim 128 (llama GGUFs with 128-wide heads)
+# (B, T, S, H, Hkv, D, q_starts, int8, window)
+PREFILL_CASES = {
+    "path_t2048_bf16": (1, 2048, 2048, 32, 4, 64, [0], False, 0),
+    "path_t2048_int8": (1, 2048, 2048, 32, 4, 64, [0], True, 0),
+    "mid_history": (1, 256, 2240, 32, 4, 64, [1024], False, 0),
+    "window_300": (1, 512, 2048, 32, 4, 64, [1024], True, 300),
+    "ragged_t40": (3, 40, 320, 32, 4, 64, [0, 100, 200], False, 0),
+    "head_dim_128": (2, 128, 256, 8, 2, 128, [64, 0], True, 0),
+}
+
+
+def prefill_inputs(case, dev, seed=0):
+    """Inputs of one case; k/v (and scales) are strided views of a 2-layer
+    cache with 64 spare slots, as the llama path hands them over."""
+    B, T, S, H, Hkv, D, starts, int8, window = PREFILL_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, T, H, D, device=dev, generator=g).to(torch.bfloat16)
+    shape = (2, B, Hkv, S + 64, D)
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, device=dev, generator=g, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], device=dev, generator=g) * 0.01 + 0.001
+                  for _ in range(2))
+        scales = (ks[1, :, :, :S], vs[1, :, :, :S])
+    else:
+        k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        scales = None
+    qs = torch.tensor(starts, device=dev)
+    return q, k[1, :, :, :S], v[1, :, :, :S], qs, scales, window
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_kernel_matches_plain(card, case):
+    q, k, v, qs, scales, window = prefill_inputs(case, card)
+    assert not k.is_contiguous()
+    launches = t_prefill.counter.launches
+    got = t_prefill.attention_prefill(q, k, v, qs, scales, sliding_window=window)
+    torch.cuda.synchronize()
+    assert t_prefill.counter.launches == launches + 1
+    assert got.dtype == q.dtype and got.shape == q.shape and torch.isfinite(got).all()
+    ref = t_prefill.attention_prefill_plain(q, k, v, qs, scales, sliding_window=window)
+    assert _row_rel(got, ref) < TOL
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_refuses_f32_q(card):
+    """The kernel takes bf16 q (the llama path's); other dtypes raise on the
+    card instead of being cast."""
+    q, k, v, qs, scales, window = prefill_inputs("ragged_t40", card)
+    launches = t_prefill.counter.launches
+    with pytest.raises(ValueError, match="dtype"):
+        t_prefill.attention_prefill(q.float(), k, v, qs, scales)
+    assert t_prefill.counter.launches == launches
+
+
+@pytest.mark.cuda
+def test_int8_engine_on_card_matches_cpu(card, tmp_path, monkeypatch):
+    """The dim-1024 fixture on int8 KV, card against CPU: a 40-token prompt
+    sent to the prefill kernel (budget 0; bucket 64 = the cache's 64 slots),
+    then decode steps under the real budget (plain attention with kv_cur)."""
+    cfg = tiny_config(n_layers=2, dim=1024, n_heads=16, n_kv_heads=4, ffn_dim=1024,
+                      vocab_size=512)
+    path = write_fixture_gguf(tmp_path / "w1024.gguf", cfg, seed=5)
+    engines = [InferenceEngine(*load_model(path, device=d)[:2], max_seq=64, kv_quantized=True,
+                               device=d) for d in (card, "cpu")]
+    prompt = np.random.default_rng(1).integers(3, 512, 40).tolist()
+    outs = []
+    launches = t_prefill.counter.launches
+    for eng in engines:
+        monkeypatch.setattr(t_attention, "ATTN_PLAIN_MAX_MB", 0.0)
+        logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+        monkeypatch.setattr(t_attention, "ATTN_PLAIN_MAX_MB", 192.0)
+        steps, pos = [logits], torch.tensor(lens, device=eng.device)
+        for t in (7, 99):
+            step, cache = eng.decode_step(torch.tensor([t], device=eng.device), pos, cache)
+            steps.append(step)
+            pos = pos + 1
+        outs.append([x.float().cpu() for x in steps])
+    assert t_prefill.counter.launches == launches + 2
+    for got, ref in zip(*outs):
+        assert torch.isfinite(got).all() and _rel(got, ref) < 5e-2

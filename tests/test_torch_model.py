@@ -223,8 +223,6 @@ def test_rope_matches_jax():
 def test_entry_points_refuse_what_this_slice_lacks(models):
     _, te = models["tiny"]
     with pytest.raises(NotImplementedError):
-        InferenceEngine(te.cfg, te.params, kv_quantized=True, device="cpu")
-    with pytest.raises(NotImplementedError):
         InferenceEngine(te.cfg, te.params, kv_layout="iswa", device="cpu")
     with pytest.raises(NotImplementedError):
         te.generate([TOKENS], max_new_tokens=2, temperature=0.7)

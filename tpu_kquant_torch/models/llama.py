@@ -7,8 +7,9 @@ Params: {'tok_embd': QTensor(rowmajor), 'output_norm', 'output',
 
 Dispatch follows the reference: at rows <= 32 a layer runs the attn_in and
 oproj_ffn kernels where their gates pass (on the CPU, their plain
-versions); otherwise every projection is a qmatmul. Attention is plain
-PyTorch (ops.attention).
+versions); otherwise every projection is a qmatmul. Attention
+(ops.attention) runs plain PyTorch, or the flash prefill kernel for long
+prompts; the KV cache is bf16 or int8.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ from typing import Any, Callable
 import torch
 
 from tpu_kquant_torch.models.config import ModelConfig
+from tpu_kquant_torch.ops import attention
 from tpu_kquant_torch.ops.activations import swiglu
-from tpu_kquant_torch.ops.attention import attention_decode
 from tpu_kquant_torch.ops.attn_in import attn_in_supported, fused_attn_in
 from tpu_kquant_torch.ops.ffn import fused_oproj_ffn, oproj_ffn_supported
 from tpu_kquant_torch.ops.norms import rms_norm
@@ -69,12 +70,16 @@ def llama_layer(
         k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :], cfg.rope.mode)
 
     view = kv_write(k, v)
-    k_all, v_all = view[0], view[1]
+    k_all, v_all, kv_scales = view[:3]
     kv_cur = view[3] if len(view) == 4 else None
     if kv_attend_len is not None and kv_cur is None and kv_attend_len < k_all.shape[2]:
+        # views of the cache, no copy
         k_all = k_all[:, :, :kv_attend_len]
         v_all = v_all[:, :, :kv_attend_len]
-    attn = attention_decode(q, k_all, v_all, positions, kv_cur=kv_cur).reshape(B, T, H * D)
+        if kv_scales is not None:
+            kv_scales = (kv_scales[0][..., :kv_attend_len], kv_scales[1][..., :kv_attend_len])
+    attn = attention.attention_decode(q, k_all, v_all, positions, kv_scales,
+                                      kv_cur=kv_cur).reshape(B, T, H * D)
 
     if "w_gateup" in layer and oproj_ffn_supported(layer["wo"], layer["w_gateup"],
                                                    layer["w_down"], B * T):
@@ -112,8 +117,13 @@ def llama_forward(
 
     # deferred batched KV append at decode: each layer's attention takes its
     # current (k, v) as kv_cur and all layers' rows are written in one
-    # append after the loop, instead of two writes per layer
-    pending: list | None = [] if tokens.shape[1] == 1 else None
+    # append after the loop, instead of two writes per layer. kv_cur keeps
+    # attention on the plain branch, so past the logits budget (large B * S)
+    # the appends are eager and attention may leave it, as in the reference.
+    B, T = tokens.shape
+    defer = T == 1 and attention.logits_mb(B, 1, cfg.n_heads, cache.max_seq) \
+        <= attention.ATTN_PLAIN_MAX_MB
+    pending: list | None = [] if defer else None
     for i, layer in enumerate(params["layers"]):
         def kv_write(k_new, v_new, _i=i):
             if pending is not None:

@@ -1,41 +1,80 @@
-"""Causal GQA attention over the bf16 KV cache, in plain PyTorch.
+"""Causal GQA attention over the KV cache (bf16, or int8 with per-token
+scales): the port of ``tpu_kquant.ops.attention.attention_decode``.
 
-The port of the plain branch of ``tpu_kquant.ops.attention.attention_decode``
-(its fused-XLA path), which is what the reference runs at the main path's
-shapes: decode at S = 704 slots materialises 0.09 MB of logits and pp512
-46 MB, both far under the 192 MB gate of its flash kernels. The flash decode
-and prefill kernels (and int8 KV, sliding windows, softcaps, ring layouts)
-belong to later slices.
+Dispatch follows the reference's gates, with "on the TPU" read as "tensors
+on the card":
+- T > 1 (prefill) with no ``kv_cur``, the kernel's shape rule
+  (``prefill_supported``) and plain logits above ``ATTN_PLAIN_MAX_MB`` go to
+  the flash prefill kernel (``ops.prefill``; its plain version on the CPU).
+  At TinyLlama width that is every bucket-2048 prompt (537 MB of logits per
+  layer); bucket 1024 (134 MB) stays plain.
+- T == 1 with no ``kv_cur`` and logits above the same budget is where the
+  reference runs its flash decode kernel; that kernel is not ported yet, so
+  on the card this raises (the CPU runs the plain branch).
+- Everything else runs the plain branch below in f32.
+Rings, sliding windows and logit softcaps are not ported here (the llama
+forward refuses archs that need them).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_kquant_torch.ops.prefill import attention_prefill, prefill_supported
+
+# The budget of materialised f32 logits (B * T * H * S * 4 bytes, in MB)
+# above which attention leaves the plain branch; the reference's
+# _ATTN_XLA_MAX_MB. The deferred-append gate of models.llama reads it too.
+ATTN_PLAIN_MAX_MB = 192.0
+
+
+def logits_mb(B: int, T: int, H: int, S: int) -> float:
+    """MB of f32 logits the plain branch would materialise."""
+    return B * T * H * S * 4 / 1e6
+
 
 def attention_decode(
     q: torch.Tensor,  # [B, T, H, D]
-    k_cache: torch.Tensor,  # [B, Hkv, S, D] bf16, heads-major
+    k_cache: torch.Tensor,  # [B, Hkv, S, D] bf16 or int8, heads-major
     v_cache: torch.Tensor,  # [B, Hkv, S, D]
     q_positions: torch.Tensor,  # [B, T] absolute position of each query
+    kv_scales: tuple[torch.Tensor, torch.Tensor] | None = None,  # int8: [B, Hkv, S] each
     kv_cur: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Attention of T query tokens against S cache slots; slot j holds
     position j and is masked where j > the query's position. Returns
-    [B, T, H, D] in q's dtype.
+    [B, T, H, D] in q's dtype. The logit scale is head_dim^-0.5; sliding
+    windows and custom scales wait for an arch that needs them (the
+    flash prefill path, ``ops.prefill``, already takes both).
+
+    kv_scales: int8 KV. The per-token scales are constant along D, so K
+    scales multiply logit columns and V scales probability rows.
 
     kv_cur: deferred-append mode (decode, T == 1). The current token's
     (k, v) [B, T, Hkv, D] are not in the cache yet, so slot q_pos holds stale
-    data: its logit is replaced by the current token's before the softmax,
-    and its value row by the current value after. The result equals
+    data: its logit is replaced by the current token's (unscaled) before the
+    softmax, its probability is taken out before the V scales apply, and it
+    re-enters with the current, unquantized value after. The result equals
     attending the cache after the append; it lets the forward write every
     layer's new rows in one batched append after the layer loop."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
+    big = logits_mb(B, T, H, S) > ATTN_PLAIN_MAX_MB
+    if (kv_cur is None and T == 1 and D % 64 == 0 and S % 64 == 0
+            and big and (kv_scales is None or S % 256 == 0) and q.device.type != "cpu"):
+        raise NotImplementedError(
+            f"flash decode not ported yet: B={B}, H={H}, S={S} would materialise "
+            f"{logits_mb(B, T, H, S):.0f} MB of logits (> ATTN_PLAIN_MAX_MB = {ATTN_PLAIN_MAX_MB})")
+    if kv_cur is None and T > 1 and prefill_supported(T, S, D) and big:
+        return attention_prefill(q, k_cache, v_cache, q_positions[:, 0], kv_scales)
+
     G = H // Hkv
     scale = D ** -0.5
     qf = q.float().reshape(B, T, Hkv, G, D)
     logits = torch.einsum("bthgd,bhsd->bthgs", qf, k_cache.float()) * scale
+    if kv_scales is not None:
+        ks, vs = kv_scales
+        logits = logits * ks.float()[:, None, :, None, :]
     kv_pos = torch.arange(S, device=q.device)
     at_cur = None
     if kv_cur is not None:
@@ -49,6 +88,8 @@ def attention_decode(
     if at_cur is not None:
         p_cur = torch.where(at_cur, p, 0.0).sum(dim=-1)  # [B, T, Hkv, G]
         p = torch.where(at_cur, 0.0, p)
+    if kv_scales is not None:
+        p = p * vs.float()[:, None, :, None, :]
     out = torch.einsum("bthgs,bhsd->bthgd", p, v_cache.float())
     if at_cur is not None:
         out = out + p_cur[..., None] * v_cur.float().reshape(B, T, Hkv, 1, D)

@@ -1,0 +1,129 @@
+"""Flash prefill attention: causal GQA of T queries against S cache slots.
+
+Kernel: ``csrc/prefill.cu`` (replaces ``tpu_kquant/ops/pallas_prefill.py:
+attention_prefill_pallas``, kernel ``_prefill_kernel``). It runs an online
+softmax over tiles of 64 cache slots and never writes a [T, S] logit to
+device memory, which is why the dispatch (``ops.attention``) sends it the
+long prompts whose logits would be large.
+
+Layout at the public face, as the reference's: q [B, T, H, D]; k/v
+[B, Hkv, S, D] heads-major, bf16 or int8 with ``kv_scales`` (k_scale,
+v_scale) [B, Hkv, S] f32; ``q_start`` [B] the position of each row's first
+query (positions are contiguous per row: query t sits at q_start + t, and
+slot j holds position j). Returns [B, T, H, D] in q's dtype. The kernel
+takes bf16 q, which is what rope hands the llama path; the plain version
+takes any float q.
+
+``attention_prefill_plain`` is the same function in plain PyTorch, in f32
+with the kernel's operands: q, k and v rounded to bf16 (int8 codes are exact
+in bf16), logits times ``scale`` then times the K scale of their column,
+masked logits -1e30 with their probability forced to 0, the row sum taken
+before the V scales apply, and the sum floored at 1e-20.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_kquant_torch.ops import _build
+
+counter = _build.LaunchCounter("prefill")
+
+_NEG_INF = -1e30
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+#           kv_i8 D   q   sqb sqt sqh k   skb skh v   svb svh ks  ssb ssh vs  svsb svsh
+_ARGTYPES = [_I, _I, _P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L,
+             # q_start out B  T  H  Hkv S  scale           window stream
+             _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def prefill_supported(T: int, S: int, D: int) -> bool:
+    """The reference's shape rule (pallas_prefill.prefill_supported)."""
+    return T % 8 == 0 and D % 64 == 0 and S % 64 == 0 and T >= 8
+
+
+def attention_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            q_start: torch.Tensor, kv_scales=None, scale: float | None = None,
+                            sliding_window: int = 0) -> torch.Tensor:
+    """Plain version of the kernel (module docstring)."""
+    B, T, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    qg = bf(q).reshape(B, T, Hkv, G, D)
+    s = torch.einsum("bthgd,bhsd->bhgts", qg, bf(k)) * scale  # [B, Hkv, G, T, S]
+    if kv_scales is not None:
+        s = s * kv_scales[0].float()[:, :, None, None, :]
+    q_pos = q_start.long()[:, None] + torch.arange(T, device=q.device)  # [B, T]
+    kv = torch.arange(S, device=q.device)
+    mask = kv[None, None, :] <= q_pos[:, :, None]  # [B, T, S]
+    if sliding_window > 0:
+        mask &= kv[None, None, :] > q_pos[:, :, None] - sliding_window
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, _NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+    if kv_scales is not None:
+        p = p * kv_scales[1].float()[:, :, None, None, :]
+    out = torch.einsum("bhgts,bhsd->bthgd", p, bf(v)) / l.permute(0, 3, 1, 2, 4)
+    return out.reshape(B, T, H, D).to(q.dtype)
+
+
+def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start: torch.Tensor,
+                      kv_scales=None, scale: float | None = None,
+                      sliding_window: int = 0) -> torch.Tensor:
+    """Flash prefill attention (module docstring). CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if q.device.type == "cpu":
+        counter.plain_calls += 1
+        return attention_prefill_plain(q, k, v, q_start, kv_scales, scale, sliding_window)
+    B, T, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    req = _build.require
+    req(q.device.type == "cuda", f"prefill: unsupported device {q.device}")
+    req(all(t.device == q.device for t in (k, v, q_start)), "prefill: inputs on several devices")
+    req(D in KERNEL_HEAD_DIMS, f"prefill: head_dim {D} (the kernel takes {KERNEL_HEAD_DIMS})")
+    req(q.dtype == torch.bfloat16, f"prefill: q dtype {q.dtype} (the kernel takes bf16)")
+    req(H % Hkv == 0 and k.shape == (B, Hkv, S, D) and v.shape == k.shape,
+        f"prefill: q {tuple(q.shape)} against k {tuple(k.shape)}, v {tuple(v.shape)}")
+    req(S % 64 == 0, f"prefill: S = {S} is not a multiple of 64")
+    quant = kv_scales is not None
+    req(k.dtype == v.dtype == (torch.int8 if quant else torch.bfloat16),
+        f"prefill: k/v dtype {k.dtype}/{v.dtype} with{'' if quant else 'out'} scales")
+    req(q_start.shape == (B,), "prefill: q_start must be [B]")
+    esz = k.element_size()
+    for t in (k, v):  # strided views of the cache: rows of D must be dense and 16-byte aligned
+        req(t.stride(3) == 1 and t.stride(2) == D, "prefill: k/v rows must be dense [.., S, D]")
+        req(t.data_ptr() % 16 == 0 and t.stride(0) * esz % 16 == 0 and t.stride(1) * esz % 16 == 0,
+            "prefill: k/v must be 16-byte aligned")
+    req(q.stride(3) == 1 and q.data_ptr() % 8 == 0 and all(s % 2 == 0 for s in q.stride()[:3]),
+        "prefill: q's last axis must be dense and aligned")
+    if quant:
+        for t in kv_scales:
+            req(t.shape == (B, Hkv, S) and t.dtype == torch.float32 and t.stride(2) == 1
+                and t.device == q.device, "prefill: scales must be f32 [B, Hkv, S], dense along S")
+    P = _build.ptr
+    # (pointer, batch stride, head stride) of each scale plane; null without
+    scales = [a for t in kv_scales for a in (P(t), t.stride(0), t.stride(1))] if quant \
+        else [None, 0, 0] * 2
+    qs32 = q_start.to(torch.int32).contiguous()
+    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    if B == 0 or T == 0:
+        return out
+    lib = _build.load("prefill", "tkq_prefill", _ARGTYPES)
+    rc = lib.tkq_prefill(int(quant), D,
+                         P(q), q.stride(0), q.stride(1), q.stride(2),
+                         P(k), k.stride(0), k.stride(1), P(v), v.stride(0), v.stride(1),
+                         *scales, P(qs32), P(out),
+                         B, T, H, Hkv, S, float(scale), int(sliding_window),
+                         _build.stream_ptr(q.device))
+    _build.check(lib, rc, "prefill")
+    counter.launches += 1
+    return out

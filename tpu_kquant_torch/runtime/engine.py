@@ -1,6 +1,6 @@
 """Inference engine around the llama forward: the port of
 ``tpu_kquant.runtime.engine.InferenceEngine`` for greedy decoding on a bf16
-KV cache.
+or int8 (``kv_quantized``) KV cache.
 
 prefill(tokens [B, T]): bucketed T, right-padded. Padded slots write stale
 K/V beyond a row's length, which is safe because a later decode step
@@ -9,8 +9,8 @@ Only here may attention be bounded to the first T slots (kv_attend_len):
 every query position is below T.
 decode_step(tokens [B]): one token per row; never bounds attention.
 The greedy loop is a plain Python loop of decode steps; capturing it in a
-CUDA graph is later work. Sampling, int8 KV, rings, sessions and context
-shift raise NotImplementedError in this slice.
+CUDA graph is later work. Sampling, rings, sessions and context shift
+raise NotImplementedError in this slice.
 """
 
 from __future__ import annotations
@@ -51,9 +51,8 @@ class InferenceEngine:
         kv_layout: str = "unified",
         device: str | torch.device = "cuda",
     ):
-        """params must already live on ``device`` (load_model(device=...))."""
-        if kv_quantized:
-            raise NotImplementedError("int8 KV is not ported yet")
+        """params must already live on ``device`` (load_model(device=...)).
+        kv_quantized: int8 KV cache with per-token scales."""
         if kv_layout != "unified":
             raise NotImplementedError(f"kv_layout {kv_layout!r} is not ported yet")
         self.device = resolve_device(device)
@@ -64,10 +63,12 @@ class InferenceEngine:
         self.params = params
         self.max_batch = max_batch
         self.max_seq = max_seq or cfg.max_seq_len
+        self.kv_quantized = kv_quantized
 
     def new_cache(self, batch: int | None = None) -> KVCache:
         return KVCache.create(self.cfg.n_layers, batch or self.max_batch, self.max_seq,
-                              self.cfg.n_kv_heads, self.cfg.head_dim, device=self.device)
+                              self.cfg.n_kv_heads, self.cfg.head_dim, device=self.device,
+                              quantized=self.kv_quantized)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.array(a), dtype=torch.long, device=self.device)

@@ -1,6 +1,10 @@
-"""bf16 KV cache, heads-major [L, B, Hkv, S, D]: the port of
-``tpu_kquant.runtime.kv_cache.KVCache`` for this slice (int8 KV, rings and
+"""KV cache, heads-major [L, B, Hkv, S, D], bf16 or int8 with per-token
+scales: the port of ``tpu_kquant.runtime.kv_cache.KVCache`` (rings and
 context shift belong to later slices).
+
+int8 mode stores each (token, kv head) row as int8 codes with one f32 scale,
+amax / 127, chosen at append time (``_quant_i8``); attention folds the K
+scales into the logits and the V scales into the probabilities.
 
 Unlike the reference's immutable arrays, the port writes appends IN PLACE
 into the cache tensors; ``append`` and ``append_all`` return the same
@@ -12,22 +16,56 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+
+def _quant_i8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 KV quantization over the last axis: amax / 127 f32 scales (a
+    zero scale divides by 1), codes rounded half to even."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return torch.round(xf / safe[..., None]).to(torch.int8), scale
 
 
 @dataclasses.dataclass
 class KVCache:
-    k: torch.Tensor  # [L, B, Hkv, S, D] bf16
+    k: torch.Tensor  # [L, B, Hkv, S, D] bf16, or int8 when quantized
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None  # [L, B, Hkv, S] f32 (int8 mode only)
+    v_scale: torch.Tensor | None = None
 
     @staticmethod
     def create(n_layers: int, batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
                device: str | torch.device = "cuda", quantized: bool = False) -> "KVCache":
-        if quantized:
-            raise NotImplementedError("int8 KV is not ported yet")
         shape = (n_layers, batch, n_kv_heads, max_seq, head_dim)
+        if quantized:
+            return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                           torch.zeros(shape, dtype=torch.int8, device=device),
+                           torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                           torch.zeros(shape[:-1], dtype=torch.float32, device=device))
         return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
                        torch.zeros(shape, dtype=torch.bfloat16, device=device))
+
+    @staticmethod
+    def from_numpy(k: np.ndarray, v: np.ndarray, k_scale: np.ndarray | None = None,
+                   v_scale: np.ndarray | None = None,
+                   device: str | torch.device = "cpu") -> "KVCache":
+        """A cache holding the same bytes as the given arrays (e.g. a JAX
+        ``KVCache``'s fields): int8 codes with f32 scales, or bf16 rows
+        (any float array is rounded to bf16)."""
+        def t(a, dtype):
+            return None if a is None else torch.from_numpy(np.array(a, dtype)).to(device)
+
+        if k_scale is not None:
+            return KVCache(t(k, np.int8), t(v, np.int8), t(k_scale, np.float32),
+                           t(v_scale, np.float32))
+        return KVCache(t(k, np.float32).to(torch.bfloat16), t(v, np.float32).to(torch.bfloat16))
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
 
     @property
     def max_seq(self) -> int:
@@ -38,6 +76,12 @@ class KVCache:
         """Write layer ``layer_idx``'s new rows: k_new/v_new [B, T, Hkv, D]
         go to slots ``positions`` [B, T]. In place; returns self."""
         b = torch.arange(k_new.shape[0], device=positions.device)[:, None]
+        if self.quantized:
+            kq, ks = _quant_i8(k_new)
+            vq, vs = _quant_i8(v_new)
+            self.k_scale[layer_idx, b, :, positions] = ks
+            self.v_scale[layer_idx, b, :, positions] = vs
+            k_new, v_new = kq, vq
         self.k[layer_idx, b, :, positions] = k_new.to(self.k.dtype)
         self.v[layer_idx, b, :, positions] = v_new.to(self.v.dtype)
         return self
@@ -48,11 +92,20 @@ class KVCache:
         (the deferred-append decode step). In place; returns self."""
         b = torch.arange(k_new.shape[1], device=positions.device)[:, None]
         # advanced indices (b, positions) split by a slice index [B, T, L, ...]
+        if self.quantized:
+            kq, ks = _quant_i8(k_new)  # [L, B, T, Hkv, D] / [L, B, T, Hkv]
+            vq, vs = _quant_i8(v_new)
+            self.k_scale[:, b, :, positions] = ks.permute(1, 2, 0, 3)
+            self.v_scale[:, b, :, positions] = vs.permute(1, 2, 0, 3)
+            k_new, v_new = kq, vq
         self.k[:, b, :, positions] = k_new.permute(1, 2, 0, 3, 4).to(self.k.dtype)
         self.v[:, b, :, positions] = v_new.permute(1, 2, 0, 3, 4).to(self.v.dtype)
         return self
 
     def layer_view(self, layer_idx: int):
-        """(k [B, Hkv, S, D], v, None) for attention; the None stands for the
-        reference's int8 scales."""
+        """(k [B, Hkv, S, D], v, scales) for attention: scales is
+        (k_scale, v_scale) [B, Hkv, S] each in int8 mode, else None."""
+        if self.quantized:
+            return (self.k[layer_idx], self.v[layer_idx],
+                    (self.k_scale[layer_idx], self.v_scale[layer_idx]))
         return self.k[layer_idx], self.v[layer_idx], None
