@@ -7,13 +7,16 @@ Phases, each fatal on failure:
  1. the card's name and power limit (nvidia-smi), torch / CUDA / nvcc versions;
  2. build the CUDA kernels from tpu_kquant_torch/csrc (nvcc, in parallel);
  3. hold each kernel against its plain PyTorch version on the card at the
-    main path's TinyLlama-1.1B shapes (tolerance 2e-2 of max|ref|; for the
-    prefill kernel 2e-2 of each output row's own max|ref|), and time
-    the kernel and the plain version; as yardsticks the port never calls,
-    qmm's ``library_ms`` is torch.matmul on the pre-dequantized bf16 weight,
-    and the fused kernels, which no single PyTorch call computes
-    (``library_ms`` null), get ``matmul_ms``: their matmuls on pre-dequantized
-    bf16 weights;
+    main path's TinyLlama-1.1B shapes and at Qwen2.5-1.5B's (qmm's tied lm
+    head and o_proj at R = 1 and its R = 512 tiles on f32 activations; ffn
+    also at Qwen2.5-7B's; attn_in with biases at head_dim 128; the prefill
+    kernel with f32 q at 12 / 2 heads of 128) (tolerance 2e-2 of max|ref|;
+    for the prefill kernel 2e-2 of each output row's own max|ref|), and
+    time the kernel and the plain version; as yardsticks the port never
+    calls, qmm's ``library_ms`` is torch.matmul on the pre-dequantized
+    weight in the activations' dtype, and the fused kernels, which no
+    single PyTorch call computes (``library_ms`` null), get ``matmul_ms``:
+    their matmuls on pre-dequantized bf16 weights;
  4. end to end at TinyLlama-1.1B width (random Q4_K_M fixture from a seed):
     load onto the card, check a 2-layer cut against the plain versions on
     the CPU, answer three greedy requests of different prompt lengths with
@@ -25,9 +28,21 @@ Phases, each fatal on failure:
     CPU, three greedy requests of 1000, 1500 and 2048 tokens with the counts
     set to 0 just before and read just after, then pp2048 and tg128 at depth
     2048. The prefill kernel's ``library_ms`` is scaled_dot_product_attention
-    on bf16 (the int8 case on the dequantized cache), timed here only.
-The second-to-last line is the kernels' JSON; the last line is
-{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero.
+    on bf16 (the int8 case on the dequantized cache), timed here only;
+ 6. Qwen2.5-1.5B at full width and depth (28 layers; q/k/v biases, tied lm
+    head; attention width 1536 fails oproj_ffn's gate, so decode runs
+    attn_in with biases, an o_proj qmm and the ffn kernel): write the
+    fixture, load it, check a 2-layer cut against the CPU at prompts of 8,
+    40 and 1100 tokens, answer greedy requests of 5, 40, 200 and 3000 tokens
+    on a 4288-slot bf16 cache (the last is bucket 4096: the flash prefill
+    with f32 q) with the counts set to 0 just before and read just after,
+    then time pp512 and tg128.
+Launch counts in the kernels' JSON line are the sums over the request runs
+of phases 4, 5 and 6, each counted from 0 and checked against the dispatch
+gates exactly; the gates in turn are held to each model's decode and long
+prefill dispatch, stated from its config (pin_dispatch). The second-to-last
+line is the kernels' JSON; the last line is {"ok": true, "device": {...}}.
+Without a CUDA card it exits non-zero.
 """
 
 from __future__ import annotations
@@ -166,7 +181,7 @@ def check_kernels(dev) -> dict:
     import torch
 
     from tpu_kquant_torch.ops.attn_in import attn_in_plain, fused_attn_in
-    from tpu_kquant_torch.ops.ffn import fused_oproj_ffn, oproj_ffn_plain
+    from tpu_kquant_torch.ops.ffn import ffn_plain, fused_ffn, fused_oproj_ffn, oproj_ffn_plain
     from tpu_kquant_torch.ops.qmm import qmm, qmm_plain
     from tpu_kquant_torch.quant.codecs import dequant_kmajor
 
@@ -178,21 +193,31 @@ def check_kernels(dev) -> dict:
     def act(R, K, scale=1.0):
         return (torch.randn(R, K, device=dev) * scale).to(torch.bfloat16)
 
-    # qmm: decode lm head and wqk at R = 1, prefill gate/up and down at R = 512
-    for label, kind, N, K, R, odt in (
-            ("lm head q6w-sp R=1", "q6w", V, dim, 1, torch.float32),
-            ("wqk q4-sm R=1", "q4", (H + Hkv) * hd, dim, 1, torch.bfloat16),
-            ("w_gateup q4-sm R=512", "q4", 2 * F, dim, 512, torch.bfloat16),
-            ("w_down q6w-sp R=512", "q6w", dim, F, 512, torch.bfloat16)):
+    # qmm: TinyLlama's decode lm head and wqk at R = 1, prefill gate/up and
+    # down at R = 512; Qwen2.5-1.5B's tied lm head (q4-sm) and o_proj at R =
+    # 1, and its prefill gate/up and down at R = 512 on f32 activations (bf16
+    # + f32 bias past 32 rows), which the tile stages as bf16. The plain
+    # version keeps f32 activations f32 (ops/qmm.py says why).
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, kind, N, K, R, xdt, odt in (
+            ("lm head q6w-sp R=1", "q6w", V, dim, 1, bf, f32),
+            ("wqk q4-sm R=1", "q4", (H + Hkv) * hd, dim, 1, bf, bf),
+            ("w_gateup q4-sm R=512", "q4", 2 * F, dim, 512, bf, bf),
+            ("w_down q6w-sp R=512", "q6w", dim, F, 512, bf, bf),
+            ("qwen2.5-1.5b: tied lm head q4-sm R=1", "q4", 151936, 1536, 1, bf, f32),
+            ("qwen2.5-1.5b: wo q6w-sp R=1", "q6w", 1536, 1536, 1, bf, bf),
+            ("qwen2.5-1.5b: w_gateup q4-sm R=512, f32 x", "q4", 2 * 8960, 1536, 512, f32, f32),
+            ("qwen2.5-1.5b: w_down q6w-sp R=512, f32 x", "q6w", 1536, 8960, 512, f32, f32)):
         w0 = _rand_weights(rng, kind, N, K, dev)
         ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
-        x = act(R, K)
+        x = act(R, K) if xdt == bf else torch.randn(R, K, device=dev)  # f32: not bf16 values
         got = qmm(x, w0, odt)
         torch.cuda.synchronize()
         ref = qmm_plain(x, w0, odt)
         ad, rel = _err(got, ref)
-        wd = [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]
-        nb = w0.n_bytes + x.numel() * 2 + R * N * got.element_size()
+        # the library yardstick multiplies in x's dtype (f32 x: f32, no TF32)
+        wd = [dequant_kmajor(w, xdt).contiguous() for w in ws]
+        nb = w0.n_bytes + x.numel() * x.element_size() + R * N * got.element_size()
         b, by = bound_ms(nb, 2.0 * R * K * N)
         out["qmm"].append({
             "case": label, "max_abs_err": ad, "rel_err": rel,
@@ -203,34 +228,41 @@ def check_kernels(dev) -> dict:
             "bound_ms": b, "bound_by": by})
         del wd, ws
 
-    # attn_in at R = 1
-    mk_in = lambda: (_rand_weights(rng, "q4", (H + Hkv) * hd, dim, dev),
-                     _rand_weights(rng, "q6w", Hkv * hd, dim, dev))
-    w0 = mk_in()
-    nbw = sum(w.n_bytes for w in w0)
-    ws = _rotation(w0, mk_in, nbw)
-    x = act(1, dim, 0.5)
-    nw = torch.rand(dim, device=dev) + 0.5
-    cos, sin = torch.rand(1, hd // 2, device=dev), torch.rand(1, hd // 2, device=dev)
-    g0, g1 = fused_attn_in(x, nw, 1e-5, *w0, cos, sin, hd)
-    torch.cuda.synchronize()
-    r0, r1 = attn_in_plain(x, nw, 1e-5, *w0, cos, sin, hd)
-    e0, e1 = _err(g0, r0), _err(g1, r1)
-    wcat = [torch.cat([dequant_kmajor(w, torch.bfloat16) for w in pair], dim=1).contiguous()
-            for pair in ws]
-    n_out = w0[0].shape[0] + w0[1].shape[0]
-    b, by = bound_ms(nbw + dim * 2 + dim * 4 + 2 * (hd // 2) * 4 + n_out * 2, 2.0 * dim * n_out)
-    out["attn_in"].append({
-        "case": "wqk q4-sm + wv q6w-sp R=1", "max_abs_err": max(e0[0], e1[0]),
-        "rel_err": max(e0[1], e1[1]),
-        "ms": graph_ms(lambda i: fused_attn_in(x, nw, 1e-5, *ws[i % len(ws)], cos, sin, hd), 64),
-        "eager_ms": time_ms(lambda i: fused_attn_in(x, nw, 1e-5, *ws[i % len(ws)], cos, sin, hd),
-                            64),
-        "plain_ms": graph_ms(lambda i: attn_in_plain(x, nw, 1e-5, *w0, cos, sin, hd), 4, 3),
-        "library_ms": None,
-        "matmul_ms": graph_ms(lambda i: torch.matmul(x, wcat[i % len(wcat)]), 64),
-        "bound_ms": b, "bound_by": by})
-    del ws, wcat
+    # attn_in at R = 1: TinyLlama (32 + 4 heads of 64, no biases), then
+    # Qwen2.5-1.5B (12 + 2 heads of 128 over D 1536, f32 biases)
+    for label, D_, Hq, Hk, hd_, biased in (
+            ("wqk q4-sm + wv q6w-sp R=1", dim, H, Hkv, hd, False),
+            ("qwen2.5-1.5b: + biases, hd 128, D 1536 R=1", 1536, 12, 2, 128, True)):
+        mk_in = lambda: (_rand_weights(rng, "q4", (Hq + Hk) * hd_, D_, dev),  # noqa: E731
+                         _rand_weights(rng, "q6w", Hk * hd_, D_, dev))
+        w0 = mk_in()
+        nbw = sum(w.n_bytes for w in w0)
+        ws = _rotation(w0, mk_in, nbw)
+        x = act(1, D_, 0.5)
+        nw = torch.rand(D_, device=dev) + 0.5
+        cos, sin = torch.rand(1, hd_ // 2, device=dev), torch.rand(1, hd_ // 2, device=dev)
+        n_out = w0[0].shape[0] + w0[1].shape[0]
+        bias = (torch.randn(w0[0].shape[0], device=dev) * 0.5,
+                torch.randn(w0[1].shape[0], device=dev) * 0.5) if biased else None
+        g0, g1 = fused_attn_in(x, nw, 1e-5, *w0, cos, sin, hd_, bias)
+        torch.cuda.synchronize()
+        r0, r1 = attn_in_plain(x, nw, 1e-5, *w0, cos, sin, hd_, bias)
+        e0, e1 = _err(g0, r0), _err(g1, r1)
+        wcat = [torch.cat([dequant_kmajor(w, torch.bfloat16) for w in pair], dim=1).contiguous()
+                for pair in ws]
+        b, by = bound_ms(nbw + D_ * 2 + D_ * 4 + 2 * (hd_ // 2) * 4 + n_out * 2
+                         + (n_out * 4 if biased else 0), 2.0 * D_ * n_out)
+        run = lambda i: fused_attn_in(x, nw, 1e-5, *ws[i % len(ws)], cos, sin, hd_,  # noqa: E731
+                                      bias)
+        out["attn_in"].append({
+            "case": label, "max_abs_err": max(e0[0], e1[0]), "rel_err": max(e0[1], e1[1]),
+            "ms": graph_ms(run, 64), "eager_ms": time_ms(run, 64),
+            "plain_ms": graph_ms(lambda i: attn_in_plain(x, nw, 1e-5, *w0, cos, sin, hd_, bias),
+                                 4, 3),
+            "library_ms": None,
+            "matmul_ms": graph_ms(lambda i: torch.matmul(x, wcat[i % len(wcat)]), 64),
+            "bound_ms": b, "bound_by": by})
+        del ws, wcat
 
     # oproj_ffn at R = 1 (wo as the fixture stores it: q6w-sp)
     mk_ffn = lambda: (_rand_weights(rng, "q6w", dim, H * hd, dev),
@@ -265,12 +297,40 @@ def check_kernels(dev) -> dict:
         "bound_ms": b, "bound_by": by})
     del ws, wd
 
+    # ffn (qwen2's decode FFN) at Qwen2.5-1.5B and -7B widths, R = 1 and 8
+    out["ffn"] = []
+    for label, D_, F_ in (("qwen2.5-1.5b", 1536, 8960), ("qwen2.5-7b", 3584, 18944)):
+        mk = lambda: (_rand_weights(rng, "q4", 2 * F_, D_, dev),  # noqa: E731
+                      _rand_weights(rng, "q6w", D_, F_, dev))
+        w0 = mk()
+        nbw = sum(w.n_bytes for w in w0)
+        ws = _rotation(w0, mk, nbw)
+        wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in pair] for pair in ws]
+        nw = torch.rand(D_, device=dev) + 0.5
+        for R in (1, 8):
+            x = act(R, D_, 0.5)
+            got = fused_ffn(x, nw, 1e-6, *w0)
+            torch.cuda.synchronize()
+            ad, rel = _err(got, ffn_plain(x, nw, 1e-6, *w0))
+            a_f = act(R, F_)
+            b, by = bound_ms(nbw + 2 * R * D_ * 2 + D_ * 4, 2.0 * R * 3 * D_ * F_)
+            run = lambda i: fused_ffn(x, nw, 1e-6, *ws[i % len(ws)])  # noqa: E731
+            out["ffn"].append({
+                "case": f"{label} w_gateup q4-sm + w_down q6w-sp R={R}", "max_abs_err": ad,
+                "rel_err": rel, "ms": graph_ms(run, 64), "eager_ms": time_ms(run, 64),
+                "plain_ms": graph_ms(lambda i: ffn_plain(x, nw, 1e-6, *w0), 4, 3),
+                "library_ms": None,
+                "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in
+                                                 zip((x, a_f), wd[i % len(wd)])], 64),
+                "bound_ms": b, "bound_by": by})
+        del ws, wd
+
     out["prefill"] = check_prefill(dev)
 
     for name, cases in out.items():
         for c in cases:
             lib = c["library_ms"] if c["library_ms"] is not None else c["matmul_ms"]
-            log(f"  {name:9s} {c['case']:48s} rel err {c['rel_err']:.2e}  kernel "
+            log(f"  {name:9s} {c['case']:52s} rel err {c['rel_err']:.2e}  kernel "
                 f"{c['ms'] * 1e3:8.1f} us (eager {c['eager_ms'] * 1e3:7.1f})  plain "
                 f"{c['plain_ms'] * 1e3:8.1f} us  "
                 f"{'library' if c['library_ms'] is not None else 'matmuls'} "
@@ -284,25 +344,32 @@ def check_kernels(dev) -> dict:
     return out
 
 
-# flash prefill at TinyLlama's heads (32 / 4 of 64):
-# (label, B, T, S, q_starts, int8 KV, window)
+# flash prefill at TinyLlama's heads (32 / 4 of 64, bf16 q) and at
+# Qwen2.5-1.5B's (12 / 2 of 128, f32 q: bf16 + f32 bias):
+# (label, B, T, S, q_starts, int8 KV, window, (H, Hkv, D), q dtype)
+TINY_HEADS, QWEN_HEADS = (32, 4, 64), (12, 2, 128)
 PREFILL_CASES = (
-    ("T=S=2048 bf16 (pp2048 layer)", 1, 2048, 2048, [0], False, 0),
-    ("T=S=2048 int8 (pp2048 layer)", 1, 2048, 2048, [0], True, 0),
-    ("T=256 S=2240 q_start 1024 bf16", 1, 256, 2240, [1024], False, 0),
-    ("T=512 S=2048 q_start 1024 window 300 int8", 1, 512, 2048, [1024], True, 300),
-    ("B=3 T=40 S=320 q_start 0/100/200 bf16", 3, 40, 320, [0, 100, 200], False, 0),
+    ("T=S=2048 bf16 (pp2048 layer)", 1, 2048, 2048, [0], False, 0, TINY_HEADS, "bfloat16"),
+    ("T=S=2048 int8 (pp2048 layer)", 1, 2048, 2048, [0], True, 0, TINY_HEADS, "bfloat16"),
+    ("T=256 S=2240 q_start 1024 bf16", 1, 256, 2240, [1024], False, 0, TINY_HEADS, "bfloat16"),
+    ("T=512 S=2048 q_start 1024 window 300 int8", 1, 512, 2048, [1024], True, 300, TINY_HEADS,
+     "bfloat16"),
+    ("B=3 T=40 S=320 q_start 0/100/200 bf16", 3, 40, 320, [0, 100, 200], False, 0, TINY_HEADS,
+     "bfloat16"),
+    ("qwen2.5-1.5b: f32 q, hd 128, GQA 6, T=S=2048 bf16", 1, 2048, 2048, [0], False, 0,
+     QWEN_HEADS, "float32"),
 )
 
 
-def prefill_work(B, T, S, H, Hkv, D, starts, window, kv_bytes) -> tuple[float, float]:
+def prefill_work(B, T, S, H, Hkv, D, starts, window, kv_bytes,
+                 q_bytes: int = 2) -> tuple[float, float]:
     """(bytes, flops) the flash prefill needs for these inputs: q and the
-    output once, the cache slots some query attends once (`kv_bytes` per
-    slot and head, scales included), and 4 D flops per head for every
-    unmasked (query, slot) pair."""
+    output once (`q_bytes` per element each), the cache slots some query
+    attends once (`kv_bytes` per slot and head, scales included), and 4 D
+    flops per head for every unmasked (query, slot) pair."""
     import numpy as np
 
-    pairs, n_bytes = 0, 2 * (2 * B * T * H * D)
+    pairs, n_bytes = 0, 2 * q_bytes * B * T * H * D
     for qs in starts:
         pos = qs + np.arange(T)
         lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros_like(pos)
@@ -321,11 +388,10 @@ def check_prefill(dev) -> list:
 
     from tpu_kquant_torch.ops.prefill import attention_prefill, attention_prefill_plain
 
-    H, Hkv, D = 32, 4, 64
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
-    for label, B, T, S, starts, int8, window in PREFILL_CASES:
-        q = torch.randn(B, T, H, D, device=dev, generator=g).to(torch.bfloat16)
+    for label, B, T, S, starts, int8, window, (H, Hkv, D), q_dtype in PREFILL_CASES:
+        q = torch.randn(B, T, H, D, device=dev, generator=g).to(getattr(torch, q_dtype))
         shape = (2, B, Hkv, S + 64, D)
         if int8:
             kc, vc = (torch.randint(-127, 128, shape, device=dev, generator=g,
@@ -351,7 +417,7 @@ def check_prefill(dev) -> list:
         if int8:
             kb = (k.float() * scales[0][..., None]).to(torch.bfloat16)
             vb = (v.float() * scales[1][..., None]).to(torch.bfloat16)
-        qt = q.transpose(1, 2)
+        qt = q.transpose(1, 2).to(torch.bfloat16)
         if T == S and window == 0 and not any(starts):
             sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kb, vb, is_causal=True, enable_gqa=True)
@@ -366,7 +432,7 @@ def check_prefill(dev) -> list:
                 qt, kb, vb, attn_mask=m, enable_gqa=True)
         lib_err = row_rel_err(sdpa(0).transpose(1, 2), ref)
         nb, fl = prefill_work(B, T, S, H, Hkv, D, starts, window,
-                              D * k.element_size() + (4 if int8 else 0))
+                              D * k.element_size() + (4 if int8 else 0), q.element_size())
         b, by = bound_ms(nb, fl)
         run = lambda i: attention_prefill(*args, sliding_window=window)  # noqa: E731
         cases.append({
@@ -387,22 +453,48 @@ def check_prefill(dev) -> list:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(cfg, rows: int) -> dict:
-    """Launches of one forward of batch 1 over `rows` tokens at the main
-    path's dispatch: fused decode kernels at rows <= 32, qmm projections
-    above; the flash prefill kernel in every layer where the plain
-    attention's logits (S = rows: prefill attends its first T slots) would
-    pass the budget."""
+def expected_launches(cfg, params, rows: int) -> dict:
+    """Launches of one forward of batch 1 over `rows` tokens, derived from
+    the dispatch gates of models/llama.py for this model (every layer has
+    layer 0's shapes): attn_in, oproj_ffn or ffn where their gates pass at
+    `rows`, a qmm for every projection they leave, and the lm head; the
+    flash prefill kernel in every layer where the plain attention's logits
+    (S = rows: prefill attends its first T slots) would pass the budget."""
     from tpu_kquant_torch.ops import attention
+    from tpu_kquant_torch.ops.attn_in import attn_in_supported
+    from tpu_kquant_torch.ops.ffn import ffn_supported, oproj_ffn_supported
     from tpu_kquant_torch.ops.prefill import prefill_supported
 
-    L = cfg.n_layers
-    flash = rows > 1 and prefill_supported(rows, rows, cfg.head_dim) and \
+    L, lay, D = cfg.n_layers, params["layers"][0], cfg.head_dim
+    flash = rows > 1 and prefill_supported(rows, rows, D) and \
         attention.logits_mb(1, rows, cfg.n_heads, rows) > attention.ATTN_PLAIN_MAX_MB
-    out = {"prefill": L if flash else 0}
-    if rows <= 32:
-        return {**out, "attn_in": L, "oproj_ffn": L, "qmm": 1}
-    return {**out, "attn_in": 0, "oproj_ffn": 0, "qmm": 5 * L + 1}
+    biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
+    a_in = cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in lay and \
+        attn_in_supported(lay["wqk"], lay["wv"], rows, cfg.dim, D, biases)
+    gu = "w_gateup" in lay
+    o_ffn = gu and oproj_ffn_supported(lay["wo"], lay["w_gateup"], lay["w_down"], rows)
+    ffn = gu and not o_ffn and ffn_supported(lay["w_gateup"], lay["w_down"], rows)
+    qmm = (0 if a_in else 2 if "wqk" in lay else 3) + (0 if o_ffn else 1) \
+        + (0 if o_ffn or ffn else 2 if gu else 3)
+    return {"prefill": L * flash, "attn_in": L * a_in, "oproj_ffn": L * o_ffn, "ffn": L * ffn,
+            "qmm": L * qmm + 1}
+
+
+def pin_dispatch(cfg, params, what: str, decode: dict, long_rows: int) -> None:
+    """Hold the gates themselves to the dispatch this model is meant to run,
+    stated from its config and not by the gates: `decode` is one decode
+    step's launches, and a prefill of `long_rows` rows runs the flash
+    prefill kernel in every layer. Without this, a gate that began to refuse
+    would lower the expected counts with the launches, and the exact checks
+    would still pass."""
+    got = expected_launches(cfg, params, 1)
+    n = expected_launches(cfg, params, long_rows)["prefill"]
+    log(f"  dispatch of {what}: decode step {got}, prefill kernel in {n} layers at "
+        f"{long_rows} rows")
+    if got != decode or n != cfg.n_layers:
+        raise SystemExit(f"FAIL: {what}: the gates dispatch a decode step as {got} and a "
+                         f"{long_rows}-row prefill to the prefill kernel in {n} layers; "
+                         f"expected {decode} and {cfg.n_layers}")
 
 
 def _add(a: dict, b: dict, n: int = 1) -> dict:
@@ -472,16 +564,27 @@ def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
                              f"prompt {n})")
 
 
-def end_to_end(dev, profile: Path | None = None) -> dict:
-    import numpy as np
+def weight_work(params) -> tuple[int, int]:
+    """(bytes, multiply-adds per row) of every matmul weight and bias of the
+    loaded model, the lm head included."""
+    from tpu_kquant_torch.quant.qtensor import QTensor
+
+    leaves = [v for lay in params["layers"] for v in lay.values()] + [params["output"]]
+    mats = [v for v in leaves if isinstance(v, QTensor) and v.kind != "dense"]
+    biases = [v for v in leaves if not isinstance(v, QTensor)]
+    return (sum(qt.n_bytes for qt in mats) + sum(b.numel() * b.element_size() for b in biases),
+            sum(qt.shape[0] * qt.shape[1] for qt in mats))
+
+
+def load_fixture(cfg0, name: str, dev):
+    """Write the seed-0 fixture of `cfg0` under .cache/ (once) and load it
+    onto the card; logs both times."""
     import torch
 
-    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config, write_fixture_gguf
-    from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
+    from tpu_kquant_torch.models.fixtures import write_fixture_gguf
     from tpu_kquant_torch.runtime.loader import load_model
 
-    cfg0 = tinyllama_1b_config()
-    path = ROOT / ".cache" / "tkq_torch_fixture" / "tinyllama-1.1b-q4_k_m-seed0.gguf"
+    path = ROOT / ".cache" / "tkq_torch_fixture" / name
     t0 = time.perf_counter()
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -489,47 +592,59 @@ def end_to_end(dev, profile: Path | None = None) -> dict:
         write_fixture_gguf(tmp, cfg0, seed=0)
         os.replace(tmp, path)
     t1 = time.perf_counter()
-    cfg, params, reader = load_model(str(path), scale_dtype="bf16", device=dev)
+    cfg, params, _ = load_model(str(path), scale_dtype="bf16", device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     log(f"  fixture {path.name}: write {t1 - t0:.1f} s, load + repack {t2 - t1:.1f} s; "
-        f"depth {cfg.n_layers} of 22 layers, dim {cfg.dim}, vocab {cfg.vocab_size}")
+        f"depth {cfg.n_layers} of {cfg0.n_layers} layers, dim {cfg.dim}, vocab "
+        f"{cfg.vocab_size}, biases {cfg.attn_bias}, tied lm head {cfg0.tie_embeddings}")
+    return cfg, params, {"write_s": t1 - t0, "load_s": t2 - t1}
 
-    reference_check(cfg, params, dev)
+
+def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: int = 704,
+               profile: Path | None = None, tag: str = "") -> dict:
+    """The main path of one loaded model: greedy requests of
+    `request_lengths` tokens (16 new tokens each) on a `request_max_seq`
+    bf16 cache, counted from 0 and checked against the dispatch gates, then
+    pp512 and tg128 on a 704-slot cache (512 + 128 + 64)."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
 
     # bounds of the two timed workloads, from the loaded weights: decode
     # reads every matmul weight once per token (KV and activations left
     # out); pp512 does 2 * 512 * N * K matmul flops per weight
-    mats = [qt for lay in params["layers"] for qt in lay.values() if qt.kind != "dense"]
-    mats.append(params["output"])
-    w_bytes = sum(qt.n_bytes for qt in mats)
-    macs = sum(qt.shape[0] * qt.shape[1] for qt in mats)
+    w_bytes, macs = weight_work(params)
     tg_bound = bound_ms(w_bytes, 2.0 * macs)
     pp_bound = bound_ms(w_bytes, 2.0 * 512 * macs)
     log(f"  bounds: decode {tg_bound[0]:.4f} ms/token ({tg_bound[1]}: {w_bytes / 1e6:.1f} MB of "
         f"weights), pp512 {pp_bound[0]:.4f} ms ({pp_bound[1]}: {2 * 512 * macs / 1e12:.3f} "
         f"TFLOP of matmuls)")
 
-    # the main path: three requests of different prompt lengths, greedy
+    # the main path: requests of different prompt lengths, greedy
     rng = np.random.default_rng(2)
-    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev)
-    prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in (5, 40, 200)]
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=request_max_seq, device=dev)
+    prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in request_lengths]
+    torch.cuda.synchronize()
     reset_counts()
     answers = []
     want: dict = {}
     for pr in prompts:
         ans = eng.generate([pr], max_new_tokens=16)[0]
         answers.append(ans)
-        want = _add(want, expected_launches(cfg, min(_bucket(len(pr)), eng.max_seq)))
-        want = _add(want, expected_launches(cfg, 1), 15)
+        want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)), eng.max_seq)))
+        want = _add(want, expected_launches(cfg, params, 1), 15)
     torch.cuda.synchronize()
-    main_counts = check_counts("the three requests", want)
+    main_counts = check_counts(f"the {len(prompts)} requests{tag}", want)
     for pr, ans in zip(prompts, answers):
         log(f"  request of {len(pr)} tokens -> {ans}")
         if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
             raise SystemExit("FAIL: a request did not get 16 valid tokens")
+    del eng
 
     # pp512: bucketed prefill of a 512-token prompt (warmed once; median of 3)
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev)
     prompt = rng.integers(10, cfg.vocab_size, 512).tolist()
     eng.prefill([prompt], eng.new_cache(1))
     pp = []
@@ -541,7 +656,7 @@ def end_to_end(dev, profile: Path | None = None) -> dict:
         logits, cache, lens = eng.prefill([prompt], cache)
         torch.cuda.synchronize()
         pp.append(time.perf_counter() - t0)
-        check_counts("pp512", expected_launches(cfg, 512))
+        check_counts(f"pp512{tag}", expected_launches(cfg, params, 512))
     pp_s = sorted(pp)[1]
     if not (logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()):
         raise SystemExit("FAIL: pp512 logits are not finite [1, vocab]")
@@ -560,20 +675,21 @@ def end_to_end(dev, profile: Path | None = None) -> dict:
         toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
         torch.cuda.synchronize()
         tg.append(time.perf_counter() - t0)
-        check_counts("tg128", {k: 128 * v for k, v in expected_launches(cfg, 1).items()})
+        check_counts(f"tg128{tag}",
+                     {k: 128 * v for k, v in expected_launches(cfg, params, 1).items()})
     tg_s = sorted(tg)[1]
     step_logits, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
     if not torch.isfinite(step_logits).all():
         raise SystemExit("FAIL: decode logits are not finite")
     if profile is not None:
-        profile_steps(eng, cfg, dev, profile)
+        profile_steps(eng, cfg, dev, profile, tag=f"_{tag.strip()}" if tag else "")
     res = {"depth": cfg.n_layers, "pp512_tok_s": 512 / pp_s, "pp512_ms": pp_s * 1e3,
            "pp512_ms_all": [t * 1e3 for t in pp],
            "tg128_tok_s": 128 / tg_s, "tg128_ms_per_tok": tg_s / 128 * 1e3,
            "tg128_tok_s_all": [128 / t for t in tg],
            "main_path_launches": main_counts, "tg_bound_ms_per_tok": tg_bound[0],
-           "pp512_bound_ms": pp_bound[0], "weight_bytes": w_bytes, "model": (cfg, params)}
-    log(f"  [{gpu_line()}] depth {cfg.n_layers}: pp512 {res['pp512_tok_s']:.1f} tok/s "
+           "pp512_bound_ms": pp_bound[0], "weight_bytes": w_bytes}
+    log(f"  [{gpu_line()}]{tag} depth {cfg.n_layers}: pp512 {res['pp512_tok_s']:.1f} tok/s "
         f"({res['pp512_ms']:.2f} ms), tg128 {res['tg128_tok_s']:.1f} tok/s "
         f"({res['tg128_ms_per_tok']:.3f} ms/token); medians of 3: pp512 runs "
         f"{', '.join(f'{512 / t:.1f}' for t in pp)} tok/s, tg128 runs "
@@ -635,10 +751,7 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
 
     # pp2048 bound: the matmuls' flops (2 * 2048 * N * K per weight) plus the
     # flash prefill's causal flops in every layer, against the weights' bytes
-    mats = [qt for lay in params["layers"] for qt in lay.values() if qt.kind != "dense"]
-    mats.append(params["output"])
-    w_bytes = sum(qt.n_bytes for qt in mats)
-    macs = sum(qt.shape[0] * qt.shape[1] for qt in mats)
+    w_bytes, macs = weight_work(params)
     H, Hkv, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
     _, attn_fl = prefill_work(1, 2048, 2048, H, Hkv, D, [0], 0, 2 * D)
     pp_bound = bound_ms(w_bytes, 2.0 * 2048 * macs + L * attn_fl)
@@ -658,8 +771,9 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
         answers = []
         for pr in prompts:
             answers.append(eng.generate([pr], max_new_tokens=16)[0])
-            want = _add(want, expected_launches(cfg, min(_bucket(len(pr)), eng.max_seq)))
-            want = _add(want, expected_launches(cfg, 1), 15)
+            want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)),
+                                                                 eng.max_seq)))
+            want = _add(want, expected_launches(cfg, params, 1), 15)
         torch.cuda.synchronize()
         res["launches"][kv] = check_counts(f"the three long requests ({kv} KV)", want)
         for pr, ans in zip(prompts, answers):
@@ -679,7 +793,7 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
             logits, cache, lens = eng.prefill([prompt], cache)
             torch.cuda.synchronize()
             pp.append(time.perf_counter() - t0)
-            check_counts(f"pp2048 ({kv} KV)", expected_launches(cfg, 2048))
+            check_counts(f"pp2048 ({kv} KV)", expected_launches(cfg, params, 2048))
         if not (logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()):
             raise SystemExit("FAIL: pp2048 logits are not finite [1, vocab]")
 
@@ -697,7 +811,7 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
             torch.cuda.synchronize()
             tg.append(time.perf_counter() - t0)
             check_counts(f"tg128@2048 ({kv} KV)",
-                         {k: 128 * v for k, v in expected_launches(cfg, 1).items()})
+                         {k: 128 * v for k, v in expected_launches(cfg, params, 1).items()})
         step, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
         if not torch.isfinite(step).all():
             raise SystemExit(f"FAIL: decode logits at depth 2176 are not finite ({kv} KV)")
@@ -728,10 +842,33 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: Qwen2.5-1.5B (biases, tied lm head, the ffn kernel)
+# ---------------------------------------------------------------------------
+
+QWEN_MAX_SEQ = 4096 + 128 + 64  # the 3000-token request's bucket + tg128 + 64
+
+
+def qwen2(dev, profile: Path | None = None) -> dict:
+    """Phase 6 (module docstring)."""
+    from tpu_kquant_torch.models.fixtures import qwen2_5_1_5b_config
+
+    cfg, params, times = load_fixture(qwen2_5_1_5b_config(), "qwen2.5-1.5b-q4_k_m-seed0.gguf",
+                                      dev)
+    L = cfg.n_layers
+    pin_dispatch(cfg, params, "Qwen2.5-1.5B",
+                 {"prefill": 0, "attn_in": L, "oproj_ffn": 0, "ffn": L, "qmm": L + 1}, 4096)
+    reference_check(cfg, params, dev, lengths=(8, 40, 1100), max_seq=LONG_MAX_SEQ)
+    res = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 3000),
+                     request_max_seq=QWEN_MAX_SEQ, profile=profile, tag=" qwen2.5-1.5b")
+    return {**res, **times}
+
+
 REPLACES = {
     "qmm": ("tpu_kquant_torch/csrc/qmm.cu", "tpu_kquant/ops/pallas_qmm.py:287"),
     "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
     "oproj_ffn": ("tpu_kquant_torch/csrc/oproj_ffn.cu", "tpu_kquant/ops/pallas_ffn.py:983"),
+    "ffn": ("tpu_kquant_torch/csrc/ffn.cu", "tpu_kquant/ops/pallas_ffn.py:331"),
     "prefill": ("tpu_kquant_torch/csrc/prefill.cu", "tpu_kquant/ops/pallas_prefill.py:168"),
 }
 
@@ -739,9 +876,10 @@ REPLACES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, metavar="DIR",
-                    help="also profile one pp512 prefill and 8 decode steps (and, in "
-                         "phase 5, a pp2048 prefill and 8 steps at depth 2048 per KV "
-                         "kind); write the kernel tables into DIR")
+                    help="also profile one pp512 prefill and 8 decode steps (in phase "
+                         "5 a pp2048 prefill and 8 steps at depth 2048 per KV kind; in "
+                         "phase 6 the same as phase 4 at Qwen2.5-1.5B); write the kernel "
+                         "tables into DIR")
     args = ap.parse_args()
 
     import torch
@@ -771,23 +909,38 @@ def main() -> int:
     log(f"== phase 3: kernels vs plain versions on the card [{gpu_line()}]")
     cases = check_kernels(dev)
 
-    log("== phase 4: end to end")
-    e2e = end_to_end(dev, args.profile)
+    log("== phase 4: end to end (TinyLlama-1.1B)")
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
+
+    cfg, params, _ = load_fixture(tinyllama_1b_config(), "tinyllama-1.1b-q4_k_m-seed0.gguf", dev)
+    L = cfg.n_layers
+    pin_dispatch(cfg, params, "TinyLlama-1.1B",
+                 {"prefill": 0, "attn_in": L, "oproj_ffn": L, "ffn": 0, "qmm": 1}, 2048)
+    reference_check(cfg, params, dev)
+    e2e = end_to_end(dev, cfg, params, profile=args.profile)
 
     log("== phase 5: long prompts (bf16 and int8 KV)")
-    long = long_prompts(*e2e.pop("model"), dev, args.profile)
+    long = long_prompts(cfg, params, dev, args.profile)
+    del cfg, params
+    torch.cuda.empty_cache()
 
-    # launches: qmm, attn_in and oproj_ffn from phase 4's requests, prefill
-    # from phase 5's (both KV kinds); each run was counted from 0
-    launches = dict(e2e["main_path_launches"])
-    launches["prefill"] = sum(c["prefill"] for c in long["launches"].values())
+    log("== phase 6: Qwen2.5-1.5B (biases, tied lm head, ffn kernel)")
+    qwen = qwen2(dev, args.profile)
+
+    # launches: the sums over the request runs of phases 4, 5 (both KV
+    # kinds) and 6, each counted from 0 and checked exactly
+    runs = [e2e["main_path_launches"], *long["launches"].values(), qwen["main_path_launches"]]
+    launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
+    log(f"  launches on the main path (phases 4-6): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]
         head = cs[0]
+        if launches[name] == 0:
+            raise SystemExit(f"FAIL: kernel {name} was never launched on the main path")
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches.get(name, 0),
+            "launches": launches[name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "case": head["case"], "cases": cs})

@@ -14,6 +14,8 @@ attention's output shrinks along the prompt, so the whole output's max|ref|
 (set by the first rows) would let a fault in the late tiles pass.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -85,6 +87,29 @@ def test_qmm_kernel_matches_plain(card, kind, N, K, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,K,R,x_dtype,out_dtype", [
+    ("q4", 151936, 1536, 1, "bfloat16", "float32"),  # Qwen2.5-1.5B's tied lm head
+    ("q6w", 1536, 1536, 1, "bfloat16", "bfloat16"),  # its o_proj at decode
+    ("q4", 17920, 1536, 512, "float32", "float32"),  # gate/up past the bias add
+    ("q6w", 1536, 8960, 512, "float32", "float32"),  # down past the bias add
+    ("q6w", 400, 512, 40, "float32", "bfloat16"),  # ragged tile edges
+    ("q4", 2064, 1024, 5, "float32", "float32")])  # the GEMV's f32 staging
+def test_qmm_kernel_qwen_shapes_and_f32_x_match_plain(card, kind, N, K, R, x_dtype, out_dtype):
+    """f32 activations (qwen2's prefill after bf16 + f32 bias) are rounded to
+    bf16 by the kernel and kept f32 by the plain version (ops/qmm.py)."""
+    rng = np.random.default_rng(N + R)
+    qt = (q4 if kind == "q4" else q6w)(N, K, rng, card)
+    x = torch.randn(R, K, device=card).to(getattr(torch, x_dtype))
+    odt = getattr(torch, out_dtype)
+    launches = t_qmm.counter.launches
+    y = t_qmm.qmm(x, qt, odt)
+    torch.cuda.synchronize()
+    assert t_qmm.counter.launches == launches + 1
+    assert y.dtype == odt and y.shape == (R, N) and torch.isfinite(y).all()
+    assert _rel(y, t_qmm.qmm_plain(x, qt, odt)) < TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 5, 16])
 def test_attn_in_kernel_matches_plain(card, R):
     rng = np.random.default_rng(R)
@@ -112,6 +137,76 @@ def test_oproj_ffn_kernel_matches_plain(card, wo_kind, R):
     got = t_ffn.fused_oproj_ffn(x, attn, ws[0], nw, 1e-5, ws[1], ws[2])
     torch.cuda.synchronize()
     assert _rel(got, t_ffn.oproj_ffn_plain(x, attn, ws[0], nw, 1e-5, ws[1], ws[2])) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,F,R", [(1536, 8960, 1), (1536, 8960, 8), (3584, 18944, 3),
+                                   (512, 256, 32)])
+def test_ffn_kernel_matches_plain(card, D, F, R):
+    """Qwen2.5-1.5B and -7B FFN shapes, and the tiny Qwen2's."""
+    rng = np.random.default_rng(D + R)
+    gu, dn = q4(2 * F, D, rng, card), q6w(D, F, rng, card)
+    x = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    launches = t_ffn.ffn_counter.launches
+    got = t_ffn.fused_ffn(x, nw, 1e-6, gu, dn)
+    torch.cuda.synchronize()
+    assert t_ffn.ffn_counter.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (R, D)
+    assert _rel(got, t_ffn.ffn_plain(x, nw, 1e-6, gu, dn)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8])
+def test_attn_in_kernel_with_biases_matches_plain(card, R):
+    """Qwen2.5-1.5B: 12 + 2 heads of 128 over D = 1536, f32 biases."""
+    rng = np.random.default_rng(40 + R)
+    D, hd, H, Hkv = 1536, 128, 12, 2
+    wqk, wv = q4((H + Hkv) * hd, D, rng, card), q6w(Hkv * hd, D, rng, card)
+    x = torch.randn(R, D, device=card).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(R, hd // 2, device=card), torch.rand(R, hd // 2, device=card)
+    biases = (torch.randn((H + Hkv) * hd, device=card), torch.randn(Hkv * hd, device=card))
+    got = t_attn_in.fused_attn_in(x, nw, 1e-6, wqk, wv, cos, sin, hd, biases)
+    torch.cuda.synchronize()
+    ref = t_attn_in.attn_in_plain(x, nw, 1e-6, wqk, wv, cos, sin, hd, biases)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL
+
+
+@pytest.mark.cuda
+def test_qwen2_engine_on_card_matches_cpu(card, tmp_path):
+    """A tiny Qwen2 (biases, tied lm head; attention width 512 fails
+    oproj_ffn's gate) on the card against the CPU: an 11-token prompt
+    (attn_in with biases + ffn), a 40-token one (qmm with f32 activations),
+    then decode steps fed the same tokens on both sides."""
+    cfg = tiny_config(arch="qwen2", n_layers=2, dim=512, n_heads=4, n_kv_heads=2, ffn_dim=256,
+                      vocab_size=512)
+    cfg = dataclasses.replace(cfg, tie_embeddings=True)
+    path = write_fixture_gguf(tmp_path / "qwen2.gguf", cfg, seed=5)
+    engines = [InferenceEngine(*load_model(path, device=d)[:2], max_seq=64, device=d)
+               for d in (card, "cpu")]
+    rng = np.random.default_rng(0)
+    for n in (11, 40):
+        prompt = rng.integers(3, 512, n).tolist()
+        launches = {k: c.launches for k, c in _build.COUNTERS.items()}
+        outs = []
+        for eng in engines:
+            logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+            steps, pos = [logits], torch.tensor(lens, device=eng.device)
+            for t in (7, 99, 300):
+                step, cache = eng.decode_step(torch.full((1,), t, device=eng.device), pos, cache)
+                steps.append(step)
+                pos = pos + 1
+            outs.append([x.float().cpu() for x in steps])
+        for got, ref in zip(*outs):
+            assert torch.isfinite(got).all() and _rel(got, ref) < 5e-2
+            top3 = torch.topk(ref, 3, dim=-1).indices
+            assert (top3 == got.argmax(-1, keepdim=True)).any(-1).all()
+        used = {k: c.launches - launches[k] for k, c in _build.COUNTERS.items()}
+        fused = n <= 16
+        assert used["attn_in"] == used["ffn"] == 2 * (3 + fused)
+        assert used["oproj_ffn"] == 0
+        assert used["qmm"] == 3 * 3 + (3 if fused else 11)
 
 
 @pytest.mark.cuda
@@ -199,14 +294,22 @@ def test_prefill_kernel_matches_plain(card, case):
 
 
 @pytest.mark.cuda
-def test_prefill_kernel_refuses_f32_q(card):
-    """The kernel takes bf16 q (the llama path's); other dtypes raise on the
-    card instead of being cast."""
-    q, k, v, qs, scales, window = prefill_inputs("ragged_t40", card)
+@pytest.mark.parametrize("case", ["ragged_t40", "head_dim_128"])
+def test_prefill_kernel_takes_f32_q(card, case):
+    """qwen2's prefill hands the kernel f32 q (bf16 + f32 bias): the wrapper
+    rounds it to bf16 for the kernel and returns f32, as the reference's
+    kernel does; fp16 q raises instead of being cast."""
+    q, k, v, qs, scales, window = prefill_inputs(case, card)
+    qf = q.float() + 0.01 * torch.randn_like(q.float())  # not exactly bf16
     launches = t_prefill.counter.launches
+    got = t_prefill.attention_prefill(qf, k, v, qs, scales)
+    torch.cuda.synchronize()
+    assert t_prefill.counter.launches == launches + 1
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert _row_rel(got, t_prefill.attention_prefill_plain(qf, k, v, qs, scales)) < TOL
     with pytest.raises(ValueError, match="dtype"):
-        t_prefill.attention_prefill(q.float(), k, v, qs, scales)
-    assert t_prefill.counter.launches == launches
+        t_prefill.attention_prefill(q.half(), k, v, qs, scales)
+    assert t_prefill.counter.launches == launches + 1
 
 
 @pytest.mark.cuda

@@ -218,4 +218,4 @@ def test_oproj_ffn_gate_matches_reference():
 def test_kernel_sources_are_registered():
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
-    assert set(_build.COUNTERS) >= {"qmm", "attn_in", "oproj_ffn"}
+    assert set(_build.COUNTERS) >= {"qmm", "attn_in", "oproj_ffn", "ffn", "prefill"}

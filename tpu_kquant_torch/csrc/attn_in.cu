@@ -1,13 +1,18 @@
-// attn_in: rms_norm -> [wqk | wv] -> bf16 round -> NEOX rope on the qk
-// columns, in one launch, for decode rows (R <= 32).
+// attn_in: rms_norm -> [wqk | wv] -> bf16 round -> (+ f32 bias) -> NEOX
+// rope on the qk columns, in one launch, for decode rows (R <= 32).
 //
 // Replaces the TPU kernels tpu_kquant/ops/pallas_attn_in.py:fused_attn_in,
 // manual variant _attn_in_manual_call (kernel _attn_in_manual_kernel) and
 // Mosaic-grid variant _attn_in_call (_attn_in_kernel), for the Q4_K_M
-// layout: wqk q4-sm, wv q6w-sp, no biases.
+// layout: wqk q4-sm, wv q6w-sp, optional f32 biases (qwen2's q/k/v biases:
+// bqk [n0] = [bq | bk], bv [n1]; the epilogue order of _attn_in_kernel,
+// pallas_attn_in.py:237-254: round the sum to bf16, add the bias, rope in
+// f32, cast).
 //
 // Bound: memory. At TinyLlama width it reads wqk [2304, 2048] q4-sm (2.95 MB)
-// and wv [256, 2048] q6w-sp (0.59 MB): 3.5 MB, 1.1 us at 3.35 TB/s.
+// and wv [256, 2048] q6w-sp (0.59 MB): 3.5 MB, 1.1 us at 3.35 TB/s; at
+// Qwen2.5-1.5B width wqk [1792, 1536] q4-sm (1.72 MB) and wv [256, 1536]
+// q6w-sp (0.44 MB): 2.2 MB, 0.65 us.
 //
 // Design: the norm needs the whole row and the rope pairs columns i and
 // i + head_dim/2, so nothing is split along K here. Every block recomputes
@@ -32,13 +37,20 @@ struct AttnInArgs {
   const uint32_t* v_sp;    // [D/32, n1]
   const float* cosv;       // [R, hd/2]
   const float* sinv;       // [R, hd/2]
+  const float* bqk;        // [n0] f32 bias of the qk columns, or null
+  const float* bv;         // [n1] f32 bias of the v columns, or null
   __nv_bfloat16* out0;     // [R, n0] roped qk
   __nv_bfloat16* out1;     // [R, n1] v
   int R, D, n0, n1, hd;
 };
 
+// The grid has a few dozen blocks, so one block per SM is enough: the
+// minimum of 1 lets ptxas give the GEMV core the registers it needs.
+// Without it the bias epilogue changed the R = 1 kernel's register
+// allocation and made it 1.6x slower (TinyLlama R=1 on an H100: 22.8
+// against 14.5 us, chip_smoke.py phase 3).
 template <int RT>
-__global__ void __launch_bounds__(THREADS) attn_in_kernel(AttnInArgs a) {
+__global__ void __launch_bounds__(THREADS, 1) attn_in_kernel(AttnInArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float rstd[RT];
   const int tiles0 = (a.n0 + TN - 1) / TN;
@@ -64,8 +76,12 @@ __global__ void __launch_bounds__(THREADS) attn_in_kernel(AttnInArgs a) {
   }
   block_reduce<RT>(red, acc);
   // red[0 .. RT*TN) holds the f32 sums; round to bf16 as the unfused path
-  // does before rope
-  for (int i = threadIdx.x; i < RT * TN; i += THREADS) red[RT * TN + i] = round_bf16(red[i]);
+  // does before rope, then add the bias in f32
+  const float* bias = is_qk ? a.bqk : a.bv;
+  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
+    const int col = tile * TN + i % TN;
+    red[RT * TN + i] = round_bf16(red[i]) + (bias != nullptr && col < N ? bias[col] : 0.f);
+  }
   __syncthreads();
   const float* y = red + RT * TN;
   const int half = a.hd / 2;
@@ -101,11 +117,12 @@ cudaError_t launch_attn_in(const AttnInArgs& a, cudaStream_t st) {
 using namespace tkq;
 
 // Requires D % 64 == 0, n0 and n1 multiples of 4, 128 % hd == 0 (a column
-// tile holds whole heads), R <= 32.
+// tile holds whole heads), R <= 32. bqk / bv: f32 biases or both null.
 extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, const void* qk_qs,
                            const void* qk_sm, const void* v_qs, const void* v_sp,
-                           const float* cosv, const float* sinv, void* out0, void* out1, int R,
-                           int D, int n0, int n1, int hd, void* stream) {
+                           const float* cosv, const float* sinv, const float* bqk,
+                           const float* bv, void* out0, void* out1, int R, int D, int n0, int n1,
+                           int hd, void* stream) {
   AttnInArgs a{static_cast<const __nv_bfloat16*>(x),
                nw,
                eps,
@@ -115,6 +132,8 @@ extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, const void
                static_cast<const uint32_t*>(v_sp),
                cosv,
                sinv,
+               bqk,
+               bv,
                static_cast<__nv_bfloat16*>(out0),
                static_cast<__nv_bfloat16*>(out1),
                R, D, n0, n1, hd};

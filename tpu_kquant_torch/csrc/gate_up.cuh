@@ -1,0 +1,81 @@
+// gate/up phase shared by the FFN kernels (oproj_ffn.cu, ffn.cu):
+// act = bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x)))), n = rms_norm, for
+// decode rows (R <= 32), over the fused w_gateup [2F, dim] q4-sm (gate
+// columns 0..F-1, up columns F..2F-1).
+//
+// A block recomputes rms(x) for its rows, stages the normalised rows in
+// shared memory in f32 (the norm weight applied without bf16 rounding, as
+// the reference kernels do), and computes its 128 columns j of gate and
+// F + j of up with the GEMV core of common.cuh, so the two outputs that the
+// activation pairs meet in one block and never reach device memory.
+// Grid: (ceil(F / 128), 1, ceil(R / RT)).
+#pragma once
+
+#include "common.cuh"
+
+namespace tkq {
+
+struct GateUpArgs {
+  const __nv_bfloat16* x;   // [R, dim] the rows to normalise
+  const float* nw;          // [dim]
+  float eps;
+  const uint8_t* qs;        // q4 [dim/2, 2F]
+  const uint32_t* sm;       // [dim/32, 2F]
+  __nv_bfloat16* act;       // [R, F]
+  int R, dim, F;
+};
+
+template <int RT>
+__global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float rstd[RT];
+  const int r0 = blockIdx.z * RT;
+  float* xs = smem;
+  float* red_g = smem + RT * a.dim;
+  float* red_u = red_g + WARPS * RT * TN;
+  const int N = 2 * a.F;
+  const int nc = a.dim / 2 / CH;
+  block_rstd<RT>(rstd, a.x, a.R, a.dim, r0, a.eps);
+  stage_x<KQ4, RT>(xs, a.x, 0, a.R, a.dim, r0, 0, nc, a.nw, rstd);
+  const int lane = threadIdx.x % 32;
+  const int ng = blockIdx.x * TN + lane * 4;  // gate columns; up = F + gate
+  {
+    float acc[RT][4] = {};
+    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, ng, ng < a.F, 0, nc, xs, a.dim);
+    block_reduce<RT>(red_g, acc);
+  }
+  {
+    float acc[RT][4] = {};
+    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, a.F + ng, ng < a.F, 0, nc, xs, a.dim);
+    block_reduce<RT>(red_u, acc);
+  }
+  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
+    const int r = r0 + i / TN, col = blockIdx.x * TN + i % TN;
+    if (r >= a.R || col >= a.F) continue;
+    const float g = round_bf16(red_g[i]), u = round_bf16(red_u[i]);
+    const float silu = g / (1.f + expf(-g));
+    a.act[(size_t)r * a.F + col] = __float2bfloat16_rn(silu * u);
+  }
+}
+
+template <int RT>
+cudaError_t launch_gate_up_rt(const GateUpArgs& a, cudaStream_t st) {
+  const size_t smem = sizeof(float) * (RT * a.dim + 2 * WARPS * RT * TN);
+  cudaError_t e = cudaFuncSetAttribute(gate_up_kernel<RT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.F + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
+  gate_up_kernel<RT><<<grid, THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_gate_up(const GateUpArgs& a, cudaStream_t st) {
+  switch (pick_rt(a.R)) {
+    case 1: return launch_gate_up_rt<1>(a, st);
+    case 2: return launch_gate_up_rt<2>(a, st);
+    case 4: return launch_gate_up_rt<4>(a, st);
+    default: return launch_gate_up_rt<8>(a, st);
+  }
+}
+
+}  // namespace tkq

@@ -17,71 +17,14 @@
 // one source issues the phases as separate launches on the stream:
 //   (A) o_proj: split-K GEMV over Wo; its reduce adds the residual x and
 //       rounds to bf16 -> x2 [R, dim];
-//   (B) gate/up: a block recomputes rms(x2) per row, stages the normalised
-//       row, computes its 128 columns j of gate and F + j of up with the GEMV
-//       core, rounds both to bf16, writes bf16(silu(gate) * up) -> act [R, F];
+//   (B) gate/up (gate_up.cuh, shared with ffn.cu): a block recomputes
+//       rms(x2) per row, stages the normalised row, computes its 128 columns
+//       j of gate and F + j of up with the GEMV core, rounds both to bf16,
+//       writes bf16(silu(gate) * up) -> act [R, F];
 //   (C) down: split-K GEMV over Wd on act; its reduce adds x2 -> y.
 // A and C are a GEMV launch plus a reduce launch each (five launches in
 // all); a persistent single launch with a grid barrier is later work.
-#include "common.cuh"
-
-namespace tkq {
-
-struct GateUpArgs {
-  const __nv_bfloat16* x2;  // [R, dim]
-  const float* nw;          // [dim]
-  float eps;
-  const uint8_t* qs;        // q4 [dim/2, 2F]
-  const uint32_t* sm;       // [dim/32, 2F]
-  __nv_bfloat16* act;       // [R, F]
-  int R, dim, F;
-};
-
-template <int RT>
-__global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float rstd[RT];
-  const int r0 = blockIdx.z * RT;
-  float* xs = smem;
-  float* red_g = smem + RT * a.dim;
-  float* red_u = red_g + WARPS * RT * TN;
-  const int N = 2 * a.F;
-  const int nc = a.dim / 2 / CH;
-  block_rstd<RT>(rstd, a.x2, a.R, a.dim, r0, a.eps);
-  stage_x<KQ4, RT>(xs, a.x2, 0, a.R, a.dim, r0, 0, nc, a.nw, rstd);
-  const int lane = threadIdx.x % 32;
-  const int ng = blockIdx.x * TN + lane * 4;  // gate columns; up = F + gate
-  {
-    float acc[RT][4] = {};
-    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, ng, ng < a.F, 0, nc, xs, a.dim);
-    block_reduce<RT>(red_g, acc);
-  }
-  {
-    float acc[RT][4] = {};
-    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, a.F + ng, ng < a.F, 0, nc, xs, a.dim);
-    block_reduce<RT>(red_u, acc);
-  }
-  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
-    const int r = r0 + i / TN, col = blockIdx.x * TN + i % TN;
-    if (r >= a.R || col >= a.F) continue;
-    const float g = round_bf16(red_g[i]), u = round_bf16(red_u[i]);
-    const float silu = g / (1.f + expf(-g));
-    a.act[(size_t)r * a.F + col] = __float2bfloat16_rn(silu * u);
-  }
-}
-
-template <int RT>
-cudaError_t launch_gate_up(const GateUpArgs& a, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (RT * a.dim + 2 * WARPS * RT * TN);
-  cudaError_t e = cudaFuncSetAttribute(gate_up_kernel<RT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.F + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
-  gate_up_kernel<RT><<<grid, THREADS, smem, st>>>(a);
-  return cudaGetLastError();
-}
-
-}  // namespace tkq
+#include "gate_up.cuh"
 
 using namespace tkq;
 
@@ -104,12 +47,7 @@ extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, f
   GateUpArgs ag{static_cast<const __nv_bfloat16*>(x2), nw, eps,
                 static_cast<const uint8_t*>(gu_qs), static_cast<const uint32_t*>(gu_sm),
                 static_cast<__nv_bfloat16*>(act), R, dim, F};
-  switch (pick_rt(R)) {
-    case 1: e = launch_gate_up<1>(ag, st); break;
-    case 2: e = launch_gate_up<2>(ag, st); break;
-    case 4: e = launch_gate_up<4>(ag, st); break;
-    default: e = launch_gate_up<8>(ag, st); break;
-  }
+  e = launch_gate_up(ag, st);
   if (e != cudaSuccess) return (int)e;
   GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_sp),
               R, dim, F, cps_d, ws, out, 0, static_cast<const __nv_bfloat16*>(x2)};

@@ -9,8 +9,8 @@
 // kv <= q_pos - window with a window) are -1e30 and their p is forced to 0;
 // the row sum l is taken before p * v_scale[col]; P is rounded to bf16 for
 // PV; l is floored at 1e-20; the output is in q's dtype. No [T, S] logit
-// ever reaches device memory. q and the output are bf16: rope, attn_in and
-// qmm hand the path bf16 q.
+// ever reaches device memory. q and the output are bf16 (the wrapper casts
+// an f32 q, which qwen2's biases give prefill, and widens the output).
 //
 // Bound: operations. At TinyLlama's longest prompt (T = S = 2048, 32 query
 // heads of 64) the causal pairs need 4 * (T * S / 2) * H * D = 17.2 GFLOP,

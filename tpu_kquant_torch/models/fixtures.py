@@ -2,7 +2,9 @@
 
 ``write_fixture_gguf`` writes the llama tensor inventory with the llama.cpp
 Q4_K_M type recipe (attn_v, ffn_down and output in Q6_K, the other matmul
-weights Q4_K, norms F32), like ``tpu_kquant.models.fixtures``. Unlike the
+weights Q4_K, norms F32), like ``tpu_kquant.models.fixtures``; qwen2 adds
+F32 q/k/v biases, and a tied config writes no ``output.weight`` (the tied
+``token_embd`` stays Q4_K, as the reference's recipe gives it). Unlike the
 reference it does not quantize float weights: the port has no fast
 quantizer (NumPy K-quant search takes seconds per 2048x2048 tensor, some
 twenty minutes for a 1.1B model), so it DRAWS valid K-quant blocks directly.
@@ -29,14 +31,15 @@ from tpu_kquant_torch.models.config import ModelConfig, RopeParams
 def tiny_config(arch: str = "llama", n_layers: int = 2, dim: int = 64,
                 n_heads: int = 4, n_kv_heads: int = 2, ffn_dim: int = 128,
                 vocab_size: int = 512, max_seq_len: int = 256) -> ModelConfig:
-    if arch != "llama":
+    if arch not in ("llama", "qwen2"):
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
     hd = dim // n_heads
     return ModelConfig(
         arch=arch, n_layers=n_layers, dim=dim, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=hd, ffn_dim=ffn_dim,
         vocab_size=vocab_size, max_seq_len=max_seq_len,
-        rope=RopeParams(head_dim=hd, n_rot=hd, mode="norm"),
+        rope=RopeParams(head_dim=hd, n_rot=hd, mode="neox" if arch == "qwen2" else "norm"),
+        attn_bias=arch == "qwen2",
     )
 
 
@@ -47,6 +50,18 @@ def tinyllama_1b_config() -> ModelConfig:
         arch="llama", n_layers=22, dim=2048, n_heads=32, n_kv_heads=4,
         head_dim=64, ffn_dim=5632, vocab_size=32000, max_seq_len=2048,
         rope=RopeParams(head_dim=64, n_rot=64),
+    )
+
+
+def qwen2_5_1_5b_config() -> ModelConfig:
+    """Qwen2.5-1.5B-Instruct (its config.json): 28 layers, dim 1536, 12/2
+    heads of 128, ffn 8960, vocab 151936, rope theta 1e6, rms eps 1e-6,
+    context 32768, q/k/v biases, lm head tied to the embedding."""
+    return ModelConfig(
+        arch="qwen2", n_layers=28, dim=1536, n_heads=12, n_kv_heads=2,
+        head_dim=128, ffn_dim=8960, vocab_size=151936, max_seq_len=32768,
+        norm_eps=1e-6, rope=RopeParams(head_dim=128, n_rot=128, freq_base=1e6, mode="neox"),
+        tie_embeddings=True, attn_bias=True,
     )
 
 
@@ -89,9 +104,10 @@ def random_q6_k(rng: np.random.Generator, n_blocks: int, scale: float) -> np.nda
 
 
 def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05) -> str:
-    """Write a Q4_K_M llama fixture with random blocks drawn from ``seed``."""
-    if cfg.arch != "llama" or cfg.is_moe:
-        raise NotImplementedError("the port writes llama fixtures only")
+    """Write a Q4_K_M llama or qwen2 fixture with random blocks drawn from
+    ``seed``."""
+    if cfg.arch not in ("llama", "qwen2") or cfg.is_moe:
+        raise NotImplementedError("the port writes llama and qwen2 fixtures only")
     rng = np.random.default_rng(seed)
     w = GGUFWriter(path)
     for k, v in cfg.to_gguf_metadata().items():
@@ -113,13 +129,18 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
                            cfg.ffn_dim, cfg.vocab_size)
     add("token_embd.weight", (V, D))
     add("output_norm.weight", (D,))
-    add("output.weight", (V, D))
+    if not cfg.tie_embeddings:
+        add("output.weight", (V, D))
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         add(p + "attn_norm.weight", (D,))
         add(p + "attn_q.weight", (H * hd, D))
         add(p + "attn_k.weight", (Hkv * hd, D))
         add(p + "attn_v.weight", (Hkv * hd, D))
+        if cfg.arch == "qwen2":  # attention biases, F32
+            for bn, bd in (("attn_q.bias", H * hd), ("attn_k.bias", Hkv * hd),
+                           ("attn_v.bias", Hkv * hd)):
+                w.add_float(p + bn, rng.standard_normal(bd).astype(np.float32) * scale)
         add(p + "attn_output.weight", (D, H * hd))
         add(p + "ffn_norm.weight", (D,))
         add(p + "ffn_gate.weight", (F, D))

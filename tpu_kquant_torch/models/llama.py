@@ -3,13 +3,18 @@
 
 Params: {'tok_embd': QTensor(rowmajor), 'output_norm', 'output',
          'layers': [{'attn_norm', 'wqk' (or 'wq', 'wk'), 'wv', 'wo',
-                     'ffn_norm', 'w_gateup' (or 'w_gate', 'w_up'), 'w_down'}]}
+                     'ffn_norm', 'w_gateup' (or 'w_gate', 'w_up'), 'w_down',
+                     and with cfg.attn_bias f32 'bqk' ([bq | bk]), 'bv'}]}
 
-Dispatch follows the reference: at rows <= 32 a layer runs the attn_in and
-oproj_ffn kernels where their gates pass (on the CPU, their plain
-versions); otherwise every projection is a qmatmul. Attention
-(ops.attention) runs plain PyTorch, or the flash prefill kernel for long
-prompts; the KV cache is bf16 or int8.
+Dispatch follows the reference: at rows <= 32 a layer runs the attn_in
+kernel (biases in its epilogue) and the oproj_ffn kernel where their gates
+pass, or, where only the FFN gate passes (qwen2: attention width 1536 is
+not a multiple of 1024), an o_proj qmatmul and the ffn kernel (on the CPU,
+their plain versions); otherwise every projection is a qmatmul and the
+biases are added after it, which turns q/k/v (and from there the residual
+stream) f32, as in the reference. Attention (ops.attention) runs plain
+PyTorch, or the flash prefill kernel for long prompts; the KV cache is bf16
+or int8.
 """
 
 from __future__ import annotations
@@ -22,7 +27,12 @@ from tpu_kquant_torch.models.config import ModelConfig
 from tpu_kquant_torch.ops import attention
 from tpu_kquant_torch.ops.activations import swiglu
 from tpu_kquant_torch.ops.attn_in import attn_in_supported, fused_attn_in
-from tpu_kquant_torch.ops.ffn import fused_oproj_ffn, oproj_ffn_supported
+from tpu_kquant_torch.ops.ffn import (
+    ffn_supported,
+    fused_ffn,
+    fused_oproj_ffn,
+    oproj_ffn_supported,
+)
 from tpu_kquant_torch.ops.norms import rms_norm
 from tpu_kquant_torch.ops.qmatmul import qmatmul
 from tpu_kquant_torch.ops.rope import apply_rope, rope_cos_sin
@@ -49,10 +59,11 @@ def llama_layer(
     """One transformer block; returns the new residual stream."""
     B, T, dim = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    biases = (layer["bqk"], layer["bv"]) if cfg.attn_bias else None
     if cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in layer and \
-            attn_in_supported(layer["wqk"], layer["wv"], B * T, dim, D):
+            attn_in_supported(layer["wqk"], layer["wv"], B * T, dim, D, biases):
         qk, v = fused_attn_in(x, _norm_w(layer["attn_norm"]), cfg.norm_eps, layer["wqk"],
-                              layer["wv"], cos, sin, D)
+                              layer["wv"], cos, sin, D, biases)
         q = qk[..., : H * D].reshape(B, T, H, D)
         k = qk[..., H * D:].reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
@@ -66,6 +77,10 @@ def llama_layer(
             q = qmatmul(h, layer["wq"]).reshape(B, T, H, D)
             k = qmatmul(h, layer["wk"]).reshape(B, T, Hkv, D)
         v = qmatmul(h, layer["wv"]).reshape(B, T, Hkv, D)
+        if cfg.attn_bias:  # bf16 + f32: q/k/v become f32, as in the reference
+            q = q + layer["bqk"][: H * D].reshape(H, D)
+            k = k + layer["bqk"][H * D:].reshape(Hkv, D)
+            v = v + layer["bv"].reshape(Hkv, D)
         q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :], cfg.rope.mode)
         k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :], cfg.rope.mode)
 
@@ -86,6 +101,9 @@ def llama_layer(
         return fused_oproj_ffn(x, attn, layer["wo"], _norm_w(layer["ffn_norm"]),
                                cfg.norm_eps, layer["w_gateup"], layer["w_down"])
     x = x + qmatmul(attn, layer["wo"])
+    if "w_gateup" in layer and ffn_supported(layer["w_gateup"], layer["w_down"], B * T):
+        return fused_ffn(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps, layer["w_gateup"],
+                         layer["w_down"])
     h = rms_norm(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps)
     if "w_gateup" in layer:
         gu = qmatmul(h, layer["w_gateup"])
@@ -107,7 +125,7 @@ def llama_forward(
 ) -> tuple[torch.Tensor, KVCache]:
     """Returns (logits [B, T, vocab] f32 (or [B, 1, vocab]), cache). The
     cache is updated in place."""
-    if cfg.act_fn != "silu" or cfg.post_norms or cfg.is_moe or cfg.attn_bias \
+    if cfg.act_fn != "silu" or cfg.post_norms or cfg.is_moe \
             or cfg.sliding_window or cfg.attn_logit_softcap or cfg.final_logit_softcap:
         raise NotImplementedError(f"{cfg.arch} quirks are not ported yet")
     x = dequant_rows(params["tok_embd"], tokens, dtype=torch.bfloat16)

@@ -1,12 +1,15 @@
-"""attn_in: rms_norm -> [wqk | wv] -> bf16 round -> NEOX rope on qk, one launch.
+"""attn_in: rms_norm -> [wqk | wv] -> bf16 round -> (+ bias) -> NEOX rope on
+qk, one launch.
 
 Kernel: ``csrc/attn_in.cu`` (replaces ``tpu_kquant/ops/pallas_attn_in.py:
 fused_attn_in``, manual and Mosaic-grid variants), decode rows only, for the
-Q4_K_M layout (wqk q4-sm, wv q6w-sp, no biases).
+Q4_K_M layout (wqk q4-sm, wv q6w-sp) with or without qwen2's f32 biases
+(``biases = (bqk [n0], bv [n1])``, bqk = [bq | bk]).
 
 ``attn_in_plain`` is the same function in plain PyTorch, in f32 with the
 kernel's rounding points: the normalised row is not rounded, each
-projection is rounded to bf16 before the rotation.
+projection is rounded to bf16, the bias added in f32, then the rotation
+(the order of the reference's epilogue, pallas_attn_in.py:237-254).
 """
 
 from __future__ import annotations
@@ -24,18 +27,24 @@ counter = _build.LaunchCounter("attn_in")
 MAX_ROWS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+             _I, _P]
 
 
-def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: int) -> bool:
+def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: int,
+                      biases: tuple[torch.Tensor, torch.Tensor] | None = None) -> bool:
     """The dispatch gate: decode rows and the kernel's layout. The width
     rules are the reference's (pallas_attn_in.attn_in_supported: D % 512,
-    N % 128) so both packages fuse at the same shapes."""
+    N % 128) so both packages fuse at the same shapes; biases, where given,
+    are f32 vectors of the two outputs' widths."""
     return (
         rows <= MAX_ROWS and D % 512 == 0 and 128 % head_dim == 0
         and wqk.layout == "kmajor" and wqk.kind == "q4" and "sm" in wqk.arrays
         and wv.layout == "kmajor" and wv.kind == "q6w" and "sp" in wv.arrays
         and all(w.shape[-1] == D and w.shape[0] % 128 == 0 for w in (wqk, wv))
+        and (biases is None or all(
+            b.dtype == torch.float32 and tuple(b.shape) == (int(w.shape[0]),)
+            for b, w in zip(biases, (wqk, wv))))
     )
 
 
@@ -50,21 +59,27 @@ def _rope_neox(y: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: 
 
 
 def attn_in_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTensor,
-                  wv: QTensor, cos: torch.Tensor, sin: torch.Tensor,
-                  head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
+                  wv: QTensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: int,
+                  biases: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [R, D] bf16, cos/sin [R, hd/2] -> (roped qk [R, n0], v [R, n1]) bf16."""
     xf = x.float()
     xn = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * norm_w.float()
     qk = (xn @ dequant_kmajor(wqk)).to(torch.bfloat16).float()
-    v = (xn @ dequant_kmajor(wv)).to(torch.bfloat16)
-    return _rope_neox(qk, cos.float(), sin.float(), head_dim).to(torch.bfloat16), v
+    v = (xn @ dequant_kmajor(wv)).to(torch.bfloat16).float()
+    if biases is not None:
+        qk, v = qk + biases[0].float(), v + biases[1].float()
+    qk = _rope_neox(qk, cos.float(), sin.float(), head_dim)
+    return qk.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
 def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTensor,
-                  wv: QTensor, cos: torch.Tensor, sin: torch.Tensor,
-                  head_dim: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [..., D] bf16; cos/sin [..., hd/2] per row of x. Returns (qk
-    [..., n0] with rope applied, v [..., n1]), bf16."""
+                  wv: QTensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: int,
+                  biases: tuple[torch.Tensor, torch.Tensor] | None = None,
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [..., D] bf16; cos/sin [..., hd/2] per row of x; biases (bqk [n0],
+    bv [n1]) f32 or None. Returns (qk [..., n0] with rope applied, v
+    [..., n1]), bf16."""
     D = x.shape[-1]
     lead = x.shape[:-1]
     n0, n1 = int(wqk.shape[0]), int(wv.shape[0])
@@ -73,20 +88,22 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     c2d, s2d = cos.reshape(-1, half), sin.reshape(-1, half)
     if x.device.type == "cpu":
         counter.plain_calls += 1
-        qk, v = attn_in_plain(x2d, norm_w, eps, wqk, wv, c2d, s2d, head_dim)
+        qk, v = attn_in_plain(x2d, norm_w, eps, wqk, wv, c2d, s2d, head_dim, biases)
         return qk.reshape(*lead, n0), v.reshape(*lead, n1)
     R = x2d.shape[0]
     req = _build.require
     req(x.device.type == "cuda", f"attn_in: unsupported device {x.device}")
-    req(attn_in_supported(wqk, wv, R, D, head_dim), "attn_in: unsupported layout or shape")
+    req(attn_in_supported(wqk, wv, R, D, head_dim, biases),
+        "attn_in: unsupported layout, shape or biases")
     req(x.dtype == torch.bfloat16, f"attn_in: x dtype {x.dtype}")
     req(n0 % head_dim == 0 and c2d.shape == (R, half) and s2d.shape == (R, half),
         "attn_in: rope tables must be [rows, head_dim / 2]")
     req(norm_w.shape == (D,) and norm_w.dtype == torch.float32, "attn_in: norm weight")
     arrs = (wqk.arrays["qs"], wqk.arrays["sm"], wv.arrays["qs"], wv.arrays["sp"])
     req(arrs[0].dtype == torch.uint8 and arrs[2].dtype == torch.int8, "attn_in: code dtypes")
-    req(all(a.device == x.device and a.is_contiguous() for a in arrs),
-        "attn_in: weights must be contiguous on x's device")
+    bs = () if biases is None else tuple(biases)
+    req(all(a.device == x.device and a.is_contiguous() for a in arrs + bs),
+        "attn_in: weights and biases must be contiguous on x's device")
     x2d = x2d.contiguous()
     c2d = c2d.float().contiguous()
     s2d = s2d.float().contiguous()
@@ -95,8 +112,10 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     out1 = torch.empty((R, n1), dtype=torch.bfloat16, device=x.device)
     lib = _build.load("attn_in", "tkq_attn_in", _ARGTYPES)
     P = _build.ptr
+    bias_ptrs = (None, None) if biases is None else (P(bs[0]), P(bs[1]))
     rc = lib.tkq_attn_in(P(x2d), P(nw), float(eps), *(P(a) for a in arrs), P(c2d), P(s2d),
-                         P(out0), P(out1), R, D, n0, n1, head_dim, _build.stream_ptr(x.device))
+                         *bias_ptrs, P(out0), P(out1), R, D, n0, n1, head_dim,
+                         _build.stream_ptr(x.device))
     _build.check(lib, rc, "attn_in")
     counter.launches += 1
     return out0.reshape(*lead, n0), out1.reshape(*lead, n1)

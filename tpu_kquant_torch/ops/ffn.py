@@ -1,12 +1,18 @@
-"""oproj_ffn: x2 = x + attn @ Wo^T; y = x2 + down(silu(gate(n(x2))) * up(n(x2))).
+"""The FFN block for decode rows, with and without o_proj in front.
 
-Kernel: ``csrc/oproj_ffn.cu`` (replaces ``tpu_kquant/ops/pallas_ffn.py:
-fused_oproj_ffn``, manual and Mosaic-grid variants), decode rows only, for
-the Q4_K_M layouts (wo q4-sm or q6w-sp, w_gateup q4-sm, w_down q6w-sp).
+- ffn: y = x + down(silu(gate(n(x))) * up(n(x))), n = rms_norm. Kernel
+  ``csrc/ffn.cu`` (replaces ``tpu_kquant/ops/pallas_ffn.py:fused_ffn``),
+  run where the attention width fails oproj_ffn's gate (qwen2).
+- oproj_ffn: x2 = x + attn @ Wo^T; y = x2 + down(silu(gate(n(x2))) *
+  up(n(x2))). Kernel ``csrc/oproj_ffn.cu`` (replaces
+  ``tpu_kquant/ops/pallas_ffn.py:fused_oproj_ffn``, manual and Mosaic-grid
+  variants).
+Both take the Q4_K_M layouts (w_gateup q4-sm, w_down q6w-sp; wo q4-sm or
+q6w-sp) and share the gate/up phase (``csrc/gate_up.cuh``).
 
-``oproj_ffn_plain`` is the same function in plain PyTorch with the kernel's
-rounding points: x2, gate, up and their activated product are rounded to
-bf16, the sums are f32.
+``ffn_plain`` and ``oproj_ffn_plain`` are the same functions in plain
+PyTorch with the kernels' rounding points: x2, gate, up and their activated
+product are rounded to bf16, the sums are f32.
 """
 
 from __future__ import annotations
@@ -22,39 +28,94 @@ from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
 counter = _build.LaunchCounter("oproj_ffn")
+ffn_counter = _build.LaunchCounter("ffn")
 
 MAX_ROWS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, _P, ctypes.c_float, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+_F = ctypes.c_float
+_ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_FFN_ARGTYPES = [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+
+
+def ffn_supported(gu: QTensor, dn: QTensor, rows: int) -> bool:
+    """The dispatch gate of ffn: decode rows and the kernel's layout. The
+    width rules are the reference's (pallas_ffn.ffn_supported: dim % 512,
+    and F % 256, which is ``_pick_tf(F, dim) != 0``) so both packages fuse
+    at the same shapes."""
+    if rows > MAX_ROWS or kernel_kind(gu) != 0 or kernel_kind(dn) != 1:
+        return False
+    dim, Fd = int(dn.shape[0]), int(dn.shape[1])
+    return gu.shape == (2 * Fd, dim) and dim % 512 == 0 and Fd % 256 == 0
 
 
 def oproj_ffn_supported(wo: QTensor, gu: QTensor, dn: QTensor, rows: int) -> bool:
-    """The dispatch gate: decode rows and the kernel's layout. The width
-    rules are the reference's (pallas_ffn.oproj_ffn_supported: dim % 512,
-    F % 256, K % 1024) so both packages fuse at the same shapes."""
-    if rows > MAX_ROWS:
-        return False
-    if kernel_kind(wo) is None or kernel_kind(gu) != 0 or kernel_kind(dn) != 1:
-        return False
-    dim, K = int(wo.shape[0]), int(wo.shape[1])
-    Fd = int(dn.shape[1])
-    return (gu.shape == (2 * Fd, dim) and dn.shape[0] == dim and dim % 512 == 0
-            and Fd % 256 == 0 and K % 1024 == 0)
+    """The dispatch gate of oproj_ffn: ffn's, and an o_proj the kernel reads
+    whose width K is a multiple of 1024 (pallas_ffn.oproj_ffn_supported)."""
+    return (ffn_supported(gu, dn, rows) and kernel_kind(wo) is not None
+            and wo.shape[0] == dn.shape[0] and int(wo.shape[1]) % 1024 == 0)
 
 
-def oproj_ffn_plain(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
-                    eps: float, gu: QTensor, dn: QTensor) -> torch.Tensor:
-    """x [R, dim], attn [R, K] bf16 -> y [R, dim] bf16."""
-    x2 = (x.float() + attn.float() @ dequant_kmajor(wo)).to(torch.bfloat16).float()
+def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
+              dn: QTensor) -> torch.Tensor:
+    """x2 [R, dim] f32 -> x2 + down(act) in f32, unrounded."""
     xn = x2 * torch.rsqrt((x2 * x2).mean(-1, keepdim=True) + eps) * norm_w.float()
     gu_out = xn @ dequant_kmajor(gu)
     Fd = gu_out.shape[-1] // 2
     g = gu_out[:, :Fd].to(torch.bfloat16).float()
     u = gu_out[:, Fd:].to(torch.bfloat16).float()
     act = (F.silu(g) * u).to(torch.bfloat16).float()
-    return (x2 + act @ dequant_kmajor(dn)).to(torch.bfloat16)
+    return x2 + act @ dequant_kmajor(dn)
+
+
+def ffn_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
+              dn: QTensor) -> torch.Tensor:
+    """x [R, dim] -> y [R, dim] in x's dtype (bf16 on the decode path)."""
+    return _ffn_tail(x.float(), norm_w, eps, gu, dn).to(x.dtype)
+
+
+def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn: QTensor,
+              act_fn: str = "silu") -> torch.Tensor:
+    """x [..., dim] bf16 -> [..., dim] bf16."""
+    if act_fn != "silu":
+        raise NotImplementedError(f"activation {act_fn!r} is not ported yet")
+    dim, Fd = int(dn.shape[0]), int(dn.shape[1])
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, dim)
+    if x.device.type == "cpu":
+        ffn_counter.plain_calls += 1
+        return ffn_plain(x2d, norm_w, eps, gu, dn).reshape(*lead, dim)
+    R = x2d.shape[0]
+    req = _build.require
+    req(x.device.type == "cuda", f"ffn: unsupported device {x.device}")
+    req(ffn_supported(gu, dn, R), "ffn: unsupported layout or shape")
+    req(x.dtype == torch.bfloat16, f"ffn: x dtype {x.dtype}")
+    req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "ffn: norm weight")
+    arrs = (gu.arrays["qs"], gu.arrays["sm"], dn.arrays["qs"], dn.arrays["sp"])
+    req(arrs[0].dtype == torch.uint8 and arrs[2].dtype == torch.int8, "ffn: code dtypes")
+    req(all(a.device == x.device and a.is_contiguous() for a in arrs),
+        "ffn: weights must be contiguous on x's device")
+    x2d, nw = x2d.contiguous(), norm_w.contiguous()
+    cps_d, splits_d = gemv_split(1, dim, Fd, R)
+    dev = x.device
+    act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
+    ws = torch.empty(splits_d * R * dim, dtype=torch.float32, device=dev)
+    out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
+    lib = _build.load("ffn", "tkq_ffn", _FFN_ARGTYPES)
+    P = _build.ptr
+    rc = lib.tkq_ffn(P(x2d), P(nw), float(eps), *(P(a) for a in arrs), P(act), P(ws), P(out),
+                     R, dim, Fd, cps_d, splits_d, _build.stream_ptr(dev))
+    _build.check(lib, rc, "ffn")
+    ffn_counter.launches += 1
+    return out.reshape(*lead, dim)
+
+
+def oproj_ffn_plain(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
+                    eps: float, gu: QTensor, dn: QTensor) -> torch.Tensor:
+    """x [R, dim], attn [R, K] bf16 -> y [R, dim] bf16."""
+    x2 = (x.float() + attn.float() @ dequant_kmajor(wo)).to(torch.bfloat16).float()
+    return _ffn_tail(x2, norm_w, eps, gu, dn).to(torch.bfloat16)
 
 
 def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,

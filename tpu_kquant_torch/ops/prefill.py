@@ -10,9 +10,13 @@ Layout at the public face, as the reference's: q [B, T, H, D]; k/v
 [B, Hkv, S, D] heads-major, bf16 or int8 with ``kv_scales`` (k_scale,
 v_scale) [B, Hkv, S] f32; ``q_start`` [B] the position of each row's first
 query (positions are contiguous per row: query t sits at q_start + t, and
-slot j holds position j). Returns [B, T, H, D] in q's dtype. The kernel
-takes bf16 q, which is what rope hands the llama path; the plain version
-takes any float q.
+slot j holds position j). Returns [B, T, H, D] in q's dtype. q is bf16 or
+f32: qwen2's biases make prefill's q f32, as in the reference, whose kernel
+casts q to bf16 itself and returns q's dtype (pallas_prefill.py:69, 171).
+Here the wrapper casts f32 q to bf16 before the kernel and widens the bf16
+output after it, so the one rounding that differs from the reference is the
+output's, to bf16 before it returns as f32 (the next qmm tile rounds its
+input to bf16 anyway).
 
 ``attention_prefill_plain`` is the same function in plain PyTorch, in f32
 with the kernel's operands: q, k and v rounded to bf16 (int8 codes are exact
@@ -90,7 +94,9 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start
     req(q.device.type == "cuda", f"prefill: unsupported device {q.device}")
     req(all(t.device == q.device for t in (k, v, q_start)), "prefill: inputs on several devices")
     req(D in KERNEL_HEAD_DIMS, f"prefill: head_dim {D} (the kernel takes {KERNEL_HEAD_DIMS})")
-    req(q.dtype == torch.bfloat16, f"prefill: q dtype {q.dtype} (the kernel takes bf16)")
+    req(q.dtype in (torch.bfloat16, torch.float32), f"prefill: q dtype {q.dtype}")
+    q_dtype = q.dtype
+    q = q.to(torch.bfloat16)
     req(H % Hkv == 0 and k.shape == (B, Hkv, S, D) and v.shape == k.shape,
         f"prefill: q {tuple(q.shape)} against k {tuple(k.shape)}, v {tuple(v.shape)}")
     req(S % 64 == 0, f"prefill: S = {S} is not a multiple of 64")
@@ -114,9 +120,9 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start
     scales = [a for t in kv_scales for a in (P(t), t.stride(0), t.stride(1))] if quant \
         else [None, 0, 0] * 2
     qs32 = q_start.to(torch.int32).contiguous()
-    out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, T, H, D), dtype=torch.bfloat16, device=q.device)
     if B == 0 or T == 0:
-        return out
+        return out.to(q_dtype)
     lib = _build.load("prefill", "tkq_prefill", _ARGTYPES)
     rc = lib.tkq_prefill(int(quant), D,
                          P(q), q.stride(0), q.stride(1), q.stride(2),
@@ -126,4 +132,4 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_start
                          _build.stream_ptr(q.device))
     _build.check(lib, rc, "prefill")
     counter.launches += 1
-    return out
+    return out.to(q_dtype)

@@ -7,8 +7,14 @@ once); more rows take its tiled bf16 WMMA kernel (compute bound at prefill).
 ``qmm_plain`` is the same function in plain PyTorch: dequantize, then one
 matmul in f32. Its compute dtype follows the activations, like the
 reference's XLA path: bf16 activations meet bf16-rounded weights, f32
-activations f32 weights. ``qmm`` runs the plain version only for CPU
-tensors; for CUDA tensors it launches the kernel or raises.
+activations f32 weights. The kernel instead rounds f32 activations (qwen2's
+prefill past the bias add) and the weights to bf16, as the reference's
+kernel does for its MXU (``pallas_qmm.py:_qmm_kernel``). The plain version
+does not follow it there, because it is the CPU path the tests hold against
+the reference's XLA engine; the two differ by one bf16 rounding of each
+factor (about 2^-8 of a term, summed with random signs), well inside the
+2e-2 of max|ref| that the kernel is held to. ``qmm`` runs the plain version
+only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations

@@ -5,7 +5,9 @@ Each tensor is repacked on the host (quant.repack) into the layout the
 kernels read, then copied to ``device`` still packed. Q and K are fused into
 ``wqk`` and gate and up into ``w_gateup`` (one launch each instead of two);
 NORM-mode rope is canonicalised to NEOX by permuting q/k output features, so
-every rope downstream is a half rotation.
+every rope downstream is a half rotation. Qwen2-style q/k/v biases load as
+f32 vectors ``bqk`` (``[bq | bk]``, permuted with q/k, beside ``wqk``) and
+``bv``; a file without ``output.weight`` ties the lm head to ``token_embd``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from tpu_kquant_torch.quant.repack import (
     widen_q6,
 )
 
-LLAMA_FAMILY = {"llama", "mistral", "tinyllama"}
+LLAMA_FAMILY = {"llama", "mistral", "qwen2", "tinyllama"}
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -102,9 +104,10 @@ def load_model(
     cfg = ModelConfig.from_gguf(r.metadata)
     if cfg.arch not in LLAMA_FAMILY:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
-    if cfg.is_moe or "blk.0.attn_q.bias" in r.tensors or "blk.0.attn_qkv.weight" in r.tensors:
-        raise NotImplementedError("MoE, attention biases and fused-QKV exports "
-                                  "are not ported yet")
+    if cfg.is_moe or "blk.0.attn_qkv.weight" in r.tensors:
+        raise NotImplementedError("MoE and fused-QKV exports are not ported yet")
+    if "blk.0.attn_q.bias" in r.tensors:  # qwen2-style attention biases
+        cfg = dataclasses.replace(cfg, attn_bias=True)
 
     canon_rope = (cfg.rope.mode == "norm" and cfg.rope.n_rot == cfg.head_dim
                   and cfg.head_dim % 2 == 0)
@@ -147,6 +150,13 @@ def load_model(
         else:
             layer["wq"], layer["wk"] = wq.to(dev), wk.to(dev)
         layer["wv"] = rp(p + "attn_v.weight")
+        if cfg.attn_bias:
+            bq, bk = r.tensor_float(p + "attn_q.bias"), r.tensor_float(p + "attn_k.bias")
+            if canon_rope:
+                bq, bk = bq[q_perm], bk[k_perm]
+            bv = r.tensor_float(p + "attn_v.bias")
+            for b, v in (("bqk", np.concatenate([bq, bk])), ("bv", bv)):
+                layer[b] = torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
         fused_gu = fuse_kmajor([host(p + "ffn_gate.weight"), host(p + "ffn_up.weight")])
         if fused_gu is not None:
             layer["w_gateup"] = fused_gu.to(dev)
@@ -164,7 +174,8 @@ def params_from_numpy(params_np: Any, device: str | torch.device = "cuda") -> An
     every array converted by ``np.asarray``) into the port's parameters on
     ``device``. A quantized tensor may be any object with ``kind``,
     ``layout``, ``shape`` and ``arrays`` attributes, or a dict with those
-    keys; dicts and lists are walked; bare arrays become tensors."""
+    keys; dicts and lists are walked; bare arrays become tensors. A layer's
+    ``bq`` and ``bk`` become the port's fused ``bqk``."""
     dev = resolve_device(device)
 
     def conv(v: Any) -> Any:
@@ -179,11 +190,14 @@ def params_from_numpy(params_np: Any, device: str | torch.device = "cuda") -> An
                            {k: np.asarray(a) for k, a in v.arrays.items()},
                            v.tp, v.fold).to(dev)
         if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
+            out = {k: conv(x) for k, x in v.items()}
+            if "bq" in out and "bk" in out:
+                out["bqk"] = torch.cat([out.pop("bq"), out.pop("bk")])
+            return out
         if isinstance(v, (list, tuple)):
             return type(v)(conv(x) for x in v)
         if isinstance(v, np.ndarray):
-            return torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            return torch.from_numpy(np.require(v, requirements=["C", "W"])).to(dev)
         return v
 
     return conv(params_np)
