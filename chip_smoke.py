@@ -7,12 +7,18 @@ Phases, each fatal on failure:
  1. the card's name and power limit (nvidia-smi), torch / CUDA / nvcc versions;
  2. build the CUDA kernels from tpu_kquant_torch/csrc (nvcc, in parallel);
  3. hold each kernel against its plain PyTorch version on the card at the
-    main path's TinyLlama-1.1B shapes and at Qwen2.5-1.5B's (qmm's tied lm
+    main path's TinyLlama-1.1B shapes, at Qwen2.5-1.5B's (qmm's tied lm
     head and o_proj at R = 1 and its R = 512 tiles on f32 activations; ffn
     also at Qwen2.5-7B's; attn_in with biases at head_dim 128; the prefill
-    kernel with f32 q at 12 / 2 heads of 128) (tolerance 2e-2 of max|ref|;
-    for the prefill kernel 2e-2 of each output row's own max|ref|), and
-    time the kernel and the plain version; as yardsticks the port never
+    kernel with f32 q at 12 / 2 heads of 128) and at Mixtral-8x7B's (qmm
+    at every projection its layer gives it, on bf16 pairs and on f32
+    scales: expert gate/up and down, the N = 8 router, wo and the lm head,
+    at R = 1, 16 and 512 as the path runs them; attn_in on either layout at
+    D 4096, R = 1 and 16; qmm_int8 at the expert gate/up, R = 1, 8 and 16,
+    and the router, R = 1, after its activation quantization is checked
+    byte for byte) (tolerance 2e-2 of max|ref|; qmm_int8 1e-3; the prefill kernel
+    2e-2 of each output row's own max|ref|), and time the kernel and the
+    plain version; as yardsticks the port never
     calls, qmm's ``library_ms`` is torch.matmul on the pre-dequantized
     weight in the activations' dtype, and the fused kernels, which no
     single PyTorch call computes (``library_ms`` null), get ``matmul_ms``:
@@ -36,12 +42,26 @@ Phases, each fatal on failure:
     40 and 1100 tokens, answer greedy requests of 5, 40, 200 and 3000 tokens
     on a 4288-slot bf16 cache (the last is bucket 4096: the flash prefill
     with f32 q) with the counts set to 0 just before and read just after,
-    then time pp512 and tg128.
+    then time pp512 and tg128;
+ 7. Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128, ffn 14336,
+    8 experts, top 2, vocab 32000, rope theta 1e6) cut to MIXTRAL_DEPTH of
+    its 32 layers (the host writes and repacks 0.93 GB of GGUF per layer;
+    the cut is logged as `reduced`): one fixture file, loaded twice, one
+    load at a time: with bf16 pairs under impl "auto" (attn_in, qmm for
+    o_proj, the router and every expert), then with f32 scales under impl
+    "int8" (attn_in on f32 scales, qmm_int8 for the router and the experts'
+    gate/up at decode rows, qmm for o_proj, the downs and the lm head). Per
+    configuration: a 1-layer cut on the card against the CPU at prompts of
+    8 and 40 tokens with 2 greedy steps, the selected experts of every
+    token and layer compared (reference_check); greedy requests of 5, 40
+    and 200 tokens, counted; pp512 and tg128 beside their bounds, every
+    expert's bytes counted (the loop reads all 8 per token).
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4, 5 and 6, each counted from 0 and checked against the dispatch
-gates exactly; the gates in turn are held to each model's decode and long
-prefill dispatch, stated from its config (pin_dispatch). The second-to-last
-line is the kernels' JSON; the last line is {"ok": true, "device": {...}}.
+of phases 4, 5, 6 and 7, each counted from 0 and checked against the
+dispatch gates exactly; the gates in turn are held to each model's decode
+and long prefill dispatch (and Mixtral's 64-row prefill), stated from its
+config (pin_dispatch). The second-to-last line is the kernels' JSON; the
+last line is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero.
 """
 
@@ -59,12 +79,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core peak
 TOL = 2e-2
+INT8_TOL = 1e-3  # qmm_int8 against its plain version: integer partials are exact
 L2_BYTES = 50e6
+
+
+T0 = time.perf_counter()
 
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def phase(title: str) -> None:
+    log(f"== {title} (at {time.perf_counter() - T0:.1f} s)")
 
 
 def gpu_line() -> str:
@@ -73,8 +102,8 @@ def gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / BF16_FLOPS
+def bound_ms(n_bytes: float, n_ops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / peak
     return (max(tb, to) * 1e3, "bytes" if tb >= to else "operations")
 
 
@@ -129,7 +158,8 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
 
 
 def _rand_weights(rng, kind: str, N: int, K: int, dev):
-    """Random packed weights in the loader's layout (codes and bf16 pairs)."""
+    """Random packed weights in the loader's layouts: "q4" / "q6w" with bf16
+    pairs (scale_dtype="bf16"), "q4f" / "q6wf" with f32 scales (and mins)."""
     import numpy as np
     import torch
 
@@ -140,15 +170,15 @@ def _rand_weights(rng, kind: str, N: int, K: int, dev):
                 .view(np.uint16).astype(np.uint32) for v in (a, b)]
         return (bits[0] | (bits[1] << 16)).view(np.float32)
 
-    if kind == "q4":  # uniform 4-bit codes, centred by the mins
+    if kind in ("q4", "q4f"):  # uniform 4-bit codes, centred by the mins
         s = rng.random((K // 32, N), dtype=np.float32) * 0.004 + 0.002
+        side = {"sm": pairs(s, s * 7.5)} if kind == "q4" else {"scales": s, "mins": s * 7.5}
         return QTensor("q4", "kmajor", (N, K), {
-            "qs": rng.integers(0, 256, (K // 2, N), dtype=np.uint8),
-            "sm": pairs(s, s * 7.5)}).to(dev)
+            "qs": rng.integers(0, 256, (K // 2, N), dtype=np.uint8), **side}).to(dev)
     s = rng.random((K // 16, N), dtype=np.float32) * 0.002 + 0.001
     return QTensor("q6w", "kmajor", (N, K), {
         "qs": rng.integers(-32, 32, (K, N)).astype(np.int8),
-        "sp": pairs(s[0::2], s[1::2])}).to(dev)
+        **({"sp": pairs(s[0::2], s[1::2])} if kind == "q6w" else {"scales": s})}).to(dev)
 
 
 def _rotation(w0, make, one_bytes: int) -> list:
@@ -197,7 +227,10 @@ def check_kernels(dev) -> dict:
     # down at R = 512; Qwen2.5-1.5B's tied lm head (q4-sm) and o_proj at R =
     # 1, and its prefill gate/up and down at R = 512 on f32 activations (bf16
     # + f32 bias past 32 rows), which the tile stages as bf16. The plain
-    # version keeps f32 activations f32 (ops/qmm.py says why).
+    # version keeps f32 activations f32 (ops/qmm.py says why). Mixtral-8x7B:
+    # every projection its layer gives qmm, on bf16 pairs (impl auto) and on
+    # f32 scales (impl int8: wo, the downs and the lm head at decode rows),
+    # at R = 1 (decode), 16 (the bucket-16 prefill) and 512 (the tiles).
     bf, f32 = torch.bfloat16, torch.float32
     for label, kind, N, K, R, xdt, odt in (
             ("lm head q6w-sp R=1", "q6w", V, dim, 1, bf, f32),
@@ -207,7 +240,27 @@ def check_kernels(dev) -> dict:
             ("qwen2.5-1.5b: tied lm head q4-sm R=1", "q4", 151936, 1536, 1, bf, f32),
             ("qwen2.5-1.5b: wo q6w-sp R=1", "q6w", 1536, 1536, 1, bf, bf),
             ("qwen2.5-1.5b: w_gateup q4-sm R=512, f32 x", "q4", 2 * 8960, 1536, 512, f32, f32),
-            ("qwen2.5-1.5b: w_down q6w-sp R=512, f32 x", "q6w", 1536, 8960, 512, f32, f32)):
+            ("qwen2.5-1.5b: w_down q6w-sp R=512, f32 x", "q6w", 1536, 8960, 512, f32, f32),
+            ("mixtral: expert down q6w-f32 R=1", "q6wf", MX_DIM, MX_FFN, 1, bf, f32),
+            ("mixtral: expert down q6w-f32 R=512", "q6wf", MX_DIM, MX_FFN, 512, bf, f32),
+            ("mixtral: expert gate q4-f32 R=512", "q4f", MX_FFN, MX_DIM, 512, bf, bf),
+            ("mixtral: router q4-f32 N=8 R=512", "q4f", 8, MX_DIM, 512, bf, f32),
+            ("mixtral: router q4-sm N=8 R=1", "q4", 8, MX_DIM, 1, bf, f32),
+            ("mixtral: router q4-sm N=8 R=16", "q4", 8, MX_DIM, 16, bf, f32),
+            ("mixtral: expert gate/up q4-sm R=1", "q4", MX_FFN, MX_DIM, 1, bf, bf),
+            ("mixtral: expert gate/up q4-sm R=16", "q4", MX_FFN, MX_DIM, 16, bf, bf),
+            ("mixtral: expert gate/up q4-sm R=512", "q4", MX_FFN, MX_DIM, 512, bf, bf),
+            ("mixtral: expert down q6w-sp R=1", "q6w", MX_DIM, MX_FFN, 1, bf, f32),
+            ("mixtral: expert down q6w-sp R=16", "q6w", MX_DIM, MX_FFN, 16, bf, f32),
+            ("mixtral: expert down q6w-sp R=512", "q6w", MX_DIM, MX_FFN, 512, bf, f32),
+            ("mixtral: expert down q6w-f32 R=16", "q6wf", MX_DIM, MX_FFN, 16, bf, f32),
+            ("mixtral: wo q6w-sp R=1", "q6w", MX_DIM, MX_DIM, 1, bf, bf),
+            ("mixtral: wo q6w-f32 R=1", "q6wf", MX_DIM, MX_DIM, 1, bf, bf),
+            ("mixtral: wo q6w-f32 R=16", "q6wf", MX_DIM, MX_DIM, 16, bf, bf),
+            ("mixtral: lm head q6w-sp R=1", "q6w", MX_VOCAB, MX_DIM, 1, bf, f32),
+            ("mixtral: lm head q6w-f32 R=1", "q6wf", MX_VOCAB, MX_DIM, 1, bf, f32),
+            ("mixtral: wqk q4-sm R=512", "q4", 5120, MX_DIM, 512, bf, bf),
+            ("mixtral: wv q6w-f32 R=512", "q6wf", 1024, MX_DIM, 512, bf, bf)):
         w0 = _rand_weights(rng, kind, N, K, dev)
         ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
         x = act(R, K) if xdt == bf else torch.randn(R, K, device=dev)  # f32: not bf16 values
@@ -228,19 +281,30 @@ def check_kernels(dev) -> dict:
             "bound_ms": b, "bound_by": by})
         del wd, ws
 
-    # attn_in at R = 1: TinyLlama (32 + 4 heads of 64, no biases), then
-    # Qwen2.5-1.5B (12 + 2 heads of 128 over D 1536, f32 biases)
-    for label, D_, Hq, Hk, hd_, biased in (
-            ("wqk q4-sm + wv q6w-sp R=1", dim, H, Hkv, hd, False),
-            ("qwen2.5-1.5b: + biases, hd 128, D 1536 R=1", 1536, 12, 2, 128, True)):
-        mk_in = lambda: (_rand_weights(rng, "q4", (Hq + Hk) * hd_, D_, dev),  # noqa: E731
-                         _rand_weights(rng, "q6w", Hk * hd_, D_, dev))
+    # attn_in: TinyLlama (32 + 4 heads of 64, no biases), then Qwen2.5-1.5B
+    # (12 + 2 heads of 128 over D 1536, f32 biases), at R = 1; then
+    # Mixtral-8x7B (32 + 8 heads of 128 over D 4096) on f32 scales and on
+    # bf16 pairs, at R = 1 (decode) and 16 (the bucket-16 prefill)
+    for label, D_, Hq, Hk, hd_, biased, f32s, R in (
+            ("wqk q4-sm + wv q6w-sp R=1", dim, H, Hkv, hd, False, False, 1),
+            ("qwen2.5-1.5b: + biases, hd 128, D 1536 R=1", 1536, 12, 2, 128, True, False, 1),
+            ("mixtral: wqk q4-f32 + wv q6w-f32, hd 128, D 4096 R=1", MX_DIM, 32, 8, 128, False,
+             True, 1),
+            ("mixtral: wqk q4-f32 + wv q6w-f32, hd 128, D 4096 R=16", MX_DIM, 32, 8, 128, False,
+             True, 16),
+            ("mixtral: wqk q4-sm + wv q6w-sp, hd 128, D 4096 R=1", MX_DIM, 32, 8, 128, False,
+             False, 1),
+            ("mixtral: wqk q4-sm + wv q6w-sp, hd 128, D 4096 R=16", MX_DIM, 32, 8, 128, False,
+             False, 16)):
+        kq, kv = ("q4f", "q6wf") if f32s else ("q4", "q6w")
+        mk_in = lambda: (_rand_weights(rng, kq, (Hq + Hk) * hd_, D_, dev),  # noqa: E731
+                         _rand_weights(rng, kv, Hk * hd_, D_, dev))
         w0 = mk_in()
         nbw = sum(w.n_bytes for w in w0)
         ws = _rotation(w0, mk_in, nbw)
-        x = act(1, D_, 0.5)
+        x = act(R, D_, 0.5)
         nw = torch.rand(D_, device=dev) + 0.5
-        cos, sin = torch.rand(1, hd_ // 2, device=dev), torch.rand(1, hd_ // 2, device=dev)
+        cos, sin = torch.rand(R, hd_ // 2, device=dev), torch.rand(R, hd_ // 2, device=dev)
         n_out = w0[0].shape[0] + w0[1].shape[0]
         bias = (torch.randn(w0[0].shape[0], device=dev) * 0.5,
                 torch.randn(w0[1].shape[0], device=dev) * 0.5) if biased else None
@@ -250,8 +314,8 @@ def check_kernels(dev) -> dict:
         e0, e1 = _err(g0, r0), _err(g1, r1)
         wcat = [torch.cat([dequant_kmajor(w, torch.bfloat16) for w in pair], dim=1).contiguous()
                 for pair in ws]
-        b, by = bound_ms(nbw + D_ * 2 + D_ * 4 + 2 * (hd_ // 2) * 4 + n_out * 2
-                         + (n_out * 4 if biased else 0), 2.0 * D_ * n_out)
+        b, by = bound_ms(nbw + R * D_ * 2 + D_ * 4 + 2 * R * (hd_ // 2) * 4 + R * n_out * 2
+                         + (n_out * 4 if biased else 0), 2.0 * R * D_ * n_out)
         run = lambda i: fused_attn_in(x, nw, 1e-5, *ws[i % len(ws)], cos, sin, hd_,  # noqa: E731
                                       bias)
         out["attn_in"].append({
@@ -326,6 +390,7 @@ def check_kernels(dev) -> dict:
         del ws, wd
 
     out["prefill"] = check_prefill(dev)
+    out["qmm_int8"] = check_qmm_int8(dev, rng)
 
     for name, cases in out.items():
         for c in cases:
@@ -338,10 +403,67 @@ def check_kernels(dev) -> dict:
             if "global_rel_err" in c:
                 log(f"  {'':9s} rel err per row {c['rel_err']:.2e}, of the whole max|ref| "
                     f"{c['global_rel_err']:.2e}; SDPA per row {c['library_rel_err']:.2e}")
-            if not math.isfinite(c["rel_err"]) or c["rel_err"] > TOL:
+            tol = c.get("tol", TOL)
+            if not math.isfinite(c["rel_err"]) or c["rel_err"] > tol:
                 raise SystemExit(f"FAIL: {name} {c['case']} disagrees with its plain "
-                                 f"version: {c['rel_err']:.3e} > {TOL}")
+                                 f"version: {c['rel_err']:.3e} > {tol}")
     return out
+
+
+MX_DIM, MX_FFN, MX_VOCAB = 4096, 14336, 32000  # Mixtral-8x7B's dim, expert ffn, vocab
+
+
+def check_qmm_int8(dev, rng) -> list:
+    """qmm_int8 against its plain version at Mixtral's decode shapes (expert
+    gate/up [14336, 4096] at R = 1, 8, 16; the router [8, 4096] at R = 1),
+    its f32 output held to INT8_TOL of max|ref| and its output in the main
+    path's dtype to the f32 output rounded; timed in the main path's dtype
+    (gate/up bf16, the router f32); first the kernel's activation quantization
+    against ops.act_quant byte for byte, ties at .5 and an all-zero group
+    included. Library yardstick: torch.matmul on the dequantized bf16
+    weight."""
+    import torch
+
+    from tpu_kquant_torch.ops.act_quant import quantize_activations
+    from tpu_kquant_torch.ops.qmm_int8 import qmm_int8, qmm_int8_plain, quantize_q8
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    x = (torch.randn(16, MX_DIM, device=dev) * 2).to(torch.bfloat16)
+    x[0, :32] = 0
+    x[1, 32:64] = torch.tensor([127.0, 2.5, -2.5, 0.5, 1.5, -0.5, -1.5, 3.5] * 4, device=dev)
+    for got, want in zip(quantize_q8(x), quantize_activations(x)):
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise SystemExit("FAIL: the qmm_int8 kernel's activation quantization differs from "
+                             "ops.act_quant.quantize_activations")
+    log("  qmm_int8  activation quantization: byte-equal to quantize_activations (R=16, K=4096)")
+    cases = []
+    for label, N, R, odt in (("mixtral: expert gate/up q4-f32 R=1", MX_FFN, 1, torch.bfloat16),
+                             ("mixtral: expert gate/up q4-f32 R=8", MX_FFN, 8, torch.bfloat16),
+                             ("mixtral: expert gate/up q4-f32 R=16", MX_FFN, 16, torch.bfloat16),
+                             ("mixtral: router q4-f32 N=8 R=1", 8, 1, torch.float32)):
+        w0 = _rand_weights(rng, "q4f", N, MX_DIM, dev)
+        ws = _rotation(w0, lambda: _rand_weights(rng, "q4f", N, MX_DIM, dev), w0.n_bytes)
+        xr = torch.randn(R, MX_DIM, device=dev).to(torch.bfloat16)
+        # held in f32: one bf16 rounding of an output moves it by up to 2^-8
+        got = qmm_int8(xr, w0, torch.float32)
+        got_main = qmm_int8(xr, w0, odt)
+        torch.cuda.synchronize()
+        if not torch.equal(got_main, got.to(odt)):
+            raise SystemExit(f"FAIL: qmm_int8 {label}: its {odt} output is not its f32 output "
+                             f"rounded")
+        ad, rel = _err(got, qmm_int8_plain(xr, w0, torch.float32))
+        wd = [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]
+        nb = w0.n_bytes + xr.numel() * 2 + R * N * got_main.element_size()
+        b, by = bound_ms(nb, 2.0 * R * MX_DIM * N, INT8_OPS)
+        cases.append({
+            "case": label, "max_abs_err": ad, "rel_err": rel, "tol": INT8_TOL,
+            "ms": graph_ms(lambda i: qmm_int8(xr, ws[i % len(ws)], odt), 40),
+            "eager_ms": time_ms(lambda i: qmm_int8(xr, ws[i % len(ws)], odt), 40),
+            "plain_ms": graph_ms(lambda i: qmm_int8_plain(xr, w0, odt), 4, reps=3),
+            "library_ms": graph_ms(lambda i: torch.matmul(xr, wd[i % len(wd)]), 40),
+            "bound_ms": b, "bound_by": by})
+        del ws, wd
+    return cases
 
 
 # flash prefill at TinyLlama's heads (32 / 4 of 64, bf16 q) and at
@@ -453,48 +575,72 @@ def check_prefill(dev) -> list:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(cfg, params, rows: int) -> dict:
+def expected_launches(cfg, params, rows: int, impl: str = "auto") -> dict:
     """Launches of one forward of batch 1 over `rows` tokens, derived from
     the dispatch gates of models/llama.py for this model (every layer has
     layer 0's shapes): attn_in, oproj_ffn or ffn where their gates pass at
-    `rows`, a qmm for every projection they leave, and the lm head; the
-    flash prefill kernel in every layer where the plain attention's logits
-    (S = rows: prefill attends its first T slots) would pass the budget."""
+    `rows`, for every projection they leave (a MoE layer's router and its
+    E experts' gate, up and down included) and the lm head a qmm, or a
+    qmm_int8 where the int8 gate passes under `impl`; the flash prefill
+    kernel in every layer where the plain attention's logits (S = rows:
+    prefill attends its first T slots) would pass the budget."""
+    from tpu_kquant_torch.models.moe import _expert_view
     from tpu_kquant_torch.ops import attention
     from tpu_kquant_torch.ops.attn_in import attn_in_supported
     from tpu_kquant_torch.ops.ffn import ffn_supported, oproj_ffn_supported
     from tpu_kquant_torch.ops.prefill import prefill_supported
+    from tpu_kquant_torch.ops.qmatmul import int8_eligible
 
     L, lay, D = cfg.n_layers, params["layers"][0], cfg.head_dim
     flash = rows > 1 and prefill_supported(rows, rows, D) and \
         attention.logits_mb(1, rows, cfg.n_heads, rows) > attention.ATTN_PLAIN_MAX_MB
     biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
     a_in = cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in lay and \
-        attn_in_supported(lay["wqk"], lay["wv"], rows, cfg.dim, D, biases)
+        attn_in_supported(lay["wqk"], lay["wv"], rows, cfg.dim, D, biases, impl)
     gu = "w_gateup" in lay
     o_ffn = gu and oproj_ffn_supported(lay["wo"], lay["w_gateup"], lay["w_down"], rows)
     ffn = gu and not o_ffn and ffn_supported(lay["w_gateup"], lay["w_down"], rows)
-    qmm = (0 if a_in else 2 if "wqk" in lay else 3) + (0 if o_ffn else 1) \
-        + (0 if o_ffn or ffn else 2 if gu else 3)
-    return {"prefill": L * flash, "attn_in": L * a_in, "oproj_ffn": L * o_ffn, "ffn": L * ffn,
-            "qmm": L * qmm + 1}
+    n = {"prefill": L * flash, "attn_in": L * a_in, "oproj_ffn": L * o_ffn, "ffn": L * ffn,
+         "qmm": 0, "qmm_int8": 0}
+
+    def mm(qt, times: int, r: int = rows) -> None:
+        n["qmm_int8" if impl == "int8" and int8_eligible(qt, r) else "qmm"] += times
+
+    if not a_in:
+        for w in ([lay["wqk"]] if "wqk" in lay else [lay["wq"], lay["wk"]]) + [lay["wv"]]:
+            mm(w, L)
+    if not o_ffn:
+        mm(lay["wo"], L)
+    if cfg.is_moe:
+        mm(lay["gate_inp"], L)
+        for k in ("w_gate", "w_up", "w_down"):
+            mm(_expert_view(lay["experts"][k], 0), L * cfg.n_experts)
+    elif not (o_ffn or ffn):
+        for w in ([lay["w_gateup"]] if gu else [lay["w_gate"], lay["w_up"]]) + [lay["w_down"]]:
+            mm(w, L)
+    mm(params["output"], 1)
+    return n
 
 
-def pin_dispatch(cfg, params, what: str, decode: dict, long_rows: int) -> None:
+def pin_dispatch(cfg, params, what: str, decode: dict, long_rows: int, impl: str = "auto",
+                 prefill64: dict | None = None) -> None:
     """Hold the gates themselves to the dispatch this model is meant to run,
     stated from its config and not by the gates: `decode` is one decode
-    step's launches, and a prefill of `long_rows` rows runs the flash
-    prefill kernel in every layer. Without this, a gate that began to refuse
-    would lower the expected counts with the launches, and the exact checks
-    would still pass."""
-    got = expected_launches(cfg, params, 1)
-    n = expected_launches(cfg, params, long_rows)["prefill"]
-    log(f"  dispatch of {what}: decode step {got}, prefill kernel in {n} layers at "
-        f"{long_rows} rows")
-    if got != decode or n != cfg.n_layers:
-        raise SystemExit(f"FAIL: {what}: the gates dispatch a decode step as {got} and a "
-                         f"{long_rows}-row prefill to the prefill kernel in {n} layers; "
-                         f"expected {decode} and {cfg.n_layers}")
+    step's launches (under `impl`), `prefill64` (where given) a 64-row
+    prefill's, and a prefill of `long_rows` rows runs the flash prefill
+    kernel in every layer. Without this, a gate that began to refuse would
+    lower the expected counts with the launches, and the exact checks would
+    still pass."""
+    got = expected_launches(cfg, params, 1, impl)
+    got64 = expected_launches(cfg, params, 64, impl)
+    n = expected_launches(cfg, params, long_rows, impl)["prefill"]
+    log(f"  dispatch of {what}: decode step {got}, 64-row prefill {got64}, prefill kernel in "
+        f"{n} layers at {long_rows} rows")
+    if got != decode or n != cfg.n_layers or (prefill64 is not None and got64 != prefill64):
+        raise SystemExit(f"FAIL: {what}: the gates dispatch a decode step as {got}, a 64-row "
+                         f"prefill as {got64} and a {long_rows}-row prefill to the prefill "
+                         f"kernel in {n} layers; expected {decode}, {prefill64} and "
+                         f"{cfg.n_layers}")
 
 
 def _add(a: dict, b: dict, n: int = 1) -> dict:
@@ -524,61 +670,148 @@ def check_counts(what: str, want: dict) -> dict:
     return got
 
 
+def _to_cpu(v):
+    """A parameter tree (QTensors, tensors, nested dicts and lists) on the CPU."""
+    if isinstance(v, dict):
+        return {k: _to_cpu(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_to_cpu(x) for x in v]
+    return v.to("cpu")
+
+
+# a prompt's smallest k-th/(k+1)-th router-logit gap on the card, in the
+# logits' std: about 3x the card-CPU router-logit difference on an H100
+ROUTER_MARGIN = 0.05
+ROUTER_DRAWS = 2000  # prompts drawn on the card at most, per prompt length
+
+
+def _routing(routes: list, k: int) -> tuple[list, float, float]:
+    """(sorted top-k expert ids per recorded call, the smallest gap between
+    the k-th and (k+1)-th router logit, the logits' std)."""
+    import torch
+
+    srt = [torch.sort(r, -1, descending=True) for r in routes]
+    sel = [s.indices[..., :k].sort(-1).values for s in srt]
+    margin = min((s.values[..., k - 1] - s.values[..., k]).min().item() for s in srt)
+    return sel, margin, torch.cat([r.reshape(-1) for r in routes]).std().item()
+
+
 def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
-                    kv_quantized: bool = False) -> None:
-    """A 2-layer cut of the loaded model on the card (kernels) against the
-    same cut on the CPU (plain versions): prefill of each prompt length
+                    kv_quantized: bool = False, depth: int = 2, impl: str = "auto",
+                    steps: int = 4) -> None:
+    """A `depth`-layer cut of the loaded model on the card (kernels) against
+    the same cut on the CPU (plain versions): prefill of each prompt length
     (8 rows: fused kernels; 40: qmm; 1100: bucket 2048, the flash prefill),
-    then 4 greedy decode steps."""
+    then `steps` greedy decode steps. For a MoE model the router logits of
+    every call are recorded on both sides, and the experts selected for
+    every prompt token, decode step and layer must agree. The agreement must
+    not be luck: the smallest router margin of the card's run (k-th against
+    (k+1)-th logit) must exceed twice the largest card-CPU router-logit
+    difference, since no difference below half the margin can swap a
+    selection. Prompts are drawn on the card until every margin is at least
+    ROUTER_MARGIN of the logits' std, and that prompt is checked once."""
     import dataclasses
 
     import numpy as np
     import torch
 
+    from tpu_kquant_torch.models import moe
     from tpu_kquant_torch.runtime.engine import InferenceEngine
 
-    cut = dataclasses.replace(cfg, n_layers=2)
-    p_gpu = {**params, "layers": params["layers"][:2]}
-    p_cpu = {k: (v.to("cpu") if k != "layers" else [{n: q.to("cpu") for n, q in lay.items()}
-                                                  for lay in v])
-             for k, v in p_gpu.items()}
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    p_gpu = {**params, "layers": params["layers"][:depth]}
+    p_cpu = _to_cpu(p_gpu)
     rng = np.random.default_rng(1)
     kv = "int8" if kv_quantized else "bf16"
-    for n in lengths:
-        prompt = rng.integers(10, cfg.vocab_size, n).tolist()
-        outs = []
-        for p, d in ((p_gpu, dev), (p_cpu, "cpu")):
-            eng = InferenceEngine(cut, p, max_seq=max_seq, kv_quantized=kv_quantized, device=d)
-            cache = eng.new_cache(1)
-            logits, cache, lens = eng.prefill([prompt], cache)
-            first = torch.argmax(logits, -1)
-            toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=d), cache, 4)
-            outs.append((logits[0].float().cpu(), [int(first[0])] + toks[0].cpu().tolist()))
-        (lg, tg), (lc, tc) = outs
-        rel = ((lg - lc).abs().max() / lc.abs().max()).item()
-        top5 = set(torch.topk(lc, 5).indices.tolist())
-        log(f"  2-layer cut, {kv} KV, prompt {n}: logits rel err {rel:.2e}; greedy card {tg} "
-            f"cpu {tc}")
-        if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
-            raise SystemExit(f"FAIL: card and CPU disagree on the 2-layer cut ({kv} KV, "
-                             f"prompt {n})")
+    k = cfg.n_experts_used
+    seen: list = []
+    real = moe._routing_weights
+
+    def spy(logits, top_k):
+        seen.append(logits.float().cpu())
+        return real(logits, top_k)
+
+    def run(p, d, prompt):
+        seen.clear()
+        eng = InferenceEngine(cut, p, max_seq=max_seq, kv_quantized=kv_quantized, device=d,
+                              impl=impl)
+        cache = eng.new_cache(1)
+        logits, cache, lens = eng.prefill([prompt], cache)
+        first = torch.argmax(logits, -1)
+        toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=d), cache, steps)
+        # prompt rows of the prefill calls, then the decode steps' single rows
+        routes = [r[0, :len(prompt)] for r in seen[:depth]] + [r[0] for r in seen[depth:]]
+        return logits[0].float().cpu(), [int(first[0])] + toks[0].cpu().tolist(), routes
+
+    def draw(n):
+        """The first prompt of n tokens whose card run has every router margin
+        at least ROUTER_MARGIN std (any prompt for a dense model)."""
+        for tries in range(1, ROUTER_DRAWS + 1):
+            prompt = rng.integers(10, cfg.vocab_size, n).tolist()
+            out = run(p_gpu, dev, prompt)
+            if not cfg.is_moe:
+                return prompt, out, tries
+            _, margin, std = _routing(out[2], k)
+            if margin >= ROUTER_MARGIN * std:
+                return prompt, out, tries
+        raise SystemExit(f"FAIL: no prompt of {n} tokens in {ROUTER_DRAWS} draws has router "
+                         f"margins of {ROUTER_MARGIN} std")
+
+    moe._routing_weights = spy
+    try:
+        for n in lengths:
+            t0 = time.perf_counter()
+            prompt, (lg, tg, rg), tries = draw(n)
+            t_draw = time.perf_counter() - t0
+            lc, tc, rc = run(p_cpu, "cpu", prompt)
+            if cfg.is_moe:
+                # decode steps compare only while both sides were fed the same tokens
+                same = depth + depth * next((i for i in range(steps) if tg[i] != tc[i]), steps)
+                sel, margin, std = _routing(rg[:same], k)
+                sel_c, _, _ = _routing(rc[:same], k)
+                diff = max((a - b).abs().max().item() for a, b in zip(rg[:same], rc[:same]))
+                agree = all(torch.equal(a, b) for a, b in zip(sel, sel_c))
+                n_dec = sum(int(s.numel() // k) for s in sel)
+                log(f"  routing, prompt {n} ({tries} draw(s) in {t_draw:.1f} s for margins >= "
+                    f"{ROUTER_MARGIN} std): {n_dec} decisions (tokens x layers), experts agree "
+                    f"{agree}; smallest card margin {margin:.3e} (router logits std "
+                    f"{std:.3e}), largest card-CPU router logit difference {diff:.3e} "
+                    f"(tolerance: half the margin)")
+                if not (agree and 2 * diff < margin):
+                    raise SystemExit(f"FAIL: the card and the CPU route prompt {n} differently, "
+                                     f"or within their difference (impl {impl})")
+            rel = ((lg - lc).abs().max() / lc.abs().max()).item()
+            top5 = set(torch.topk(lc, 5).indices.tolist())
+            log(f"  {depth}-layer cut, {kv} KV, impl {impl}, prompt {n}: logits rel err "
+                f"{rel:.2e}; greedy card {tg} cpu {tc}")
+            if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
+                raise SystemExit(f"FAIL: card and CPU disagree on the {depth}-layer cut ({kv} "
+                                 f"KV, impl {impl}, prompt {n})")
+    finally:
+        moe._routing_weights = real
 
 
 def weight_work(params) -> tuple[int, int]:
     """(bytes, multiply-adds per row) of every matmul weight and bias of the
-    loaded model, the lm head included."""
+    loaded model, the lm head and every stacked expert included (the MoE
+    loop reads all E experts per token)."""
+    import math
+
     from tpu_kquant_torch.quant.qtensor import QTensor
 
-    leaves = [v for lay in params["layers"] for v in lay.values()] + [params["output"]]
+    leaves = [params["output"]]
+    for lay in params["layers"]:
+        for v in lay.values():
+            leaves += list(v.values()) if isinstance(v, dict) else [v]
     mats = [v for v in leaves if isinstance(v, QTensor) and v.kind != "dense"]
     biases = [v for v in leaves if not isinstance(v, QTensor)]
     return (sum(qt.n_bytes for qt in mats) + sum(b.numel() * b.element_size() for b in biases),
-            sum(qt.shape[0] * qt.shape[1] for qt in mats))
+            sum(math.prod(qt.shape) for qt in mats))
 
 
-def load_fixture(cfg0, name: str, dev):
+def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16"):
     """Write the seed-0 fixture of `cfg0` under .cache/ (once) and load it
-    onto the card; logs both times."""
+    onto the card with `scale_dtype`; logs both times."""
     import torch
 
     from tpu_kquant_torch.models.fixtures import write_fixture_gguf
@@ -592,18 +825,19 @@ def load_fixture(cfg0, name: str, dev):
         write_fixture_gguf(tmp, cfg0, seed=0)
         os.replace(tmp, path)
     t1 = time.perf_counter()
-    cfg, params, _ = load_model(str(path), scale_dtype="bf16", device=dev)
+    cfg, params, _ = load_model(str(path), scale_dtype=scale_dtype, device=dev)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"  fixture {path.name}: write {t1 - t0:.1f} s, load + repack {t2 - t1:.1f} s; "
-        f"depth {cfg.n_layers} of {cfg0.n_layers} layers, dim {cfg.dim}, vocab "
-        f"{cfg.vocab_size}, biases {cfg.attn_bias}, tied lm head {cfg0.tie_embeddings}")
+    log(f"  fixture {path.name}: write {t1 - t0:.1f} s, load + repack ({scale_dtype} scales) "
+        f"{t2 - t1:.1f} s; depth {cfg.n_layers} of {cfg0.n_layers} layers, dim {cfg.dim}, vocab "
+        f"{cfg.vocab_size}, biases {cfg.attn_bias}, tied lm head {cfg0.tie_embeddings}, "
+        f"experts {cfg.n_experts} (top {cfg.n_experts_used})")
     return cfg, params, {"write_s": t1 - t0, "load_s": t2 - t1}
 
 
 def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: int = 704,
-               profile: Path | None = None, tag: str = "") -> dict:
-    """The main path of one loaded model: greedy requests of
+               profile: Path | None = None, tag: str = "", impl: str = "auto") -> dict:
+    """The main path of one loaded model under `impl`: greedy requests of
     `request_lengths` tokens (16 new tokens each) on a `request_max_seq`
     bf16 cache, counted from 0 and checked against the dispatch gates, then
     pp512 and tg128 on a 704-slot cache (512 + 128 + 64)."""
@@ -624,7 +858,8 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
 
     # the main path: requests of different prompt lengths, greedy
     rng = np.random.default_rng(2)
-    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=request_max_seq, device=dev)
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=request_max_seq, device=dev,
+                          impl=impl)
     prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in request_lengths]
     torch.cuda.synchronize()
     reset_counts()
@@ -633,8 +868,9 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
     for pr in prompts:
         ans = eng.generate([pr], max_new_tokens=16)[0]
         answers.append(ans)
-        want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)), eng.max_seq)))
-        want = _add(want, expected_launches(cfg, params, 1), 15)
+        want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)), eng.max_seq),
+                                            impl))
+        want = _add(want, expected_launches(cfg, params, 1, impl), 15)
     torch.cuda.synchronize()
     main_counts = check_counts(f"the {len(prompts)} requests{tag}", want)
     for pr, ans in zip(prompts, answers):
@@ -644,7 +880,7 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
     del eng
 
     # pp512: bucketed prefill of a 512-token prompt (warmed once; median of 3)
-    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev)
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl=impl)
     prompt = rng.integers(10, cfg.vocab_size, 512).tolist()
     eng.prefill([prompt], eng.new_cache(1))
     pp = []
@@ -656,7 +892,7 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
         logits, cache, lens = eng.prefill([prompt], cache)
         torch.cuda.synchronize()
         pp.append(time.perf_counter() - t0)
-        check_counts(f"pp512{tag}", expected_launches(cfg, params, 512))
+        check_counts(f"pp512{tag}", expected_launches(cfg, params, 512, impl))
     pp_s = sorted(pp)[1]
     if not (logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()):
         raise SystemExit("FAIL: pp512 logits are not finite [1, vocab]")
@@ -676,7 +912,7 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
         torch.cuda.synchronize()
         tg.append(time.perf_counter() - t0)
         check_counts(f"tg128{tag}",
-                     {k: 128 * v for k, v in expected_launches(cfg, params, 1).items()})
+                     {k: 128 * v for k, v in expected_launches(cfg, params, 1, impl).items()})
     tg_s = sorted(tg)[1]
     step_logits, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
     if not torch.isfinite(step_logits).all():
@@ -690,8 +926,9 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
            "main_path_launches": main_counts, "tg_bound_ms_per_tok": tg_bound[0],
            "pp512_bound_ms": pp_bound[0], "weight_bytes": w_bytes}
     log(f"  [{gpu_line()}]{tag} depth {cfg.n_layers}: pp512 {res['pp512_tok_s']:.1f} tok/s "
-        f"({res['pp512_ms']:.2f} ms), tg128 {res['tg128_tok_s']:.1f} tok/s "
-        f"({res['tg128_ms_per_tok']:.3f} ms/token); medians of 3: pp512 runs "
+        f"({res['pp512_ms']:.2f} ms; bound {pp_bound[0]:.4f} ms), tg128 "
+        f"{res['tg128_tok_s']:.1f} tok/s ({res['tg128_ms_per_tok']:.3f} ms/token; bound "
+        f"{tg_bound[0]:.4f}); medians of 3: pp512 runs "
         f"{', '.join(f'{512 / t:.1f}' for t in pp)} tok/s, tg128 runs "
         f"{', '.join(f'{v:.1f}' for v in res['tg128_tok_s_all'])} tok/s")
     return res
@@ -857,11 +1094,62 @@ def qwen2(dev, profile: Path | None = None) -> dict:
                                       dev)
     L = cfg.n_layers
     pin_dispatch(cfg, params, "Qwen2.5-1.5B",
-                 {"prefill": 0, "attn_in": L, "oproj_ffn": 0, "ffn": L, "qmm": L + 1}, 4096)
+                 {"prefill": 0, "attn_in": L, "oproj_ffn": 0, "ffn": L, "qmm": L + 1,
+                  "qmm_int8": 0}, 4096)
     reference_check(cfg, params, dev, lengths=(8, 40, 1100), max_seq=LONG_MAX_SEQ)
     res = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 3000),
                      request_max_seq=QWEN_MAX_SEQ, profile=profile, tag=" qwen2.5-1.5b")
     return {**res, **times}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Mixtral-8x7B (MoE; bf16 pairs under impl auto, f32 scales under int8)
+# ---------------------------------------------------------------------------
+
+MIXTRAL_DEPTH = 2  # 2, not 4: a layer's write + load takes over 25 s on the card's host
+MIXTRAL_CONFIGS = (("bf16 pairs, impl auto", "bf16", "auto"),
+                   ("f32 scales, impl int8", "f32", "int8"))
+
+
+def mixtral(dev, profile: Path | None = None) -> dict:
+    """Phase 7 (module docstring). Returns the results of both
+    configurations and their main-path launch counts."""
+    import dataclasses
+
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import mixtral_8x7b_config
+
+    full = mixtral_8x7b_config()
+    cfg0 = dataclasses.replace(full, n_layers=MIXTRAL_DEPTH)
+    name = f"mixtral-8x7b-{MIXTRAL_DEPTH}l-q4_k_m-seed0.gguf"
+    out: dict = {"launches": {}}
+    for label, scale_dtype, impl in MIXTRAL_CONFIGS:
+        phase(f"phase 7: Mixtral-8x7B, {label}")
+        cfg, params, times = load_fixture(cfg0, name, dev, scale_dtype)
+        out.setdefault("reduced", (
+            f"depth {MIXTRAL_DEPTH} of {full.n_layers} layers: one layer is 0.93 GB of GGUF "
+            f"(24 expert matrices of 58.7 M weights) that the host writes and repacks, over "
+            f"25 s a layer, so 2 layers keep the phase near 5 minutes; this run: "
+            f"{(times['write_s'] + times['load_s']) / MIXTRAL_DEPTH:.1f} s a layer for the "
+            f"write and the first load"))
+        log(f"  reduced: {out['reduced']}")
+        L, E = cfg.n_layers, cfg.n_experts
+        decode = {"prefill": 0, "attn_in": L, "oproj_ffn": 0, "ffn": 0,
+                  "qmm": (1 + E) * L + 1 if impl == "int8" else (2 + 3 * E) * L + 1,
+                  "qmm_int8": (1 + 2 * E) * L if impl == "int8" else 0}
+        prefill64 = {"prefill": 0, "attn_in": 0, "oproj_ffn": 0, "ffn": 0,
+                     "qmm": (4 + 3 * E) * L + 1, "qmm_int8": 0}
+        pin_dispatch(cfg, params, f"Mixtral-8x7B ({label})", decode, 2048, impl, prefill64)
+        reference_check(cfg, params, dev, lengths=(8, 40), max_seq=128, depth=1, impl=impl,
+                        steps=2)
+        res = end_to_end(dev, cfg, params, profile=profile, tag=f" mixtral-{scale_dtype}-{impl}",
+                         impl=impl)
+        out[label] = {**res, **times}
+        out["launches"][label] = res["main_path_launches"]
+        del params
+        torch.cuda.empty_cache()
+    return out
 
 
 REPLACES = {
@@ -870,6 +1158,7 @@ REPLACES = {
     "oproj_ffn": ("tpu_kquant_torch/csrc/oproj_ffn.cu", "tpu_kquant/ops/pallas_ffn.py:983"),
     "ffn": ("tpu_kquant_torch/csrc/ffn.cu", "tpu_kquant/ops/pallas_ffn.py:331"),
     "prefill": ("tpu_kquant_torch/csrc/prefill.cu", "tpu_kquant/ops/pallas_prefill.py:168"),
+    "qmm_int8": ("tpu_kquant_torch/csrc/qmm_int8.cu", "tpu_kquant/ops/pallas_qmm_int8.py:139"),
 }
 
 
@@ -895,43 +1184,50 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
-    log("== phase 1: device")
+    phase("phase 1: device")
     log(f"  {gpu_line()}")
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {nvcc}, "
         f"python {sys.version.split()[0]}")
 
-    log("== phase 2: build")
+    phase("phase 2: build")
     log(f"  built {', '.join(_build.SOURCES)} in {_build.build_all():.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
 
-    log(f"== phase 3: kernels vs plain versions on the card [{gpu_line()}]")
+    phase(f"phase 3: kernels vs plain versions on the card [{gpu_line()}]")
     cases = check_kernels(dev)
 
-    log("== phase 4: end to end (TinyLlama-1.1B)")
+    phase("phase 4: end to end (TinyLlama-1.1B)")
     from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
 
     cfg, params, _ = load_fixture(tinyllama_1b_config(), "tinyllama-1.1b-q4_k_m-seed0.gguf", dev)
     L = cfg.n_layers
     pin_dispatch(cfg, params, "TinyLlama-1.1B",
-                 {"prefill": 0, "attn_in": L, "oproj_ffn": L, "ffn": 0, "qmm": 1}, 2048)
+                 {"prefill": 0, "attn_in": L, "oproj_ffn": L, "ffn": 0, "qmm": 1, "qmm_int8": 0},
+                 2048)
     reference_check(cfg, params, dev)
     e2e = end_to_end(dev, cfg, params, profile=args.profile)
 
-    log("== phase 5: long prompts (bf16 and int8 KV)")
+    phase("phase 5: long prompts (bf16 and int8 KV)")
     long = long_prompts(cfg, params, dev, args.profile)
     del cfg, params
     torch.cuda.empty_cache()
 
-    log("== phase 6: Qwen2.5-1.5B (biases, tied lm head, ffn kernel)")
+    phase("phase 6: Qwen2.5-1.5B (biases, tied lm head, ffn kernel)")
     qwen = qwen2(dev, args.profile)
+    torch.cuda.empty_cache()
+
+    phase("phase 7: Mixtral-8x7B (MoE; bf16 pairs + impl auto, f32 scales + impl int8)")
+    mix = mixtral(dev, args.profile)
 
     # launches: the sums over the request runs of phases 4, 5 (both KV
-    # kinds) and 6, each counted from 0 and checked exactly
-    runs = [e2e["main_path_launches"], *long["launches"].values(), qwen["main_path_launches"]]
+    # kinds), 6 and 7 (both configurations), each counted from 0 and
+    # checked exactly
+    runs = [e2e["main_path_launches"], *long["launches"].values(), qwen["main_path_launches"],
+            *mix["launches"].values()]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-6): {launches}")
+    log(f"  launches on the main path (phases 4-7): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

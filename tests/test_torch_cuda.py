@@ -11,7 +11,10 @@ it runs on a machine with only PyTorch and the CUDA toolkit:
 dequantized weights in f32 where the plain version rounds them to bf16. The
 prefill kernel is held to 2e-2 of each output row's own max|ref|: causal
 attention's output shrinks along the prompt, so the whole output's max|ref|
-(set by the first rows) would let a fault in the late tiles pass.
+(set by the first rows) would let a fault in the late tiles pass. qmm_int8
+is held to 1e-3 of max|ref|: both sides sum exact integer partials of the
+same Q8 codes (its activation quantization byte for byte), and differ only
+in the f32 rescale's order.
 """
 
 import dataclasses
@@ -27,6 +30,7 @@ from tpu_kquant_torch.ops import attn_in as t_attn_in
 from tpu_kquant_torch.ops import ffn as t_ffn
 from tpu_kquant_torch.ops import prefill as t_prefill
 from tpu_kquant_torch.ops import qmm as t_qmm
+from tpu_kquant_torch.ops import qmm_int8 as t_qmm_int8
 from tpu_kquant_torch.quant.qtensor import QTensor
 from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
 from tpu_kquant_torch.runtime.loader import load_model
@@ -59,6 +63,24 @@ def q6w(N, K, rng, dev):
     return QTensor("q6w", "kmajor", (N, K), {
         "qs": rng.integers(-32, 32, (K, N)).astype(np.int8),
         "sp": _pairs(s[0::2], s[1::2])}).to(dev)
+
+
+def q4f(N, K, rng, dev):
+    """q4 with f32 scales and mins (scale_dtype='f32')."""
+    s = rng.random((K // 32, N), dtype=np.float32) * 0.01
+    return QTensor("q4", "kmajor", (N, K), {
+        "qs": rng.integers(0, 256, (K // 2, N), dtype=np.uint8), "scales": s,
+        "mins": s * 7.5}).to(dev)
+
+
+def q6wf(N, K, rng, dev):
+    """q6w with f32 scales [K/16, N] (scale_dtype='f32')."""
+    return QTensor("q6w", "kmajor", (N, K), {
+        "qs": rng.integers(-32, 32, (K, N)).astype(np.int8),
+        "scales": rng.random((K // 16, N), dtype=np.float32) * 0.004}).to(dev)
+
+
+WEIGHTS = {"q4": q4, "q6w": q6w, "q4f": q4f, "q6wf": q6wf}
 
 
 def _rel(got, ref):
@@ -243,6 +265,169 @@ def test_engine_on_card_matches_cpu(card, tmp_path):
         fused = len(rows) * _bucket(max(map(len, rows))) <= 32
         assert used["attn_in"] == 2 * (3 + fused) and used["oproj_ffn"] == 2 * (3 + fused)
         assert used["qmm"] == 3 + (1 if fused else 11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,K,R,out_dtype", [
+    ("q4f", 14336, 4096, 1, "bfloat16"),  # Mixtral expert gate/up, f32 scales
+    ("q6wf", 4096, 14336, 1, "float32"),  # expert down
+    ("q4f", 8, 4096, 1, "float32"),  # the router (N = 8)
+    ("q4", 8, 4096, 3, "float32"),  # the router on bf16 pairs
+    ("q4f", 8, 4096, 512, "float32"),  # the router's prefill tile
+    ("q4", 8, 4096, 64, "float32"),
+    ("q6wf", 4096, 14336, 40, "bfloat16"),
+    ("q4f", 14336, 4096, 512, "bfloat16"),
+    ("q6w", 12, 512, 40, "bfloat16"),  # N % 16 != 0 on the pairs' tile
+    # every other projection a Mixtral-8x7B layer gives qmm, on either scale
+    # layout, at decode rows, the bucket-16 prefill and the tiles
+    ("q4", 14336, 4096, 1, "bfloat16"),  # expert gate/up on bf16 pairs
+    ("q4", 14336, 4096, 16, "bfloat16"),
+    ("q4", 14336, 4096, 512, "bfloat16"),
+    ("q6w", 4096, 14336, 1, "float32"),  # expert down on bf16 pairs
+    ("q6w", 4096, 14336, 16, "float32"),
+    ("q6w", 4096, 14336, 512, "float32"),
+    ("q6wf", 4096, 14336, 16, "float32"),
+    ("q4", 8, 4096, 16, "float32"),
+    ("q6w", 4096, 4096, 1, "bfloat16"),  # wo
+    ("q6wf", 4096, 4096, 1, "bfloat16"),
+    ("q6wf", 4096, 4096, 16, "bfloat16"),
+    ("q6w", 32000, 4096, 1, "float32"),  # the lm head
+    ("q6wf", 32000, 4096, 1, "float32"),
+    ("q4", 5120, 4096, 512, "bfloat16"),  # wqk's prefill tile
+    ("q6wf", 1024, 4096, 512, "bfloat16")])  # wv's, on f32 scales
+def test_qmm_kernel_f32_layouts_and_narrow_n_match_plain(card, kind, N, K, R, out_dtype):
+    rng = np.random.default_rng(N + K + R)
+    qt = WEIGHTS[kind](N, K, rng, card)
+    x = torch.randn(R, K, device=card).to(torch.bfloat16)
+    odt = getattr(torch, out_dtype)
+    launches = t_qmm.counter.launches
+    y = t_qmm.qmm(x, qt, odt)
+    torch.cuda.synchronize()
+    assert t_qmm.counter.launches == launches + 1
+    assert y.dtype == odt and y.shape == (R, N) and torch.isfinite(y).all()
+    assert _rel(y, t_qmm.qmm_plain(x, qt, odt)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 16])
+def test_quantize_q8_kernel_is_byte_equal_to_act_quant(card, R):
+    """The kernel's first launch against ops.act_quant: codes, scales and
+    gsums bit for bit, with .5 ties (amax 127: scale 1) and an all-zero
+    group."""
+    from tpu_kquant_torch.ops.act_quant import quantize_activations
+
+    x = (torch.randn(R, 4096, device=card) * 3).to(torch.bfloat16)
+    x[0, :32] = 0
+    x[-1, 32:64] = torch.tensor([127.0, 2.5, -2.5, 0.5, 1.5, -0.5, -1.5, 3.5] * 4, device=card)
+    for got, want in zip(t_qmm_int8.quantize_q8(x), quantize_activations(x)):
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,R", [(14336, 4096, 1), (14336, 4096, 8), (14336, 4096, 16),
+                                   (8, 4096, 1), (256, 512, 32), (2064, 1024, 5)])
+def test_qmm_int8_kernel_matches_plain(card, N, K, R):
+    """Mixtral's expert gate/up and router, and ragged small shapes. The f32
+    output is held to 1e-3 of max|ref|; the bf16 output (the gate/up's on
+    the main path) is that output rounded, bit for bit (one rounding of an
+    f32 sum moves a value by up to 2^-8, past 1e-3 of max|ref|)."""
+    rng = np.random.default_rng(N + K + R)
+    qt = q4f(N, K, rng, card)
+    x = torch.randn(R, K, device=card).to(torch.bfloat16)
+    launches = t_qmm_int8.counter.launches
+    y = t_qmm_int8.qmm_int8(x, qt, torch.float32)
+    y16 = t_qmm_int8.qmm_int8(x, qt, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert t_qmm_int8.counter.launches == launches + 2
+    assert y.shape == (R, N) and torch.isfinite(y).all()
+    assert torch.equal(y16, y.to(torch.bfloat16))
+    assert _rel(y, t_qmm_int8.qmm_int8_plain(x, qt, torch.float32)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 5, 16])
+def test_attn_in_kernel_f32_layouts_match_plain(card, R):
+    """Mixtral-8x7B: 32 + 8 heads of 128 over D = 4096, f32 scales."""
+    _check_mixtral_attn_in(card, R, q4f, q6wf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 16])
+def test_attn_in_kernel_mixtral_pairs_match_plain(card, R):
+    """Mixtral-8x7B: 32 + 8 heads of 128 over D = 4096, bf16 scale pairs."""
+    _check_mixtral_attn_in(card, R, q4, q6w)
+
+
+def _check_mixtral_attn_in(card, R, make_qk, make_v):
+    rng = np.random.default_rng(60 + R)
+    D, hd, H, Hkv = 4096, 128, 32, 8
+    wqk, wv = make_qk((H + Hkv) * hd, D, rng, card), make_v(Hkv * hd, D, rng, card)
+    x = torch.randn(R, D, device=card).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(R, hd // 2, device=card), torch.rand(R, hd // 2, device=card)
+    launches = t_attn_in.counter.launches
+    got = t_attn_in.fused_attn_in(x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    torch.cuda.synchronize()
+    assert t_attn_in.counter.launches == launches + 1
+    ref = t_attn_in.attn_in_plain(x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL
+
+
+@pytest.mark.cuda
+def test_fused_ffn_kernels_refuse_f32_layouts(card):
+    """The gates pass f32 scales (as the reference's do); the ffn and
+    oproj_ffn kernels read the pairs only, so their wrappers raise on the
+    card, naming the layout, and launch nothing."""
+    rng = np.random.default_rng(3)
+    gu, dn, wo = q4f(1024, 512, rng, card), q6wf(512, 512, rng, card), q6wf(512, 1024, rng, card)
+    x = torch.randn(1, 512, device=card).to(torch.bfloat16)
+    nw = torch.ones(512, device=card)
+    launches = {k: c.launches for k, c in _build.COUNTERS.items()}
+    with pytest.raises(NotImplementedError, match="f32-scale"):
+        t_ffn.fused_ffn(x, nw, 1e-5, gu, dn)
+    with pytest.raises(NotImplementedError, match="f32-scale"):
+        t_ffn.fused_oproj_ffn(x, torch.randn(1, 1024, device=card).to(torch.bfloat16), wo, nw,
+                              1e-5, gu, dn)
+    assert launches == {k: c.launches for k, c in _build.COUNTERS.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale_dtype,impl", [("bf16", "auto"), ("f32", "int8")])
+def test_moe_engine_on_card_matches_cpu(card, tmp_path, scale_dtype, impl):
+    """A tiny Mixtral-style MoE (dim 512, 4 + 2 heads of 128, 4 experts, top
+    2) from the port's writer, card against CPU: an 11-token prompt (decode
+    rows: attn_in; qmm_int8 for the router and gate/up under int8) and a
+    40-token one (the qmm tiles), then decode steps fed the same tokens."""
+    cfg = tiny_config(n_layers=2, dim=512, n_heads=4, n_kv_heads=2, ffn_dim=256,
+                      vocab_size=512, n_experts=4, n_experts_used=2)
+    path = write_fixture_gguf(tmp_path / "moe.gguf", cfg, seed=5)
+    engines = [InferenceEngine(*load_model(path, scale_dtype=scale_dtype, device=d)[:2],
+                               max_seq=64, device=d, impl=impl) for d in (card, "cpu")]
+    rng = np.random.default_rng(0)
+    L, E = 2, 4
+    for n in (11, 40):
+        prompt = rng.integers(3, 512, n).tolist()
+        launches = {k: c.launches for k, c in _build.COUNTERS.items()}
+        outs = []
+        for eng in engines:
+            logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+            steps, pos = [logits], torch.tensor(lens, device=eng.device)
+            for t in (7, 99, 300):
+                step, cache = eng.decode_step(torch.full((1,), t, device=eng.device), pos, cache)
+                steps.append(step)
+                pos = pos + 1
+            outs.append([x.float().cpu() for x in steps])
+        for got, ref in zip(*outs):
+            assert torch.isfinite(got).all() and _rel(got, ref) < 5e-2
+            top3 = torch.topk(ref, 3, dim=-1).indices
+            assert (top3 == got.argmax(-1, keepdim=True)).any(-1).all()
+        used = {k: c.launches - launches[k] for k, c in _build.COUNTERS.items()}
+        fused = n <= 16
+        int8 = impl == "int8"
+        assert used["attn_in"] == L * (3 + fused)
+        assert used["qmm_int8"] == (1 + 2 * E) * L * (3 + fused) * int8
+        per_step = (1 + E) * L + 1 if int8 else (2 + 3 * E) * L + 1
+        assert used["qmm"] == 3 * per_step + (per_step if fused else (4 + 3 * E) * L + 1)
 
 
 # flash prefill cases: chip_smoke.py's phase-3 shapes (TinyLlama: 32 / 4

@@ -9,6 +9,10 @@
 //   KQ6W : qs i8 [K, N] signed codes; sp f32-container [K/32, N]: low 16
 //          bits bf16 scale of group 2j (rows 32j..32j+15), high 16 bits the
 //          scale of group 2j+1; w = s * q.
+//   KQ4F : KQ4's codes with f32 scales [K/32, N] and f32 mins [K/32, N]
+//          (scale_dtype='f32'); w = s * q - m.
+//   KQ6WF: KQ6W's codes with f32 scales [K/16, N]; w = s * q.
+// N must be a multiple of 4 (a lane reads 4 columns as one word).
 //
 // GEMV core (rows <= 32, memory bound): a block owns TN = 128 output
 // columns, each lane 4 neighbouring columns, so a warp reads 128 contiguous
@@ -31,6 +35,10 @@ namespace tkq {
 
 constexpr int KQ4 = 0;
 constexpr int KQ6W = 1;
+constexpr int KQ4F = 2;
+constexpr int KQ6WF = 3;
+// the kinds whose codes are folded nibbles (two K groups per packed row)
+__host__ __device__ constexpr bool is_q4(int kind) { return kind == KQ4 || kind == KQ4F; }
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int TN = 128;  // output columns per block
@@ -59,7 +67,7 @@ __device__ __forceinline__ float load_x(const void* x, int x_f32, size_t i) {
 // Number of activation values a block stages per row for chunks [c0, c1).
 template <int KIND>
 __host__ __device__ __forceinline__ int x_span(int n_chunks) {
-  return (KIND == KQ4 ? 2 : 1) * n_chunks * CH;
+  return (is_q4(KIND) ? 2 : 1) * n_chunks * CH;
 }
 
 // 1 / rms of rows [r0, r0 + RT) of x [R, K] (bf16), into rstd[RT]; rows
@@ -94,7 +102,7 @@ __device__ void stage_x(float* xs, const void* x, int x_f32, int R, int K, int r
   const int span = x_span<KIND>(c1 - c0);
   for (int i = threadIdx.x; i < RT * span; i += THREADS) {
     const int r = i / span, j = i % span;
-    const int k = (KIND == KQ4 && j >= L) ? K / 2 + c0 * CH + (j - L) : c0 * CH + j;
+    const int k = (is_q4(KIND) && j >= L) ? K / 2 + c0 * CH + (j - L) : c0 * CH + j;
     float v = 0.f;
     if (r0 + r < R) {
       v = load_x(x, x_f32, (size_t)(r0 + r) * K + k);
@@ -105,12 +113,64 @@ __device__ void stage_x(float* xs, const void* x, int x_f32, int R, int K, int r
   __syncthreads();
 }
 
+// The scales of packed chunk c (32 packed rows) for the 4 columns n..n+3.
+// load() issues the loads; decode() returns them as f32: q4 kinds give the
+// low fold's group c (s0, m0) and the high fold's group K/64 + c (s1, m1);
+// q6w kinds the chunk's two 16-row groups 2c (s0) and 2c + 1 (s1), with
+// m0 = m1 = 0. The bf16 kinds keep only their packed words (8 or 4
+// registers) until decode(). `mins` is read by KQ4F only.
+template <int KIND>
+struct ChunkScales {
+  static constexpr bool kTwo = KIND != KQ6W;  // a second scale row (b)
+  static constexpr bool kMins = KIND == KQ4F;
+  uint4 a, b, ma, mb;
+
+  __device__ __forceinline__ void load(const uint32_t* scl, const uint32_t* mins, int N, int K,
+                                       int c, int n, bool ok) {
+    a = b = ma = mb = make_uint4(0, 0, 0, 0);
+    if (!ok) return;
+    size_t ra, rb;
+    if constexpr (is_q4(KIND)) {
+      ra = (size_t)c * N + n, rb = ((size_t)(K / 64) + c) * N + n;
+    } else {  // KQ6W: one sp row per chunk; KQ6WF: two scale rows
+      ra = (size_t)(KIND == KQ6W ? c : 2 * c) * N + n, rb = ra + N;
+    }
+    a = __ldg(reinterpret_cast<const uint4*>(scl + ra));
+    if constexpr (kTwo) b = __ldg(reinterpret_cast<const uint4*>(scl + rb));
+    if constexpr (kMins) {
+      ma = __ldg(reinterpret_cast<const uint4*>(mins + ra));
+      mb = __ldg(reinterpret_cast<const uint4*>(mins + rb));
+    }
+  }
+
+  __device__ __forceinline__ void decode(float (&s0)[4], float (&m0)[4], float (&s1)[4],
+                                         float (&m1)[4]) const {
+    const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+    const uint32_t wma[4] = {ma.x, ma.y, ma.z, ma.w}, wmb[4] = {mb.x, mb.y, mb.z, mb.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if constexpr (KIND == KQ4) {  // bf16 (scale, min) pairs per group
+        s0[j] = bf16_lo(wa[j]), m0[j] = bf16_hi(wa[j]);
+        s1[j] = bf16_lo(wb[j]), m1[j] = bf16_hi(wb[j]);
+      } else if constexpr (KIND == KQ6W) {  // bf16 (even, odd) group scale pairs
+        s0[j] = bf16_lo(wa[j]), s1[j] = bf16_hi(wa[j]);
+        m0[j] = m1[j] = 0.f;
+      } else {
+        s0[j] = __uint_as_float(wa[j]), s1[j] = __uint_as_float(wb[j]);
+        m0[j] = kMins ? __uint_as_float(wma[j]) : 0.f;
+        m1[j] = kMins ? __uint_as_float(wmb[j]) : 0.f;
+      }
+    }
+  }
+};
+
 // One warp's share of a block's GEMV: chunks c0 + warp, c0 + warp + 8, ...
 // below c1, for the lane's 4 columns starting at n. acc is accumulated.
 template <int KIND, int RT>
 __device__ __forceinline__ void gemv_warp(float (&acc)[RT][4], const uint8_t* qs,
                                           const uint32_t* scl, int N, int K, int n, bool col_ok,
-                                          int c0, int c1, const float* xs, int span) {
+                                          int c0, int c1, const float* xs, int span,
+                                          const uint32_t* mins = nullptr) {
   const int warp = threadIdx.x / 32;
   const int L = (c1 - c0) * CH;
   for (int c = c0 + warp; c < c1; c += WARPS) {
@@ -120,12 +180,10 @@ __device__ __forceinline__ void gemv_warp(float (&acc)[RT][4], const uint8_t* qs
 #pragma unroll
     for (int i = 0; i < CH; ++i)
       w[i] = col_ok ? __ldg(reinterpret_cast<const uint32_t*>(qs + (row0 + i) * N + n)) : 0u;
-    if (KIND == KQ4) {
-      uint4 slo = make_uint4(0, 0, 0, 0), shi = make_uint4(0, 0, 0, 0);
-      if (col_ok) {
-        slo = __ldg(reinterpret_cast<const uint4*>(scl + (size_t)c * N + n));
-        shi = __ldg(reinterpret_cast<const uint4*>(scl + ((size_t)(K / 64) + c) * N + n));
-      }
+    ChunkScales<KIND> cs;
+    cs.load(scl, mins, N, K, c, n, col_ok);
+    float s0[4], m0[4], s1[4], m1[4];
+    if constexpr (is_q4(KIND)) {
       float dlo[RT][4] = {}, dhi[RT][4] = {}, xlo[RT] = {}, xhi[RT] = {};
 #pragma unroll
       for (int i = 0; i < CH; ++i) {
@@ -144,16 +202,13 @@ __device__ __forceinline__ void gemv_warp(float (&acc)[RT][4], const uint8_t* qs
           }
         }
       }
-      const uint32_t sl[4] = {slo.x, slo.y, slo.z, slo.w}, sh[4] = {shi.x, shi.y, shi.z, shi.w};
+      cs.decode(s0, m0, s1, m1);
 #pragma unroll
       for (int r = 0; r < RT; ++r)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          acc[r][j] += bf16_lo(sl[j]) * dlo[r][j] - bf16_hi(sl[j]) * xlo[r] +
-                       bf16_lo(sh[j]) * dhi[r][j] - bf16_hi(sh[j]) * xhi[r];
+          acc[r][j] += s0[j] * dlo[r][j] - m0[j] * xlo[r] + s1[j] * dhi[r][j] - m1[j] * xhi[r];
     } else {
-      uint4 sp = make_uint4(0, 0, 0, 0);
-      if (col_ok) sp = __ldg(reinterpret_cast<const uint4*>(scl + (size_t)c * N + n));
       float de[RT][4] = {}, dodd[RT][4] = {};
 #pragma unroll
       for (int i = 0; i < CH; ++i) {
@@ -172,12 +227,11 @@ __device__ __forceinline__ void gemv_warp(float (&acc)[RT][4], const uint8_t* qs
           }
         }
       }
-      const uint32_t s[4] = {sp.x, sp.y, sp.z, sp.w};
+      cs.decode(s0, m0, s1, m1);
 #pragma unroll
       for (int r = 0; r < RT; ++r)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[r][j] += bf16_lo(s[j]) * de[r][j] + bf16_hi(s[j]) * dodd[r][j];
+        for (int j = 0; j < 4; ++j) acc[r][j] += s0[j] * de[r][j] + s1[j] * dodd[r][j];
     }
   }
 }
@@ -216,13 +270,14 @@ struct GemvArgs {
   const void* x;  // [R, K] activations, bf16 or f32 (x_f32)
   int x_f32;
   const uint8_t* qs;
-  const uint32_t* scl;  // sm (q4) or sp (q6w)
+  const uint32_t* scl;  // sm (q4), sp (q6w), or f32 scales (KQ4F, KQ6WF)
   int R, N, K;
   int cps;                   // chunks per K split (grid.y splits)
   float* ws;                 // [grid.y, R, N] partials when grid.y > 1
   void* out;                 // [R, N] when grid.y == 1
   int out_f32;
   const __nv_bfloat16* res;  // optional [R, N] residual (grid.y == 1)
+  const uint32_t* mins;      // f32 mins [K/32, N] (KQ4F only)
 };
 
 // grid (ceil(N / TN), splits, ceil(R / RT)); dynamic smem:
@@ -230,7 +285,7 @@ struct GemvArgs {
 template <int KIND, int RT>
 __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const int n_chunks = (KIND == KQ4 ? a.K / 2 : a.K) / CH;
+  const int n_chunks = (is_q4(KIND) ? a.K / 2 : a.K) / CH;
   const int c0 = blockIdx.y * a.cps;
   const int c1 = min(n_chunks, c0 + a.cps);
   const int r0 = blockIdx.z * RT;
@@ -243,7 +298,7 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
   float acc[RT][4] = {};
   if (c0 < c1)
     gemv_warp<KIND, RT>(acc, a.qs, a.scl, a.N, a.K, n, n < a.N, c0, c1, xs,
-                        x_span<KIND>(c1 - c0));
+                        x_span<KIND>(c1 - c0), a.mins);
   block_reduce<RT>(red, acc);
   for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
     const int r = r0 + i / TN, col = blockIdx.x * TN + i % TN;

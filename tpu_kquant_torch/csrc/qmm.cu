@@ -1,4 +1,5 @@
-// qmm: y[R, N] = x[R, K] @ dequant(W)^T for packed q4-sm and q6w-sp weights.
+// qmm: y[R, N] = x[R, K] @ dequant(W)^T for packed q4 and q6w weights, with
+// bf16 scale pairs (sm / sp) or f32 scales (q4: scales + mins; q6w: scales).
 //
 // Replaces the TPU kernel tpu_kquant/ops/pallas_qmm.py:qmm_pallas
 // (_qmm_call, kernel body _qmm_kernel), which streams the packed bytes once
@@ -16,6 +17,12 @@
 //   tile), the matching x columns are staged as bf16, and eight warps
 //   multiply them with bf16 WMMA (mma.sync) into f32 accumulators.
 //   Single-buffered: TMA / wgmma pipelines are later work.
+// The f32-scale layouts (scale_dtype='f32', as the int8 path loads them) have
+// twice the side-array bytes of the pairs: 0.75 bytes per q4 weight instead
+// of 0.625, 1.25 per q6w weight instead of 1.125. Mixtral-8x7B's expert down
+// [4096, 14336] q6w-f32 (73.4 MB) bounds the R = 1 GEMV at 21.9 us. N needs
+// only be a multiple of 4 (the router's N = 8): the tile masks its ragged
+// column edge.
 #include <mma.h>
 
 #include "common.cuh"
@@ -28,10 +35,11 @@ constexpr int LDW = BN + 8;  // bf16 row pitch of the weight tile
 
 template <int KIND>
 __global__ void __launch_bounds__(THREADS) mma_kernel(const void* x, int x_f32, const uint8_t* qs,
-                                                      const uint32_t* scl, void* out, int out_f32,
-                                                      int R, int N, int K) {
+                                                      const uint32_t* scl, const uint32_t* mins,
+                                                      void* out, int out_f32, int R, int N,
+                                                      int K) {
   using namespace nvcuda;
-  constexpr int NF = KIND == KQ4 ? 2 : 1;  // folds per packed chunk
+  constexpr int NF = is_q4(KIND) ? 2 : 1;  // folds per packed chunk
   __shared__ __align__(32) __nv_bfloat16 xt[NF][BM * LDX];
   __shared__ __align__(32) __nv_bfloat16 wt[NF][BK * LDW];
   __shared__ __align__(32) float ct[WARPS][16 * 16];
@@ -39,7 +47,7 @@ __global__ void __launch_bounds__(THREADS) mma_kernel(const void* x, int x_f32, 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int wm = (warp / 2) * 32, wn = (warp % 2) * 64;  // warp's 32 x 64 sub-tile
-  const int n_chunks = (KIND == KQ4 ? K / 2 : K) / BK;
+  const int n_chunks = (is_q4(KIND) ? K / 2 : K) / BK;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
 #pragma unroll
@@ -49,9 +57,11 @@ __global__ void __launch_bounds__(THREADS) mma_kernel(const void* x, int x_f32, 
 
   // x tile: thread -> row tid / 2, 16 columns at (tid % 2) * 16
   const int xr = tid / 2, xc = (tid % 2) * 16;
-  // weight tile: thread -> packed row tid / 8, 16 columns at (tid % 8) * 16
+  // weight tile: thread -> packed row tid / 8, 16 columns at (tid % 8) * 16;
+  // past the N edge a 4-column word is zero (N % 4 == 0), and with N % 16 != 0
+  // rows are not 16-byte aligned, so the codes are read a word at a time
   const int wr = tid / 8, wc = (tid % 8) * 16;
-  const bool w_ok = n0 + wc < N;
+  const bool w_vec = N % 16 == 0 && n0 + wc + 16 <= N;
 
   for (int c = 0; c < n_chunks; ++c) {
     __syncthreads();  // previous chunk's tiles are consumed
@@ -76,31 +86,34 @@ __global__ void __launch_bounds__(THREADS) mma_kernel(const void* x, int x_f32, 
       }
     }
     // dequantize 16 columns of packed row c * BK + wr
-    uint4 b = make_uint4(0, 0, 0, 0);
-    if (w_ok) b = __ldg(reinterpret_cast<const uint4*>(qs + ((size_t)c * BK + wr) * N + n0 + wc));
-    const uint32_t bw[4] = {b.x, b.y, b.z, b.w};
+    const uint8_t* wrow = qs + ((size_t)c * BK + wr) * N + n0 + wc;
+    uint32_t bw[4] = {0u, 0u, 0u, 0u};
+    if (w_vec) {
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(wrow));
+      bw[0] = b.x, bw[1] = b.y, bw[2] = b.z, bw[3] = b.w;
+    } else {
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4)
+        if (n0 + wc + q4 * 4 < N) bw[q4] = __ldg(reinterpret_cast<const uint32_t*>(wrow) + q4);
+    }
 #pragma unroll
     for (int q4 = 0; q4 < 4; ++q4) {  // 4 columns per scale load
-      uint4 s0 = make_uint4(0, 0, 0, 0), s1 = make_uint4(0, 0, 0, 0);
-      const size_t col = (size_t)n0 + wc + q4 * 4;
-      if (w_ok) {
-        s0 = __ldg(reinterpret_cast<const uint4*>(scl + (size_t)c * N + col));
-        if (KIND == KQ4)
-          s1 = __ldg(reinterpret_cast<const uint4*>(scl + ((size_t)(K / 64) + c) * N + col));
-      }
-      const uint32_t sa[4] = {s0.x, s0.y, s0.z, s0.w}, sb[4] = {s1.x, s1.y, s1.z, s1.w};
+      const int col = n0 + wc + q4 * 4;
+      ChunkScales<KIND> cs;
+      cs.load(scl, mins, N, K, c, col, col < N);
+      float s0[4], m0[4], s1[4], m1[4];
+      cs.decode(s0, m0, s1, m1);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const uint32_t byte = (bw[q4] >> (8 * j)) & 0xFFu;
         const int cj = wc + q4 * 4 + j;
-        if (KIND == KQ4) {
+        if constexpr (is_q4(KIND)) {
           const float lo = (float)(byte & 0xFu), hi = (float)(byte >> 4);
-          wt[0][wr * LDW + cj] = __float2bfloat16_rn(bf16_lo(sa[j]) * lo - bf16_hi(sa[j]));
-          wt[1][wr * LDW + cj] = __float2bfloat16_rn(bf16_lo(sb[j]) * hi - bf16_hi(sb[j]));
+          wt[0][wr * LDW + cj] = __float2bfloat16_rn(s0[j] * lo - m0[j]);
+          wt[1][wr * LDW + cj] = __float2bfloat16_rn(s1[j] * hi - m1[j]);
         } else {
           const float q = (float)(int8_t)byte;
-          const float s = wr < BK / 2 ? bf16_lo(sa[j]) : bf16_hi(sa[j]);
-          wt[0][wr * LDW + cj] = __float2bfloat16_rn(s * q);
+          wt[0][wr * LDW + cj] = __float2bfloat16_rn((wr < BK / 2 ? s0[j] : s1[j]) * q);
         }
       }
     }
@@ -140,28 +153,45 @@ __global__ void __launch_bounds__(THREADS) mma_kernel(const void* x, int x_f32, 
     }
 }
 
+template <int KIND>
+cudaError_t launch_qmm(const void* x, int x_f32, const uint8_t* qs, const uint32_t* scl,
+                       const uint32_t* mins, void* out, int out_f32, float* ws, int R, int N,
+                       int K, int cps, int splits, cudaStream_t st) {
+  if (R <= 32) {
+    GemvArgs a{x, x_f32, qs, scl, R, N, K, cps, ws, out, out_f32, nullptr, mins};
+    return launch_gemv<KIND>(a, splits, st);
+  }
+  dim3 grid((N + BN - 1) / BN, (R + BM - 1) / BM);
+  mma_kernel<KIND><<<grid, THREADS, 0, st>>>(x, x_f32, qs, scl, mins, out, out_f32, R, N, K);
+  return cudaGetLastError();
+}
+
 }  // namespace tkq
 
 using namespace tkq;
 
-// kind: 0 = q4 with sm pairs, 1 = q6w with sp pairs. R <= 32 takes the
-// GEMV path with `splits` K splits of `cps` chunks each (ws holds
+// kind: 0 = q4 with sm pairs, 1 = q6w with sp pairs, 2 = q4 with f32 scales
+// and mins, 3 = q6w with f32 scales (mins: null except for kind 2). R <= 32
+// takes the GEMV path with `splits` K splits of `cps` chunks each (ws holds
 // splits * R * N floats when splits > 1); R > 32 takes the tiled WMMA path.
-// Returns the CUDA error code of the launches (0 on success).
+// N % 4 == 0. Returns the CUDA error code of the launches (0 on success).
 extern "C" int tkq_qmm(int kind, const void* x, int x_f32, const void* qs, const void* scl,
-                       void* out, int out_f32, float* ws, int R, int N, int K, int cps,
-                       int splits, void* stream) {
+                       const void* mins, void* out, int out_f32, float* ws, int R, int N, int K,
+                       int cps, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* q = static_cast<const uint8_t*>(qs);
   const uint32_t* s = static_cast<const uint32_t*>(scl);
-  if (R <= 32) {
-    GemvArgs a{x, x_f32, q, s, R, N, K, cps, ws, out, out_f32, nullptr};
-    return kind == KQ4 ? launch_gemv<KQ4>(a, splits, st) : launch_gemv<KQ6W>(a, splits, st);
+  const uint32_t* m = static_cast<const uint32_t*>(mins);
+  switch (kind) {
+    case KQ4:
+      return (int)launch_qmm<KQ4>(x, x_f32, q, s, m, out, out_f32, ws, R, N, K, cps, splits, st);
+    case KQ6W:
+      return (int)launch_qmm<KQ6W>(x, x_f32, q, s, m, out, out_f32, ws, R, N, K, cps, splits, st);
+    case KQ4F:
+      return (int)launch_qmm<KQ4F>(x, x_f32, q, s, m, out, out_f32, ws, R, N, K, cps, splits, st);
+    case KQ6WF:
+      return (int)launch_qmm<KQ6WF>(x, x_f32, q, s, m, out, out_f32, ws, R, N, K, cps, splits,
+                                    st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((N + BN - 1) / BN, (R + BM - 1) / BM);
-  if (kind == KQ4)
-    mma_kernel<KQ4><<<grid, THREADS, 0, st>>>(x, x_f32, q, s, out, out_f32, R, N, K);
-  else
-    mma_kernel<KQ6W><<<grid, THREADS, 0, st>>>(x, x_f32, q, s, out, out_f32, R, N, K);
-  return (int)cudaGetLastError();
 }

@@ -4,7 +4,11 @@
 Q4_K_M type recipe (attn_v, ffn_down and output in Q6_K, the other matmul
 weights Q4_K, norms F32), like ``tpu_kquant.models.fixtures``; qwen2 adds
 F32 q/k/v biases, and a tied config writes no ``output.weight`` (the tied
-``token_embd`` stays Q4_K, as the reference's recipe gives it). Unlike the
+``token_embd`` stays Q4_K, as the reference's recipe gives it). A MoE config
+(``n_experts``) writes the router ``ffn_gate_inp`` [E, D] and the stacked
+experts ``ffn_{gate,up}_exps`` [E, F, D] and ``ffn_down_exps`` [E, D, F] in
+place of the FFN weights, under the same recipe (the router Q4_K, the downs
+Q6_K), as the reference writes them. Unlike the
 reference it does not quantize float weights: the port has no fast
 quantizer (NumPy K-quant search takes seconds per 2048x2048 tensor, some
 twenty minutes for a 1.1B model), so it DRAWS valid K-quant blocks directly.
@@ -30,7 +34,8 @@ from tpu_kquant_torch.models.config import ModelConfig, RopeParams
 
 def tiny_config(arch: str = "llama", n_layers: int = 2, dim: int = 64,
                 n_heads: int = 4, n_kv_heads: int = 2, ffn_dim: int = 128,
-                vocab_size: int = 512, max_seq_len: int = 256) -> ModelConfig:
+                vocab_size: int = 512, max_seq_len: int = 256, n_experts: int = 0,
+                n_experts_used: int = 0) -> ModelConfig:
     if arch not in ("llama", "qwen2"):
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
     hd = dim // n_heads
@@ -39,7 +44,7 @@ def tiny_config(arch: str = "llama", n_layers: int = 2, dim: int = 64,
         n_kv_heads=n_kv_heads, head_dim=hd, ffn_dim=ffn_dim,
         vocab_size=vocab_size, max_seq_len=max_seq_len,
         rope=RopeParams(head_dim=hd, n_rot=hd, mode="neox" if arch == "qwen2" else "norm"),
-        attn_bias=arch == "qwen2",
+        n_experts=n_experts, n_experts_used=n_experts_used, attn_bias=arch == "qwen2",
     )
 
 
@@ -62,6 +67,19 @@ def qwen2_5_1_5b_config() -> ModelConfig:
         head_dim=128, ffn_dim=8960, vocab_size=151936, max_seq_len=32768,
         norm_eps=1e-6, rope=RopeParams(head_dim=128, n_rot=128, freq_base=1e6, mode="neox"),
         tie_embeddings=True, attn_bias=True,
+    )
+
+
+def mixtral_8x7b_config() -> ModelConfig:
+    """Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1's config.json; a llama-arch
+    GGUF with ``expert_count``): 32 layers, dim 4096, 32 / 8 heads of 128,
+    ffn 14336 per expert, 8 experts of which 2 run per token, vocab 32000,
+    rope theta 1e6."""
+    return ModelConfig(
+        arch="llama", n_layers=32, dim=4096, n_heads=32, n_kv_heads=8,
+        head_dim=128, ffn_dim=14336, vocab_size=32000, max_seq_len=8192,
+        rope=RopeParams(head_dim=128, n_rot=128, freq_base=1000000.0),
+        n_experts=8, n_experts_used=2,
     )
 
 
@@ -104,9 +122,9 @@ def random_q6_k(rng: np.random.Generator, n_blocks: int, scale: float) -> np.nda
 
 
 def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05) -> str:
-    """Write a Q4_K_M llama or qwen2 fixture with random blocks drawn from
-    ``seed``."""
-    if cfg.arch not in ("llama", "qwen2") or cfg.is_moe:
+    """Write a Q4_K_M llama (dense or MoE) or qwen2 fixture with random blocks
+    drawn from ``seed``."""
+    if cfg.arch not in ("llama", "qwen2"):
         raise NotImplementedError("the port writes llama and qwen2 fixtures only")
     rng = np.random.default_rng(seed)
     w = GGUFWriter(path)
@@ -143,6 +161,13 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
                 w.add_float(p + bn, rng.standard_normal(bd).astype(np.float32) * scale)
         add(p + "attn_output.weight", (D, H * hd))
         add(p + "ffn_norm.weight", (D,))
+        if cfg.is_moe:
+            E = cfg.n_experts
+            add(p + "ffn_gate_inp.weight", (E, D))
+            add(p + "ffn_gate_exps.weight", (E, F, D))
+            add(p + "ffn_up_exps.weight", (E, F, D))
+            add(p + "ffn_down_exps.weight", (E, D, F))
+            continue
         add(p + "ffn_gate.weight", (F, D))
         add(p + "ffn_up.weight", (F, D))
         add(p + "ffn_down.weight", (D, F))

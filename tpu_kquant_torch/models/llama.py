@@ -4,7 +4,10 @@
 Params: {'tok_embd': QTensor(rowmajor), 'output_norm', 'output',
          'layers': [{'attn_norm', 'wqk' (or 'wq', 'wk'), 'wv', 'wo',
                      'ffn_norm', 'w_gateup' (or 'w_gate', 'w_up'), 'w_down',
-                     and with cfg.attn_bias f32 'bqk' ([bq | bk]), 'bv'}]}
+                     and with cfg.attn_bias f32 'bqk' ([bq | bk]), 'bv';
+                     a MoE layer has 'gate_inp' and 'experts' ({'w_gate',
+                     'w_up', 'w_down'}, stacked [E, ...]) instead of the
+                     FFN weights}]}
 
 Dispatch follows the reference: at rows <= 32 a layer runs the attn_in
 kernel (biases in its epilogue) and the oproj_ffn kernel where their gates
@@ -12,9 +15,13 @@ pass, or, where only the FFN gate passes (qwen2: attention width 1536 is
 not a multiple of 1024), an o_proj qmatmul and the ffn kernel (on the CPU,
 their plain versions); otherwise every projection is a qmatmul and the
 biases are added after it, which turns q/k/v (and from there the residual
-stream) f32, as in the reference. Attention (ops.attention) runs plain
-PyTorch, or the flash prefill kernel for long prompts; the KV cache is bf16
-or int8.
+stream) f32, as in the reference. A MoE layer (cfg.is_moe) never takes
+oproj_ffn or ffn: o_proj is a qmatmul, then the residual, rms_norm and
+models.moe.moe_ffn. ``impl`` is the reference's: "auto", or "int8", under
+which ops.qmatmul sends decode-sized products on q4 weights with f32 scales
+to the qmm_int8 kernel (the fused kernels' gates accept both). Attention
+(ops.attention) runs plain PyTorch, or the flash prefill kernel for long
+prompts; the KV cache is bf16 or int8.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, Callable
 import torch
 
 from tpu_kquant_torch.models.config import ModelConfig
+from tpu_kquant_torch.models.moe import moe_ffn
 from tpu_kquant_torch.ops import attention
 from tpu_kquant_torch.ops.activations import swiglu
 from tpu_kquant_torch.ops.attn_in import attn_in_supported, fused_attn_in
@@ -34,7 +42,7 @@ from tpu_kquant_torch.ops.ffn import (
     oproj_ffn_supported,
 )
 from tpu_kquant_torch.ops.norms import rms_norm
-from tpu_kquant_torch.ops.qmatmul import qmatmul
+from tpu_kquant_torch.ops.qmatmul import IMPLS, qmatmul
 from tpu_kquant_torch.ops.rope import apply_rope, rope_cos_sin
 from tpu_kquant_torch.quant.codecs import dequant_rows
 from tpu_kquant_torch.runtime.kv_cache import KVCache
@@ -55,13 +63,14 @@ def llama_layer(
     kv_attend_len: int | None = None,  # attention reads only cache slots
     #   [0, kv_attend_len): valid ONLY when every query position is below it
     #   (bucketed prefill, positions = arange(T))
+    impl: str = "auto",
 ) -> torch.Tensor:
     """One transformer block; returns the new residual stream."""
     B, T, dim = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     biases = (layer["bqk"], layer["bv"]) if cfg.attn_bias else None
     if cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in layer and \
-            attn_in_supported(layer["wqk"], layer["wv"], B * T, dim, D, biases):
+            attn_in_supported(layer["wqk"], layer["wv"], B * T, dim, D, biases, impl):
         qk, v = fused_attn_in(x, _norm_w(layer["attn_norm"]), cfg.norm_eps, layer["wqk"],
                               layer["wv"], cos, sin, D, biases)
         q = qk[..., : H * D].reshape(B, T, H, D)
@@ -70,13 +79,13 @@ def llama_layer(
     else:
         h = rms_norm(x, _norm_w(layer["attn_norm"]), cfg.norm_eps)
         if "wqk" in layer:
-            qk = qmatmul(h, layer["wqk"])
+            qk = qmatmul(h, layer["wqk"], impl)
             q = qk[..., : H * D].reshape(B, T, H, D)
             k = qk[..., H * D:].reshape(B, T, Hkv, D)
         else:
-            q = qmatmul(h, layer["wq"]).reshape(B, T, H, D)
-            k = qmatmul(h, layer["wk"]).reshape(B, T, Hkv, D)
-        v = qmatmul(h, layer["wv"]).reshape(B, T, Hkv, D)
+            q = qmatmul(h, layer["wq"], impl).reshape(B, T, H, D)
+            k = qmatmul(h, layer["wk"], impl).reshape(B, T, Hkv, D)
+        v = qmatmul(h, layer["wv"], impl).reshape(B, T, Hkv, D)
         if cfg.attn_bias:  # bf16 + f32: q/k/v become f32, as in the reference
             q = q + layer["bqk"][: H * D].reshape(H, D)
             k = k + layer["bqk"][H * D:].reshape(Hkv, D)
@@ -100,18 +109,20 @@ def llama_layer(
                                                    layer["w_down"], B * T):
         return fused_oproj_ffn(x, attn, layer["wo"], _norm_w(layer["ffn_norm"]),
                                cfg.norm_eps, layer["w_gateup"], layer["w_down"])
-    x = x + qmatmul(attn, layer["wo"])
+    x = x + qmatmul(attn, layer["wo"], impl)
     if "w_gateup" in layer and ffn_supported(layer["w_gateup"], layer["w_down"], B * T):
         return fused_ffn(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps, layer["w_gateup"],
                          layer["w_down"])
     h = rms_norm(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps)
+    if cfg.is_moe:
+        return x + moe_ffn(layer, cfg, h, impl)
     if "w_gateup" in layer:
-        gu = qmatmul(h, layer["w_gateup"])
+        gu = qmatmul(h, layer["w_gateup"], impl)
         F = gu.shape[-1] // 2
         act = swiglu(gu[..., :F], gu[..., F:])
     else:
-        act = swiglu(qmatmul(h, layer["w_gate"]), qmatmul(h, layer["w_up"]))
-    return x + qmatmul(act, layer["w_down"])
+        act = swiglu(qmatmul(h, layer["w_gate"], impl), qmatmul(h, layer["w_up"], impl))
+    return x + qmatmul(act, layer["w_down"], impl)
 
 
 def llama_forward(
@@ -122,12 +133,15 @@ def llama_forward(
     cache: KVCache,
     logits_last_only: bool = False,
     kv_attend_len: int | None = None,  # see llama_layer
+    impl: str = "auto",  # see the module docstring
 ) -> tuple[torch.Tensor, KVCache]:
     """Returns (logits [B, T, vocab] f32 (or [B, 1, vocab]), cache). The
     cache is updated in place."""
-    if cfg.act_fn != "silu" or cfg.post_norms or cfg.is_moe \
+    if cfg.act_fn != "silu" or cfg.post_norms \
             or cfg.sliding_window or cfg.attn_logit_softcap or cfg.final_logit_softcap:
         raise NotImplementedError(f"{cfg.arch} quirks are not ported yet")
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     x = dequant_rows(params["tok_embd"], tokens, dtype=torch.bfloat16)
     if cfg.embed_scale != 1.0:
         x = x * torch.tensor(cfg.embed_scale, dtype=torch.bfloat16)
@@ -151,7 +165,7 @@ def llama_forward(
             return cache.layer_view(_i)
 
         x = llama_layer(layer, cfg, x, positions, cos, sin, kv_write,
-                        kv_attend_len=kv_attend_len)
+                        kv_attend_len=kv_attend_len, impl=impl)
     if pending:
         cache.append_all(torch.stack([kv[0] for kv in pending]),
                          torch.stack([kv[1] for kv in pending]), positions)
@@ -159,4 +173,4 @@ def llama_forward(
     x = rms_norm(x, _norm_w(params["output_norm"]), cfg.norm_eps)
     if logits_last_only:
         x = x[:, -1:, :]
-    return qmatmul(x, params["output"], out_dtype=torch.float32), cache
+    return qmatmul(x, params["output"], impl, out_dtype=torch.float32), cache

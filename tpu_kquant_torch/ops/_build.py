@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "tkq_torch_build"
-SOURCES = ("qmm", "attn_in", "oproj_ffn", "ffn", "prefill")
+SOURCES = ("qmm", "attn_in", "oproj_ffn", "ffn", "prefill", "qmm_int8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -50,6 +50,7 @@ COUNTERS: dict[str, LaunchCounter] = {}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_declared: set[tuple[str, str]] = set()  # (library, entry point) with argtypes set
 
 
 def nvcc_path() -> str:
@@ -110,11 +111,13 @@ def load(name: str, fn: str, argtypes: list) -> ctypes.CDLL:
         if lib is None:
             build_all()
             lib = ctypes.CDLL(str(_lib_path(name)))
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
             lib.tkq_error_string.argtypes = [ctypes.c_int]
             lib.tkq_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
+        if (name, fn) not in _declared:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+            _declared.add((name, fn))
         return lib
 
 

@@ -8,7 +8,10 @@
   ``tpu_kquant/ops/pallas_ffn.py:fused_oproj_ffn``, manual and Mosaic-grid
   variants).
 Both take the Q4_K_M layouts (w_gateup q4-sm, w_down q6w-sp; wo q4-sm or
-q6w-sp) and share the gate/up phase (``csrc/gate_up.cuh``).
+q6w-sp) and share the gate/up phase (``csrc/gate_up.cuh``). Their gates, like
+the reference's, pass the same kinds with f32 scales (``scale_dtype='f32'``);
+the kernels do not read those layouts yet, so on the card the wrappers raise
+for them (their plain versions, on the CPU, read every layout).
 
 ``ffn_plain`` and ``oproj_ffn_plain`` are the same functions in plain
 PyTorch with the kernels' rounding points: x2, gate, up and their activated
@@ -39,12 +42,17 @@ _ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
 _FFN_ARGTYPES = [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
+def _kind(qt: QTensor) -> str | None:
+    """'q4' or 'q6w' for a 2-D kmajor weight of either scale layout."""
+    return None if kernel_kind(qt) is None else qt.kind
+
+
 def ffn_supported(gu: QTensor, dn: QTensor, rows: int) -> bool:
-    """The dispatch gate of ffn: decode rows and the kernel's layout. The
+    """The dispatch gate of ffn: decode rows and the kernel's kinds. The
     width rules are the reference's (pallas_ffn.ffn_supported: dim % 512,
     and F % 256, which is ``_pick_tf(F, dim) != 0``) so both packages fuse
     at the same shapes."""
-    if rows > MAX_ROWS or kernel_kind(gu) != 0 or kernel_kind(dn) != 1:
+    if rows > MAX_ROWS or _kind(gu) != "q4" or _kind(dn) != "q6w":
         return False
     dim, Fd = int(dn.shape[0]), int(dn.shape[1])
     return gu.shape == (2 * Fd, dim) and dim % 512 == 0 and Fd % 256 == 0
@@ -53,8 +61,16 @@ def ffn_supported(gu: QTensor, dn: QTensor, rows: int) -> bool:
 def oproj_ffn_supported(wo: QTensor, gu: QTensor, dn: QTensor, rows: int) -> bool:
     """The dispatch gate of oproj_ffn: ffn's, and an o_proj the kernel reads
     whose width K is a multiple of 1024 (pallas_ffn.oproj_ffn_supported)."""
-    return (ffn_supported(gu, dn, rows) and kernel_kind(wo) is not None
+    return (ffn_supported(gu, dn, rows) and _kind(wo) is not None
             and wo.shape[0] == dn.shape[0] and int(wo.shape[1]) % 1024 == 0)
+
+
+def _require_pairs(what: str, *ws: QTensor) -> None:
+    """Raise unless every weight carries the bf16 scale pairs the kernel reads."""
+    if any(kernel_kind(w) not in (0, 1) for w in ws):
+        raise NotImplementedError(
+            f"{what}: the f32-scale layouts (scales / mins) are not ported to this kernel; "
+            f"load with scale_dtype='bf16'")
 
 
 def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
@@ -90,6 +106,7 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     req = _build.require
     req(x.device.type == "cuda", f"ffn: unsupported device {x.device}")
     req(ffn_supported(gu, dn, R), "ffn: unsupported layout or shape")
+    _require_pairs("ffn", gu, dn)
     req(x.dtype == torch.bfloat16, f"ffn: x dtype {x.dtype}")
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "ffn: norm weight")
     arrs = (gu.arrays["qs"], gu.arrays["sm"], dn.arrays["qs"], dn.arrays["sp"])
@@ -134,6 +151,7 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     req = _build.require
     req(x.device.type == "cuda", f"oproj_ffn: unsupported device {x.device}")
     req(oproj_ffn_supported(wo, gu, dn, R), "oproj_ffn: unsupported layout or shape")
+    _require_pairs("oproj_ffn", wo, gu, dn)
     req(x.dtype == torch.bfloat16 and attn.dtype == torch.bfloat16, "oproj_ffn: x/attn dtype")
     req(a2d.shape[0] == R, "oproj_ffn: x and attn rows differ")
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "oproj_ffn: norm weight")

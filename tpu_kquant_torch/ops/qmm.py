@@ -1,8 +1,11 @@
-"""qmm: y = x @ dequant(W)^T over packed q4-sm / q6w-sp weights.
+"""qmm: y = x @ dequant(W)^T over packed q4 / q6w weights, with bf16 scale
+pairs (q4-sm, q6w-sp: ``scale_dtype='bf16'``) or f32 scales (q4 ``scales`` +
+``mins``, q6w ``scales``: ``scale_dtype='f32'``).
 
 Kernel: ``csrc/qmm.cu`` (replaces ``tpu_kquant/ops/pallas_qmm.py:qmm_pallas``).
 Rows <= 32 take its split-K GEMV (memory bound: every packed byte read
 once); more rows take its tiled bf16 WMMA kernel (compute bound at prefill).
+N must be a multiple of 4 (a MoE router has N = n_experts).
 
 ``qmm_plain`` is the same function in plain PyTorch: dequantize, then one
 matmul in f32. Its compute dtype follows the activations, like the
@@ -29,13 +32,14 @@ from tpu_kquant_torch.quant.qtensor import QTensor
 
 counter = _build.LaunchCounter("qmm")
 
-KIND_CODE = {("q4", "sm"): 0, ("q6w", "sp"): 1}
+# (kind, the array that tells the layout) -> csrc/common.cuh's kind code
+KIND_CODE = {("q4", "sm"): 0, ("q6w", "sp"): 1, ("q4", "mins"): 2, ("q6w", "scales"): 3}
 GEMV_MAX_ROWS = 32
 _TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
 _SMEM_CAP = 200 * 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
 
 
 def qmm_plain(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -61,16 +65,20 @@ def pick_rt(rows: int) -> int:
     return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
 
 
-def gemv_split(kind: int, N: int, K: int, rows: int) -> tuple[int, int]:
+def gemv_split(kind: int, N: int, K: int, rows: int,
+               chunk_floats: int | None = None) -> tuple[int, int]:
     """(chunks per split, splits) of a GEMV's K range: enough blocks to cover
-    the card, at least 8 chunks (one per warp) per split, and the staged
-    activations within shared memory."""
-    n_chunks = (K // 2 if kind == 0 else K) // 32
+    the card, at least 8 chunks (one per warp) per split, and the block's
+    shared memory (8 warps x 128 reduce floats, plus ``chunk_floats`` staged
+    per chunk and row: by default qmm's activations, 64 floats for q4 and
+    32 for q6w) within the cap."""
+    q4 = kind in (0, 2)
+    n_chunks = (K // 2 if q4 else K) // 32
     rt = pick_rt(rows)
     blocks = -(-N // 128) * -(-rows // rt)
     splits = max(1, min(-(-_TARGET_BLOCKS // blocks), n_chunks // 8))
     cps = -(-n_chunks // splits)
-    span = (2 if kind == 0 else 1) * 32
+    span = chunk_floats or (2 if q4 else 1) * 32
     while cps > 1 and 4 * rt * (cps * span + 8 * 128) > _SMEM_CAP:
         splits += 1
         cps = -(-n_chunks // splits)
@@ -86,22 +94,26 @@ def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> t
     kind = kernel_kind(qt)
     if kind is None:
         raise NotImplementedError(
-            f"the qmm kernel reads q4-sm and q6w-sp kmajor weights, not {qt.kind} "
-            f"with {sorted(qt.arrays)} (load with scale_dtype='bf16')")
+            f"the qmm kernel reads kmajor q4 and q6w weights (bf16 pairs or f32 scales), not "
+            f"{qt.kind} {qt.layout} with {sorted(qt.arrays)}")
     N, K = qt.shape
+    q4 = kind in (0, 2)
     req = _build.require
     req(x.device.type == "cuda", f"qmm: unsupported device {x.device}")
     req(x.shape[-1] == K, f"qmm: x has {x.shape[-1]} features, W has K={K}")
     req(x.dtype in (torch.bfloat16, torch.float32), f"qmm: x dtype {x.dtype}")
     req(out_dtype in (torch.bfloat16, torch.float32), f"qmm: out dtype {out_dtype}")
-    req(K % (64 if kind == 0 else 32) == 0 and N % 16 == 0, f"qmm: shape (N={N}, K={K})")
-    qs, scl = qt.arrays["qs"], qt.arrays["sm" if kind == 0 else "sp"]
-    req(qs.dtype == (torch.uint8 if kind == 0 else torch.int8) and scl.dtype == torch.float32,
-        "qmm: packed array dtypes")
-    req(qs.shape == ((K // 2 if kind == 0 else K), N) and scl.shape == (K // 32, N),
+    req(K % (64 if q4 else 32) == 0 and N % 4 == 0, f"qmm: shape (N={N}, K={K})")
+    qs = qt.arrays["qs"]
+    scl = qt.arrays[("sm", "sp", "scales", "scales")[kind]]
+    side = [scl] + ([qt.arrays["mins"]] if kind == 2 else [])
+    req(qs.dtype == (torch.uint8 if q4 else torch.int8)
+        and all(a.dtype == torch.float32 for a in side), "qmm: packed array dtypes")
+    groups = K // 16 if kind == 3 else K // 32
+    req(qs.shape == ((K // 2 if q4 else K), N) and all(a.shape == (groups, N) for a in side),
         "qmm: packed array shapes")
-    req(qs.device == x.device and scl.device == x.device, "qmm: weight on another device")
-    req(qs.is_contiguous() and scl.is_contiguous(), "qmm: packed arrays must be contiguous")
+    req(all(a.device == x.device and a.is_contiguous() for a in [qs] + side),
+        "qmm: packed arrays must be contiguous on x's device")
     lead = x.shape[:-1]
     x2d = x.reshape(-1, K).contiguous()
     R = x2d.shape[0]
@@ -112,8 +124,9 @@ def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> t
     ws = torch.empty(splits * R * N if splits > 1 else 0, dtype=torch.float32, device=x.device)
     lib = _build.load("qmm", "tkq_qmm", _ARGTYPES)
     P = _build.ptr
-    rc = lib.tkq_qmm(kind, P(x2d), int(x2d.dtype == torch.float32), P(qs), P(scl), P(out),
-                     int(out_dtype == torch.float32), P(ws), R, N, K, cps, splits,
+    mins = P(side[1]) if kind == 2 else None
+    rc = lib.tkq_qmm(kind, P(x2d), int(x2d.dtype == torch.float32), P(qs), P(scl), mins,
+                     P(out), int(out_dtype == torch.float32), P(ws), R, N, K, cps, splits,
                      _build.stream_ptr(x.device))
     _build.check(lib, rc, "qmm")
     counter.launches += 1

@@ -9,7 +9,9 @@ Only here may attention be bounded to the first T slots (kv_attend_len):
 every query position is below T.
 decode_step(tokens [B]): one token per row; never bounds attention.
 The greedy loop is a plain Python loop of decode steps; capturing it in a
-CUDA graph is later work. Sampling, rings, sessions and context shift
+CUDA graph is later work. ``impl`` is the reference's (engine.py:52):
+"auto", or "int8" for the Q8-activation path of ops.qmatmul on weights
+loaded with ``scale_dtype="f32"``. Sampling, rings, sessions and context shift
 raise NotImplementedError in this slice.
 """
 
@@ -22,6 +24,7 @@ import torch
 
 from tpu_kquant_torch.models.config import ModelConfig
 from tpu_kquant_torch.models.llama import llama_forward
+from tpu_kquant_torch.ops.qmatmul import IMPLS
 from tpu_kquant_torch.ops.sampling import greedy
 from tpu_kquant_torch.runtime.kv_cache import KVCache
 from tpu_kquant_torch.runtime.loader import resolve_device
@@ -50,11 +53,16 @@ class InferenceEngine:
         kv_quantized: bool = False,
         kv_layout: str = "unified",
         device: str | torch.device = "cuda",
+        impl: str = "auto",
     ):
         """params must already live on ``device`` (load_model(device=...)).
-        kv_quantized: int8 KV cache with per-token scales."""
+        kv_quantized: int8 KV cache with per-token scales. impl: "auto" or
+        "int8" (module docstring)."""
         if kv_layout != "unified":
             raise NotImplementedError(f"kv_layout {kv_layout!r} is not ported yet")
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        self.impl = impl
         self.device = resolve_device(device)
         pdev = _param_device(params)
         if pdev.type != self.device.type:
@@ -89,7 +97,7 @@ class InferenceEngine:
         positions = np.broadcast_to(np.arange(T), (B, T))
         kw = {"kv_attend_len": T} if T > 1 else {}
         logits, cache = llama_forward(self.params, self.cfg, self._tensor(toks),
-                                      self._tensor(positions), cache, **kw)
+                                      self._tensor(positions), cache, impl=self.impl, **kw)
         last = logits[torch.arange(B, device=self.device), self._tensor(lens - 1)]
         return last, cache, lens
 
@@ -97,7 +105,8 @@ class InferenceEngine:
     def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache):
         """tokens [B], positions [B] -> (logits [B, V] f32, cache)."""
         logits, cache = llama_forward(self.params, self.cfg, tokens.long()[:, None],
-                                      positions.long()[:, None], cache, logits_last_only=True)
+                                      positions.long()[:, None], cache, logits_last_only=True,
+                                      impl=self.impl)
         return logits[:, 0, :], cache
 
     @torch.no_grad()

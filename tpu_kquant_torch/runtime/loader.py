@@ -8,11 +8,16 @@ NORM-mode rope is canonicalised to NEOX by permuting q/k output features, so
 every rope downstream is a half rotation. Qwen2-style q/k/v biases load as
 f32 vectors ``bqk`` (``[bq | bk]``, permuted with q/k, beside ``wqk``) and
 ``bv``; a file without ``output.weight`` ties the lm head to ``token_embd``.
+A MoE layer (``expert_count`` in the metadata: Mixtral) loads its router
+``gate_inp`` and its experts stacked to [E, ...] (``experts``: ``w_gate``,
+``w_up``, ``w_down``), each expert repacked as a 2-D weight.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -28,7 +33,7 @@ from tpu_kquant_torch.quant.repack import (
     widen_q6,
 )
 
-LLAMA_FAMILY = {"llama", "mistral", "qwen2", "tinyllama"}
+LLAMA_FAMILY = {"llama", "mistral", "qwen2", "tinyllama", "mixtral"}
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -72,14 +77,44 @@ def fuse_kmajor(qts: list[QTensor]) -> QTensor | None:
     return QTensor(qts[0].kind, "kmajor", (n_total, qts[0].shape[-1]), arrays)
 
 
-def _repack_named(r: GGUFReader, name: str, layout: str, pack_pairs: bool) -> QTensor:
-    ti = r.tensors[name]
-    qt = widen_q6(repack(r.tensor_bytes(name), ti.ggml_type, ti.shape, layout=layout))
+def _pack(qt: QTensor, layout: str, pack_pairs: bool) -> QTensor:
+    qt = widen_q6(qt)
     if pack_pairs:
         qt = pack_scale_pairs(qt)
         if layout == "kmajor":
             qt = pack_scale_kpairs(qt)
     return qt
+
+
+def _repack_named(r: GGUFReader, name: str, layout: str, pack_pairs: bool) -> QTensor:
+    ti = r.tensors[name]
+    return _pack(repack(r.tensor_bytes(name), ti.ggml_type, ti.shape, layout=layout), layout,
+                 pack_pairs)
+
+
+def _expert_split(r: GGUFReader, name: str, pack_pairs: bool) -> list[QTensor]:
+    """Split a stacked (E, N, K) expert tensor into per-expert kmajor
+    QTensors (each expert's bytes are a contiguous slice of the tensor).
+    The experts are repacked on parallel threads: NumPy's array operations
+    release the GIL, and a Mixtral-8x7B layer holds 24 expert matrices of
+    58.7 M weights."""
+    ti = r.tensors[name]
+    E, N, K = ti.shape
+    raw = r.tensor_bytes(name)
+    per = raw.size // E
+
+    def one(e: int) -> QTensor:
+        qt = repack(raw[e * per:(e + 1) * per], ti.ggml_type, (N, K), layout="kmajor")
+        return _pack(qt, "kmajor", pack_pairs)
+
+    with ThreadPoolExecutor(max_workers=min(E, os.cpu_count() or 1)) as pool:
+        return list(pool.map(one, range(E)))
+
+
+def _stack_experts(qts: list[QTensor]) -> QTensor:
+    """Per-expert QTensors -> one QTensor [E, N, K] with each array stacked."""
+    arrays = {k: np.stack([np.asarray(q.arrays[k]) for q in qts]) for k in qts[0].arrays}
+    return QTensor(qts[0].kind, "kmajor", (len(qts),) + tuple(qts[0].shape), arrays)
 
 
 def load_model(
@@ -90,10 +125,11 @@ def load_model(
     """Load a llama-family GGUF model onto ``device``.
 
     scale_dtype: 'bf16' packs the per-group scale/min side arrays into bf16
-    pairs (``sm``/``sp``), the layout the CUDA kernels read; 'f32' keeps f32
-    ``scales``/``mins`` (byte-parity with the reference's default; on the
-    card only the plain dequant path could read it, so forward raises there).
-    Q6_K matmul weights are stored as int8 codes ('q6w', quant.repack.widen_q6).
+    pairs (``sm``/``sp``); 'f32' keeps f32 ``scales``/``mins`` (the
+    reference's default, and the layout its int8 path reads). The qmm,
+    attn_in and qmm_int8 kernels read both; oproj_ffn and ffn read the pairs
+    only and raise on the card for f32 scales. Q6_K matmul weights are stored
+    as int8 codes ('q6w', quant.repack.widen_q6).
 
     Returns (cfg, params, reader); the reader holds the metadata."""
     dev = resolve_device(device)
@@ -104,8 +140,8 @@ def load_model(
     cfg = ModelConfig.from_gguf(r.metadata)
     if cfg.arch not in LLAMA_FAMILY:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
-    if cfg.is_moe or "blk.0.attn_qkv.weight" in r.tensors:
-        raise NotImplementedError("MoE and fused-QKV exports are not ported yet")
+    if "blk.0.attn_qkv.weight" in r.tensors:
+        raise NotImplementedError("fused-QKV exports are not ported yet")
     if "blk.0.attn_q.bias" in r.tensors:  # qwen2-style attention biases
         cfg = dataclasses.replace(cfg, attn_bias=True)
 
@@ -157,6 +193,15 @@ def load_model(
             bv = r.tensor_float(p + "attn_v.bias")
             for b, v in (("bqk", np.concatenate([bq, bk])), ("bv", bv)):
                 layer[b] = torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+        if cfg.is_moe:
+            layer["gate_inp"] = rp(p + "ffn_gate_inp.weight")
+            layer["experts"] = {
+                wname: _stack_experts(_expert_split(r, p + tname, pack_pairs)).to(dev)
+                for wname, tname in (("w_gate", "ffn_gate_exps.weight"),
+                                     ("w_up", "ffn_up_exps.weight"),
+                                     ("w_down", "ffn_down_exps.weight"))}
+            layers.append(layer)
+            continue
         fused_gu = fuse_kmajor([host(p + "ffn_gate.weight"), host(p + "ffn_up.weight")])
         if fused_gu is not None:
             layer["w_gateup"] = fused_gu.to(dev)
@@ -174,8 +219,10 @@ def params_from_numpy(params_np: Any, device: str | torch.device = "cuda") -> An
     every array converted by ``np.asarray``) into the port's parameters on
     ``device``. A quantized tensor may be any object with ``kind``,
     ``layout``, ``shape`` and ``arrays`` attributes, or a dict with those
-    keys; dicts and lists are walked; bare arrays become tensors. A layer's
-    ``bq`` and ``bk`` become the port's fused ``bqk``."""
+    keys; dicts and lists are walked (a MoE layer's ``experts`` dict of
+    stacked QTensors and its ``gate_inp`` cross as they are); bare arrays
+    become tensors. A layer's ``bq`` and ``bk`` become the port's fused
+    ``bqk``."""
     dev = resolve_device(device)
 
     def conv(v: Any) -> Any:
