@@ -9,20 +9,24 @@ Phases, each fatal on failure:
  3. hold each kernel against its plain PyTorch version on the card at the
     main path's TinyLlama-1.1B shapes, at Qwen2.5-1.5B's (qmm's tied lm
     head and o_proj at R = 1 and its R = 512 tiles on f32 activations; ffn
-    also at Qwen2.5-7B's; attn_in with biases at head_dim 128; the prefill
-    kernel with f32 q at 12 / 2 heads of 128) and at Mixtral-8x7B's (qmm
-    at every projection its layer gives it, on bf16 pairs and on f32
-    scales: expert gate/up and down, the N = 8 router, wo and the lm head,
-    at R = 1, 16 and 512 as the path runs them; attn_in on either layout at
-    D 4096, R = 1 and 16; qmm_int8 at the expert gate/up, R = 1, 8 and 16,
-    and the router, R = 1, after its activation quantization is checked
-    byte for byte) (tolerance 2e-2 of max|ref|; qmm_int8 1e-3; the prefill kernel
-    2e-2 of each output row's own max|ref|), and time the kernel and the
-    plain version; as yardsticks the port never
-    calls, qmm's ``library_ms`` is torch.matmul on the pre-dequantized
-    weight in the activations' dtype, and the fused kernels, which no
-    single PyTorch call computes (``library_ms`` null), get ``matmul_ms``:
-    their matmuls on pre-dequantized bf16 weights;
+    also at Qwen2.5-7B's and on f32 scales; attn_in with biases at head_dim
+    128; the prefill kernel with f32 q at 12 / 2 heads of 128) and at
+    Mixtral-8x7B's (qmm at every projection its layer gives it, on bf16
+    pairs and on f32 scales, at R = 1, 16 and 512 as the path runs them;
+    attn_in on either layout at D 4096, R = 1 and 16; qmm_int8 at the
+    expert gate/up, R = 1, 8 and 16, and the router, R = 1, after its
+    activation quantization is checked byte for byte); oproj_ffn also on
+    f32 scales; the flash decode kernel at the serving cell (1024 slots of
+    2048, bf16 and int8 KV, the cell's positions and positions over the
+    whole context) and at head_dim 128 (tolerance 2e-2 of max|ref|;
+    qmm_int8 1e-3; the attention kernels 2e-2 of each output row's own
+    max|ref|), and time the kernel and the plain version; as yardsticks the
+    port never calls, qmm's ``library_ms`` is torch.matmul on the
+    pre-dequantized weight in the activations' dtype, the attention
+    kernels' scaled_dot_product_attention on bf16 (int8 on the dequantized
+    cache), and the fused kernels, which no single PyTorch call computes
+    (``library_ms`` null), get ``matmul_ms``: their matmuls on
+    pre-dequantized bf16 weights;
  4. end to end at TinyLlama-1.1B width (random Q4_K_M fixture from a seed):
     load onto the card, check a 2-layer cut against the plain versions on
     the CPU, answer three greedy requests of different prompt lengths with
@@ -33,9 +37,23 @@ Phases, each fatal on failure:
     prompt (bucket 2048: the flash prefill kernel) on the card against the
     CPU, three greedy requests of 1000, 1500 and 2048 tokens with the counts
     set to 0 just before and read just after, then pp2048 and tg128 at depth
-    2048. The prefill kernel's ``library_ms`` is scaled_dot_product_attention
-    on bf16 (the int8 case on the dequantized cache), timed here only;
- 6. Qwen2.5-1.5B at full width and depth (28 layers; q/k/v biases, tied lm
+    2048;
+ 6. serving (tpu_kquant_torch.serving.ContinuousBatcher) at TinyLlama's full
+    width and depth, with tools_serve_bench.py's requests (prompts of 32-63
+    tokens, 48 new, temperature 0.8, top_k 40, top_p 0.95, repeat penalty
+    1.1 over 64, seed 1000 + i): a 2-layer cut of the serving path on the
+    card against the CPU with the attention budget lowered so that 8 slots
+    pass it (bf16 and int8 KV); 16 slots of 128 serving 64 requests, 12
+    greedy (4 with an eos), each greedy stream held to the same prompt served
+    alone by engine.generate (or differing first where the top-2 logit gap
+    is under 1e-2); 1024 slots of 2048 serving 1024 requests admitted as one
+    burst, on bf16 and then int8 KV: the flash prefill in every layer of the
+    burst and the flash decode kernel in every layer of every tick. Each run
+    is counted from 0 and checked against the gates; tokens/s (wall), ticks
+    and wall per tick are printed. Then phase 4's fixture loaded with f32
+    scales under impl "int8": attn_in and oproj_ffn on f32 scales, three
+    greedy requests, counted;
+ 7. Qwen2.5-1.5B at full width and depth (28 layers; q/k/v biases, tied lm
     head; attention width 1536 fails oproj_ffn's gate, so decode runs
     attn_in with biases, an o_proj qmm and the ffn kernel): write the
     fixture, load it, check a 2-layer cut against the CPU at prompts of 8,
@@ -43,7 +61,7 @@ Phases, each fatal on failure:
     on a 4288-slot bf16 cache (the last is bucket 4096: the flash prefill
     with f32 q) with the counts set to 0 just before and read just after,
     then time pp512 and tg128;
- 7. Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128, ffn 14336,
+ 8. Mixtral-8x7B at full width (dim 4096, 32 / 8 heads of 128, ffn 14336,
     8 experts, top 2, vocab 32000, rope theta 1e6) cut to MIXTRAL_DEPTH of
     its 32 layers (the host writes and repacks 0.93 GB of GGUF per layer;
     the cut is logged as `reduced`): one fixture file, loaded twice, one
@@ -57,11 +75,11 @@ Phases, each fatal on failure:
     and 200 tokens, counted; pp512 and tg128 beside their bounds, every
     expert's bytes counted (the loop reads all 8 per token).
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4, 5, 6 and 7, each counted from 0 and checked against the
-dispatch gates exactly; the gates in turn are held to each model's decode
-and long prefill dispatch (and Mixtral's 64-row prefill), stated from its
-config (pin_dispatch). The second-to-last line is the kernels' JSON; the
-last line is {"ok": true, "device": {...}}.
+of phases 4 to 8, each counted from 0 and checked against the dispatch
+gates exactly; the gates in turn are held to each model's decode and long
+prefill dispatch (and Mixtral's 64-row prefill), stated from its config
+(pin_dispatch). The second-to-last line is the kernels' JSON; the last line
+is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero.
 """
 
@@ -328,44 +346,52 @@ def check_kernels(dev) -> dict:
             "bound_ms": b, "bound_by": by})
         del ws, wcat
 
-    # oproj_ffn at R = 1 (wo as the fixture stores it: q6w-sp)
-    mk_ffn = lambda: (_rand_weights(rng, "q6w", dim, H * hd, dev),
-                      _rand_weights(rng, "q4", 2 * F, dim, dev),
-                      _rand_weights(rng, "q6w", dim, F, dev))
-    w0 = mk_ffn()
-    nbw = sum(w.n_bytes for w in w0)
-    ws = _rotation(w0, mk_ffn, nbw)
-    x, at = act(1, dim, 0.5), act(1, H * hd, 0.5)
-    nw = torch.rand(dim, device=dev) + 0.5
+    # oproj_ffn at R = 1, wo as the fixture stores it (q6w), on bf16 pairs
+    # and on f32 scales (TinyLlama loaded with scale_dtype="f32")
+    for label, (ko, kg, kd) in (
+            ("wo q6w-sp + w_gateup q4-sm + w_down q6w-sp R=1", ("q6w", "q4", "q6w")),
+            ("f32 scales: wo q6w-f32 + w_gateup q4-f32 + w_down q6w-f32 R=1",
+             ("q6wf", "q4f", "q6wf"))):
+        mk_ffn = lambda: (_rand_weights(rng, ko, dim, H * hd, dev),  # noqa: E731
+                          _rand_weights(rng, kg, 2 * F, dim, dev),
+                          _rand_weights(rng, kd, dim, F, dev))
+        w0 = mk_ffn()
+        nbw = sum(w.n_bytes for w in w0)
+        ws = _rotation(w0, mk_ffn, nbw)
+        x, at = act(1, dim, 0.5), act(1, H * hd, 0.5)
+        nw = torch.rand(dim, device=dev) + 0.5
 
-    def ffn(i, plain=False):
-        wo, gu, dn = w0 if plain else ws[i % len(ws)]
-        f = oproj_ffn_plain if plain else fused_oproj_ffn
-        return f(x, at, wo, nw, 1e-5, gu, dn)
+        def ffn(i, plain=False):
+            wo, gu, dn = w0 if plain else ws[i % len(ws)]
+            f = oproj_ffn_plain if plain else fused_oproj_ffn
+            return f(x, at, wo, nw, 1e-5, gu, dn)
 
-    got = ffn(0)
-    torch.cuda.synchronize()
-    ref = ffn(0, plain=True)
-    ad, rel = _err(got, ref)
-    wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in trio] for trio in ws]
-    xs = [at, x, act(1, F)]
-    b, by = bound_ms(nbw + 3 * dim * 2 + H * hd * 2 + dim * 4,
-                     2.0 * (H * hd * dim + dim * 2 * F + F * dim))
-    out["oproj_ffn"].append({
-        "case": "wo q6w-sp + w_gateup q4-sm + w_down q6w-sp R=1", "max_abs_err": ad,
-        "rel_err": rel, "ms": graph_ms(ffn, 64), "eager_ms": time_ms(ffn, 64),
-        "plain_ms": graph_ms(lambda i: ffn(i, plain=True), 4, 3),
-        "library_ms": None,
-        "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in zip(xs, wd[i % len(wd)])],
-                              64),
-        "bound_ms": b, "bound_by": by})
-    del ws, wd
+        got = ffn(0)
+        torch.cuda.synchronize()
+        ref = ffn(0, plain=True)
+        ad, rel = _err(got, ref)
+        wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in trio] for trio in ws]
+        xs = [at, x, act(1, F)]
+        b, by = bound_ms(nbw + 3 * dim * 2 + H * hd * 2 + dim * 4,
+                         2.0 * (H * hd * dim + dim * 2 * F + F * dim))
+        out["oproj_ffn"].append({
+            "case": label, "max_abs_err": ad, "rel_err": rel, "ms": graph_ms(ffn, 64),
+            "eager_ms": time_ms(ffn, 64),
+            "plain_ms": graph_ms(lambda i: ffn(i, plain=True), 4, 3),
+            "library_ms": None,
+            "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in
+                                             zip(xs, wd[i % len(wd)])], 64),
+            "bound_ms": b, "bound_by": by})
+        del ws, wd
 
-    # ffn (qwen2's decode FFN) at Qwen2.5-1.5B and -7B widths, R = 1 and 8
+    # ffn (qwen2's decode FFN) at Qwen2.5-1.5B and -7B widths, R = 1 and 8,
+    # and at 1.5B on f32 scales
     out["ffn"] = []
-    for label, D_, F_ in (("qwen2.5-1.5b", 1536, 8960), ("qwen2.5-7b", 3584, 18944)):
-        mk = lambda: (_rand_weights(rng, "q4", 2 * F_, D_, dev),  # noqa: E731
-                      _rand_weights(rng, "q6w", D_, F_, dev))
+    for label, D_, F_, kg, kd in (("qwen2.5-1.5b", 1536, 8960, "q4", "q6w"),
+                                  ("qwen2.5-7b", 3584, 18944, "q4", "q6w"),
+                                  ("qwen2.5-1.5b f32 scales", 1536, 8960, "q4f", "q6wf")):
+        mk = lambda: (_rand_weights(rng, kg, 2 * F_, D_, dev),  # noqa: E731
+                      _rand_weights(rng, kd, D_, F_, dev))
         w0 = mk()
         nbw = sum(w.n_bytes for w in w0)
         ws = _rotation(w0, mk, nbw)
@@ -379,8 +405,9 @@ def check_kernels(dev) -> dict:
             a_f = act(R, F_)
             b, by = bound_ms(nbw + 2 * R * D_ * 2 + D_ * 4, 2.0 * R * 3 * D_ * F_)
             run = lambda i: fused_ffn(x, nw, 1e-6, *ws[i % len(ws)])  # noqa: E731
+            pair = "q4-f32 + w_down q6w-f32" if kg == "q4f" else "q4-sm + w_down q6w-sp"
             out["ffn"].append({
-                "case": f"{label} w_gateup q4-sm + w_down q6w-sp R={R}", "max_abs_err": ad,
+                "case": f"{label} w_gateup {pair} R={R}", "max_abs_err": ad,
                 "rel_err": rel, "ms": graph_ms(run, 64), "eager_ms": time_ms(run, 64),
                 "plain_ms": graph_ms(lambda i: ffn_plain(x, nw, 1e-6, *w0), 4, 3),
                 "library_ms": None,
@@ -391,6 +418,7 @@ def check_kernels(dev) -> dict:
 
     out["prefill"] = check_prefill(dev)
     out["qmm_int8"] = check_qmm_int8(dev, rng)
+    out["decode_attn"] = check_decode_attn(dev)
 
     for name, cases in out.items():
         for c in cases:
@@ -570,20 +598,111 @@ def check_prefill(dev) -> list:
     return cases
 
 
+# flash decode (#7) at the serving cell (1024 slots of 2048, TinyLlama's
+# heads) with the cell's positions (32-111: prompts of 32-63 tokens and 48
+# new ones) and with positions uniform over the context, on bf16 and int8
+# KV; then head_dim 128 at Qwen2.5-1.5B's and Mixtral-8x7B's heads:
+# (label, B, S, (H, Hkv, D), positions, int8 KV)
+DECODE_CASES = (
+    ("B=1024 S=2048 bf16, positions 32-111 (serving cell)", 1024, 2048, TINY_HEADS, (32, 112),
+     False),
+    ("B=1024 S=2048 int8, positions 32-111 (serving cell)", 1024, 2048, TINY_HEADS, (32, 112),
+     True),
+    ("B=1024 S=2048 bf16, positions 0-2047", 1024, 2048, TINY_HEADS, (0, 2048), False),
+    ("B=1024 S=2048 int8, positions 0-2047", 1024, 2048, TINY_HEADS, (0, 2048), True),
+    ("qwen2.5-1.5b: hd 128, 12 / 2 heads, B=128 S=2048 bf16", 128, 2048, QWEN_HEADS, (0, 2048),
+     False),
+    ("mixtral: hd 128, 32 / 8 heads, B=64 S=2048 int8", 64, 2048, (32, 8, 128), (0, 2048), True),
+)
+
+
+def decode_work(qp, H, Hkv, D, kv_bytes) -> tuple[float, float]:
+    """(bytes, flops) the flash decode needs: q and the output once (bf16),
+    the positions, the live cache slots (0..q_pos of each row) once
+    (`kv_bytes` per slot and KV head, K and V and their scales), and 4 D
+    flops per query head and live slot."""
+    live = float((qp.long() + 1).sum().item())
+    B = qp.shape[0]
+    return 2 * 2.0 * B * H * D + 4 * B + live * Hkv * kv_bytes, 4.0 * live * H * D
+
+
+def check_decode_attn(dev) -> list:
+    """The flash decode kernel against its plain version (and SDPA as the
+    library yardstick) at the DECODE_CASES. q is sliced from a qk row as the
+    unfused projection leaves it; K/V are strided views of a 2-layer cache."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_kquant_torch.ops.decode_attention import (
+        attention_decode_flash,
+        decode_attention_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = []
+    for label, B, S, (H, Hkv, D), (lo, hi), int8 in DECODE_CASES:
+        qk = torch.randn(B, 1, (H + Hkv) * D, device=dev, generator=g).to(torch.bfloat16)
+        q = qk[..., : H * D].reshape(B, 1, H, D)
+        shape = (2, B, Hkv, S, D)
+        if int8:
+            kc, vc = (torch.randint(-127, 128, shape, device=dev, generator=g, dtype=torch.int8)
+                      for _ in range(2))
+            ksc, vsc = (torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 0.001
+                        for _ in range(2))
+            scales = (ksc[1], vsc[1])
+        else:
+            kc, vc = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                      for _ in range(2))
+            scales = None
+        k, v = kc[1], vc[1]
+        qp = torch.randint(lo, hi, (B, 1), device=dev, generator=g)
+        args = (q, k, v, qp, scales)
+        got = attention_decode_flash(*args)
+        torch.cuda.synchronize()
+        ref = decode_attention_plain(*args)
+        ad, glob = _err(got, ref)
+        rel = row_rel_err(got, ref)
+        kb, vb = k, v
+        if int8:
+            kb = (k.float() * scales[0][..., None]).to(torch.bfloat16)
+            vb = (v.float() * scales[1][..., None]).to(torch.bfloat16)
+        mask = (torch.arange(S, device=dev)[None, :] <= qp)[:, None, None, :]
+        qt = q.transpose(1, 2)
+        sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kb, vb, attn_mask=mask, enable_gqa=True)
+        lib_err = row_rel_err(sdpa(0).transpose(1, 2), ref)
+        nb, fl = decode_work(qp, H, Hkv, D, 2 * (D * k.element_size() + (4 if int8 else 0)))
+        b, by = bound_ms(nb, fl)
+        run = lambda i: attention_decode_flash(*args)  # noqa: E731
+        cases.append({
+            "case": label, "max_abs_err": ad, "rel_err": rel, "global_rel_err": glob,
+            "library_rel_err": lib_err,
+            "ms": graph_ms(run, 20), "eager_ms": time_ms(run, 20),
+            "plain_ms": graph_ms(lambda i: decode_attention_plain(*args), 2, reps=3),
+            "library_ms": graph_ms(sdpa, 20), "bound_ms": b, "bound_by": by,
+            "bytes": nb, "flops": fl})
+        del ref, got, kc, vc, kb, vb
+        torch.cuda.empty_cache()
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase 4: end to end
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(cfg, params, rows: int, impl: str = "auto") -> dict:
-    """Launches of one forward of batch 1 over `rows` tokens, derived from
+def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1,
+                      seq: int | None = None, kv_int8: bool = False) -> dict:
+    """Launches of one forward of `batch` rows of `rows` tokens, derived from
     the dispatch gates of models/llama.py for this model (every layer has
     layer 0's shapes): attn_in, oproj_ffn or ffn where their gates pass at
-    `rows`, for every projection they leave (a MoE layer's router and its
-    E experts' gate, up and down included) and the lm head a qmm, or a
-    qmm_int8 where the int8 gate passes under `impl`; the flash prefill
-    kernel in every layer where the plain attention's logits (S = rows:
-    prefill attends its first T slots) would pass the budget."""
+    batch * rows rows, for every projection they leave (a MoE layer's router
+    and its E experts' gate, up and down included) and the lm head a qmm, or
+    a qmm_int8 where the int8 gate passes under `impl`; the flash prefill
+    kernel in every layer where the plain attention's logits (prefill
+    attends its first T = rows slots) would pass the budget; the flash
+    decode kernel in every layer of a decode step (rows 1) whose logits over
+    `seq` cache slots would (`kv_int8`: the int8 gate's S % 256)."""
     from tpu_kquant_torch.models.moe import _expert_view
     from tpu_kquant_torch.ops import attention
     from tpu_kquant_torch.ops.attn_in import attn_in_supported
@@ -591,19 +710,23 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto") -> dict:
     from tpu_kquant_torch.ops.prefill import prefill_supported
     from tpu_kquant_torch.ops.qmatmul import int8_eligible
 
-    L, lay, D = cfg.n_layers, params["layers"][0], cfg.head_dim
+    L, lay, D, H = cfg.n_layers, params["layers"][0], cfg.head_dim, cfg.n_heads
+    budget = attention.ATTN_PLAIN_MAX_MB
     flash = rows > 1 and prefill_supported(rows, rows, D) and \
-        attention.logits_mb(1, rows, cfg.n_heads, rows) > attention.ATTN_PLAIN_MAX_MB
+        attention.logits_mb(batch, rows, H, rows) > budget
+    decode = rows == 1 and seq is not None and D % 64 == 0 and seq % 64 == 0 and \
+        (not kv_int8 or seq % 256 == 0) and attention.logits_mb(batch, 1, H, seq) > budget
+    n_rows = batch * rows
     biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
     a_in = cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in lay and \
-        attn_in_supported(lay["wqk"], lay["wv"], rows, cfg.dim, D, biases, impl)
+        attn_in_supported(lay["wqk"], lay["wv"], n_rows, cfg.dim, D, biases, impl)
     gu = "w_gateup" in lay
-    o_ffn = gu and oproj_ffn_supported(lay["wo"], lay["w_gateup"], lay["w_down"], rows)
-    ffn = gu and not o_ffn and ffn_supported(lay["w_gateup"], lay["w_down"], rows)
-    n = {"prefill": L * flash, "attn_in": L * a_in, "oproj_ffn": L * o_ffn, "ffn": L * ffn,
-         "qmm": 0, "qmm_int8": 0}
+    o_ffn = gu and oproj_ffn_supported(lay["wo"], lay["w_gateup"], lay["w_down"], n_rows)
+    ffn = gu and not o_ffn and ffn_supported(lay["w_gateup"], lay["w_down"], n_rows)
+    n = {"prefill": L * flash, "decode_attn": L * decode, "attn_in": L * a_in,
+         "oproj_ffn": L * o_ffn, "ffn": L * ffn, "qmm": 0, "qmm_int8": 0}
 
-    def mm(qt, times: int, r: int = rows) -> None:
+    def mm(qt, times: int, r: int = n_rows) -> None:
         n["qmm_int8" if impl == "int8" and int8_eligible(qt, r) else "qmm"] += times
 
     if not a_in:
@@ -634,6 +757,8 @@ def pin_dispatch(cfg, params, what: str, decode: dict, long_rows: int, impl: str
     got = expected_launches(cfg, params, 1, impl)
     got64 = expected_launches(cfg, params, 64, impl)
     n = expected_launches(cfg, params, long_rows, impl)["prefill"]
+    decode = {k: decode.get(k, 0) for k in got}
+    prefill64 = None if prefill64 is None else {k: prefill64.get(k, 0) for k in got64}
     log(f"  dispatch of {what}: decode step {got}, 64-row prefill {got64}, prefill kernel in "
         f"{n} layers at {long_rows} rows")
     if got != decode or n != cfg.n_layers or (prefill64 is not None and got64 != prefill64):
@@ -1079,15 +1204,383 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
     return res
 
 
+def dense_f32(dev) -> dict:
+    """Phase 4's TinyLlama fixture loaded with f32 scales under impl "int8":
+    decode runs attn_in and oproj_ffn on f32 scales (the int8 gate takes q4
+    weights past the fused kernels only, so qmm_int8 is not reached), three
+    greedy requests counted from 0 and checked against the gates."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
+    from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
+
+    cfg, params, _ = load_fixture(tinyllama_1b_config(), "tinyllama-1.1b-q4_k_m-seed0.gguf", dev,
+                                  scale_dtype="f32")
+    L = cfg.n_layers
+    pin_dispatch(cfg, params, "TinyLlama-1.1B (f32 scales, impl int8)",
+                 {"attn_in": L, "oproj_ffn": L, "qmm": 1}, 2048, "int8")
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl="int8")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in (5, 40, 200)]
+    torch.cuda.synchronize()
+    reset_counts()
+    want: dict = {}
+    answers = []
+    for pr in prompts:
+        answers.append(eng.generate([pr], max_new_tokens=16)[0])
+        want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)), eng.max_seq),
+                                            "int8"))
+        want = _add(want, expected_launches(cfg, params, 1, "int8"), 15)
+    torch.cuda.synchronize()
+    got = check_counts("the three f32-scale requests (impl int8)", want)
+    for pr, ans in zip(prompts, answers):
+        log(f"  f32 scales: request of {len(pr)} tokens -> {ans}")
+        if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
+            raise SystemExit("FAIL: an f32-scale request did not get 16 valid tokens")
+    del eng, params
+    torch.cuda.empty_cache()
+    return got
+
+
 # ---------------------------------------------------------------------------
-# phase 6: Qwen2.5-1.5B (biases, tied lm head, the ffn kernel)
+# phase 6: serving (continuous batching, the sampler chain, flash decode)
+# ---------------------------------------------------------------------------
+
+SERVE_NEW = 48  # tools_serve_bench.py's gen-len
+
+
+def serve_request(i: int, cfg, rng, greedy: bool = False, eos: int | None = None):
+    """tools_serve_bench.py's request: a prompt of 32-63 tokens, 48 new ones,
+    temperature 0.8 (0 when greedy), top_k 40, top_p 0.95, repeat penalty
+    1.1 over the last 64 tokens, seed 1000 + i."""
+    from tpu_kquant_torch.serving import Request
+
+    plen = 32 + int(rng.integers(0, 32))
+    return Request(prompt=rng.integers(10, cfg.vocab_size, plen).tolist(),
+                   max_new_tokens=SERVE_NEW, temperature=0.0 if greedy else 0.8, top_k=40,
+                   top_p=0.95, repeat_penalty=1.1, penalty_last_n=64, seed=1000 + i, eos_id=eos)
+
+
+def instrument(cb) -> dict:
+    """Record a batcher's admissions ((k, T) of each burst, T of each single
+    admission) and whether every tick's logits were finite (a device flag
+    per tick; read once at the end)."""
+    from tpu_kquant_torch.runtime.engine import _bucket
+
+    rec: dict = {"bursts": [], "singles": [], "finite": []}
+    real_burst, real_admit, real_tick = cb._admit_burst, cb._admit, cb._tick
+    T = lambda reqs: min(_bucket(max(len(r.prompt) for r in reqs)),  # noqa: E731
+                         cb.engine.max_seq)
+
+    def burst(pairs):
+        rec["bursts"].append((len(pairs), T([r for _b, r in pairs])))
+        return real_burst(pairs)
+
+    def admit(b, req):
+        rec["singles"].append(T([req]))
+        return real_admit(b, req)
+
+    def tick(sampling):
+        tok = real_tick(sampling)
+        rec["finite"].append(cb.tick_logits.isfinite().all())
+        return tok
+
+    cb._admit_burst, cb._admit, cb._tick = burst, admit, tick
+    return rec
+
+
+def serving_launches(cfg, params, rec: dict, ticks: int, B: int, max_seq: int,
+                     kv_int8: bool) -> dict:
+    """What the gates launch for a serving run: each burst's [k, T] prefill,
+    each single admission's [1, T], and `ticks` decode steps of B rows over
+    max_seq slots."""
+    want: dict = {}
+    for k, T in rec["bursts"]:
+        want = _add(want, expected_launches(cfg, params, T, batch=k))
+    for T in rec["singles"]:
+        want = _add(want, expected_launches(cfg, params, T))
+    return _add(want, expected_launches(cfg, params, 1, batch=B, seq=max_seq, kv_int8=kv_int8),
+                ticks)
+
+
+def _top2_gap(eng, req, toks: list, d: int) -> float:
+    """The top-2 gap of the (penalised) logits a greedy request chooses its
+    token d from, when it has emitted toks[:d]: its prompt and those tokens
+    fed through a batch-1 engine."""
+    import torch
+
+    from tpu_kquant_torch.ops.sampling import apply_penalties, init_penalty_state
+
+    logits, cache, lens = eng.prefill([req.prompt], eng.new_cache(1))
+    pos = int(lens[0])
+    for t in toks[:d]:
+        logits, cache = eng.decode_step(torch.tensor([t], device=eng.device),
+                                        torch.tensor([pos], device=eng.device), cache)
+        pos += 1
+    counts = init_penalty_state([req.prompt + toks[:d]], eng.cfg.vocab_size,
+                                req.penalty_last_n, eng.device)[0]
+    top = torch.topk(apply_penalties(logits.float(), counts, req.repeat_penalty), 2).values[0]
+    return float(top[0] - top[1])
+
+
+def serving_reference_check(cfg, params, dev, kv_quantized: bool) -> None:
+    """A 2-layer cut of the serving path on the card against the CPU, with
+    the attention budget lowered so that 8 slots of 256 pass it (the burst's
+    [8, 64] prefill takes the flash prefill kernel, every tick the flash
+    decode kernel): 8 greedy requests, two ticks. The first tick's logits
+    (the burst's) within 5e-2 of max|ref|, each row's first token in the
+    CPU's top 5; the second tick's logits (the first real decode, through
+    #7) within 5e-2 on the rows whose first tokens agree."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.ops import attention
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.serving import ContinuousBatcher, Request
+
+    cut = dataclasses.replace(cfg, n_layers=2)
+    p_gpu = {**params, "layers": params["layers"][:2]}
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(10, cfg.vocab_size, int(n)).tolist() for n in rng.integers(32, 64, 8)]
+    kv = "int8" if kv_quantized else "bf16"
+    saved = attention.ATTN_PLAIN_MAX_MB
+    attention.ATTN_PLAIN_MAX_MB = 0.1
+    outs = []
+    try:
+        for d, p in ((dev, p_gpu), ("cpu", _to_cpu(p_gpu))):
+            eng = InferenceEngine(cut, p, max_batch=8, max_seq=256, kv_quantized=kv_quantized,
+                                  device=d)
+            cb = ContinuousBatcher(eng)
+            for pr in prompts:
+                cb.submit(Request(prompt=pr, max_new_tokens=4))
+            if d != "cpu":
+                torch.cuda.synchronize()
+                reset_counts()
+            ticks = []
+            for _ in range(2):
+                cb.step()
+                ticks.append(cb.tick_logits.float().cpu())
+            if d != "cpu":
+                check_counts(f"the 2-layer serving cut ({kv} KV)",
+                             {"prefill": 2, "decode_attn": 4})
+            outs.append((ticks, [s.req.output[0] for s in cb.slots]))
+    finally:
+        attention.ATTN_PLAIN_MAX_MB = saved
+    (tg, first_g), (tc, first_c) = outs
+    same = torch.tensor([a == b for a, b in zip(first_g, first_c)])
+    rel1 = ((tg[0] - tc[0]).abs().max() / tc[0].abs().max()).item()
+    rel2 = ((tg[1][same] - tc[1][same]).abs().max() / tc[1][same].abs().max()).item() \
+        if same.any() else float("nan")
+    top5 = torch.topk(tc[0], 5, dim=-1).indices
+    in5 = (top5 == torch.tensor(first_g)[:, None]).any(-1)
+    log(f"  2-layer serving cut, {kv} KV, budget 0.1 MB: first tick rel err {rel1:.2e}, first "
+        f"tokens in the CPU's top 5 {int(in5.sum())}/8, equal {int(same.sum())}/8; second "
+        f"tick (flash decode) rel err {rel2:.2e} on those rows")
+    if not (all(torch.isfinite(t).all() for t in tg) and rel1 < 5e-2 and in5.all()
+            and same.any() and rel2 < 5e-2):
+        raise SystemExit(f"FAIL: the card and the CPU disagree on the 2-layer serving cut ({kv} "
+                         f"KV)")
+
+
+def _collect() -> None:
+    """Free what the caller has just deleted: instrument() ties a batcher to
+    its own wrapped methods in a reference cycle, which only the collector
+    breaks (a 1024-slot cache is 47 GB)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_ticks(cb, out: Path, tag: str, n: int = 4) -> None:
+    """--profile DIR: torch.profiler over `n` serving ticks of a batcher with
+    every slot active; the kernel table goes to DIR/profile_serve_TAG.txt,
+    the busy share and the top kernels to the log."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            cb.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    (out / f"profile_serve_{tag}.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=40))
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  profile serve_{tag}: {n} ticks, wall {wall * 1e3:.2f} ms (profiler on), device "
+        f"kernels {dev_ms:.2f} ms ({100 * dev_ms / (wall * 1e3):.1f}% busy); top: "
+        + "; ".join(f"{k[:40]} {v:.2f} ms" for k, v in top))
+
+
+def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
+            profile: Path | None = None) -> dict:
+    """Phase 6 (module docstring): `big` is the large configuration's slots
+    and cache length. Returns each configuration's numbers and its launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.serving import ContinuousBatcher
+
+    res: dict = {"launches": {}}
+    for quant in (False, True):
+        serving_reference_check(cfg, params, dev, quant)
+
+    # (a) 16 slots of 128, 64 requests (the bench's 4 B): 12 greedy, 4 of
+    # them with an eos taken from their solo stream
+    B, max_seq = 16, 128
+    rng = np.random.default_rng(7)
+    greedy = {i for i in range(64) if i % 16 < 3}
+    reqs = [serve_request(i, cfg, rng, greedy=i in greedy) for i in range(64)]
+    solo_eng = InferenceEngine(cfg, params, max_batch=1, max_seq=max_seq, device=dev)
+    solo = {}
+    for i in sorted(greedy):
+        r = reqs[i]
+        solo[i] = solo_eng.generate([r.prompt], max_new_tokens=SERVE_NEW, top_k=40, top_p=0.95,
+                                    repeat_penalty=1.1, penalty_last_n=64)[0]
+    for j, i in enumerate(sorted(greedy)[:4]):
+        reqs[i].eos_id = solo[i][8 + 4 * j]
+    eng = InferenceEngine(cfg, params, max_batch=B, max_seq=max_seq, device=dev)
+    cb = ContinuousBatcher(eng)
+    rec = instrument(cb)
+    for r in reqs:
+        cb.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = cb.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ticks = cb.stats["steps"]
+    res["launches"]["b16"] = check_counts(
+        "serving, 16 slots", serving_launches(cfg, params, rec, ticks, B, max_seq, False))
+    if not (len(done) == 64 and bool(torch.stack(rec["finite"]).all())):
+        raise SystemExit("FAIL: serving at 16 slots lost a request or saw non-finite logits")
+    differ = []
+    for r in reqs:
+        stop = len(r.output) == SERVE_NEW or (r.eos_id is not None and r.output[-1] == r.eos_id)
+        if not (stop and all(0 <= t < cfg.vocab_size for t in r.output)):
+            raise SystemExit(f"FAIL: request {r.rid} ended at {len(r.output)} tokens, not at "
+                             f"{SERVE_NEW} or its eos")
+        i = r.rid
+        if i in greedy:
+            want = solo[i]
+            if r.eos_id is not None:
+                want = want[: want.index(r.eos_id) + 1]
+            if r.output != want:
+                d = next(j for j, (a, b) in enumerate(zip(r.output + [-1], want + [-2]))
+                         if a != b)
+                gap = _top2_gap(solo_eng, r, r.output, d)
+                differ.append((i, d, gap))
+                if gap >= 1e-2:
+                    raise SystemExit(f"FAIL: greedy request {i} differs from its solo run at "
+                                     f"step {d}, where the top-2 gap is {gap:.3e} (>= 1e-2)")
+    eos_hit = sum(1 for r in reqs if r.eos_id is not None and len(r.output) < SERVE_NEW)
+    res["b16"] = {"tok_s": cb.stats["tokens_out"] / wall, "ticks": ticks,
+                  "ms_per_tick": wall / ticks * 1e3, "wall_s": wall,
+                  "tokens": cb.stats["tokens_out"], "bursts": rec["bursts"],
+                  "singles": len(rec["singles"]), "greedy_differ": differ}
+    log(f"  [{gpu_line()}] serving 16 slots x 128: 64 requests, {cb.stats['tokens_out']} tokens "
+        f"in {wall:.3f} s wall = {res['b16']['tok_s']:.1f} tok/s; {ticks} ticks, "
+        f"{res['b16']['ms_per_tick']:.2f} ms/tick; bursts {rec['bursts']}, "
+        f"{len(rec['singles'])} single admissions; {eos_hit} requests stopped at their eos; "
+        f"greedy requests differing from their solo run: {len(differ)} of {len(greedy)} "
+        f"(request, step, top-2 gap) {differ}")
+    if profile is not None:
+        cb2 = ContinuousBatcher(eng)
+        for i in range(B):
+            cb2.submit(serve_request(100 + i, cfg, rng))
+        cb2.step()
+        profile_ticks(cb2, profile, "16")
+        del cb2
+    del cb, eng, solo_eng
+    _collect()
+
+    # (b) 1024 slots of 2048, one burst of 1024 requests, bf16 then int8 KV
+    B, max_seq = big
+    for quant in (False, True):
+        kv = "int8" if quant else "bf16"
+        rng = np.random.default_rng(8)
+        reqs = [serve_request(i, cfg, rng, greedy=i % 16 < 3) for i in range(B)]
+        eng = InferenceEngine(cfg, params, max_batch=B, max_seq=max_seq, kv_quantized=quant,
+                              device=dev)
+        cb = ContinuousBatcher(eng)
+        rec = instrument(cb)
+        for r in reqs:
+            cb.submit(r)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        cb.step()  # the burst and the first tick
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        done = cb.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ticks = cb.stats["steps"]
+        L = cfg.n_layers
+        got = check_counts(f"serving, {B} slots ({kv} KV)",
+                           serving_launches(cfg, params, rec, ticks, B, max_seq, quant))
+        if got["decode_attn"] != L * ticks or got["prefill"] != L * len(rec["bursts"]) \
+                or rec["bursts"] != [(B, 64)] or rec["singles"]:
+            raise SystemExit(f"FAIL: {B} slots ({kv} KV): flash decode {got['decode_attn']} "
+                             f"launches for {ticks} ticks, prefill {got['prefill']} for bursts "
+                             f"{rec['bursts']}")
+        n_tok = cb.stats["tokens_out"]
+        if not (len(done) == B and all(len(r.output) == SERVE_NEW for r in reqs)
+                and bool(torch.stack(rec["finite"]).all())):
+            raise SystemExit(f"FAIL: {B} slots ({kv} KV): a request lacks tokens or a tick's "
+                             f"logits are not finite")
+        wall = t2 - t0
+        res[f"b{B}_{kv}"] = {"tok_s": n_tok / wall, "ticks": ticks,
+                              "ms_per_tick": (t2 - t1) / (ticks - 1) * 1e3,
+                              "burst_and_first_tick_s": t1 - t0, "wall_s": wall,
+                              "tokens": n_tok}
+        res["launches"][f"b{B}_{kv}"] = got
+        r = res[f"b{B}_{kv}"]
+        log(f"  [{gpu_line()}] serving {B} slots x {max_seq}, {kv} KV: {n_tok} tokens in "
+            f"{wall:.3f} s wall = {r['tok_s']:.1f} tok/s; the burst ({B} x 64 prefill) and first tick "
+            f"{r['burst_and_first_tick_s']:.3f} s, then {ticks - 1} ticks at "
+            f"{r['ms_per_tick']:.2f} ms/tick; flash decode launched {got['decode_attn']} = "
+            f"{L} x {ticks} ticks, flash prefill {got['prefill']} = {L} x 1 burst")
+        del cb
+        _collect()
+        if profile is not None:
+            cb = ContinuousBatcher(eng)
+            for i in range(B):
+                cb.submit(serve_request(i, cfg, rng))
+            cb.step()
+            profile_ticks(cb, profile, f"{B}_{kv}")
+            del cb
+        del eng
+        _collect()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 7: Qwen2.5-1.5B (biases, tied lm head, the ffn kernel)
 # ---------------------------------------------------------------------------
 
 QWEN_MAX_SEQ = 4096 + 128 + 64  # the 3000-token request's bucket + tg128 + 64
 
 
 def qwen2(dev, profile: Path | None = None) -> dict:
-    """Phase 6 (module docstring)."""
+    """Phase 7 (module docstring)."""
     from tpu_kquant_torch.models.fixtures import qwen2_5_1_5b_config
 
     cfg, params, times = load_fixture(qwen2_5_1_5b_config(), "qwen2.5-1.5b-q4_k_m-seed0.gguf",
@@ -1103,7 +1596,7 @@ def qwen2(dev, profile: Path | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: Mixtral-8x7B (MoE; bf16 pairs under impl auto, f32 scales under int8)
+# phase 8: Mixtral-8x7B (MoE; bf16 pairs under impl auto, f32 scales under int8)
 # ---------------------------------------------------------------------------
 
 MIXTRAL_DEPTH = 2  # 2, not 4: a layer's write + load takes over 25 s on the card's host
@@ -1112,7 +1605,7 @@ MIXTRAL_CONFIGS = (("bf16 pairs, impl auto", "bf16", "auto"),
 
 
 def mixtral(dev, profile: Path | None = None) -> dict:
-    """Phase 7 (module docstring). Returns the results of both
+    """Phase 8 (module docstring). Returns the results of both
     configurations and their main-path launch counts."""
     import dataclasses
 
@@ -1125,7 +1618,7 @@ def mixtral(dev, profile: Path | None = None) -> dict:
     name = f"mixtral-8x7b-{MIXTRAL_DEPTH}l-q4_k_m-seed0.gguf"
     out: dict = {"launches": {}}
     for label, scale_dtype, impl in MIXTRAL_CONFIGS:
-        phase(f"phase 7: Mixtral-8x7B, {label}")
+        phase(f"phase 8: Mixtral-8x7B, {label}")
         cfg, params, times = load_fixture(cfg0, name, dev, scale_dtype)
         out.setdefault("reduced", (
             f"depth {MIXTRAL_DEPTH} of {full.n_layers} layers: one layer is 0.93 GB of GGUF "
@@ -1159,6 +1652,8 @@ REPLACES = {
     "ffn": ("tpu_kquant_torch/csrc/ffn.cu", "tpu_kquant/ops/pallas_ffn.py:331"),
     "prefill": ("tpu_kquant_torch/csrc/prefill.cu", "tpu_kquant/ops/pallas_prefill.py:168"),
     "qmm_int8": ("tpu_kquant_torch/csrc/qmm_int8.cu", "tpu_kquant/ops/pallas_qmm_int8.py:139"),
+    "decode_attn": ("tpu_kquant_torch/csrc/decode_attn.cu",
+                    "tpu_kquant/ops/pallas_attention.py:144"),
 }
 
 
@@ -1167,8 +1662,9 @@ def main() -> int:
     ap.add_argument("--profile", type=Path, metavar="DIR",
                     help="also profile one pp512 prefill and 8 decode steps (in phase "
                          "5 a pp2048 prefill and 8 steps at depth 2048 per KV kind; in "
-                         "phase 6 the same as phase 4 at Qwen2.5-1.5B); write the kernel "
-                         "tables into DIR")
+                         "phase 6 four serving ticks of each configuration; in phase 7 "
+                         "the same as phase 4 at Qwen2.5-1.5B); write the kernel tables "
+                         "into DIR")
     args = ap.parse_args()
 
     import torch
@@ -1211,23 +1707,28 @@ def main() -> int:
 
     phase("phase 5: long prompts (bf16 and int8 KV)")
     long = long_prompts(cfg, params, dev, args.profile)
+
+    phase("phase 6: serving (continuous batching, sampler chain, flash decode)")
+    serve = serving(cfg, params, dev, profile=args.profile)
     del cfg, params
     torch.cuda.empty_cache()
+    phase("phase 6: TinyLlama-1.1B on f32 scales (impl int8)")
+    f32_counts = dense_f32(dev)
 
-    phase("phase 6: Qwen2.5-1.5B (biases, tied lm head, ffn kernel)")
+    phase("phase 7: Qwen2.5-1.5B (biases, tied lm head, ffn kernel)")
     qwen = qwen2(dev, args.profile)
     torch.cuda.empty_cache()
 
-    phase("phase 7: Mixtral-8x7B (MoE; bf16 pairs + impl auto, f32 scales + impl int8)")
+    phase("phase 8: Mixtral-8x7B (MoE; bf16 pairs + impl auto, f32 scales + impl int8)")
     mix = mixtral(dev, args.profile)
 
     # launches: the sums over the request runs of phases 4, 5 (both KV
-    # kinds), 6 and 7 (both configurations), each counted from 0 and
-    # checked exactly
-    runs = [e2e["main_path_launches"], *long["launches"].values(), qwen["main_path_launches"],
-            *mix["launches"].values()]
+    # kinds), 6 (the three serving runs and the f32-scale requests), 7 and 8
+    # (both configurations), each counted from 0 and checked exactly
+    runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
+            f32_counts, qwen["main_path_launches"], *mix["launches"].values()]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-7): {launches}")
+    log(f"  launches on the main path (phases 4-8): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

@@ -11,7 +11,9 @@ it runs on a machine with only PyTorch and the CUDA toolkit:
 dequantized weights in f32 where the plain version rounds them to bf16. The
 prefill kernel is held to 2e-2 of each output row's own max|ref|: causal
 attention's output shrinks along the prompt, so the whole output's max|ref|
-(set by the first rows) would let a fault in the late tiles pass. qmm_int8
+(set by the first rows) would let a fault in the late tiles pass. The decode
+kernel likewise, per (row, head): a row that attends few slots has a larger
+output than one that attends many. qmm_int8
 is held to 1e-3 of max|ref|: both sides sum exact integer partials of the
 same Q8 codes (its activation quantization byte for byte), and differ only
 in the f32 rescale's order.
@@ -27,6 +29,7 @@ from tpu_kquant_torch.models.fixtures import tiny_config, write_fixture_gguf
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops import attention as t_attention
 from tpu_kquant_torch.ops import attn_in as t_attn_in
+from tpu_kquant_torch.ops import decode_attention as t_decode
 from tpu_kquant_torch.ops import ffn as t_ffn
 from tpu_kquant_torch.ops import prefill as t_prefill
 from tpu_kquant_torch.ops import qmm as t_qmm
@@ -34,6 +37,7 @@ from tpu_kquant_torch.ops import qmm_int8 as t_qmm_int8
 from tpu_kquant_torch.quant.qtensor import QTensor
 from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
 from tpu_kquant_torch.runtime.loader import load_model
+from tpu_kquant_torch.serving import ContinuousBatcher, Request
 
 TOL = 2e-2
 
@@ -374,21 +378,38 @@ def _check_mixtral_attn_in(card, R, make_qk, make_v):
 
 
 @pytest.mark.cuda
-def test_fused_ffn_kernels_refuse_f32_layouts(card):
-    """The gates pass f32 scales (as the reference's do); the ffn and
-    oproj_ffn kernels read the pairs only, so their wrappers raise on the
-    card, naming the layout, and launch nothing."""
-    rng = np.random.default_rng(3)
-    gu, dn, wo = q4f(1024, 512, rng, card), q6wf(512, 512, rng, card), q6wf(512, 1024, rng, card)
-    x = torch.randn(1, 512, device=card).to(torch.bfloat16)
-    nw = torch.ones(512, device=card)
-    launches = {k: c.launches for k, c in _build.COUNTERS.items()}
-    with pytest.raises(NotImplementedError, match="f32-scale"):
-        t_ffn.fused_ffn(x, nw, 1e-5, gu, dn)
-    with pytest.raises(NotImplementedError, match="f32-scale"):
-        t_ffn.fused_oproj_ffn(x, torch.randn(1, 1024, device=card).to(torch.bfloat16), wo, nw,
-                              1e-5, gu, dn)
-    assert launches == {k: c.launches for k, c in _build.COUNTERS.items()}
+@pytest.mark.parametrize("R", [1, 8])
+def test_ffn_kernel_f32_layouts_match_plain(card, R):
+    """Qwen2.5-1.5B's FFN loaded with scale_dtype='f32': w_gateup q4 with
+    f32 scales and mins, w_down q6w with f32 scales."""
+    rng = np.random.default_rng(70 + R)
+    D, F = 1536, 8960
+    gu, dn = q4f(2 * F, D, rng, card), q6wf(D, F, rng, card)
+    x = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    launches = t_ffn.ffn_counter.launches
+    got = t_ffn.fused_ffn(x, nw, 1e-6, gu, dn)
+    torch.cuda.synchronize()
+    assert t_ffn.ffn_counter.launches == launches + 1
+    assert _rel(got, t_ffn.ffn_plain(x, nw, 1e-6, gu, dn)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wo_kind,R", [("q6wf", 1), ("q4f", 3), ("q6wf", 16)])
+def test_oproj_ffn_kernel_f32_layouts_match_plain(card, wo_kind, R):
+    """TinyLlama's decode layer loaded with scale_dtype='f32' (wo q6w, as the
+    fixture stores it, and q4)."""
+    rng = np.random.default_rng(80 + R)
+    D, F = 2048, 5632
+    ws = [WEIGHTS[wo_kind](D, D, rng, card), q4f(2 * F, D, rng, card), q6wf(D, F, rng, card)]
+    x = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    attn = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    launches = t_ffn.counter.launches
+    got = t_ffn.fused_oproj_ffn(x, attn, ws[0], nw, 1e-5, ws[1], ws[2])
+    torch.cuda.synchronize()
+    assert t_ffn.counter.launches == launches + 1
+    assert _rel(got, t_ffn.oproj_ffn_plain(x, attn, ws[0], nw, 1e-5, ws[1], ws[2])) < TOL
 
 
 @pytest.mark.cuda
@@ -523,3 +544,111 @@ def test_int8_engine_on_card_matches_cpu(card, tmp_path, monkeypatch):
     assert t_prefill.counter.launches == launches + 2
     for got, ref in zip(*outs):
         assert torch.isfinite(got).all() and _rel(got, ref) < 5e-2
+
+
+# flash decode (kernel #7) cases: chip_smoke.py's phase-3 shapes. The
+# serving cell: 1024 slots of 2048, TinyLlama's 32 / 4 heads of 64, its
+# positions 32-111 and positions uniform over the context; head_dim 128 at
+# Qwen2.5-1.5B's 12 / 2 heads and Mixtral-8x7B's 32 / 8.
+# (B, S, H, Hkv, D, positions: "serve" 32..111 or "uniform" 0..S-1, int8)
+DECODE_CASES = {
+    "serve_bf16": (1024, 2048, 32, 4, 64, "serve", False),
+    "serve_int8": (1024, 2048, 32, 4, 64, "serve", True),
+    "uniform_bf16": (1024, 2048, 32, 4, 64, "uniform", False),
+    "uniform_int8": (1024, 2048, 32, 4, 64, "uniform", True),
+    "qwen_hd128_bf16": (64, 2048, 12, 2, 128, "uniform", False),
+    "mixtral_hd128_int8": (64, 2048, 32, 8, 128, "uniform", True),
+}
+
+
+def decode_inputs(case, dev, seed=0):
+    """Inputs of one case: q [B, 1, H, D] as the unfused path slices it from
+    its qk projection (strided), k/v strided views of layer 1 of a 2-layer
+    cache."""
+    B, S, H, Hkv, D, pos, int8 = DECODE_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qk = torch.randn(B, 1, (H + Hkv) * D, device=dev, generator=g).to(torch.bfloat16)
+    q = qk[..., : H * D].reshape(B, 1, H, D)
+    shape = (2, B, Hkv, S, D)
+    if int8:
+        k, v = (torch.randint(-127, 128, shape, device=dev, generator=g, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], device=dev, generator=g) * 0.01 + 0.001
+                  for _ in range(2))
+        scales = (ks[1], vs[1])
+    else:
+        k, v = (torch.randn(shape, device=dev, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        scales = None
+    if pos == "serve":
+        qp = torch.randint(32, 112, (B, 1), device=dev, generator=g)
+    else:
+        qp = torch.randint(0, S, (B, 1), device=dev, generator=g)
+    return q, k[1], v[1], qp, scales
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_decode_attn_kernel_matches_plain(card, case):
+    q, k, v, qp, scales = decode_inputs(case, card)
+    launches = t_decode.counter.launches
+    got = t_decode.attention_decode_flash(q, k, v, qp, scales)
+    torch.cuda.synchronize()
+    assert t_decode.counter.launches == launches + 1
+    assert got.dtype == q.dtype and got.shape == q.shape and torch.isfinite(got.float()).all()
+    assert _row_rel(got, t_decode.decode_attention_plain(q, k, v, qp, scales)) < TOL
+
+
+@pytest.mark.cuda
+def test_decode_attn_kernel_takes_f32_q_and_edge_positions(card):
+    """An f32 q (qwen2's unfused decode) comes back f32; positions at a
+    tile's first and last slot and at the cache's end."""
+    q, k, v, _, scales = decode_inputs("qwen_hd128_bf16", card)
+    B = q.shape[0]
+    qp = torch.tensor([0, 63, 64, 127, 2047] * (B // 5) + [1] * (B % 5), device=card)[:, None]
+    qf = q.float() + 0.01 * torch.randn_like(q.float())
+    got = t_decode.attention_decode_flash(qf, k, v, qp, scales)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _row_rel(got, t_decode.decode_attention_plain(qf, k, v, qp, scales)) < TOL
+    with pytest.raises(ValueError, match="dtype"):
+        t_decode.attention_decode_flash(q.half(), k, v, qp, scales)
+
+
+@pytest.mark.cuda
+def test_serving_b16_on_card_counts_and_matches_cpu(card, tmp_path):
+    """Sixteen greedy requests on 16 slots of the dim-1024 fixture, card
+    against CPU: one admission burst (16 x bucket 16 = 256 rows: the qmm
+    tiles for every projection), then ticks of 16 decode rows (attn_in and
+    oproj_ffn in each layer, the lm head's qmm GEMV; the plain attention
+    with the deferred append, below the budget). Launches exactly so; the
+    first tokens agree and every row's first token is in the CPU's top 3."""
+    cfg = tiny_config(n_layers=2, dim=1024, n_heads=16, n_kv_heads=4, ffn_dim=1024,
+                      vocab_size=512)
+    path = write_fixture_gguf(tmp_path / "w1024.gguf", cfg, seed=5)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(3, 512, int(n)).tolist() for n in rng.integers(3, 16, 16)]
+    outs = []
+    for d in (card, "cpu"):
+        eng = InferenceEngine(*load_model(path, device=d)[:2], max_batch=16, max_seq=64, device=d)
+        cb = ContinuousBatcher(eng)
+        for p in prompts:
+            cb.submit(Request(prompt=p, max_new_tokens=6))
+        launches = {k: c.launches for k, c in _build.COUNTERS.items()}
+        cb.step()
+        first = cb.tick_logits.float().cpu()
+        done = cb.run()
+        if d == card:
+            torch.cuda.synchronize()
+            used = {k: c.launches - launches[k] for k, c in _build.COUNTERS.items()}
+            ticks, L = cb.stats["steps"], cfg.n_layers
+            assert cb.stats["prefills"] == 16 and ticks == 6
+            assert used == {**used, "attn_in": L * ticks, "oproj_ffn": L * ticks,
+                            "qmm": 5 * L + 1 + ticks, "prefill": 0, "decode_attn": 0,
+                            "ffn": 0, "qmm_int8": 0}
+        outs.append((first, {r.rid: r.output for r in done}))
+    (fg, og), (fc, oc) = outs
+    assert _rel(fg, fc) < 5e-2
+    top3 = torch.topk(fc, 3, dim=-1).indices
+    assert (top3 == fg.argmax(-1, keepdim=True)).any(-1).all()
+    assert all(len(o) == 6 for o in og.values())

@@ -23,6 +23,7 @@ from tpu_kquant_torch.runtime import engine as t_engine
 from tpu_kquant_torch.runtime.engine import InferenceEngine
 from tpu_kquant_torch.runtime.kv_cache import KVCache
 from tpu_kquant_torch.runtime.loader import load_model
+from tpu_kquant_torch.serving import ContinuousBatcher
 
 torch.set_num_threads(1)
 
@@ -225,11 +226,9 @@ def test_entry_points_refuse_what_this_slice_lacks(models):
     with pytest.raises(NotImplementedError):
         InferenceEngine(te.cfg, te.params, kv_layout="iswa", device="cpu")
     with pytest.raises(NotImplementedError):
-        te.generate([TOKENS], max_new_tokens=2, temperature=0.7)
-    with pytest.raises(NotImplementedError):
-        te.generate([TOKENS], max_new_tokens=2, top_k=5)
-    with pytest.raises(NotImplementedError):
         te.generate([TOKENS], max_new_tokens=2, context_shift=True)
+    with pytest.raises(NotImplementedError):
+        ContinuousBatcher(te, mesh=object())
     with pytest.raises(NotImplementedError):
         t_llama.llama_forward(te.params, dataclasses.replace(te.cfg, final_logit_softcap=30.0),
                               torch.tensor([[1]]), torch.tensor([[0]]), te.new_cache(1))

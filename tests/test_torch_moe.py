@@ -369,17 +369,19 @@ def test_attn_in_gate_takes_both_layouts_and_the_reference_impls():
 
 def test_ffn_gates_pass_f32_layouts_and_wrappers_refuse_them_off_the_cpu():
     """As the reference's gates, ffn's and oproj_ffn's pass the kinds with
-    f32 scales; the kernels read only the pairs, so on the card the wrappers
-    raise (their layout check), naming the layout; the CPU's plain versions
-    read every layout."""
+    f32 scales, and the kernels now read them too: the wrappers hand each
+    weight to the kernel by its kind code of csrc/common.cuh (q4 with f32
+    scales and mins: 2; q6w with f32 scales: 3) and refuse only the kinds no
+    kernel reads; the CPU's plain versions read every layout."""
     rng = np.random.default_rng(10)
     gu, dn = _port(mk_q4(1024, 512, rng, sm=False)), _port(mk_q6w(512, 512, rng, sp=False))
     wo = _port(mk_q6w(512, 1024, rng, sp=False))
     assert t_ffn.ffn_supported(gu, dn, 1) and t_ffn.oproj_ffn_supported(wo, gu, dn, 1)
-    with pytest.raises(NotImplementedError, match="f32-scale"):
-        t_ffn._require_pairs("ffn", gu, dn)
-    with pytest.raises(NotImplementedError, match="oproj_ffn"):
-        t_ffn._require_pairs("oproj_ffn", wo, gu, dn)
+    code, arrs = t_ffn._arrays(gu)
+    assert code == 2 and arrs[1] is gu.arrays["scales"] and arrs[2] is gu.arrays["mins"]
+    code, arrs = t_ffn._arrays(dn)
+    assert code == 3 and arrs[1] is dn.arrays["scales"] and arrs[2] is None
+    assert not hasattr(t_ffn, "_require_pairs")
     x = torch.ones(1, 512, dtype=torch.bfloat16)
     y = t_ffn.fused_ffn(x, torch.ones(512), 1e-5, gu, dn)  # the CPU reads every layout
     assert y.shape == (1, 512) and torch.isfinite(y.float()).all()

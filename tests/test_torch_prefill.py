@@ -28,6 +28,7 @@ from tpu_kquant.runtime.kv_cache import _quant_i8 as j_quant_i8
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops import attention as t_attention
 from tpu_kquant_torch.ops import prefill as t_prefill
+from tpu_kquant_torch.ops.decode_attention import decode_attention_plain
 from tpu_kquant_torch.runtime.engine import InferenceEngine
 from tpu_kquant_torch.runtime.kv_cache import KVCache, _quant_i8
 from tpu_kquant_torch.runtime.loader import load_model
@@ -145,16 +146,21 @@ def test_prefill_wrapper_raises_off_the_cpu():
 
 
 def test_decode_gate_raises_on_the_card_not_on_the_cpu(monkeypatch):
-    """Where the reference would dispatch its flash decode kernel (T == 1,
-    no kv_cur, logits past the budget), the card raises; the CPU runs the
-    plain branch."""
+    """Where the reference dispatches its flash decode kernel (T == 1, no
+    kv_cur, logits past the budget), the port dispatches kernel #7's
+    wrapper: the CPU runs its plain version (counted), the card launches the
+    kernel, and any other device raises there instead of falling back."""
     monkeypatch.setattr(t_attention, "ATTN_PLAIN_MAX_MB", 0.0)
     rng = np.random.default_rng(3)
     q, k, v, _, _ = _setup(rng, 1, 1, 128, 4, 2, 64, [0])
     pos = torch.tensor([[100]])
+    c = _build.COUNTERS["decode_attn"]
+    before = c.plain_calls
     out = t_attention.attention_decode(_t(q), _t(k), _t(v), pos)
+    assert c.plain_calls == before + 1
     assert out.shape == (1, 1, 4, 64) and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="flash decode"):
+    assert torch.equal(out, decode_attention_plain(_t(q), _t(k), _t(v), pos))
+    with pytest.raises(ValueError, match="decode_attn"):
         t_attention.attention_decode(*(_t(a).to("meta") for a in (q, k, v)), pos.to("meta"))
 
 
@@ -304,17 +310,22 @@ def test_prefill_dispatch_follows_the_logits_budget(w1024, monkeypatch, kv_int8)
 
 def test_decode_past_the_budget_appends_eagerly(w1024, monkeypatch):
     """Past the budget the forward stops deferring the append (kv_cur off),
-    as the reference's llama.py does; on the CPU the plain branch then reads
-    the appended cache. On bf16 KV both orders give the same step (the
+    as the reference's llama.py does. The cache has 80 slots, which fails
+    the decode kernel's S % 64 rule, so the plain branch then reads the
+    appended cache (tests/test_torch_decode_attention.py covers the kernel's
+    side of the gate). On bf16 KV both orders give the same step (the
     deferred current row is the bf16 row the append writes)."""
     _, te = w1024
-    eng = InferenceEngine(te.cfg, te.params, max_seq=64, device="cpu")
+    eng = InferenceEngine(te.cfg, te.params, max_seq=80, device="cpu")
     logits, cache, lens = eng.prefill([PROMPT[:7]], eng.new_cache(1))
     outs = []
+    kernel = _build.COUNTERS["decode_attn"]
     for budget in (t_attention.ATTN_PLAIN_MAX_MB, 0.0):
         monkeypatch.setattr(t_attention, "ATTN_PLAIN_MAX_MB", budget)
         c = KVCache(cache.k.clone(), cache.v.clone())
+        before = kernel.plain_calls
         outs.append((*eng.decode_step(torch.tensor([11]), torch.tensor(lens), c),))
+        assert kernel.plain_calls == before
     (a, ca), (b, cb) = outs
     torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5 * a.abs().max().item())
     assert torch.equal(ca.k, cb.k) and torch.equal(ca.v, cb.v)

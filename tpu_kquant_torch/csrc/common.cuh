@@ -350,6 +350,19 @@ cudaError_t launch_gemv(const GemvArgs& a, int splits, cudaStream_t stream) {
   }
 }
 
+// launch_gemv for a kind code chosen at run time (the fused kernels take
+// each weight in either scale layout)
+inline cudaError_t launch_gemv_kind(int kind, const GemvArgs& a, int splits,
+                                    cudaStream_t stream) {
+  switch (kind) {
+    case KQ4: return launch_gemv<KQ4>(a, splits, stream);
+    case KQ6W: return launch_gemv<KQ6W>(a, splits, stream);
+    case KQ4F: return launch_gemv<KQ4F>(a, splits, stream);
+    case KQ6WF: return launch_gemv<KQ6WF>(a, splits, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace tkq
 
 extern "C" const char* tkq_error_string(int code) {

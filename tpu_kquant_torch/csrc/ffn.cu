@@ -4,8 +4,8 @@
 // = 1536).
 //
 // Replaces the TPU kernel tpu_kquant/ops/pallas_ffn.py:fused_ffn (_ffn_call,
-// kernel body _ffn_kernel), for the Q4_K_M layouts: fused w_gateup q4-sm,
-// w_down q6w-sp.
+// kernel body _ffn_kernel), for the Q4_K_M layouts on bf16 scale pairs or
+// f32 scales: fused w_gateup q4, w_down q6w (kind codes of common.cuh).
 //
 // Bound: memory. At Qwen2.5-1.5B width it reads w_gateup [17920, 1536]
 // q4-sm (15.8 MB) and w_down [1536, 8960] q6w-sp (15.5 MB): 31.3 MB, 9.3 us
@@ -26,19 +26,21 @@
 using namespace tkq;
 
 // x, act (scratch), out: bf16; ws: f32 scratch of splits_d * R * dim floats.
-// cps_d / splits_d: the K split of phase C. Requires dim % 64 == 0,
+// gu_kind: KQ4 or KQ4F (gu_mins: its f32 mins, else null); dn_kind: KQ6W or
+// KQ6WF. cps_d / splits_d: the K split of phase C. Requires dim % 64 == 0,
 // F % 32 == 0, R <= 32.
-extern "C" int tkq_ffn(const void* x, const float* nw, float eps, const void* gu_qs,
-                       const void* gu_sm, const void* dn_qs, const void* dn_sp, void* act,
-                       float* ws, void* out, int R, int dim, int F, int cps_d, int splits_d,
-                       void* stream) {
+extern "C" int tkq_ffn(const void* x, const float* nw, float eps, int gu_kind, const void* gu_qs,
+                       const void* gu_scl, const void* gu_mins, int dn_kind, const void* dn_qs,
+                       const void* dn_scl, void* act, float* ws, void* out, int R, int dim, int F,
+                       int cps_d, int splits_d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   GateUpArgs ag{xb, nw, eps, static_cast<const uint8_t*>(gu_qs),
-                static_cast<const uint32_t*>(gu_sm), static_cast<__nv_bfloat16*>(act), R, dim, F};
-  cudaError_t e = launch_gate_up(ag, st);
+                static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
+                static_cast<__nv_bfloat16*>(act), R, dim, F};
+  cudaError_t e = launch_gate_up(gu_kind, ag, st);
   if (e != cudaSuccess) return (int)e;
-  GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_sp),
-              R, dim, F, cps_d, ws, out, 0, xb};
-  return (int)launch_gemv<KQ6W>(ad, splits_d, st);
+  GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),
+              R, dim, F, cps_d, ws, out, 0, xb, nullptr};
+  return (int)launch_gemv_kind(dn_kind, ad, splits_d, st);
 }

@@ -1,7 +1,8 @@
 // gate/up phase shared by the FFN kernels (oproj_ffn.cu, ffn.cu):
 // act = bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x)))), n = rms_norm, for
-// decode rows (R <= 32), over the fused w_gateup [2F, dim] q4-sm (gate
-// columns 0..F-1, up columns F..2F-1).
+// decode rows (R <= 32), over the fused w_gateup [2F, dim], q4 codes with
+// bf16 (scale, min) pairs (KQ4) or f32 scales and mins (KQ4F) (gate columns
+// 0..F-1, up columns F..2F-1).
 //
 // A block recomputes rms(x) for its rows, stages the normalised rows in
 // shared memory in f32 (the norm weight applied without bf16 rounding, as
@@ -20,12 +21,13 @@ struct GateUpArgs {
   const float* nw;          // [dim]
   float eps;
   const uint8_t* qs;        // q4 [dim/2, 2F]
-  const uint32_t* sm;       // [dim/32, 2F]
+  const uint32_t* scl;      // [dim/32, 2F]: sm pairs (KQ4) or f32 scales (KQ4F)
+  const uint32_t* mins;     // [dim/32, 2F] f32 mins (KQ4F only)
   __nv_bfloat16* act;       // [R, F]
   int R, dim, F;
 };
 
-template <int RT>
+template <int KIND, int RT>
 __global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float rstd[RT];
@@ -36,17 +38,18 @@ __global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
   const int N = 2 * a.F;
   const int nc = a.dim / 2 / CH;
   block_rstd<RT>(rstd, a.x, a.R, a.dim, r0, a.eps);
-  stage_x<KQ4, RT>(xs, a.x, 0, a.R, a.dim, r0, 0, nc, a.nw, rstd);
+  stage_x<KIND, RT>(xs, a.x, 0, a.R, a.dim, r0, 0, nc, a.nw, rstd);
   const int lane = threadIdx.x % 32;
   const int ng = blockIdx.x * TN + lane * 4;  // gate columns; up = F + gate
   {
     float acc[RT][4] = {};
-    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, ng, ng < a.F, 0, nc, xs, a.dim);
+    gemv_warp<KIND, RT>(acc, a.qs, a.scl, N, a.dim, ng, ng < a.F, 0, nc, xs, a.dim, a.mins);
     block_reduce<RT>(red_g, acc);
   }
   {
     float acc[RT][4] = {};
-    gemv_warp<KQ4, RT>(acc, a.qs, a.sm, N, a.dim, a.F + ng, ng < a.F, 0, nc, xs, a.dim);
+    gemv_warp<KIND, RT>(acc, a.qs, a.scl, N, a.dim, a.F + ng, ng < a.F, 0, nc, xs, a.dim,
+                        a.mins);
     block_reduce<RT>(red_u, acc);
   }
   for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
@@ -58,24 +61,32 @@ __global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
   }
 }
 
-template <int RT>
+template <int KIND, int RT>
 cudaError_t launch_gate_up_rt(const GateUpArgs& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * (RT * a.dim + 2 * WARPS * RT * TN);
-  cudaError_t e = cudaFuncSetAttribute(gate_up_kernel<RT>,
+  cudaError_t e = cudaFuncSetAttribute(gate_up_kernel<KIND, RT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.F + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
-  gate_up_kernel<RT><<<grid, THREADS, smem, st>>>(a);
+  gate_up_kernel<KIND, RT><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-inline cudaError_t launch_gate_up(const GateUpArgs& a, cudaStream_t st) {
+template <int KIND>
+cudaError_t launch_gate_up_k(const GateUpArgs& a, cudaStream_t st) {
   switch (pick_rt(a.R)) {
-    case 1: return launch_gate_up_rt<1>(a, st);
-    case 2: return launch_gate_up_rt<2>(a, st);
-    case 4: return launch_gate_up_rt<4>(a, st);
-    default: return launch_gate_up_rt<8>(a, st);
+    case 1: return launch_gate_up_rt<KIND, 1>(a, st);
+    case 2: return launch_gate_up_rt<KIND, 2>(a, st);
+    case 4: return launch_gate_up_rt<KIND, 4>(a, st);
+    default: return launch_gate_up_rt<KIND, 8>(a, st);
   }
+}
+
+// kind: KQ4 or KQ4F, the layout of w_gateup
+inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, cudaStream_t st) {
+  if (kind == KQ4) return launch_gate_up_k<KQ4>(a, st);
+  if (kind == KQ4F) return launch_gate_up_k<KQ4F>(a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace tkq

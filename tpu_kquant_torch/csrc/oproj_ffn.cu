@@ -29,27 +29,31 @@
 using namespace tkq;
 
 // x, attn, x2 (scratch), act (scratch), out: bf16; ws: f32 scratch of
-// max(splits_o * R * dim, splits_d * R * dim) floats. wo_kind: 0 = q4-sm,
-// 1 = q6w-sp. cps_* / splits_*: the K split of phases A and C. Requires
-// K % 64 == 0, dim % 64 == 0, F % 32 == 0, dim and F multiples of 4, R <= 32.
+// max(splits_o * R * dim, splits_d * R * dim) floats. *_kind: common.cuh's
+// kind codes (wo: any; gu: KQ4 or KQ4F; dn: KQ6W or KQ6WF); *_scl the sm /
+// sp pairs or f32 scales, *_mins the f32 mins of a KQ4F weight (else null).
+// cps_* / splits_*: the K split of phases A and C. Requires K % 64 == 0,
+// dim % 64 == 0, F % 32 == 0, dim and F multiples of 4, R <= 32.
 extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
-                             int wo_kind, const void* wo_qs, const void* wo_sm, const void* gu_qs,
-                             const void* gu_sm, const void* dn_qs, const void* dn_sp, void* x2,
-                             void* act, float* ws, void* out, int R, int dim, int K, int F,
-                             int cps_o, int splits_o, int cps_d, int splits_d, void* stream) {
+                             int wo_kind, const void* wo_qs, const void* wo_scl,
+                             const void* wo_mins, int gu_kind, const void* gu_qs,
+                             const void* gu_scl, const void* gu_mins, int dn_kind,
+                             const void* dn_qs, const void* dn_scl, void* x2, void* act, float* ws,
+                             void* out, int R, int dim, int K, int F, int cps_o, int splits_o,
+                             int cps_d, int splits_d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_sm),
-              R, dim, K, cps_o, ws, x2, 0, xb};
-  cudaError_t e = wo_kind == KQ4 ? launch_gemv<KQ4>(ao, splits_o, st)
-                                 : launch_gemv<KQ6W>(ao, splits_o, st);
+  GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_scl),
+              R, dim, K, cps_o, ws, x2, 0, xb, static_cast<const uint32_t*>(wo_mins)};
+  cudaError_t e = launch_gemv_kind(wo_kind, ao, splits_o, st);
   if (e != cudaSuccess) return (int)e;
   GateUpArgs ag{static_cast<const __nv_bfloat16*>(x2), nw, eps,
-                static_cast<const uint8_t*>(gu_qs), static_cast<const uint32_t*>(gu_sm),
-                static_cast<__nv_bfloat16*>(act), R, dim, F};
-  e = launch_gate_up(ag, st);
+                static_cast<const uint8_t*>(gu_qs), static_cast<const uint32_t*>(gu_scl),
+                static_cast<const uint32_t*>(gu_mins), static_cast<__nv_bfloat16*>(act), R, dim,
+                F};
+  e = launch_gate_up(gu_kind, ag, st);
   if (e != cudaSuccess) return (int)e;
-  GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_sp),
-              R, dim, F, cps_d, ws, out, 0, static_cast<const __nv_bfloat16*>(x2)};
-  return (int)launch_gemv<KQ6W>(ad, splits_d, st);
+  GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),
+              R, dim, F, cps_d, ws, out, 0, static_cast<const __nv_bfloat16*>(x2), nullptr};
+  return (int)launch_gemv_kind(dn_kind, ad, splits_d, st);
 }

@@ -134,6 +134,9 @@ def llama_forward(
     logits_last_only: bool = False,
     kv_attend_len: int | None = None,  # see llama_layer
     impl: str = "auto",  # see the module docstring
+    kv_valid: torch.Tensor | None = None,  # [B, T] bool, the non-pad slots: on the
+    #   unified cache it only turns the deferred append off, as in the reference
+    #   (pads are overwritten before any query attends them)
 ) -> tuple[torch.Tensor, KVCache]:
     """Returns (logits [B, T, vocab] f32 (or [B, 1, vocab]), cache). The
     cache is updated in place."""
@@ -153,8 +156,8 @@ def llama_forward(
     # attention on the plain branch, so past the logits budget (large B * S)
     # the appends are eager and attention may leave it, as in the reference.
     B, T = tokens.shape
-    defer = T == 1 and attention.logits_mb(B, 1, cfg.n_heads, cache.max_seq) \
-        <= attention.ATTN_PLAIN_MAX_MB
+    defer = T == 1 and kv_valid is None and \
+        attention.logits_mb(B, 1, cfg.n_heads, cache.max_seq) <= attention.ATTN_PLAIN_MAX_MB
     pending: list | None = [] if defer else None
     for i, layer in enumerate(params["layers"]):
         def kv_write(k_new, v_new, _i=i):

@@ -8,9 +8,12 @@ on the card":
   the flash prefill kernel (``ops.prefill``; its plain version on the CPU).
   At TinyLlama width that is every bucket-2048 prompt (537 MB of logits per
   layer); bucket 1024 (134 MB) stays plain.
-- T == 1 with no ``kv_cur`` and logits above the same budget is where the
-  reference runs its flash decode kernel; that kernel is not ported yet, so
-  on the card this raises (the CPU runs the plain branch).
+- T == 1 with no ``kv_cur``, D % 64, S % 64 (S % 256 on int8 KV) and plain
+  logits above the same budget go to the flash decode kernel
+  (``ops.decode_attention``; its plain version on the CPU). The forward
+  drops its deferred append past the budget, so this is every decode step
+  of many concurrent sequences: 1024 serving slots of 2048 at TinyLlama
+  width (268 MB of logits per layer).
 - Everything else runs the plain branch below in f32.
 Rings, sliding windows and logit softcaps are not ported here (the llama
 forward refuses archs that need them).
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_kquant_torch.ops.decode_attention import attention_decode_flash
 from tpu_kquant_torch.ops.prefill import attention_prefill, prefill_supported
 
 # The budget of materialised f32 logits (B * T * H * S * 4 bytes, in MB)
@@ -61,10 +65,8 @@ def attention_decode(
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     big = logits_mb(B, T, H, S) > ATTN_PLAIN_MAX_MB
     if (kv_cur is None and T == 1 and D % 64 == 0 and S % 64 == 0
-            and big and (kv_scales is None or S % 256 == 0) and q.device.type != "cpu"):
-        raise NotImplementedError(
-            f"flash decode not ported yet: B={B}, H={H}, S={S} would materialise "
-            f"{logits_mb(B, T, H, S):.0f} MB of logits (> ATTN_PLAIN_MAX_MB = {ATTN_PLAIN_MAX_MB})")
+            and big and (kv_scales is None or S % 256 == 0)):
+        return attention_decode_flash(q, k_cache, v_cache, q_positions, kv_scales)
     if kv_cur is None and T > 1 and prefill_supported(T, S, D) and big:
         return attention_prefill(q, k_cache, v_cache, q_positions[:, 0], kv_scales)
 

@@ -7,11 +7,10 @@
   up(n(x2))). Kernel ``csrc/oproj_ffn.cu`` (replaces
   ``tpu_kquant/ops/pallas_ffn.py:fused_oproj_ffn``, manual and Mosaic-grid
   variants).
-Both take the Q4_K_M layouts (w_gateup q4-sm, w_down q6w-sp; wo q4-sm or
-q6w-sp) and share the gate/up phase (``csrc/gate_up.cuh``). Their gates, like
-the reference's, pass the same kinds with f32 scales (``scale_dtype='f32'``);
-the kernels do not read those layouts yet, so on the card the wrappers raise
-for them (their plain versions, on the CPU, read every layout).
+Both take the Q4_K_M layouts (w_gateup q4, w_down q6w; wo q4 or q6w), each
+weight with bf16 scale pairs (q4-sm, q6w-sp) or f32 scales (q4 ``scales`` +
+``mins``, q6w ``scales``: ``scale_dtype='f32'``), as their gates and the
+reference's pass them, and share the gate/up phase (``csrc/gate_up.cuh``).
 
 ``ffn_plain`` and ``oproj_ffn_plain`` are the same functions in plain
 PyTorch with the kernels' rounding points: x2, gate, up and their activated
@@ -37,9 +36,14 @@ MAX_ROWS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _I, _I, _P]
-_FFN_ARGTYPES = [_P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+#            x   attn nw  eps wo: kind qs scl mins  gu: kind qs scl mins  dn: kind qs scl
+_ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+             # x2 act ws out R  dim K  F  cps_o splits_o cps_d splits_d stream
+             _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+#                x   nw  eps gu: kind qs scl mins  dn: kind qs scl
+_FFN_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _I, _P, _P,
+                 # act ws out R  dim F  cps_d splits_d stream
+                 _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
 def _kind(qt: QTensor) -> str | None:
@@ -65,12 +69,22 @@ def oproj_ffn_supported(wo: QTensor, gu: QTensor, dn: QTensor, rows: int) -> boo
             and wo.shape[0] == dn.shape[0] and int(wo.shape[1]) % 1024 == 0)
 
 
-def _require_pairs(what: str, *ws: QTensor) -> None:
-    """Raise unless every weight carries the bf16 scale pairs the kernel reads."""
-    if any(kernel_kind(w) not in (0, 1) for w in ws):
-        raise NotImplementedError(
-            f"{what}: the f32-scale layouts (scales / mins) are not ported to this kernel; "
-            f"load with scale_dtype='bf16'")
+def _arrays(qt: QTensor) -> tuple[int, list]:
+    """(kind code, [codes, scales, mins or None]) of a weight the kernels read."""
+    code = kernel_kind(qt)
+    scl = qt.arrays[("sm", "sp", "scales", "scales")[code]]
+    return code, [qt.arrays["qs"], scl, qt.arrays["mins"] if code == 2 else None]
+
+
+def _check_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> None:
+    for qt in ws:
+        code, arrs = _arrays(qt)
+        _build.require(arrs[0].dtype == (torch.uint8 if code in (0, 2) else torch.int8)
+                       and all(a.dtype == torch.float32 for a in arrs[1:] if a is not None),
+                       f"{what}: packed array dtypes")
+        _build.require(all(a.device == x.device and a.is_contiguous()
+                           for a in arrs if a is not None),
+                       f"{what}: weights must be contiguous on x's device")
 
 
 def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
@@ -106,13 +120,11 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     req = _build.require
     req(x.device.type == "cuda", f"ffn: unsupported device {x.device}")
     req(ffn_supported(gu, dn, R), "ffn: unsupported layout or shape")
-    _require_pairs("ffn", gu, dn)
     req(x.dtype == torch.bfloat16, f"ffn: x dtype {x.dtype}")
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "ffn: norm weight")
-    arrs = (gu.arrays["qs"], gu.arrays["sm"], dn.arrays["qs"], dn.arrays["sp"])
-    req(arrs[0].dtype == torch.uint8 and arrs[2].dtype == torch.int8, "ffn: code dtypes")
-    req(all(a.device == x.device and a.is_contiguous() for a in arrs),
-        "ffn: weights must be contiguous on x's device")
+    _check_arrays("ffn", x, gu, dn)
+    gu_kind, gu_arrs = _arrays(gu)
+    dn_kind, dn_arrs = _arrays(dn)
     x2d, nw = x2d.contiguous(), norm_w.contiguous()
     cps_d, splits_d = gemv_split(1, dim, Fd, R)
     dev = x.device
@@ -121,8 +133,10 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     lib = _build.load("ffn", "tkq_ffn", _FFN_ARGTYPES)
     P = _build.ptr
-    rc = lib.tkq_ffn(P(x2d), P(nw), float(eps), *(P(a) for a in arrs), P(act), P(ws), P(out),
-                     R, dim, Fd, cps_d, splits_d, _build.stream_ptr(dev))
+    ptrs = lambda arrs: [None if a is None else P(a) for a in arrs]  # noqa: E731
+    rc = lib.tkq_ffn(P(x2d), P(nw), float(eps), gu_kind, *ptrs(gu_arrs), dn_kind,
+                     *ptrs(dn_arrs[:2]), P(act), P(ws), P(out), R, dim, Fd, cps_d, splits_d,
+                     _build.stream_ptr(dev))
     _build.check(lib, rc, "ffn")
     ffn_counter.launches += 1
     return out.reshape(*lead, dim)
@@ -151,17 +165,11 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     req = _build.require
     req(x.device.type == "cuda", f"oproj_ffn: unsupported device {x.device}")
     req(oproj_ffn_supported(wo, gu, dn, R), "oproj_ffn: unsupported layout or shape")
-    _require_pairs("oproj_ffn", wo, gu, dn)
     req(x.dtype == torch.bfloat16 and attn.dtype == torch.bfloat16, "oproj_ffn: x/attn dtype")
     req(a2d.shape[0] == R, "oproj_ffn: x and attn rows differ")
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "oproj_ffn: norm weight")
-    wo_kind = kernel_kind(wo)
-    arrs = (wo.arrays["qs"], wo.arrays["sm" if wo_kind == 0 else "sp"], gu.arrays["qs"],
-            gu.arrays["sm"], dn.arrays["qs"], dn.arrays["sp"])
-    req(arrs[0].dtype == (torch.uint8 if wo_kind == 0 else torch.int8)
-        and arrs[2].dtype == torch.uint8 and arrs[4].dtype == torch.int8, "oproj_ffn: code dtypes")
-    req(all(a.device == x.device and a.is_contiguous() for a in arrs),
-        "oproj_ffn: weights must be contiguous on x's device")
+    _check_arrays("oproj_ffn", x, wo, gu, dn)
+    (wo_kind, wo_arrs), (gu_kind, gu_arrs), (dn_kind, dn_arrs) = map(_arrays, (wo, gu, dn))
     x2d, a2d, nw = x2d.contiguous(), a2d.contiguous(), norm_w.contiguous()
     cps_o, splits_o = gemv_split(wo_kind, dim, K, R)
     cps_d, splits_d = gemv_split(1, dim, Fd, R)
@@ -172,9 +180,11 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     lib = _build.load("oproj_ffn", "tkq_oproj_ffn", _ARGTYPES)
     P = _build.ptr
-    rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *(P(a) for a in arrs), P(x2),
-                           P(act), P(ws), P(out), R, dim, K, Fd, cps_o, splits_o, cps_d,
-                           splits_d, _build.stream_ptr(dev))
+    ptrs = lambda arrs: [None if a is None else P(a) for a in arrs]  # noqa: E731
+    rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *ptrs(wo_arrs), gu_kind,
+                           *ptrs(gu_arrs), dn_kind, *ptrs(dn_arrs[:2]), P(x2), P(act), P(ws),
+                           P(out), R, dim, K, Fd, cps_o, splits_o, cps_d, splits_d,
+                           _build.stream_ptr(dev))
     _build.check(lib, rc, "oproj_ffn")
     counter.launches += 1
     return out.reshape(*lead, dim)

@@ -1,18 +1,25 @@
 """Inference engine around the llama forward: the port of
-``tpu_kquant.runtime.engine.InferenceEngine`` for greedy decoding on a bf16
-or int8 (``kv_quantized``) KV cache.
+``tpu_kquant.runtime.engine.InferenceEngine`` (greedy and sampled
+generation, and the slot prefill that serving builds on) on a bf16 or int8
+(``kv_quantized``) KV cache.
 
 prefill(tokens [B, T]): bucketed T, right-padded. Padded slots write stale
 K/V beyond a row's length, which is safe because a later decode step
 always overwrites slot p before any query can attend it (mask j <= q_pos).
-Only here may attention be bounded to the first T slots (kv_attend_len):
-every query position is below T.
+Only here (and in the slot prefill and the serving burst, whose positions
+are arange(T) too) may attention be bounded to the first T slots
+(kv_attend_len): every query position is below T.
 decode_step(tokens [B]): one token per row; never bounds attention.
-The greedy loop is a plain Python loop of decode steps; capturing it in a
-CUDA graph is later work. ``impl`` is the reference's (engine.py:52):
-"auto", or "int8" for the Q8-activation path of ops.qmatmul on weights
-loaded with ``scale_dtype="f32"``. Sampling, rings, sessions and context shift
-raise NotImplementedError in this slice.
+prefill_slot(tokens, cache, slot): one request into batch row ``slot``,
+through a forward over a view of that row, so nothing is copied and the
+other rows stay as they are.
+The decode loops are plain Python loops of decode steps; capturing them in
+a CUDA graph is later work. Sampled generation runs ops.sampling's chain
+after each step; row i of a batch draws from the stream of seed + i (the
+serving batcher's per-request seeds use the same streams). ``impl`` is the
+reference's (engine.py:52): "auto", or "int8" for the Q8-activation path of
+ops.qmatmul on weights loaded with ``scale_dtype="f32"``. Rings, sessions
+and context shift raise NotImplementedError in this slice.
 """
 
 from __future__ import annotations
@@ -25,8 +32,14 @@ import torch
 from tpu_kquant_torch.models.config import ModelConfig
 from tpu_kquant_torch.models.llama import llama_forward
 from tpu_kquant_torch.ops.qmatmul import IMPLS
-from tpu_kquant_torch.ops.sampling import greedy
-from tpu_kquant_torch.runtime.kv_cache import KVCache
+from tpu_kquant_torch.ops.sampling import (
+    SamplerConfig,
+    greedy,
+    init_penalty_state,
+    row_keys,
+    sample_step,
+)
+from tpu_kquant_torch.runtime.kv_cache import KVCache, slice_batch_row
 from tpu_kquant_torch.runtime.loader import resolve_device
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -63,6 +76,7 @@ class InferenceEngine:
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.impl = impl
+        self.kv_layout = kv_layout
         self.device = resolve_device(device)
         pdev = _param_device(params)
         if pdev.type != self.device.type:
@@ -73,10 +87,12 @@ class InferenceEngine:
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_quantized = kv_quantized
 
-    def new_cache(self, batch: int | None = None) -> KVCache:
-        return KVCache.create(self.cfg.n_layers, batch or self.max_batch, self.max_seq,
-                              self.cfg.n_kv_heads, self.cfg.head_dim, device=self.device,
-                              quantized=self.kv_quantized)
+    def new_cache(self, batch: int | None = None, max_seq: int | None = None) -> KVCache:
+        """A zeroed cache of ``batch`` rows (max_batch) and ``max_seq`` slots
+        (the engine's; serving's burst asks for a prefill bucket's T)."""
+        return KVCache.create(self.cfg.n_layers, batch or self.max_batch,
+                              max_seq or self.max_seq, self.cfg.n_kv_heads, self.cfg.head_dim,
+                              device=self.device, quantized=self.kv_quantized)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.array(a), dtype=torch.long, device=self.device)
@@ -100,6 +116,49 @@ class InferenceEngine:
                                       self._tensor(positions), cache, impl=self.impl, **kw)
         last = logits[torch.arange(B, device=self.device), self._tensor(lens - 1)]
         return last, cache, lens
+
+    @torch.no_grad()
+    def _step_valid(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache,
+                    kv_valid: torch.Tensor):
+        """Forward over [B, T] tokens whose positions are arange(T) per row,
+        with the pad mask ``kv_valid`` [B, T] (serving's admission burst).
+        Attention reads only the first T slots. Returns (logits [B, T, V]
+        f32, cache)."""
+        T = tokens.shape[1]
+        kw = {"kv_attend_len": T} if self.kv_layout == "unified" and T > 1 else {}
+        return llama_forward(self.params, self.cfg, tokens, positions, cache, impl=self.impl,
+                             kv_valid=kv_valid, **kw)
+
+    @torch.no_grad()
+    def _prefill_slot(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache,
+                      slot: int, kv_valid: torch.Tensor):
+        """Prefill one sequence [1, T] (positions arange(T)) into batch row
+        ``slot``: the forward runs over a view of the row, so its appends
+        land in ``cache`` and no other row is touched. Attention reads only
+        the first T slots, on the unified layout (the only one ported).
+        Returns (logits [T, V] f32, cache)."""
+        T = tokens.shape[1]
+        kw = {"kv_attend_len": T} if self.kv_layout == "unified" and T > 1 else {}
+        logits, _ = llama_forward(self.params, self.cfg, tokens, positions,
+                                  slice_batch_row(cache, slot), impl=self.impl,
+                                  kv_valid=kv_valid, **kw)
+        return logits[0], cache
+
+    def prefill_slot(self, tokens: list[int], cache: KVCache, slot: int):
+        """Prefill one request into batch row ``slot``. Returns (last_logits
+        [V] f32, cache)."""
+        if self.kv_layout != "unified":
+            raise NotImplementedError("slot prefill requires the unified KV layout")
+        if len(tokens) > self.max_seq:
+            raise ValueError(f"prompt length {len(tokens)} exceeds max_seq {self.max_seq}")
+        T = min(_bucket(len(tokens)), self.max_seq)
+        toks = np.zeros((1, T), np.int64)
+        toks[0, : len(tokens)] = tokens
+        positions = np.arange(T)[None, :]
+        valid = torch.from_numpy(positions < len(tokens)).to(self.device)
+        logits, cache = self._prefill_slot(self._tensor(toks), self._tensor(positions), cache,
+                                           slot, valid)
+        return logits[len(tokens) - 1], cache
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache):
@@ -127,24 +186,59 @@ class InferenceEngine:
                                device=self.device), cache
         return torch.stack(out, dim=1), cache
 
+    @torch.no_grad()
+    def decode_sampled(self, first_tok: torch.Tensor, start_pos: torch.Tensor, cache: KVCache,
+                       n_steps: int, sc: SamplerConfig, keys: torch.Tensor, penalty_state=None):
+        """decode_greedy with the whole sampler chain after every step:
+        ([B, n_steps] tokens, cache, keys, penalty state). Stays on the
+        device."""
+        tok, pos = first_tok.long(), start_pos.long()
+        out = []
+        for _ in range(n_steps):
+            logits, cache = self.decode_step(tok, pos, cache)
+            tok, keys, penalty_state = sample_step(logits, keys, sc, penalty_state)
+            tok = tok.long()
+            pos = pos + 1
+            out.append(tok)
+        if not out:
+            return (torch.empty((first_tok.shape[0], 0), dtype=torch.long, device=self.device),
+                    cache, keys, penalty_state)
+        return torch.stack(out, dim=1), cache, keys, penalty_state
+
     # -- generation ------------------------------------------------------------
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
-                 temperature: float = 0.0, eos_id: int | None = None,
-                 context_shift: bool = False, **sampler) -> list[list[int]]:
-        """Greedy generation; returns the new ids per row (cut after eos_id).
-        Generation stops at the KV capacity."""
-        if temperature != 0.0 or sampler:
-            raise NotImplementedError("sampling is not ported yet: greedy only")
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+                 eos_id: int | None = None, seed: int = 0, context_shift: bool = False,
+                 n_keep: int = 0, min_p: float = 0.0, repeat_penalty: float = 1.0,
+                 presence_penalty: float = 0.0, frequency_penalty: float = 0.0,
+                 penalty_last_n: int = 64) -> list[list[int]]:
+        """Greedy or sampled generation (the reference's options); returns the
+        new ids per row (cut after eos_id). Row i draws from the stream of
+        seed + i. Penalties follow llama.cpp's over the last penalty_last_n
+        context tokens. Generation stops at the KV capacity."""
         if context_shift:
             raise NotImplementedError("context shift is not ported yet")
+        sc = SamplerConfig(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
+                           repeat_penalty=repeat_penalty, presence_penalty=presence_penalty,
+                           frequency_penalty=frequency_penalty, penalty_last_n=penalty_last_n)
         B = len(prompts)
         cache = self.new_cache(B)
         logits, cache, lens = self.prefill(prompts, cache)
         max_new_tokens = min(max_new_tokens, self.max_seq - int(lens.max()))
         if max_new_tokens <= 0:
             return [[] for _ in range(B)]
-        first = greedy(logits).long()
-        rest, cache = self.decode_greedy(first, self._tensor(lens), cache, max_new_tokens - 1)
+        if sc.is_greedy and not sc.uses_penalties:
+            first = greedy(logits).long()
+            rest, cache = self.decode_greedy(first, self._tensor(lens), cache,
+                                             max_new_tokens - 1)
+        else:
+            keys = row_keys(torch.arange(B) + seed, 0).to(self.device)
+            pstate = (init_penalty_state(prompts, self.cfg.vocab_size, penalty_last_n,
+                                         self.device) if sc.uses_penalties else None)
+            first, keys, pstate = sample_step(logits, keys, sc, pstate)
+            first = first.long()
+            rest, cache, keys, pstate = self.decode_sampled(first, self._tensor(lens), cache,
+                                                            max_new_tokens - 1, sc, keys, pstate)
         toks = torch.cat([first[:, None], rest], dim=1).cpu().numpy()
         out = []
         for i in range(B):

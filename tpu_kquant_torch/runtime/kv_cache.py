@@ -1,6 +1,7 @@
 """KV cache, heads-major [L, B, Hkv, S, D], bf16 or int8 with per-token
-scales: the port of ``tpu_kquant.runtime.kv_cache.KVCache`` (rings and
-context shift belong to later slices).
+scales: the port of ``tpu_kquant.runtime.kv_cache.KVCache`` and its batch-row
+helpers ``slice_batch_row`` / ``set_batch_row`` (rings and context shift
+belong to later slices).
 
 int8 mode stores each (token, kv head) row as int8 codes with one f32 scale,
 amax / 127, chosen at append time (``_quant_i8``); attention folds the K
@@ -109,3 +110,40 @@ class KVCache:
             return (self.k[layer_idx], self.v[layer_idx],
                     (self.k_scale[layer_idx], self.v_scale[layer_idx]))
         return self.k[layer_idx], self.v[layer_idx], None
+
+
+def slice_batch_row(cache: KVCache, slot: int) -> KVCache:
+    """Batch row ``slot`` as a [L, 1, ...] cache that is a VIEW of ``cache``:
+    a forward over it writes the row in place (serving's slot prefill)."""
+    def row(t):
+        return None if t is None else t.narrow(1, slot, 1)
+
+    return KVCache(row(cache.k), row(cache.v), row(cache.k_scale), row(cache.v_scale))
+
+
+def set_batch_row(cache: KVCache, row: KVCache, slot: int) -> KVCache:
+    """Copy a [L, 1, ...] row cache into batch row ``slot`` in place (a row
+    that is already that view of ``cache`` is left as it is). Returns
+    cache."""
+    for dst, src in ((cache.k, row.k), (cache.v, row.v), (cache.k_scale, row.k_scale),
+                     (cache.v_scale, row.v_scale)):
+        if dst is None:
+            continue
+        d = dst.narrow(1, slot, 1)
+        if d.data_ptr() != src.data_ptr():
+            d.copy_(src)
+    return cache
+
+
+def set_batch_rows(cache: KVCache, src: KVCache, slots: torch.Tensor) -> KVCache:
+    """Copy every row of a burst cache ``src`` [L, k, Hkv, T, ...], T <=
+    S, into the first T slots of batch rows ``slots`` [k] of ``cache``: one
+    indexed write per tensor, in place. Slots past T keep what they held;
+    they lie past each row's position, so attention masks them until a
+    decode step overwrites them. Returns cache."""
+    T = src.k.shape[3]
+    for dst, s in ((cache.k, src.k), (cache.v, src.v), (cache.k_scale, src.k_scale),
+                   (cache.v_scale, src.v_scale)):
+        if dst is not None:
+            dst[:, slots, :, :T] = s
+    return cache
