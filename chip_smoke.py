@@ -18,7 +18,13 @@ Phases, each fatal on failure:
     activation quantization is checked byte for byte); oproj_ffn also on
     f32 scales; the flash decode kernel at the serving cell (1024 slots of
     2048, bf16 and int8 KV, the cell's positions and positions over the
-    whole context) and at head_dim 128 (tolerance 2e-2 of max|ref|;
+    whole context) and at head_dim 128; and at phase 9's kinds: qmm on
+    q8, q5, unwidened q6, q3 and q2 (bf16 pairs and f32 scales, R = 1 and
+    512) at TinyLlama's gate/up, wqk, down and lm head, qmm_int8's q6
+    branch at the down and lm head (R = 1, 8, 16) after its 16-group
+    activation quantization is checked byte for byte, attn_in with q8, q6w
+    and q4 in both slots (R = 1, 16), oproj_ffn and ffn with q8 in every
+    slot (R = 1, 8) (tolerance 2e-2 of max|ref|;
     qmm_int8 1e-3; the attention kernels 2e-2 of each output row's own
     max|ref|), and time the kernel and the plain version; as yardsticks the
     port never calls, qmm's ``library_ms`` is torch.matmul on the
@@ -74,11 +80,21 @@ Phases, each fatal on failure:
     token and layer compared (reference_check); greedy requests of 5, 40
     and 200 tokens, counted; pp512 and tg128 beside their bounds, every
     expert's bytes counted (the loop reads all 8 per token).
+ 9. GGML types: TinyLlama-1.1B at full width under every recipe of the
+    reference's quantize tool (models/fixtures.py:target_type), one load
+    at a time: Q8_0 and Q5_K_M at full depth (a 2-layer cut against the
+    CPU, greedy requests of 5, 40 and 200 tokens counted from 0, pp512 and
+    tg128 beside their bounds), then Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M
+    with widen_q6=False (bf16 pairs under impl "auto", then f32 scales
+    under impl "int8": qmm_int8's q6 branch) cut to GGML_DEPTH layers (the
+    cut is logged as `reduced`), each with the same cut and counted
+    requests, untimed. Each recipe's decode dispatch is pinned from the
+    recipe table (GGML_CONFIGS).
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4 to 8, each counted from 0 and checked against the dispatch
+of phases 4 to 9, each counted from 0 and checked against the dispatch
 gates exactly; the gates in turn are held to each model's decode and long
-prefill dispatch (and Mixtral's 64-row prefill), stated from its config
-(pin_dispatch). The second-to-last line is the kernels' JSON; the last line
+prefill dispatch (and Mixtral's and phase 9's 64-row prefill), stated from
+its config (pin_dispatch). The second-to-last line is the kernels' JSON; the last line
 is {"ok": true, "device": {...}}.
 Without a CUDA card it exits non-zero.
 """
@@ -176,27 +192,14 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
 
 
 def _rand_weights(rng, kind: str, N: int, K: int, dev):
-    """Random packed weights in the loader's layouts: "q4" / "q6w" with bf16
-    pairs (scale_dtype="bf16"), "q4f" / "q6wf" with f32 scales (and mins)."""
-    import numpy as np
-    import torch
+    """A random packed weight in the loader's layout of `kind` on the card
+    (models.fixtures.random_packed): "q4", "q6w", "q8", "q5", "q6", "q3",
+    "q2" with bf16 pairs (scale_dtype="bf16"), and with a trailing "f" their
+    f32 scales (and mins)."""
+    from tpu_kquant_torch.models.fixtures import random_packed
 
-    from tpu_kquant_torch.quant.qtensor import QTensor
-
-    def pairs(a, b):
-        bits = [torch.from_numpy(v).to(torch.bfloat16).view(torch.int16).numpy()
-                .view(np.uint16).astype(np.uint32) for v in (a, b)]
-        return (bits[0] | (bits[1] << 16)).view(np.float32)
-
-    if kind in ("q4", "q4f"):  # uniform 4-bit codes, centred by the mins
-        s = rng.random((K // 32, N), dtype=np.float32) * 0.004 + 0.002
-        side = {"sm": pairs(s, s * 7.5)} if kind == "q4" else {"scales": s, "mins": s * 7.5}
-        return QTensor("q4", "kmajor", (N, K), {
-            "qs": rng.integers(0, 256, (K // 2, N), dtype=np.uint8), **side}).to(dev)
-    s = rng.random((K // 16, N), dtype=np.float32) * 0.002 + 0.001
-    return QTensor("q6w", "kmajor", (N, K), {
-        "qs": rng.integers(-32, 32, (K, N)).astype(np.int8),
-        **({"sp": pairs(s[0::2], s[1::2])} if kind == "q6w" else {"scales": s})}).to(dev)
+    f32 = kind.endswith("f")
+    return random_packed(rng, kind[:-1] if f32 else kind, N, K, f32=f32).to(dev)
 
 
 def _rotation(w0, make, one_bytes: int) -> list:
@@ -219,6 +222,28 @@ def row_rel_err(got, ref) -> float:
     fault in the late tiles pass; each row here is held to its own scale."""
     d = (got.float() - ref.float()).abs().amax(-1)
     return (d / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+# phase 9's kinds at TinyLlama's shapes (gate/up [11264, 2048], wqk [2304,
+# 2048], down [2048, 5632], lm head [32000, 2048]): every kind the recipes
+# give qmm, at R = 1 (decode) and 512 (the tiles), and each on f32 scales
+GGML_QMM_CASES = tuple(
+    (f"{what} {kind.rstrip('f')}{lay or '-f32'} R={R}", kind, N, K, R,
+     "f32" if what == "lm head" else "bf16")
+    for what, kind, lay, N, K, Rs in (
+        ("gate/up", "q8", "-sp", 11264, 2048, (1, 512)),
+        ("lm head", "q8", "-sp", 32000, 2048, (1, 512)),
+        ("gate/up", "q5", "-sm", 11264, 2048, (1, 512)),
+        ("wqk", "q5", "-sm", 2304, 2048, (1, 512)),
+        ("gate/up", "q3", "-sm", 11264, 2048, (1, 512)),
+        ("gate/up", "q2", "-sm", 11264, 2048, (1, 512)),
+        ("down", "q6", "-sm", 2048, 5632, (1, 512)),
+        ("down", "q6f", "", 2048, 5632, (1, 512)),
+        ("gate/up", "q8f", "", 11264, 2048, (1,)),
+        ("gate/up", "q5f", "", 11264, 2048, (1,)),
+        ("gate/up", "q3f", "", 11264, 2048, (1,)),
+        ("gate/up", "q2f", "", 11264, 2048, (1,)))
+    for R in Rs)
 
 
 def check_kernels(dev) -> dict:
@@ -278,7 +303,9 @@ def check_kernels(dev) -> dict:
             ("mixtral: lm head q6w-sp R=1", "q6w", MX_VOCAB, MX_DIM, 1, bf, f32),
             ("mixtral: lm head q6w-f32 R=1", "q6wf", MX_VOCAB, MX_DIM, 1, bf, f32),
             ("mixtral: wqk q4-sm R=512", "q4", 5120, MX_DIM, 512, bf, bf),
-            ("mixtral: wv q6w-f32 R=512", "q6wf", 1024, MX_DIM, 512, bf, bf)):
+            ("mixtral: wv q6w-f32 R=512", "q6wf", 1024, MX_DIM, 512, bf, bf),
+            *((label, kind, N, K, R, bf, f32 if o == "f32" else bf)
+              for label, kind, N, K, R, o in GGML_QMM_CASES)):
         w0 = _rand_weights(rng, kind, N, K, dev)
         ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
         x = act(R, K) if xdt == bf else torch.randn(R, K, device=dev)  # f32: not bf16 values
@@ -303,18 +330,24 @@ def check_kernels(dev) -> dict:
     # (12 + 2 heads of 128 over D 1536, f32 biases), at R = 1; then
     # Mixtral-8x7B (32 + 8 heads of 128 over D 4096) on f32 scales and on
     # bf16 pairs, at R = 1 (decode) and 16 (the bucket-16 prefill)
-    for label, D_, Hq, Hk, hd_, biased, f32s, R in (
-            ("wqk q4-sm + wv q6w-sp R=1", dim, H, Hkv, hd, False, False, 1),
-            ("qwen2.5-1.5b: + biases, hd 128, D 1536 R=1", 1536, 12, 2, 128, True, False, 1),
+    pairs, f32s = ("q4", "q6w"), ("q4f", "q6wf")
+    for label, D_, Hq, Hk, hd_, biased, (kq, kv), R in (
+            ("wqk q4-sm + wv q6w-sp R=1", dim, H, Hkv, hd, False, pairs, 1),
+            ("qwen2.5-1.5b: + biases, hd 128, D 1536 R=1", 1536, 12, 2, 128, True, pairs, 1),
             ("mixtral: wqk q4-f32 + wv q6w-f32, hd 128, D 4096 R=1", MX_DIM, 32, 8, 128, False,
-             True, 1),
+             f32s, 1),
             ("mixtral: wqk q4-f32 + wv q6w-f32, hd 128, D 4096 R=16", MX_DIM, 32, 8, 128, False,
-             True, 16),
+             f32s, 16),
             ("mixtral: wqk q4-sm + wv q6w-sp, hd 128, D 4096 R=1", MX_DIM, 32, 8, 128, False,
-             False, 1),
+             pairs, 1),
             ("mixtral: wqk q4-sm + wv q6w-sp, hd 128, D 4096 R=16", MX_DIM, 32, 8, 128, False,
-             False, 16)):
-        kq, kv = ("q4f", "q6wf") if f32s else ("q4", "q6w")
+             pairs, 16),
+            # phase 9's recipes: Q8_0, Q6_K and Q4_K_S fuse both slots
+            *((f"{lab} R={R}", dim, H, Hkv, hd, False, kinds, R)
+              for lab, kinds in (("q8_0: wqk q8-sp + wv q8-sp", ("q8", "q8")),
+                                 ("q6_k: wqk q6w-sp + wv q6w-sp", ("q6w", "q6w")),
+                                 ("q4_k_s: wqk q4-sm + wv q4-sm", ("q4", "q4")))
+              for R in (1, 16))):
         mk_in = lambda: (_rand_weights(rng, kq, (Hq + Hk) * hd_, D_, dev),  # noqa: E731
                          _rand_weights(rng, kv, Hk * hd_, D_, dev))
         w0 = mk_in()
@@ -346,19 +379,22 @@ def check_kernels(dev) -> dict:
             "bound_ms": b, "bound_by": by})
         del ws, wcat
 
-    # oproj_ffn at R = 1, wo as the fixture stores it (q6w), on bf16 pairs
-    # and on f32 scales (TinyLlama loaded with scale_dtype="f32")
-    for label, (ko, kg, kd) in (
-            ("wo q6w-sp + w_gateup q4-sm + w_down q6w-sp R=1", ("q6w", "q4", "q6w")),
+    # oproj_ffn, wo as the fixture stores it (q6w), on bf16 pairs and on f32
+    # scales (TinyLlama loaded with scale_dtype="f32") at R = 1, and Q8_0's
+    # q8 in every slot at R = 1 and 8
+    for label, (ko, kg, kd), R in (
+            ("wo q6w-sp + w_gateup q4-sm + w_down q6w-sp R=1", ("q6w", "q4", "q6w"), 1),
             ("f32 scales: wo q6w-f32 + w_gateup q4-f32 + w_down q6w-f32 R=1",
-             ("q6wf", "q4f", "q6wf"))):
+             ("q6wf", "q4f", "q6wf"), 1),
+            ("q8_0: wo, w_gateup, w_down q8-sp R=1", ("q8", "q8", "q8"), 1),
+            ("q8_0: wo, w_gateup, w_down q8-sp R=8", ("q8", "q8", "q8"), 8)):
         mk_ffn = lambda: (_rand_weights(rng, ko, dim, H * hd, dev),  # noqa: E731
                           _rand_weights(rng, kg, 2 * F, dim, dev),
                           _rand_weights(rng, kd, dim, F, dev))
         w0 = mk_ffn()
         nbw = sum(w.n_bytes for w in w0)
         ws = _rotation(w0, mk_ffn, nbw)
-        x, at = act(1, dim, 0.5), act(1, H * hd, 0.5)
+        x, at = act(R, dim, 0.5), act(R, H * hd, 0.5)
         nw = torch.rand(dim, device=dev) + 0.5
 
         def ffn(i, plain=False):
@@ -371,9 +407,9 @@ def check_kernels(dev) -> dict:
         ref = ffn(0, plain=True)
         ad, rel = _err(got, ref)
         wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in trio] for trio in ws]
-        xs = [at, x, act(1, F)]
-        b, by = bound_ms(nbw + 3 * dim * 2 + H * hd * 2 + dim * 4,
-                         2.0 * (H * hd * dim + dim * 2 * F + F * dim))
+        xs = [at, x, act(R, F)]
+        b, by = bound_ms(nbw + R * (3 * dim * 2 + H * hd * 2) + dim * 4,
+                         2.0 * R * (H * hd * dim + dim * 2 * F + F * dim))
         out["oproj_ffn"].append({
             "case": label, "max_abs_err": ad, "rel_err": rel, "ms": graph_ms(ffn, 64),
             "eager_ms": time_ms(ffn, 64),
@@ -389,7 +425,8 @@ def check_kernels(dev) -> dict:
     out["ffn"] = []
     for label, D_, F_, kg, kd in (("qwen2.5-1.5b", 1536, 8960, "q4", "q6w"),
                                   ("qwen2.5-7b", 3584, 18944, "q4", "q6w"),
-                                  ("qwen2.5-1.5b f32 scales", 1536, 8960, "q4f", "q6wf")):
+                                  ("qwen2.5-1.5b f32 scales", 1536, 8960, "q4f", "q6wf"),
+                                  ("tinyllama q8_0", dim, F, "q8", "q8")):
         mk = lambda: (_rand_weights(rng, kg, 2 * F_, D_, dev),  # noqa: E731
                       _rand_weights(rng, kd, D_, F_, dev))
         w0 = mk()
@@ -405,7 +442,8 @@ def check_kernels(dev) -> dict:
             a_f = act(R, F_)
             b, by = bound_ms(nbw + 2 * R * D_ * 2 + D_ * 4, 2.0 * R * 3 * D_ * F_)
             run = lambda i: fused_ffn(x, nw, 1e-6, *ws[i % len(ws)])  # noqa: E731
-            pair = "q4-f32 + w_down q6w-f32" if kg == "q4f" else "q4-sm + w_down q6w-sp"
+            pair = {"q4f": "q4-f32 + w_down q6w-f32", "q4": "q4-sm + w_down q6w-sp",
+                    "q8": "q8-sp + w_down q8-sp"}[kg]
             out["ffn"].append({
                 "case": f"{label} w_gateup {pair} R={R}", "max_abs_err": ad,
                 "rel_err": rel, "ms": graph_ms(run, 64), "eager_ms": time_ms(run, 64),
@@ -443,11 +481,13 @@ MX_DIM, MX_FFN, MX_VOCAB = 4096, 14336, 32000  # Mixtral-8x7B's dim, expert ffn,
 
 def check_qmm_int8(dev, rng) -> list:
     """qmm_int8 against its plain version at Mixtral's decode shapes (expert
-    gate/up [14336, 4096] at R = 1, 8, 16; the router [8, 4096] at R = 1),
-    its f32 output held to INT8_TOL of max|ref| and its output in the main
-    path's dtype to the f32 output rounded; timed in the main path's dtype
-    (gate/up bf16, the router f32); first the kernel's activation quantization
-    against ops.act_quant byte for byte, ties at .5 and an all-zero group
+    gate/up [14336, 4096] at R = 1, 8, 16; the router [8, 4096] at R = 1)
+    and, for the q6 branch, at TinyLlama's down [2048, 5632] and lm head
+    [32000, 2048] (R = 1, 8, 16), its f32 output held to INT8_TOL of max|ref|
+    and its output in the main path's dtype to the f32 output rounded; timed
+    in the main path's dtype (gate/up and down bf16, the router and lm head
+    f32); first the kernel's activation quantization (32- and 16-groups)
+    against ops.act_quant byte for byte, ties at .5 and all-zero groups
     included. Library yardstick: torch.matmul on the dequantized bf16
     weight."""
     import torch
@@ -463,15 +503,28 @@ def check_qmm_int8(dev, rng) -> list:
         if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
             raise SystemExit("FAIL: the qmm_int8 kernel's activation quantization differs from "
                              "ops.act_quant.quantize_activations")
-    log("  qmm_int8  activation quantization: byte-equal to quantize_activations (R=16, K=4096)")
+    x[2, :16] = 0  # a zero 16-group of q6's quantization
+    for got, want in zip(quantize_q8(x, 16), quantize_activations(x, 16)):
+        if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
+            raise SystemExit("FAIL: the qmm_int8 kernel's 16-group activation quantization "
+                             "differs from ops.act_quant.quantize_activations")
+    log("  qmm_int8  activation quantization: byte-equal to quantize_activations (R=16, K=4096, "
+        "groups 32 and 16)")
     cases = []
-    for label, N, R, odt in (("mixtral: expert gate/up q4-f32 R=1", MX_FFN, 1, torch.bfloat16),
-                             ("mixtral: expert gate/up q4-f32 R=8", MX_FFN, 8, torch.bfloat16),
-                             ("mixtral: expert gate/up q4-f32 R=16", MX_FFN, 16, torch.bfloat16),
-                             ("mixtral: router q4-f32 N=8 R=1", 8, 1, torch.float32)):
-        w0 = _rand_weights(rng, "q4f", N, MX_DIM, dev)
-        ws = _rotation(w0, lambda: _rand_weights(rng, "q4f", N, MX_DIM, dev), w0.n_bytes)
-        xr = torch.randn(R, MX_DIM, device=dev).to(torch.bfloat16)
+    for label, kind, N, K, R, odt in (
+            ("mixtral: expert gate/up q4-f32 R=1", "q4f", MX_FFN, MX_DIM, 1, torch.bfloat16),
+            ("mixtral: expert gate/up q4-f32 R=8", "q4f", MX_FFN, MX_DIM, 8, torch.bfloat16),
+            ("mixtral: expert gate/up q4-f32 R=16", "q4f", MX_FFN, MX_DIM, 16, torch.bfloat16),
+            ("mixtral: router q4-f32 N=8 R=1", "q4f", 8, MX_DIM, 1, torch.float32),
+            # phase 9's Q4_K_M with widen_q6=False on f32 scales: the q6 branch
+            # at TinyLlama's down and lm head
+            *((f"q6-f32 {what} R={R}", "q6f", N, K, R, odt)
+              for what, N, K, odt in (("down", 2048, 5632, torch.bfloat16),
+                                      ("lm head", 32000, 2048, torch.float32))
+              for R in (1, 8, 16))):
+        w0 = _rand_weights(rng, kind, N, K, dev)
+        ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
+        xr = torch.randn(R, K, device=dev).to(torch.bfloat16)
         # held in f32: one bf16 rounding of an output moves it by up to 2^-8
         got = qmm_int8(xr, w0, torch.float32)
         got_main = qmm_int8(xr, w0, odt)
@@ -482,7 +535,7 @@ def check_qmm_int8(dev, rng) -> list:
         ad, rel = _err(got, qmm_int8_plain(xr, w0, torch.float32))
         wd = [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]
         nb = w0.n_bytes + xr.numel() * 2 + R * N * got_main.element_size()
-        b, by = bound_ms(nb, 2.0 * R * MX_DIM * N, INT8_OPS)
+        b, by = bound_ms(nb, 2.0 * R * K * N, INT8_OPS)
         cases.append({
             "case": label, "max_abs_err": ad, "rel_err": rel, "tol": INT8_TOL,
             "ms": graph_ms(lambda i: qmm_int8(xr, ws[i % len(ws)], odt), 40),
@@ -934,9 +987,11 @@ def weight_work(params) -> tuple[int, int]:
             sum(math.prod(qt.shape) for qt in mats))
 
 
-def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16"):
-    """Write the seed-0 fixture of `cfg0` under .cache/ (once) and load it
-    onto the card with `scale_dtype`; logs both times."""
+def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16", recipe: str = "q4_k_m",
+                 widen_q6: bool = True):
+    """Write the seed-0 fixture of `cfg0` under the quantize tool's `recipe`
+    under .cache/ (once) and load it onto the card with `scale_dtype` and
+    `widen_q6`; logs both times."""
     import torch
 
     from tpu_kquant_torch.models.fixtures import write_fixture_gguf
@@ -947,14 +1002,14 @@ def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16"):
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        write_fixture_gguf(tmp, cfg0, seed=0)
+        write_fixture_gguf(tmp, cfg0, seed=0, recipe=recipe)
         os.replace(tmp, path)
     t1 = time.perf_counter()
-    cfg, params, _ = load_model(str(path), scale_dtype=scale_dtype, device=dev)
+    cfg, params, _ = load_model(str(path), scale_dtype=scale_dtype, device=dev, widen_q6=widen_q6)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    log(f"  fixture {path.name}: write {t1 - t0:.1f} s, load + repack ({scale_dtype} scales) "
-        f"{t2 - t1:.1f} s; depth {cfg.n_layers} of {cfg0.n_layers} layers, dim {cfg.dim}, vocab "
+    log(f"  fixture {path.name}: write {t1 - t0:.1f} s, load + repack ({scale_dtype} scales"
+        f"{'' if widen_q6 else ', widen_q6=False'}) {t2 - t1:.1f} s; depth {cfg.n_layers} of {cfg0.n_layers} layers, dim {cfg.dim}, vocab "
         f"{cfg.vocab_size}, biases {cfg.attn_bias}, tied lm head {cfg0.tie_embeddings}, "
         f"experts {cfg.n_experts} (top {cfg.n_experts_used})")
     return cfg, params, {"write_s": t1 - t0, "load_s": t2 - t1}
@@ -1204,24 +1259,17 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
     return res
 
 
-def dense_f32(dev) -> dict:
-    """Phase 4's TinyLlama fixture loaded with f32 scales under impl "int8":
-    decode runs attn_in and oproj_ffn on f32 scales (the int8 gate takes q4
-    weights past the fused kernels only, so qmm_int8 is not reached), three
-    greedy requests counted from 0 and checked against the gates."""
+def counted_requests(cfg, params, dev, impl: str, seed: int, what: str) -> dict:
+    """Three greedy requests (prompts of 5, 40 and 200 tokens, 16 new each) on
+    a 704-slot bf16 cache under `impl`, counted from 0 and checked against
+    the gates; returns the counts."""
     import numpy as np
     import torch
 
-    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
     from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
 
-    cfg, params, _ = load_fixture(tinyllama_1b_config(), "tinyllama-1.1b-q4_k_m-seed0.gguf", dev,
-                                  scale_dtype="f32")
-    L = cfg.n_layers
-    pin_dispatch(cfg, params, "TinyLlama-1.1B (f32 scales, impl int8)",
-                 {"attn_in": L, "oproj_ffn": L, "qmm": 1}, 2048, "int8")
-    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl="int8")
-    rng = np.random.default_rng(6)
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl=impl)
+    rng = np.random.default_rng(seed)
     prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in (5, 40, 200)]
     torch.cuda.synchronize()
     reset_counts()
@@ -1230,15 +1278,33 @@ def dense_f32(dev) -> dict:
     for pr in prompts:
         answers.append(eng.generate([pr], max_new_tokens=16)[0])
         want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)), eng.max_seq),
-                                            "int8"))
-        want = _add(want, expected_launches(cfg, params, 1, "int8"), 15)
+                                            impl))
+        want = _add(want, expected_launches(cfg, params, 1, impl), 15)
     torch.cuda.synchronize()
-    got = check_counts("the three f32-scale requests (impl int8)", want)
+    got = check_counts(f"the three requests ({what})", want)
     for pr, ans in zip(prompts, answers):
-        log(f"  f32 scales: request of {len(pr)} tokens -> {ans}")
+        log(f"  {what}: request of {len(pr)} tokens -> {ans}")
         if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
-            raise SystemExit("FAIL: an f32-scale request did not get 16 valid tokens")
-    del eng, params
+            raise SystemExit(f"FAIL: a request ({what}) did not get 16 valid tokens")
+    return got
+
+
+def dense_f32(dev) -> dict:
+    """Phase 4's TinyLlama fixture loaded with f32 scales under impl "int8":
+    decode runs attn_in and oproj_ffn on f32 scales (the int8 gate takes q4
+    weights past the fused kernels only, so qmm_int8 is not reached), three
+    greedy requests counted from 0 and checked against the gates."""
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
+
+    cfg, params, _ = load_fixture(tinyllama_1b_config(), "tinyllama-1.1b-q4_k_m-seed0.gguf", dev,
+                                  scale_dtype="f32")
+    L = cfg.n_layers
+    pin_dispatch(cfg, params, "TinyLlama-1.1B (f32 scales, impl int8)",
+                 {"attn_in": L, "oproj_ffn": L, "qmm": 1}, 2048, "int8")
+    got = counted_requests(cfg, params, dev, "int8", 6, "f32 scales, impl int8")
+    del params
     torch.cuda.empty_cache()
     return got
 
@@ -1645,10 +1711,91 @@ def mixtral(dev, profile: Path | None = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: GGML types (the recipes of the reference's quantize tool)
+# ---------------------------------------------------------------------------
+
+GGML_DEPTH = 4  # the untimed recipes' depth (the smoke's time limit)
+# (label, recipe, full depth and timed, load options, impl, a decode step's
+# launches per layer, the lm head's kernel), as the recipe table gives them:
+# Q8_0 and Q6_K fuse every slot; Q5_K_M's, Q3_K_M's and Q2_K's wqk and
+# gate/up are bit-plane kinds, which no fused gate takes; Q4_K_S's down is
+# q4, which both FFN gates refuse; unwidened q6 is fused nowhere and, on f32
+# scales under impl "int8", goes to qmm_int8 with every q4 weight.
+GGML_CONFIGS = (
+    ("Q8_0", "q8_0", True, {}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
+    ("Q5_K_M", "q5_k_m", True, {}, "auto", {"qmm": 5}, "qmm"),
+    ("Q6_K", "q6_k", False, {}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
+    ("Q4_K_S", "q4_k_s", False, {}, "auto", {"attn_in": 1, "qmm": 3}, "qmm"),
+    ("Q3_K_M", "q3_k_m", False, {}, "auto", {"qmm": 5}, "qmm"),
+    ("Q2_K", "q2_k", False, {}, "auto", {"qmm": 5}, "qmm"),
+    ("Q4_K_M widen_q6=False, bf16 pairs", "q4_k_m", False, {"widen_q6": False}, "auto",
+     {"qmm": 5}, "qmm"),
+    ("Q4_K_M widen_q6=False, f32 scales, impl int8", "q4_k_m", False,
+     {"widen_q6": False, "scale_dtype": "f32"}, "int8", {"qmm_int8": 5}, "qmm_int8"),
+)
+
+
+def _kinds(params) -> str:
+    """The packed kind and side layout of each weight of layer 0, the lm
+    head and the embedding, for the log."""
+    def one(qt):
+        side = "sm" if "sm" in qt.arrays else "sp" if "sp" in qt.arrays else "f32"
+        return f"{qt.kind}-{side}"
+
+    lay = params["layers"][0]
+    names = [k for k in ("wqk", "wv", "wo", "w_gateup", "w_down") if k in lay]
+    return ", ".join([f"{k} {one(lay[k])}" for k in names]
+                     + [f"output {one(params['output'])}", f"tok_embd {one(params['tok_embd'])}"])
+
+
+def ggml_types(dev, profile: Path | None = None) -> dict:
+    """Phase 9: TinyLlama-1.1B at full width under every recipe of the
+    reference's quantize tool, one load at a time: the dispatch pinned per
+    recipe, a 2-layer cut against the CPU, three greedy requests counted
+    from 0; Q8_0 and Q5_K_M at full depth with pp512 and tg128 beside their
+    bounds, the others cut to GGML_DEPTH layers. Returns the results and the
+    requests' launch counts."""
+    import dataclasses
+
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
+
+    full = tinyllama_1b_config()
+    out: dict = {"launches": {}, "reduced": (
+        f"Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M (widen_q6=False, two loads) at depth "
+        f"{GGML_DEPTH} of {full.n_layers} layers, untimed: the smoke's time limit")}
+    log(f"  reduced: {out['reduced']}")
+    for label, recipe, timed, load_kw, impl, per_layer, head in GGML_CONFIGS:
+        phase(f"phase 9: TinyLlama-1.1B {label}")
+        cfg0 = full if timed else dataclasses.replace(full, n_layers=GGML_DEPTH)
+        name = f"tinyllama-1.1b-{recipe}-{cfg0.n_layers}l-seed0.gguf"
+        cfg, params, times = load_fixture(cfg0, name, dev, load_kw.get("scale_dtype", "bf16"),
+                                          recipe, load_kw.get("widen_q6", True))
+        log(f"  kinds: {_kinds(params)}")
+        L = cfg.n_layers
+        decode = {k: v * L for k, v in per_layer.items()}
+        decode[head] = decode.get(head, 0) + 1
+        pin_dispatch(cfg, params, f"TinyLlama-1.1B {label}", decode, 2048, impl,
+                     {"qmm": 5 * L + 1})
+        reference_check(cfg, params, dev, impl=impl)
+        if timed:
+            res = end_to_end(dev, cfg, params, profile=profile, tag=f" {recipe}", impl=impl)
+            out[label] = {**res, **times}
+            out["launches"][label] = res["main_path_launches"]
+        else:
+            out["launches"][label] = counted_requests(cfg, params, dev, impl, 9, label)
+            out[label] = times
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 REPLACES = {
-    "qmm": ("tpu_kquant_torch/csrc/qmm.cu", "tpu_kquant/ops/pallas_qmm.py:287"),
+    "qmm": ("tpu_kquant_torch/csrc/qmm.cuh", "tpu_kquant/ops/pallas_qmm.py:287"),
     "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
-    "oproj_ffn": ("tpu_kquant_torch/csrc/oproj_ffn.cu", "tpu_kquant/ops/pallas_ffn.py:983"),
+    "oproj_ffn": ("tpu_kquant_torch/csrc/ffn.cu", "tpu_kquant/ops/pallas_ffn.py:983"),
     "ffn": ("tpu_kquant_torch/csrc/ffn.cu", "tpu_kquant/ops/pallas_ffn.py:331"),
     "prefill": ("tpu_kquant_torch/csrc/prefill.cu", "tpu_kquant/ops/pallas_prefill.py:168"),
     "qmm_int8": ("tpu_kquant_torch/csrc/qmm_int8.cu", "tpu_kquant/ops/pallas_qmm_int8.py:139"),
@@ -1721,14 +1868,20 @@ def main() -> int:
 
     phase("phase 8: Mixtral-8x7B (MoE; bf16 pairs + impl auto, f32 scales + impl int8)")
     mix = mixtral(dev, args.profile)
+    torch.cuda.empty_cache()
+
+    phase("phase 9: GGML types (TinyLlama-1.1B under every recipe of the quantize tool)")
+    ggml = ggml_types(dev, args.profile)
 
     # launches: the sums over the request runs of phases 4, 5 (both KV
-    # kinds), 6 (the three serving runs and the f32-scale requests), 7 and 8
-    # (both configurations), each counted from 0 and checked exactly
+    # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
+    # (both configurations) and 9 (every recipe), each counted from 0 and
+    # checked exactly
     runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
-            f32_counts, qwen["main_path_launches"], *mix["launches"].values()]
+            f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
+            *ggml["launches"].values()]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-8): {launches}")
+    log(f"  launches on the main path (phases 4-9): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

@@ -652,3 +652,194 @@ def test_serving_b16_on_card_counts_and_matches_cpu(card, tmp_path):
     top3 = torch.topk(fc, 3, dim=-1).indices
     assert (top3 == fg.argmax(-1, keepdim=True)).any(-1).all()
     assert all(len(o) == 6 for o in og.values())
+
+
+# -- every GGML type the loader reads: qmm's kinds, qmm_int8's q6 branch, ----------
+# -- q8 / q6w / q4 in every slot of the fused kernels, the recipes end to end ------
+
+
+def packed(kind, N, K, rng, dev, f32=False):
+    """A random weight of any kind (models.fixtures.random_packed) on dev."""
+    from tpu_kquant_torch.models.fixtures import random_packed
+
+    return random_packed(rng, kind, N, K, f32=f32).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("kind", ["q8", "q5", "q6", "q3", "q2"])
+@pytest.mark.parametrize("N,K,R", [(11264, 2048, 1), (2304, 2048, 7), (2048, 5632, 33),
+                                   (12, 512, 64), (400, 512, 3)])
+def test_qmm_kernel_every_kind_matches_plain(card, kind, f32, N, K, R):
+    """The kinds of Q8_0, Q5_K, unwidened Q6_K, Q3_K and Q2_K on bf16 pairs
+    and f32 scales: the split-K GEMV (R <= 32) and the tile, at TinyLlama's
+    gate/up, wqk and down and at ragged small shapes."""
+    rng = np.random.default_rng(N + K + R)
+    qt = packed(kind, N, K, rng, card, f32)
+    x = torch.randn(R, K, device=card).to(torch.bfloat16)
+    launches = t_qmm.counter.launches
+    y = t_qmm.qmm(x, qt, torch.float32)
+    torch.cuda.synchronize()
+    assert t_qmm.counter.launches == launches + 1
+    assert y.shape == (R, N) and torch.isfinite(y).all()
+    assert _rel(y, t_qmm.qmm_plain(x, qt, torch.float32)) < TOL
+
+
+@pytest.mark.cuda
+def test_qmm_kernel_refuses_a_k_it_does_not_take(card):
+    """No quiet plain path: a bit-plane kind needs K % 256, q8 on bf16 pairs
+    K % 64."""
+    rng = np.random.default_rng(0)
+    x = torch.randn(1, 384, device=card).to(torch.bfloat16)
+    for kind in ("q5", "q3"):
+        with pytest.raises(ValueError, match="shape"):
+            t_qmm.qmm(x, packed(kind, 64, 384, rng, card))
+    with pytest.raises(ValueError, match="shape"):
+        t_qmm.qmm(x[:, :96], packed("q8", 64, 96, rng, card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 16])
+def test_quantize_q8_kernel_group16_is_byte_equal_to_act_quant(card, R):
+    """The 16-groups of qmm_int8's q6 branch, ties and a zero group included."""
+    from tpu_kquant_torch.ops.act_quant import quantize_activations
+
+    x = (torch.randn(R, 2048, device=card) * 3).to(torch.bfloat16)
+    x[0, :16] = 0
+    x[-1, 16:32] = torch.tensor([127.0, 2.5, -2.5, 0.5, 1.5, -0.5, -1.5, 3.5] * 2, device=card)
+    for got, want in zip(t_qmm_int8.quantize_q8(x, 16), quantize_activations(x, 16)):
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K,R", [(2048, 5632, 1), (2048, 5632, 8), (2048, 5632, 16),
+                                   (32000, 2048, 1), (256, 512, 5)])
+def test_qmm_int8_kernel_q6_matches_plain(card, N, K, R):
+    """The q6 branch (widen_q6=False, f32 scales and mins) at TinyLlama's
+    down and lm head: f32 output within 1e-3 of max|ref|."""
+    rng = np.random.default_rng(N + K + R)
+    qt = packed("q6", N, K, rng, card, f32=True)
+    x = torch.randn(R, K, device=card).to(torch.bfloat16)
+    launches = t_qmm_int8.counter.launches
+    y = t_qmm_int8.qmm_int8(x, qt, torch.float32)
+    torch.cuda.synchronize()
+    assert t_qmm_int8.counter.launches == launches + 1
+    assert y.shape == (R, N) and torch.isfinite(y).all()
+    assert _rel(y, t_qmm_int8.qmm_int8_plain(x, qt, torch.float32)) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 16])
+@pytest.mark.parametrize("kinds", [("q8", "q8", False, False), ("q6w", "q6w", False, False),
+                                   ("q4", "q4", False, False), ("q8", "q8", True, True),
+                                   ("q4", "q8", False, True), ("q6w", "q4", True, False)])
+def test_attn_in_kernel_every_slot_kind_matches_plain(card, kinds, R):
+    """TinyLlama's attn_in at Q8_0, Q6_K and Q4_K_S, and mixed kinds and
+    scale layouts per slot, as the reference's gate admits them."""
+    kq, kv, fq, fv = kinds
+    rng = np.random.default_rng(R + len(kq) * 7)
+    D, hd, H, Hkv = 2048, 64, 32, 4
+    wqk, wv = packed(kq, (H + Hkv) * hd, D, rng, card, fq), packed(kv, Hkv * hd, D, rng, card, fv)
+    assert t_attn_in.attn_in_supported(wqk, wv, R, D, hd)
+    x = torch.randn(R, D, device=card).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(R, hd // 2, device=card), torch.rand(R, hd // 2, device=card)
+    launches = t_attn_in.counter.launches
+    got = t_attn_in.fused_attn_in(x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    torch.cuda.synchronize()
+    assert t_attn_in.counter.launches == launches + 1
+    ref = t_attn_in.attn_in_plain(x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("kinds,f32", [(("q8", "q8", "q8"), False), (("q8", "q8", "q8"), True),
+                                       (("q6w", "q6w", "q6w"), False), (("q4", "q8", "q6w"), True)])
+def test_oproj_ffn_and_ffn_kernels_every_slot_kind_match_plain(card, kinds, f32, R):
+    """TinyLlama's decode FFN with q8 (Q8_0) or q6w (Q6_K) in every slot, and
+    a mix, on either scale layout: oproj_ffn, and ffn on its last two."""
+    rng = np.random.default_rng(90 + R + f32)
+    D, F = 2048, 5632
+    wo, gu, dn = (packed(k, n, kk, rng, card, f32)
+                  for k, (n, kk) in zip(kinds, ((D, D), (2 * F, D), (D, F))))
+    assert t_ffn.oproj_ffn_supported(wo, gu, dn, R) and t_ffn.ffn_supported(gu, dn, R)
+    x = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    attn = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    before = (t_ffn.counter.launches, t_ffn.ffn_counter.launches)
+    got = t_ffn.fused_oproj_ffn(x, attn, wo, nw, 1e-5, gu, dn)
+    got_ffn = t_ffn.fused_ffn(x, nw, 1e-5, gu, dn)
+    torch.cuda.synchronize()
+    assert (t_ffn.counter.launches, t_ffn.ffn_counter.launches) == (before[0] + 1, before[1] + 1)
+    assert _rel(got, t_ffn.oproj_ffn_plain(x, attn, wo, nw, 1e-5, gu, dn)) < TOL
+    assert _rel(got_ffn, t_ffn.ffn_plain(x, nw, 1e-5, gu, dn)) < TOL
+
+
+def _card_against_cpu(card, path, load_kw, impl, prompts):
+    """Prefill each prompt and take 3 decode steps fed the same tokens, on the
+    card and on the CPU; logits within 5e-2 of max|ref| and the card's top
+    token in the CPU's top 3. Returns the card's launches per counter."""
+    engines = [InferenceEngine(*load_model(path, device=d, **load_kw)[:2], max_seq=64,
+                               device=d, impl=impl) for d in (card, "cpu")]
+    launches = {k: c.launches for k, c in _build.COUNTERS.items()}
+    for prompt in prompts:
+        outs = []
+        for eng in engines:
+            logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+            steps, pos = [logits], torch.tensor(lens, device=eng.device)
+            for t in (7, 99, 300):
+                step, cache = eng.decode_step(torch.full((1,), t, device=eng.device), pos, cache)
+                steps.append(step)
+                pos = pos + 1
+            outs.append([x.float().cpu() for x in steps])
+        for got, ref in zip(*outs):
+            assert torch.isfinite(got).all() and _rel(got, ref) < 5e-2
+            top3 = torch.topk(ref, 3, dim=-1).indices
+            assert (top3 == got.argmax(-1, keepdim=True)).any(-1).all()
+    return {k: c.launches - launches[k] for k, c in _build.COUNTERS.items()}
+
+
+@pytest.mark.cuda
+def test_tiny_q8_fixture_engine_on_card_matches_cpu(card, tmp_path):
+    """A tiny fixture at the model tests' width (dim 64: the port's writer
+    gives every weight Q8_0, since no 256-block divides K = 64 or 128) runs
+    its q8 weights through the q8 GEMV and tiles on the card: 5 qmm a layer
+    (no fused gate at dim 64) and the lm head, per forward."""
+    cfg = tiny_config(n_layers=2, dim=64, n_heads=4, n_kv_heads=2, ffn_dim=128, vocab_size=512)
+    path = write_fixture_gguf(tmp_path / "tiny.gguf", cfg, seed=7)
+    used = _card_against_cpu(card, path, {}, "auto", [list(range(3, 14))])
+    assert used["qmm"] == 4 * (5 * 2 + 1) and used["attn_in"] == used["oproj_ffn"] == 0
+
+
+# per recipe of the quantize tool, at dim 1024 (16 + 4 heads of 64, ffn 1024):
+# (recipe, load options, impl, decode-step launches per layer, lm head counter)
+RECIPE_DISPATCH = {
+    "q8_0": ({}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
+    "q6_k": ({}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
+    "q5_k_m": ({}, "auto", {"qmm": 5}, "qmm"),
+    "q4_k_s": ({}, "auto", {"attn_in": 1, "qmm": 3}, "qmm"),
+    "q3_k_m": ({}, "auto", {"qmm": 5}, "qmm"),
+    "q2_k": ({}, "auto", {"qmm": 5}, "qmm"),
+    "q4_k_m widen_q6=False": ({"widen_q6": False}, "auto", {"qmm": 5}, "qmm"),
+    "q4_k_m widen_q6=False f32 int8": ({"widen_q6": False, "scale_dtype": "f32"}, "int8",
+                                       {"qmm_int8": 5}, "qmm_int8"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(RECIPE_DISPATCH))
+def test_recipe_engine_on_card_matches_cpu(card, tmp_path, case):
+    """Each recipe's fixture (port writer, 2 layers at dim 1024) on the card
+    against the CPU, and its decode steps' launches as the recipe table
+    gives them (11-token prompts: a 16-row prefill takes the decode kernels
+    too)."""
+    load_kw, impl, per_layer, head = RECIPE_DISPATCH[case]
+    cfg = tiny_config(n_layers=2, dim=1024, n_heads=16, n_kv_heads=4, ffn_dim=1024,
+                      vocab_size=512)
+    path = write_fixture_gguf(tmp_path / "r.gguf", cfg, seed=5, recipe=case.split()[0])
+    used = _card_against_cpu(card, path, load_kw, impl, [list(range(3, 14))])
+    want = {k: 4 * 2 * v for k, v in per_layer.items()}  # prefill + 3 steps, 2 layers
+    want[head] = want.get(head, 0) + 4
+    assert {k: used.get(k, 0) for k in ("attn_in", "oproj_ffn", "ffn", "qmm", "qmm_int8")} == \
+        {k: want.get(k, 0) for k in ("attn_in", "oproj_ffn", "ffn", "qmm", "qmm_int8")}

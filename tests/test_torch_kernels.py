@@ -98,9 +98,9 @@ def test_wrappers_raise_off_the_cpu_without_a_card():
     qt = _port(_packed("q4", 256, 512, seed=4))
     with pytest.raises(ValueError, match="device"):
         t_qmm.qmm(torch.empty(2, 512, dtype=torch.bfloat16, device="meta"), qt)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):  # a layout no kernel reads
         t_qmm.qmm(torch.empty(2, 512, device="meta"),
-                  QTensor("q8", "kmajor", (256, 512), {"qs": None, "sp": None}))
+                  QTensor("q8", "rowmajor", (256, 512), {"qs": None, "scales": None}))
 
 
 @pytest.mark.parametrize("kind,N,K,rows", [(0, 32000, 2048, 1), (0, 2304, 2048, 3),
@@ -216,6 +216,10 @@ def test_oproj_ffn_gate_matches_reference():
 
 
 def test_kernel_sources_are_registered():
+    # every kernel module registers its counter on import; import them here so
+    # the check does not depend on what other test files imported first
+    from tpu_kquant_torch.ops import decode_attention, prefill, qmm_int8  # noqa: F401
+
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert set(_build.COUNTERS) >= {"qmm", "attn_in", "oproj_ffn", "ffn", "prefill"}

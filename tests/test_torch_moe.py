@@ -285,12 +285,12 @@ def test_qmm_int8_plain_reads_the_q6_layout():
 
 
 def test_qmm_int8_wrapper_raises_off_the_cpu():
-    """A non-CPU tensor never takes the plain version; the q6 (qs + qh) and
-    bf16-pair layouts are refused by name."""
+    """A non-CPU tensor never takes the plain version; the bf16-pair layouts
+    (which the int8 gate never sends here) are refused by name."""
     qt = _port(mk_q4(8, 512, np.random.default_rng(0), sm=False))
     with pytest.raises(ValueError, match="device"):
         t_qmm_int8.qmm_int8(torch.empty(1, 512, dtype=torch.bfloat16, device="meta"), qt)
-    q6 = QTensor("q6", "kmajor", (8, 512), {"qs": None, "qh": None, "scales": None, "mins": None})
+    q6 = QTensor("q6", "kmajor", (8, 512), {"qs": None, "qh": None, "sm": None})
     with pytest.raises(NotImplementedError, match="q6"):
         t_qmm_int8.qmm_int8(torch.empty(1, 512, device="meta"), q6)
 
@@ -345,7 +345,7 @@ def test_attn_in_plain_f32_layouts_match_pallas_grid_kernel(R):
     o0, o1 = j_fused_attn_in(jnp.asarray(x, jnp.bfloat16), jnp.asarray(nw), 1e-5, [wqk, wv],
                              cf, sf, hd // 2, interpret=True)
     tqk, tv = _port(wqk), _port(wv)
-    assert t_attn_in.f32_scales(tqk, tv) is True
+    assert (t_qmm.kernel_kind(tqk), t_qmm.kernel_kind(tv)) == (2, 3)  # q4-f32, q6w-f32
     assert t_attn_in.attn_in_supported(tqk, tv, R, D, hd, impl="int8")
     g0, g1 = t_attn_in.fused_attn_in(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(nw),
                                      1e-5, tqk, tv, torch.from_numpy(cos), torch.from_numpy(sin),
@@ -359,12 +359,14 @@ def test_attn_in_gate_takes_both_layouts_and_the_reference_impls():
     rng = np.random.default_rng(9)
     pairs = (_port(mk_q4(768, 512, rng)), _port(mk_q6w(256, 512, rng)))
     f32 = (_port(mk_q4(768, 512, rng, sm=False)), _port(mk_q6w(256, 512, rng, sp=False)))
-    for ws, flag in ((pairs, False), (f32, True)):
-        assert t_attn_in.f32_scales(*ws) is flag
+    for ws, codes in ((pairs, (0, 1)), (f32, (2, 3))):
+        assert tuple(map(t_qmm.kernel_kind, ws)) == codes
         for impl, ok in (("auto", True), ("int8", True), ("xla", False)):
             assert t_attn_in.attn_in_supported(*ws, 1, 512, 128, impl=impl) is ok
-    assert t_attn_in.f32_scales(pairs[0], f32[1]) is None  # mixed layouts: unfused
-    assert not t_attn_in.attn_in_supported(pairs[0], f32[1], 1, 512, 128)
+    # mixed layouts: the reference's gate fuses them, and the kernel reads
+    # each slot's layout by its own kind code
+    assert t_attn_in.attn_in_supported(pairs[0], f32[1], 1, 512, 128)
+    assert t_attn_in.attn_in_supported(f32[0], pairs[1], 1, 512, 128)
 
 
 def test_ffn_gates_pass_f32_layouts_and_wrappers_refuse_them_off_the_cpu():
@@ -377,10 +379,10 @@ def test_ffn_gates_pass_f32_layouts_and_wrappers_refuse_them_off_the_cpu():
     gu, dn = _port(mk_q4(1024, 512, rng, sm=False)), _port(mk_q6w(512, 512, rng, sp=False))
     wo = _port(mk_q6w(512, 1024, rng, sp=False))
     assert t_ffn.ffn_supported(gu, dn, 1) and t_ffn.oproj_ffn_supported(wo, gu, dn, 1)
-    code, arrs = t_ffn._arrays(gu)
-    assert code == 2 and arrs[1] is gu.arrays["scales"] and arrs[2] is gu.arrays["mins"]
-    code, arrs = t_ffn._arrays(dn)
-    assert code == 3 and arrs[1] is dn.arrays["scales"] and arrs[2] is None
+    code, arrs = t_qmm.packed_arrays(gu, "ffn")  # [codes, high plane, scales, mins]
+    assert code == 2 and arrs[2] is gu.arrays["scales"] and arrs[3] is gu.arrays["mins"]
+    code, arrs = t_qmm.packed_arrays(dn, "ffn")
+    assert code == 3 and arrs[2] is dn.arrays["scales"] and arrs[3] is None
     assert not hasattr(t_ffn, "_require_pairs")
     x = torch.ones(1, 512, dtype=torch.bfloat16)
     y = t_ffn.fused_ffn(x, torch.ones(512), 1e-5, gu, dn)  # the CPU reads every layout

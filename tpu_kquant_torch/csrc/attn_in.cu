@@ -3,10 +3,12 @@
 //
 // Replaces the TPU kernels tpu_kquant/ops/pallas_attn_in.py:fused_attn_in,
 // manual variant _attn_in_manual_call (kernel _attn_in_manual_kernel) and
-// Mosaic-grid variant _attn_in_call (_attn_in_kernel), for the Q4_K_M
-// layout: wqk q4, wv q6w, both with bf16 scale pairs (sm / sp) or both with
-// f32 scales (scale_dtype='f32': wqk scales + mins, wv scales; the grid
-// variant reads these), optional f32 biases (qwen2's q/k/v biases:
+// Mosaic-grid variant _attn_in_call (_attn_in_kernel), for the kinds the
+// reference's attn_in_supported takes in either slot: q4, q6w or q8
+// (wqk q4 + wv q6w at Q4_K_M, both q8 at Q8_0, both q6w at Q6_K, both q4 at
+// Q4_K_S), each with bf16 scale pairs (sm / sp) or f32 scales
+// (scale_dtype='f32'; the grid variant reads these), chosen per slot at run
+// time; optional f32 biases (qwen2's q/k/v biases:
 // bqk [n0] = [bq | bk], bv [n1]; the epilogue order of _attn_in_kernel,
 // pallas_attn_in.py:237-254: round the sum to bf16, add the bias, rope in
 // f32, cast).
@@ -16,7 +18,7 @@
 // Qwen2.5-1.5B width wqk [1792, 1536] q4-sm (1.72 MB) and wv [256, 1536]
 // q6w-sp (0.44 MB): 2.2 MB, 0.65 us; at Mixtral-8x7B width with f32 scales
 // wqk [5120, 4096] q4 (15.7 MB) and wv [1024, 4096] q6w (5.2 MB): 20.9 MB,
-// 6.3 us.
+// 6.3 us; TinyLlama at Q8_0 (both q8-sp, 8.5 bits a weight) 5.4 MB, 1.6 us.
 //
 // Design: the norm needs the whole row and the rope pairs columns i and
 // i + head_dim/2, so nothing is split along K here. Every block recomputes
@@ -35,11 +37,14 @@ struct AttnInArgs {
   const __nv_bfloat16* x;  // [R, D]
   const float* nw;         // [D]
   float eps;
-  const uint8_t* qk_qs;    // q4 [D/2, n0]
-  const uint32_t* qk_sm;   // [D/32, n0] sm pairs, or f32 scales
-  const uint32_t* qk_mins; // [D/32, n0] f32 mins (f32 layout only)
-  const uint8_t* v_qs;     // q6w [D, n1]
-  const uint32_t* v_sp;    // [D/32, n1] sp pairs, or [D/16, n1] f32 scales
+  int qk_kind;             // common.cuh kind code of wqk: KQ4, KQ6W, KQ8 or an F variant
+  const uint8_t* qk_qs;    // codes of wqk [.., n0]
+  const uint32_t* qk_scl;  // sm / sp pairs, or f32 scales
+  const uint32_t* qk_mins; // f32 mins (KQ4F only), else null
+  int v_kind;              // the same for wv [.., n1]
+  const uint8_t* v_qs;
+  const uint32_t* v_scl;
+  const uint32_t* v_mins;
   const float* cosv;       // [R, hd/2]
   const float* sinv;       // [R, hd/2]
   const float* bqk;        // [n0] f32 bias of the qk columns, or null
@@ -49,15 +54,26 @@ struct AttnInArgs {
   int R, D, n0, n1, hd;
 };
 
+// Stage the normalised rows for a weight of kind KIND and run the block's
+// share of its GEMV over the whole of D.
+template <int KIND, int RT>
+__device__ __forceinline__ void attn_in_gemv(float (&acc)[RT][4], float* xs, const AttnInArgs& a,
+                                             const uint8_t* qs, const uint32_t* scl,
+                                             const uint32_t* mins, int N, int n, int r0,
+                                             const float* rstd) {
+  const int nc = n_chunks_of<KIND>(a.D);
+  stage_x<KIND, RT>(xs, a.x, 0, a.R, a.D, r0, 0, nc, a.nw, rstd);
+  gemv_warp<KIND, RT>(acc, qs, scl, N, a.D, n, n < N, 0, nc, xs, a.D, mins);
+}
+
 // The grid has a few dozen blocks, so one block per SM is enough: the
 // minimum of 1 lets ptxas give the GEMV core the registers it needs.
 // Without it the bias epilogue changed the R = 1 kernel's register
 // allocation and made it 1.6x slower (TinyLlama R=1 on an H100: 22.8
-// against 14.5 us, chip_smoke.py phase 3).
-// F32: the f32-scale layouts (KQ4F / KQ6WF) instead of the pairs.
-template <int RT, bool F32>
+// against 14.5 us, chip_smoke.py phase 3). The slot's kind is uniform over a
+// block, so the switch does not diverge.
+template <int RT>
 __global__ void __launch_bounds__(THREADS, 1) attn_in_kernel(AttnInArgs a) {
-  constexpr int QK = F32 ? KQ4F : KQ4, V = F32 ? KQ6WF : KQ6W;
   extern __shared__ __align__(16) float smem[];
   __shared__ float rstd[RT];
   const int tiles0 = (a.n0 + TN - 1) / TN;
@@ -66,20 +82,22 @@ __global__ void __launch_bounds__(THREADS, 1) attn_in_kernel(AttnInArgs a) {
   const int N = is_qk ? a.n0 : a.n1;
   const int r0 = blockIdx.z * RT;
   float* xs = smem;
-  float* red = smem + RT * a.D;  // the staged row spans D for both kinds
+  float* red = smem + RT * a.D;  // the staged row spans D for every kind
 
   block_rstd<RT>(rstd, a.x, a.R, a.D, r0, a.eps);
   const int lane = threadIdx.x % 32;
   const int n = tile * TN + lane * 4;
+  const uint8_t* qs = is_qk ? a.qk_qs : a.v_qs;
+  const uint32_t* scl = is_qk ? a.qk_scl : a.v_scl;
+  const uint32_t* mins = is_qk ? a.qk_mins : a.v_mins;
   float acc[RT][4] = {};
-  if (is_qk) {
-    const int nc = a.D / 2 / CH;
-    stage_x<QK, RT>(xs, a.x, 0, a.R, a.D, r0, 0, nc, a.nw, rstd);
-    gemv_warp<QK, RT>(acc, a.qk_qs, a.qk_sm, N, a.D, n, n < N, 0, nc, xs, a.D, a.qk_mins);
-  } else {
-    const int nc = a.D / CH;
-    stage_x<V, RT>(xs, a.x, 0, a.R, a.D, r0, 0, nc, a.nw, rstd);
-    gemv_warp<V, RT>(acc, a.v_qs, a.v_sp, N, a.D, n, n < N, 0, nc, xs, a.D);
+  switch (is_qk ? a.qk_kind : a.v_kind) {
+    case KQ4: attn_in_gemv<KQ4, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
+    case KQ4F: attn_in_gemv<KQ4F, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
+    case KQ6W: attn_in_gemv<KQ6W, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
+    case KQ6WF: attn_in_gemv<KQ6WF, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
+    case KQ8: attn_in_gemv<KQ8, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
+    default: attn_in_gemv<KQ8F, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
   }
   block_reduce<RT>(red, acc);
   // red[0 .. RT*TN) holds the f32 sums; round to bf16 as the unfused path
@@ -107,26 +125,16 @@ __global__ void __launch_bounds__(THREADS, 1) attn_in_kernel(AttnInArgs a) {
   }
 }
 
-template <int RT, bool F32>
+template <int RT>
 cudaError_t launch_attn_in_rt(const AttnInArgs& a, cudaStream_t st) {
   // staged row + warp partials + rounded copy
   const size_t smem = sizeof(float) * (RT * a.D + WARPS * RT * TN + RT * TN);
-  cudaError_t e = cudaFuncSetAttribute(attn_in_kernel<RT, F32>,
+  cudaError_t e = cudaFuncSetAttribute(attn_in_kernel<RT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.n0 + TN - 1) / TN + (a.n1 + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
-  attn_in_kernel<RT, F32><<<grid, THREADS, smem, st>>>(a);
+  attn_in_kernel<RT><<<grid, THREADS, smem, st>>>(a);
   return cudaGetLastError();
-}
-
-template <bool F32>
-cudaError_t launch_attn_in(const AttnInArgs& a, cudaStream_t st) {
-  switch (pick_rt(a.R)) {
-    case 1: return launch_attn_in_rt<1, F32>(a, st);
-    case 2: return launch_attn_in_rt<2, F32>(a, st);
-    case 4: return launch_attn_in_rt<4, F32>(a, st);
-    default: return launch_attn_in_rt<8, F32>(a, st);
-  }
 }
 
 }  // namespace tkq
@@ -134,22 +142,28 @@ cudaError_t launch_attn_in(const AttnInArgs& a, cudaStream_t st) {
 using namespace tkq;
 
 // Requires D % 64 == 0, n0 and n1 multiples of 4, 128 % hd == 0 (a column
-// tile holds whole heads), R <= 32. bqk / bv: f32 biases or both null.
-// qk_mins null: wqk / wv carry bf16 pairs (sm, sp); else f32 scales and
-// wqk's f32 mins.
-extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, const void* qk_qs,
-                           const void* qk_sm, const void* qk_mins, const void* v_qs,
-                           const void* v_sp, const float* cosv, const float* sinv,
-                           const float* bqk, const float* bv, void* out0, void* out1, int R,
-                           int D, int n0, int n1, int hd, void* stream) {
+// tile holds whole heads), R <= 32. qk_kind / v_kind: KQ4, KQ4F, KQ6W,
+// KQ6WF, KQ8 or KQ8F (common.cuh); *_mins: the f32 mins of a KQ4F weight,
+// else null. bqk / bv: f32 biases or both null.
+extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kind,
+                           const void* qk_qs, const void* qk_scl, const void* qk_mins,
+                           int v_kind, const void* v_qs, const void* v_scl, const void* v_mins,
+                           const float* cosv, const float* sinv, const float* bqk,
+                           const float* bv, void* out0, void* out1, int R, int D, int n0, int n1,
+                           int hd, void* stream) {
+  const auto fused_kind = [](int k) { return is_q4(k) || is_flat(k); };
+  if (!fused_kind(qk_kind) || !fused_kind(v_kind)) return (int)cudaErrorInvalidValue;
   AttnInArgs a{static_cast<const __nv_bfloat16*>(x),
                nw,
                eps,
+               qk_kind,
                static_cast<const uint8_t*>(qk_qs),
-               static_cast<const uint32_t*>(qk_sm),
+               static_cast<const uint32_t*>(qk_scl),
                static_cast<const uint32_t*>(qk_mins),
+               v_kind,
                static_cast<const uint8_t*>(v_qs),
-               static_cast<const uint32_t*>(v_sp),
+               static_cast<const uint32_t*>(v_scl),
+               static_cast<const uint32_t*>(v_mins),
                cosv,
                sinv,
                bqk,
@@ -158,5 +172,10 @@ extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, const void
                static_cast<__nv_bfloat16*>(out1),
                R, D, n0, n1, hd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(qk_mins == nullptr ? launch_attn_in<false>(a, st) : launch_attn_in<true>(a, st));
+  switch (pick_rt(R)) {
+    case 1: return (int)launch_attn_in_rt<1>(a, st);
+    case 2: return (int)launch_attn_in_rt<2>(a, st);
+    case 4: return (int)launch_attn_in_rt<4>(a, st);
+    default: return (int)launch_attn_in_rt<8>(a, st);
+  }
 }

@@ -1,8 +1,8 @@
-// gate/up phase shared by the FFN kernels (oproj_ffn.cu, ffn.cu):
+// gate/up phase shared by the FFN kernels (ffn.cu: oproj_ffn and ffn):
 // act = bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x)))), n = rms_norm, for
-// decode rows (R <= 32), over the fused w_gateup [2F, dim], q4 codes with
-// bf16 (scale, min) pairs (KQ4) or f32 scales and mins (KQ4F) (gate columns
-// 0..F-1, up columns F..2F-1).
+// decode rows (R <= 32), over the fused w_gateup [2F, dim] (gate columns
+// 0..F-1, up columns F..2F-1) of kind q4, q6w or q8, each with bf16 pairs or
+// f32 scales (KQ4, KQ4F, KQ6W, KQ6WF, KQ8, KQ8F of common.cuh).
 //
 // A block recomputes rms(x) for its rows, stages the normalised rows in
 // shared memory in f32 (the norm weight applied without bf16 rounding, as
@@ -20,9 +20,9 @@ struct GateUpArgs {
   const __nv_bfloat16* x;   // [R, dim] the rows to normalise
   const float* nw;          // [dim]
   float eps;
-  const uint8_t* qs;        // q4 [dim/2, 2F]
-  const uint32_t* scl;      // [dim/32, 2F]: sm pairs (KQ4) or f32 scales (KQ4F)
-  const uint32_t* mins;     // [dim/32, 2F] f32 mins (KQ4F only)
+  const uint8_t* qs;        // codes [dim/2, 2F] (q4) or [dim, 2F] (q6w, q8)
+  const uint32_t* scl;      // sm / sp pairs or f32 scales
+  const uint32_t* mins;     // f32 mins (KQ4F only)
   __nv_bfloat16* act;       // [R, F]
   int R, dim, F;
 };
@@ -36,7 +36,7 @@ __global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
   float* red_g = smem + RT * a.dim;
   float* red_u = red_g + WARPS * RT * TN;
   const int N = 2 * a.F;
-  const int nc = a.dim / 2 / CH;
+  const int nc = n_chunks_of<KIND>(a.dim);
   block_rstd<RT>(rstd, a.x, a.R, a.dim, r0, a.eps);
   stage_x<KIND, RT>(xs, a.x, 0, a.R, a.dim, r0, 0, nc, a.nw, rstd);
   const int lane = threadIdx.x % 32;
@@ -82,11 +82,17 @@ cudaError_t launch_gate_up_k(const GateUpArgs& a, cudaStream_t st) {
   }
 }
 
-// kind: KQ4 or KQ4F, the layout of w_gateup
+// kind: the kind code of w_gateup (KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F)
 inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, cudaStream_t st) {
-  if (kind == KQ4) return launch_gate_up_k<KQ4>(a, st);
-  if (kind == KQ4F) return launch_gate_up_k<KQ4F>(a, st);
-  return cudaErrorInvalidValue;
+  switch (kind) {
+    case KQ4: return launch_gate_up_k<KQ4>(a, st);
+    case KQ4F: return launch_gate_up_k<KQ4F>(a, st);
+    case KQ6W: return launch_gate_up_k<KQ6W>(a, st);
+    case KQ6WF: return launch_gate_up_k<KQ6WF>(a, st);
+    case KQ8: return launch_gate_up_k<KQ8>(a, st);
+    case KQ8F: return launch_gate_up_k<KQ8F>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace tkq

@@ -1,26 +1,32 @@
 """Fixture models: GGUF files of a real architecture with random weights.
 
-``write_fixture_gguf`` writes the llama tensor inventory with the llama.cpp
-Q4_K_M type recipe (attn_v, ffn_down and output in Q6_K, the other matmul
-weights Q4_K, norms F32), like ``tpu_kquant.models.fixtures``; qwen2 adds
-F32 q/k/v biases, and a tied config writes no ``output.weight`` (the tied
-``token_embd`` stays Q4_K, as the reference's recipe gives it). A MoE config
+``write_fixture_gguf`` writes the llama tensor inventory with a type recipe
+of the reference's quantize tool (``RECIPES`` / ``target_type``, copied from
+``tpu_kquant.tools.quantize``): q4_k_m by default (attn_v, ffn_down and
+output in Q6_K, the other matmul weights Q4_K, norms F32), or q8_0, q6_k,
+q5_k_m, q4_k_s, q3_k_m, q2_k, f16 and bf16; qwen2 adds F32 q/k/v biases, and
+a tied config writes no ``output.weight``. The substring ``"output.weight"``
+also matches ``attn_output.weight``, in both packages. A MoE config
 (``n_experts``) writes the router ``ffn_gate_inp`` [E, D] and the stacked
 experts ``ffn_{gate,up}_exps`` [E, F, D] and ``ffn_down_exps`` [E, D, F] in
-place of the FFN weights, under the same recipe (the router Q4_K, the downs
-Q6_K), as the reference writes them. Unlike the
-reference it does not quantize float weights: the port has no fast
-quantizer (NumPy K-quant search takes seconds per 2048x2048 tensor, some
-twenty minutes for a 1.1B model), so it DRAWS valid K-quant blocks directly.
+place of the FFN weights, under the same recipe, as the reference writes
+them. Unlike the reference it does not quantize float weights: the port has
+no fast quantizer (NumPy K-quant search takes seconds per 2048x2048 tensor,
+some twenty minutes for a 1.1B model), so it DRAWS valid blocks directly,
+each type's ``d`` set so that weights have standard deviation about
+``scale`` (0.05 by default) and every sub-block is centred:
 
-- Q4_K: random 4-bit codes and 6-bit sub-scales ``sc`` in [32, 63], with mins
-  ``m`` within 4 of ``sc`` and ``dmin = 7.5 d``, so every sub-block is
-  centred (codes average 7.5); ``d`` is set so weights have standard
-  deviation ``scale`` (0.05 by default).
-- Q6_K: random 6-bit codes and int8 sub-scales in [8, 31] of random sign,
-  ``d`` set the same way.
+- Q4_K: 4-bit codes, 6-bit sub-scales ``sc`` in [32, 63], mins ``m`` within
+  4 of ``sc``, ``dmin = 7.5 d`` (codes average 7.5).
+- Q5_K: the same with 5-bit codes and ``dmin = 15.5 d``.
+- Q6_K: 6-bit codes (value q - 32), int8 sub-scales in [8, 31] of random sign.
+- Q3_K: 3-bit codes (value q - 4), 6-bit signed sub-scales in [8, 31] of
+  random sign.
+- Q2_K: 2-bit codes, 4-bit sub-scales in [8, 15], mins within 1 of them,
+  ``dmin = 1.5 d``.
+- Q8_0: int8 codes in [-127, 127].
 
-Everything downstream reads real K-quant bytes; only the values are not the
+Everything downstream reads real block bytes; only the values are not the
 quantization of any float tensor.
 """
 
@@ -29,7 +35,9 @@ from __future__ import annotations
 import numpy as np
 
 from tpu_kquant_torch.gguf import GGMLType, GGUFWriter, row_size
+from tpu_kquant_torch.gguf.constants import block_size, type_size
 from tpu_kquant_torch.models.config import ModelConfig, RopeParams
+from tpu_kquant_torch.quant.repack import _bf16_bits
 
 
 def tiny_config(arch: str = "llama", n_layers: int = 2, dim: int = 64,
@@ -83,13 +91,52 @@ def mixtral_8x7b_config() -> ModelConfig:
     )
 
 
-def qtype_for(name: str) -> GGMLType:
-    """llama.cpp Q4_K_M type recipe for a tensor name."""
-    if name.endswith("_norm.weight"):
+RECIPES = {
+    "q4_k_m": None,  # mixed; see target_type
+    "q4_k_s": None,
+    "q8_0": GGMLType.Q8_0,
+    "q6_k": GGMLType.Q6_K,
+    "q5_k_m": None,
+    "q3_k_m": None,  # mixed: Q3_K base, Q4_K / Q5_K bumps
+    "q2_k": None,  # mixed: Q2_K base, Q4_K attn_v
+    "f16": GGMLType.F16,
+    "bf16": GGMLType.BF16,
+}
+
+
+def target_type(name: str, shape, recipe: str) -> GGMLType:
+    """The reference quantize tool's type for a tensor under ``recipe``
+    (``tpu_kquant/tools/quantize.py:_target_type``)."""
+    if name.endswith("_norm.weight") or len(shape) == 1:
         return GGMLType.F32
-    if any(s in name for s in ("attn_v", "ffn_down", "output.weight")):
-        return GGMLType.Q6_K
-    return GGMLType.Q4_K
+    uniform = RECIPES.get(recipe)
+    if uniform is not None:
+        t = uniform
+    elif recipe == "q2_k":
+        t = GGMLType.Q2_K
+        if "attn_v" in name:
+            t = GGMLType.Q4_K
+        elif "output.weight" in name:
+            t = GGMLType.Q6_K
+    elif recipe == "q3_k_m":
+        t = GGMLType.Q3_K
+        if any(s in name for s in ("attn_v", "ffn_down", "attn_output")):
+            t = GGMLType.Q4_K
+        elif "output.weight" in name:
+            t = GGMLType.Q5_K
+    else:
+        t = GGMLType.Q5_K if recipe == "q5_k_m" else GGMLType.Q4_K
+        if recipe.endswith("_m") and any(
+                s in name for s in ("attn_v", "ffn_down", "output.weight")):
+            t = GGMLType.Q6_K
+    if shape[-1] % block_size(t) != 0:  # block-size feasibility fallbacks
+        return GGMLType.Q8_0 if shape[-1] % 32 == 0 else GGMLType.F16
+    return t
+
+
+def _f16_bytes(x: np.ndarray) -> np.ndarray:
+    """(n,) floats -> (n, 2) little-endian fp16 bytes."""
+    return np.asarray(x, np.float32).astype("<f2")[:, None].view(np.uint8)
 
 
 def random_q4_k(rng: np.random.Generator, n_blocks: int, scale: float) -> np.ndarray:
@@ -121,11 +168,69 @@ def random_q6_k(rng: np.random.Generator, n_blocks: int, scale: float) -> np.nda
     return out
 
 
-def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05) -> str:
-    """Write a Q4_K_M llama (dense or MoE) or qwen2 fixture with random blocks
-    drawn from ``seed``."""
+def random_q5_k(rng: np.random.Generator, n_blocks: int, scale: float) -> np.ndarray:
+    """``n_blocks`` valid Q5_K superblocks (176 bytes each)."""
+    out = random_q4_k(rng, n_blocks, scale)
+    # uniform 5-bit codes: std 9.23; centred on 15.5 by dmin = 15.5 d
+    d = np.full(n_blocks, scale / (47.5 * 9.23), np.float32)
+    blocks = np.empty((n_blocks, 176), np.uint8)
+    blocks[:, 0:2] = _f16_bytes(d)
+    blocks[:, 2:4] = _f16_bytes(15.5 * d)
+    blocks[:, 4:16] = out[:, 4:16]
+    blocks[:, 16:176] = rng.integers(0, 256, (n_blocks, 160), dtype=np.uint8)
+    return blocks
+
+
+def random_q3_k(rng: np.random.Generator, n_blocks: int, scale: float) -> np.ndarray:
+    """``n_blocks`` valid Q3_K superblocks (110 bytes each)."""
+    out = np.empty((n_blocks, 110), np.uint8)
+    out[:, 0:96] = rng.integers(0, 256, (n_blocks, 96), dtype=np.uint8)  # hmask, qs
+    sc = rng.integers(8, 32, (n_blocks, 16)) * rng.choice([-1, 1], (n_blocks, 16))
+    b = (sc + 32).astype(np.uint8)  # 6-bit biased
+    out[:, 96:100] = (b[:, 0:4] & 0xF) | ((b[:, 8:12] & 0xF) << 4)
+    out[:, 100:104] = (b[:, 4:8] & 0xF) | ((b[:, 12:16] & 0xF) << 4)
+    out[:, 104:108] = ((b[:, 0:4] >> 4) | ((b[:, 4:8] >> 4) << 2) | ((b[:, 8:12] >> 4) << 4)
+                       | ((b[:, 12:16] >> 4) << 6))
+    # codes q - 4 in [-4, 3]: rms 2.35; E|sc| = 19.5
+    out[:, 108:110] = _f16_bytes(np.full(n_blocks, scale / (19.5 * 2.35), np.float32))
+    return out
+
+
+def random_q2_k(rng: np.random.Generator, n_blocks: int, scale: float) -> np.ndarray:
+    """``n_blocks`` valid Q2_K superblocks (84 bytes each)."""
+    sc = rng.integers(8, 16, (n_blocks, 16))
+    m = np.clip(sc + rng.integers(-1, 2, (n_blocks, 16)), 0, 15)
+    # uniform 2-bit codes: std 1.118, centred on 1.5 by dmin = 1.5 d; E[sc] = 11.5
+    d = np.full(n_blocks, scale / (11.5 * 1.118), np.float32)
+    out = np.empty((n_blocks, 84), np.uint8)
+    out[:, 0:16] = (sc | (m << 4)).astype(np.uint8)
+    out[:, 16:80] = rng.integers(0, 256, (n_blocks, 64), dtype=np.uint8)
+    out[:, 80:82] = _f16_bytes(d)
+    out[:, 82:84] = _f16_bytes(1.5 * d)
+    return out
+
+
+def random_q8_0(rng: np.random.Generator, n_blocks: int, scale: float) -> np.ndarray:
+    """``n_blocks`` valid Q8_0 blocks (34 bytes each)."""
+    out = np.empty((n_blocks, 34), np.uint8)
+    # uniform codes in [-127, 127]: std 73.6
+    out[:, 0:2] = _f16_bytes(np.full(n_blocks, scale / 73.6, np.float32))
+    out[:, 2:34] = rng.integers(0, 255, (n_blocks, 32), dtype=np.uint8) - np.uint8(127)
+    return out
+
+
+DRAW = {GGMLType.Q2_K: random_q2_k, GGMLType.Q3_K: random_q3_k, GGMLType.Q4_K: random_q4_k,
+        GGMLType.Q5_K: random_q5_k, GGMLType.Q6_K: random_q6_k, GGMLType.Q8_0: random_q8_0}
+
+
+def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05,
+                       recipe: str = "q4_k_m") -> str:
+    """Write a llama (dense or MoE) or qwen2 fixture under the quantize
+    tool's ``recipe`` with random blocks drawn from ``seed``."""
     if cfg.arch not in ("llama", "qwen2"):
         raise NotImplementedError("the port writes llama and qwen2 fixtures only")
+    if recipe not in RECIPES:
+        raise ValueError(f"unknown recipe {recipe!r}; one of {sorted(RECIPES)}")
     rng = np.random.default_rng(seed)
     w = GGUFWriter(path)
     for k, v in cfg.to_gguf_metadata().items():
@@ -133,15 +238,21 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
     w.add("general.name", f"fixture-{cfg.arch}")
 
     def add(name: str, shape: tuple[int, ...]) -> None:
-        t = qtype_for(name)
-        if t == GGMLType.F32:
+        t = target_type(name, shape, recipe)
+        if t in (GGMLType.F32, GGMLType.F16, GGMLType.BF16):
             # drawn now, in order, so the file depends only on the seed
-            w.add_float(name, rng.standard_normal(shape).astype(np.float32) * scale)
+            x = rng.standard_normal(shape).astype(np.float32) * scale
+            if t == GGMLType.F32:
+                w.add_float(name, x)
+            elif t == GGMLType.F16:
+                w.add_tensor(name, shape, t, x.astype("<f2").reshape(-1).view(np.uint8))
+            else:
+                bits = _bf16_bits(x.reshape(-1)).astype("<u2")
+                w.add_tensor(name, shape, t, bits.view(np.uint8))
             return
-        n_blocks = row_size(t, int(np.prod(shape))) // (144 if t == GGMLType.Q4_K else 210)
-        draw = random_q4_k if t == GGMLType.Q4_K else random_q6_k
+        n_blocks = row_size(t, int(np.prod(shape))) // type_size(t)
         child = np.random.default_rng(rng.integers(0, 2**63))
-        w.add_tensor(name, shape, t, lambda: draw(child, n_blocks, scale))
+        w.add_tensor(name, shape, t, lambda: DRAW[t](child, n_blocks, scale))
 
     D, H, Hkv, hd, F, V = (cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
                            cfg.ffn_dim, cfg.vocab_size)
@@ -172,3 +283,52 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
         add(p + "ffn_up.weight", (F, D))
         add(p + "ffn_down.weight", (D, F))
     return str(w.write())
+
+
+# mean code of each kind with mins: its min centres the weights on zero
+_MID_CODE = {"q4": 7.5, "q5": 15.5, "q6": 31.5, "q3": 3.5, "q2": 1.5}
+
+
+def random_packed(rng: np.random.Generator, kind: str, N: int, K: int, f32: bool = False,
+                  scale: float = 0.02):
+    """A random kmajor weight (N, K) drawn directly in the loader's packed
+    layout of ``kind`` (q2, q3, q4, q5, q6, q6w or q8): uniform codes and
+    positive per-group scales, the mins (kinds with mins) centring every
+    group, weights of standard deviation about ``scale``. ``f32``: f32
+    ``scales`` (and ``mins``) as ``scale_dtype='f32'`` loads them; else the
+    bf16 pairs ``sm`` / ``sp``. Returns a QTensor of numpy arrays (``.to``
+    moves it)."""
+    from tpu_kquant_torch.quant.qtensor import QTensor
+    from tpu_kquant_torch.quant.repack import GROUP_SIZE
+
+    g = GROUP_SIZE[kind]
+    u8 = lambda rows: rng.integers(0, 256, (rows, N), dtype=np.uint8)  # noqa: E731
+    if kind == "q8":
+        arrays, spread = {"qs": rng.integers(-127, 128, (K, N)).astype(np.int8)}, 73.6
+    elif kind == "q6w":
+        arrays, spread = {"qs": rng.integers(-32, 32, (K, N)).astype(np.int8)}, 18.5
+    elif kind in ("q4", "q5", "q6"):
+        arrays = {"qs": u8(K // 2)}
+        if kind != "q4":
+            arrays["qh"] = u8(K // 8 if kind == "q5" else K // 4)
+        spread = {"q4": 4.61, "q5": 9.23, "q6": 18.5}[kind]
+    elif kind in ("q2", "q3"):
+        arrays = {"qs": u8(K // 4)}
+        if kind == "q3":
+            arrays["qh"] = u8(K // 8)
+        spread = {"q2": 1.118, "q3": 2.29}[kind]
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
+    s = ((rng.random((K // g, N)) + 0.5) * (scale / spread)).astype(np.float32)
+    if kind in _MID_CODE:
+        m = (s * _MID_CODE[kind]).astype(np.float32)
+        if f32:
+            arrays.update(scales=s, mins=m)
+        else:
+            arrays["sm"] = (_bf16_bits(s) | (_bf16_bits(m) << 16)).view(np.float32)
+    elif f32:
+        arrays["scales"] = s
+    else:
+        sb = _bf16_bits(s)
+        arrays["sp"] = (sb[0::2] | (sb[1::2] << 16)).view(np.float32)
+    return QTensor(kind, "kmajor", (N, K), arrays)

@@ -18,8 +18,12 @@ biases are added after it, which turns q/k/v (and from there the residual
 stream) f32, as in the reference. A MoE layer (cfg.is_moe) never takes
 oproj_ffn or ffn: o_proj is a qmatmul, then the residual, rms_norm and
 models.moe.moe_ffn. ``impl`` is the reference's: "auto", or "int8", under
-which ops.qmatmul sends decode-sized products on q4 weights with f32 scales
-to the qmm_int8 kernel (the fused kernels' gates accept both). Attention
+which ops.qmatmul sends decode-sized products on q4 and unwidened q6
+weights with f32 scales to the qmm_int8 kernel (the fused kernels' gates
+accept both). The gates take the reference's kinds: attn_in q4, q6w or q8
+in either slot, oproj_ffn and ffn q4, q6w or q8 for o_proj and gate/up and
+q6w or q8 for down; every other kind (q5, q3, q2, unwidened q6) goes to
+qmatmul. Attention
 (ops.attention) runs plain PyTorch, or the flash prefill kernel for long
 prompts; the KV cache is bf16 or int8.
 """

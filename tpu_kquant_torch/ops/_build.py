@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "tkq_torch_build"
-SOURCES = ("qmm", "attn_in", "oproj_ffn", "ffn", "prefill", "qmm_int8", "decode_attn")
+SOURCES = ("qmm", "qmm_q56", "qmm_q23", "attn_in", "ffn", "prefill", "qmm_int8", "decode_attn")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

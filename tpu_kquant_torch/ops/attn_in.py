@@ -2,10 +2,12 @@
 qk, one launch.
 
 Kernel: ``csrc/attn_in.cu`` (replaces ``tpu_kquant/ops/pallas_attn_in.py:
-fused_attn_in``, manual and Mosaic-grid variants), decode rows only, for the
-Q4_K_M layout, wqk q4 and wv q6w, both with bf16 scale pairs (q4-sm, q6w-sp)
-or both with f32 scales (q4 ``scales`` + ``mins``, q6w ``scales``), with or
-without qwen2's f32 biases (``biases = (bqk [n0], bv [n1])``, bqk = [bq | bk]).
+fused_attn_in``, manual and Mosaic-grid variants), decode rows only, for
+the kinds the reference's gate takes in either slot: q4, q6w or q8 (Q4_K_M:
+wqk q4 + wv q6w; Q8_0: both q8; Q6_K: both q6w; Q4_K_S: both q4), each with
+bf16 scale pairs (q4-sm, q6w-sp, q8-sp) or f32 scales (``scales``, and
+``mins`` for q4), with or without qwen2's f32 biases (``biases = (bqk [n0],
+bv [n1])``, bqk = [bq | bk]).
 
 ``attn_in_plain`` is the same function in plain PyTorch, in f32 with the
 kernel's rounding points: the normalised row is not rounded, each
@@ -20,6 +22,7 @@ import ctypes
 import torch
 
 from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.ops.qmm import kernel_kind, packed_arrays
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -28,37 +31,30 @@ counter = _build.LaunchCounter("attn_in")
 MAX_ROWS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P, _P, ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-             _I, _I, _P]
+#            x   nw  eps              qk: kind qs scl mins v: kind qs scl mins
+_ARGTYPES = [_P, _P, ctypes.c_float, _I, _P, _P, _P, _I, _P, _P, _P,
+             # cos sin bqk bv out0 out1 R  D  n0 n1 hd stream
+             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
-def f32_scales(wqk: QTensor, wv: QTensor) -> bool | None:
-    """True if wqk and wv carry the f32-scale layouts, False if both carry
-    bf16 pairs, None for any other pair of layouts (the kernel reads none)."""
-    if not all(w.layout == "kmajor" and w.fold == 1 and len(w.shape) == 2 for w in (wqk, wv)):
-        return None
-    if wqk.kind != "q4" or wv.kind != "q6w":
-        return None
-    if "sm" in wqk.arrays and "sp" in wv.arrays:
-        return False
-    if {"scales", "mins"} <= set(wqk.arrays) and "scales" in wv.arrays:
-        return True
-    return None
+_KINDS = ("q4", "q6w", "q8")  # pallas_attn_in.py:_KINDS
 
 
 def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: int,
                       biases: tuple[torch.Tensor, torch.Tensor] | None = None,
                       impl: str = "auto") -> bool:
-    """The dispatch gate: decode rows and the kernel's layout. The width
-    rules are the reference's (pallas_attn_in.attn_in_supported: D % 512,
-    N % 128) so both packages fuse at the same shapes, and so is the impl
-    rule (pallas_attn_in.attn_in_enabled: "auto" and "int8" fuse; the int8
-    path's activation quantization does not reach this kernel); biases, where
-    given, are f32 vectors of the two outputs' widths."""
+    """The dispatch gate: the reference's (pallas_attn_in.attn_in_supported
+    on [wqk, wv]: rows <= 32, D % 512, each weight kmajor of kind q4, q6w or
+    q8 with K = D and N % 128; attn_in_enabled: impl "auto" or "int8", whose
+    activation quantization does not reach this kernel), so both packages
+    fuse at the same shapes and kinds; then what the kernel itself needs:
+    a scale layout it reads (kernel_kind), head_dim dividing its 128-column
+    tiles, and biases, where given, f32 vectors of the two outputs' widths."""
     return (
         impl in ("auto", "int8") and rows <= MAX_ROWS and D % 512 == 0
-        and 128 % head_dim == 0 and f32_scales(wqk, wv) is not None
-        and all(w.shape[-1] == D and w.shape[0] % 128 == 0 for w in (wqk, wv))
+        and all(w.layout == "kmajor" and w.kind in _KINDS and w.shape[-1] == D
+                and w.shape[0] % 128 == 0 and kernel_kind(w) is not None for w in (wqk, wv))
+        and 128 % head_dim == 0
         and (biases is None or all(
             b.dtype == torch.float32 and tuple(b.shape) == (int(w.shape[0]),)
             for b, w in zip(biases, (wqk, wv))))
@@ -116,15 +112,9 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     req(n0 % head_dim == 0 and c2d.shape == (R, half) and s2d.shape == (R, half),
         "attn_in: rope tables must be [rows, head_dim / 2]")
     req(norm_w.shape == (D,) and norm_w.dtype == torch.float32, "attn_in: norm weight")
-    if f32_scales(wqk, wv):  # f32 scales: wqk's mins are a third array
-        arrs = (wqk.arrays["qs"], wqk.arrays["scales"], wqk.arrays["mins"], wv.arrays["qs"],
-                wv.arrays["scales"])
-        req(all(a.dtype == torch.float32 for a in arrs[1:3] + arrs[4:])
-            and arrs[1].shape == arrs[2].shape == (D // 32, n0)
-            and arrs[4].shape == (D // 16, n1), "attn_in: f32 scale arrays")
-    else:
-        arrs = (wqk.arrays["qs"], wqk.arrays["sm"], None, wv.arrays["qs"], wv.arrays["sp"])
-    req(arrs[0].dtype == torch.uint8 and arrs[3].dtype == torch.int8, "attn_in: code dtypes")
+    qk_code, qk_arrs = packed_arrays(wqk, "attn_in")
+    v_code, v_arrs = packed_arrays(wv, "attn_in")
+    arrs = (qk_arrs[0], qk_arrs[2], qk_arrs[3], v_arrs[0], v_arrs[2], v_arrs[3])
     bs = () if biases is None else tuple(biases)
     req(all(a.device == x.device and a.is_contiguous() for a in arrs + bs if a is not None),
         "attn_in: weights and biases must be contiguous on x's device")
@@ -137,7 +127,8 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     lib = _build.load("attn_in", "tkq_attn_in", _ARGTYPES)
     P = _build.ptr
     bias_ptrs = (None, None) if biases is None else (P(bs[0]), P(bs[1]))
-    rc = lib.tkq_attn_in(P(x2d), P(nw), float(eps), *(None if a is None else P(a) for a in arrs),
+    ptrs = [None if a is None else P(a) for a in arrs]
+    rc = lib.tkq_attn_in(P(x2d), P(nw), float(eps), qk_code, *ptrs[:3], v_code, *ptrs[3:],
                          P(c2d), P(s2d), *bias_ptrs, P(out0), P(out1), R, D, n0, n1, head_dim,
                          _build.stream_ptr(x.device))
     _build.check(lib, rc, "attn_in")

@@ -1,16 +1,17 @@
 """The FFN block for decode rows, with and without o_proj in front.
 
 - ffn: y = x + down(silu(gate(n(x))) * up(n(x))), n = rms_norm. Kernel
-  ``csrc/ffn.cu`` (replaces ``tpu_kquant/ops/pallas_ffn.py:fused_ffn``),
-  run where the attention width fails oproj_ffn's gate (qwen2).
+  ``csrc/ffn.cu:tkq_ffn`` (replaces ``tpu_kquant/ops/pallas_ffn.py:
+  fused_ffn``), run where the attention width fails oproj_ffn's gate (qwen2).
 - oproj_ffn: x2 = x + attn @ Wo^T; y = x2 + down(silu(gate(n(x2))) *
-  up(n(x2))). Kernel ``csrc/oproj_ffn.cu`` (replaces
+  up(n(x2))). Kernel ``csrc/ffn.cu:tkq_oproj_ffn`` (replaces
   ``tpu_kquant/ops/pallas_ffn.py:fused_oproj_ffn``, manual and Mosaic-grid
   variants).
-Both take the Q4_K_M layouts (w_gateup q4, w_down q6w; wo q4 or q6w), each
-weight with bf16 scale pairs (q4-sm, q6w-sp) or f32 scales (q4 ``scales`` +
-``mins``, q6w ``scales``: ``scale_dtype='f32'``), as their gates and the
-reference's pass them, and share the gate/up phase (``csrc/gate_up.cuh``).
+Both take the kinds the reference's gates pass: wo and w_gateup q4, q6w or
+q8, w_down q6w or q8 (Q4_K_M: wo q6w, gate/up q4, down q6w; Q8_0: q8 in
+every slot; Q6_K: q6w in every slot), each weight with bf16 scale pairs
+(q4-sm, q6w-sp, q8-sp) or f32 scales (``scales``, and ``mins`` for q4:
+``scale_dtype='f32'``), and share the gate/up phase (``csrc/gate_up.cuh``).
 
 ``ffn_plain`` and ``oproj_ffn_plain`` are the same functions in plain
 PyTorch with the kernels' rounding points: x2, gate, up and their activated
@@ -25,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_kquant_torch.ops import _build
-from tpu_kquant_torch.ops.qmm import gemv_split, kernel_kind
+from tpu_kquant_torch.ops.qmm import gemv_split, kernel_kind, packed_arrays
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -46,45 +47,59 @@ _FFN_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _I, _P, _P,
                  _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
-def _kind(qt: QTensor) -> str | None:
-    """'q4' or 'q6w' for a 2-D kmajor weight of either scale layout."""
-    return None if kernel_kind(qt) is None else qt.kind
+_FLAT_KINDS = ("q6w", "q8")  # pallas_ffn.py:_FLAT_KINDS
+_VMEM_CHUNK_ELEMS = 2_700_000  # pallas_attn_in.py:_VMEM_CHUNK_ELEMS
+
+
+def _pick_tf(F: int, D: int = 0, cap: int = 1024) -> int:
+    """The reference's F tile (pallas_ffn.py:_pick_tf): the largest divisor of
+    F that is a multiple of 256 and at most ``cap`` (capped further by D);
+    0 where none exists, which its gate refuses."""
+    if D:
+        cap = min(cap, max(256, _VMEM_CHUNK_ELEMS // D // 256 * 256))
+    best = 0
+    for t in range(256, cap + 1, 256):
+        if F % t == 0:
+            best = t
+    return best
 
 
 def ffn_supported(gu: QTensor, dn: QTensor, rows: int) -> bool:
-    """The dispatch gate of ffn: decode rows and the kernel's kinds. The
-    width rules are the reference's (pallas_ffn.ffn_supported: dim % 512,
-    and F % 256, which is ``_pick_tf(F, dim) != 0``) so both packages fuse
-    at the same shapes."""
-    if rows > MAX_ROWS or _kind(gu) != "q4" or _kind(dn) != "q6w":
+    """The dispatch gate of ffn: the reference's (pallas_ffn.ffn_supported:
+    decode rows, w_gateup [2F, D] of kind q4, q6w or q8, w_down [D, F] of
+    kind q6w or q8, D % 512 and ``_pick_tf(F, D) != 0``), so both packages
+    fuse at the same shapes and kinds; then a scale layout the kernels read."""
+    if gu.layout != "kmajor" or dn.layout != "kmajor" or rows > MAX_ROWS:
         return False
-    dim, Fd = int(dn.shape[0]), int(dn.shape[1])
-    return gu.shape == (2 * Fd, dim) and dim % 512 == 0 and Fd % 256 == 0
+    D, Fd = int(gu.shape[-1]), int(dn.shape[-1])
+    if gu.shape[0] != 2 * Fd or dn.shape[0] != D:
+        return False
+    if dn.kind not in _FLAT_KINDS or gu.kind not in ("q4",) + _FLAT_KINDS:
+        return False
+    if D % 512 or _pick_tf(Fd, D) == 0:
+        return False
+    return kernel_kind(gu) is not None and kernel_kind(dn) is not None
 
 
 def oproj_ffn_supported(wo: QTensor, gu: QTensor, dn: QTensor, rows: int) -> bool:
-    """The dispatch gate of oproj_ffn: ffn's, and an o_proj the kernel reads
-    whose width K is a multiple of 1024 (pallas_ffn.oproj_ffn_supported)."""
-    return (ffn_supported(gu, dn, rows) and _kind(wo) is not None
-            and wo.shape[0] == dn.shape[0] and int(wo.shape[1]) % 1024 == 0)
+    """The dispatch gate of oproj_ffn: ffn's, and an o_proj [D, K] of kind q4,
+    q6w or q8 whose width K is a multiple of 1024
+    (pallas_ffn.oproj_ffn_supported), in a scale layout the kernels read."""
+    return (ffn_supported(gu, dn, rows) and wo.layout == "kmajor"
+            and wo.kind in ("q4",) + _FLAT_KINDS and wo.shape[0] == gu.shape[-1]
+            and int(wo.shape[-1]) % 1024 == 0 and kernel_kind(wo) is not None)
 
 
-def _arrays(qt: QTensor) -> tuple[int, list]:
-    """(kind code, [codes, scales, mins or None]) of a weight the kernels read."""
-    code = kernel_kind(qt)
-    scl = qt.arrays[("sm", "sp", "scales", "scales")[code]]
-    return code, [qt.arrays["qs"], scl, qt.arrays["mins"] if code == 2 else None]
-
-
-def _check_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> None:
+def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> list[tuple[int, list]]:
+    """(kind code, [codes, scales, mins or None]) of each weight, checked by
+    ops.qmm.packed_arrays (the fused kinds have no high bit plane) and
+    required on x's device."""
+    out = []
     for qt in ws:
-        code, arrs = _arrays(qt)
-        _build.require(arrs[0].dtype == (torch.uint8 if code in (0, 2) else torch.int8)
-                       and all(a.dtype == torch.float32 for a in arrs[1:] if a is not None),
-                       f"{what}: packed array dtypes")
-        _build.require(all(a.device == x.device and a.is_contiguous()
-                           for a in arrs if a is not None),
-                       f"{what}: weights must be contiguous on x's device")
+        code, (qs, _, scl, mins) = packed_arrays(qt, what)
+        _build.require(qs.device == x.device, f"{what}: weights must be on x's device")
+        out.append((code, [qs, scl, mins]))
+    return out
 
 
 def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
@@ -122,11 +137,9 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     req(ffn_supported(gu, dn, R), "ffn: unsupported layout or shape")
     req(x.dtype == torch.bfloat16, f"ffn: x dtype {x.dtype}")
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "ffn: norm weight")
-    _check_arrays("ffn", x, gu, dn)
-    gu_kind, gu_arrs = _arrays(gu)
-    dn_kind, dn_arrs = _arrays(dn)
+    (gu_kind, gu_arrs), (dn_kind, dn_arrs) = _fused_arrays("ffn", x, gu, dn)
     x2d, nw = x2d.contiguous(), norm_w.contiguous()
-    cps_d, splits_d = gemv_split(1, dim, Fd, R)
+    cps_d, splits_d = gemv_split(dn_kind, dim, Fd, R)
     dev = x.device
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
     ws = torch.empty(splits_d * R * dim, dtype=torch.float32, device=dev)
@@ -168,17 +181,17 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     req(x.dtype == torch.bfloat16 and attn.dtype == torch.bfloat16, "oproj_ffn: x/attn dtype")
     req(a2d.shape[0] == R, "oproj_ffn: x and attn rows differ")
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "oproj_ffn: norm weight")
-    _check_arrays("oproj_ffn", x, wo, gu, dn)
-    (wo_kind, wo_arrs), (gu_kind, gu_arrs), (dn_kind, dn_arrs) = map(_arrays, (wo, gu, dn))
+    (wo_kind, wo_arrs), (gu_kind, gu_arrs), (dn_kind, dn_arrs) = _fused_arrays(
+        "oproj_ffn", x, wo, gu, dn)
     x2d, a2d, nw = x2d.contiguous(), a2d.contiguous(), norm_w.contiguous()
     cps_o, splits_o = gemv_split(wo_kind, dim, K, R)
-    cps_d, splits_d = gemv_split(1, dim, Fd, R)
+    cps_d, splits_d = gemv_split(dn_kind, dim, Fd, R)
     dev = x.device
     x2 = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
     ws = torch.empty(max(splits_o, splits_d) * R * dim, dtype=torch.float32, device=dev)
     out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
-    lib = _build.load("oproj_ffn", "tkq_oproj_ffn", _ARGTYPES)
+    lib = _build.load("ffn", "tkq_oproj_ffn", _ARGTYPES)
     P = _build.ptr
     ptrs = lambda arrs: [None if a is None else P(a) for a in arrs]  # noqa: E731
     rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *ptrs(wo_arrs), gu_kind,

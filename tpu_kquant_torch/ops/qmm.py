@@ -1,11 +1,19 @@
-"""qmm: y = x @ dequant(W)^T over packed q4 / q6w weights, with bf16 scale
-pairs (q4-sm, q6w-sp: ``scale_dtype='bf16'``) or f32 scales (q4 ``scales`` +
-``mins``, q6w ``scales``: ``scale_dtype='f32'``).
+"""qmm: y = x @ dequant(W)^T over packed weights of every kind the loader
+makes: q4, q6w and q8, and the bit-plane kinds q5, q6 (unwidened), q3 and
+q2, each with bf16 scale pairs (``sm`` for the kinds with mins, ``sp`` for
+q6w and q8: ``scale_dtype='bf16'``) or f32 scales (``scales``, and ``mins``
+for the kinds with mins: ``scale_dtype='f32'``).
 
-Kernel: ``csrc/qmm.cu`` (replaces ``tpu_kquant/ops/pallas_qmm.py:qmm_pallas``).
-Rows <= 32 take its split-K GEMV (memory bound: every packed byte read
-once); more rows take its tiled bf16 WMMA kernel (compute bound at prefill).
-N must be a multiple of 4 (a MoE router has N = n_experts).
+Kernels: ``csrc/qmm.cuh``, built as ``csrc/qmm.cu`` (q4, q6w, q8),
+``csrc/qmm_q56.cu`` (q5, q6) and ``csrc/qmm_q23.cu`` (q3, q2) (replaces
+``tpu_kquant/ops/pallas_qmm.py:qmm_pallas``). Rows <= 32 take its split-K
+GEMV (memory bound: every packed byte read once); more rows take its tiled
+bf16 WMMA kernel (compute bound at prefill). N must be a multiple of 4 (a
+MoE router has N = n_experts). K
+must be a multiple of 256 for the bit-plane kinds (their high planes switch
+every K/8 or K/4 packed rows, and the reference's ``pallas_supported`` asks
+the same), of 64 for q4 and for q8 on bf16 pairs, of 32 for q6w and for q8
+on f32 scales; any other K raises on the card.
 
 ``qmm_plain`` is the same function in plain PyTorch: dequantize, then one
 matmul in f32. Its compute dtype follows the activations, like the
@@ -29,17 +37,30 @@ import torch
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
+from tpu_kquant_torch.quant.repack import GROUP_SIZE
 
 counter = _build.LaunchCounter("qmm")
 
-# (kind, the array that tells the layout) -> csrc/common.cuh's kind code
-KIND_CODE = {("q4", "sm"): 0, ("q6w", "sp"): 1, ("q4", "mins"): 2, ("q6w", "scales"): 3}
+# kind code -> (kind, side arrays): csrc/common.cuh's legend. "sm": bf16
+# (scale, min) pairs; "sp": bf16 scale pairs of adjacent groups; "f32": f32
+# scales (and mins for the kinds with mins).
+KINDS = (("q4", "sm"), ("q6w", "sp"), ("q4", "f32"), ("q6w", "f32"), ("q8", "sp"), ("q8", "f32"),
+         ("q5", "sm"), ("q5", "f32"), ("q6", "sm"), ("q6", "f32"), ("q3", "sm"), ("q3", "f32"),
+         ("q2", "sm"), ("q2", "f32"))
+KIND_CODE = {kl: code for code, kl in enumerate(KINDS)}
+# K segments of each kind (common.cuh:segments): a chunk of 32 packed rows
+# covers 32 elements of every segment
+SEGMENTS = {"q4": 2, "q6w": 1, "q8": 1, "q5": 8, "q6": 4, "q3": 8, "q2": 4}
+_MINS = ("q4", "q5", "q6", "q3", "q2")  # the kinds whose dequant subtracts a min
+# the bit-plane kinds and their libraries (the other kinds: csrc/qmm.cu)
+_PLANE_LIBRARY = {"q5": "qmm_q56", "q6": "qmm_q56", "q3": "qmm_q23", "q2": "qmm_q23"}
 GEMV_MAX_ROWS = 32
 _TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
 _SMEM_CAP = 200 * 1024
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+#           kind x  x_f32 qs  qh  scl mins out out_f32 ws R   N   K   cps splits stream
+_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
 
 
 def qmm_plain(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -52,12 +73,61 @@ def qmm_plain(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None
 
 def kernel_kind(qt: QTensor) -> int | None:
     """The kernel's kind code for ``qt``, or None if it reads another layout."""
-    if qt.layout != "kmajor" or qt.fold != 1 or len(qt.shape) != 2:
+    if qt.layout != "kmajor" or qt.fold != 1 or len(qt.shape) != 2 or qt.kind not in SEGMENTS:
         return None
-    for (kind, scl), code in KIND_CODE.items():
-        if qt.kind == kind and scl in qt.arrays:
-            return code
-    return None
+    a = qt.arrays
+    if "sm" in a and qt.kind in _MINS:
+        side = "sm"
+    elif "sp" in a and qt.kind in ("q6w", "q8"):
+        side = "sp"
+    elif "scales" in a and ("mins" in a) == (qt.kind in _MINS):
+        side = "f32"
+    else:
+        return None
+    return KIND_CODE[(qt.kind, side)]
+
+
+def k_ok(code: int, K: int) -> bool:
+    """Whether the kernels take depth K for kind ``code`` (module docstring)."""
+    kind, side = KINDS[code]
+    if kind in _PLANE_LIBRARY:
+        return K % 256 == 0
+    return K % (64 if kind == "q4" or (kind == "q8" and side == "sp") else 32) == 0
+
+
+def packed_arrays(qt: QTensor, what: str) -> tuple[int, list]:
+    """(kind code, [qs, qh, scales, mins]) of a kmajor weight the kernels
+    read (qh / mins None where the kind has none), after checking every
+    array's dtype, shape and contiguity; raises NotImplementedError for a
+    kind or layout the kernels do not read and ValueError for a K they do
+    not take."""
+    code = kernel_kind(qt)
+    if code is None:
+        raise NotImplementedError(
+            f"{what}: the kernels read kmajor {sorted(SEGMENTS)} weights (bf16 pairs or f32 "
+            f"scales), not {qt.kind} {qt.layout} with {sorted(qt.arrays)}")
+    kind, side = KINDS[code]
+    N, K = (int(d) for d in qt.shape)
+    req = _build.require
+    req(k_ok(code, K) and N % 4 == 0, f"{what}: shape (N={N}, K={K}) of kind {kind}-{side}")
+    a = qt.arrays
+    qs_rows = K if kind in ("q6w", "q8") else K // 2 if kind in ("q4", "q5", "q6") else K // 4
+    qh_rows = {"q5": K // 8, "q3": K // 8, "q6": K // 4}.get(kind)
+    groups = K // GROUP_SIZE[kind]
+    scl = a[{"sm": "sm", "sp": "sp", "f32": "scales"}[side]]
+    mins = a["mins"] if side == "f32" and kind in _MINS else None
+    qh = a["qh"] if qh_rows else None
+    req(a["qs"].dtype == (torch.int8 if kind in ("q6w", "q8") else torch.uint8)
+        and a["qs"].shape == (qs_rows, N), f"{what}: codes of {kind}")
+    req(qh is None or (qh.dtype == torch.uint8 and qh.shape == (qh_rows, N)),
+        f"{what}: high bit plane of {kind}")
+    side_rows = groups // 2 if side == "sp" else groups
+    req(all(t.dtype == torch.float32 and t.shape == (side_rows, N)
+            for t in (scl, mins) if t is not None), f"{what}: side arrays of {kind}-{side}")
+    arrs = [a["qs"], qh, scl, mins]
+    req(all(t.device == arrs[0].device and t.is_contiguous() for t in arrs if t is not None),
+        f"{what}: packed arrays must be contiguous on one device")
+    return code, arrs
 
 
 def pick_rt(rows: int) -> int:
@@ -70,15 +140,15 @@ def gemv_split(kind: int, N: int, K: int, rows: int,
     """(chunks per split, splits) of a GEMV's K range: enough blocks to cover
     the card, at least 8 chunks (one per warp) per split, and the block's
     shared memory (8 warps x 128 reduce floats, plus ``chunk_floats`` staged
-    per chunk and row: by default qmm's activations, 64 floats for q4 and
-    32 for q6w) within the cap."""
-    q4 = kind in (0, 2)
-    n_chunks = (K // 2 if q4 else K) // 32
+    per chunk and row: by default qmm's activations, 32 floats for each of
+    the kind's K segments) within the cap."""
+    seg = SEGMENTS[KINDS[kind][0]]
+    n_chunks = K // (32 * seg)
     rt = pick_rt(rows)
     blocks = -(-N // 128) * -(-rows // rt)
     splits = max(1, min(-(-_TARGET_BLOCKS // blocks), n_chunks // 8))
     cps = -(-n_chunks // splits)
-    span = chunk_floats or (2 if q4 else 1) * 32
+    span = chunk_floats or seg * 32
     while cps > 1 and 4 * rt * (cps * span + 8 * 128) > _SMEM_CAP:
         splits += 1
         cps = -(-n_chunks // splits)
@@ -91,43 +161,29 @@ def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> t
     if x.device.type == "cpu":
         counter.plain_calls += 1
         return qmm_plain(x, qt, out_dtype)
-    kind = kernel_kind(qt)
-    if kind is None:
-        raise NotImplementedError(
-            f"the qmm kernel reads kmajor q4 and q6w weights (bf16 pairs or f32 scales), not "
-            f"{qt.kind} {qt.layout} with {sorted(qt.arrays)}")
-    N, K = qt.shape
-    q4 = kind in (0, 2)
     req = _build.require
-    req(x.device.type == "cuda", f"qmm: unsupported device {x.device}")
+    if kernel_kind(qt) is not None:  # else packed_arrays names the kind it refuses
+        req(x.device.type == "cuda", f"qmm: unsupported device {x.device}")
+    code, (qs, qh, scl, mins) = packed_arrays(qt, "qmm")
+    N, K = qt.shape
     req(x.shape[-1] == K, f"qmm: x has {x.shape[-1]} features, W has K={K}")
     req(x.dtype in (torch.bfloat16, torch.float32), f"qmm: x dtype {x.dtype}")
     req(out_dtype in (torch.bfloat16, torch.float32), f"qmm: out dtype {out_dtype}")
-    req(K % (64 if q4 else 32) == 0 and N % 4 == 0, f"qmm: shape (N={N}, K={K})")
-    qs = qt.arrays["qs"]
-    scl = qt.arrays[("sm", "sp", "scales", "scales")[kind]]
-    side = [scl] + ([qt.arrays["mins"]] if kind == 2 else [])
-    req(qs.dtype == (torch.uint8 if q4 else torch.int8)
-        and all(a.dtype == torch.float32 for a in side), "qmm: packed array dtypes")
-    groups = K // 16 if kind == 3 else K // 32
-    req(qs.shape == ((K // 2 if q4 else K), N) and all(a.shape == (groups, N) for a in side),
-        "qmm: packed array shapes")
-    req(all(a.device == x.device and a.is_contiguous() for a in [qs] + side),
-        "qmm: packed arrays must be contiguous on x's device")
+    req(qs.device == x.device, "qmm: packed arrays must be on x's device")
     lead = x.shape[:-1]
     x2d = x.reshape(-1, K).contiguous()
     R = x2d.shape[0]
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     if R == 0:
         return out.reshape(*lead, N)
-    cps, splits = gemv_split(kind, N, K, R) if R <= GEMV_MAX_ROWS else (0, 1)
+    cps, splits = gemv_split(code, N, K, R) if R <= GEMV_MAX_ROWS else (0, 1)
     ws = torch.empty(splits * R * N if splits > 1 else 0, dtype=torch.float32, device=x.device)
-    lib = _build.load("qmm", "tkq_qmm", _ARGTYPES)
+    lib = _build.load(_PLANE_LIBRARY.get(KINDS[code][0], "qmm"), "tkq_qmm", _ARGTYPES)
     P = _build.ptr
-    mins = P(side[1]) if kind == 2 else None
-    rc = lib.tkq_qmm(kind, P(x2d), int(x2d.dtype == torch.float32), P(qs), P(scl), mins,
-                     P(out), int(out_dtype == torch.float32), P(ws), R, N, K, cps, splits,
-                     _build.stream_ptr(x.device))
+    opt = lambda t: None if t is None else P(t)  # noqa: E731
+    rc = lib.tkq_qmm(code, P(x2d), int(x2d.dtype == torch.float32), P(qs), opt(qh), P(scl),
+                     opt(mins), P(out), int(out_dtype == torch.float32), P(ws), R, N, K, cps,
+                     splits, _build.stream_ptr(x.device))
     _build.check(lib, rc, "qmm")
     counter.launches += 1
     return out.reshape(*lead, N)

@@ -1,17 +1,18 @@
-"""qmm_int8: y = x @ dequant(W)^T through Q8 activations, for a q4 weight
-with f32 scales and mins (``scale_dtype='f32'``).
+"""qmm_int8: y = x @ dequant(W)^T through Q8 activations, for a q4 weight or
+an unwidened q6 weight (``widen_q6=False``), each with f32 scales and mins
+(``scale_dtype='f32'``).
 
 Kernel: ``csrc/qmm_int8.cu`` (replaces ``tpu_kquant/ops/pallas_qmm_int8.py:
-qmm_int8``), decode rows only (R <= 32), kind q4. It quantizes the
-activations per 32-group (ops.act_quant), sums each group's products with
-the 4-bit codes as exact int32, rescales them by xs * s and subtracts the
-min term gsums @ mins in the same pass.
+qmm_int8``), decode rows only (R <= 32), kinds q4 and q6, as the
+reference's. It quantizes the activations per weight group (32 for q4, 16
+for q6; ops.act_quant), sums each group's products with the codes (4-bit,
+or 6-bit from ``qs`` + ``qh``, 0..63) as exact int32, rescales them by
+xs * s and subtracts the min term gsums @ mins in the same pass (q6's -32
+offset is in its mins).
 
 ``qmm_int8_plain`` is the same function in plain PyTorch: the group sums in
-f32 (exact: |z| <= 32 * 127 * 15 < 2^24), then the f32 rescale. The kmajor
-q6 layout (``qs`` + ``qh``) that the reference kernel also takes never
-reaches this port's int8 path (the loader widens Q6_K to q6w), so the
-plain version reads it and the kernel raises for it.
+f32 (exact: |z| <= 32 * 127 * 15 and 16 * 127 * 63 < 2^24), then the f32
+rescale.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.act_quant import quantize_activations
-from tpu_kquant_torch.ops.qmm import gemv_split
+from tpu_kquant_torch.ops.qmm import KIND_CODE, gemv_split, kernel_kind, packed_arrays
 from tpu_kquant_torch.quant.codecs import _unpack_codes_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 from tpu_kquant_torch.quant.repack import GROUP_SIZE
@@ -31,12 +32,14 @@ counter = _build.LaunchCounter("qmm_int8")
 
 MAX_ROWS = 32
 # shared-memory floats the kernel stages per chunk and row (csrc/qmm_int8.cu
-# int8_smem_floats): xs and gsums of both folds (4), and 2 x 32 xq bytes (16)
-CHUNK_FLOATS = 20
+# int8_smem_floats): xs and gsums of each segment's groups, and 32 xq bytes
+# per segment; q4: 2 segments of one 32-group, q6: 4 of two 16-groups
+CHUNK_FLOATS = {"q4": 2 * 2 * 1 + 2 * 8, "q6": 2 * 4 * 2 + 4 * 8}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_QUANT_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _P]
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+_QUANT_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _P]
+#           kind xq  xs  gsums qs qh  scl mins out out_f32 ws R   N   K   cps splits stream
+_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
 
 
 def qmm_int8_plain(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None
@@ -57,31 +60,25 @@ def qmm_int8_plain(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None =
 
 
 def qmm_int8(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """y[..., N] = x[..., K] @ W^T for a kmajor q4 weight W (N, K) with f32
-    scales and mins, x of at most 32 rows."""
+    """y[..., N] = x[..., K] @ W^T for a kmajor q4 or q6 weight W (N, K) with
+    f32 scales and mins, x of at most 32 rows."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         counter.plain_calls += 1
         return qmm_int8_plain(x, qt, out_dtype)
-    if qt.kind != "q4" or qt.layout != "kmajor" or "mins" not in qt.arrays:
+    code = kernel_kind(qt)
+    if code not in (KIND_CODE[("q4", "f32")], KIND_CODE[("q6", "f32")]):
         raise NotImplementedError(
-            f"the qmm_int8 kernel reads kmajor q4 weights with f32 scales and mins, not "
-            f"{qt.kind} {qt.layout} with {sorted(qt.arrays)} (the q6 qs + qh layout is not "
-            f"ported)")
-    N, K = (int(d) for d in qt.shape)
+            f"the qmm_int8 kernel reads kmajor q4 and q6 weights with f32 scales and mins, not "
+            f"{qt.kind} {qt.layout} with {sorted(qt.arrays)}")
     req = _build.require
     req(x.device.type == "cuda", f"qmm_int8: unsupported device {x.device}")
+    _, (qs, qh, sc, mn) = packed_arrays(qt, "qmm_int8")
+    N, K = (int(d) for d in qt.shape)
     req(x.shape[-1] == K, f"qmm_int8: x has {x.shape[-1]} features, W has K={K}")
     req(x.dtype in (torch.bfloat16, torch.float32), f"qmm_int8: x dtype {x.dtype}")
     req(out_dtype in (torch.bfloat16, torch.float32), f"qmm_int8: out dtype {out_dtype}")
-    req(K % 64 == 0 and N % 4 == 0, f"qmm_int8: shape (N={N}, K={K})")
-    qs, sc, mn = qt.arrays["qs"], qt.arrays["scales"], qt.arrays["mins"]
-    req(qs.dtype == torch.uint8 and sc.dtype == mn.dtype == torch.float32,
-        "qmm_int8: packed array dtypes")
-    req(qs.shape == (K // 2, N) and sc.shape == mn.shape == (K // 32, N),
-        "qmm_int8: packed array shapes")
-    req(all(a.device == x.device and a.is_contiguous() for a in (qs, sc, mn)),
-        "qmm_int8: weights must be contiguous on x's device")
+    req(qs.device == x.device, "qmm_int8: weights must be on x's device")
     lead = x.shape[:-1]
     x2d = x.reshape(-1, K).contiguous()
     R = x2d.shape[0]
@@ -89,33 +86,35 @@ def qmm_int8(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None)
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     if R == 0:
         return out.reshape(*lead, N)
-    xq, xs, gsums = quantize_q8(x2d)
-    cps, splits = gemv_split(0, N, K, R, CHUNK_FLOATS)
+    xq, xs, gsums = quantize_q8(x2d, GROUP_SIZE[qt.kind])
+    cps, splits = gemv_split(code, N, K, R, CHUNK_FLOATS[qt.kind])
     ws = torch.empty(splits * R * N if splits > 1 else 0, dtype=torch.float32, device=x.device)
     lib = _build.load("qmm_int8", "tkq_qmm_int8", _ARGTYPES)
     P = _build.ptr
-    rc = lib.tkq_qmm_int8(P(xq), P(xs), P(gsums), P(qs), P(sc), P(mn), P(out),
-                          int(out_dtype == torch.float32), P(ws), R, N, K, cps, splits,
-                          _build.stream_ptr(x.device))
+    rc = lib.tkq_qmm_int8(code, P(xq), P(xs), P(gsums), P(qs), None if qh is None else P(qh),
+                          P(sc), P(mn), P(out), int(out_dtype == torch.float32), P(ws), R, N, K,
+                          cps, splits, _build.stream_ptr(x.device))
     _build.check(lib, rc, "qmm_int8")
     counter.launches += 1
     return out.reshape(*lead, N)
 
 
-def quantize_q8(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def quantize_q8(x2d: torch.Tensor, group: int = 32
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's first launch on a contiguous CUDA x [R, K] (bf16 or f32):
-    (xq int8 [R, K], scales f32 [R, K/32], gsums f32 [R, K/32]), as
-    ``quantize_activations`` computes them."""
+    (xq int8 [R, K], scales f32 [R, K/group], gsums f32 [R, K/group]), as
+    ``quantize_activations(x2d, group)`` computes them (group 32 or 16)."""
     R, K = x2d.shape
     _build.require(x2d.device.type == "cuda" and x2d.is_contiguous() and K % 32 == 0
-                   and x2d.dtype in (torch.bfloat16, torch.float32),
-                   "quantize_q8: a contiguous bf16 or f32 CUDA tensor with K % 32 == 0")
+                   and x2d.dtype in (torch.bfloat16, torch.float32) and group in (16, 32),
+                   "quantize_q8: a contiguous bf16 or f32 CUDA tensor with K % 32 == 0, "
+                   "group 16 or 32")
     xq = torch.empty((R, K), dtype=torch.int8, device=x2d.device)
-    xs = torch.empty((R, K // 32), dtype=torch.float32, device=x2d.device)
+    xs = torch.empty((R, K // group), dtype=torch.float32, device=x2d.device)
     gsums = torch.empty_like(xs)
     lib = _build.load("qmm_int8", "tkq_quantize_q8", _QUANT_ARGTYPES)
     P = _build.ptr
     rc = lib.tkq_quantize_q8(P(x2d), int(x2d.dtype == torch.float32), P(xq), P(xs), P(gsums),
-                             R, K, _build.stream_ptr(x2d.device))
+                             R, K, group, _build.stream_ptr(x2d.device))
     _build.check(lib, rc, "qmm_int8 (quantize)")
     return xq, xs, gsums

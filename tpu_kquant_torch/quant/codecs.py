@@ -19,13 +19,19 @@ def _unpack_codes_kmajor(arrays: dict, kind: str) -> torch.Tensor:
     if kind in ("q6w", "q8"):
         return arrays["qs"]
     qs = arrays["qs"]
-    q = torch.cat([qs & 0xF, qs >> 4], dim=-2)
-    if kind == "q6":
-        qh = arrays["qh"]
-        h = torch.cat([(qh >> (2 * j)) & 3 for j in range(4)], dim=-2)
-        q = q | (h << 4)
-    elif kind != "q4":
+    if kind in ("q4", "q5", "q6"):
+        q = torch.cat([qs & 0xF, qs >> 4], dim=-2)
+    elif kind in ("q2", "q3"):
+        q = torch.cat([(qs >> (2 * j)) & 3 for j in range(4)], dim=-2)
+    else:
         raise NotImplementedError(f"kind {kind!r} is not supported by this port")
+    if kind in ("q5", "q3"):  # 1-bit high plane, 8-fold
+        qh = arrays["qh"]
+        h = torch.cat([(qh >> j) & 1 for j in range(8)], dim=-2)
+        q = q | (h << (4 if kind == "q5" else 2))
+    elif kind == "q6":  # 2-bit high plane, 4-fold
+        qh = arrays["qh"]
+        q = q | (torch.cat([(qh >> (2 * j)) & 3 for j in range(4)], dim=-2) << 4)
     return q
 
 

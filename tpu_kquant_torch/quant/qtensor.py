@@ -5,7 +5,8 @@ Same fields and layouts as ``tpu_kquant.quant.qtensor.QTensor``:
 - ``kmajor``  — matmul weights W of logical shape (N, K), stored K-major
   with N last (``qs`` u8[K/2, N] folded nibbles: byte (k, n) holds code k in
   the low nibble and code k + K/2 in the high nibble; ``sm``/``sp`` bf16
-  pairs in an f32 container [K/32, N]; q6w ``qs`` i8[K, N]).
+  pairs in an f32 container [K/32, N]; q6w and q8 ``qs`` i8[K, N]; the
+  other kinds as quant.repack's table).
 - ``rowmajor`` — embedding tables, rows intact ([N, K/2] folded per row).
 - ``dense``   — plain float ``w``.
 
@@ -23,7 +24,7 @@ import torch
 
 @dataclasses.dataclass
 class QTensor:
-    kind: str  # 'q4' | 'q6' | 'q6w' | 'dense' (see quant.repack)
+    kind: str  # 'q2' | 'q3' | 'q4' | 'q5' | 'q6' | 'q6w' | 'q8' | 'dense' (quant.repack)
     layout: str  # 'kmajor' | 'rowmajor' | 'dense'
     shape: tuple[int, ...]  # logical numpy shape, (N, K) for a weight
     arrays: dict[str, Any]  # packed fields: torch tensors or numpy arrays

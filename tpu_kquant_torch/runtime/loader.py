@@ -77,8 +77,9 @@ def fuse_kmajor(qts: list[QTensor]) -> QTensor | None:
     return QTensor(qts[0].kind, "kmajor", (n_total, qts[0].shape[-1]), arrays)
 
 
-def _pack(qt: QTensor, layout: str, pack_pairs: bool) -> QTensor:
-    qt = widen_q6(qt)
+def _pack(qt: QTensor, layout: str, pack_pairs: bool, widen: bool) -> QTensor:
+    if widen:
+        qt = widen_q6(qt)
     if pack_pairs:
         qt = pack_scale_pairs(qt)
         if layout == "kmajor":
@@ -86,13 +87,14 @@ def _pack(qt: QTensor, layout: str, pack_pairs: bool) -> QTensor:
     return qt
 
 
-def _repack_named(r: GGUFReader, name: str, layout: str, pack_pairs: bool) -> QTensor:
+def _repack_named(r: GGUFReader, name: str, layout: str, pack_pairs: bool,
+                  widen: bool) -> QTensor:
     ti = r.tensors[name]
     return _pack(repack(r.tensor_bytes(name), ti.ggml_type, ti.shape, layout=layout), layout,
-                 pack_pairs)
+                 pack_pairs, widen)
 
 
-def _expert_split(r: GGUFReader, name: str, pack_pairs: bool) -> list[QTensor]:
+def _expert_split(r: GGUFReader, name: str, pack_pairs: bool, widen: bool) -> list[QTensor]:
     """Split a stacked (E, N, K) expert tensor into per-expert kmajor
     QTensors (each expert's bytes are a contiguous slice of the tensor).
     The experts are repacked on parallel threads: NumPy's array operations
@@ -105,7 +107,7 @@ def _expert_split(r: GGUFReader, name: str, pack_pairs: bool) -> list[QTensor]:
 
     def one(e: int) -> QTensor:
         qt = repack(raw[e * per:(e + 1) * per], ti.ggml_type, (N, K), layout="kmajor")
-        return _pack(qt, "kmajor", pack_pairs)
+        return _pack(qt, "kmajor", pack_pairs, widen)
 
     with ThreadPoolExecutor(max_workers=min(E, os.cpu_count() or 1)) as pool:
         return list(pool.map(one, range(E)))
@@ -121,15 +123,22 @@ def load_model(
     path: str,
     scale_dtype: str = "bf16",
     device: str | torch.device = "cuda",
+    widen_q6: bool = True,
 ) -> tuple[ModelConfig, dict[str, Any], GGUFReader]:
-    """Load a llama-family GGUF model onto ``device``.
+    """Load a llama-family GGUF model onto ``device``. Every GGML type the
+    reference loads is repacked (quant.repack): Q2_K, Q3_K, Q4_K / Q4_0 /
+    Q4_1, Q5_K / Q5_0 / Q5_1, Q6_K and Q8_0 into the kinds q2 ... q8; float
+    and other types become dense.
 
     scale_dtype: 'bf16' packs the per-group scale/min side arrays into bf16
     pairs (``sm``/``sp``); 'f32' keeps f32 ``scales``/``mins`` (the
-    reference's default, and the layout its int8 path reads). The qmm,
-    attn_in and qmm_int8 kernels read both; oproj_ffn and ffn read the pairs
-    only and raise on the card for f32 scales. Q6_K matmul weights are stored
-    as int8 codes ('q6w', quant.repack.widen_q6).
+    reference's default, and the layout its int8 path reads). Every kernel
+    reads both.
+
+    widen_q6: store Q6_K matmul weights as int8 codes ('q6w',
+    quant.repack.widen_q6), as the reference's ``load_model`` does by
+    default; False keeps them 6-bit ('q6': ``qs`` + ``qh`` with scales and
+    mins), the layout the int8 path's q6 branch reads.
 
     Returns (cfg, params, reader); the reader holds the metadata."""
     dev = resolve_device(device)
@@ -153,7 +162,7 @@ def load_model(
         k_perm = _rope_neox_perm(cfg.n_kv_heads * cfg.head_dim, cfg.head_dim)
 
     def host(name: str, layout: str = "kmajor") -> QTensor:
-        return _repack_named(r, name, layout, pack_pairs)
+        return _repack_named(r, name, layout, pack_pairs, widen_q6)
 
     def rp(name: str, layout: str = "kmajor") -> QTensor:
         return host(name, layout).to(dev)
@@ -196,7 +205,7 @@ def load_model(
         if cfg.is_moe:
             layer["gate_inp"] = rp(p + "ffn_gate_inp.weight")
             layer["experts"] = {
-                wname: _stack_experts(_expert_split(r, p + tname, pack_pairs)).to(dev)
+                wname: _stack_experts(_expert_split(r, p + tname, pack_pairs, widen_q6)).to(dev)
                 for wname, tname in (("w_gate", "ffn_gate_exps.weight"),
                                      ("w_up", "ffn_up_exps.weight"),
                                      ("w_down", "ffn_down_exps.weight"))}
