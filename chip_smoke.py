@@ -102,6 +102,7 @@ Without a CUDA card it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -457,7 +458,14 @@ def check_kernels(dev) -> dict:
     out["prefill"] = check_prefill(dev)
     out["qmm_int8"] = check_qmm_int8(dev, rng)
     out["decode_attn"] = check_decode_attn(dev)
+    out.update(check_fused_decode(dev, rng))
+    report_cases(out)
+    return out
 
+
+def report_cases(out: dict) -> None:
+    """Log each phase 3 case and raise where a kernel disagrees with its
+    plain version beyond its tolerance."""
     for name, cases in out.items():
         for c in cases:
             lib = c["library_ms"] if c["library_ms"] is not None else c["matmul_ms"]
@@ -469,11 +477,13 @@ def check_kernels(dev) -> dict:
             if "global_rel_err" in c:
                 log(f"  {'':9s} rel err per row {c['rel_err']:.2e}, of the whole max|ref| "
                     f"{c['global_rel_err']:.2e}; SDPA per row {c['library_rel_err']:.2e}")
+            if "att_rel_err" in c:
+                log(f"  {'':9s} attention phase per head row {c['att_rel_err']:.2e} "
+                    f"({c['att_splits']})")
             tol = c.get("tol", TOL)
             if not math.isfinite(c["rel_err"]) or c["rel_err"] > tol:
                 raise SystemExit(f"FAIL: {name} {c['case']} disagrees with its plain "
                                  f"version: {c['rel_err']:.3e} > {tol}")
-    return out
 
 
 MX_DIM, MX_FFN, MX_VOCAB = 4096, 14336, 32000  # Mixtral-8x7B's dim, expert ffn, vocab
@@ -739,6 +749,233 @@ def check_decode_attn(dev) -> list:
     return cases
 
 
+# the reference's opt-in decode fusions at TinyLlama's shapes on a 704-slot
+# cache (phase 4's requests; phase 10's paths): attn_out (label, B,
+# position, int8 KV, wo kind), the first case the headline of the kernels'
+# line (path (c): bf16 KV, q6w-f32 wo)
+ATTN_OUT_CASES = (
+    ("B=1 pos 700 bf16 KV, wo q6w-f32", 1, 700, False, "q6wf"),
+    ("B=1 pos 40 bf16 KV, wo q6w-f32", 1, 40, False, "q6wf"),
+    ("B=16 pos 700 int8 KV, wo q6w-f32", 16, 700, True, "q6wf"),
+    ("B=16 pos 40 int8 KV, wo q6w-f32", 16, 40, True, "q6wf"),
+    ("B=1 pos 700 bf16 KV, wo q8-f32", 1, 700, False, "q8f"),
+    ("B=16 pos 40 int8 KV, wo q8-f32", 16, 40, True, "q8f"),
+    ("B=1 pos 40 int8 KV, wo q4-sm", 1, 40, True, "q4"),
+    ("B=16 pos 700 bf16 KV, wo q4-sm", 16, 700, False, "q4"),
+)
+FUSED_S = 704
+# layer (f32 scales, path (b)): the rows' positions and the cache's slots;
+# the last case splits the attention into 16 splits of 2 tiles
+LAYER_CASES = (((700,), FUSED_S), ((0,), FUSED_S), ((1,), FUSED_S), ((255,), FUSED_S),
+               ((256,), FUSED_S), ((0, 255, 256, 700), FUSED_S), ((1, 255, 256, 700), FUSED_S),
+               ((64, 1000, 1500, 2047), 2048))
+
+
+def _splits_note(B: int, Hkv: int, S: int) -> str:
+    """The attention phase's split over S at these shapes, for the log."""
+    from tpu_kquant_torch.ops.decode_attention import attn_splits
+
+    tps, n = attn_splits(B, Hkv, S)
+    return f"{n} split{'s' if n > 1 else ''} of {tps} tile{'s' if tps > 1 else ''}"
+
+
+def check_fused_decode(dev, rng) -> dict:
+    """kv_append, attn_out, layer and rot against their plain versions at
+    TinyLlama's shapes, with the timings of check_kernels: kv_append at B =
+    1 and 32 on 704 and 2048 slots (library_ms: the port's two index_put_
+    writes of the same rows); attn_out at ATTN_OUT_CASES, layer at
+    LAYER_CASES and rot at R = 1 and 8 on bf16 pairs and f32 scales
+    (library_ms null; matmul_ms the matmuls inside, on pre-dequantized bf16
+    weights). The outputs are held per output row (row_rel_err), layer's
+    k_new / v_new too, and so is the attention phase of attn_out and layer
+    on its own: its bf16 head outputs (the kernels' scratch, through the
+    wrappers' `att`) against the plain attention, per (row, head)."""
+    import torch
+
+    from tpu_kquant_torch.models.config import RopeParams
+    from tpu_kquant_torch.ops.attn_out import attn_out_plain, attn_out_supported, fused_attn_out
+    from tpu_kquant_torch.ops.kv_append import kv_append, kv_append_plain
+    from tpu_kquant_torch.ops.layer import fused_layer, layer_plain, layer_supported
+    from tpu_kquant_torch.ops.rope import rope_cos_sin
+    from tpu_kquant_torch.ops.rot import fused_oproj_ffn_attn_in, rot_plain, rot_supported
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    dim, (H, Hkv, hd), F = 2048, TINY_HEADS, 5632
+    n0, n1 = (H + Hkv) * hd, Hkv * hd
+    g = torch.Generator(device=dev).manual_seed(7)
+    out: dict = {"kv_append": [], "attn_out": [], "layer": [], "rot": []}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(torch.bfloat16)
+
+    def deq(ws):
+        return [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]
+
+    # kv_append: a decode step's rows into layer 2 of a 3-layer cache
+    for B, S in ((1, FUSED_S), (32, FUSED_S), (1, 2048), (32, 2048)):
+        kc, vc = (randn(3, B, Hkv, S, hd) for _ in range(2))
+        qk = randn(B, 1, n0)
+        kn, vn = qk[..., H * hd:].reshape(B, 1, Hkv, hd), randn(B, 1, Hkv, hd)
+        start = torch.randint(0, S, (B,), device=dev, generator=g)
+        k1, v1 = kc.clone(), vc.clone()
+        kv_append(k1, v1, kn, vn, 2, start)
+        torch.cuda.synchronize()
+        kv_append_plain(kc, vc, kn, vn, 2, start)
+        exact = torch.equal(k1, kc) and torch.equal(v1, vc)
+        bi = torch.arange(B, device=dev)[:, None]
+        hi = torch.arange(Hkv, device=dev)[None, :]
+        idx = (bi, hi, start[:, None])
+
+        def index_put(i):
+            kc[2].index_put_(idx, kn[:, 0])
+            vc[2].index_put_(idx, vn[:, 0])
+
+        b, by = bound_ms(2 * 2 * (2 * B * Hkv * hd) + 8 * B, 0)
+        run = lambda i: kv_append(kc, vc, kn, vn, 2, start)  # noqa: E731
+        out["kv_append"].append({
+            "case": f"B={B} S={S}", "max_abs_err": 0.0 if exact else math.inf,
+            "rel_err": 0.0 if exact else math.inf, "ms": graph_ms(run, 64),
+            "eager_ms": time_ms(run, 64),
+            "plain_ms": graph_ms(lambda i: kv_append_plain(kc, vc, kn, vn, 2, start), 16),
+            "library_ms": graph_ms(index_put, 16), "bound_ms": b, "bound_by": by})
+        del kc, vc, k1, v1
+
+    # attn_out: q as a slice of attn_in's qk row; the cache a layer view
+    for label, B, pos, int8, wk in ATTN_OUT_CASES:
+        mk = lambda: _rand_weights(rng, wk, dim, H * hd, dev)  # noqa: E731
+        w0 = mk()
+        ws = _rotation(w0, mk, w0.n_bytes)
+        x = randn(B, 1, dim)
+        q = randn(B, 1, n0)[..., : H * hd].reshape(B, 1, H, hd)
+        shape = (2, B, Hkv, FUSED_S, hd)
+        if int8:
+            kc, vc = (torch.randint(-127, 128, shape, device=dev, generator=g, dtype=torch.int8)
+                      for _ in range(2))
+            sc = tuple((torch.rand(shape[:-1], device=dev, generator=g) * 0.02 + 0.001)[1]
+                       for _ in range(2))
+        else:
+            kc, vc = (randn(*shape) for _ in range(2))
+            sc = None
+        k, v = kc[1], vc[1]
+        qp = torch.randint(max(0, pos - 15), pos + 1, (B, 1), device=dev, generator=g)
+        if not attn_out_supported(w0, H, Hkv, hd, B, FUSED_S):
+            raise SystemExit(f"FAIL: attn_out's gate refuses its phase 3 case {label}")
+        a_got, a_ref = (torch.empty(B, H * hd, dtype=torch.bfloat16, device=dev)
+                        for _ in range(2))
+        got = fused_attn_out(x, q, k, v, qp, sc, w0, att=a_got)
+        torch.cuda.synchronize()
+        ref = attn_out_plain(x, q, k, v, qp, sc, w0, att=a_ref)
+        ad, _ = _err(got, ref)
+        att_rel = row_rel_err(a_got.reshape(B, H, hd), a_ref.reshape(B, H, hd))
+        wd = deq(ws)
+        att = randn(B, H * hd)
+        nb, fl = decode_work(qp, H, Hkv, hd, 2 * (hd * k.element_size() + (4 if int8 else 0)))
+        b, by = bound_ms(nb + w0.n_bytes + 2 * 2 * B * dim, fl + 2.0 * B * H * hd * dim)
+        run = lambda i: fused_attn_out(x, q, k, v, qp, sc, ws[i % len(ws)])  # noqa: E731
+        out["attn_out"].append({
+            "case": label, "max_abs_err": ad,
+            "rel_err": max(row_rel_err(got[:, 0], ref[:, 0]), att_rel), "att_rel_err": att_rel,
+            "att_splits": _splits_note(B, Hkv, FUSED_S),
+            "ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
+            "plain_ms": graph_ms(lambda i: attn_out_plain(x, q, k, v, qp, sc, w0), 4, 3),
+            "library_ms": None,
+            "matmul_ms": graph_ms(lambda i: torch.matmul(att, wd[i % len(wd)]), 32),
+            "bound_ms": b, "bound_by": by})
+        del ws, wd, kc, vc
+
+    # layer: f32 scales (the load path (b) runs), wo q6w as the fixture's
+    kinds = (("q4f", n0, dim), ("q6wf", n1, dim), ("q6wf", dim, H * hd), ("q4f", 2 * F, dim),
+             ("q6wf", dim, F))
+    mk_l = lambda: [_rand_weights(rng, k_, N, K, dev) for k_, N, K in kinds]  # noqa: E731
+    w0 = mk_l()
+    nbw = sum(w.n_bytes for w in w0)
+    ws = _rotation(w0, mk_l, nbw)
+    wd = [deq(t) for t in ws]
+    anw, fnw = (torch.rand(dim, device=dev, generator=g) + 0.5 for _ in range(2))
+    for positions, S in LAYER_CASES:
+        B = len(positions)
+        pos = torch.tensor(positions, device=dev)[:, None]
+        cos, sin = rope_cos_sin(pos, RopeParams(head_dim=hd, n_rot=hd))
+        x = randn(B, 1, dim, scale=0.5)
+        kc, vc = (randn(2, B, Hkv, S, hd) for _ in range(2))
+        args = (cos, sin, kc[1], vc[1], H, Hkv)
+        if not layer_supported(*w0, B, dim, H, Hkv, hd):
+            raise SystemExit(f"FAIL: layer's gate refuses its phase 3 case {positions}")
+        a_got, a_ref = (torch.empty(B, H * hd, dtype=torch.bfloat16, device=dev)
+                        for _ in range(2))
+        got = fused_layer(x, pos, anw, fnw, 1e-5, *w0, *args, att=a_got)
+        torch.cuda.synchronize()
+        ref = layer_plain(x, pos, anw, fnw, 1e-5, *w0, *args, att=a_ref)
+        errs = [_err(a, r) for a, r in zip(got, ref)]
+        att_rel = row_rel_err(a_got.reshape(B, H, hd), a_ref.reshape(B, H, hd))
+        rel = max([row_rel_err(a.reshape(B, -1), r.reshape(B, -1)) for a, r in zip(got, ref)]
+                  + [att_rel])
+        xs = [randn(B, K) for _, _, K in kinds]
+        live = float(sum(positions))  # cache slots below each row's position
+        b, by = bound_ms(nbw + live * Hkv * 2 * hd * 2 + 2 * B * (2 * dim + 2 * n1) + B * 16,
+                         2.0 * B * (dim * (n0 + n1 + H * hd) + 3 * dim * F)
+                         + 4.0 * (live + B) * H * hd)
+        run = lambda i: fused_layer(x, pos, anw, fnw, 1e-5, *ws[i % len(ws)], *args)  # noqa: E731
+        out["layer"].append({
+            "case": f"B={B} positions {list(positions)}, S {S}, f32 scales",
+            "max_abs_err": max(e[0] for e in errs), "rel_err": rel, "att_rel_err": att_rel,
+            "att_splits": _splits_note(B, Hkv, S),
+            "ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
+            "plain_ms": graph_ms(lambda i: layer_plain(x, pos, anw, fnw, 1e-5, *w0, *args), 4, 3),
+            "library_ms": None,
+            "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in
+                                             zip(xs, wd[i % len(wd)])], 32),
+            "bound_ms": b, "bound_by": by})
+        del kc, vc
+    del ws, wd
+
+    # rot: oproj_ffn's weights as the fixture's (wo q6w), the next layer's
+    # wqk q4 and wv q6w, on bf16 pairs (path (a)) and f32 scales
+    for f32 in (False, True):
+        sfx = "f" if f32 else ""
+        kinds = (("q6w" + sfx, dim, H * hd), ("q4" + sfx, 2 * F, dim), ("q6w" + sfx, dim, F),
+                 ("q4" + sfx, n0, dim), ("q6w" + sfx, n1, dim))
+        mk_r = lambda: [_rand_weights(rng, k_, N, K, dev) for k_, N, K in kinds]  # noqa: E731
+        w0 = mk_r()
+        nbw = sum(w.n_bytes for w in w0)
+        ws = _rotation(w0, mk_r, nbw)
+        wd = [deq(t) for t in ws]
+        nw, nw2 = (torch.rand(dim, device=dev, generator=g) + 0.5 for _ in range(2))
+        for R in (1, 8):
+            x, at = randn(R, dim, scale=0.5), randn(R, H * hd, scale=0.5)
+            cos, sin = (torch.rand(R, hd // 2, device=dev, generator=g) for _ in range(2))
+            if not rot_supported(*w0[:3], w0[3:], R, dim, hd):
+                raise SystemExit("FAIL: rot's gate refuses its phase 3 case")
+            got = fused_oproj_ffn_attn_in(x, at, w0[0], nw, 1e-5, w0[1], w0[2], nw2, w0[3],
+                                          w0[4], cos, sin, hd)
+            torch.cuda.synchronize()
+            ref = rot_plain(x, at, w0[0], nw, 1e-5, w0[1], w0[2], nw2, w0[3], w0[4], cos, sin,
+                            hd)
+            errs = [_err(a, r) for a, r in zip(got, ref)]
+            xs = [at, x, randn(R, F), x, x]
+            b, by = bound_ms(nbw + 2 * R * (H * hd + 2 * dim + n0 + n1) + 8 * dim
+                             + 2 * R * hd * 4,
+                             2.0 * R * (dim * (H * hd + 3 * F) + dim * (n0 + n1)))
+
+            def run(i, plain=False):
+                w = w0 if plain else ws[i % len(ws)]
+                f = rot_plain if plain else fused_oproj_ffn_attn_in
+                return f(x, at, w[0], nw, 1e-5, w[1], w[2], nw2, w[3], w[4], cos, sin, hd)
+
+            out["rot"].append({
+                "case": f"R={R} {'f32 scales' if f32 else 'bf16 pairs'}",
+                "max_abs_err": max(e[0] for e in errs), "rel_err": max(e[1] for e in errs),
+                "ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
+                "plain_ms": graph_ms(lambda i: run(i, plain=True), 4, 3),
+                "library_ms": None,
+                "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in
+                                                 zip(xs, wd[i % len(wd)])], 32),
+                "bound_ms": b, "bound_by": by})
+        del ws, wd
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 4: end to end
 # ---------------------------------------------------------------------------
@@ -748,20 +985,32 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
                       seq: int | None = None, kv_int8: bool = False) -> dict:
     """Launches of one forward of `batch` rows of `rows` tokens, derived from
     the dispatch gates of models/llama.py for this model (every layer has
-    layer 0's shapes): attn_in, oproj_ffn or ffn where their gates pass at
+    layer 0's shapes) under the reference's switches as the environment
+    sets them now: attn_in, oproj_ffn or ffn where their gates pass at
     batch * rows rows, for every projection they leave (a MoE layer's router
     and its E experts' gate, up and down included) and the lm head a qmm, or
     a qmm_int8 where the int8 gate passes under `impl`; the flash prefill
     kernel in every layer where the plain attention's logits (prefill
     attends its first T = rows slots) would pass the budget; the flash
     decode kernel in every layer of a decode step (rows 1) whose logits over
-    `seq` cache slots would (`kv_int8`: the int8 gate's S % 256)."""
+    `seq` cache slots would (`kv_int8`: the int8 gate's S % 256). The
+    switches: TKQ_FUSE_LAYER (a decode step's layers in the layer kernel
+    where layer_enabled passes on a bf16 cache), TKQ_DEFER_APPEND and
+    TKQ_FUSE_ATTN_OUT (attn_out in place of the attention and o_proj where
+    the append is not deferred), TKQ_ROTATE_LAYER (rot for every layer but
+    the last, whose successor then skips attn_in) and TKQ_KV_APPEND_PALLAS
+    (kv_append for each layer's eager append of a decode step on a cache of
+    `seq` slots)."""
     from tpu_kquant_torch.models.moe import _expert_view
     from tpu_kquant_torch.ops import attention
     from tpu_kquant_torch.ops.attn_in import attn_in_supported
+    from tpu_kquant_torch.ops.attn_out import attn_out_enabled
     from tpu_kquant_torch.ops.ffn import ffn_supported, oproj_ffn_supported
+    from tpu_kquant_torch.ops.kv_append import kv_append_enabled
+    from tpu_kquant_torch.ops.layer import layer_enabled
     from tpu_kquant_torch.ops.prefill import prefill_supported
     from tpu_kquant_torch.ops.qmatmul import int8_eligible
+    from tpu_kquant_torch.ops.rot import rot_enabled
 
     L, lay, D, H = cfg.n_layers, params["layers"][0], cfg.head_dim, cfg.n_heads
     budget = attention.ATTN_PLAIN_MAX_MB
@@ -770,55 +1019,87 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     decode = rows == 1 and seq is not None and D % 64 == 0 and seq % 64 == 0 and \
         (not kv_int8 or seq % 256 == 0) and attention.logits_mb(batch, 1, H, seq) > budget
     n_rows = batch * rows
-    biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
-    a_in = cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in lay and \
-        attn_in_supported(lay["wqk"], lay["wv"], n_rows, cfg.dim, D, biases, impl)
-    gu = "w_gateup" in lay
-    o_ffn = gu and oproj_ffn_supported(lay["wo"], lay["w_gateup"], lay["w_down"], n_rows)
-    ffn = gu and not o_ffn and ffn_supported(lay["w_gateup"], lay["w_down"], n_rows)
-    n = {"prefill": L * flash, "decode_attn": L * decode, "attn_in": L * a_in,
-         "oproj_ffn": L * o_ffn, "ffn": L * ffn, "qmm": 0, "qmm_int8": 0}
+    n = {"prefill": L * flash, "decode_attn": 0, "attn_in": 0, "oproj_ffn": 0, "ffn": 0,
+         "qmm": 0, "qmm_int8": 0, "kv_append": 0, "attn_out": 0, "layer": 0, "rot": 0}
 
     def mm(qt, times: int, r: int = n_rows) -> None:
         n["qmm_int8" if impl == "int8" and int8_eligible(qt, r) else "qmm"] += times
 
+    neox = cfg.rope.mode == "neox" and cfg.rope.n_rot == D
+    gu = "w_gateup" in lay and not cfg.is_moe
+    if rows == 1 and neox and not cfg.attn_bias and not cfg.is_moe and not kv_int8 and \
+            "wqk" in lay and gu and layer_enabled(
+                impl, lay["wqk"], lay["wv"], lay["wo"], lay["w_gateup"], lay["w_down"], batch,
+                cfg.dim, H, cfg.n_kv_heads, D):
+        n["layer"] = L
+        n["kv_append"] = L * (seq is not None and kv_append_enabled(False, 1, batch, seq))
+        mm(params["output"], 1)
+        return n
+    deferred = rows == 1 and os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
+        os.environ.get("TKQ_FUSE_LAYER", "0") != "1" and \
+        (seq is None or attention.logits_mb(batch, 1, H, seq) <= budget)
+    eager = rows == 1 and not deferred
+    n["kv_append"] = L * (eager and seq is not None and kv_append_enabled(kv_int8, 1, batch, seq))
+    a_out = eager and seq is not None and attn_out_enabled(impl, lay["wo"], H, cfg.n_kv_heads,
+                                                           D, batch, seq)
+    biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
+    a_in = neox and "wqk" in lay and \
+        attn_in_supported(lay["wqk"], lay["wv"], n_rows, cfg.dim, D, biases, impl)
+    rot = not a_out and neox and not cfg.attn_bias and gu and L > 1 and "wqk" in lay and \
+        rot_enabled(impl, lay["wo"], lay["w_gateup"], lay["w_down"], [lay["wqk"], lay["wv"]],
+                    n_rows, cfg.dim, D)
+    o_ffn = not a_out and gu and oproj_ffn_supported(lay["wo"], lay["w_gateup"], lay["w_down"],
+                                                     n_rows)
+    ffn = gu and not o_ffn and ffn_supported(lay["w_gateup"], lay["w_down"], n_rows)
+    n["decode_attn"] = L * (decode and not a_out)
+    n["attn_out"] = L * a_out
+    n["rot"] = (L - 1) * rot
+    n["attn_in"] = (1 if rot else L) * a_in
+    n["oproj_ffn"] = (1 if rot else L) * o_ffn
+    n["ffn"] = L * ffn
     if not a_in:
         for w in ([lay["wqk"]] if "wqk" in lay else [lay["wq"], lay["wk"]]) + [lay["wv"]]:
             mm(w, L)
-    if not o_ffn:
+    if not (o_ffn or a_out):
         mm(lay["wo"], L)
     if cfg.is_moe:
         mm(lay["gate_inp"], L)
         for k in ("w_gate", "w_up", "w_down"):
             mm(_expert_view(lay["experts"][k], 0), L * cfg.n_experts)
     elif not (o_ffn or ffn):
-        for w in ([lay["w_gateup"]] if gu else [lay["w_gate"], lay["w_up"]]) + [lay["w_down"]]:
+        for w in ([lay["w_gateup"]] if "w_gateup" in lay else [lay["w_gate"], lay["w_up"]]) + \
+                [lay["w_down"]]:
             mm(w, L)
     mm(params["output"], 1)
     return n
 
 
 def pin_dispatch(cfg, params, what: str, decode: dict, long_rows: int, impl: str = "auto",
-                 prefill64: dict | None = None) -> None:
+                 prefill64: dict | None = None, seq: int | None = None,
+                 kv_int8: bool = False) -> None:
     """Hold the gates themselves to the dispatch this model is meant to run,
     stated from its config and not by the gates: `decode` is one decode
-    step's launches (under `impl`), `prefill64` (where given) a 64-row
-    prefill's, and a prefill of `long_rows` rows runs the flash prefill
-    kernel in every layer. Without this, a gate that began to refuse would
-    lower the expected counts with the launches, and the exact checks would
-    still pass."""
-    got = expected_launches(cfg, params, 1, impl)
+    step's launches (under `impl`, on a cache of `seq` slots, int8 where
+    `kv_int8`), `prefill64` (where given) a 64-row prefill's, and a prefill
+    of `long_rows` rows runs the flash prefill kernel in every layer.
+    Without this, a gate that began to refuse would lower the expected
+    counts with the launches, and the exact checks would still pass."""
+    got = expected_launches(cfg, params, 1, impl, seq=seq, kv_int8=kv_int8)
     got64 = expected_launches(cfg, params, 64, impl)
     n = expected_launches(cfg, params, long_rows, impl)["prefill"]
     decode = {k: decode.get(k, 0) for k in got}
     prefill64 = None if prefill64 is None else {k: prefill64.get(k, 0) for k in got64}
-    log(f"  dispatch of {what}: decode step {got}, 64-row prefill {got64}, prefill kernel in "
-        f"{n} layers at {long_rows} rows")
+    log(f"  dispatch of {what}: decode step {_nonzero(got)}, 64-row prefill {_nonzero(got64)}, "
+        f"prefill kernel in {n} layers at {long_rows} rows")
     if got != decode or n != cfg.n_layers or (prefill64 is not None and got64 != prefill64):
         raise SystemExit(f"FAIL: {what}: the gates dispatch a decode step as {got}, a 64-row "
                          f"prefill as {got64} and a {long_rows}-row prefill to the prefill "
                          f"kernel in {n} layers; expected {decode}, {prefill64} and "
                          f"{cfg.n_layers}")
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
 
 
 def _add(a: dict, b: dict, n: int = 1) -> dict:
@@ -1259,29 +1540,35 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
     return res
 
 
-def counted_requests(cfg, params, dev, impl: str, seed: int, what: str) -> dict:
-    """Three greedy requests (prompts of 5, 40 and 200 tokens, 16 new each) on
-    a 704-slot bf16 cache under `impl`, counted from 0 and checked against
-    the gates; returns the counts."""
+def counted_requests(cfg, params, dev, impl: str, seed: int, what: str,
+                     kv_quantized: bool = False, batch: int = 1) -> dict:
+    """Three greedy requests (prompts of 5, 40 and 200 tokens, 16 new each)
+    on a 704-slot cache (int8 where `kv_quantized`) under `impl`, counted
+    from 0 and checked against the gates; with `batch` 4, the three and a
+    fourth of 120 tokens as one batch of ragged rows. Returns the counts."""
     import numpy as np
     import torch
 
     from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
 
-    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl=impl)
+    eng = InferenceEngine(cfg, params, max_batch=batch, max_seq=704, device=dev, impl=impl,
+                          kv_quantized=kv_quantized)
     rng = np.random.default_rng(seed)
-    prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in (5, 40, 200)]
+    lengths = (5, 40, 200, 120)[:max(3, batch)]
+    prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in lengths]
+    groups = [prompts] if batch > 1 else [[pr] for pr in prompts]
     torch.cuda.synchronize()
     reset_counts()
     want: dict = {}
     answers = []
-    for pr in prompts:
-        answers.append(eng.generate([pr], max_new_tokens=16)[0])
-        want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)), eng.max_seq),
-                                            impl))
-        want = _add(want, expected_launches(cfg, params, 1, impl), 15)
+    for grp in groups:
+        answers += eng.generate(grp, max_new_tokens=16)
+        rows = min(_bucket(max(len(pr) for pr in grp)), eng.max_seq)
+        want = _add(want, expected_launches(cfg, params, rows, impl, batch=len(grp)))
+        want = _add(want, expected_launches(cfg, params, 1, impl, batch=len(grp),
+                                            seq=eng.max_seq, kv_int8=kv_quantized), 15)
     torch.cuda.synchronize()
-    got = check_counts(f"the three requests ({what})", want)
+    got = check_counts(f"the {len(prompts)} requests ({what})", want)
     for pr, ans in zip(prompts, answers):
         log(f"  {what}: request of {len(pr)} tokens -> {ans}")
         if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
@@ -1289,11 +1576,13 @@ def counted_requests(cfg, params, dev, impl: str, seed: int, what: str) -> dict:
     return got
 
 
-def dense_f32(dev) -> dict:
+def dense_f32(dev) -> tuple[dict, dict]:
     """Phase 4's TinyLlama fixture loaded with f32 scales under impl "int8":
     decode runs attn_in and oproj_ffn on f32 scales (the int8 gate takes q4
     weights past the fused kernels only, so qmm_int8 is not reached), three
-    greedy requests counted from 0 and checked against the gates."""
+    greedy requests counted from 0 and checked against the gates. Then, on
+    the same load, phase 10's paths (b) and (c). Returns the requests'
+    counts and phase 10's results."""
     import torch
 
     from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
@@ -1304,9 +1593,10 @@ def dense_f32(dev) -> dict:
     pin_dispatch(cfg, params, "TinyLlama-1.1B (f32 scales, impl int8)",
                  {"attn_in": L, "oproj_ffn": L, "qmm": 1}, 2048, "int8")
     got = counted_requests(cfg, params, dev, "int8", 6, "f32 scales, impl int8")
+    fused = fused_paths(dev, cfg, params, FUSED_PATHS[1:])
     del params
     torch.cuda.empty_cache()
-    return got
+    return got, fused
 
 
 # ---------------------------------------------------------------------------
@@ -1639,6 +1929,125 @@ def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the reference's opt-in decode fusions (TinyLlama-1.1B, full depth)
+# ---------------------------------------------------------------------------
+
+# (label, switches, impl, a decode step's launches as (per layer, fixed), int8
+# KV, batch, timed): (a) runs on phase 4's load (bf16 pairs), the others on
+# phase 6's f32-scale load, under impl "auto"
+FUSED_PATHS = (
+    ("(a) TKQ_ROTATE_LAYER=1, bf16 pairs", {"TKQ_ROTATE_LAYER": "1"}, "auto",
+     ({"rot": 1}, {"rot": -1, "attn_in": 1, "oproj_ffn": 1, "qmm": 1}), False, 1, True),
+    ("(b) TKQ_FUSE_LAYER=1 TKQ_KV_APPEND_PALLAS=1, f32 scales",
+     {"TKQ_FUSE_LAYER": "1", "TKQ_KV_APPEND_PALLAS": "1"}, "auto",
+     ({"layer": 1, "kv_append": 1}, {"qmm": 1}), False, 1, True),
+    ("(b) at batch 4", {"TKQ_FUSE_LAYER": "1", "TKQ_KV_APPEND_PALLAS": "1"}, "auto",
+     ({"layer": 1, "kv_append": 1}, {"qmm": 1}), False, 4, False),
+    ("(c) TKQ_FUSE_ATTN_OUT=1 TKQ_DEFER_APPEND=0 TKQ_KV_APPEND_PALLAS=1, f32 scales, bf16 KV",
+     {"TKQ_FUSE_ATTN_OUT": "1", "TKQ_DEFER_APPEND": "0", "TKQ_KV_APPEND_PALLAS": "1"}, "auto",
+     ({"attn_in": 1, "kv_append": 1, "attn_out": 1, "ffn": 1}, {"qmm": 1}), False, 1, True),
+    ("(c) on int8 KV",
+     {"TKQ_FUSE_ATTN_OUT": "1", "TKQ_DEFER_APPEND": "0", "TKQ_KV_APPEND_PALLAS": "1"}, "auto",
+     ({"attn_in": 1, "attn_out": 1, "ffn": 1}, {"qmm": 1}), True, 1, True),
+)
+SWITCHES = ("TKQ_KV_APPEND_PALLAS", "TKQ_FUSE_ATTN_OUT", "TKQ_DEFER_APPEND", "TKQ_FUSE_LAYER",
+            "TKQ_ROTATE_LAYER", "TKQ_FUSE_OPROJ")
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """The reference's switches set to `env` (every other one unset) for the
+    block, and restored after it, also when it raises."""
+    saved = {k: os.environ.get(k) for k in SWITCHES}
+    try:
+        for k in SWITCHES:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tg128_on_off(cfg, params, dev, env: dict, impl: str, kv_quantized: bool,
+                 reps: int = 2) -> dict:
+    """tg128 (128 greedy steps after a 512-token prefill on a 704-slot
+    cache) with the switches `env` on and off, in turns on, off, on, off
+    (after one warm run of each); the on-runs' launches checked against the
+    gates. Returns tok/s per run and the medians."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl=impl,
+                          kv_quantized=kv_quantized)
+    prompt = np.random.default_rng(3).integers(10, cfg.vocab_size, 512).tolist()
+
+    def run(on: bool, check: bool) -> float:
+        with switches(env if on else {}):
+            logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+            first = torch.argmax(logits, -1)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            if check:
+                step = expected_launches(cfg, params, 1, impl, seq=704, kv_int8=kv_quantized)
+                check_counts(f"tg128 with the switches {'on' if on else 'off'}",
+                             {k: 128 * v for k, v in step.items()})
+        return 128 / dt
+
+    run(True, False)
+    run(False, False)
+    res: dict = {"on": [], "off": []}
+    for _ in range(reps):
+        for on in (True, False):
+            res["on" if on else "off"].append(run(on, True))
+    for k in ("on", "off"):
+        res[f"{k}_median"] = float(np.median(res[k]))
+    return res
+
+
+def fused_paths(dev, cfg, params, paths) -> dict:
+    """Phase 10's `paths` (entries of FUSED_PATHS) on one loaded model;
+    returns {label: fused_path's result}."""
+    return {path[0]: fused_path(dev, cfg, params, *path) for path in paths}
+
+
+def fused_path(dev, cfg, params, label: str, env: dict, impl: str, decode: tuple,
+               kv_quantized: bool, batch: int, timed: bool) -> dict:
+    """Phase 10, one path: with `env` set (and restored after), the decode
+    dispatch pinned to `decode` ((per layer, fixed) launches), a 2-layer cut
+    on the card against the CPU, three greedy requests (at `batch` 4: four
+    as one batch) counted from 0; then, where `timed`, tg128 with the
+    switches on and off in turns."""
+    phase(f"phase 10: {label}")
+    L = cfg.n_layers
+    per_layer, fixed = decode
+    want = _add({k: L * v for k, v in per_layer.items()}, fixed)
+    with switches(env):
+        if batch == 1:
+            pin_dispatch(cfg, params, f"TinyLlama-1.1B, {label}", want, 2048, impl, seq=704,
+                         kv_int8=kv_quantized)
+            reference_check(cfg, params, dev, kv_quantized=kv_quantized, impl=impl)
+        got = counted_requests(cfg, params, dev, impl, 10 + batch, label, kv_quantized, batch)
+    res = {"launches": got}
+    if timed:
+        res["tg128"] = tg128_on_off(cfg, params, dev, env, impl, kv_quantized)
+        t = res["tg128"]
+        log(f"  [{gpu_line()}] {label}: tg128 switches on {t['on_median']:.1f} tok/s (runs "
+            f"{', '.join(f'{v:.1f}' for v in t['on'])}), off {t['off_median']:.1f} tok/s "
+            f"(runs {', '.join(f'{v:.1f}' for v in t['off'])}), in turns on, off, on, off")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 7: Qwen2.5-1.5B (biases, tied lm head, the ffn kernel)
 # ---------------------------------------------------------------------------
 
@@ -1801,6 +2210,10 @@ REPLACES = {
     "qmm_int8": ("tpu_kquant_torch/csrc/qmm_int8.cu", "tpu_kquant/ops/pallas_qmm_int8.py:139"),
     "decode_attn": ("tpu_kquant_torch/csrc/decode_attn.cu",
                     "tpu_kquant/ops/pallas_attention.py:144"),
+    "kv_append": ("tpu_kquant_torch/csrc/kv_append.cu", "tpu_kquant/ops/pallas_kv_append.py:97"),
+    "attn_out": ("tpu_kquant_torch/csrc/attn_out.cu", "tpu_kquant/ops/pallas_attn_out.py:314"),
+    "layer": ("tpu_kquant_torch/csrc/layer.cu", "tpu_kquant/ops/pallas_layer.py:611"),
+    "rot": ("tpu_kquant_torch/csrc/rot.cu", "tpu_kquant/ops/attic/pallas_rot.py:462"),
 }
 
 
@@ -1857,10 +2270,13 @@ def main() -> int:
 
     phase("phase 6: serving (continuous batching, sampler chain, flash decode)")
     serve = serving(cfg, params, dev, profile=args.profile)
+    # phase 10, path (a), on this load; (b) and (c) on phase 6's f32 load
+    fused = fused_paths(dev, cfg, params, FUSED_PATHS[:1])
     del cfg, params
     torch.cuda.empty_cache()
     phase("phase 6: TinyLlama-1.1B on f32 scales (impl int8)")
-    f32_counts = dense_f32(dev)
+    f32_counts, fused_bc = dense_f32(dev)
+    fused.update(fused_bc)
 
     phase("phase 7: Qwen2.5-1.5B (biases, tied lm head, ffn kernel)")
     qwen = qwen2(dev, args.profile)
@@ -1875,13 +2291,13 @@ def main() -> int:
 
     # launches: the sums over the request runs of phases 4, 5 (both KV
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
-    # (both configurations) and 9 (every recipe), each counted from 0 and
-    # checked exactly
+    # (both configurations), 9 (every recipe) and 10 (every path), each
+    # counted from 0 and checked exactly
     runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
             f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
-            *ggml["launches"].values()]
+            *ggml["launches"].values(), *(r["launches"] for r in fused.values())]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-9): {launches}")
+    log(f"  launches on the main path (phases 4-10): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

@@ -843,3 +843,169 @@ def test_recipe_engine_on_card_matches_cpu(card, tmp_path, case):
     want[head] = want.get(head, 0) + 4
     assert {k: used.get(k, 0) for k in ("attn_in", "oproj_ffn", "ffn", "qmm", "qmm_int8")} == \
         {k: want.get(k, 0) for k in ("attn_in", "oproj_ffn", "ffn", "qmm", "qmm_int8")}
+
+
+# ---------------------------------------------------------------------------
+# the reference's opt-in decode fusions: kv_append (#9), attn_out (#10),
+# layer (#11), rot (#12) at TinyLlama's shapes
+# ---------------------------------------------------------------------------
+
+TINY = dict(D=2048, H=32, Hkv=4, hd=64, F=5632)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(1, 704), (32, 2048)])
+def test_kv_append_kernel_matches_plain(card, B, S):
+    from tpu_kquant_torch.ops import kv_append as t_kv
+
+    g = torch.Generator(device=card).manual_seed(B)
+    shape = (3, B, TINY["Hkv"], S, TINY["hd"])
+    k0, v0 = (torch.randn(shape, device=card, generator=g).to(torch.bfloat16) for _ in range(2))
+    qk = torch.randn(B, 1, 36 * 64, device=card, generator=g).to(torch.bfloat16)
+    kn = qk[..., 32 * 64:].reshape(B, 1, 4, 64)  # a strided view, as the forward gives it
+    vn = torch.randn(B, 1, 4, 64, device=card, generator=g).to(torch.bfloat16)
+    start = torch.randint(0, S, (B,), device=card, generator=g)
+    k1, v1 = k0.clone(), v0.clone()
+    launches = t_kv.counter.launches
+    t_kv.kv_append(k1, v1, kn, vn, 2, start)
+    torch.cuda.synchronize()
+    assert t_kv.counter.launches == launches + 1
+    t_kv.kv_append_plain(k0, v0, kn, vn, 2, start)
+    assert torch.equal(k1, k0) and torch.equal(v1, v0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,pos,int8,wo_kind", [(1, 40, False, "q6wf"), (1, 700, True, "q4"),
+                                                (16, 700, False, "q8f"), (16, 40, True, "q6wf")])
+def test_attn_out_kernel_matches_plain(card, B, pos, int8, wo_kind):
+    from tpu_kquant_torch.models.fixtures import random_packed
+    from tpu_kquant_torch.ops import attn_out as t_ao
+
+    rng = np.random.default_rng(B + pos)
+    D, H, Hkv, hd, S = TINY["D"], TINY["H"], TINY["Hkv"], TINY["hd"], 704
+    kind, f32 = wo_kind.rstrip("f"), wo_kind.endswith("f")
+    wo = random_packed(rng, kind, D, H * hd, f32=f32).to(card)
+    g = torch.Generator(device=card).manual_seed(pos)
+    x = torch.randn(B, 1, D, device=card, generator=g).to(torch.bfloat16)
+    q = torch.randn(B, 1, H, hd, device=card, generator=g).to(torch.bfloat16)
+    if int8:
+        k, v = (torch.randint(-127, 128, (B, Hkv, S, hd), device=card, generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        scales = tuple(torch.rand(B, Hkv, S, device=card, generator=g) * 0.02 + 0.001
+                       for _ in range(2))
+    else:
+        k, v = (torch.randn(B, Hkv, S, hd, device=card, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        scales = None
+    qp = torch.randint(max(0, pos - 30), pos + 1, (B, 1), device=card, generator=g)
+    assert t_ao.attn_out_supported(wo, H, Hkv, hd, B, S)
+    att, att_ref = (torch.empty(B, H * hd, dtype=torch.bfloat16, device=card) for _ in range(2))
+    launches = t_ao.counter.launches
+    got = t_ao.fused_attn_out(x, q, k, v, qp, scales, wo, att=att)
+    torch.cuda.synchronize()
+    assert t_ao.counter.launches == launches + 1
+    ref = t_ao.attn_out_plain(x, q, k, v, qp, scales, wo, att=att_ref)
+    assert _row_rel(got.reshape(B, D), ref.reshape(B, D)) < TOL
+    # the attention phase alone (split over S: B = 1 in 11 splits of one
+    # tile, B = 16 in 4 splits of 3 tiles), per row and head
+    assert _row_rel(att.reshape(B, H, hd), att_ref.reshape(B, H, hd)) < TOL
+
+
+def _layer_weights(rng, card):
+    from tpu_kquant_torch.models.fixtures import random_packed
+
+    D, H, Hkv, hd, F = (TINY[k] for k in ("D", "H", "Hkv", "hd", "F"))
+    return [random_packed(rng, kind, N, K, f32=True).to(card) for kind, N, K in (
+        ("q4", (H + Hkv) * hd, D), ("q6w", Hkv * hd, D), ("q6w", D, H * hd), ("q4", 2 * F, D),
+        ("q6w", D, F))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("positions,S", [([0], 704), ([256], 704), ([0, 1, 255, 700], 704),
+                                         ([1, 255, 256, 700], 704),
+                                         ([64, 1000, 1500, 2047], 2048)])
+def test_layer_kernel_matches_plain(card, positions, S):
+    from tpu_kquant_torch.ops import layer as t_layer
+    from tpu_kquant_torch.ops.rope import rope_cos_sin
+    from tpu_kquant_torch.models.config import RopeParams
+
+    B = len(positions)
+    D, H, Hkv, hd = TINY["D"], TINY["H"], TINY["Hkv"], TINY["hd"]
+    rng = np.random.default_rng(B)
+    ws = _layer_weights(rng, card)
+    g = torch.Generator(device=card).manual_seed(B)
+    x = (torch.randn(B, 1, D, device=card, generator=g) * 0.5).to(torch.bfloat16)
+    anw, fnw = (torch.rand(D, device=card, generator=g) + 0.5 for _ in range(2))
+    kc, vc = (torch.randn(B, Hkv, S, hd, device=card, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    pos = torch.tensor(positions, device=card)[:, None]
+    cos, sin = rope_cos_sin(pos, RopeParams(head_dim=hd, n_rot=hd))
+    assert t_layer.layer_supported(*ws, B, D, H, Hkv, hd)
+    att, att_ref = (torch.empty(B, H * hd, dtype=torch.bfloat16, device=card) for _ in range(2))
+    launches = t_layer.counter.launches
+    got = t_layer.fused_layer(x, pos, anw, fnw, 1e-5, *ws, cos, sin, kc, vc, H, Hkv, att=att)
+    torch.cuda.synchronize()
+    assert t_layer.counter.launches == launches + 1
+    ref = t_layer.layer_plain(x, pos, anw, fnw, 1e-5, *ws, cos, sin, kc, vc, H, Hkv, att=att_ref)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and _row_rel(a.reshape(B, -1), b.reshape(B, -1)) < TOL
+    # the attention phase alone (S = 2048 at B = 4: 16 splits of 2 tiles),
+    # per row and head
+    assert _row_rel(att.reshape(B, H, hd), att_ref.reshape(B, H, hd)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,f32", [(1, False), (8, False), (1, True), (8, True)])
+def test_rot_kernel_matches_plain(card, R, f32):
+    from tpu_kquant_torch.models.fixtures import random_packed
+    from tpu_kquant_torch.ops import rot as t_rot
+
+    D, H, Hkv, hd, F = (TINY[k] for k in ("D", "H", "Hkv", "hd", "F"))
+    rng = np.random.default_rng(R + 10 * f32)
+    ws = [random_packed(rng, kind, N, K, f32=f32).to(card) for kind, N, K in (
+        ("q6w", D, H * hd), ("q4", 2 * F, D), ("q6w", D, F), ("q4", (H + Hkv) * hd, D),
+        ("q6w", Hkv * hd, D))]
+    g = torch.Generator(device=card).manual_seed(R)
+    x, attn = ((torch.randn(R, D, device=card, generator=g) * 0.5).to(torch.bfloat16)
+               for _ in range(2))
+    nw, nw2 = (torch.rand(D, device=card, generator=g) + 0.5 for _ in range(2))
+    cos, sin = (torch.rand(R, hd // 2, device=card, generator=g) for _ in range(2))
+    launches = t_rot.counter.launches
+    got = t_rot.fused_oproj_ffn_attn_in(x, attn, ws[0], nw, 1e-5, ws[1], ws[2], nw2, ws[3],
+                                        ws[4], cos, sin, hd)
+    torch.cuda.synchronize()
+    assert t_rot.counter.launches == launches + 1
+    ref = t_rot.rot_plain(x, attn, ws[0], nw, 1e-5, ws[1], ws[2], nw2, ws[3], ws[4], cos, sin,
+                          hd)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL
+
+
+# (switches, load options, int8 KV, a decode step's launches) at a 2-layer
+# fixture of dim 512 with 16 / 4 heads of 64 (every gate passes)
+FUSED_PATHS = {
+    "rotate": ({"TKQ_ROTATE_LAYER": "1"}, {}, False,
+               {"attn_in": 1, "rot": 1, "oproj_ffn": 1, "qmm": 1}),
+    "layer": ({"TKQ_FUSE_LAYER": "1", "TKQ_KV_APPEND_PALLAS": "1"}, {"scale_dtype": "f32"},
+              False, {"layer": 2, "kv_append": 2, "qmm": 1}),
+    "attn_out": ({"TKQ_FUSE_ATTN_OUT": "1", "TKQ_DEFER_APPEND": "0",
+                  "TKQ_KV_APPEND_PALLAS": "1"}, {"scale_dtype": "f32"}, False,
+                 {"attn_in": 2, "kv_append": 2, "attn_out": 2, "ffn": 2, "qmm": 1}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FUSED_PATHS))
+def test_fused_decode_paths_on_card_match_cpu(card, tmp_path, monkeypatch, name):
+    env, load_kw, kv8, step = FUSED_PATHS[name]
+    cfg = tiny_config(n_layers=2, dim=512, n_heads=16, n_kv_heads=4, ffn_dim=512,
+                      vocab_size=512)
+    cfg = dataclasses.replace(cfg, head_dim=64, rope=dataclasses.replace(cfg.rope, head_dim=64,
+                                                                         n_rot=64))
+    path = write_fixture_gguf(tmp_path / "f.gguf", cfg, seed=5)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    used = _card_against_cpu(card, path, load_kw, "auto", [list(range(3, 50))])
+    # the 64-row prefill runs qmm for every projection; then 3 decode steps
+    want = {k: 3 * v for k, v in step.items()}
+    want["qmm"] = want.get("qmm", 0) + 5 * 2 + 1
+    assert {k: used.get(k, 0) for k in want} == want

@@ -242,7 +242,7 @@ def test_int8_appends_match_jax_cache():
     view = tc.layer_view(2)
     assert view[2] is not None and view[2][0].shape == (B, Hkv, S)
     # the same bytes through from_numpy
-    tc2 = KVCache.from_numpy(*_jcache_np(jc))
+    tc2 = KVCache.from_numpy(*_jcache_np(jc), device="cpu")
     for a, b in zip((tc.k, tc.v, tc.k_scale, tc.v_scale), (tc2.k, tc2.v, tc2.k_scale, tc2.v_scale)):
         assert torch.equal(a, b)
 
@@ -256,7 +256,7 @@ def test_bf16_cache_from_numpy_matches_jax_appends():
         1, jnp.asarray(kn, jnp.bfloat16), jnp.asarray(vn, jnp.bfloat16), jnp.asarray(pos))
     tc = KVCache.create(L, B, S, Hkv, D, device="cpu").append(
         1, _t(kn).to(torch.bfloat16), _t(vn).to(torch.bfloat16), _t(pos).long())
-    got = KVCache.from_numpy(np.asarray(jc.k), np.asarray(jc.v))
+    got = KVCache.from_numpy(np.asarray(jc.k), np.asarray(jc.v), device="cpu")
     assert not got.quantized and got.k_scale is None and got.layer_view(0)[2] is None
     assert torch.equal(got.k, tc.k) and torch.equal(got.v, tc.v)
 

@@ -300,7 +300,7 @@ def test_batch_row_helpers_match_jax(quantized):
                 bf(r.standard_normal(shape).astype(np.float32)), None, None)
 
     base, row_src = arrays(), arrays()
-    tc = KVCache.from_numpy(*base)
+    tc = KVCache.from_numpy(*base, device="cpu")
     dt = jnp.int8 if quantized else jnp.bfloat16
     jc = JKV(*(jnp.asarray(a, dt) for a in base[:2]),
              *((jnp.asarray(a) for a in base[2:]) if quantized else (None, None)))
@@ -312,7 +312,8 @@ def test_batch_row_helpers_match_jax(quantized):
 
     trow, jrow = slice_batch_row(tc, 1), j_slice(jc, 1)
     assert same(trow, jrow) and trow.k.data_ptr() == tc.k[:, 1].data_ptr()
-    src = KVCache.from_numpy(*(None if a is None else a[:, :1] for a in row_src))
+    src = KVCache.from_numpy(*(None if a is None else a[:, :1] for a in row_src),
+                             device="cpu")
     jsrc = JKV(*(jnp.asarray(a[:, :1], dt) for a in row_src[:2]),
                *((jnp.asarray(a[:, :1]) for a in row_src[2:]) if quantized else (None, None)))
     tc = set_batch_row(tc, src, 2)

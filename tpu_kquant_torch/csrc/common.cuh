@@ -442,10 +442,12 @@ __device__ void block_reduce(float* red, const float (&acc)[RT][4]) {
 }
 
 // Output epilogue: y = acc (+ residual, then rounded to bf16), stored as
-// bf16 or f32.
+// bf16 or f32. round_first: acc is rounded to bf16 before the residual is
+// added (the o_proj epilogue of the reference's attn_out and layer kernels,
+// where the unfused path adds a bf16 qmatmul output).
 __device__ __forceinline__ void store_out(void* out, int out_f32, size_t i, float v,
-                                          const __nv_bfloat16* res) {
-  if (res != nullptr) v = round_bf16(__bfloat162float(res[i]) + v);
+                                          const __nv_bfloat16* res, int round_first) {
+  if (res != nullptr) v = round_bf16(__bfloat162float(res[i]) + (round_first ? round_bf16(v) : v));
   if (out_f32)
     static_cast<float*>(out)[i] = v;
   else
@@ -465,6 +467,7 @@ struct GemvArgs {
   const __nv_bfloat16* res;  // optional [R, N] residual (grid.y == 1)
   const uint32_t* mins;      // f32 mins [K/g, N] (KQ4F and the f32 bit-plane kinds)
   const uint8_t* qh = nullptr;  // high bit planes (q5, q6, q3)
+  int round_first = 0;          // store_out: round acc to bf16 before adding res
 };
 
 // grid (ceil(N / TN), splits, ceil(R / RT)); dynamic smem:
@@ -494,19 +497,20 @@ __global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
     if (gridDim.y > 1)
       a.ws[(size_t)blockIdx.y * a.R * a.N + o] = red[i];
     else
-      store_out(a.out, a.out_f32, o, red[i], a.res);
+      store_out(a.out, a.out_f32, o, red[i], a.res, a.round_first);
   }
 }
 
 // out[r, n] = sum over splits s of ws[s, r, n] (in order s = 0, 1, ...),
 // then the store_out epilogue.
 __global__ void __launch_bounds__(256) reduce_kernel(const float* ws, int S, int RN, void* out,
-                                                     int out_f32, const __nv_bfloat16* res) {
+                                                     int out_f32, const __nv_bfloat16* res,
+                                                     int round_first) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= RN) return;
   float v = 0.f;
   for (int s = 0; s < S; ++s) v += ws[(size_t)s * RN + i];
-  store_out(out, out_f32, i, v, res);
+  store_out(out, out_f32, i, v, res, round_first);
 }
 
 template <int KIND, int RT>
@@ -520,7 +524,8 @@ cudaError_t launch_gemv_rt(const GemvArgs& a, int splits, cudaStream_t stream) {
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int RN = a.R * a.N;
-  reduce_kernel<<<(RN + 255) / 256, 256, 0, stream>>>(a.ws, splits, RN, a.out, a.out_f32, a.res);
+  reduce_kernel<<<(RN + 255) / 256, 256, 0, stream>>>(a.ws, splits, RN, a.out, a.out_f32, a.res,
+                                                      a.round_first);
   return cudaGetLastError();
 }
 

@@ -30,7 +30,8 @@
 //       writes bf16(silu(gate) * up) -> act [R, F];
 //   (C) down: split-K GEMV over Wd on act; its reduce adds x2 -> y.
 // A and C are a GEMV launch plus a reduce launch each (five launches in
-// all); a persistent single launch with a grid barrier is later work.
+// all); a persistent single launch with a grid barrier is later work. The
+// sequence is gate_up.cuh:launch_oproj_ffn, shared with layer.cu and rot.cu.
 //
 // ffn: y = x + down(bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x))))) for
 // decode rows (R <= 32), n = rms_norm: the FFN block without o_proj, run
@@ -74,21 +75,10 @@ extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, f
                              const void* dn_qs, const void* dn_scl, void* x2, void* act, float* ws,
                              void* out, int R, int dim, int K, int F, int cps_o, int splits_o,
                              int cps_d, int splits_d, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_scl),
-              R, dim, K, cps_o, ws, x2, 0, xb, static_cast<const uint32_t*>(wo_mins)};
-  cudaError_t e = launch_gemv_kind(wo_kind, ao, splits_o, st);
-  if (e != cudaSuccess) return (int)e;
-  GateUpArgs ag{static_cast<const __nv_bfloat16*>(x2), nw, eps,
-                static_cast<const uint8_t*>(gu_qs), static_cast<const uint32_t*>(gu_scl),
-                static_cast<const uint32_t*>(gu_mins), static_cast<__nv_bfloat16*>(act), R, dim,
-                F};
-  e = launch_gate_up(gu_kind, ag, st);
-  if (e != cudaSuccess) return (int)e;
-  GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),
-              R, dim, F, cps_d, ws, out, 0, static_cast<const __nv_bfloat16*>(x2), nullptr};
-  return (int)launch_gemv_kind(dn_kind, ad, splits_d, st);
+  return (int)launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
+                               gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, out, R, dim,
+                               K, F, cps_o, splits_o, cps_d, splits_d, 0,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // x, act (scratch), out: bf16; ws: f32 scratch of splits_d * R * dim floats.

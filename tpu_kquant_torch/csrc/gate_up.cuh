@@ -95,4 +95,35 @@ inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, cudaStream_t st
   }
 }
 
+// oproj_ffn's three phases (ffn.cu), shared with layer.cu and rot.cu: (A)
+// the o_proj GEMV over wo on attn [R, K], whose epilogue adds the residual x
+// (rounding the o_proj sum to bf16 first where round_first, as the
+// reference's attn_out and layer kernels do) -> x2; (B) gate/up on x2 ->
+// act; (C) the down GEMV on act, whose epilogue adds x2 -> out [R, dim].
+// ws: f32 scratch of max(splits_o, splits_d) * R * dim floats.
+inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
+                                    int wo_kind, const void* wo_qs, const void* wo_scl,
+                                    const void* wo_mins, int gu_kind, const void* gu_qs,
+                                    const void* gu_scl, const void* gu_mins, int dn_kind,
+                                    const void* dn_qs, const void* dn_scl, void* x2, void* act,
+                                    float* ws, void* out, int R, int dim, int K, int F,
+                                    int cps_o, int splits_o, int cps_d, int splits_d,
+                                    int round_first, cudaStream_t st) {
+  GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_scl),
+              R, dim, K, cps_o, ws, x2, 0, static_cast<const __nv_bfloat16*>(x),
+              static_cast<const uint32_t*>(wo_mins)};
+  ao.round_first = round_first;
+  cudaError_t e = launch_gemv_kind(wo_kind, ao, splits_o, st);
+  if (e != cudaSuccess) return e;
+  const auto* x2b = static_cast<const __nv_bfloat16*>(x2);
+  GateUpArgs ag{x2b, nw, eps, static_cast<const uint8_t*>(gu_qs),
+                static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
+                static_cast<__nv_bfloat16*>(act), R, dim, F};
+  e = launch_gate_up(gu_kind, ag, st);
+  if (e != cudaSuccess) return e;
+  GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),
+              R, dim, F, cps_d, ws, out, 0, x2b, nullptr};
+  return launch_gemv_kind(dn_kind, ad, splits_d, st);
+}
+
 }  // namespace tkq

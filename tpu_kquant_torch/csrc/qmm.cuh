@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(THREADS) mma_kernel(const void* x, int x_f32, 
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int r = m0 + wm + i * 16 + e / 16, col = n0 + wn + j * 16 + e % 16;
-        if (r < R && col < N) store_out(out, out_f32, (size_t)r * N + col, ct[warp][e], nullptr);
+        if (r < R && col < N) store_out(out, out_f32, (size_t)r * N + col, ct[warp][e], nullptr, 0);
       }
       __syncwarp();
     }

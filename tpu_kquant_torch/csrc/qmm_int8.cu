@@ -246,7 +246,7 @@ __global__ void __launch_bounds__(THREADS) gemv_int8_kernel(Int8Args a) {
     if (gridDim.y > 1)
       a.ws[(size_t)blockIdx.y * a.R * a.N + o] = red[i];
     else
-      store_out(a.out, a.out_f32, o, red[i], nullptr);
+      store_out(a.out, a.out_f32, o, red[i], nullptr, 0);
   }
 }
 
@@ -261,7 +261,7 @@ cudaError_t launch_int8_rt(const Int8Args& a, int splits, cudaStream_t st) {
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int RN = a.R * a.N;
-  reduce_kernel<<<(RN + 255) / 256, 256, 0, st>>>(a.ws, splits, RN, a.out, a.out_f32, nullptr);
+  reduce_kernel<<<(RN + 255) / 256, 256, 0, st>>>(a.ws, splits, RN, a.out, a.out_f32, nullptr, 0);
   return cudaGetLastError();
 }
 

@@ -26,10 +26,29 @@ q6w or q8 for down; every other kind (q5, q3, q2, unwidened q6) goes to
 qmatmul. Attention
 (ops.attention) runs plain PyTorch, or the flash prefill kernel for long
 prompts; the KV cache is bf16 or int8.
+
+The reference's opt-in decode fusions are read from the environment at
+call time, under the reference's names and defaults, where the reference
+reads them (tpu_kquant/models/llama.py):
+- TKQ_DEFER_APPEND (default "1"): a decode step's K/V rows are written
+  after the layer loop in one append_all; "0" appends each layer's rows
+  before its attention (KVCache.append, which TKQ_KV_APPEND_PALLAS=1 sends
+  to the kv_append kernel).
+- TKQ_FUSE_ATTN_OUT=1 (only without the deferred append): attention, o_proj
+  and the residual in the attn_out kernel, then the ffn kernel.
+- TKQ_FUSE_LAYER=1 (turns the deferred append off): each decode layer in
+  the layer kernel over the pre-append bf16 cache, then KVCache.append of
+  its k_new / v_new.
+- TKQ_ROTATE_LAYER=1 with TKQ_FUSE_OPROJ (default "1"): layer i's oproj_ffn
+  and layer i + 1's attn_in in the rot kernel; layer i + 1 takes the qk / v
+  it returns.
+Each is off by default, as in the reference; the gates are in
+ops.{kv_append,attn_out,layer,rot}.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable
 
 import torch
@@ -39,15 +58,18 @@ from tpu_kquant_torch.models.moe import moe_ffn
 from tpu_kquant_torch.ops import attention
 from tpu_kquant_torch.ops.activations import swiglu
 from tpu_kquant_torch.ops.attn_in import attn_in_supported, fused_attn_in
+from tpu_kquant_torch.ops.attn_out import attn_out_enabled, fused_attn_out
 from tpu_kquant_torch.ops.ffn import (
     ffn_supported,
     fused_ffn,
     fused_oproj_ffn,
     oproj_ffn_supported,
 )
+from tpu_kquant_torch.ops.layer import fused_layer, layer_enabled
 from tpu_kquant_torch.ops.norms import rms_norm
 from tpu_kquant_torch.ops.qmatmul import IMPLS, qmatmul
 from tpu_kquant_torch.ops.rope import apply_rope, rope_cos_sin
+from tpu_kquant_torch.ops.rot import fused_oproj_ffn_attn_in, rot_enabled
 from tpu_kquant_torch.quant.codecs import dequant_rows
 from tpu_kquant_torch.runtime.kv_cache import KVCache
 
@@ -68,12 +90,22 @@ def llama_layer(
     #   [0, kv_attend_len): valid ONLY when every query position is below it
     #   (bucketed prefill, positions = arange(T))
     impl: str = "auto",
-) -> torch.Tensor:
-    """One transformer block; returns the new residual stream."""
+    qkv_in: tuple[torch.Tensor, torch.Tensor] | None = None,  # (roped qk, v) of
+    #   this layer from the previous layer's rot kernel
+    next_layer: dict[str, Any] | None = None,  # the next layer's weights, for
+    #   the rot kernel (rotated layer boundary)
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
+    """One transformer block. Returns (the new residual stream, the next
+    layer's (roped qk, v) where the rot kernel computed them, else None)."""
     B, T, dim = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     biases = (layer["bqk"], layer["bv"]) if cfg.attn_bias else None
-    if cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in layer and \
+    if qkv_in is not None:
+        qk, v = qkv_in
+        q = qk[..., : H * D].reshape(B, T, H, D)
+        k = qk[..., H * D:].reshape(B, T, Hkv, D)
+        v = v.reshape(B, T, Hkv, D)
+    elif cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in layer and \
             attn_in_supported(layer["wqk"], layer["wv"], B * T, dim, D, biases, impl):
         qk, v = fused_attn_in(x, _norm_w(layer["attn_norm"]), cfg.norm_eps, layer["wqk"],
                               layer["wv"], cos, sin, D, biases)
@@ -106,27 +138,39 @@ def llama_layer(
         v_all = v_all[:, :, :kv_attend_len]
         if kv_scales is not None:
             kv_scales = (kv_scales[0][..., :kv_attend_len], kv_scales[1][..., :kv_attend_len])
-    attn = attention.attention_decode(q, k_all, v_all, positions, kv_scales,
-                                      kv_cur=kv_cur).reshape(B, T, H * D)
-
-    if "w_gateup" in layer and oproj_ffn_supported(layer["wo"], layer["w_gateup"],
-                                                   layer["w_down"], B * T):
-        return fused_oproj_ffn(x, attn, layer["wo"], _norm_w(layer["ffn_norm"]),
-                               cfg.norm_eps, layer["w_gateup"], layer["w_down"])
-    x = x + qmatmul(attn, layer["wo"], impl)
-    if "w_gateup" in layer and ffn_supported(layer["w_gateup"], layer["w_down"], B * T):
+    gu = "w_gateup" in layer and not cfg.is_moe
+    if T == 1 and kv_cur is None and attn_out_enabled(impl, layer["wo"], H, Hkv, D, B,
+                                                      int(k_all.shape[2])):
+        # attention + o_proj + residual in one call; then the FFN below
+        x = fused_attn_out(x, q, k_all, v_all, positions, kv_scales, layer["wo"])
+    else:
+        attn = attention.attention_decode(q, k_all, v_all, positions, kv_scales,
+                                          kv_cur=kv_cur).reshape(B, T, H * D)
+        if gu and next_layer is not None and rot_enabled(
+                impl, layer["wo"], layer["w_gateup"], layer["w_down"],
+                [next_layer["wqk"], next_layer["wv"]], B * T, dim, D):
+            y, qk2, v2 = fused_oproj_ffn_attn_in(
+                x, attn, layer["wo"], _norm_w(layer["ffn_norm"]), cfg.norm_eps,
+                layer["w_gateup"], layer["w_down"], _norm_w(next_layer["attn_norm"]),
+                next_layer["wqk"], next_layer["wv"], cos, sin, D)
+            return y, (qk2, v2)
+        if gu and oproj_ffn_supported(layer["wo"], layer["w_gateup"], layer["w_down"], B * T):
+            return fused_oproj_ffn(x, attn, layer["wo"], _norm_w(layer["ffn_norm"]),
+                                   cfg.norm_eps, layer["w_gateup"], layer["w_down"]), None
+        x = x + qmatmul(attn, layer["wo"], impl)
+    if gu and ffn_supported(layer["w_gateup"], layer["w_down"], B * T):
         return fused_ffn(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps, layer["w_gateup"],
-                         layer["w_down"])
+                         layer["w_down"]), None
     h = rms_norm(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps)
     if cfg.is_moe:
-        return x + moe_ffn(layer, cfg, h, impl)
+        return x + moe_ffn(layer, cfg, h, impl), None
     if "w_gateup" in layer:
-        gu = qmatmul(h, layer["w_gateup"], impl)
-        F = gu.shape[-1] // 2
-        act = swiglu(gu[..., :F], gu[..., F:])
+        gu_out = qmatmul(h, layer["w_gateup"], impl)
+        F = gu_out.shape[-1] // 2
+        act = swiglu(gu_out[..., :F], gu_out[..., F:])
     else:
         act = swiglu(qmatmul(h, layer["w_gate"], impl), qmatmul(h, layer["w_up"], impl))
-    return x + qmatmul(act, layer["w_down"], impl)
+    return x + qmatmul(act, layer["w_down"], impl), None
 
 
 def llama_forward(
@@ -154,16 +198,43 @@ def llama_forward(
         x = x * torch.tensor(cfg.embed_scale, dtype=torch.bfloat16)
     cos, sin = rope_cos_sin(positions, cfg.rope)
 
-    # deferred batched KV append at decode: each layer's attention takes its
+    # deferred batched KV append at decode (TKQ_DEFER_APPEND, default on;
+    # TKQ_FUSE_LAYER=1 turns it off): each layer's attention takes its
     # current (k, v) as kv_cur and all layers' rows are written in one
     # append after the loop, instead of two writes per layer. kv_cur keeps
     # attention on the plain branch, so past the logits budget (large B * S)
     # the appends are eager and attention may leave it, as in the reference.
     B, T = tokens.shape
     defer = T == 1 and kv_valid is None and \
+        os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
+        os.environ.get("TKQ_FUSE_LAYER", "0") != "1" and \
         attention.logits_mb(B, 1, cfg.n_heads, cache.max_seq) <= attention.ATTN_PLAIN_MAX_MB
+    # the whole-layer kernel's architecture test (reference: wl_possible);
+    # layer_enabled decides per layer
+    neox = cfg.rope.mode == "neox" and cfg.rope.n_rot == cfg.head_dim
+    whole_layer = T == 1 and neox and not cfg.attn_bias and not cfg.is_moe and \
+        kv_valid is None and not cache.quantized
+    # rotated layer boundaries (reference: rot_arch_ok); rot_enabled decides
+    # per pair of layers
+    rotate = neox and not cfg.attn_bias and not cfg.is_moe
+    layers = params["layers"]
     pending: list | None = [] if defer else None
-    for i, layer in enumerate(params["layers"]):
+    pending_qkv = None
+    for i, layer in enumerate(layers):
+        if whole_layer and "wqk" in layer and "w_gateup" in layer and layer_enabled(
+                impl, layer["wqk"], layer["wv"], layer["wo"], layer["w_gateup"],
+                layer["w_down"], B, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim):
+            x, k_new, v_new = fused_layer(
+                x, positions, _norm_w(layer["attn_norm"]), _norm_w(layer["ffn_norm"]),
+                cfg.norm_eps, layer["wqk"], layer["wv"], layer["wo"], layer["w_gateup"],
+                layer["w_down"], cos, sin, cache.k[i], cache.v[i], cfg.n_heads,
+                cfg.n_kv_heads)
+            cache.append(i, k_new, v_new, positions)
+            # the layer kernel computes its own QKV: a rot kernel's output for
+            # this layer is stale and never reaches layer i + 1
+            pending_qkv = None
+            continue
+
         def kv_write(k_new, v_new, _i=i):
             if pending is not None:
                 pending.append((k_new, v_new))
@@ -171,8 +242,11 @@ def llama_forward(
             cache.append(_i, k_new, v_new, positions)
             return cache.layer_view(_i)
 
-        x = llama_layer(layer, cfg, x, positions, cos, sin, kv_write,
-                        kv_attend_len=kv_attend_len, impl=impl)
+        nxt = layers[i + 1] if rotate and i + 1 < len(layers) and "wqk" in layers[i + 1] \
+            else None
+        x, pending_qkv = llama_layer(layer, cfg, x, positions, cos, sin, kv_write,
+                                     kv_attend_len=kv_attend_len, impl=impl,
+                                     qkv_in=pending_qkv, next_layer=nxt)
     if pending:
         cache.append_all(torch.stack([kv[0] for kv in pending]),
                          torch.stack([kv[1] for kv in pending]), positions)

@@ -45,6 +45,18 @@ _ARGTYPES = [_I, _I, _P, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L,
              _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
 KERNEL_HEAD_DIMS = (64, 128)
 MAX_GROUP = 16  # query heads per KV head the kernel takes
+SPLIT_TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
+
+
+def attn_splits(B: int, Hkv: int, S: int) -> tuple[int, int]:
+    """(tiles per split, splits) of the attention phase of attn_out and
+    layer (csrc/decode_attn.cuh): enough splits of the S / 64 cache tiles
+    that the B * Hkv * splits blocks reach SPLIT_TARGET_BLOCKS, from the
+    shapes alone (the positions stay on the device)."""
+    n_tiles = -(-S // 64)
+    want = max(1, min(n_tiles, -(-SPLIT_TARGET_BLOCKS // (B * Hkv))))
+    tps = -(-n_tiles // want)
+    return tps, -(-n_tiles // tps)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

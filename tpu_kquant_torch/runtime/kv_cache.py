@@ -20,6 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpu_kquant_torch.ops.kv_append import kv_append, kv_append_enabled
+
 
 def _quant_i8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 KV quantization over the last axis: amax / 127 f32 scales (a
@@ -52,7 +54,7 @@ class KVCache:
     @staticmethod
     def from_numpy(k: np.ndarray, v: np.ndarray, k_scale: np.ndarray | None = None,
                    v_scale: np.ndarray | None = None,
-                   device: str | torch.device = "cpu") -> "KVCache":
+                   device: str | torch.device = "cuda") -> "KVCache":
         """A cache holding the same bytes as the given arrays (e.g. a JAX
         ``KVCache``'s fields): int8 codes with f32 scales, or bf16 rows
         (any float array is rounded to bf16)."""
@@ -75,8 +77,15 @@ class KVCache:
     def append(self, layer_idx: int, k_new: torch.Tensor, v_new: torch.Tensor,
                positions: torch.Tensor) -> "KVCache":
         """Write layer ``layer_idx``'s new rows: k_new/v_new [B, T, Hkv, D]
-        go to slots ``positions`` [B, T]. In place; returns self."""
-        b = torch.arange(k_new.shape[0], device=positions.device)[:, None]
+        go to slots ``positions`` [B, T]. In place; returns self. A decode
+        step's rows on a bf16 cache go through the kv_append kernel where its
+        gate passes (ops.kv_append: TKQ_KV_APPEND_PALLAS=1, T = 1, B <= 32,
+        S % 16), as the reference dispatches them."""
+        B, T = k_new.shape[0], k_new.shape[1]
+        if kv_append_enabled(self.quantized, T, B, self.max_seq):
+            kv_append(self.k, self.v, k_new, v_new, layer_idx, positions[:, 0])
+            return self
+        b = torch.arange(B, device=positions.device)[:, None]
         if self.quantized:
             kq, ks = _quant_i8(k_new)
             vq, vs = _quant_i8(v_new)
