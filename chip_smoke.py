@@ -90,9 +90,29 @@ Phases, each fatal on failure:
     cut is logged as `reduced`), each with the same cut and counted
     requests, untimed. Each recipe's decode dispatch is pinned from the
     recipe table (GGML_CONFIGS).
+11. the qmm kernel lab (utils/kernel_lab.py; kernels #14-#16 of
+    csrc/kernel_lab.cu) at R = 1 on TinyLlama's wqk [2304, 2048] and
+    gate/up [11264, 2048] q4-sm and down [2048, 5632] q6w-sp and Llama-3-8B's
+    gate/up [28672, 4096] q4-sm: every rung of the mutation ladder at the
+    CLI's default tiles of both geometries (k chunks 256, 512, 1024; n tiles
+    256, 512), and the manual ring kernel's dma and full on the q4 tensors;
+    then full alone on q6w-f32, q8-sp and q4-f32 at TinyLlama's gate/up.
+    Each case is held against its plain version (dma and extract equal, the
+    rest within LAB_TOL, f32 summation order) and against the one PyTorch
+    call that computes the same function (dma and the flat kinds' extract:
+    the signed byte sum, equal; convert, bf16c, full, gdot and manual full:
+    torch.matmul on the rung's bf16 weight, within TOL; q4's extract has
+    none) and timed (graph replay, eager, plain, library, bound, GB/s);
+    then run_ladder, the lab's entry point, over every tensor with the
+    counts set to 0 just before and read just after (time_chained's
+    marginal times, beside the graph times in the ladder's table); then tools/kernel_lab.py and
+    tools/kernel_bench.py once in-process (the latter's lm head beside phase
+    3's graph time for the same GEMV).
 Launch counts in the kernels' JSON line are the sums over the request runs
 of phases 4 to 9, each counted from 0 and checked against the dispatch
-gates exactly; the gates in turn are held to each model's decode and long
+gates exactly (the lab's three kernels: their wrapper calls in phase 11's
+run_ladder, CUDA-graph captures included, replays not); the gates in turn
+are held to each model's decode and long
 prefill dispatch (and Mixtral's and phase 9's 64-row prefill), stated from
 its config (pin_dispatch). The second-to-last line is the kernels' JSON; the last line
 is {"ok": true, "device": {...}}.
@@ -2201,6 +2221,224 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the qmm kernel lab (mutation ladder #14 / #15, manual ring #16)
+# ---------------------------------------------------------------------------
+
+# (label, kind, s_fmt, N, K, modes, k chunks, n tiles, manual): the ladder at
+# R = 1 on TinyLlama's wqk, gate/up and down and Llama-3-8B's gate/up at the
+# CLI's default tiles, then the f32-scale and q8 layouts at TinyLlama's
+# gate/up, full only
+LAB_TKS, LAB_TNS = (256, 512, 1024), (256, 512)
+LAB_CASES = (
+    ("tiny wqk", "q4", "sm", 2304, 2048, None, LAB_TKS, LAB_TNS, True),
+    ("tiny gu", "q4", "sm", 11264, 2048, None, LAB_TKS, LAB_TNS, True),
+    ("tiny dn", "q6w", "sp", 2048, 5632, None, LAB_TKS, LAB_TNS, False),
+    ("8b gu", "q4", "sm", 28672, 4096, None, LAB_TKS, LAB_TNS, True),
+    ("tiny gu q6w-f32", "q6w", "f32", 11264, 2048, ("full",), (256,), (256,), False),
+    ("tiny gu q8-sp", "q8", "sp", 11264, 2048, ("full",), (256,), (256,), False),
+    ("tiny gu q4-f32", "q4", "f32", 11264, 2048, ("full",), (256,), (256,), False),
+)
+LAB_TARGET_S = 0.0002  # time_chained's chain length (phase 11 stays under 90 s)
+# a rung against its plain version: f32 summation order only (adjacent rungs
+# differ by about 1e-3 of max|ref|, so TOL could not tell their chains apart)
+LAB_TOL = 1e-4
+
+
+def _lab_weight(rng, kind: str, s_fmt: str, N: int, K: int, dev):
+    from tpu_kquant_torch.models.fixtures import random_packed
+    from tpu_kquant_torch.tools.kernel_bench import mk_q4, mk_q6w
+
+    if kind == "q4":
+        return mk_q4(N, K, rng, sm=s_fmt == "sm", device=dev)
+    if kind == "q6w":
+        return mk_q6w(N, K, rng, sp=s_fmt == "sp", device=dev)
+    return random_packed(rng, kind, N, K, f32=s_fmt == "f32").to(dev)
+
+
+def _lab_library(libs: dict, qt, copies: list, x, s_fmt: str, mode: str):
+    """(what, graph ms, output) of the one PyTorch call that computes the
+    rung's function on this weight (memoized in ``libs``), or None for q4's
+    extract. dma (and the flat kinds' extract, whose codes are their bytes):
+    the signed byte sum per column; convert / bf16c: torch.matmul on the
+    rung's weight in bf16 (its values are bf16); full, gdot and the manual
+    kernel's full: torch.matmul on the dequantized bf16 weight. Timed over
+    the same rotation of copies as the kernels."""
+    import torch
+
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+    from tpu_kquant_torch.utils import kernel_lab as lab
+    from tpu_kquant_torch.utils.attribution import rotation
+
+    if mode == "dma" or (mode == "extract" and qt.kind != "q4"):
+        key = "sum"
+    elif mode in ("convert", "bf16c"):
+        key = mode
+    elif mode in ("full", "gdot"):
+        key = "full"
+    else:
+        return None
+    if key not in libs:
+        if key == "sum":
+            qs = [c.arrays["qs"].view(torch.int8) for c in copies]
+            libs[key] = ("torch.sum(qs.view(int8), 0, dtype=f32)",
+                         graph_ms(lambda i: torch.sum(qs[i % len(qs)], 0, dtype=torch.float32),
+                                  40),
+                         torch.sum(qs[0], 0, dtype=torch.float32))
+        else:
+            w0 = (dequant_kmajor(qt, torch.bfloat16) if key == "full" else
+                  lab.rung_weight(qt, key, s_fmt).to(torch.bfloat16)).contiguous()
+            ws = rotation(w0, w0.clone, w0.numel() * 2)
+            what = {"full": "W_bf16", "convert": "codes_bf16", "bf16c": "W_bf16c"}[key]
+            libs[key] = (f"torch.matmul(x, {what})",
+                         graph_ms(lambda i: torch.matmul(x, ws[i % len(ws)]), 40),
+                         torch.matmul(x, w0).float())
+    return libs[key]
+
+
+def kernel_lab(dev, qmm_cases: list) -> dict:
+    """Phase 11: the kernel lab. For each LAB_CASES tensor: every rung at
+    every tile of both geometries (and the manual kernel's dma and full on
+    q4) held against its plain version on the card (dma and extract equal,
+    the rest within LAB_TOL of max|ref|) and against the one PyTorch call
+    that computes the same function (``_lab_library``: dma and the flat
+    kinds' extract equal, the matmuls within TOL), timed by CUDA-graph replay
+    (`ms`) and eagerly, beside the plain version, the library call and the
+    bound; then, with the counts set to 0 just before and read just after,
+    run_ladder on every tensor (the lab's entry point: time_chained's
+    marginal times); then the two CLIs once in-process. Returns the
+    kernels' case lists and the ladder's launches."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.tools import kernel_bench, kernel_lab as lab_cli
+    from tpu_kquant_torch.utils import kernel_lab as lab
+    from tpu_kquant_torch.utils.attribution import rotation
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    torch.manual_seed(11)
+    out: dict = {"lab_qmm_n": [], "lab_qmm_k": [], "lab_qmm_manual": []}
+    weights = {}
+    for label, kind, s_fmt, N, K, modes, tks, tns, manual in LAB_CASES:
+        qt = _lab_weight(rng, kind, s_fmt, N, K, dev)
+        weights[label] = qt
+        copies = rotation(qt, qt.clone, qt.n_bytes)
+        R = 1
+        x = torch.randn(R, K, device=dev).to(torch.bfloat16)
+        xi8 = torch.ones(R, K, dtype=torch.int8, device=dev)
+        libs: dict = {}
+        modes = modes or lab.MODES
+        runs = [("k", t, m) for t in tks for m in modes] + [("n", t, m) for t in tns
+                                                               for m in modes]
+        if manual:
+            runs += [("manual", t, m) for t in tks for m in ("dma", "full")]
+        plains = {}
+        for geometry, tile, mode in runs:
+            if geometry == "manual":
+                def call(i, mode=mode, tile=tile):
+                    return lab.lab_qmm_manual(x, copies[i % len(copies)], mode, s_fmt, tile)
+
+                def plain(i, mode=mode):
+                    return lab.lab_qmm_manual_plain(x, qt, mode, s_fmt)
+            else:
+                def call(i, mode=mode, tile=tile, geometry=geometry):
+                    return lab.lab_qmm(x, xi8, copies[i % len(copies)], mode, s_fmt, tile,
+                                       geometry=geometry, tn=tile)
+
+                def plain(i, mode=mode):
+                    return lab.lab_qmm_plain(x, xi8, qt, mode, s_fmt)
+            got = call(0)
+            torch.cuda.synchronize()
+            key = (geometry == "manual", mode)
+            if key not in plains:
+                plains[key] = (plain(0), graph_ms(plain, 4, reps=3))
+            ref, plain_ms = plains[key]
+            ad, rel = _err(got, ref)
+            exact = mode in ("dma", "extract")
+            if (exact and not torch.equal(got, ref)) or not math.isfinite(rel) or rel > LAB_TOL:
+                raise SystemExit(f"FAIL: lab {label} {geometry} t={tile} {mode} disagrees with "
+                                 f"its plain version: max abs {ad:.3e}, rel {rel:.3e}")
+            lib = _lab_library(libs, qt, copies, x, s_fmt, mode)
+            lib_rel = None
+            if lib is not None:
+                lib_out = lib[2].expand_as(got)
+                lib_rel = _err(got, lib_out)[1]
+                if not (torch.equal(got, lib_out) if exact else lib_rel <= TOL):
+                    raise SystemExit(f"FAIL: lab {label} {geometry} t={tile} {mode} disagrees "
+                                     f"with {lib[0]}: {lib_rel:.3e}")
+            nb = lab.lab_bytes(qt, "dma" if mode == "dma" else
+                               "full" if geometry == "manual" else mode)
+            uses_x = mode not in ("dma", "extract")
+            n_bytes = nb + (x.numel() * 2 if uses_x else 0) + got.numel() * 4
+            b, by = (bound_ms(n_bytes, 2.0 * R * K * N) if uses_x
+                     else bound_ms(n_bytes, 2.0 * qt.arrays["qs"].numel(), INT8_OPS))
+            ms = graph_ms(call, 40)
+            name = {"k": "lab_qmm_k", "n": "lab_qmm_n", "manual": "lab_qmm_manual"}[geometry]
+            out[name].append({
+                "case": f"{label} {qt.kind}-{s_fmt} [{N},{K}] t={tile} {mode}",
+                "tensor": label, "tile": tile, "mode": mode,
+                "max_abs_err": ad, "rel_err": rel, "library_rel_err": lib_rel,
+                "ms": ms, "eager_ms": time_ms(call, 40), "plain_ms": plain_ms,
+                "library_ms": lib[1] if lib else None,
+                "library": lib[0] if lib else "none: no one call sums both nibbles of each byte",
+                "bytes": nb, "gbs": nb / (ms * 1e-3) / 1e9,
+                "bound_ms": b, "bound_by": by})
+        if "sum" in libs:
+            sum_ms = libs["sum"][1]
+            log(f"  {label}: {libs['sum'][0]} streams the codes at "
+                f"{lab.lab_bytes(qt, 'dma') / (sum_ms * 1e-3) / 1e9:.1f} GB/s "
+                f"({sum_ms * 1e3:.2f} us)")
+        del plains, copies, libs
+        torch.cuda.empty_cache()
+    log(f"  checks and graph times: {time.perf_counter() - t0:.1f} s")
+
+    # the lab's entry point, counted from 0: run_ladder over every tensor
+    reset_counts()
+    ladder = []
+    for label, kind, s_fmt, N, K, modes, tks, tns, manual in LAB_CASES:
+        rows = lab.run_ladder(weights[label], s_fmt, R=1, tks=tks, tns=tns,
+                              modes=modes or lab.MODES, log=lambda *a: None, reps=3,
+                              manual=manual, target_s=LAB_TARGET_S)
+        for r in rows:
+            r["tensor"] = label
+        ladder += rows
+    got = counts()
+    launches = {k: got.get(k, 0) for k in out}
+    log(f"  launches in run_ladder: {launches}")
+    marg = {(r["tensor"], r["geometry"], r["tile"], r["mode"]): r for r in ladder}
+    for name, cases in out.items():
+        geometry = {"lab_qmm_k": "k", "lab_qmm_n": "n", "lab_qmm_manual": "manual"}[name]
+        for c in cases:
+            r = marg[(c["tensor"], geometry, c["tile"], c["mode"])]
+            c["marginal_ms"] = r["us"] * 1e-3
+            c["marginal_gbs"] = r["gbs"]
+    # the ladder's table: rung ms (graph) and GB/s per tensor and geometry
+    for name, cases in out.items():
+        for c in cases:
+            lib_us = "-" if c["library_ms"] is None else f"{c['library_ms'] * 1e3:.2f}"
+            log(f"  {name:14s} {c['case']:52s} rel {c['rel_err']:.1e}  "
+                f"{c['ms'] * 1e3:8.2f} us (eager {c['eager_ms'] * 1e3:7.1f}, marginal "
+                f"{c['marginal_ms'] * 1e3:8.2f})  {c['gbs']:7.1f} GB/s  plain "
+                f"{c['plain_ms'] * 1e3:8.1f} us  library {lib_us} us  "
+                f"bound {c['bound_ms'] * 1e3:.2f} us ({c['bound_by']})")
+    del weights
+    torch.cuda.empty_cache()
+
+    # the CLIs, once in-process
+    rows = lab_cli.main(["--tensor", "wqk", "--modes", "dma,full", "--manual",
+                         "--target-s", str(LAB_TARGET_S)])
+    log(f"  tools/kernel_lab.py: {len(rows)} rows on {rows[0]['device']}")
+    bench = kernel_bench.main(["--model", "tiny", "--phase", "decode", "--only", "head"])
+    head_us = bench[0]["us"]
+    p3 = [c for c in qmm_cases if c["case"] == "lm head q6w-sp R=1"][0]
+    log(f"  tools/kernel_bench.py lm head qmm [32000, 2048] q6w-sp R=1: {head_us:.2f} us "
+        f"(marginal, chained); phase 3's graph time {p3['ms'] * 1e3:.2f} us, eager "
+        f"{p3['eager_ms'] * 1e3:.2f} us: ratio {head_us / (p3['ms'] * 1e3):.3f}")
+    log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    return {"cases": out, "launches": launches, "cli_head_us": head_us}
+
+
 REPLACES = {
     "qmm": ("tpu_kquant_torch/csrc/qmm.cuh", "tpu_kquant/ops/pallas_qmm.py:287"),
     "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
@@ -2214,6 +2452,10 @@ REPLACES = {
     "attn_out": ("tpu_kquant_torch/csrc/attn_out.cu", "tpu_kquant/ops/pallas_attn_out.py:314"),
     "layer": ("tpu_kquant_torch/csrc/layer.cu", "tpu_kquant/ops/pallas_layer.py:611"),
     "rot": ("tpu_kquant_torch/csrc/rot.cu", "tpu_kquant/ops/attic/pallas_rot.py:462"),
+    "lab_qmm_n": ("tpu_kquant_torch/csrc/kernel_lab.cu", "tpu_kquant/utils/kernel_lab.py:296"),
+    "lab_qmm_k": ("tpu_kquant_torch/csrc/kernel_lab.cu", "tpu_kquant/utils/kernel_lab.py:343"),
+    "lab_qmm_manual": ("tpu_kquant_torch/csrc/kernel_lab.cu",
+                       "tpu_kquant/utils/kernel_lab.py:516"),
 }
 
 
@@ -2250,6 +2492,8 @@ def main() -> int:
     phase("phase 2: build")
     log(f"  built {', '.join(_build.SOURCES)} in {_build.build_all():.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
+    log("  per library, wall s when reaped (in this order; all ran in parallel) / nvcc CPU s: "
+        + ", ".join(f"{k} {w:.1f} / {c:.1f}" for k, (w, c) in _build.BUILD_TIMES.items()))
 
     phase(f"phase 3: kernels vs plain versions on the card [{gpu_line()}]")
     cases = check_kernels(dev)
@@ -2288,6 +2532,10 @@ def main() -> int:
 
     phase("phase 9: GGML types (TinyLlama-1.1B under every recipe of the quantize tool)")
     ggml = ggml_types(dev, args.profile)
+    torch.cuda.empty_cache()
+
+    phase(f"phase 11: the qmm kernel lab (mutation ladder, manual ring) [{gpu_line()}]")
+    lab = kernel_lab(dev, cases["qmm"])
 
     # launches: the sums over the request runs of phases 4, 5 (both KV
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
@@ -2307,6 +2555,19 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "case": head["case"], "cases": cs})
+    # the lab's kernels: launches on phase 11's entry point (run_ladder);
+    # the headline case is TinyLlama's gate/up at the first tile, rung full
+    for name, cs in lab["cases"].items():
+        src, rep = REPLACES[name]
+        if lab["launches"][name] == 0:
+            raise SystemExit(f"FAIL: kernel {name} was never launched by run_ladder")
+        head = [c for c in cs if c["tensor"] == "tiny gu" and c["mode"] == "full"][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": lab["launches"][name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "case": head["case"], "cases": cs})

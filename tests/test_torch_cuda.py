@@ -40,6 +40,10 @@ from tpu_kquant_torch.runtime.loader import load_model
 from tpu_kquant_torch.serving import ContinuousBatcher, Request
 
 TOL = 2e-2
+# the kernel lab's rungs against their plain versions: f32 summation order
+# only (adjacent rungs differ by about 1e-3 of max|ref|, so TOL could not
+# tell one rung's chain from another's)
+LAB_TOL = 1e-4
 
 
 @pytest.fixture
@@ -1009,3 +1013,61 @@ def test_fused_decode_paths_on_card_match_cpu(card, tmp_path, monkeypatch, name)
     want = {k: 3 * v for k, v in step.items()}
     want["qmm"] = want.get("qmm", 0) + 5 * 2 + 1
     assert {k: used.get(k, 0) for k in want} == want
+
+
+# the qmm kernel lab (#14 n geometry, #15 k geometry, #16 manual): one
+# TinyLlama shape per kind and scale layout: (label, kind, s_fmt, N, K, R, tk)
+LAB_CASES = (
+    ("gate/up q4-sm", "q4", "sm", 11264, 2048, 1, 256),
+    ("gate/up q4-f32", "q4", "f32", 11264, 2048, 1, 512),
+    ("down q6w-sp", "q6w", "sp", 2048, 5632, 1, 256),
+    ("down q6w-f32", "q6w", "f32", 2048, 5632, 1, 512),
+    ("gate/up q8-sp", "q8", "sp", 11264, 2048, 1, 256),
+    ("gate/up q8-f32", "q8", "f32", 11264, 2048, 1, 256),
+    ("wqk q4-sm R=3", "q4", "sm", 2304, 2048, 3, 256),
+    ("wqk q4-sm nk=1", "q4", "sm", 2304, 2048, 1, 1024),
+)
+
+
+def _lab_weight(kind, s_fmt, N, K, dev):
+    from tpu_kquant_torch.models.fixtures import random_packed
+
+    return random_packed(np.random.default_rng(N + K), kind, N, K, f32=s_fmt == "f32").to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", ["k", "n"])
+@pytest.mark.parametrize("label,kind,s_fmt,N,K,R,tk", LAB_CASES)
+def test_lab_qmm_kernels_match_plain(card, label, kind, s_fmt, N, K, R, tk, geometry):
+    from tpu_kquant_torch.utils import kernel_lab as lab
+
+    qt = _lab_weight(kind, s_fmt, N, K, card)
+    x = torch.randn(R, K, device=card).to(torch.bfloat16)
+    xi8 = torch.ones(R, K, dtype=torch.int8, device=card)
+    for mode in lab.MODES:
+        got = lab.lab_qmm(x, xi8, qt, mode, s_fmt, tk, geometry=geometry, tn=256 if R == 1 else 512)
+        torch.cuda.synchronize()
+        ref = lab.lab_qmm_plain(x, xi8, qt, mode, s_fmt)
+        if mode in ("dma", "extract"):
+            assert torch.equal(got, ref), (label, mode)
+        else:
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            assert rel <= LAB_TOL, (label, mode, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s_fmt,R,tk", [("sm", 1, 256), ("sm", 3, 1024), ("f32", 1, 512),
+                                        ("sm", 1, 128)])
+def test_lab_qmm_manual_kernel_matches_plain(card, s_fmt, R, tk):
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+    from tpu_kquant_torch.utils import kernel_lab as lab
+
+    qt = _lab_weight("q4", s_fmt, 11264, 2048, card)
+    x = torch.randn(R, 2048, device=card).to(torch.bfloat16)
+    dma = lab.lab_qmm_manual(x, qt, "dma", s_fmt, tk)
+    full = lab.lab_qmm_manual(x, qt, "full", s_fmt, tk)
+    torch.cuda.synchronize()
+    assert torch.equal(dma, lab.lab_qmm_manual_plain(x, qt, "dma", s_fmt))
+    for ref, tol in ((lab.lab_qmm_manual_plain(x, qt, "full", s_fmt), LAB_TOL),
+                     (x.float() @ dequant_kmajor(qt).float(), TOL)):
+        assert ((full - ref).abs().max() / ref.abs().max()).item() <= tol

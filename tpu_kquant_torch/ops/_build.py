@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import resource
 import shutil
 import subprocess
 import threading
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "tkq_torch_build"
 SOURCES = ("qmm", "qmm_q56", "qmm_q23", "attn_in", "ffn", "prefill", "qmm_int8", "decode_attn",
-           "kv_append", "attn_out", "layer", "rot")
+           "kv_append", "attn_out", "layer", "rot", "kernel_lab")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
@@ -77,7 +78,10 @@ def _lib_path(name: str) -> Path:
 
 def build_all() -> float:
     """Compile every missing library, one nvcc per source, all in parallel.
-    Returns the wall seconds spent (0 when everything was built already)."""
+    Returns the wall seconds spent (0 when everything was built already);
+    ``BUILD_TIMES[name]`` holds each library's (wall s when its nvcc was
+    reaped, in SOURCES order; CPU s of that nvcc and the compilers it ran)
+    of the last build."""
     todo = [(n, _lib_path(n)) for n in SOURCES if not _lib_path(n).exists()]
     if not todo:
         return 0.0
@@ -92,7 +96,10 @@ def build_all() -> float:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
     for name, out, tmp, proc in procs:
+        before = _children_cpu()
         log, _ = proc.communicate()
+        # the reaped nvcc's CPU time, with that of the cicc / ptxas it waited for
+        BUILD_TIMES[name] = (time.perf_counter() - t0, _children_cpu() - before)
         if proc.returncode != 0:
             errors.append(f"--- nvcc {name}.cu failed ({proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
@@ -101,6 +108,14 @@ def build_all() -> float:
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
+
+
+BUILD_TIMES: dict[str, tuple[float, float]] = {}
+
+
+def _children_cpu() -> float:
+    u = resource.getrusage(resource.RUSAGE_CHILDREN)
+    return u.ru_utime + u.ru_stime
 
 
 def load(name: str, fn: str, argtypes: list) -> ctypes.CDLL:

@@ -42,6 +42,11 @@ class QTensor:
         return QTensor(self.kind, self.layout, tuple(self.shape), arrays,
                        self.tp, self.fold)
 
+    def clone(self) -> "QTensor":
+        """A copy with every torch array cloned (on its device)."""
+        return QTensor(self.kind, self.layout, tuple(self.shape),
+                       {k: v.clone() for k, v in self.arrays.items()}, self.tp, self.fold)
+
     @property
     def n_bytes(self) -> int:
         return sum(int(np.prod(v.shape)) * (v.element_size() if isinstance(v, torch.Tensor)
