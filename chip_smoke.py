@@ -90,6 +90,15 @@ Phases, each fatal on failure:
     cut is logged as `reduced`), each with the same cut and counted
     requests, untimed. Each recipe's decode dispatch is pinned from the
     recipe table (GGML_CONFIGS).
+10. the reference's opt-in decode fusions (FUSED_PATHS; its switches, read
+    at call time by models/llama.py) at TinyLlama-1.1B's full width and
+    depth: (a) TKQ_ROTATE_LAYER=1 on phase 4's bf16 load right after phase
+    6's serving; (b) TKQ_FUSE_LAYER=1 TKQ_KV_APPEND_PALLAS=1 (also at batch
+    4) and (c) TKQ_FUSE_ATTN_OUT=1 TKQ_DEFER_APPEND=0 TKQ_KV_APPEND_PALLAS=1
+    (bf16, then int8 KV) on phase 6's f32-scale load. Each path's decode
+    dispatch pinned, a 2-layer cut against the CPU, three greedy requests
+    counted from 0, and (but (b) at batch 4) tg128 with the switches on and
+    off in turns;
 11. the qmm kernel lab (utils/kernel_lab.py; kernels #14-#16 of
     csrc/kernel_lab.cu) at R = 1 on TinyLlama's wqk [2304, 2048] and
     gate/up [11264, 2048] q4-sm and down [2048, 5632] q6w-sp and Llama-3-8B's
@@ -108,10 +117,25 @@ Phases, each fatal on failure:
     marginal times, beside the graph times in the ladder's table); then tools/kernel_lab.py and
     tools/kernel_bench.py once in-process (the latter's lm head beside phase
     3's graph time for the same GEMV).
+12. the prefill-attention lab (utils/prefill_lab.py; kernels #17-#19 of
+    csrc/prefill_lab.cu, variants A, B and G of the reference's lab
+    scripts) at TinyLlama-1.1B's pp512 layer (T 512 after a 704-slot cache,
+    32 / 4 heads of 64: the reference lab's own shape), its pp2048 layer (T
+    = S = 2048) and Qwen2.5-1.5B's heads at pp512 (12 / 2 of 128): every
+    sweep point (A at tq 128, 256, 512; B at tq 128, 256 x ts 128, 256, 384;
+    G at tq 128, 256 x ts 128, 256) held to its plain version (2e-2 of each
+    output row's max|ref|) and timed (graph replay, eager; plain, SDPA with
+    GQA on the same bf16 inputs, the bound of the causal pairs), beside the
+    flash prefill kernel #8 on the same inputs; SDPA held to variant A, and
+    once its top-left causal mask to the explicit one; then run_sweep, the
+    lab's entry point, at every shape with the counts set to 0 just before
+    and read just after (time_chained's marginal times), and
+    tools/prefill_lab.py once in-process.
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4 to 9, each counted from 0 and checked against the dispatch
-gates exactly (the lab's three kernels: their wrapper calls in phase 11's
-run_ladder, CUDA-graph captures included, replays not); the gates in turn
+of phases 4 to 10, each counted from 0 and checked against the dispatch
+gates exactly (the labs' kernels: their wrapper calls in phase 11's
+run_ladder and phase 12's run_sweep, CUDA-graph captures included, replays
+not); the gates in turn
 are held to each model's decode and long
 prefill dispatch (and Mixtral's and phase 9's 64-row prefill), stated from
 its config (pin_dispatch). The second-to-last line is the kernels' JSON; the last line
@@ -2439,6 +2463,137 @@ def kernel_lab(dev, qmm_cases: list) -> dict:
     return {"cases": out, "launches": launches, "cli_head_us": head_us}
 
 
+# phase 12: the prefill-attention lab (#17-#19) at TinyLlama-1.1B's pp512
+# layer (the reference lab's own shape), its pp2048 layer and Qwen2.5-1.5B's
+# heads at pp512 (utils/prefill_lab.py:SHAPES)
+PLAB_SHAPES = ("tiny-pp512", "tiny-pp2048", "qwen-pp512")
+PLAB_ITERS = 32  # run_sweep's chain length (time_chained)
+
+
+def prefill_lab(dev) -> dict:
+    """Phase 12: the prefill-attention lab. At each PLAB_SHAPES shape (inputs
+    from a seeded torch.Generator): SDPA, the library yardstick, held to
+    variant A's plain version (and, once, its top-left causal mask to the
+    explicit one), the flash prefill kernel #8 on the same inputs, and every
+    sweep point of variants A, B and G (utils/prefill_lab.py:SWEEPS) held to
+    its plain version per output row (row_rel_err within TOL, fatal) and
+    timed by CUDA-graph replay (`ms`) and eagerly, beside its plain version,
+    SDPA and the bound of the causal pairs (prefill_work). Then, with the
+    counts set to 0 just before and read just after, run_sweep at every
+    shape (the lab's entry point: time_chained's marginal times), and
+    tools/prefill_lab.py once in-process. Returns the kernels' case lists
+    and run_sweep's launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_kquant_torch.ops.prefill import attention_prefill, attention_prefill_plain
+    from tpu_kquant_torch.tools import prefill_lab as lab_cli
+    from tpu_kquant_torch.utils import prefill_lab as pl
+
+    t0 = time.perf_counter()
+    out: dict = {f"prefill_lab_{v}": [] for v in "abg"}
+    inputs, prod = {}, {}
+    for i, shape in enumerate(PLAB_SHAPES):
+        c = pl.SHAPES[shape]
+        B, T, S, H, Hkv, D = (c[n] for n in ("B", "T", "S", "H", "Hkv", "D"))
+        starts = list(c["q_start"])
+        q, k, v, qs = inputs[shape] = pl.lab_inputs(c, dev, seed=120 + i)
+        qg, scale = pl.group_heads(q, Hkv), D ** -0.5
+        nb, fl = prefill_work(B, T, S, H, Hkv, D, starts, 0, 2 * D)
+        if (nb, fl) != pl.lab_work(B, T, S, H, Hkv, D, starts):
+            raise SystemExit(f"FAIL: lab_work disagrees with prefill_work at {shape}")
+        b, by = bound_ms(nb, fl)
+        a_ref = pl.call_a_plain(qg, k, v, qs, scale, 128)
+        sdpa = pl.sdpa_call(k, v, starts, T, scale)
+        lib_rel = row_rel_err(sdpa(q), pl.ungroup_heads(a_ref))
+        if i == 0:  # SDPA's top-left causal mask is kv <= t at q_start 0
+            m = (torch.arange(S, device=dev)[None, :] <= torch.arange(T, device=dev)[:, None])
+            explicit = F.scaled_dot_product_attention(q.transpose(1, 2), k, v, attn_mask=m,
+                                                      enable_gqa=True, scale=scale)
+            mask_rel = row_rel_err(sdpa(q), explicit.transpose(1, 2))
+            log(f"  SDPA is_causal against the explicit mask kv <= t: {mask_rel:.2e}")
+            if not mask_rel <= TOL:
+                raise SystemExit(f"FAIL: SDPA's causal mask is not kv <= t ({mask_rel:.3e})")
+        if not lib_rel <= TOL:
+            raise SystemExit(f"FAIL: SDPA disagrees with variant A at {shape}: {lib_rel:.3e}")
+        lib_ms = graph_ms(lambda i: sdpa(q), 20)
+        run8 = lambda i: attention_prefill(q, k, v, qs, scale=scale)  # noqa: E731
+        rel8 = row_rel_err(run8(0), attention_prefill_plain(q, k, v, qs, scale=scale))
+        if not rel8 <= TOL:
+            raise SystemExit(f"FAIL: flash prefill disagrees with its plain version at {shape}")
+        prod[shape] = {"ms": graph_ms(run8, 20), "eager_ms": time_ms(run8, 20), "rel_err": rel8}
+        log(f"  {shape}: bound {b * 1e3:.2f} us ({by}; {nb / 1e6:.2f} MB, {fl / 1e9:.3f} GFLOP of "
+            f"causal pairs; A executes {4.0 * B * T * S * H * D / 1e9:.3f} GFLOP of pairs), SDPA "
+            f"{lib_ms * 1e3:.2f} us (rel {lib_rel:.1e}), #8 {prod[shape]['ms'] * 1e3:.2f} us "
+            f"(eager {prod[shape]['eager_ms'] * 1e3:.2f}, rel {rel8:.1e})")
+        plains = {}
+        for variant in "abg":
+            call, plain = pl.CALLS[variant]
+            for tq, ts in pl.SWEEPS[variant]:
+                extra = () if ts is None else (ts,)
+                key = (variant, min(ts, S) if variant == "b" else None)
+                if key not in plains:  # only B's function depends on a tile (ts)
+                    def run_plain(i, plain=plain, tq=tq, extra=extra):
+                        return plain(qg, k, v, qs, scale, tq, *extra)
+                    plains[key] = (a_ref if variant == "a" else run_plain(0),
+                                   graph_ms(run_plain, 2, reps=3))
+                ref, plain_ms = plains[key]
+
+                def run(i, call=call, tq=tq, extra=extra):
+                    return call(qg, k, v, qs, scale, tq, *extra)
+                got = run(0)
+                torch.cuda.synchronize()
+                ad, _ = _err(got, ref)
+                rel = row_rel_err(got, ref)
+                label = f"{shape} {variant} tq={tq}" + ("" if ts is None else f" ts={ts}")
+                if not (torch.isfinite(got).all() and rel <= TOL):
+                    raise SystemExit(f"FAIL: prefill lab {label} disagrees with its plain "
+                                     f"version: max abs {ad:.3e}, row rel {rel:.3e}")
+                out[f"prefill_lab_{variant}"].append({
+                    "case": label, "shape": shape, "tq": tq, "ts": ts, "max_abs_err": ad,
+                    "rel_err": rel, "ms": graph_ms(run, 20), "eager_ms": time_ms(run, 20),
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "library": "F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+                    "bound_ms": b, "bound_by": by, "bytes": nb, "flops": fl})
+        del plains, a_ref
+        torch.cuda.empty_cache()
+    log(f"  checks and graph times: {time.perf_counter() - t0:.1f} s")
+
+    # the lab's entry point, counted from 0: run_sweep at every shape
+    reset_counts()
+    rows = []
+    for shape in PLAB_SHAPES:
+        rows += [dict(r, shape=shape) for r in pl.run_sweep(*inputs[shape], n_iter=PLAB_ITERS)]
+    got = counts()
+    launches = {k: got.get(k, 0) for k in out}
+    log(f"  launches in run_sweep: {launches}")
+    marg = {(r["shape"], r["variant"], r["tq"], r["ts"]): r for r in rows}
+    for name, cases in out.items():
+        for c in cases:
+            r = marg[(c["shape"], name[-1], c["tq"], c["ts"])]
+            c["marginal_ms"], c["dep_ms"] = r["us"] * 1e-3, r["dep_us"] * 1e-3
+    # the sweep's table: graph, eager and marginal us beside #8 and SDPA
+    for shape in PLAB_SHAPES:
+        r8 = marg[(shape, "prod", 64, 64)]
+        log(f"  {shape}: #8 (64 x 64) {prod[shape]['ms'] * 1e3:.2f} us (eager "
+            f"{prod[shape]['eager_ms'] * 1e3:.2f}, marginal {r8['us']:.2f}); SDPA marginal "
+            f"{r8['sdpa_us']:.2f} us; dep {r8['dep_us']:.2f} us; bound {r8['bound_us']:.2f} us")
+        for name, cases in out.items():
+            for c in (c for c in cases if c["shape"] == shape):
+                log(f"    {name:14s} {c['case']:32s} rel {c['rel_err']:.1e}  {c['ms'] * 1e3:9.2f} us "
+                    f"(eager {c['eager_ms'] * 1e3:8.2f}, marginal {c['marginal_ms'] * 1e3:9.2f})  "
+                    f"plain {c['plain_ms'] * 1e3:9.1f} us  SDPA {c['library_ms'] * 1e3:7.2f} us  "
+                    f"bound {c['bound_ms'] * 1e3:.2f} us ({c['bound_by']})")
+    del inputs
+    torch.cuda.empty_cache()
+
+    # the CLI, once in-process
+    cli_rows = lab_cli.main(["--shape", "tiny-pp512", "--variant", "g", "--iters", "16"])
+    log(f"  tools/prefill_lab.py: {len(cli_rows)} rows on {cli_rows[0]['device']}")
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"cases": out, "launches": launches, "prod": prod}
+
+
 REPLACES = {
     "qmm": ("tpu_kquant_torch/csrc/qmm.cuh", "tpu_kquant/ops/pallas_qmm.py:287"),
     "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
@@ -2456,6 +2611,9 @@ REPLACES = {
     "lab_qmm_k": ("tpu_kquant_torch/csrc/kernel_lab.cu", "tpu_kquant/utils/kernel_lab.py:343"),
     "lab_qmm_manual": ("tpu_kquant_torch/csrc/kernel_lab.cu",
                        "tpu_kquant/utils/kernel_lab.py:516"),
+    "prefill_lab_a": ("tpu_kquant_torch/csrc/prefill_lab.cu", "tools_prefill_lab2.py:69"),
+    "prefill_lab_b": ("tpu_kquant_torch/csrc/prefill_lab.cu", "tools_prefill_lab2.py:156"),
+    "prefill_lab_g": ("tpu_kquant_torch/csrc/prefill_lab.cu", "tools_prefill_lab3.py:122"),
 }
 
 
@@ -2537,6 +2695,9 @@ def main() -> int:
     phase(f"phase 11: the qmm kernel lab (mutation ladder, manual ring) [{gpu_line()}]")
     lab = kernel_lab(dev, cases["qmm"])
 
+    phase(f"phase 12: the prefill-attention lab (#17-#19 beside #8 and SDPA) [{gpu_line()}]")
+    plab = prefill_lab(dev)
+
     # launches: the sums over the request runs of phases 4, 5 (both KV
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
     # (both configurations), 9 (every recipe) and 10 (every path), each
@@ -2568,6 +2729,20 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": lab["launches"][name],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "case": head["case"], "cases": cs})
+    # the prefill lab's kernels: launches on phase 12's entry point
+    # (run_sweep); the headline case is the pp512 layer at tq 128 (ts 128)
+    for name, cs in plab["cases"].items():
+        src, rep = REPLACES[name]
+        if plab["launches"][name] == 0:
+            raise SystemExit(f"FAIL: kernel {name} was never launched by run_sweep")
+        head = [c for c in cs if c["shape"] == "tiny-pp512" and c["tq"] == 128
+                and c["ts"] in (None, 128)][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": plab["launches"][name],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "case": head["case"], "cases": cs})

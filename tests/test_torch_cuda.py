@@ -1071,3 +1071,63 @@ def test_lab_qmm_manual_kernel_matches_plain(card, s_fmt, R, tk):
     for ref, tol in ((lab.lab_qmm_manual_plain(x, qt, "full", s_fmt), LAB_TOL),
                      (x.float() @ dequant_kmajor(qt).float(), TOL)):
         assert ((full - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+# the prefill-attention lab (#17 A, #18 B, #19 G): (H, Hkv, D, T, S,
+# q_start, ts). Ragged: B's last ts tile is live and cut at S (the slots the
+# reference reads past S), at S 704 and at an S that no 64-slot sub-tile
+# divides; even: every tile whole, the queries late in the cache.
+PREFILL_LAB_CASES = {
+    "tiny ragged S 704 ts 384": (32, 4, 64, 512, 704, 0, 384),
+    "tiny ragged S 700 ts 384": (32, 4, 64, 512, 700, 0, 384),
+    "tiny even S 1024 q_start 512": (32, 4, 64, 512, 1024, 512, 256),
+    "qwen ragged S 704 ts 384": (12, 2, 128, 512, 704, 0, 384),
+    "qwen even S 512 q_start 256": (12, 2, 128, 256, 512, 256, 128),
+}
+
+
+def _prefill_lab_inputs(case, dev):
+    H, Hkv, D, T, S, q_start, ts = PREFILL_LAB_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(T + S)
+    q = torch.randn(1, Hkv, H // Hkv, T, D, device=dev, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(1, Hkv, S, D, device=dev, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    return q, k, v, torch.tensor([q_start], dtype=torch.int32, device=dev), D ** -0.5, ts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["a", "b", "g"])
+@pytest.mark.parametrize("case", sorted(PREFILL_LAB_CASES))
+def test_prefill_lab_kernels_match_plain(card, case, variant):
+    from tpu_kquant_torch.utils import prefill_lab as lab
+
+    q, k, v, qs, scale, ts = _prefill_lab_inputs(case, card)
+    call, plain = lab.CALLS[variant]
+    counter = {"a": lab.counter_a, "b": lab.counter_b, "g": lab.counter_g}[variant]
+    extra = () if variant == "a" else (ts,)
+    launches = counter.launches
+    got = call(q, k, v, qs, scale, 128, *extra)
+    torch.cuda.synchronize()
+    assert counter.launches == launches + 1
+    assert got.shape == q.shape and got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    assert _row_rel(got, plain(q, k, v, qs, scale, 128, *extra)) < TOL
+
+
+@pytest.mark.cuda
+def test_prefill_lab_kernels_refuse_what_they_do_not_take(card):
+    from tpu_kquant_torch.utils import prefill_lab as lab
+
+    q, k, v, qs, scale, _ = _prefill_lab_inputs("tiny even S 1024 q_start 512", card)
+    with pytest.raises(ValueError, match="bf16"):
+        lab.call_a(q.float(), k, v, qs, scale, 128)
+    with pytest.raises(ValueError, match="head_dim"):
+        lab.call_b(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous(),
+                   qs, scale, 128, 128)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        lab.call_b(q, k, v, qs, scale, 128, 100)
+    with pytest.raises(ValueError, match="contiguous"):
+        lab.call_g(q, k.transpose(2, 3).contiguous().transpose(2, 3), v, qs, scale, 128, 128)
+    # G keeps 16 rows x S f32 logits a warp: at S = 8192 one head's do not fit
+    kl = torch.zeros(1, 4, 8192, 64, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="does not fit"):
+        lab.call_g(q, kl, kl, qs, scale, 128, 128)

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "tkq_torch_build"
 SOURCES = ("qmm", "qmm_q56", "qmm_q23", "attn_in", "ffn", "prefill", "qmm_int8", "decode_attn",
-           "kv_append", "attn_out", "layer", "rot", "kernel_lab")
+           "kv_append", "attn_out", "layer", "rot", "kernel_lab", "prefill_lab")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -61,6 +61,15 @@ def time_chained(fn: Callable, x0: torch.Tensor, n_iter: int, reps: int = 3,
 
     fn is called as fn(x) when aux is the empty tuple, else as fn(x, aux);
     it returns the next carry (``dep`` folds an output in)."""
+    return chain_times(fn, x0, n_iter, reps, aux)[0]
+
+
+def chain_times(fn: Callable, x0: torch.Tensor, n_iter: int, reps: int = 3,
+                aux: Any = ()) -> tuple[float, float]:
+    """(``time_chained``'s marginal seconds, seconds per application of the
+    n_iter chain as one graph replay; eager on the CPU), each the best of
+    ``reps``. The second is what one replay of a short graph pays, its
+    launch and the first kernel's ramp spread over n_iter."""
     no_aux = isinstance(aux, tuple) and not aux
     call = (lambda x: fn(x)) if no_aux else (lambda x: fn(x, aux))
     if x0.device.type != "cuda":
@@ -71,7 +80,7 @@ def time_chained(fn: Callable, x0: torch.Tensor, n_iter: int, reps: int = 3,
                 t0 = time.perf_counter()
                 _run_chain(call, x0, n)
                 ts.append(time.perf_counter() - t0)
-        return max(min(t2s) - min(t1s), 1e-12) / n_iter
+        return max(min(t2s) - min(t1s), 1e-12) / n_iter, min(t1s) / n_iter
 
     x_in = x0.clone()
     cur = torch.cuda.current_stream(x0.device)
@@ -101,7 +110,7 @@ def time_chained(fn: Callable, x0: torch.Tensor, n_iter: int, reps: int = 3,
         t1s.append(ev[0].elapsed_time(ev[1]) * 1e-3)
         t2s.append(ev[1].elapsed_time(ev[2]) * 1e-3)
     del graphs
-    return max(min(t2s) - min(t1s), 1e-12) / n_iter
+    return max(min(t2s) - min(t1s), 1e-12) / n_iter, min(t1s) / n_iter
 
 
 def chain_length_for(nbytes: int, target_s: float = 0.03, chip: str = DEFAULT_CHIP) -> int:
