@@ -24,7 +24,10 @@ Phases, each fatal on failure:
     branch at the down and lm head (R = 1, 8, 16) after its 16-group
     activation quantization is checked byte for byte, attn_in with q8, q6w
     and q4 in both slots (R = 1, 16), oproj_ffn and ffn with q8 in every
-    slot (R = 1, 8) (tolerance 2e-2 of max|ref|;
+    slot (R = 1, 8); and qmm's wgmma tile at the 1024-slot serving tick (R
+    = 1024) and pp2048 (R = 2048) on TinyLlama's wqk, wv, wo, gate/up and
+    down and Mixtral's expert gate/up and down (TILE_CASES) (tolerance 2e-2
+    of max|ref|;
     qmm_int8 1e-3; the attention kernels 2e-2 of each output row's own
     max|ref|), and time the kernel and the plain version; as yardsticks the
     port never calls, qmm's ``library_ms`` is torch.matmul on the
@@ -269,12 +272,15 @@ def row_rel_err(got, ref) -> float:
     return (d / ref.float().abs().amax(-1).clamp_min(1e-30)).max().item()
 
 
+MX_DIM, MX_FFN, MX_VOCAB = 4096, 14336, 32000  # Mixtral-8x7B's dim, expert ffn, vocab
+
+
 # phase 9's kinds at TinyLlama's shapes (gate/up [11264, 2048], wqk [2304,
 # 2048], down [2048, 5632], lm head [32000, 2048]): every kind the recipes
 # give qmm, at R = 1 (decode) and 512 (the tiles), and each on f32 scales
 GGML_QMM_CASES = tuple(
     (f"{what} {kind.rstrip('f')}{lay or '-f32'} R={R}", kind, N, K, R,
-     "f32" if what == "lm head" else "bf16")
+     "f32" if what == "lm head" else "bf")
     for what, kind, lay, N, K, Rs in (
         ("gate/up", "q8", "-sp", 11264, 2048, (1, 512)),
         ("lm head", "q8", "-sp", 32000, 2048, (1, 512)),
@@ -289,6 +295,66 @@ GGML_QMM_CASES = tuple(
         ("gate/up", "q3f", "", 11264, 2048, (1,)),
         ("gate/up", "q2f", "", 11264, 2048, (1,)))
     for R in Rs)
+
+
+# qmm: TinyLlama's decode lm head and wqk at R = 1, prefill gate/up and
+# down at R = 512; Qwen2.5-1.5B's tied lm head (q4-sm) and o_proj at R =
+# 1, and its prefill gate/up and down at R = 512 on f32 activations (bf16
+# + f32 bias past 32 rows), which the tile stages as bf16. The plain
+# version keeps f32 activations f32 (ops/qmm.py says why). Mixtral-8x7B:
+# every projection its layer gives qmm, on bf16 pairs (impl auto) and on
+# f32 scales (impl int8: wo, the downs and the lm head at decode rows),
+# at R = 1 (decode), 16 (the bucket-16 prefill) and 512 (the tiles).
+QMM_CASES = (
+    ("lm head q6w-sp R=1", "q6w", 32000, 2048, 1, "bf", "f32"),
+    ("wqk q4-sm R=1", "q4", 2304, 2048, 1, "bf", "bf"),
+    ("w_gateup q4-sm R=512", "q4", 11264, 2048, 512, "bf", "bf"),
+    ("w_down q6w-sp R=512", "q6w", 2048, 5632, 512, "bf", "bf"),
+    ("qwen2.5-1.5b: tied lm head q4-sm R=1", "q4", 151936, 1536, 1, "bf", "f32"),
+    ("qwen2.5-1.5b: wo q6w-sp R=1", "q6w", 1536, 1536, 1, "bf", "bf"),
+    ("qwen2.5-1.5b: w_gateup q4-sm R=512, f32 x", "q4", 2 * 8960, 1536, 512, "f32", "f32"),
+    ("qwen2.5-1.5b: w_down q6w-sp R=512, f32 x", "q6w", 1536, 8960, 512, "f32", "f32"),
+    ("mixtral: expert down q6w-f32 R=1", "q6wf", MX_DIM, MX_FFN, 1, "bf", "f32"),
+    ("mixtral: expert down q6w-f32 R=512", "q6wf", MX_DIM, MX_FFN, 512, "bf", "f32"),
+    ("mixtral: expert gate q4-f32 R=512", "q4f", MX_FFN, MX_DIM, 512, "bf", "bf"),
+    ("mixtral: router q4-f32 N=8 R=512", "q4f", 8, MX_DIM, 512, "bf", "f32"),
+    ("mixtral: router q4-sm N=8 R=1", "q4", 8, MX_DIM, 1, "bf", "f32"),
+    ("mixtral: router q4-sm N=8 R=16", "q4", 8, MX_DIM, 16, "bf", "f32"),
+    ("mixtral: expert gate/up q4-sm R=1", "q4", MX_FFN, MX_DIM, 1, "bf", "bf"),
+    ("mixtral: expert gate/up q4-sm R=16", "q4", MX_FFN, MX_DIM, 16, "bf", "bf"),
+    ("mixtral: expert gate/up q4-sm R=512", "q4", MX_FFN, MX_DIM, 512, "bf", "bf"),
+    ("mixtral: expert down q6w-sp R=1", "q6w", MX_DIM, MX_FFN, 1, "bf", "f32"),
+    ("mixtral: expert down q6w-sp R=16", "q6w", MX_DIM, MX_FFN, 16, "bf", "f32"),
+    ("mixtral: expert down q6w-sp R=512", "q6w", MX_DIM, MX_FFN, 512, "bf", "f32"),
+    ("mixtral: expert down q6w-f32 R=16", "q6wf", MX_DIM, MX_FFN, 16, "bf", "f32"),
+    ("mixtral: wo q6w-sp R=1", "q6w", MX_DIM, MX_DIM, 1, "bf", "bf"),
+    ("mixtral: wo q6w-f32 R=1", "q6wf", MX_DIM, MX_DIM, 1, "bf", "bf"),
+    ("mixtral: wo q6w-f32 R=16", "q6wf", MX_DIM, MX_DIM, 16, "bf", "bf"),
+    ("mixtral: lm head q6w-sp R=1", "q6w", MX_VOCAB, MX_DIM, 1, "bf", "f32"),
+    ("mixtral: lm head q6w-f32 R=1", "q6wf", MX_VOCAB, MX_DIM, 1, "bf", "f32"),
+    ("mixtral: wqk q4-sm R=512", "q4", 5120, MX_DIM, 512, "bf", "bf"),
+    ("mixtral: wv q6w-f32 R=512", "q6wf", 1024, MX_DIM, 512, "bf", "bf"),
+    *((label, kind, N, K, R, "bf", o) for label, kind, N, K, R, o in GGML_QMM_CASES))
+
+# the tile at the 1024-slot serving tick (R = 1024) and pp2048 (R = 2048):
+# TinyLlama's wqk, wv, wo, gate/up and down, Mixtral's expert gate/up and
+# down, on bf16 pairs
+TILE_CASES = tuple(
+    (f"{what} R={R}", kind, N, K, R, "bf", o)
+    for R in (1024, 2048)
+    for what, kind, N, K, o in (
+        ("tile: wqk q4-sm", "q4", 2304, 2048, "bf"), ("tile: wv q6w-sp", "q6w", 256, 2048, "bf"),
+        ("tile: wo q6w-sp", "q6w", 2048, 2048, "bf"),
+        ("tile: w_gateup q4-sm", "q4", 11264, 2048, "bf"),
+        ("tile: w_down q6w-sp", "q6w", 2048, 5632, "bf"),
+        ("tile: mixtral expert gate/up q4-sm", "q4", 14336, 4096, "bf"),
+        ("tile: mixtral expert down q6w-sp", "q6w", 4096, 14336, "f32")))
+
+
+def qmm_cases() -> tuple:
+    """Phase 3's qmm cases: (label, kind, N, K, R, x dtype, out dtype), the
+    dtypes "bf" or "f32"."""
+    return QMM_CASES + TILE_CASES
 
 
 def check_kernels(dev) -> dict:
@@ -306,51 +372,15 @@ def check_kernels(dev) -> dict:
     rng = np.random.default_rng(0)
     torch.manual_seed(0)
     out: dict = {"qmm": [], "attn_in": [], "oproj_ffn": []}
-    dim, H, Hkv, hd, F, V = 2048, 32, 4, 64, 5632, 32000
+    dim, H, Hkv, hd, F = 2048, 32, 4, 64, 5632
 
     def act(R, K, scale=1.0):
         return (torch.randn(R, K, device=dev) * scale).to(torch.bfloat16)
 
-    # qmm: TinyLlama's decode lm head and wqk at R = 1, prefill gate/up and
-    # down at R = 512; Qwen2.5-1.5B's tied lm head (q4-sm) and o_proj at R =
-    # 1, and its prefill gate/up and down at R = 512 on f32 activations (bf16
-    # + f32 bias past 32 rows), which the tile stages as bf16. The plain
-    # version keeps f32 activations f32 (ops/qmm.py says why). Mixtral-8x7B:
-    # every projection its layer gives qmm, on bf16 pairs (impl auto) and on
-    # f32 scales (impl int8: wo, the downs and the lm head at decode rows),
-    # at R = 1 (decode), 16 (the bucket-16 prefill) and 512 (the tiles).
+    # qmm: every case of qmm_cases(); x f32 or bf16, out f32 or bf16
     bf, f32 = torch.bfloat16, torch.float32
-    for label, kind, N, K, R, xdt, odt in (
-            ("lm head q6w-sp R=1", "q6w", V, dim, 1, bf, f32),
-            ("wqk q4-sm R=1", "q4", (H + Hkv) * hd, dim, 1, bf, bf),
-            ("w_gateup q4-sm R=512", "q4", 2 * F, dim, 512, bf, bf),
-            ("w_down q6w-sp R=512", "q6w", dim, F, 512, bf, bf),
-            ("qwen2.5-1.5b: tied lm head q4-sm R=1", "q4", 151936, 1536, 1, bf, f32),
-            ("qwen2.5-1.5b: wo q6w-sp R=1", "q6w", 1536, 1536, 1, bf, bf),
-            ("qwen2.5-1.5b: w_gateup q4-sm R=512, f32 x", "q4", 2 * 8960, 1536, 512, f32, f32),
-            ("qwen2.5-1.5b: w_down q6w-sp R=512, f32 x", "q6w", 1536, 8960, 512, f32, f32),
-            ("mixtral: expert down q6w-f32 R=1", "q6wf", MX_DIM, MX_FFN, 1, bf, f32),
-            ("mixtral: expert down q6w-f32 R=512", "q6wf", MX_DIM, MX_FFN, 512, bf, f32),
-            ("mixtral: expert gate q4-f32 R=512", "q4f", MX_FFN, MX_DIM, 512, bf, bf),
-            ("mixtral: router q4-f32 N=8 R=512", "q4f", 8, MX_DIM, 512, bf, f32),
-            ("mixtral: router q4-sm N=8 R=1", "q4", 8, MX_DIM, 1, bf, f32),
-            ("mixtral: router q4-sm N=8 R=16", "q4", 8, MX_DIM, 16, bf, f32),
-            ("mixtral: expert gate/up q4-sm R=1", "q4", MX_FFN, MX_DIM, 1, bf, bf),
-            ("mixtral: expert gate/up q4-sm R=16", "q4", MX_FFN, MX_DIM, 16, bf, bf),
-            ("mixtral: expert gate/up q4-sm R=512", "q4", MX_FFN, MX_DIM, 512, bf, bf),
-            ("mixtral: expert down q6w-sp R=1", "q6w", MX_DIM, MX_FFN, 1, bf, f32),
-            ("mixtral: expert down q6w-sp R=16", "q6w", MX_DIM, MX_FFN, 16, bf, f32),
-            ("mixtral: expert down q6w-sp R=512", "q6w", MX_DIM, MX_FFN, 512, bf, f32),
-            ("mixtral: expert down q6w-f32 R=16", "q6wf", MX_DIM, MX_FFN, 16, bf, f32),
-            ("mixtral: wo q6w-sp R=1", "q6w", MX_DIM, MX_DIM, 1, bf, bf),
-            ("mixtral: wo q6w-f32 R=1", "q6wf", MX_DIM, MX_DIM, 1, bf, bf),
-            ("mixtral: wo q6w-f32 R=16", "q6wf", MX_DIM, MX_DIM, 16, bf, bf),
-            ("mixtral: lm head q6w-sp R=1", "q6w", MX_VOCAB, MX_DIM, 1, bf, f32),
-            ("mixtral: lm head q6w-f32 R=1", "q6wf", MX_VOCAB, MX_DIM, 1, bf, f32),
-            ("mixtral: wqk q4-sm R=512", "q4", 5120, MX_DIM, 512, bf, bf),
-            ("mixtral: wv q6w-f32 R=512", "q6wf", 1024, MX_DIM, 512, bf, bf),
-            *((label, kind, N, K, R, bf, f32 if o == "f32" else bf)
-              for label, kind, N, K, R, o in GGML_QMM_CASES)):
+    for label, kind, N, K, R, xdt, odt in qmm_cases():
+        xdt, odt = (f32 if xdt == "f32" else bf), (f32 if odt == "f32" else bf)
         w0 = _rand_weights(rng, kind, N, K, dev)
         ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
         x = act(R, K) if xdt == bf else torch.randn(R, K, device=dev)  # f32: not bf16 values
@@ -530,7 +560,6 @@ def report_cases(out: dict) -> None:
                                  f"version: {c['rel_err']:.3e} > {tol}")
 
 
-MX_DIM, MX_FFN, MX_VOCAB = 4096, 14336, 32000  # Mixtral-8x7B's dim, expert ffn, vocab
 
 
 def check_qmm_int8(dev, rng) -> list:
@@ -1038,7 +1067,8 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     attends its first T = rows slots) would pass the budget; the flash
     decode kernel in every layer of a decode step (rows 1) whose logits over
     `seq` cache slots would (`kv_int8`: the int8 gate's S % 256). The
-    switches: TKQ_FUSE_LAYER (a decode step's layers in the layer kernel
+    switches: TKQ_FUSE_ATTN, TKQ_FUSE_OPROJ and TKQ_FUSE_FFN (default on:
+    attn_in, oproj_ffn and ffn where "1"), TKQ_FUSE_LAYER (a decode step's layers in the layer kernel
     where layer_enabled passes on a bf16 cache), TKQ_DEFER_APPEND and
     TKQ_FUSE_ATTN_OUT (attn_out in place of the attention and o_proj where
     the append is not deferred), TKQ_ROTATE_LAYER (rot for every layer but
@@ -1047,9 +1077,9 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     `seq` slots)."""
     from tpu_kquant_torch.models.moe import _expert_view
     from tpu_kquant_torch.ops import attention
-    from tpu_kquant_torch.ops.attn_in import attn_in_supported
+    from tpu_kquant_torch.ops.attn_in import attn_in_enabled
     from tpu_kquant_torch.ops.attn_out import attn_out_enabled
-    from tpu_kquant_torch.ops.ffn import ffn_supported, oproj_ffn_supported
+    from tpu_kquant_torch.ops.ffn import ffn_enabled, oproj_ffn_enabled
     from tpu_kquant_torch.ops.kv_append import kv_append_enabled
     from tpu_kquant_torch.ops.layer import layer_enabled
     from tpu_kquant_torch.ops.prefill import prefill_supported
@@ -1088,22 +1118,22 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
                                                            D, batch, seq)
     biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
     a_in = neox and "wqk" in lay and \
-        attn_in_supported(lay["wqk"], lay["wv"], n_rows, cfg.dim, D, biases, impl)
+        attn_in_enabled(lay["wqk"], lay["wv"], n_rows, cfg.dim, D, biases, impl)
     rot = not a_out and neox and not cfg.attn_bias and gu and L > 1 and "wqk" in lay and \
         rot_enabled(impl, lay["wo"], lay["w_gateup"], lay["w_down"], [lay["wqk"], lay["wv"]],
                     n_rows, cfg.dim, D)
-    o_ffn = not a_out and gu and oproj_ffn_supported(lay["wo"], lay["w_gateup"], lay["w_down"],
-                                                     n_rows)
-    ffn = gu and not o_ffn and ffn_supported(lay["w_gateup"], lay["w_down"], n_rows)
+    o_ffn = not a_out and gu and oproj_ffn_enabled(impl, lay["wo"], lay["w_gateup"],
+                                                   lay["w_down"], n_rows)
+    ffn = gu and not o_ffn and ffn_enabled(impl, lay["w_gateup"], lay["w_down"], n_rows)
     n["decode_attn"] = L * (decode and not a_out)
     n["attn_out"] = L * a_out
     n["rot"] = (L - 1) * rot
     n["attn_in"] = (1 if rot else L) * a_in
     n["oproj_ffn"] = (1 if rot else L) * o_ffn
     n["ffn"] = L * ffn
-    if not a_in:
+    if not a_in:  # under rot only the first layer projects its own q/k/v
         for w in ([lay["wqk"]] if "wqk" in lay else [lay["wq"], lay["wk"]]) + [lay["wv"]]:
-            mm(w, L)
+            mm(w, 1 if rot else L)
     if not (o_ffn or a_out):
         mm(lay["wo"], L)
     if cfg.is_moe:

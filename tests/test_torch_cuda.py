@@ -1131,3 +1131,97 @@ def test_prefill_lab_kernels_refuse_what_they_do_not_take(card):
     kl = torch.zeros(1, 4, 8192, 64, dtype=torch.bfloat16, device=card)
     with pytest.raises(ValueError, match="does not fit"):
         lab.call_g(q, kl, kl, qs, scale, 128, 128)
+
+
+# ---------------------------------------------------------------------------
+# qmm's wgmma tile (R > 32; csrc/qmm_tile.cuh)
+# ---------------------------------------------------------------------------
+
+TILE_KINDS = [(k, f) for k in ("q4", "q6w", "q8", "q5", "q6", "q3", "q2") for f in (False, True)]
+
+
+def _tile_case(kind, f32, N, K, R, card, x_dtype=torch.bfloat16, out_dtype=torch.bfloat16):
+    rng = np.random.default_rng(N + K + R)
+    qt = packed(kind, N, K, rng, card, f32)
+    x = torch.randn(R, K, device=card).to(x_dtype)
+    launches = t_qmm.counter.launches
+    y = t_qmm.qmm(x, qt, out_dtype)
+    torch.cuda.synchronize()
+    assert t_qmm.counter.launches == launches + 1
+    assert y.dtype == out_dtype and y.shape == (R, N) and torch.isfinite(y).all()
+    assert _rel(y, t_qmm.qmm_plain(x, qt, out_dtype)) < TOL
+    return qt, x, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("R", [512, 2048])
+@pytest.mark.parametrize("kind,f32", TILE_KINDS, ids=[f"{k}{'-f32' if f else ''}"
+                                                      for k, f in TILE_KINDS])
+def test_qmm_tile_every_kind_code_matches_plain(card, kind, f32, R, out_dtype):
+    """All 14 kind codes at TinyLlama's wqk [2304, 2048], prefill rows."""
+    _tile_case(kind, f32, 2304, 2048, R, card, out_dtype=getattr(torch, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,f32", [("q4", False), ("q6w", True), ("q5", True), ("q8", False)])
+def test_qmm_tile_takes_f32_x(card, kind, f32):
+    """f32 activations are rounded to bf16 once by the wrapper."""
+    _tile_case(kind, f32, 1536, 8960 if kind in ("q6w", "q8") else 1536, 512, card,
+               x_dtype=torch.float32, out_dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,f32,N,K,R,out_dtype", [
+    ("q4", True, 8, 4096, 512, "float32"),  # Mixtral's router
+    ("q6w", False, 256, 2048, 1024, "bfloat16"),  # TinyLlama's wv at a 1024-slot tick
+    ("q6w", True, 1024, 4096, 512, "bfloat16"),  # Mixtral's wv
+    ("q6w", False, 2048, 5632, 512, "bfloat16"),  # TinyLlama's down
+    ("q6w", True, 4096, 14336, 128, "float32"),  # Mixtral's expert down, 128 rows
+    ("q6", False, 2048, 5632, 512, "float32"),  # unwidened Q6_K's down
+    ("q3", True, 256, 2048, 65, "bfloat16")])
+def test_qmm_tile_split_k_matches_plain_and_repeats_bit_for_bit(card, kind, f32, N, K, R,
+                                                                  out_dtype):
+    """Splits over K (tile_plan) sum their partials in a fixed order: two
+    calls give equal bits."""
+    bm, _, splits, _ = t_qmm.tile_plan(R, N, K, t_qmm.KIND_CODE[(kind, "f32" if f32 else
+                                                                 ("sp" if kind in ("q6w", "q8")
+                                                                  else "sm"))])
+    assert splits > 1
+    qt, x, y = _tile_case(kind, f32, N, K, R, card, out_dtype=getattr(torch, out_dtype))
+    assert torch.equal(t_qmm.qmm(x, qt, y.dtype), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [33, 65, 1000])
+@pytest.mark.parametrize("kind,f32,N,K", [("q4", False, 1000, 2048), ("q6w", False, 2052, 2080),
+                                          ("q8", True, 8, 2048), ("q5", False, 2052, 2304),
+                                          ("q2", True, 1000, 1024)])
+def test_qmm_tile_ragged_rows_and_columns_match_plain(card, kind, f32, N, K, R):
+    """R % 128 != 0, N % 128 != 0 (N % 16 != 0 takes the 4-byte code copies),
+    and q6w's K % 64 == 32 (a half step)."""
+    for out_dtype in (torch.bfloat16, torch.float32):
+        _tile_case(kind, f32, N, K, R, card, out_dtype=out_dtype)
+
+
+@pytest.mark.cuda
+def test_qmm_tile_graph_replay_equals_eager(card):
+    """The wrapper allocates out and ws with torch.empty: a captured call
+    replays to the eager call's bits, split and unsplit."""
+    rng = np.random.default_rng(5)
+    cases = [(q4(11264, 2048, rng, card), torch.randn(512, 2048, device=card)),
+             (q6w(2048, 5632, rng, card), torch.randn(512, 5632, device=card))]
+    for qt, x in cases:
+        x = x.to(torch.bfloat16)
+        eager = t_qmm.qmm(x, qt)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            t_qmm.qmm(x, qt)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            y = t_qmm.qmm(x, qt)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)

@@ -11,9 +11,11 @@ using namespace tkq;
 // as tkq_qmm in qmm.cu; K % 256 == 0.
 extern "C" int tkq_qmm(int kind, const void* x, int x_f32, const void* qs, const void* qh,
                        const void* scl, const void* mins, void* out, int out_f32, float* ws,
-                       int R, int N, int K, int cps, int splits, void* stream) {
+                       int R, int N, int K, int cps, int splits, int mw,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const QmmArgs q = qmm_args(x, x_f32, qs, qh, scl, mins, out, out_f32, ws, R, N, K, cps, splits);
+  const QmmArgs q = qmm_args(x, x_f32, qs, qh, scl, mins, out, out_f32, ws, R, N, K, cps, splits,
+                               mw);
   switch (kind) {
     case KQ3: return (int)launch_qmm<KQ3>(q, st);
     case KQ3F: return (int)launch_qmm<KQ3F>(q, st);

@@ -43,7 +43,11 @@ reads them (tpu_kquant/models/llama.py):
   and layer i + 1's attn_in in the rot kernel; layer i + 1 takes the qk / v
   it returns.
 Each is off by default, as in the reference; the gates are in
-ops.{kv_append,attn_out,layer,rot}.
+ops.{kv_append,attn_out,layer,rot}. The default-on fusions read the
+reference's switches at call time too: TKQ_FUSE_ATTN (attn_in),
+TKQ_FUSE_OPROJ (oproj_ffn, and the rot kernel) and TKQ_FUSE_FFN (ffn), each
+"1" by default and off at any other value (ops.attn_in.attn_in_enabled,
+ops.ffn.oproj_ffn_enabled, ops.ffn.ffn_enabled).
 """
 
 from __future__ import annotations
@@ -57,13 +61,13 @@ from tpu_kquant_torch.models.config import ModelConfig
 from tpu_kquant_torch.models.moe import moe_ffn
 from tpu_kquant_torch.ops import attention
 from tpu_kquant_torch.ops.activations import swiglu
-from tpu_kquant_torch.ops.attn_in import attn_in_supported, fused_attn_in
+from tpu_kquant_torch.ops.attn_in import attn_in_enabled, fused_attn_in
 from tpu_kquant_torch.ops.attn_out import attn_out_enabled, fused_attn_out
 from tpu_kquant_torch.ops.ffn import (
-    ffn_supported,
+    ffn_enabled,
     fused_ffn,
     fused_oproj_ffn,
-    oproj_ffn_supported,
+    oproj_ffn_enabled,
 )
 from tpu_kquant_torch.ops.layer import fused_layer, layer_enabled
 from tpu_kquant_torch.ops.norms import rms_norm
@@ -106,7 +110,7 @@ def llama_layer(
         k = qk[..., H * D:].reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
     elif cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in layer and \
-            attn_in_supported(layer["wqk"], layer["wv"], B * T, dim, D, biases, impl):
+            attn_in_enabled(layer["wqk"], layer["wv"], B * T, dim, D, biases, impl):
         qk, v = fused_attn_in(x, _norm_w(layer["attn_norm"]), cfg.norm_eps, layer["wqk"],
                               layer["wv"], cos, sin, D, biases)
         q = qk[..., : H * D].reshape(B, T, H, D)
@@ -154,11 +158,12 @@ def llama_layer(
                 layer["w_gateup"], layer["w_down"], _norm_w(next_layer["attn_norm"]),
                 next_layer["wqk"], next_layer["wv"], cos, sin, D)
             return y, (qk2, v2)
-        if gu and oproj_ffn_supported(layer["wo"], layer["w_gateup"], layer["w_down"], B * T):
+        if gu and oproj_ffn_enabled(impl, layer["wo"], layer["w_gateup"], layer["w_down"],
+                                    B * T):
             return fused_oproj_ffn(x, attn, layer["wo"], _norm_w(layer["ffn_norm"]),
                                    cfg.norm_eps, layer["w_gateup"], layer["w_down"]), None
         x = x + qmatmul(attn, layer["wo"], impl)
-    if gu and ffn_supported(layer["w_gateup"], layer["w_down"], B * T):
+    if gu and ffn_enabled(impl, layer["w_gateup"], layer["w_down"], B * T):
         return fused_ffn(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps, layer["w_gateup"],
                          layer["w_down"]), None
     h = rms_norm(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps)

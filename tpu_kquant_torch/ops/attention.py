@@ -21,6 +21,8 @@ forward refuses archs that need them).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from tpu_kquant_torch.ops.decode_attention import attention_decode_flash
@@ -28,8 +30,11 @@ from tpu_kquant_torch.ops.prefill import attention_prefill, prefill_supported
 
 # The budget of materialised f32 logits (B * T * H * S * 4 bytes, in MB)
 # above which attention leaves the plain branch; the reference's
-# _ATTN_XLA_MAX_MB. The deferred-append gate of models.llama reads it too.
-ATTN_PLAIN_MAX_MB = 192.0
+# _ATTN_XLA_MAX_MB, read once at import as the reference reads it:
+# TKQ_ATTN_XLA_MAX_MB, else its alias TKQ_PREFILL_XLA_MAX_MB, else 192. The
+# deferred-append gate of models.llama reads it too.
+ATTN_PLAIN_MAX_MB = float(
+    os.environ.get("TKQ_ATTN_XLA_MAX_MB", os.environ.get("TKQ_PREFILL_XLA_MAX_MB", "192")))
 
 
 def logits_mb(B: int, T: int, H: int, S: int) -> float:

@@ -18,6 +18,7 @@ projection is rounded to bf16, the bias added in f32, then the rotation
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -59,6 +60,16 @@ def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: in
             b.dtype == torch.float32 and tuple(b.shape) == (int(w.shape[0]),)
             for b, w in zip(biases, (wqk, wv))))
     )
+
+
+def attn_in_enabled(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: int,
+                    biases: tuple[torch.Tensor, torch.Tensor] | None = None,
+                    impl: str = "auto") -> bool:
+    """models.llama's gate: the reference's switch TKQ_FUSE_ATTN (default
+    "1"; anything else turns the kernel off), read at call time as
+    pallas_attn_in.attn_in_enabled reads it, then attn_in_supported."""
+    return (os.environ.get("TKQ_FUSE_ATTN", "1") == "1"
+            and attn_in_supported(wqk, wv, rows, D, head_dim, biases, impl))
 
 
 def _rope_neox(y: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: int) -> torch.Tensor:

@@ -21,6 +21,7 @@ product are rounded to bf16, the sums are f32.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +89,23 @@ def oproj_ffn_supported(wo: QTensor, gu: QTensor, dn: QTensor, rows: int) -> boo
     return (ffn_supported(gu, dn, rows) and wo.layout == "kmajor"
             and wo.kind in ("q4",) + _FLAT_KINDS and wo.shape[0] == gu.shape[-1]
             and int(wo.shape[-1]) % 1024 == 0 and kernel_kind(wo) is not None)
+
+
+def ffn_enabled(impl: str, gu: QTensor, dn: QTensor, rows: int) -> bool:
+    """models.llama's gate of ffn: the reference's switch TKQ_FUSE_FFN
+    (default "1"), read at call time as pallas_ffn.fused_ffn_enabled reads
+    it, impl "auto" or "int8", then ffn_supported."""
+    return (os.environ.get("TKQ_FUSE_FFN", "1") == "1" and impl in ("auto", "int8")
+            and ffn_supported(gu, dn, rows))
+
+
+def oproj_ffn_enabled(impl: str, wo: QTensor, gu: QTensor, dn: QTensor, rows: int) -> bool:
+    """models.llama's gate of oproj_ffn: the reference's switch
+    TKQ_FUSE_OPROJ (default "1"), read at call time as
+    pallas_ffn.oproj_ffn_enabled reads it, impl "auto" or "int8", then
+    oproj_ffn_supported."""
+    return (os.environ.get("TKQ_FUSE_OPROJ", "1") == "1" and impl in ("auto", "int8")
+            and oproj_ffn_supported(wo, gu, dn, rows))
 
 
 def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> list[tuple[int, list]]:

@@ -7,9 +7,11 @@ for the kinds with mins: ``scale_dtype='f32'``).
 Kernels: ``csrc/qmm.cuh``, built as ``csrc/qmm.cu`` (q4, q6w, q8),
 ``csrc/qmm_q56.cu`` (q5, q6) and ``csrc/qmm_q23.cu`` (q3, q2) (replaces
 ``tpu_kquant/ops/pallas_qmm.py:qmm_pallas``). Rows <= 32 take its split-K
-GEMV (memory bound: every packed byte read once); more rows take its tiled
-bf16 WMMA kernel (compute bound at prefill). N must be a multiple of 4 (a
-MoE router has N = n_experts). K
+GEMV (memory bound: every packed byte read once); more rows take the
+pipelined wgmma tile of ``csrc/qmm_tile.cuh`` (compute bound at prefill),
+on bf16 activations (f32 ones are rounded to bf16 first, as the reference's
+kernel rounds them for its MXU), with the tile and K split of
+``tile_plan``. N must be a multiple of 4 (a MoE router has N = n_experts). K
 must be a multiple of 256 for the bit-plane kinds (their high planes switch
 every K/8 or K/4 packed rows, and the reference's ``pallas_supported`` asks
 the same), of 64 for q4 and for q8 on bf16 pairs, of 32 for q6w and for q8
@@ -57,10 +59,25 @@ _PLANE_LIBRARY = {"q5": "qmm_q56", "q6": "qmm_q56", "q3": "qmm_q23", "q2": "qmm_
 GEMV_MAX_ROWS = 32
 _TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
 _SMEM_CAP = 200 * 1024
+# the wgmma tile (csrc/qmm_tile.cuh): output columns a block, logical K rows
+# a pipeline step, the H100's SMs; tile_plan's cost model, fitted to a sweep
+# of block heights and splits on the H100 (PERF.md §6, PR 11): a step's time
+# (us) at each block height, a block's fill and epilogue in steps, the rate
+# (bytes / us) at which split partials make their round trip (mostly in
+# L2), the least steps a split takes, the most bytes of partials a call
+# writes
+TILE_BN = 128
+TILE_BK = 64
+SMS = 132
+STEP_US = {128: 1.0, 256: 1.35}
+FILL_STEPS = 2
+PARTIAL_BYTES_PER_US = 6.7e6
+MIN_SPLIT_STEPS = 2
+WS_CAP = 64 << 20
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#           kind x  x_f32 qs  qh  scl mins out out_f32 ws R   N   K   cps splits stream
-_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P]
+#           kind x  x_f32 qs  qh  scl mins out out_f32 ws R   N   K   cps splits mw stream
+_ARGTYPES = [_I, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P]
 
 
 def qmm_plain(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -155,6 +172,48 @@ def gemv_split(kind: int, N: int, K: int, rows: int,
     return cps, -(-n_chunks // cps)
 
 
+def plan_cost(bm: int, tiles: int, n_steps: int, sps: int, R: int, N: int) -> float:
+    """tile_plan's model of a call's time (us): waves of blocks (a wave: one
+    block per SM) times a block's steps of ``sps`` (at most ``n_steps``)
+    plus its fill, at bm's step time, plus the f32 partials' round trip
+    where K is split."""
+    splits = -(-n_steps // sps)
+    waves = -(-tiles * splits // SMS)
+    partials = splits * R * N * 8 / PARTIAL_BYTES_PER_US if splits > 1 else 0.0
+    return waves * (min(sps, n_steps) + FILL_STEPS) * STEP_US[bm] + partials
+
+
+def tile_plan(R: int, N: int, K: int, code: int) -> tuple[int, int, int, int]:
+    """(bm, bn, splits, steps per split) of the wgmma tile at R > 32 rows.
+
+    A block computes bm x 128 outputs (bm = 128, or 256: two warpgroups of
+    128 rows, each dequantized weight serving twice the rows at 1.35x the
+    step time) over a K range of 64-row steps (csrc/qmm_tile.cuh: ceil(K /
+    64) steps). Where a block height's output tiles number fewer than the
+    card's 132 SMs, K may be split into runs of steps: at least
+    MIN_SPLIT_STEPS, for the bit-plane kinds whole packed chunks (32 rows
+    of every segment: SEGMENTS / 2 steps), the partials within WS_CAP
+    bytes. Of these plans, the one plan_cost ranks fastest (the taller
+    block on a tie)."""
+    kind = KINDS[code][0]
+    n_steps = -(-K // TILE_BK)
+    cols = -(-N // TILE_BN)
+    unit = SEGMENTS[kind] // 2 if kind in _PLANE_LIBRARY else 1
+    best = None
+    for bm in (256, 128):
+        tiles = cols * -(-R // bm)
+        runs = [n_steps]
+        if tiles < SMS:
+            runs += [r for r in range(-(-MIN_SPLIT_STEPS // unit) * unit, n_steps, unit)
+                     if -(-n_steps // r) * R * N * 4 <= WS_CAP]
+        for sps in runs:
+            cost = plan_cost(bm, tiles, n_steps, sps, R, N)
+            if best is None or cost < best[0]:
+                best = (cost, bm, sps)
+    _, bm, sps = best
+    return bm, TILE_BN, -(-n_steps // sps), sps
+
+
 def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """y[..., N] = x[..., K] @ W^T for a kmajor weight W (N, K)."""
     out_dtype = out_dtype or x.dtype
@@ -176,14 +235,21 @@ def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> t
     out = torch.empty((R, N), dtype=out_dtype, device=x.device)
     if R == 0:
         return out.reshape(*lead, N)
-    cps, splits = gemv_split(code, N, K, R) if R <= GEMV_MAX_ROWS else (0, 1)
+    if R <= GEMV_MAX_ROWS:
+        (cps, splits), mw = gemv_split(code, N, K, R), 0
+    else:  # the tile reads bf16 rows through TMA: 16-byte aligned
+        bm, _, splits, cps = tile_plan(R, N, K, code)
+        mw = bm // 128
+        x2d = x2d.to(torch.bfloat16)
+        if x2d.data_ptr() % 16:
+            x2d = x2d.clone()
     ws = torch.empty(splits * R * N if splits > 1 else 0, dtype=torch.float32, device=x.device)
     lib = _build.load(_PLANE_LIBRARY.get(KINDS[code][0], "qmm"), "tkq_qmm", _ARGTYPES)
     P = _build.ptr
     opt = lambda t: None if t is None else P(t)  # noqa: E731
     rc = lib.tkq_qmm(code, P(x2d), int(x2d.dtype == torch.float32), P(qs), opt(qh), P(scl),
                      opt(mins), P(out), int(out_dtype == torch.float32), P(ws), R, N, K, cps,
-                     splits, _build.stream_ptr(x.device))
+                     splits, mw, _build.stream_ptr(x.device))
     _build.check(lib, rc, "qmm")
     counter.launches += 1
     return out.reshape(*lead, N)
