@@ -630,8 +630,10 @@ def check_qmm_int8(dev, rng) -> list:
     return cases
 
 
-# flash prefill at TinyLlama's heads (32 / 4 of 64, bf16 q) and at
-# Qwen2.5-1.5B's (12 / 2 of 128, f32 q: bf16 + f32 bias):
+# flash prefill at TinyLlama's heads (32 / 4 of 64, bf16 q; the serving
+# cell's 1024-request burst of 64-token prompts among them) and at
+# Qwen2.5-1.5B's (12 / 2 of 128, f32 q: bf16 + f32 bias; a ragged T with a
+# window on int8 KV):
 # (label, B, T, S, q_starts, int8 KV, window, (H, Hkv, D), q dtype)
 TINY_HEADS, QWEN_HEADS = (32, 4, 64), (12, 2, 128)
 PREFILL_CASES = (
@@ -644,6 +646,12 @@ PREFILL_CASES = (
      "bfloat16"),
     ("qwen2.5-1.5b: f32 q, hd 128, GQA 6, T=S=2048 bf16", 1, 2048, 2048, [0], False, 0,
      QWEN_HEADS, "float32"),
+    ("B=1024 T=S=64 bf16 (1024-request burst)", 1024, 64, 64, [0] * 1024, False, 0,
+     TINY_HEADS, "bfloat16"),
+    ("B=1024 T=S=64 int8 (1024-request burst)", 1024, 64, 64, [0] * 1024, True, 0,
+     TINY_HEADS, "bfloat16"),
+    ("qwen2.5-1.5b: f32 q, hd 128, GQA 6, B=2 T=72 S=384 q_start 100/248 window 96 int8", 2,
+     72, 384, [100, 248], True, 96, QWEN_HEADS, "float32"),
 )
 
 
@@ -2605,7 +2613,7 @@ def prefill_lab(dev) -> dict:
     # the sweep's table: graph, eager and marginal us beside #8 and SDPA
     for shape in PLAB_SHAPES:
         r8 = marg[(shape, "prod", 64, 64)]
-        log(f"  {shape}: #8 (64 x 64) {prod[shape]['ms'] * 1e3:.2f} us (eager "
+        log(f"  {shape}: #8 {prod[shape]['ms'] * 1e3:.2f} us (eager "
             f"{prod[shape]['eager_ms'] * 1e3:.2f}, marginal {r8['us']:.2f}); SDPA marginal "
             f"{r8['sdpa_us']:.2f} us; dep {r8['dep_us']:.2f} us; bound {r8['bound_us']:.2f} us")
         for name, cases in out.items():

@@ -456,7 +456,8 @@ def test_moe_engine_on_card_matches_cpu(card, tmp_path, scale_dtype, impl):
 
 
 # flash prefill cases: chip_smoke.py's phase-3 shapes (TinyLlama: 32 / 4
-# heads of 64), plus head_dim 128 (llama GGUFs with 128-wide heads)
+# heads of 64; the 1024-request burst), plus head_dim 128 (llama GGUFs with
+# 128-wide heads; Qwen2.5-1.5B's 12 / 2 with a window and a ragged T)
 # (B, T, S, H, Hkv, D, q_starts, int8, window)
 PREFILL_CASES = {
     "path_t2048_bf16": (1, 2048, 2048, 32, 4, 64, [0], False, 0),
@@ -465,6 +466,10 @@ PREFILL_CASES = {
     "window_300": (1, 512, 2048, 32, 4, 64, [1024], True, 300),
     "ragged_t40": (3, 40, 320, 32, 4, 64, [0, 100, 200], False, 0),
     "head_dim_128": (2, 128, 256, 8, 2, 128, [64, 0], True, 0),
+    "burst_bf16": (1024, 64, 64, 32, 4, 64, [0] * 1024, False, 0),
+    "burst_int8": (1024, 64, 64, 32, 4, 64, [0] * 1024, True, 0),
+    "hd128_window_ragged": (2, 72, 384, 12, 2, 128, [100, 248], False, 96),
+    "hd128_window_ragged_int8": (2, 72, 384, 12, 2, 128, [100, 248], True, 96),
 }
 
 
@@ -501,6 +506,21 @@ def test_prefill_kernel_matches_plain(card, case):
     assert got.dtype == q.dtype and got.shape == q.shape and torch.isfinite(got).all()
     ref = t_prefill.attention_prefill_plain(q, k, v, qs, scales, sliding_window=window)
     assert _row_rel(got, ref) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_t40", "mid_history", "head_dim_128",
+                                  "hd128_window_ragged_int8"])
+def test_prefill_kernel_every_row_grouping(card, case):
+    """The kernel at every row grouping its plan can take (hw heads of the
+    GQA group per warpgroup, each divisor), not only the default one."""
+    q, k, v, qs, scales, window = prefill_inputs(case, card)
+    ref = t_prefill.attention_prefill_plain(q, k, v, qs, scales, sliding_window=window)
+    H, Hkv = q.shape[2], k.shape[1]
+    for hw in [d for d in range(1, H // Hkv + 1) if (H // Hkv) % d == 0]:
+        got = t_prefill._launch(q, k, v, qs, scales, q.shape[-1] ** -0.5, window, hw=hw)
+        torch.cuda.synchronize()
+        assert _row_rel(got, ref) < TOL, hw
 
 
 @pytest.mark.cuda

@@ -128,6 +128,98 @@ def test_prefill_check_catches_late_tile_faults(fault):
     assert (err < smoke.TOL) == (fault == "none"), err
 
 
+def _plan_shapes():
+    """(label, B, T, S, H, Hkv, D, q_starts, int8, window): PALLAS_CASES and
+    chip_smoke.py's phase-3 prefill shapes (the 1024-request burst among
+    them)."""
+    out = [(f"pallas {k}", B, T, S, H, Hkv, D, st, i8, w)
+           for k, (B, T, S, H, Hkv, D, st, i8, w, _) in PALLAS_CASES.items()]
+    for label, B, T, S, st, i8, w, (H, Hkv, D), _ in _chip_smoke().PREFILL_CASES:
+        out.append((f"phase 3 {label}", B, T, S, H, Hkv, D, st, i8, w))
+    return out
+
+
+PLAN_SHAPES = {s[0]: s[1:] for s in _plan_shapes()}
+
+
+def _divisors(G):
+    return [d for d in range(1, min(G, t_prefill.ROWS) + 1) if G % d == 0]
+
+
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_prefill_plan_covers_each_row_once(shape):
+    """For every row grouping the kernel takes (each divisor hw of the GQA
+    group), the work items cover each (b, head, query) once, and the
+    persistent blocks take each item once."""
+    B, T, S, H, Hkv, D, starts, int8, window = PLAN_SHAPES[shape]
+    for hw in _divisors(H // Hkv):
+        plan = t_prefill.prefill_plan(B, T, H, Hkv, D, int8, sms=132, hw=hw)
+        assert plan.hw * plan.nq <= t_prefill.ROWS and plan.grid <= plan.n_items
+        seen = np.zeros((B, H, T), np.int32)
+        for i in range(plan.n_items):
+            b, hk, h0, t0 = t_prefill.plan_item(plan, i, B, H, Hkv)
+            assert h0 // (H // Hkv) == hk and t0 < T
+            seen[b, h0:h0 + hw, t0:t0 + 2 * plan.nq] += 1
+        assert (seen == 1).all(), (hw, np.unique(seen))
+        items = sorted(i for c in range(plan.grid) for i in t_prefill.block_items(plan, c))
+        assert items == list(range(plan.n_items))
+
+
+@pytest.mark.parametrize("shape", sorted(PLAN_SHAPES))
+def test_prefill_plan_tiles_are_the_references(shape):
+    """Each item's cache tiles are the reference's lo_tile .. hi_tile
+    (pallas_prefill.py:_prefill_call) at the kernel's tile size, for a
+    query block of the item's 2 nq queries, and they hold every slot some
+    query of the item attends: the first and last tiles each hold one."""
+    B, T, S, H, Hkv, D, starts, int8, window = PLAN_SHAPES[shape]
+    plan = t_prefill.prefill_plan(B, T, H, Hkv, D, int8, sms=132)
+    TQ, TS, nS = 2 * plan.nq, plan.bn, -(-S // plan.bn)
+    for i in range(plan.n_items):
+        b, _, _, t0 = t_prefill.plan_item(plan, i, B, H, Hkv)
+        qs, tq_i = starts[b], t0 // TQ
+        lo, hi = t_prefill.item_tiles(qs, t0, plan, T, S, window)
+        if t0 + TQ <= T:  # a whole query block: the reference's own formulas
+            assert hi == min((qs + (tq_i + 1) * TQ - 1) // TS, nS - 1)
+            assert lo == (max((qs + tq_i * TQ - (window - 1)) // TS, 0) if window > 0 else 0)
+        pos = qs + np.arange(t0, min(t0 + TQ, T))
+        kv = np.arange(S)
+        live = (kv[None] <= pos[:, None]) & ((kv[None] > pos[:, None] - window) | (window <= 0))
+        tiles = np.unique(np.nonzero(live)[1] // TS)
+        assert (lo, hi) == (tiles.min(), tiles.max()), (i, lo, hi, tiles)
+
+
+@pytest.mark.parametrize("case", sorted(PALLAS_CASES))
+def test_prefill_plan_items_give_the_plain_output(case):
+    """The kernel's work split on the CPU: each item's rows attend only the
+    slots of its tiles, masked by each row's own position and by S, with
+    the kernel's tile size; together they give attention_prefill_plain."""
+    B, T, S, H, Hkv, D, starts, quant, window, _ = PALLAS_CASES[case]
+    rng = np.random.default_rng(13)
+    q, k, v, qs, scales = _setup(rng, B, T, S, H, Hkv, D, starts, quant)
+    q, k, v, qs = map(_t, (q, k, v, qs))
+    scales = None if scales is None else tuple(map(_t, scales))
+    want = t_prefill.attention_prefill_plain(q, k, v, qs, scales, sliding_window=window)
+    G = H // Hkv
+    for hw in _divisors(G):
+        plan = t_prefill.prefill_plan(B, T, H, Hkv, D, quant, sms=7, hw=hw)
+        got = torch.full_like(want, float("nan"))
+        for c in range(plan.grid):
+            for i in t_prefill.block_items(plan, c):
+                b, hk, h0, t0 = t_prefill.plan_item(plan, i, B, H, Hkv)
+                lo, hi = t_prefill.item_tiles(starts[b], t0, plan, T, S, window)
+                s0, s1 = lo * plan.bn, min((hi + 1) * plan.bn, S)
+                t1 = min(t0 + 2 * plan.nq, T)
+                sub = [x[b:b + 1, hk:hk + 1, s0:s1] for x in (k, v)]
+                sc = None if scales is None else tuple(x[b:b + 1, hk:hk + 1, s0:s1]
+                                                       for x in scales)
+                # positions relative to the tile range's first slot
+                out = t_prefill.attention_prefill_plain(
+                    q[b:b + 1, t0:t1, h0:h0 + hw], *sub,
+                    torch.tensor([starts[b] + t0 - s0]), sc, sliding_window=window)
+                got[b, t0:t1, h0:h0 + hw] = out[0]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
 def test_prefill_supported_matches_reference():
     for T in (1, 7, 8, 40, 64, 2048):
         for S in (63, 64, 320, 2240):

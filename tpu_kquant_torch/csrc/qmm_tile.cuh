@@ -71,11 +71,10 @@
 // columns) and the W tile (its rows), so the product is x @ W over them.
 #pragma once
 
-#include <cuda.h>
-
 #include <cstring>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace tkq {
 
@@ -102,96 +101,6 @@ __device__ __forceinline__ uint32_t bmul2(uint32_t a, uint32_t b) {
   uint32_t d;
   asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
   return d;
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t d;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(hi), "f"(lo));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// TMA tile load into shared memory; completes on mbarrier `bar`, whose
-// expect_tx counts the box's bytes
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                       uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-// arrive on `bar` once this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(bar) : "memory");
-}
-// 4 bytes global -> shared; src_bytes 0 fills zeros
-__device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading byte offset
-// (MN-major: between 64-element atoms along N; unused for a K-major
-// operand), stride byte offset (between 8-row groups), swizzle (1: 128
-// bytes, 2: 64 bytes)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t swizzle) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (swizzle << 62);
-}
-
-// d[64] += A (64 x 16, K-major) @ B (16 x 128, MN-major)
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
 }
 template <int MW>
 __device__ __forceinline__ void fence_acc(float (&acc)[MW][64]) {
@@ -529,7 +438,8 @@ __device__ __forceinline__ void mma_step(float (&acc)[MW][64], uint32_t xa, uint
     const uint64_t db = gmma_desc(wb + kk * 16 * 128, TILE_BK * 128, 1024, 1);
     const uint32_t ak = xa + (kk / 2) * hb + (kk % 2) * 32;
 #pragma unroll
-    for (int m = 0; m < MW; ++m) wgmma_128(acc[m], gmma_desc(ak + m * 64 * 64, 16, 512, 2), db);
+    for (int m = 0; m < MW; ++m)
+      Wgmma<128, 1>::ss(acc[m], gmma_desc(ak + m * 64 * 64, 16, 512, 2), db, 1);
   }
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
@@ -658,39 +568,6 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no libcuda
-// link)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D map of a row-major array.
-inline bool encode_map(CUtensorMap* m, CUtensorMapDataType t, int rank, const void* p,
-                       const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
-                       CUtensorMapSwizzle sw) {
-  const cuuint32_t ones[2] = {1, 1};
-  EncodeTiled fn = encode_tiled();
-  return fn != nullptr &&
-         fn(m, t, rank, const_cast<void*>(p), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Launch the tile path: BM = 128 * MW, `splits` splits of a.sps steps.

@@ -16,7 +16,18 @@ shapes. Measured, each on the card with its name and power limit:
   requests of tools_serve_bench.py's mix admitted as one burst on 1024
   slots of 2048, bf16 KV: ms per tick after the first);
 - Mixtral-8x7B at chip_smoke.MIXTRAL_DEPTH layers: pp512 (bf16 pairs,
-  impl "auto").
+  impl "auto");
+- the flash prefill kernel (#8) at every phase-3 case (chip_smoke.py's
+  check_prefill: CUDA-graph and eager ms, its plain version, SDPA, the
+  bound, the error per row), the 1024-request burst among them; the
+  burst's wall time end to end is the tick section's burst + first tick.
+So one call can time a parent's checkout and this one in turns (parent,
+change, change, parent):
+
+    mkdir -p .cache/parent && git archive HEAD | tar -x -C .cache/parent
+    for side in .cache/parent . . .cache/parent; do
+        python3 tpu_kquant_torch/tools/tile_ab.py --root $side --tag $side ...
+    done
 Fixtures are chip_smoke.py's (seed 0, Q4_K_M), written once under
 ``--fixtures`` (default: where chip_smoke.py writes them) and shared by
 both sides. Needs a CUDA card.
@@ -117,7 +128,8 @@ def main() -> int:
     ap.add_argument("--tag", required=True)
     ap.add_argument("--out", required=True, help="JSON file the results go to")
     ap.add_argument("--fixtures", default=str(TREE / ".cache" / "tkq_torch_fixture"))
-    ap.add_argument("--skip", default="", help="comma list of: qmm, tiny, tick, mixtral")
+    ap.add_argument("--skip", default="",
+                    help="comma list of: qmm, prefill, tiny, tick, mixtral")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -143,6 +155,11 @@ def main() -> int:
     fx = Path(args.fixtures)
     if "qmm" not in skip:
         res["qmm"] = qmm_cases(smoke, dev)
+    if "prefill" not in skip:
+        res["prefill"] = smoke.check_prefill(dev)
+        for c in res["prefill"]:
+            print(f"  prefill {c['case']:70s} {c['ms'] * 1e3:9.2f} us  SDPA "
+                  f"{c['library_ms'] * 1e3:9.2f} us  row rel err {c['rel_err']:.2e}", flush=True)
     if not {"tiny", "tick"} <= skip:
         cfg, params = _fixture(tinyllama_1b_config(), fx / "tinyllama-1.1b-q4_k_m-seed0.gguf",
                                dev)
