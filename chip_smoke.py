@@ -327,6 +327,12 @@ QMM_CASES = (
     ("mixtral: expert down q6w-sp R=16", "q6w", MX_DIM, MX_FFN, 16, "bf", "f32"),
     ("mixtral: expert down q6w-sp R=512", "q6w", MX_DIM, MX_FFN, 512, "bf", "f32"),
     ("mixtral: expert down q6w-f32 R=16", "q6wf", MX_DIM, MX_FFN, 16, "bf", "f32"),
+    # the GEMV at 16 slots (the serving cell's decode ticks) and at 32 rows,
+    # the most it takes
+    ("lm head q6w-sp R=16 (serving, 16 slots)", "q6w", 32000, 2048, 16, "bf", "f32"),
+    ("lm head q6w-sp R=32", "q6w", 32000, 2048, 32, "bf", "f32"),
+    ("mixtral: expert gate/up q4-sm R=32", "q4", MX_FFN, MX_DIM, 32, "bf", "bf"),
+    ("mixtral: expert down q6w-sp R=32", "q6w", MX_DIM, MX_FFN, 32, "bf", "f32"),
     ("mixtral: wo q6w-sp R=1", "q6w", MX_DIM, MX_DIM, 1, "bf", "bf"),
     ("mixtral: wo q6w-f32 R=1", "q6wf", MX_DIM, MX_DIM, 1, "bf", "bf"),
     ("mixtral: wo q6w-f32 R=16", "q6wf", MX_DIM, MX_DIM, 16, "bf", "bf"),
@@ -357,33 +363,28 @@ def qmm_cases() -> tuple:
     return QMM_CASES + TILE_CASES
 
 
-def check_kernels(dev) -> dict:
-    """Kernel vs plain version at the main path's shapes, with the timings
-    of the module docstring. Returns {kernel: [case dicts]}; raises on any
-    disagreement."""
-    import numpy as np
+def _act(R, K, scale=1.0, dev="cuda"):
     import torch
 
-    from tpu_kquant_torch.ops.attn_in import attn_in_plain, fused_attn_in
-    from tpu_kquant_torch.ops.ffn import ffn_plain, fused_ffn, fused_oproj_ffn, oproj_ffn_plain
+    return (torch.randn(R, K, device=dev) * scale).to(torch.bfloat16)
+
+
+def check_qmm(dev, rng, cases) -> list:
+    """qmm against qmm_plain at each (label, kind, N, K, R, x dtype, out
+    dtype) case, x f32 or bf16, out f32 or bf16; timed as the module
+    docstring says, beside torch.matmul on the dequantized weight."""
+    import torch
+
     from tpu_kquant_torch.ops.qmm import qmm, qmm_plain
     from tpu_kquant_torch.quant.codecs import dequant_kmajor
 
-    rng = np.random.default_rng(0)
-    torch.manual_seed(0)
-    out: dict = {"qmm": [], "attn_in": [], "oproj_ffn": []}
-    dim, H, Hkv, hd, F = 2048, 32, 4, 64, 5632
-
-    def act(R, K, scale=1.0):
-        return (torch.randn(R, K, device=dev) * scale).to(torch.bfloat16)
-
-    # qmm: every case of qmm_cases(); x f32 or bf16, out f32 or bf16
     bf, f32 = torch.bfloat16, torch.float32
-    for label, kind, N, K, R, xdt, odt in qmm_cases():
+    out = []
+    for label, kind, N, K, R, xdt, odt in cases:
         xdt, odt = (f32 if xdt == "f32" else bf), (f32 if odt == "f32" else bf)
         w0 = _rand_weights(rng, kind, N, K, dev)
         ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
-        x = act(R, K) if xdt == bf else torch.randn(R, K, device=dev)  # f32: not bf16 values
+        x = _act(R, K, dev=dev) if xdt == bf else torch.randn(R, K, device=dev)  # f32: not bf16
         got = qmm(x, w0, odt)
         torch.cuda.synchronize()
         ref = qmm_plain(x, w0, odt)
@@ -392,7 +393,7 @@ def check_kernels(dev) -> dict:
         wd = [dequant_kmajor(w, xdt).contiguous() for w in ws]
         nb = w0.n_bytes + x.numel() * x.element_size() + R * N * got.element_size()
         b, by = bound_ms(nb, 2.0 * R * K * N)
-        out["qmm"].append({
+        out.append({
             "case": label, "max_abs_err": ad, "rel_err": rel,
             "ms": graph_ms(lambda i: qmm(x, ws[i % len(ws)], odt), 40),
             "eager_ms": time_ms(lambda i: qmm(x, ws[i % len(ws)], odt), 40),
@@ -400,6 +401,43 @@ def check_kernels(dev) -> dict:
             "library_ms": graph_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), 40),
             "bound_ms": b, "bound_by": by})
         del wd, ws
+    return out
+
+
+def check_kernels(dev) -> dict:
+    """Kernel vs plain version at the main path's shapes, with the timings
+    of the module docstring, and the batch-invariance check. Returns
+    {kernel: [case dicts]}; raises on any disagreement."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    torch.manual_seed(0)
+    out: dict = {"qmm": check_qmm(dev, rng, qmm_cases())}
+    out.update(check_fused_ffn(dev, rng))
+    out["prefill"] = check_prefill(dev)
+    out["qmm_int8"] = check_qmm_int8(dev, rng)
+    out["decode_attn"] = check_decode_attn(dev)
+    out.update(check_fused_decode(dev, rng))
+    report_cases(out)
+    check_batch_invariance(dev, rng)
+    return out
+
+
+def check_fused_ffn(dev, rng) -> dict:
+    """attn_in, oproj_ffn and ffn against their plain versions at the main
+    path's shapes (see check_kernels)."""
+    import torch
+
+    from tpu_kquant_torch.ops.attn_in import attn_in_plain, fused_attn_in
+    from tpu_kquant_torch.ops.ffn import ffn_plain, fused_ffn, fused_oproj_ffn, oproj_ffn_plain
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    out: dict = {"attn_in": [], "oproj_ffn": []}
+    dim, H, Hkv, hd, F = 2048, 32, 4, 64, 5632
+
+    def act(R, K, scale=1.0):
+        return _act(R, K, scale, dev)
 
     # attn_in: TinyLlama (32 + 4 heads of 64, no biases), then Qwen2.5-1.5B
     # (12 + 2 heads of 128 over D 1536, f32 biases), at R = 1; then
@@ -528,13 +566,75 @@ def check_kernels(dev) -> dict:
                                                  zip((x, a_f), wd[i % len(wd)])], 64),
                 "bound_ms": b, "bound_by": by})
         del ws, wd
-
-    out["prefill"] = check_prefill(dev)
-    out["qmm_int8"] = check_qmm_int8(dev, rng)
-    out["decode_attn"] = check_decode_attn(dev)
-    out.update(check_fused_decode(dev, rng))
-    report_cases(out)
     return out
+
+
+# the batch sizes whose rows the invariance check holds to the row alone
+INVARIANCE_ROWS = (16, 32)
+
+
+def check_batch_invariance(dev, rng) -> int:
+    """Row r of a call with R in INVARIANCE_ROWS rows must equal, bit for
+    bit (torch.equal), that row computed alone (R = 1): qmm at every kind
+    code at TinyLlama's wqk [2304, 2048] and Mixtral's wo [4096, 4096] (f32
+    out), qmm_int8 (q4-f32 at Mixtral's expert gate/up, q6-f32 at
+    TinyLlama's down), attn_in and oproj_ffn at TinyLlama's widths and ffn
+    at Qwen2.5-1.5B's (bf16 out, their main path's). Fatal; returns the
+    number of cases checked."""
+    import torch
+
+    from tpu_kquant_torch.ops.attn_in import fused_attn_in
+    from tpu_kquant_torch.ops.ffn import fused_ffn, fused_oproj_ffn
+    from tpu_kquant_torch.ops.qmm import KINDS, qmm
+    from tpu_kquant_torch.ops.qmm_int8 import qmm_int8
+
+    top = max(INVARIANCE_ROWS)
+    n = 0
+
+    def same_rows(label, fn, *xs):
+        nonlocal n
+        tup = lambda y: y if isinstance(y, tuple) else (y,)  # noqa: E731
+        solo = [tup(fn(*(x[r:r + 1] for x in xs))) for r in range(top)]
+        bad = []
+        for R in INVARIANCE_ROWS:
+            got = tup(fn(*(x[:R] for x in xs)))
+            bad += [(R, r) for r in range(R)
+                    if not all(torch.equal(g[r:r + 1], o) for g, o in zip(got, solo[r]))]
+        if bad:
+            raise SystemExit(f"FAIL: batch invariance: {label}: (R, row) {bad[:8]} differ from "
+                             f"the row computed alone")
+        n += 1
+
+    f32 = torch.float32
+    for kind, side in KINDS:
+        k = kind + ("f" if side == "f32" else "")
+        for N, K in ((2304, 2048), (MX_DIM, MX_DIM)):
+            w = _rand_weights(rng, k, N, K, dev)
+            same_rows(f"qmm {kind}-{side} [{N}, {K}]", lambda x: qmm(x, w, f32),
+                      _act(top, K, dev=dev))
+    for k, N, K in (("q4f", MX_FFN, MX_DIM), ("q6f", 2048, 5632)):
+        w = _rand_weights(rng, k, N, K, dev)
+        same_rows(f"qmm_int8 {k} [{N}, {K}]", lambda x: qmm_int8(x, w, f32), _act(top, K, dev=dev))
+    dim, H, Hkv, hd, F = 2048, 32, 4, 64, 5632
+    wqk, wv = _rand_weights(rng, "q4", (H + Hkv) * hd, dim, dev), _rand_weights(rng, "q6w",
+                                                                               Hkv * hd, dim, dev)
+    nw = torch.rand(dim, device=dev) + 0.5
+    same_rows("attn_in (TinyLlama)",
+              lambda x, c, s_: fused_attn_in(x, nw, 1e-5, wqk, wv, c, s_, hd, None),
+              _act(top, dim, 0.5, dev), torch.rand(top, hd // 2, device=dev),
+              torch.rand(top, hd // 2, device=dev))
+    wo, gu, dn = (_rand_weights(rng, "q6w", dim, H * hd, dev),
+                  _rand_weights(rng, "q4", 2 * F, dim, dev), _rand_weights(rng, "q6w", dim, F, dev))
+    same_rows("oproj_ffn (TinyLlama)", lambda x, a: fused_oproj_ffn(x, a, wo, nw, 1e-5, gu, dn),
+              _act(top, dim, 0.5, dev), _act(top, H * hd, 0.5, dev))
+    D_, F_ = 1536, 8960
+    gu, dn = _rand_weights(rng, "q4", 2 * F_, D_, dev), _rand_weights(rng, "q6w", D_, F_, dev)
+    nw = torch.rand(D_, device=dev) + 0.5
+    same_rows("ffn (Qwen2.5-1.5B)", lambda x: fused_ffn(x, nw, 1e-6, gu, dn),
+              _act(top, D_, 0.5, dev))
+    log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in, oproj_ffn, "
+        f"ffn): every row at R in {INVARIANCE_ROWS} equals the row computed alone (torch.equal)")
+    return n
 
 
 def report_cases(out: dict) -> None:
@@ -598,13 +698,14 @@ def check_qmm_int8(dev, rng) -> list:
             ("mixtral: expert gate/up q4-f32 R=1", "q4f", MX_FFN, MX_DIM, 1, torch.bfloat16),
             ("mixtral: expert gate/up q4-f32 R=8", "q4f", MX_FFN, MX_DIM, 8, torch.bfloat16),
             ("mixtral: expert gate/up q4-f32 R=16", "q4f", MX_FFN, MX_DIM, 16, torch.bfloat16),
+            ("mixtral: expert gate/up q4-f32 R=32", "q4f", MX_FFN, MX_DIM, 32, torch.bfloat16),
             ("mixtral: router q4-f32 N=8 R=1", "q4f", 8, MX_DIM, 1, torch.float32),
             # phase 9's Q4_K_M with widen_q6=False on f32 scales: the q6 branch
             # at TinyLlama's down and lm head
             *((f"q6-f32 {what} R={R}", "q6f", N, K, R, odt)
               for what, N, K, odt in (("down", 2048, 5632, torch.bfloat16),
                                       ("lm head", 32000, 2048, torch.float32))
-              for R in (1, 8, 16))):
+              for R in (1, 8, 16, 32))):
         w0 = _rand_weights(rng, kind, N, K, dev)
         ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
         xr = torch.randn(R, K, device=dev).to(torch.bfloat16)

@@ -1245,3 +1245,152 @@ def test_qmm_tile_graph_replay_equals_eager(card):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, eager)
+
+
+# ---------------------------------------------------------------------------
+# the decode GEMV (R <= 32; csrc/gemv.cuh) and qmm_int8's int8-mma kernel
+# ---------------------------------------------------------------------------
+
+GEMV_ROWS = [1, 2, 3, 8, 16, 17, 31, 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [8, 96, 2304])
+@pytest.mark.parametrize("kind,f32", TILE_KINDS, ids=[f"{k}{'-f32' if f else ''}"
+                                                      for k, f in TILE_KINDS])
+def test_gemv_every_kind_code_matches_plain(card, kind, f32, N):
+    """All 14 kind codes at every GEMV row count (one to four n-tiles, ragged
+    ones among them) and N = 8 (the router: a block's first lanes only), 96
+    (N % 8 != 0 past a 256-column block's edge: 4-byte code loads) and
+    2304, K = 2048; f32 and bf16 out."""
+    rng = np.random.default_rng(N + 7)
+    qt = packed(kind, N, 2048, rng, card, f32)
+    for R in GEMV_ROWS:
+        x = torch.randn(R, 2048, device=card).to(torch.bfloat16)
+        for odt in (torch.float32, torch.bfloat16):
+            y = t_qmm.qmm(x, qt, odt)
+            torch.cuda.synchronize()
+            assert y.dtype == odt and y.shape == (R, N) and torch.isfinite(y).all()
+            assert _rel(y, t_qmm.qmm_plain(x, qt, odt)) < TOL, (R, odt)
+
+
+def _solo_rows_equal(fn, xs, rows=(16, 32)):
+    """Row r of fn at R rows (R in rows) equals, bit for bit, that row alone."""
+    tup = lambda y: y if isinstance(y, tuple) else (y,)  # noqa: E731
+    solo = [tup(fn(*(x[r:r + 1] for x in xs))) for r in range(max(rows))]
+    for R in rows:
+        got = tup(fn(*(x[:R] for x in xs)))
+        for r in range(R):
+            for g, o in zip(got, solo[r]):
+                assert torch.equal(g[r:r + 1], o), (R, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,K", [(2304, 2048), (4096, 4096)])
+@pytest.mark.parametrize("kind,f32", TILE_KINDS, ids=[f"{k}{'-f32' if f else ''}"
+                                                      for k, f in TILE_KINDS])
+def test_gemv_rows_do_not_depend_on_the_batch(card, kind, f32, N, K):
+    """qmm's row r at R = 16 and 32 is the row computed alone, bit for bit:
+    the split plan ignores R and the per-row arithmetic is R's too."""
+    rng = np.random.default_rng(N + K)
+    qt = packed(kind, N, K, rng, card, f32)
+    x = torch.randn(32, K, device=card).to(torch.bfloat16)
+    _solo_rows_equal(lambda xx: t_qmm.qmm(xx, qt, torch.float32), (x,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,K", [("q4", 14336, 4096), ("q6", 2048, 5632), ("q4", 96, 2048)])
+def test_qmm_int8_rows_do_not_depend_on_the_batch(card, kind, N, K):
+    from tpu_kquant_torch.models.fixtures import random_packed
+
+    qt = random_packed(np.random.default_rng(N), kind, N, K, f32=True).to(card)
+    x = torch.randn(32, K, device=card).to(torch.bfloat16)
+    _solo_rows_equal(lambda xx: t_qmm_int8.qmm_int8(xx, qt, torch.float32), (x,))
+
+
+@pytest.mark.cuda
+def test_fused_kernels_rows_do_not_depend_on_the_batch(card):
+    """attn_in, oproj_ffn, ffn and rot (TinyLlama's widths; ffn at
+    Qwen2.5-1.5B's) at R = 16 and 32, each row against the row alone."""
+    from tpu_kquant_torch.models.fixtures import random_packed
+    from tpu_kquant_torch.ops import rot as t_rot
+
+    rng = np.random.default_rng(3)
+    D, H, Hkv, hd, F = (TINY[k] for k in ("D", "H", "Hkv", "hd", "F"))
+    w = lambda kind, N, K: random_packed(rng, kind, N, K).to(card)  # noqa: E731
+    wqk, wv, wo, gu, dn = (w("q4", (H + Hkv) * hd, D), w("q6w", Hkv * hd, D), w("q6w", D, H * hd),
+                           w("q4", 2 * F, D), w("q6w", D, F))
+    nw = torch.rand(D, device=card) + 0.5
+    x, at = ((torch.randn(32, D, device=card) * 0.5).to(torch.bfloat16) for _ in range(2))
+    cos, sin = (torch.rand(32, hd // 2, device=card) for _ in range(2))
+    _solo_rows_equal(lambda a, c, s: t_attn_in.fused_attn_in(a, nw, 1e-5, wqk, wv, c, s, hd),
+                     (x, cos, sin))
+    _solo_rows_equal(lambda a, b: t_ffn.fused_oproj_ffn(a, b, wo, nw, 1e-5, gu, dn), (x, at))
+    _solo_rows_equal(lambda a, b, c, s: t_rot.fused_oproj_ffn_attn_in(
+        a, b, wo, nw, 1e-5, gu, dn, nw, wqk, wv, c, s, hd), (x, at, cos, sin))
+    gq, dq = w("q4", 2 * 8960, 1536), w("q6w", 1536, 8960)
+    nq = torch.rand(1536, device=card) + 0.5
+    xq = (torch.randn(32, 1536, device=card) * 0.5).to(torch.bfloat16)
+    _solo_rows_equal(lambda a: t_ffn.fused_ffn(a, nq, 1e-6, gq, dq), (xq,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8, 32])
+@pytest.mark.parametrize("kinds", [("q6w", "q4", "q6w"), ("q8f", "q8f", "q8f"),
+                                   ("q4f", "q4f", "q6wf")])
+def test_oproj_ffn_residual_epilogue_matches_plain(card, kinds, R):
+    """oproj_ffn's two GEMV steps end in store_out's residual epilogue
+    (o_proj: + x, rounded to bf16; down: + x2), split over K or not."""
+    from tpu_kquant_torch.models.fixtures import random_packed
+
+    rng = np.random.default_rng(R)
+    D, H, hd, F = (TINY[k] for k in ("D", "H", "hd", "F"))
+    ko, kg, kd = kinds
+    wo, gu, dn = (random_packed(rng, k.rstrip("f"), N, K, f32=k.endswith("f")).to(card)
+                  for k, N, K in ((ko, D, H * hd), (kg, 2 * F, D), (kd, D, F)))
+    nw = torch.rand(D, device=card) + 0.5
+    x, at = ((torch.randn(R, D, device=card) * 0.5).to(torch.bfloat16) for _ in range(2))
+    got = t_ffn.fused_oproj_ffn(x, at, wo, nw, 1e-5, gu, dn)
+    torch.cuda.synchronize()
+    assert _rel(got, t_ffn.oproj_ffn_plain(x, at, wo, nw, 1e-5, gu, dn)) < TOL
+
+
+@pytest.mark.cuda
+def test_gemv_graph_replay_equals_eager(card):
+    """A captured GEMV call (split over K and not; qmm_int8 too) replays to
+    the eager call's bits."""
+    from tpu_kquant_torch.models.fixtures import random_packed
+
+    rng = np.random.default_rng(6)
+    calls = [(lambda x, qt=q6w(2048, 5632, rng, card): t_qmm.qmm(x, qt), 5632, 16),
+             (lambda x, qt=q4(32000, 2048, rng, card): t_qmm.qmm(x, qt, torch.float32), 2048, 1),
+             (lambda x, qt=random_packed(rng, "q4", 14336, 4096, f32=True).to(card):
+              t_qmm_int8.qmm_int8(x, qt), 4096, 32)]
+    for fn, K, R in calls:
+        x = torch.randn(R, K, device=card).to(torch.bfloat16)
+        eager = fn(x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            y = fn(x)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,N,K", [("q4", 14336, 4096), ("q6", 32000, 2048), ("q4", 96, 2048),
+                                      ("q6", 8, 2048)])
+@pytest.mark.parametrize("R", [1, 17, 32])
+def test_qmm_int8_kernel_every_tile_count_matches_plain(card, kind, N, K, R):
+    from tpu_kquant_torch.models.fixtures import random_packed
+
+    qt = random_packed(np.random.default_rng(N + R), kind, N, K, f32=True).to(card)
+    x = torch.randn(R, K, device=card).to(torch.bfloat16)
+    y = t_qmm_int8.qmm_int8(x, qt, torch.float32)
+    torch.cuda.synchronize()
+    assert _rel(y, t_qmm_int8.qmm_int8_plain(x, qt, torch.float32)) < 1e-3

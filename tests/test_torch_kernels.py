@@ -107,11 +107,13 @@ def test_wrappers_raise_off_the_cpu_without_a_card():
                                            (1, 256, 2048, 8), (1, 2048, 5632, 1),
                                            (0, 2048, 2048, 32), (1, 96, 64, 5)])
 def test_gemv_split_covers_k(kind, N, K, rows):
-    cps, splits = t_qmm.gemv_split(kind, N, K, rows)
+    """The GEMV's K split (no row count among its inputs) covers K's chunks
+    and fits shared memory at these rows and at 32, the most it takes."""
+    cps, splits = t_qmm.gemv_plan(kind, N, K)
     n_chunks = (K // 2 if kind == 0 else K) // 32
     assert cps * splits >= n_chunks > cps * (splits - 1)
-    rt = t_qmm.pick_rt(rows)
-    assert 4 * rt * (cps * (64 if kind == 0 else 32) + 1024) <= 200 * 1024
+    smem = t_qmm.gemv_smem_bytes
+    assert smem(kind, cps, rows) <= smem(kind, cps, 32) <= 200 * 1024
 
 
 def _rope_inputs(rng, R, hd):

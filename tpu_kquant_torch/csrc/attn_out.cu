@@ -25,7 +25,7 @@
 //       with its int8 branch), split over S: one block per (KV head, batch
 //       row, split of tps tiles), then the combine launch, which writes the
 //       bf16 head outputs att [B, H * D];
-//   (B) the split-K GEMV of common.cuh over wo on att, whose epilogue rounds
+//   (B) gemv.cuh's tensor-core GEMV over wo on att, whose epilogue rounds
 //       the o_proj sum to bf16 and adds x (GemvArgs.res, round_first); a
 //       fixed-order reduce launch follows where K is split.
 // Without the split, phase A at B = 1 had Hkv = 4 blocks walking the cache
@@ -33,6 +33,7 @@
 // tile); the wrapper picks the splits from S and B (ops/decode_attention.py:
 // attn_splits), never from the positions, which stay on the device.
 #include "decode_attn.cuh"
+#include "gemv.cuh"
 
 using namespace tkq;
 

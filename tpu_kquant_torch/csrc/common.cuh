@@ -1,5 +1,7 @@
 // Shared device code of the port's kernels (sm_90a): the packed-weight
-// layouts, the split-K GEMV core used at decode rows, and its reduce step.
+// layouts and the CUDA-core GEMV core of the in-block GEMVs (attn_in.cuh,
+// gate_up.cuh). The decode GEMV that qmm and the fused kernels' o_proj /
+// down steps launch is gemv.cuh's tensor-core kernel.
 //
 // Packed layouts (tpu_kquant_torch/quant/repack.py), weights W of logical
 // shape (N, K) stored K-major with N contiguous. Kind codes (the `kind` of
@@ -7,9 +9,10 @@
 //   KQ4   0: qs u8 [K/2, N], byte (k, n) = code(k) | code(k + K/2) << 4;
 //            sm f32-container [K/32, N]: low 16 bits bf16 scale, high 16
 //            bits bf16 min; w = s * q - m.
-//   KQ6W  1: qs i8 [K, N] signed codes; sp f32-container [K/32, N]: low 16
-//            bits bf16 scale of group 2j (rows 32j..32j+15), high 16 bits
-//            the scale of group 2j+1; w = s * q.
+//   KQ6W  1: qs i8 [K, N] signed codes (q - 32, in [-32, 31]); sp
+//            f32-container [K/32, N]: low 16 bits bf16 scale of group 2j
+//            (rows 32j..32j+15), high 16 bits the scale of group 2j+1;
+//            w = s * q.
 //   KQ4F  2: KQ4's codes, f32 scales and mins [K/32, N] (scale_dtype='f32').
 //   KQ6WF 3: KQ6W's codes, f32 scales [K/16, N].
 //   KQ8   4: qs i8 [K, N] (Q8_0, group 32); sp [K/64, N]: groups 2j, 2j+1.
@@ -30,19 +33,17 @@
 // nibble folds; q6w / q8: 1; q6, q2: 4; q5, q3: 8): packed row r of a
 // segment-local offset holds, in its bits, element r of every segment
 // (qs rows t * K/NSEG + r for t < NT, qh row r). A "chunk" is 32 such rows
-// and so covers 32 elements of each segment; the GEMV stages the x values
+// and so covers 32 elements of each segment; a GEMV stages the x values
 // of all its segments and reads every packed byte of the chunk once.
-// GEMV core (rows <= 32, memory bound): a block owns TN = 128 output
-// columns, each lane 4 neighbouring columns, so a warp reads 128 contiguous
-// bytes of every packed row. The block's 8 warps split its K range into
-// 32-row chunks; per chunk a lane loads all 32 words first (32 loads in
-// flight per warp), then accumulates code * x per scale group and applies
-// the group's scale and min once: sum_k x (s q - m) = s sum x q - m sum x.
+// In-block GEMV core (gemv_warp; attn_in's and gate/up's blocks read all of
+// K): a block owns TN = 128 output columns, each lane 4 neighbouring
+// columns, so a warp reads 128 contiguous bytes of every packed row. The
+// block's 8 warps split K into 32-row chunks; per chunk a lane loads all 32
+// words first, then accumulates code * x per scale group and applies the
+// group's scale and min once: sum_k x (s q - m) = s sum x q - m sum x.
 // Codes become floats with a byte permute into the mantissa of 2^23 and one
-// subtract (integer-to-float conversion has a fraction of the FMA rate). The
-// activation rows are staged in shared memory in f32. Warps are reduced in
-// shared memory; blocks split along K (grid.y) write f32 partials that a
-// second launch sums in a fixed order, so results are deterministic.
+// subtract. The activation rows are staged in shared memory in f32; warps
+// are reduced in shared memory in a fixed order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -454,53 +455,6 @@ __device__ __forceinline__ void store_out(void* out, int out_f32, size_t i, floa
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
 }
 
-struct GemvArgs {
-  const void* x;  // [R, K] activations, bf16 or f32 (x_f32)
-  int x_f32;
-  const uint8_t* qs;
-  const uint32_t* scl;  // sm, sp, or f32 scales (see the legend)
-  int R, N, K;
-  int cps;                   // chunks per K split (grid.y splits)
-  float* ws;                 // [grid.y, R, N] partials when grid.y > 1
-  void* out;                 // [R, N] when grid.y == 1
-  int out_f32;
-  const __nv_bfloat16* res;  // optional [R, N] residual (grid.y == 1)
-  const uint32_t* mins;      // f32 mins [K/g, N] (KQ4F and the f32 bit-plane kinds)
-  const uint8_t* qh = nullptr;  // high bit planes (q5, q6, q3)
-  int round_first = 0;          // store_out: round acc to bf16 before adding res
-};
-
-// grid (ceil(N / TN), splits, ceil(R / RT)); dynamic smem:
-// RT * (x_span(cps) + WARPS * TN) floats.
-template <int KIND, int RT>
-__global__ void __launch_bounds__(THREADS) gemv_kernel(GemvArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int n_chunks = n_chunks_of<KIND>(a.K);
-  const int c0 = blockIdx.y * a.cps;
-  const int c1 = min(n_chunks, c0 + a.cps);
-  const int r0 = blockIdx.z * RT;
-  const int span = x_span<KIND>(a.cps);
-  float* xs = smem;
-  float* red = smem + RT * span;
-  if (c0 < c1) stage_x<KIND, RT>(xs, a.x, a.x_f32, a.R, a.K, r0, c0, c1, nullptr, nullptr);
-  const int lane = threadIdx.x % 32;
-  const int n = blockIdx.x * TN + lane * 4;
-  float acc[RT][4] = {};
-  if (c0 < c1)
-    gemv_warp<KIND, RT>(acc, a.qs, a.scl, a.N, a.K, n, n < a.N, c0, c1, xs,
-                        x_span<KIND>(c1 - c0), a.mins, a.qh);
-  block_reduce<RT>(red, acc);
-  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
-    const int r = r0 + i / TN, col = blockIdx.x * TN + i % TN;
-    if (r >= a.R || col >= a.N) continue;
-    const size_t o = (size_t)r * a.N + col;
-    if (gridDim.y > 1)
-      a.ws[(size_t)blockIdx.y * a.R * a.N + o] = red[i];
-    else
-      store_out(a.out, a.out_f32, o, red[i], a.res, a.round_first);
-  }
-}
-
 // out[r, n] = sum over splits s of ws[s, r, n] (in order s = 0, 1, ...),
 // then the store_out epilogue.
 __global__ void __launch_bounds__(256) reduce_kernel(const float* ws, int S, int RN, void* out,
@@ -513,49 +467,8 @@ __global__ void __launch_bounds__(256) reduce_kernel(const float* ws, int S, int
   store_out(out, out_f32, i, v, res, round_first);
 }
 
-template <int KIND, int RT>
-cudaError_t launch_gemv_rt(const GemvArgs& a, int splits, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * RT * (x_span<KIND>(a.cps) + WARPS * TN);
-  cudaError_t e = cudaFuncSetAttribute(gemv_kernel<KIND, RT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.N + TN - 1) / TN, splits, (a.R + RT - 1) / RT);
-  gemv_kernel<KIND, RT><<<grid, THREADS, smem, stream>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  const int RN = a.R * a.N;
-  reduce_kernel<<<(RN + 255) / 256, 256, 0, stream>>>(a.ws, splits, RN, a.out, a.out_f32, a.res,
-                                                      a.round_first);
-  return cudaGetLastError();
-}
-
 // rows per block for R rows (R <= 32): the next power of two up to 8
 __host__ __forceinline__ int pick_rt(int R) { return R <= 1 ? 1 : R <= 2 ? 2 : R <= 4 ? 4 : 8; }
-
-template <int KIND>
-cudaError_t launch_gemv(const GemvArgs& a, int splits, cudaStream_t stream) {
-  switch (pick_rt(a.R)) {
-    case 1: return launch_gemv_rt<KIND, 1>(a, splits, stream);
-    case 2: return launch_gemv_rt<KIND, 2>(a, splits, stream);
-    case 4: return launch_gemv_rt<KIND, 4>(a, splits, stream);
-    default: return launch_gemv_rt<KIND, 8>(a, splits, stream);
-  }
-}
-
-// launch_gemv for a kind code chosen at run time among the kinds the fused
-// kernels take (q4, q6w, q8, each in either scale layout)
-inline cudaError_t launch_gemv_kind(int kind, const GemvArgs& a, int splits,
-                                    cudaStream_t stream) {
-  switch (kind) {
-    case KQ4: return launch_gemv<KQ4>(a, splits, stream);
-    case KQ6W: return launch_gemv<KQ6W>(a, splits, stream);
-    case KQ4F: return launch_gemv<KQ4F>(a, splits, stream);
-    case KQ6WF: return launch_gemv<KQ6WF>(a, splits, stream);
-    case KQ8: return launch_gemv<KQ8>(a, splits, stream);
-    case KQ8F: return launch_gemv<KQ8F>(a, splits, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 }  // namespace tkq
 

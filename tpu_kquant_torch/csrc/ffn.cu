@@ -53,7 +53,7 @@
 //   (B) gate/up (gate_up.cuh): each block owns 128 columns of gate and the
 //       matching 128 of up, so silu(gate) * up is formed in the block and
 //       only the bf16 activation [R, F] is written;
-//   (C) down: the split-K GEMV of common.cuh over w_down on that
+//   (C) down: gemv.cuh's tensor-core GEMV over w_down on that
 //       activation; its fixed-order reduce adds the residual x and rounds to
 //       bf16 (deterministic, no atomics).
 // Three or four launches in all (C adds a reduce launch when it splits K).

@@ -13,6 +13,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "gemv.cuh"
 
 namespace tkq {
 

@@ -11,9 +11,11 @@
 // Two paths, chosen by the row count like the reference's tiles:
 // - R <= 32 (decode; the lm head on the main path): memory bound. At
 //   3.35 TB/s the lm head [32000, 2048] q6w-sp (73.7 MB) takes at least
-//   22 us; q8-sp (69.6 MB) 20.8 us. The split-K GEMV core of common.cuh
-//   reads every packed byte once, coalesced: a q4 byte's two nibble folds
-//   from one load, a bit-plane chunk's qh words once for all its segments.
+//   22 us; q8-sp (69.6 MB) 20.8 us. gemv.cuh's tensor-core GEMV reads every
+//   packed byte once whatever R is (one block holds all the rows), a q4
+//   byte's two nibble folds from one load, a bit-plane chunk's qh words
+//   once for all its segments; its K split (ops/qmm.py:gemv_plan) does not
+//   depend on R.
 // - R > 32 (prefill; every projection; serving ticks past 32 slots):
 //   compute bound at R = 512 (2 R K N flops over 989 TFLOP/s bf16). The
 //   pipelined wgmma tile of qmm_tile.cuh: bf16 x only (the wrapper rounds
@@ -28,6 +30,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "gemv.cuh"
 #include "qmm_tile.cuh"
 
 namespace tkq {

@@ -30,7 +30,7 @@ import torch
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.decode_attention import KERNEL_HEAD_DIMS, MAX_GROUP, \
     attn_splits, decode_attention_plain
-from tpu_kquant_torch.ops.qmm import gemv_split, kernel_kind, packed_arrays, qmm_plain
+from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind, packed_arrays, qmm_plain
 from tpu_kquant_torch.quant.qtensor import QTensor
 from tpu_kquant_torch.quant.repack import GROUP_SIZE
 
@@ -146,7 +146,7 @@ def fused_attn_out(x: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.T
     if not (qb.stride(2) == 1 and qb.stride(1) == D):
         qb = qb.contiguous()
     x2d = x.reshape(B, dim).contiguous()
-    cps, splits = gemv_split(wo_kind, dim, H * D, B)
+    cps, splits = gemv_plan(wo_kind, dim, H * D)
     if att is None:
         att = torch.empty((B, H * D), dtype=torch.bfloat16, device=x.device)
     req(att.shape == (B, H * D) and att.dtype == torch.bfloat16 and att.is_contiguous()

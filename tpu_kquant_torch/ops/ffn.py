@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_kquant_torch.ops import _build
-from tpu_kquant_torch.ops.qmm import gemv_split, kernel_kind, packed_arrays
+from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind, packed_arrays
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -157,7 +157,7 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "ffn: norm weight")
     (gu_kind, gu_arrs), (dn_kind, dn_arrs) = _fused_arrays("ffn", x, gu, dn)
     x2d, nw = x2d.contiguous(), norm_w.contiguous()
-    cps_d, splits_d = gemv_split(dn_kind, dim, Fd, R)
+    cps_d, splits_d = gemv_plan(dn_kind, dim, Fd)
     dev = x.device
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
     ws = torch.empty(splits_d * R * dim, dtype=torch.float32, device=dev)
@@ -202,8 +202,8 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     (wo_kind, wo_arrs), (gu_kind, gu_arrs), (dn_kind, dn_arrs) = _fused_arrays(
         "oproj_ffn", x, wo, gu, dn)
     x2d, a2d, nw = x2d.contiguous(), a2d.contiguous(), norm_w.contiguous()
-    cps_o, splits_o = gemv_split(wo_kind, dim, K, R)
-    cps_d, splits_d = gemv_split(dn_kind, dim, Fd, R)
+    cps_o, splits_o = gemv_plan(wo_kind, dim, K)
+    cps_d, splits_d = gemv_plan(dn_kind, dim, Fd)
     dev = x.device
     x2 = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)

@@ -32,7 +32,7 @@ from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attn_in import attn_in_plain
 from tpu_kquant_torch.ops.decode_attention import MAX_GROUP, attn_splits
 from tpu_kquant_torch.ops.ffn import _FLAT_KINDS, _ffn_tail, _fused_arrays, _pick_tf
-from tpu_kquant_torch.ops.qmm import gemv_split, kernel_kind
+from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -177,8 +177,8 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
     s2d = sin.reshape(B, hd // 2).float().contiguous()
     req(c2d.shape == (B, hd // 2), "layer: rope tables must be [B, 1, head_dim / 2]")
     wts = _fused_arrays("layer", x, wqk, wv, wo, gu, dn)
-    cps_o, splits_o = gemv_split(wts[2][0], D, H * hd, B)
-    cps_d, splits_d = gemv_split(wts[4][0], D, F, B)
+    cps_o, splits_o = gemv_plan(wts[2][0], D, H * hd)
+    cps_d, splits_d = gemv_plan(wts[4][0], D, F)
     dev = x.device
     n0, n1 = (H + Hkv) * hd, Hkv * hd
     qk = torch.empty((B, n0), dtype=torch.bfloat16, device=dev)

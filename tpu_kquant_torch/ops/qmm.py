@@ -6,8 +6,12 @@ for the kinds with mins: ``scale_dtype='f32'``).
 
 Kernels: ``csrc/qmm.cuh``, built as ``csrc/qmm.cu`` (q4, q6w, q8),
 ``csrc/qmm_q56.cu`` (q5, q6) and ``csrc/qmm_q23.cu`` (q3, q2) (replaces
-``tpu_kquant/ops/pallas_qmm.py:qmm_pallas``). Rows <= 32 take its split-K
-GEMV (memory bound: every packed byte read once); more rows take the
+``tpu_kquant/ops/pallas_qmm.py:qmm_pallas``). Rows <= 32 take the
+tensor-core GEMV of ``csrc/gemv.cuh`` (memory bound: every packed byte read
+once, whatever the row count; f32 activations rounded to bf16 on the way
+into shared memory; its K split from ``gemv_plan``, which never looks at
+the row count, so a row's result is the same bits at any R <= 32); more
+rows take the
 pipelined wgmma tile of ``csrc/qmm_tile.cuh`` (compute bound at prefill),
 on bf16 activations (f32 ones are rounded to bf16 first, as the reference's
 kernel rounds them for its MXU), with the tile and K split of
@@ -33,6 +37,7 @@ only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,7 +62,6 @@ _MINS = ("q4", "q5", "q6", "q3", "q2")  # the kinds whose dequant subtracts a mi
 # the bit-plane kinds and their libraries (the other kinds: csrc/qmm.cu)
 _PLANE_LIBRARY = {"q5": "qmm_q56", "q6": "qmm_q56", "q3": "qmm_q23", "q2": "qmm_q23"}
 GEMV_MAX_ROWS = 32
-_TARGET_BLOCKS = 264  # two blocks per SM on a 132-SM H100
 _SMEM_CAP = 200 * 1024
 # the wgmma tile (csrc/qmm_tile.cuh): output columns a block, logical K rows
 # a pipeline step, the H100's SMs; tile_plan's cost model, fitted to a sweep
@@ -74,6 +78,18 @@ FILL_STEPS = 2
 PARTIAL_BYTES_PER_US = 6.7e6
 MIN_SPLIT_STEPS = 2
 WS_CAP = 64 << 20
+# the GEMV (csrc/gemv.cuh): output columns a block, floats a row of its
+# output tile; gemv_plan's blocks a wave (two a SM: the kernel's occupancy
+# at up to 16 rows), a block's fixed cost in chunks (staging x, the
+# reduction, the store) and a split's cost per output column, fitted to
+# tools/gemv_sweep.py --plan on the H100 (PERF.md §6): a wave of 264
+# blocks x one chunk moves ~2.4 MB of packed bytes, a split's partials at
+# 32 rows 256 N bytes
+GEMV_TN = 256
+GEMV_TP = GEMV_TN + 8
+GEMV_WAVE = 2 * SMS
+GEMV_BLOCK_CHUNKS = 4
+GEMV_SPLIT_COST = 1 / 4096
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #           kind x  x_f32 qs  qh  scl mins out out_f32 ws R   N   K   cps splits mw stream
@@ -147,29 +163,53 @@ def packed_arrays(qt: QTensor, what: str) -> tuple[int, list]:
     return code, arrs
 
 
-def pick_rt(rows: int) -> int:
-    """Rows per GEMV block (csrc/common.cuh pick_rt)."""
-    return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
+def gemv_smem_bytes(code: int, cps: int, R: int, int8: bool = False) -> int:
+    """Dynamic shared memory of the GEMV kernel at ``cps`` chunks a split and
+    R rows (csrc/gemv.cuh gemv_smem_bytes; int8: csrc/qmm_int8.cu
+    int8_smem_bytes): the staged activations of 8 ceil(R / 8) rows (bf16
+    rows of a multiple of 64 plus 16 elements; int8: of 128 plus 16 bytes)
+    and each scale group's sums (int8: its scales and gsums), or the block's
+    f32 output tile, whichever is larger."""
+    kind = KINDS[code][0]
+    seg, gpc = SEGMENTS[kind], 32 // GROUP_SIZE[kind]
+    rows = 8 * -(-R // 8)
+    span = seg * cps * 32
+    if int8:
+        staged = rows * (-(-span // 128) * 128 + 16) + 2 * seg * cps * gpc * rows * 4
+    else:
+        staged = rows * (-(-span // 64) * 64 + 16) * 2 + seg * cps * gpc * rows * 4
+    return max(staged, rows * GEMV_TP * 4)
 
 
-def gemv_split(kind: int, N: int, K: int, rows: int,
-               chunk_floats: int | None = None) -> tuple[int, int]:
-    """(chunks per split, splits) of a GEMV's K range: enough blocks to cover
-    the card, at least 8 chunks (one per warp) per split, and the block's
-    shared memory (8 warps x 128 reduce floats, plus ``chunk_floats`` staged
-    per chunk and row: by default qmm's activations, 32 floats for each of
-    the kind's K segments) within the cap."""
-    seg = SEGMENTS[KINDS[kind][0]]
-    n_chunks = K // (32 * seg)
-    rt = pick_rt(rows)
-    blocks = -(-N // 128) * -(-rows // rt)
-    splits = max(1, min(-(-_TARGET_BLOCKS // blocks), n_chunks // 8))
-    cps = -(-n_chunks // splits)
-    span = chunk_floats or seg * 32
-    while cps > 1 and 4 * rt * (cps * span + 8 * 128) > _SMEM_CAP:
-        splits += 1
-        cps = -(-n_chunks // splits)
-    return cps, -(-n_chunks // cps)
+@functools.lru_cache(maxsize=None)
+def gemv_plan(code: int, N: int, K: int, int8: bool = False) -> tuple[int, int]:
+    """(chunks per split, splits) of the GEMV's K range (csrc/gemv.cuh; int8:
+    qmm_int8's kernel), from the kind, N and K alone: never from the row
+    count, so that a row's sums are taken in the same order whatever the
+    other rows of the call (a served stream's tokens do not depend on the
+    batch). A block covers GEMV_TN columns and a K range of ``cps`` 32-row
+    chunks; of the splits whose blocks fit shared memory at 32 rows and give
+    each of the block's two K warps a chunk, the one with the fewest chunks
+    a block over the card's waves (GEMV_WAVE blocks: two a SM, so that at
+    up to 16 rows twice the loads are in flight; at 32 rows, one block a
+    SM, such a plan runs two waves of half the chunks), counting
+    GEMV_BLOCK_CHUNKS of fixed cost a block and GEMV_SPLIT_COST N chunks a
+    split for the partials' round trip."""
+    kind = KINDS[code][0]
+    n_chunks = K // (32 * SEGMENTS[kind])
+    tiles = -(-N // GEMV_TN)
+    best = None
+    for s in range(1, n_chunks + 1):
+        cps = -(-n_chunks // s)
+        if -(-n_chunks // cps) != s or (s > 1 and cps < 2):
+            continue  # another s gives this cps; or a K warp without a chunk
+        if gemv_smem_bytes(code, cps, GEMV_MAX_ROWS, int8) > _SMEM_CAP:
+            continue
+        cost = -(-tiles * s // GEMV_WAVE) * (cps + GEMV_BLOCK_CHUNKS) + GEMV_SPLIT_COST * N * s
+        if best is None or cost < best[0]:
+            best = (cost, cps, s)
+    _build.require(best is not None, f"gemv_plan: no split of K={K} fits ({KINDS[code]})")
+    return best[1], best[2]
 
 
 def plan_cost(bm: int, tiles: int, n_steps: int, sps: int, R: int, N: int) -> float:
@@ -236,7 +276,7 @@ def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> t
     if R == 0:
         return out.reshape(*lead, N)
     if R <= GEMV_MAX_ROWS:
-        (cps, splits), mw = gemv_split(code, N, K, R), 0
+        (cps, splits), mw = gemv_plan(code, N, K), 0
     else:  # the tile reads bf16 rows through TMA: 16-byte aligned
         bm, _, splits, cps = tile_plan(R, N, K, code)
         mw = bm // 128

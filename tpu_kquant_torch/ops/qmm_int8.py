@@ -6,9 +6,11 @@ Kernel: ``csrc/qmm_int8.cu`` (replaces ``tpu_kquant/ops/pallas_qmm_int8.py:
 qmm_int8``), decode rows only (R <= 32), kinds q4 and q6, as the
 reference's. It quantizes the activations per weight group (32 for q4, 16
 for q6; ops.act_quant), sums each group's products with the codes (4-bit,
-or 6-bit from ``qs`` + ``qh``, 0..63) as exact int32, rescales them by
-xs * s and subtracts the min term gsums @ mins in the same pass (q6's -32
-offset is in its mins).
+or 6-bit from ``qs`` + ``qh``, 0..63) as exact int32 on int8 tensor cores,
+rescales them by xs * s and subtracts the min term gsums @ mins in the same
+pass (q6's -32 offset is in its mins). Its K split is
+``ops.qmm.gemv_plan(..., int8=True)``, free of the row count like the
+GEMV's, so a row's result does not depend on the batch.
 
 ``qmm_int8_plain`` is the same function in plain PyTorch: the group sums in
 f32 (exact: |z| <= 32 * 127 * 15 and 16 * 127 * 63 < 2^24), then the f32
@@ -23,7 +25,7 @@ import torch
 
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.act_quant import quantize_activations
-from tpu_kquant_torch.ops.qmm import KIND_CODE, gemv_split, kernel_kind, packed_arrays
+from tpu_kquant_torch.ops.qmm import KIND_CODE, gemv_plan, kernel_kind, packed_arrays
 from tpu_kquant_torch.quant.codecs import _unpack_codes_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 from tpu_kquant_torch.quant.repack import GROUP_SIZE
@@ -31,10 +33,6 @@ from tpu_kquant_torch.quant.repack import GROUP_SIZE
 counter = _build.LaunchCounter("qmm_int8")
 
 MAX_ROWS = 32
-# shared-memory floats the kernel stages per chunk and row (csrc/qmm_int8.cu
-# int8_smem_floats): xs and gsums of each segment's groups, and 32 xq bytes
-# per segment; q4: 2 segments of one 32-group, q6: 4 of two 16-groups
-CHUNK_FLOATS = {"q4": 2 * 2 * 1 + 2 * 8, "q6": 2 * 4 * 2 + 4 * 8}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _QUANT_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _P]
@@ -87,7 +85,7 @@ def qmm_int8(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None)
     if R == 0:
         return out.reshape(*lead, N)
     xq, xs, gsums = quantize_q8(x2d, GROUP_SIZE[qt.kind])
-    cps, splits = gemv_split(code, N, K, R, CHUNK_FLOATS[qt.kind])
+    cps, splits = gemv_plan(code, N, K, int8=True)
     ws = torch.empty(splits * R * N if splits > 1 else 0, dtype=torch.float32, device=x.device)
     lib = _build.load("qmm_int8", "tkq_qmm_int8", _ARGTYPES)
     P = _build.ptr

@@ -24,7 +24,7 @@ import torch
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attn_in import attn_in_plain, attn_in_supported
 from tpu_kquant_torch.ops.ffn import _fused_arrays, oproj_ffn_plain, oproj_ffn_supported
-from tpu_kquant_torch.ops.qmm import gemv_split
+from tpu_kquant_torch.ops.qmm import gemv_plan
 from tpu_kquant_torch.quant.qtensor import QTensor
 
 counter = _build.LaunchCounter("rot")
@@ -105,8 +105,8 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
     req(norm_w.shape == norm_w2.shape == (dim,)
         and norm_w.dtype == norm_w2.dtype == torch.float32, "rot: norm weights")
     wts = _fused_arrays("rot", x, wo, gu, dn, wqk2, wv2)
-    cps_o, splits_o = gemv_split(wts[0][0], dim, K, R)
-    cps_d, splits_d = gemv_split(wts[2][0], dim, Fd, R)
+    cps_o, splits_o = gemv_plan(wts[0][0], dim, K)
+    cps_d, splits_d = gemv_plan(wts[2][0], dim, Fd)
     dev = x.device
     x2d, a2d = x2d.contiguous(), a2d.contiguous()
     c2d, s2d = c2d.float().contiguous(), s2d.float().contiguous()

@@ -20,7 +20,15 @@ shapes. Measured, each on the card with its name and power limit:
 - the flash prefill kernel (#8) at every phase-3 case (chip_smoke.py's
   check_prefill: CUDA-graph and eager ms, its plain version, SDPA, the
   bound, the error per row), the 1024-request burst among them; the
-  burst's wall time end to end is the tick section's burst + first tick.
+  burst's wall time end to end is the tick section's burst + first tick;
+- the decode GEMV (csrc/gemv.cuh): every qmm case of phase 3 with R <= 32
+  (chip_smoke.py's check_qmm: graph and eager ms, plain, torch.matmul on
+  the dequantized weight, the bound, the error), qmm_int8's cases
+  (check_qmm_int8) and the fused kernels whose o_proj / down steps it runs
+  (check_fused_ffn: attn_in, oproj_ffn, ffn; check_fused_decode: kv_append,
+  attn_out, layer, rot).
+The sections are qmm, prefill, tiny, tick, mixtral, gemv, int8 and fused;
+``--skip`` leaves some out.
 So one call can time a parent's checkout and this one in turns (parent,
 change, change, parent):
 
@@ -122,6 +130,18 @@ def qmm_cases(smoke, dev) -> list:
     return out
 
 
+def _report(name: str, cases: list) -> list:
+    """Print phase-3 case dicts (ms per call, the yardsticks, the error) and
+    return them."""
+    for c in cases:
+        lib = c["library_ms"] if c["library_ms"] is not None else c.get("matmul_ms")
+        bad = "" if c["rel_err"] <= c.get("tol", 2e-2) else "  FAIL: beyond its tolerance"
+        print(f"  {name} {c['case']:60s} {c['ms'] * 1e3:9.2f} us  (eager "
+              f"{c['eager_ms'] * 1e3:8.2f})  library {lib * 1e3:8.2f} us  bound "
+              f"{c['bound_ms'] * 1e3:7.2f} us  rel err {c['rel_err']:.2e}{bad}", flush=True)
+    return cases
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, help="checkout whose tpu_kquant_torch is timed")
@@ -129,7 +149,7 @@ def main() -> int:
     ap.add_argument("--out", required=True, help="JSON file the results go to")
     ap.add_argument("--fixtures", default=str(TREE / ".cache" / "tkq_torch_fixture"))
     ap.add_argument("--skip", default="",
-                    help="comma list of: qmm, prefill, tiny, tick, mixtral")
+                    help="comma list of: qmm, prefill, tiny, tick, mixtral, gemv, int8, fused")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -155,6 +175,16 @@ def main() -> int:
     fx = Path(args.fixtures)
     if "qmm" not in skip:
         res["qmm"] = qmm_cases(smoke, dev)
+    if "gemv" not in skip:
+        cases = [c for c in smoke.qmm_cases() if c[4] <= 32]
+        res["gemv"] = _report("gemv", smoke.check_qmm(dev, np.random.default_rng(0), cases))
+    if "int8" not in skip:
+        res["qmm_int8"] = _report("qmm_int8", smoke.check_qmm_int8(dev, np.random.default_rng(0)))
+    if "fused" not in skip:
+        rng = np.random.default_rng(0)
+        fused = smoke.check_fused_ffn(dev, rng)
+        fused.update(smoke.check_fused_decode(dev, rng))
+        res["fused"] = {k: _report(k, v) for k, v in fused.items()}
     if "prefill" not in skip:
         res["prefill"] = smoke.check_prefill(dev)
         for c in res["prefill"]:
