@@ -26,8 +26,14 @@ Phases, each fatal on failure:
     and q4 in both slots (R = 1, 16), oproj_ffn and ffn with q8 in every
     slot (R = 1, 8); and qmm's wgmma tile at the 1024-slot serving tick (R
     = 1024) and pp2048 (R = 2048) on TinyLlama's wqk, wv, wo, gate/up and
-    down and Mixtral's expert gate/up and down (TILE_CASES) (tolerance 2e-2
-    of max|ref|;
+    down and Mixtral's expert gate/up and down (TILE_CASES); the gate/up
+    phase of the fused FFN kernels alone at every kind their gates take
+    (TinyLlama's w_gateup, R = 1 and 8, listed with ffn's cases and timed
+    beside each oproj_ffn and ffn case); then the batch-invariance check
+    (fatal): rows of the GEMV paths at R = 16 and 32 against each row
+    alone, the tile's 64-row blocks of a 16 x 64 burst against the 64-row
+    calls, and the flash decode's rows at B = 16 and 1024 against each row
+    alone, bit for bit (tolerance 2e-2 of max|ref|;
     qmm_int8 1e-3; the attention kernels 2e-2 of each output row's own
     max|ref|), and time the kernel and the plain version; as yardsticks the
     port never calls, qmm's ``library_ms`` is torch.matmul on the
@@ -55,7 +61,8 @@ Phases, each fatal on failure:
     pass it (bf16 and int8 KV); 16 slots of 128 serving 64 requests, 12
     greedy (4 with an eos), each greedy stream held to the same prompt served
     alone by engine.generate (or differing first where the top-2 logit gap
-    is under 1e-2); 1024 slots of 2048 serving 1024 requests admitted as one
+    is under 1e-2; the number that differ is printed); 1024 slots of 2048
+    serving 1024 requests admitted as one
     burst, on bf16 and then int8 KV: the flash prefill in every layer of the
     burst and the flash decode kernel in every layer of every tick. Each run
     is counted from 0 and checked against the gates; tokens/s (wall), ticks
@@ -429,10 +436,14 @@ def check_fused_ffn(dev, rng) -> dict:
     path's shapes (see check_kernels)."""
     import torch
 
+    from tpu_kquant_torch.ops import ffn as ffn_mod
     from tpu_kquant_torch.ops.attn_in import attn_in_plain, fused_attn_in
     from tpu_kquant_torch.ops.ffn import ffn_plain, fused_ffn, fused_oproj_ffn, oproj_ffn_plain
     from tpu_kquant_torch.quant.codecs import dequant_kmajor
 
+    # the gate/up phase alone, timed beside the whole kernels (absent from a
+    # parent's checkout timed by tools/tile_ab.py)
+    gate_up = getattr(ffn_mod, "gate_up", None)
     out: dict = {"attn_in": [], "oproj_ffn": []}
     dim, H, Hkv, hd, F = 2048, 32, 4, 64, 5632
 
@@ -530,6 +541,8 @@ def check_fused_ffn(dev, rng) -> dict:
             "library_ms": None,
             "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in
                                              zip(xs, wd[i % len(wd)])], 64),
+            "gate_up_ms": None if gate_up is None else graph_ms(
+                lambda i: gate_up(x, nw, 1e-5, ws[i % len(ws)][1]), 64),
             "bound_ms": b, "bound_by": by})
         del ws, wd
 
@@ -564,8 +577,39 @@ def check_fused_ffn(dev, rng) -> dict:
                 "library_ms": None,
                 "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in
                                                  zip((x, a_f), wd[i % len(wd)])], 64),
+                "gate_up_ms": None if gate_up is None else graph_ms(
+                    lambda i: gate_up(x, nw, 1e-6, ws[i % len(ws)][0]), 64),
                 "bound_ms": b, "bound_by": by})
         del ws, wd
+
+    # the gate/up phase alone (csrc/gate_up.cuh, the phase of oproj_ffn,
+    # ffn, layer and rot) at every kind the fused gates take, on TinyLlama's
+    # w_gateup [11264, 2048], R = 1 and 8, against gate_up_plain; listed
+    # with ffn's cases (library_ms null, matmul_ms the bf16 matmul)
+    if gate_up is not None:
+        for kg in ("q4", "q4f", "q6w", "q6wf", "q8", "q8f"):
+            w0 = _rand_weights(rng, kg, 2 * F, dim, dev)
+            ws = _rotation([w0], lambda: [_rand_weights(rng, kg, 2 * F, dim, dev)], w0.n_bytes)
+            wd = [dequant_kmajor(w[0], torch.bfloat16).contiguous() for w in ws]
+            nw = torch.rand(dim, device=dev) + 0.5
+            for R in (1, 8):
+                x = act(R, dim, 0.5)
+                got = gate_up(x, nw, 1e-5, w0)
+                torch.cuda.synchronize()
+                ad, rel = _err(got, ffn_mod.gate_up_plain(x, nw, 1e-5, w0))
+                b, by = bound_ms(w0.n_bytes + R * dim * 2 + dim * 4 + R * F * 2,
+                                 2.0 * R * dim * 2 * F)
+                run = lambda i: gate_up(x, nw, 1e-5, ws[i % len(ws)][0])  # noqa: E731
+                side = "f32" if kg.endswith("f") else "pairs"
+                out["ffn"].append({
+                    "case": f"gate/up phase alone: {kg.rstrip('f')} {side} [11264, 2048] R={R}",
+                    "max_abs_err": ad, "rel_err": rel, "ms": graph_ms(run, 64),
+                    "eager_ms": time_ms(run, 64),
+                    "plain_ms": graph_ms(lambda i: ffn_mod.gate_up_plain(x, nw, 1e-5, w0), 4, 3),
+                    "library_ms": None,
+                    "matmul_ms": graph_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), 64),
+                    "bound_ms": b, "bound_by": by})
+            del ws, wd
     return out
 
 
@@ -579,11 +623,17 @@ def check_batch_invariance(dev, rng) -> int:
     code at TinyLlama's wqk [2304, 2048] and Mixtral's wo [4096, 4096] (f32
     out), qmm_int8 (q4-f32 at Mixtral's expert gate/up, q6-f32 at
     TinyLlama's down), attn_in and oproj_ffn at TinyLlama's widths and ffn
-    at Qwen2.5-1.5B's (bf16 out, their main path's). Fatal; returns the
-    number of cases checked."""
+    at Qwen2.5-1.5B's (bf16 out, their main path's). qmm's tile: rows [64 i,
+    64 i + 64) of a 16 x 64 burst (the batcher's burst prefill) must equal
+    the 64-row call of those rows (a prompt alone), at TinyLlama's
+    projections and every kind code at its wqk. Flash decode (#7): row b of
+    a B = 16 and a B = 1024 call on 2048 slots must equal row b alone, at
+    TinyLlama's and Qwen2.5-1.5B's heads on bf16 and int8 KV. Fatal; returns
+    the number of cases checked."""
     import torch
 
     from tpu_kquant_torch.ops.attn_in import fused_attn_in
+    from tpu_kquant_torch.ops.decode_attention import attention_decode_flash
     from tpu_kquant_torch.ops.ffn import fused_ffn, fused_oproj_ffn
     from tpu_kquant_torch.ops.qmm import KINDS, qmm
     from tpu_kquant_torch.ops.qmm_int8 import qmm_int8
@@ -632,8 +682,60 @@ def check_batch_invariance(dev, rng) -> int:
     nw = torch.rand(D_, device=dev) + 0.5
     same_rows("ffn (Qwen2.5-1.5B)", lambda x: fused_ffn(x, nw, 1e-6, gu, dn),
               _act(top, D_, 0.5, dev))
+
+    def same_blocks(label, fn, x, T=64):
+        nonlocal n
+        got = fn(x)
+        bad = [i for i in range(x.shape[0] // T)
+               if not torch.equal(got[T * i:T * i + T], fn(x[T * i:T * i + T]))]
+        if bad:
+            raise SystemExit(f"FAIL: batch invariance: {label}: blocks {bad[:8]} of the "
+                             f"{x.shape[0]}-row call differ from the {T}-row calls")
+        n += 1
+
+    burst = 16 * 64
+    for k, N, K in (("q4", 2304, 2048), ("q6w", 256, 2048), ("q6w", 2048, 2048),
+                    ("q4", 11264, 2048), ("q6w", 2048, 5632), ("q6w", 32000, 2048),
+                    *((kind + ("f" if side == "f32" else ""), 2304, 2048)
+                      for kind, side in KINDS[2:])):
+        w = _rand_weights(rng, k, N, K, dev)
+        same_blocks(f"qmm tile {k} [{N}, {K}]", lambda x: qmm(x, w), _act(burst, K, dev=dev))
+    g = torch.Generator(device=dev).manual_seed(5)
+    for (H, Hkv, D), int8 in ((TINY_HEADS, False), (TINY_HEADS, True), (QWEN_HEADS, False),
+                              (QWEN_HEADS, True)):
+        B, S = 1024, 2048
+        q = torch.randn(B, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
+        if int8:
+            k, v = (torch.randint(-127, 128, (B, Hkv, S, D), device=dev, generator=g,
+                                  dtype=torch.int8) for _ in range(2))
+            scales = tuple(torch.rand(B, Hkv, S, device=dev, generator=g) * 0.02 + 0.001
+                           for _ in range(2))
+        else:
+            k, v = (torch.randn(B, Hkv, S, D, device=dev, generator=g).to(torch.bfloat16)
+                    for _ in range(2))
+            scales = None
+        qp = torch.randint(0, S, (B, 1), device=dev, generator=g)
+        qp[:4, 0] = torch.tensor([63, 64, 2047, 0], device=dev)
+
+        def rows(lo, hi):
+            sc = None if scales is None else tuple(t[lo:hi] for t in scales)
+            return attention_decode_flash(q[lo:hi], k[lo:hi], v[lo:hi], qp[lo:hi], sc)
+
+        full, sixteen = rows(0, B), rows(0, 16)
+        bad = [b for b in sorted(set(range(16)) | set(range(16, B, 61)))
+               if not (torch.equal(full[b:b + 1], rows(b, b + 1))
+                       and (b >= 16 or torch.equal(sixteen[b:b + 1], full[b:b + 1])))]
+        if bad:
+            raise SystemExit(f"FAIL: batch invariance: flash decode {H}/{Hkv} heads of {D} "
+                             f"{'int8' if int8 else 'bf16'}: rows {bad[:8]} at B = 16 or 1024 "
+                             f"differ from the row alone")
+        n += 1
+        del q, k, v, scales
+        torch.cuda.empty_cache()
     log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in, oproj_ffn, "
-        f"ffn): every row at R in {INVARIANCE_ROWS} equals the row computed alone (torch.equal)")
+        f"ffn): every row at R in {INVARIANCE_ROWS} equals the row computed alone; qmm's tile: "
+        f"every 64-row block of a 16 x 64 burst equals its 64-row call; flash decode: rows at "
+        f"B = 16 and 1024 equal the row alone (torch.equal)")
     return n
 
 

@@ -1394,3 +1394,127 @@ def test_qmm_int8_kernel_every_tile_count_matches_plain(card, kind, N, K, R):
     y = t_qmm_int8.qmm_int8(x, qt, torch.float32)
     torch.cuda.synchronize()
     assert _rel(y, t_qmm_int8.qmm_int8_plain(x, qt, torch.float32)) < 1e-3
+
+
+# flash decode (#7) on tensor cores: head dims 64 and 128, GQA groups 6 and
+# 8, bf16 and int8 KV, positions at the tiles' and the splits' edges
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [6, 8])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attn_heads_and_edges_match_plain_and_the_row_alone(card, int8, D, G):
+    """Each row against decode_attention_plain (per row, TOL) and the
+    kernel's blocking in plain PyTorch (decode_attention_split_plain), and
+    each row of the B-row call equal, bit for bit, to the row alone."""
+    Hkv, S = 2, 2048
+    H = G * Hkv
+    g = torch.Generator(device=card).manual_seed(D + G + int8)
+    tps = t_decode.decode_plan(S, D, int8)[0]
+    pos = [0, 1, 63, 64, 65, 127, 64 * tps - 1, 64 * tps, 2047, 1000, 447]
+    B = len(pos)
+    q = torch.randn(B, 1, H, D, device=card, generator=g).to(torch.bfloat16)
+    if int8:
+        k, v = (torch.randint(-127, 128, (B, Hkv, S, D), device=card, generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        scales = tuple(torch.rand(B, Hkv, S, device=card, generator=g) * 0.02 + 0.001
+                       for _ in range(2))
+    else:
+        k, v = (torch.randn(B, Hkv, S, D, device=card, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        scales = None
+    qp = torch.tensor(pos, device=card)[:, None]
+    got = t_decode.attention_decode_flash(q, k, v, qp, scales)
+    torch.cuda.synchronize()
+    assert _row_rel(got, t_decode.decode_attention_plain(q, k, v, qp, scales)) < TOL
+    assert _row_rel(got, t_decode.decode_attention_split_plain(q, k, v, qp, scales)) < TOL
+    for b in range(B):
+        sc = None if scales is None else tuple(t[b:b + 1] for t in scales)
+        alone = t_decode.attention_decode_flash(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                qp[b:b + 1], sc)
+        assert torch.equal(got[b:b + 1], alone), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attn_rows_do_not_depend_on_the_batch(card, int8):
+    """Row b of B = 16 and B = 1024 calls at the serving cell's shapes
+    (TinyLlama's heads, 2048 slots, positions over the whole context)
+    equals row b alone, bit for bit: the split plan ignores B."""
+    q, k, v, qp, scales = decode_inputs("uniform_int8" if int8 else "uniform_bf16", card, seed=4)
+
+    def rows(lo, hi):
+        sc = None if scales is None else tuple(t[lo:hi] for t in scales)
+        return t_decode.attention_decode_flash(q[lo:hi], k[lo:hi], v[lo:hi], qp[lo:hi], sc)
+
+    full, sixteen = rows(0, q.shape[0]), rows(0, 16)
+    for b in list(range(16)) + list(range(16, q.shape[0], 101)):
+        alone = rows(b, b + 1)
+        assert torch.equal(full[b:b + 1], alone), b
+        if b < 16:
+            assert torch.equal(sixteen[b:b + 1], alone), b
+
+
+# the gate/up phase alone (csrc/gate_up.cuh) at every kind the fused gates take
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,f32", [("q4", False), ("q4", True), ("q6w", False), ("q6w", True),
+                                      ("q8", False), ("q8", True)])
+def test_gate_up_phase_every_kind_matches_plain_and_the_row_alone(card, kind, f32):
+    """ops/ffn.py:gate_up at TinyLlama's w_gateup [11264, 2048] and Qwen2.5-
+    1.5B's [17920, 1536], R = 1, 8 and 32, against gate_up_plain (TOL of
+    max|ref| on the bf16 activation); rows at R = 16 and 32 equal the row
+    alone, bit for bit."""
+    rng = np.random.default_rng(7 + f32)
+    for F, D in ((5632, 2048), (8960, 1536)):
+        gu = packed(kind, 2 * F, D, rng, card, f32)
+        nw = torch.rand(D, device=card) + 0.5
+        x = (torch.randn(32, D, device=card) * 0.5).to(torch.bfloat16)
+        for R in (1, 8, 32):
+            before = t_ffn.gate_up_counter.launches
+            got = t_ffn.gate_up(x[:R], nw, 1e-5, gu)
+            torch.cuda.synchronize()
+            assert t_ffn.gate_up_counter.launches == before + 1
+            assert got.shape == (R, F) and got.dtype == torch.bfloat16
+            assert _rel(got, t_ffn.gate_up_plain(x[:R], nw, 1e-5, gu)) < TOL, (F, R)
+        _solo_rows_equal(lambda a: t_ffn.gate_up(a, nw, 1e-5, gu), (x,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,f32,N,K", [("q4", False, 2304, 2048), ("q6w", False, 256, 2048),
+                                          ("q6w", False, 2048, 5632), ("q4", False, 11264, 2048),
+                                          ("q8", True, 2304, 2048), ("q5", False, 2304, 2048),
+                                          ("q2", True, 2304, 2048)])
+def test_qmm_tile_burst_blocks_equal_the_64_row_calls(card, kind, f32, N, K):
+    """qmm's tile: rows [64 i, 64 i + 64) of a 16 x 64 burst (the batcher's
+    burst prefill) equal the 64-row call of the same rows, bit for bit (the
+    tile's K split does not depend on R), as do rows of a 2048-row call
+    against its 512-row slices."""
+    rng = np.random.default_rng(N + K)
+    qt = packed(kind, N, K, rng, card, f32)
+    x = torch.randn(2048, K, device=card).to(torch.bfloat16)
+    burst = t_qmm.qmm(x[:1024], qt)
+    for i in range(16):
+        assert torch.equal(burst[64 * i:64 * i + 64], t_qmm.qmm(x[64 * i:64 * i + 64], qt)), i
+    full = t_qmm.qmm(x, qt, torch.float32)
+    for i in range(4):
+        assert torch.equal(full[512 * i:512 * i + 512],
+                           t_qmm.qmm(x[512 * i:512 * i + 512], qt, torch.float32)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1536, 2048, 4096])
+def test_rms_norm_rows_do_not_depend_on_the_batch(card, D):
+    """ops/norms.py:rms_norm on the card: a prompt's rows of a 16 x 64-token
+    burst equal the prompt alone, and a row of 1024 rows the row alone, bit
+    for bit (the two-stage sum of squares)."""
+    from tpu_kquant_torch.ops.norms import rms_norm
+
+    g = torch.Generator(device=card).manual_seed(D)
+    x = (torch.randn(16, 64, D, device=card, generator=g) * 2).to(torch.bfloat16)
+    w = torch.rand(D, device=card, generator=g) + 0.5
+    burst = rms_norm(x, w)
+    for i in (0, 7, 15):
+        assert torch.equal(burst[i:i + 1], rms_norm(x[i:i + 1], w)), i
+    flat = x.reshape(1024, D)
+    rows = rms_norm(flat, w)
+    for r in (0, 100, 1023):
+        assert torch.equal(rows[r:r + 1], rms_norm(flat[r:r + 1], w)), r

@@ -6,7 +6,19 @@ past the logits budget against the JAX engine, on the CPU.
 The Pallas cases are tests/test_pallas_attention.py's (positions in and
 across tiles, a ragged batch, int8 KV, a mostly dead cache, a single tile)
 plus head_dim 128; the tolerances are theirs (2e-2, int8 3e-2).
+
+The kernel's host side and blocking, which the card alone runs: its split
+plan (``decode_plan``) takes no batch size; the plain version taken in the
+kernel's blocks (``decode_attention_split_plain``: splits of tiles, four
+16-slot lanes a tile, rescaled to their common max) equals the one-pass
+version within one bf16 rounding of p (2^-8 of max|ref|: each block rounds
+p against its own max);
+and the kernel's fragment maps (which query row, slot and head dim each
+lane's mma.sync registers hold, bf16 and int8, and where each accumulator
+lands) rebuilt lane by lane in numpy give q K^T and P V.
 """
+
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +32,7 @@ from tpu_kquant.runtime import InferenceEngine as JEngine
 from tpu_kquant.runtime import load_model as jload
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops import attention as t_attention
+from tpu_kquant_torch.ops import decode_attention as t_decode
 from tpu_kquant_torch.ops.decode_attention import attention_decode_flash, decode_attention_plain
 from tpu_kquant_torch.runtime.engine import InferenceEngine
 from tpu_kquant_torch.runtime.loader import load_model
@@ -94,6 +107,182 @@ def test_plain_ignores_dead_slots():
     v2[1, :, 4:] = -3e4
     got = decode_attention_plain(t(q), t(k2), t(v2), t(qp))
     assert torch.equal(got, ref)
+
+
+# -- the kernel's split plan and blocking ------------------------------------------
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_plan_does_not_depend_on_the_batch(D, kv_int8):
+    """decode_plan takes S, the head dim and the KV dtype, never B: a row's
+    splits (and its sums) are the same at any batch size. Its splits cover
+    the tiles exactly and read at most SPLIT_BYTES of a KV head's cache."""
+    assert list(inspect.signature(t_decode.decode_plan).parameters) == ["S", "D", "kv_int8"]
+    slot = 2 * D + 8 if kv_int8 else 4 * D
+    for S in (64, 128, 704, 1024, 2048, 2240, 4096, 4288, 32768):
+        tps, splits = t_decode.decode_plan(S, D, kv_int8)
+        n_tiles = -(-S // 64)
+        assert (splits - 1) * tps < n_tiles <= splits * tps
+        assert tps == n_tiles or tps * 64 * slot <= t_decode.SPLIT_BYTES < (tps + 1) * 64 * slot
+    # the serving cell's positions (32-111 of 2048 slots) live in one split
+    assert t_decode.decode_plan(2048, 64, kv_int8)[0] >= 2
+
+
+@pytest.mark.parametrize("tps", [1, 2, 3, None])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_plain_matches_one_pass(case, tps):
+    """decode_attention_split_plain, the kernel's blocking in plain PyTorch
+    (f32 output), against the one-pass version at the reference's cases.
+    Tolerance 2^-8 of max|ref|: a block rounds p * v_scale to bf16 against
+    its own running max, not the row's, so each term may differ by one bf16
+    rounding of p (as the reference's tiles do); the rest is f32 order."""
+    B, S, H, Hkv, D, pos, int8, _ = CASES[case]
+    q, k, v, qp, sc = _inputs(B, S, H, Hkv, D, pos, int8, seed=sum(pos) + 1)
+    t = torch.from_numpy
+    args = (t(q), t(k), t(v), t(qp), None if sc is None else tuple(t(s) for s in sc))
+    want = decode_attention_plain(*args)
+    got = t_decode.decode_attention_split_plain(*args, tps=tps)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert (got - want).abs().max() <= 2 ** -8 * want.abs().max()
+
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _mma(a_regs, b_regs, c_regs):
+    """mma.sync.m16n8k16 on lane registers: a_regs[lane] = 4 pairs, b_regs
+    2 pairs, c_regs 4 values (PTX's fragment layouts); returns the new C."""
+    A, B = np.full((16, 16), np.nan), np.full((16, 8), np.nan)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        a0, a1, a2, a3 = a_regs[lane]
+        A[g, 2 * t:2 * t + 2], A[g + 8, 2 * t:2 * t + 2] = a0, a1
+        A[g, 2 * t + 8:2 * t + 10], A[g + 8, 2 * t + 8:2 * t + 10] = a2, a3
+        B[2 * t:2 * t + 2, g], B[2 * t + 8:2 * t + 10, g] = b_regs[lane]
+    C = A @ B
+    return [[c_regs[lane][e] + C[lane // 4 + 8 * (e // 2), 2 * (lane % 4) + e % 2]
+             for e in range(4)] for lane in range(32)]
+
+
+def _ldmatrix(mat, addr, trans):
+    """ldmatrix.x4 (.trans): lane l gives row l % 8 of matrix l // 8 as
+    addr(l) -> 8 values of `mat` (an array indexed [row][col]); returns each
+    lane's 4 registers as pairs."""
+    rows = [[mat(*addr(8 * i + r)) for r in range(8)] for i in range(4)]
+    out = []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        if trans:
+            out.append([np.array([rows[i][2 * t][g], rows[i][2 * t + 1][g]]) for i in range(4)])
+        else:
+            out.append([np.array(rows[i][g][2 * t:2 * t + 2]) for i in range(4)])
+    return out
+
+
+def _byte_perm(x, y, sel):
+    b = [(x >> (8 * i)) & 255 for i in range(4)] + [(y >> (8 * i)) & 255 for i in range(4)]
+    return sum(b[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _i8_pair(u, j0, j1):
+    """decode_attn.cu:i8_bf16x2 on u = the word ^ 0x80808080: bytes j0, j1
+    placed in the mantissa of 2^23, minus 2^23 + 128, in f32."""
+    f = [np.array(_byte_perm(u, 0x4B000000, j | 0x7440), np.uint32).view(np.float32)
+         - np.float32(8388736.0) for j in (j0, j1)]
+    return np.array(f, np.float32)
+
+
+def test_int8_to_bf16_is_exact():
+    for code in range(-128, 128):
+        u = (code & 255) ^ 0x80
+        assert _i8_pair(u | (u << 8), 0, 1).tolist() == [code, code]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_kernel_fragment_maps_give_qk_and_pv(D, int8):
+    """csrc/decode_attn.cu's fragment maps for warp 0's 16 slots, rebuilt
+    lane by lane (lane = 4 g + t): q's A fragment and K's B fragments (bf16:
+    ldmatrix at the kernel's row addresses; int8: the head dim in the order
+    16 ks + 4 t + 0..3) give q K^T where the kernel reads each logit; P's A
+    fragment packed from those C fragments and V's B fragments (bf16:
+    ldmatrix.trans; int8: four slots' words transposed by byte_perm, n-tile
+    4 h + c serving column 32 h + 4 g + c) give P V at the columns the
+    kernel stores each accumulator to."""
+    r = np.random.default_rng(D + int8)
+    q = _bf16(r.standard_normal((16, D)))
+    if int8:
+        kc, vc = (r.integers(-128, 128, (16, D)).astype(np.int8) for _ in range(2))
+        k, v = kc.astype(np.float32), vc.astype(np.float32)
+        word = lambda m, slot, col: int(m[slot, col:col + 4].view(np.uint32)[0])  # noqa: E731
+    else:
+        k, v = _bf16(r.standard_normal((16, D))), _bf16(r.standard_normal((16, D)))
+    zero = [[0.0] * 4 for _ in range(32)]
+    s = [zero, zero]
+    for ks in range(D // 16):
+        qa = []
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            d0 = 16 * ks + (4 * t if int8 else 2 * t)
+            d1 = d0 + (2 if int8 else 8)
+            qa.append([q[g, d0:d0 + 2], q[g + 8, d0:d0 + 2], q[g, d1:d1 + 2], q[g + 8, d1:d1 + 2]])
+        if int8:
+            kb = [[], []]
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                for j in range(2):
+                    u = word(kc, 8 * j + g, 16 * ks + 4 * t) ^ 0x80808080
+                    kb[j].append([_i8_pair(u, 0, 1), _i8_pair(u, 2, 3)])
+        else:
+            regs = _ldmatrix(lambda slot, d: k[slot, d:d + 8],
+                             lambda l: ((l // 8 // 2) * 8 + l % 8, 16 * ks + (l // 8 % 2) * 8),
+                             trans=False)
+            kb = [[x[0:2] for x in regs], [x[2:4] for x in regs]]
+        s = [_mma(qa, kb[j], s[j]) for j in range(2)]
+    logits = q @ k.T
+    p = _bf16(r.random((16, 16)))  # P, as the kernel packs it from the C fragments
+    pa = []
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for j in range(2):
+            for e in range(4):
+                row, slot = g + 8 * (e // 2), 8 * j + 2 * t + e % 2
+                assert s[j][lane][e] == pytest.approx(logits[row, slot], rel=1e-5, abs=1e-4)
+        pa.append([p[g, 2 * t:2 * t + 2], p[g + 8, 2 * t:2 * t + 2],
+                   p[g, 2 * t + 8:2 * t + 10], p[g + 8, 2 * t + 8:2 * t + 10]])
+    o = [zero] * (D // 8)
+    if int8:
+        for h in range(D // 32):
+            vb = [[] for _ in range(4)]
+            for lane in range(32):
+                g, t = divmod(lane, 4)
+                w = [word(vc, 2 * t + e % 2 + 8 * (e // 2), 32 * h + 4 * g) ^ 0x80808080
+                     for e in range(4)]
+                lo0, hi0 = _byte_perm(w[0], w[1], 0x5140), _byte_perm(w[0], w[1], 0x7362)
+                lo1, hi1 = _byte_perm(w[2], w[3], 0x5140), _byte_perm(w[2], w[3], 0x7362)
+                vb[0].append([_i8_pair(lo0, 0, 1), _i8_pair(lo1, 0, 1)])
+                vb[1].append([_i8_pair(lo0, 2, 3), _i8_pair(lo1, 2, 3)])
+                vb[2].append([_i8_pair(hi0, 0, 1), _i8_pair(hi1, 0, 1)])
+                vb[3].append([_i8_pair(hi0, 2, 3), _i8_pair(hi1, 2, 3)])
+            for c in range(4):
+                o[4 * h + c] = _mma(pa, vb[c], o[4 * h + c])
+    else:
+        for n in range(0, D // 8, 2):
+            regs = _ldmatrix(lambda slot, d: v[slot, d:d + 8],
+                             lambda l: ((l // 8 % 2) * 8 + l % 8, 8 * (n + l // 8 // 2)),
+                             trans=True)
+            o[n] = _mma(pa, [x[0:2] for x in regs], o[n])
+            o[n + 1] = _mma(pa, [x[2:4] for x in regs], o[n + 1])
+    pv = p @ v
+    for n in range(D // 8):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for e in range(4):
+                col = 32 * (n // 4) + 8 * t + 4 * (e % 2) + n % 4 if int8 else 8 * n + 2 * t + e % 2
+                assert o[n][lane][e] == pytest.approx(pv[g + 8 * (e // 2), col], rel=1e-5,
+                                                      abs=1e-3)
 
 
 # -- dispatch past the budget: a decode step of a tiny fixture -------------------

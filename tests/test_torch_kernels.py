@@ -116,6 +116,99 @@ def test_gemv_split_covers_k(kind, N, K, rows):
     assert smem(kind, cps, rows) <= smem(kind, cps, 32) <= 200 * 1024
 
 
+_GATE_UP_CODES = (0, 2, 1, 3, 4, 5)  # q4-sm, q4-f32, q6w-sp, q6w-f32, q8-sp, q8-f32
+
+
+@pytest.mark.parametrize("code", _GATE_UP_CODES)
+def test_gate_up_plan_does_not_depend_on_the_rows(code):
+    """The gate/up phase's K split (ops/ffn.py:gate_up_plan) takes the kind,
+    F and dim, never a row count: gemv_plan over the fused [2F, dim] with
+    the normalised rows staged as two bf16 halves and no split cost. It
+    covers dim's chunks and fits shared memory at 32 rows, the most the
+    phase takes; at TinyLlama's and Qwen2.5-1.5B's widths it takes the
+    split that tools/gemv_sweep.py --gate-up measured fastest on the H100
+    (6 and 3 splits: the blocks fill one wave of two a SM)."""
+    import inspect
+
+    assert list(inspect.signature(t_ffn.gate_up_plan).parameters) == ["code", "F", "dim"]
+    seg = 2 if t_qmm.KINDS[code][0] == "q4" else 1
+    for F, dim in ((5632, 2048), (8960, 1536), (18944, 3584), (14336, 4096), (1024, 512)):
+        cps, splits = t_ffn.gate_up_plan(code, F, dim)
+        assert (cps, splits) == t_qmm.gemv_plan(code, 2 * F, dim, halves=2, split_cost=0.0)
+        n_chunks = dim // (32 * seg)
+        assert cps * splits >= n_chunks > cps * (splits - 1)
+        assert t_qmm.gemv_smem_bytes(code, cps, 32, halves=2) <= 200 * 1024
+    assert t_ffn.gate_up_plan(code, 5632, 2048)[1] == 6
+    assert t_ffn.gate_up_plan(code, 8960, 1536)[1] == 3
+
+
+def test_gate_up_wrapper_runs_plain_on_cpu_and_feeds_the_ffn_plain():
+    """ops/ffn.py:gate_up on CPU tensors is gate_up_plain (counted as a
+    plain call), whose activation is the one ffn_plain's down step meets."""
+    rng = np.random.default_rng(6)
+    D, F = 512, 1024
+    gu, dn = _port(mk_q4(2 * F, D, rng)), _port(mk_q6w(D, F, rng))
+    x = torch.from_numpy(rng.standard_normal((3, D)).astype(np.float32) * 0.3).to(torch.bfloat16)
+    nw = torch.from_numpy((rng.random(D) + 0.5).astype(np.float32))
+    c = _build.COUNTERS["gate_up"]
+    before = (c.plain_calls, c.launches)
+    act = t_ffn.gate_up(x, nw, 1e-5, gu)
+    assert (c.plain_calls, c.launches) == (before[0] + 1, before[1])
+    assert act.dtype == torch.bfloat16 and act.shape == (3, F)
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    want = (x.float() + act.float() @ dequant_kmajor(dn)).to(torch.bfloat16)
+    assert torch.equal(t_ffn.ffn_plain(x, nw, 1e-5, gu, dn), want)
+
+
+@pytest.mark.parametrize("kind", ["q4", "q6w", "q8"])
+def test_gate_up_hi_lo_group_dots_keep_f32_activations(kind):
+    """csrc/gate_up.cuh's arithmetic for one column, in numpy f32: the
+    normalised row staged as hi = bf16(v) and lo = bf16(v - hi); each scale
+    group's dot taken by mma on codes + OFF (exact in bf16) against hi and
+    then lo, started at -OFF * sum(hi + lo); then acc += s * d - m * sum.
+    Against the f64 dot of the dequantized column with the f32 row it is
+    within 2e-5 of max|ref| (f32 order and the offset's cancellation), where
+    staging v in bf16 alone costs ten times that or more."""
+    rng = np.random.default_rng(len(kind))
+    K, cols = 2048, 64
+    G, OFF = {"q4": (32, 128.0), "q6w": (16, 160.0), "q8": (32, 2304.0)}[kind]
+    lo_q, hi_q = {"q4": (0, 16), "q6w": (-32, 32), "q8": (-128, 128)}[kind]
+    q = rng.integers(lo_q, hi_q, (K, cols)).astype(np.float32)
+    s = (rng.random((K // G, cols)) * 0.01).astype(np.float32)
+    m = (rng.random((K // G, cols)) * 0.05).astype(np.float32) if kind == "q4" else \
+        np.zeros((K // G, cols), np.float32)
+    v = (rng.standard_normal(K) * 1.7).astype(np.float32)
+    hi = _bf16(v)
+    lo = _bf16(v - hi)
+    ref = (np.repeat(s.astype(np.float64), G, 0) * q - np.repeat(m.astype(np.float64), G, 0)
+           ).T @ v.astype(np.float64)
+
+    def column_dots(halves):
+        acc = np.zeros(cols, np.float32)
+        for gi in range(K // G):
+            k = slice(gi * G, gi * G + G)
+            xs = np.float32(0)
+            for part in halves:
+                for val in part[k]:
+                    xs = np.float32(xs + val)
+            d = np.full(cols, np.float32(-OFF) * xs, np.float32)
+            for part in halves:
+                # the mma's products are exact (bf16 x bf16); its sums f32
+                d = (d + ((q[k] + np.float32(OFF)) * part[k][:, None]).sum(0, dtype=np.float32)
+                     ).astype(np.float32)
+            acc = (acc + s[gi] * d).astype(np.float32) - m[gi] * xs
+        return acc.astype(np.float64)
+
+    err_hl = np.abs(column_dots((hi, lo)) - ref).max() / np.abs(ref).max()
+    err_hi = np.abs(column_dots((hi,)) - ref).max() / np.abs(ref).max()
+    assert err_hl < 2e-5 and err_hl * 10 < err_hi, (err_hl, err_hi)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
 def _rope_inputs(rng, R, hd):
     cos = rng.random((R, hd // 2)).astype(np.float32)
     sin = rng.random((R, hd // 2)).astype(np.float32)

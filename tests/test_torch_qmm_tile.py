@@ -4,8 +4,9 @@ arithmetic.
 The kernel itself runs only on the card (tests/test_torch_cuda.py). Here:
 - ops/qmm.py:tile_plan at every R > 32 shape of chip_smoke.py's phase 3 and
   at R in {33, 64, 65, 512, 1000, 1024, 2048}: the splits cover K's steps
-  exactly, the partials fit, a bit-plane kind's splits take whole packed
-  chunks, and the grid fills the card;
+  exactly and are the same at every R, the partials of each launch fit, a
+  bit-plane kind's splits take whole packed chunks, and the grid fills the
+  card;
 - the kernel's dequantization, written out here in numpy as the kernel
   walks it (its step map: which K rows, packed rows, fields and scale rows
   a step reads; and its rounding: the bf16-pair kinds' bf16x2 sub and fma,
@@ -62,26 +63,33 @@ def _check_plan(R, N, K, code):
     assert bm in (128, 256) and bn == 128
     # the splits cover the steps exactly: none empty, none past K
     assert (splits - 1) * sps < n_steps <= splits * sps, (R, N, K, code)
-    tiles = -(-N // bn) * -(-R // bm)
+    # the split is the same at every row count (a row's sums do not depend
+    # on the other rows of the call)
+    assert sps == t_qmm.tile_split(N, K, code)
     unit = SEGMENTS[kind] // 2 if kind in _PLANE else 1
     if splits > 1:
-        assert splits * R * N * 4 <= WS_CAP  # the partials fit
         assert sps % unit == 0  # whole packed chunks (no split inside one)
         assert sps >= t_qmm.MIN_SPLIT_STEPS
-        assert tiles < SMS  # a split only where the tiles leave SMs idle
-    # the plan is plan_cost's best: no worse than either block height
-    # unsplit, nor than the most splits whose blocks fit one wave
-    cost = t_qmm.plan_cost(bm, tiles, n_steps, sps, R, N)
+    # the launches cover the rows, each past the GEMV's 32 rows with its
+    # partials within WS_CAP
+    chunks = t_qmm.tile_chunks(R, N, splits)
+    assert [r0 for r0, _ in chunks] == list(np.cumsum([0] + [n for _, n in chunks[:-1]]))
+    assert sum(n for _, n in chunks) == R
+    assert all(n > t_qmm.GEMV_MAX_ROWS and (splits == 1 or splits * n * N * 4 <= WS_CAP)
+               for _, n in chunks)
+    # the block height is plan_cost's faster at this split; the split is the
+    # one of least plan_cost summed over TILE_REF_ROWS
+    cost = t_qmm.plan_cost(bm, -(-N // bn) * -(-R // bm), n_steps, sps, R, N)
     for h in (128, 256):
-        t = -(-N // bn) * -(-R // h)
-        assert cost <= t_qmm.plan_cost(h, t, n_steps, n_steps, R, N), (R, N, K, code, h)
-        if t >= SMS:
-            continue
-        for run in range(unit * -(-t_qmm.MIN_SPLIT_STEPS // unit), n_steps, unit):
-            n = -(-n_steps // run)
-            if t * n <= SMS and n * R * N * 4 <= WS_CAP:
-                assert cost <= t_qmm.plan_cost(h, t, n_steps, run, R, N), (R, N, K, code, h)
-                break
+        assert cost <= t_qmm.plan_cost(h, -(-N // bn) * -(-R // h), n_steps, sps, R, N)
+
+    def best(run, rows):
+        return min(t_qmm.plan_cost(h, -(-N // bn) * -(-rows // h), n_steps, run, rows, N)
+                   for h in (128, 256))
+
+    runs = [n_steps] + list(range(unit * -(-t_qmm.MIN_SPLIT_STEPS // unit), n_steps, unit))
+    score = lambda run: sum(best(run, rows) for rows in t_qmm.TILE_REF_ROWS)  # noqa: E731
+    assert score(sps) <= min(score(r) for r in runs) * (1 + 1e-9), (N, K, code)
     return bm, splits, sps
 
 
@@ -115,6 +123,27 @@ def test_tile_plan_fills_the_card_at_the_issue_cases():
         bm, splits, _ = _check_plan(R, N, K, code[kl])
         blocks = -(-N // 128) * -(-R // bm) * splits
         assert blocks >= (64 if R * N < 2 ** 19 or N == 2304 else 128), (R, N, K, kl, bm, splits)
+
+
+# TinyLlama-1.1B's, Qwen2.5-1.5B's and Mixtral-8x7B's projections (N, K):
+# wqk, wv, wo, gate/up, down, lm head; wqk, wv, wo, gate/up, down; wqk, wv,
+# wo, expert gate/up, expert down, router
+_MODEL_SHAPES = ((2304, 2048), (256, 2048), (2048, 2048), (11264, 2048), (2048, 5632),
+                 (32000, 2048), (1792, 1536), (256, 1536), (1536, 1536), (17920, 1536),
+                 (1536, 8960), (5120, 4096), (1024, 4096), (4096, 4096), (28672, 4096),
+                 (4096, 14336), (8, 4096))
+
+
+@pytest.mark.parametrize("code", range(len(KINDS)))
+def test_tile_split_does_not_depend_on_the_rows(code):
+    """The K split (splits, steps per split) at R in {33, 64, 512, 1024,
+    2048} is one plan, at every model shape the kind takes: the 16 x 64
+    burst's rows sum in the order of the 64-row call."""
+    for N, K in _MODEL_SHAPES:
+        if not t_qmm.k_ok(code, K):
+            continue
+        plans = {tile_plan(R, N, K, code)[2:] for R in (33, 64, 512, 1024, 2048)}
+        assert len(plans) == 1, (N, K, KINDS[code], plans)
 
 
 # ---------------------------------------------------------------------------

@@ -10,35 +10,590 @@
 // sum l in f32, l accumulating p before the V scale; p * v_scale rounded to
 // bf16 and multiplied by bf16 v into an f32 accumulator; out = acc / l in
 // the output's type (bf16, or f32 for an f32 q, as the reference returns q's
-// dtype). Tiles wholly past q_pos are never read.
+// dtype). Those rounding points are what mma.sync.m16n8k16 bf16 with f32
+// accumulation computes (int8 codes are exact in bf16), so the tensor cores
+// change only the order of the f32 sums. Tiles wholly past q_pos are never
+// read.
 //
-// Bound: memory. At the 1024-slot serving cell (TinyLlama: 4 KV heads of 64
-// over 32 query heads) a layer reads every live K/V row once: 256 bytes a
-// slot and KV head in bf16, 136 in int8 with its two scales; the work is 4 G D
-// flops a slot (G = 8 query heads per KV head: 8 flops a byte of bf16),
-// below the card's 20 f32 flops a byte of device memory, so plain f32 FMA
-// on the CUDA cores keeps up with the memory and no tensor core is needed.
+// Bound: memory. A row reads its live K/V slots once: 256 bytes a slot and
+// KV head in bf16 at head_dim 64, 136 in int8 with its two scales; the work
+// is 4 G D flops a slot (G query heads per KV head: 8 flops a byte of bf16),
+// far below the tensor cores' rate.
 //
-// Design: decode_attn.cuh, whose device code this file shares with
-// attn_out.cu and layer.cu. One block per (KV head, batch row) and no split
-// over S: the kernel is reached only past the plain attention's logits
-// budget, i.e. at large B, where the B * Hkv blocks (4096 at the serving
-// cell) fill the card.
-#include "decode_attn.cuh"
+// Design (one block = 4 warps = one (KV head, row, split)):
+// - A split over S that does not depend on B: split z of a row walks tiles
+//   [z tps, (z + 1) tps) of 64 slots up to the row's last live tile, tps
+//   from the shapes and the KV dtype alone (ops/decode_attention.py:
+//   decode_plan: about 128 KB of cache a split). A split past its row's
+//   last live tile is never run: decode_plan_items lists the live (row,
+//   split) pairs on the device from the positions, and a persistent grid
+//   (as many blocks as the card holds at once) takes (pair, KV head)
+//   units from it through an atomic counter, so a short context costs no
+//   blocks for its dead splits and long and short units balance. A row with one live
+//   split writes its output directly; a row with more writes each live
+//   split's (m, l, unnormalised acc) and decode_combine rescales the live
+//   splits, in split order, to their common max. Row b's result is the
+//   same bits at any B and whichever block runs it.
+// - Loads in flight: a ring of FD_STAGES tiles in shared memory, filled
+//   with 16-byte cp.async by every thread; tile t + 1 and t + 2 are in
+//   flight while tile t is computed. int8 codes and their scales come in
+//   raw and are turned into bf16 in registers as the fragments are built.
+// - Tensor cores, mma.sync.m16n8k16 bf16 (wgmma needs a 64-row M, which
+//   would waste 4-8x at G <= 16 query rows): warp w takes slots [16 w,
+//   16 w + 16) of each tile. QK^T: A = the G query rows of the KV head,
+//   padded to 16 (registers, loaded once), B = 16 K slots (two n-tiles).
+//   The softmax runs on the accumulator fragments (row max and sum by quad
+//   shuffles), and P is re-packed from the C fragment into the A fragment
+//   of P V in registers; V's B fragments come from ldmatrix.trans (bf16)
+//   or from 4-byte loads of four slots' codes (int8). Each warp keeps its
+//   own m, l and accumulator over its slots; at the end of the split the
+//   four are rescaled to their common max, in warp order, through shared
+//   memory.
+// - Units overlap: the next unit's first two tiles are loaded while the
+//   current unit's last tile is computed, and the ring's stages roll on
+//   from unit to unit, so a short context (the serving cell's 1-2 tiles a
+//   row) keeps loads in flight across its units.
+// - Staged rows are padded (bf16: 2 D + 16 bytes; int8: D + 16) so that
+//   ldmatrix's eight 16-byte rows, the int8 K words of eight slots and the
+//   int8 V words of four slots fall on distinct banks.
+// - int8 K fragments take the K axis in the order 16 ks + 4 t + (0..3) (one
+//   4-byte word a lane), and q's A fragment the same order; a dot product
+//   does not depend on it.
+//
+// attn_out.cu (#10) and layer.cu (#11) keep decode_attn.cuh's CUDA-core
+// kernel (their current-token variant and their few-row splits).
+#include "common.cuh"
+#include "hopper.cuh"
+
+// Ablation builds (tools/decode_sweep.py --ablate; never the library's own
+// build): 1 = no mma (its operands folded into the accumulator by integer
+// ops), 2 = no ring (each tile loaded and waited for before it is
+// computed), 3 = the loads alone (the tiles land; nothing is computed).
+#ifndef TKQ_FD_ABLATE
+#define TKQ_FD_ABLATE 0
+#endif
+
+namespace tkq {
+
+constexpr int FD_TS = 64;  // cache slots a tile
+constexpr int FD_WARPS = 4;
+constexpr int FD_THREADS = FD_WARPS * 32;
+constexpr int FD_STAGES = 3;
+constexpr float FD_NEG = -1e30f;
+
+struct FlashDecodeArgs {
+  const __nv_bfloat16* q;  // [B, H, D]: row b at b * sqb, heads dense (stride D)
+  long long sqb;
+  const void* k;  // [B, Hkv, S, D] bf16 or int8, rows of D dense
+  long long skb, skh;
+  const void* v;
+  long long svb, svh;
+  const float* ks;  // [B, Hkv, S] f32 (int8 only), S dense
+  long long sksb, sksh;
+  const float* vs;
+  long long svsb, svsh;
+  const int* q_pos;  // [B]
+  void* out;         // [B, H, D] contiguous, bf16 or f32 (out_f32)
+  int out_f32;
+  int B, H, Hkv, S;
+  float scale;
+  int tps;      // tiles per split
+  int splits;   // splits a row at most: ceil(S / 64 / tps)
+  float* part;  // [B, H, splits, D + 2] f32: m, l, then the unnormalised acc
+  int* items;   // [B * splits] the work list (decode_plan_items), then its
+  int* n_items; // length and the next (item, KV head) unit to hand out
+};
+
+template <int D, bool I8>
+struct FdGeom {
+  static constexpr int ROW = D * (I8 ? 1 : 2);    // bytes of a cache row
+  static constexpr int PITCH = ROW + 16;          // bytes of a staged row
+  static constexpr int KV = FD_TS * PITCH;        // K (or V) of one tile
+  static constexpr int STAGE = 2 * KV + (I8 ? 2 * FD_TS * 4 : 0);
+  // the combine's m, l and 32-column chunk of the four warps' accumulators
+  static constexpr int COMBINE = FD_WARPS * 16 * (2 + 33) * 4;
+  static_assert(COMBINE <= STAGE, "the combine takes one ring stage");
+  static constexpr int SMEM = FD_STAGES * STAGE;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void fd_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (TKQ_FD_ABLATE == 1) {
+    d[0] = __uint_as_float(__float_as_uint(d[0]) ^ a[0] ^ b0);
+    d[1] = __uint_as_float(__float_as_uint(d[1]) ^ a[1] ^ b1);
+    d[2] = __uint_as_float(__float_as_uint(d[2]) ^ a[2]);
+    d[3] = __uint_as_float(__float_as_uint(d[3]) ^ a[3]);
+    return;
+  }
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the signed bytes J0 (low half) and J1 of u ^ 0x80808080 (the codes + 128)
+// as a bf16x2, exactly: each byte is placed in the mantissa of 2^23 and the
+// offset subtracted in f32
+template <int J0, int J1>
+__device__ __forceinline__ uint32_t i8_bf16x2(uint32_t u) {
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, J0 | 0x7440)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, J1 | 0x7440)) - 8388736.f;
+  return pack_bf16(f0, f1);
+}
+
+// Copy tile t (slots 64 t ...) of the row's K and V (and their scales) into
+// a ring stage: 16 bytes a copy, every thread.
+template <int D, bool I8>
+__device__ __forceinline__ void fd_load(uint32_t st, const FlashDecodeArgs& a, const uint8_t* kg,
+                                        const uint8_t* vg, const float* ksg, const float* vsg,
+                                        int t) {
+  using Gm = FdGeom<D, I8>;
+  constexpr int CPR = Gm::ROW / 16;
+  const size_t off = (size_t)t * FD_TS * Gm::ROW;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < FD_TS * CPR; i += FD_THREADS) {
+    const int r = i / CPR, c = (i % CPR) * 16;
+    cp_async16(st + r * Gm::PITCH + c, kg + off + (size_t)r * Gm::ROW + c);
+    cp_async16(st + Gm::KV + r * Gm::PITCH + c, vg + off + (size_t)r * Gm::ROW + c);
+  }
+  if constexpr (I8) {
+    if (threadIdx.x < 16)
+      cp_async16(st + 2 * Gm::KV + threadIdx.x * 16, ksg + t * FD_TS + threadIdx.x * 4);
+    else if (threadIdx.x < 32)
+      cp_async16(st + 2 * Gm::KV + FD_TS * 4 + (threadIdx.x - 16) * 16,
+                 vsg + t * FD_TS + (threadIdx.x - 16) * 4);
+  }
+}
+
+// One tile of the split (slots s0 .. s0 + 63) in ring stage st (stp: its
+// generic address) for the warp's 16 slots: the logits, the online
+// softmax on the fragments, and P V into o.
+template <int D, bool I8>
+__device__ __forceinline__ void fd_tile(uint32_t st, const uint8_t* stp, const FlashDecodeArgs& a,
+                                        int s0, int qp, const uint32_t (&qa)[D / 16][4],
+                                        float (&m)[2], float (&l)[2], float (&o)[D / 8][4]) {
+  using Gm = FdGeom<D, I8>;
+  constexpr int KS = D / 16, NT = D / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const float* kss = reinterpret_cast<const float*>(stp + 2 * Gm::KV);
+  const float* vss = kss + FD_TS;
+  if constexpr (TKQ_FD_ABLATE == 3) {  // the loads alone: keep the tile's words live
+    o[0][0] += __uint_as_float(*reinterpret_cast<const uint32_t*>(stp + 4 * threadIdx.x) &
+                               0x007FFFFFu);
+    return;
+  }
+
+  // logits of the warp's 16 slots: s[j] = n-tile j (slots 16w + 8j ...)
+  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    if constexpr (I8) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                               stp + (16 * warp + 8 * j + g) * Gm::PITCH + 16 * ks + 4 * t) ^
+                           0x80808080u;
+        fd_mma(s[j], qa[ks], i8_bf16x2<0, 1>(w), i8_bf16x2<2, 3>(w));
+      }
+    } else {
+      const int mi = lane / 8;
+      uint32_t kb[4];
+      ldsm_x4(kb, st + (16 * warp + (mi / 2) * 8 + lane % 8) * Gm::PITCH +
+                      (16 * ks + (mi % 2) * 8) * 2);
+      fd_mma(s[0], qa[ks], kb[0], kb[1]);
+      fd_mma(s[1], qa[ks], kb[2], kb[3]);
+    }
+  }
+  // online softmax on the fragments: e = 0, 1 row g, e = 2, 3 row g + 8
+  float mx[2] = {FD_NEG, FD_NEG};
+  bool live[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int slot = 16 * warp + 8 * j + 2 * t + (e & 1);
+      float x = s[j][e] * a.scale;
+      if constexpr (I8) x *= kss[slot];
+      live[j][e] = s0 + slot <= qp;
+      s[j][e] = live[j][e] ? x : FD_NEG;
+      mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+    }
+  float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float mn = fmaxf(m[h], mx[h]);
+    alpha[h] = expf(m[h] - mn);
+    m[h] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = live[j][e] ? expf(s[j][e] - m[e / 2]) : 0.f;
+      rs[e / 2] += p;
+      s[j][e] = I8 ? p * vss[16 * warp + 8 * j + 2 * t + (e & 1)] : p;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
+    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
+    l[h] = l[h] * alpha[h] + rs[h];  // the sum before the V scales
+  }
+  // P (bf16) as the A fragment of P V: k-slots 2t, 2t+1 (n-tile 0) and
+  // 2t+8, 2t+9 (n-tile 1) of rows g and g + 8
+  const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                          pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    o[n][0] *= alpha[0], o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1], o[n][3] *= alpha[1];
+  }
+  if constexpr (I8) {
+    // rows 2t, 2t+1, 2t+8, 2t+9 of the warp's slots, columns 32h + 4g ..
+    // + 3: n-tile 4h + c serves column 32h + 4g + c to lane group g
+#pragma unroll
+    for (int h = 0; h < D / 32; ++h) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = *reinterpret_cast<const uint32_t*>(
+                   stp + Gm::KV + (16 * warp + 2 * t + (e & 1) + 8 * (e / 2)) * Gm::PITCH +
+                   32 * h + 4 * g) ^
+               0x80808080u;
+      const uint32_t lo0 = __byte_perm(w[0], w[1], 0x5140), hi0 = __byte_perm(w[0], w[1], 0x7362);
+      const uint32_t lo1 = __byte_perm(w[2], w[3], 0x5140), hi1 = __byte_perm(w[2], w[3], 0x7362);
+      fd_mma(o[4 * h + 0], pa, i8_bf16x2<0, 1>(lo0), i8_bf16x2<0, 1>(lo1));
+      fd_mma(o[4 * h + 1], pa, i8_bf16x2<2, 3>(lo0), i8_bf16x2<2, 3>(lo1));
+      fd_mma(o[4 * h + 2], pa, i8_bf16x2<0, 1>(hi0), i8_bf16x2<0, 1>(hi1));
+      fd_mma(o[4 * h + 3], pa, i8_bf16x2<2, 3>(hi0), i8_bf16x2<2, 3>(hi1));
+    }
+  } else {
+    const int mi = lane / 8;
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t vb[4];
+      ldsm_x4_t(vb, st + Gm::KV + (16 * warp + (mi % 2) * 8 + lane % 8) * Gm::PITCH +
+                        8 * (n + mi / 2) * 2);
+      fd_mma(o[n], pa, vb[0], vb[1]);
+      fd_mma(o[n + 1], pa, vb[2], vb[3]);
+    }
+  }
+}
+
+// The work list: every live (row, split) pair, rows in order, splits in
+// order, as b * splits + z, and their count; a row's live splits are the
+// runs of tps tiles up to its last live tile. One block of 1024 threads.
+__global__ void __launch_bounds__(1024) decode_plan_items(const FlashDecodeArgs a) {
+  __shared__ int wsum[32];
+  __shared__ int base;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  if (tid == 0) base = 0;
+  __syncthreads();
+  for (int b0 = 0; b0 < a.B; b0 += 1024) {
+    const int b = b0 + tid;
+    const int n = b < a.B ? min(a.q_pos[b] / FD_TS, a.S / FD_TS - 1) / a.tps + 1 : 0;
+    int x = n;  // inclusive scan within the warp, then across the warps
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) wsum[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = wsum[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      wsum[lane] = w;
+    }
+    __syncthreads();
+    const int off = base + x - n + (warp > 0 ? wsum[warp - 1] : 0);
+    for (int z = 0; z < n; ++z) a.items[off + z] = b * a.splits + z;
+    __syncthreads();
+    if (tid == 0) base += wsum[31];
+    __syncthreads();
+  }
+  if (tid == 0) a.n_items[0] = base, a.n_items[1] = 0;
+}
+
+// One unit of work: KV head hk of work-list item unit / Hkv (row b, split
+// z), its tiles [t0, t0 + nt) and its row's cache rows.
+struct FdUnit {
+  int b, z, hk, qp, t0, nt, n_live;
+  const uint8_t *kg, *vg;
+  const float *ksg, *vsg;
+};
+
+template <bool I8>
+__device__ __forceinline__ FdUnit fd_unit(const FlashDecodeArgs& a, int unit) {
+  FdUnit u;
+  const int item = a.items[unit / a.Hkv];
+  u.hk = unit % a.Hkv, u.b = item / a.splits, u.z = item % a.splits;
+  u.qp = a.q_pos[u.b];
+  const int last_live = min(u.qp / FD_TS, a.S / FD_TS - 1);
+  u.t0 = u.z * a.tps;
+  u.nt = min(u.t0 + a.tps, last_live + 1) - u.t0;
+  u.n_live = last_live / a.tps + 1;
+  constexpr int ESZ = I8 ? 1 : 2;
+  u.kg = static_cast<const uint8_t*>(a.k) + ((size_t)u.b * a.skb + (size_t)u.hk * a.skh) * ESZ;
+  u.vg = static_cast<const uint8_t*>(a.v) + ((size_t)u.b * a.svb + (size_t)u.hk * a.svh) * ESZ;
+  u.ksg = I8 ? a.ks + (size_t)u.b * a.sksb + (size_t)u.hk * a.sksh : nullptr;
+  u.vsg = I8 ? a.vs + (size_t)u.b * a.svsb + (size_t)u.hk * a.svsh : nullptr;
+  return u;
+}
+
+// A persistent grid (as many blocks as the card holds at once, so that no
+// block is spent on a dead split): each block takes the next unit from an
+// atomic counter until the list is done, and loads the next unit's first
+// tiles into the ring while it computes the current unit's last. Which
+// block runs a unit changes nothing in its result. The ring's stages roll
+// on from unit to unit (stage (sb + i) % FD_STAGES holds tile i); the four
+// warps' states meet in the stage of the unit's last tile, 32 columns at a
+// time. FD_THREADS threads; dynamic smem FdGeom::SMEM. G = H / Hkv <= 16.
+template <int D, bool I8>
+__global__ void __launch_bounds__(FD_THREADS) decode_attn_mma(const FlashDecodeArgs a) {
+  using Gm = FdGeom<D, I8>;
+  constexpr int KS = D / 16, NT = D / 8;
+  constexpr int AHEAD = TKQ_FD_ABLATE == 2 ? 1 : FD_STAGES - 1;  // tiles a unit starts with
+  constexpr int CP = 33;  // floats a row of the combine's 32-column chunk
+  extern __shared__ __align__(128) uint8_t fd_smem[];
+  __shared__ int unit_s[2];
+  const int G = a.H / a.Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const uint32_t ring = smem_u32(fd_smem);
+  const int n_units = a.n_items[0] * a.Hkv;
+  auto stage = [&](int i) { return i % FD_STAGES * Gm::STAGE; };
+  if (threadIdx.x == 0) unit_s[0] = atomicAdd(a.n_items + 1, 1);
+  __syncthreads();
+  int unit = unit_s[0], sb = 0;
+  bool ahead = false;  // this unit's first tiles are in flight already
+  while (unit < n_units) {
+    const FdUnit u = fd_unit<I8>(a, unit);
+    if (threadIdx.x == 0) unit_s[1] = atomicAdd(a.n_items + 1, 1);  // read after a barrier
+    if (!ahead) {
+#pragma unroll
+      for (int i = 0; i < AHEAD; ++i) {
+        if (i < u.nt) fd_load<D, I8>(ring + stage(sb + i), a, u.kg, u.vg, u.ksg, u.vsg, u.t0 + i);
+        cp_commit();
+      }
+    }
+
+    // q's A fragments: rows g and g + 8 of the KV head's G query rows (zero
+    // past G); K axis 16 ks + (2t, 2t+1, 2t+8, 2t+9), int8: 16 ks + 4t + 0..3
+    uint32_t qa[KS][4];
+    {
+      const __nv_bfloat16* q0 = a.q + (size_t)u.b * a.sqb + (size_t)u.hk * G * D;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const int d0 = I8 ? 16 * ks + 4 * t : 16 * ks + 2 * t, d1 = I8 ? d0 + 2 : d0 + 8;
+        qa[ks][0] = g < G ? *reinterpret_cast<const uint32_t*>(q0 + g * D + d0) : 0u;
+        qa[ks][1] = g + 8 < G ? *reinterpret_cast<const uint32_t*>(q0 + (g + 8) * D + d0) : 0u;
+        qa[ks][2] = g < G ? *reinterpret_cast<const uint32_t*>(q0 + g * D + d1) : 0u;
+        qa[ks][3] = g + 8 < G ? *reinterpret_cast<const uint32_t*>(q0 + (g + 8) * D + d1) : 0u;
+      }
+    }
+    float m[2] = {FD_NEG, FD_NEG}, l[2] = {0.f, 0.f};  // rows g, g + 8
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+    int next = n_units;
+    FdUnit v{};  // the next unit, decoded while this one runs
+    ahead = false;
+    for (int i = 0; i < u.nt; ++i) {
+      if constexpr (TKQ_FD_ABLATE == 2) {  // no ring: tile i alone in flight, then computed
+        if (i > 0) {
+          __syncthreads();
+          fd_load<D, I8>(ring + stage(sb + i), a, u.kg, u.vg, u.ksg, u.vsg, u.t0 + i);
+          cp_commit();
+        }
+        cp_wait<0>();
+        __syncthreads();
+        next = unit_s[1];
+      } else {
+        cp_wait<FD_STAGES - 2>();
+        __syncthreads();  // tile i in every thread's view; tile i - 1 consumed
+        if (i == 0) {
+          next = unit_s[1];
+          if (next < n_units) v = fd_unit<I8>(a, next);
+        }
+        if (i + AHEAD < u.nt) {
+          fd_load<D, I8>(ring + stage(sb + i + AHEAD), a, u.kg, u.vg, u.ksg, u.vsg,
+                         u.t0 + i + AHEAD);
+          cp_commit();
+        } else if (i == u.nt - 1 && next < n_units) {
+          // the next unit's first tiles, into the stages after this unit's
+          // last (tiles nt - 3 and nt - 2 of this unit are consumed)
+#pragma unroll
+          for (int j = 0; j < AHEAD; ++j) {
+            if (j < v.nt)
+              fd_load<D, I8>(ring + stage(sb + u.nt + j), a, v.kg, v.vg, v.ksg, v.vsg, v.t0 + j);
+            cp_commit();
+          }
+          ahead = true;
+        } else {
+          cp_commit();
+        }
+      }
+      fd_tile<D, I8>(ring + stage(sb + i), fd_smem + stage(sb + i), a, (u.t0 + i) * FD_TS,
+                     u.qp, qa, m, l, o);
+    }
+    __syncthreads();  // the last tile is consumed: its stage takes the warps' states
+
+    float* cm = reinterpret_cast<float*>(fd_smem + stage(sb + u.nt - 1));  // m [4][16]
+    float* cl = cm + FD_WARPS * 16;                                        // l [4][16]
+    float* co = cl + FD_WARPS * 16;  // acc [4][16][CP]: 32 columns at a time
+    if (t == 0) {
+      cm[warp * 16 + g] = m[0], cm[warp * 16 + g + 8] = m[1];
+      cl[warp * 16 + g] = l[0], cl[warp * 16 + g + 8] = l[1];
+    }
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c) {
+      // n-tiles 4c .. 4c + 3 hold columns 32c .. 32c + 31 in both layouts
+#pragma unroll
+      for (int n = 4 * c; n < 4 * c + 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = I8 ? 8 * t + 4 * (e & 1) + n % 4 : 8 * (n % 4) + 2 * t + (e & 1);
+          co[(warp * 16 + g + 8 * (e / 2)) * CP + col] = o[n][e];
+        }
+      __syncthreads();
+      for (int i = threadIdx.x; i < G * 32; i += FD_THREADS) {
+        const int r = i / 32, col = 32 * c + i % 32;
+        float M = FD_NEG;
+#pragma unroll
+        for (int w = 0; w < FD_WARPS; ++w) M = fmaxf(M, cm[w * 16 + r]);
+        float L = 0.f, O = 0.f;
+#pragma unroll
+        for (int w = 0; w < FD_WARPS; ++w) {
+          const float wt = expf(cm[w * 16 + r] - M);
+          L += cl[w * 16 + r] * wt;
+          O += co[(w * 16 + r) * CP + i % 32] * wt;
+        }
+        const size_t row = (size_t)u.b * a.H + u.hk * G + r;
+        if (u.n_live == 1) {
+          if (a.out_f32)
+            static_cast<float*>(a.out)[row * D + col] = O / L;
+          else
+            static_cast<__nv_bfloat16*>(a.out)[row * D + col] = __float2bfloat16_rn(O / L);
+        } else {
+          float* pp = a.part + (row * a.splits + u.z) * (D + 2);
+          if (col == 0) pp[0] = M, pp[1] = L;
+          pp[2 + col] = O;
+        }
+      }
+      __syncthreads();  // the chunk is read before the next is written (and unit_s[1])
+    }
+    sb = (sb + u.nt) % FD_STAGES;
+    unit = next;
+  }
+  cp_wait<0>();
+}
+
+// The rows with more than one live split: block b takes row b's (query head,
+// column) outputs, rescales the live splits' partials to their common max,
+// in split order, and writes acc / l in the output's type.
+template <int D>
+__global__ void __launch_bounds__(256) decode_combine(const FlashDecodeArgs a) {
+  const int b = blockIdx.x;
+  const int n_live = min(a.q_pos[b] / FD_TS, a.S / FD_TS - 1) / a.tps + 1;
+  if (n_live == 1) return;  // written by its split
+  for (int i = threadIdx.x; i < a.H * D; i += 256) {
+    const size_t bh = (size_t)b * a.H + i / D;
+    const int col = i % D;
+    const float* pp = a.part + bh * a.splits * (D + 2);
+    float M = FD_NEG;
+    for (int z = 0; z < n_live; ++z) M = fmaxf(M, pp[z * (D + 2)]);
+    float l = 0.f, acc = 0.f;
+    for (int z = 0; z < n_live; ++z) {
+      const float w = expf(pp[z * (D + 2)] - M);
+      l += pp[z * (D + 2) + 1] * w;
+      acc += pp[z * (D + 2) + 2 + col] * w;
+    }
+    const size_t o = bh * D + col;
+    if (a.out_f32)
+      static_cast<float*>(a.out)[o] = acc / l;
+    else
+      static_cast<__nv_bfloat16*>(a.out)[o] = __float2bfloat16_rn(acc / l);
+  }
+}
+
+// The work list, then a persistent grid of as many blocks as the card holds
+// at once (occupancy of decode_attn_mma, over the KV heads), then the
+// combine where a row may have more than one split.
+template <int D, bool I8>
+cudaError_t launch_flash_decode(const FlashDecodeArgs& a, cudaStream_t st) {
+  constexpr int smem = FdGeom<D, I8>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(decode_attn_mma<D, I8>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_attn_mma<D, I8>,
+                                                      FD_THREADS, smem);
+  if (e != cudaSuccess) return e;
+  const int P = max(1, min(a.B * a.splits * a.Hkv, per_sm * sms));
+  decode_plan_items<<<1, 1024, 0, st>>>(a);
+  decode_attn_mma<D, I8><<<P, FD_THREADS, smem, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || a.splits == 1) return e;
+  decode_combine<D><<<a.B, 256, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tkq
 
 using namespace tkq;
 
 // Requires bf16 q with dense heads (row stride sqb in elements), D in {64,
 // 128}, S % 64 == 0, H % Hkv == 0 with H / Hkv <= 16, 16-byte aligned K/V
-// rows, 0 <= q_pos[b] < S. Strides are in elements. Returns the CUDA error
-// code of the launch (0 on success).
+// rows and (int8) scale rows, 0 <= q_pos[b] < S; tps tiles a split, splits
+// = ceil(S / 64 / tps), part: f32 scratch of B * H * splits * (D + 2) floats
+// (unused with one split), items: int32 scratch of B * splits + 2 (the work
+// list, its length and the counter of handed-out units). Strides are in
+// elements. Returns the CUDA error code of the launch (0 on success).
 extern "C" int tkq_decode_attn(int kv_i8, int D, const void* q, long long sqb, const void* k,
                                long long skb, long long skh, const void* v, long long svb,
                                long long svh, const float* ks, long long sksb, long long sksh,
                                const float* vs, long long svsb, long long svsh, const int* q_pos,
                                void* out, int out_f32, int B, int H, int Hkv, int S, float scale,
-                               void* stream) {
-  DecodeArgs a{static_cast<const __nv_bfloat16*>(q), sqb, k, skb, skh, v, svb, svh, ks, sksb,
-               sksh, vs, svsb, svsh, q_pos, out, out_f32, B, H, Hkv, S, scale};
-  return (int)launch_decode_attn(a, D, kv_i8, static_cast<cudaStream_t>(stream));
+                               int tps, int splits, float* part, int* items, void* stream) {
+  const FlashDecodeArgs a{static_cast<const __nv_bfloat16*>(q), sqb, k, skb, skh, v, svb, svh, ks,
+                          sksb, sksh, vs, svsb, svsh, q_pos, out, out_f32, B, H, Hkv, S, scale,
+                          tps, splits, part, items, items + (size_t)B * splits};
+  if (H % Hkv != 0 || H / Hkv > 16 || S % FD_TS != 0 || tps < 1 ||
+      splits != (S / FD_TS + tps - 1) / tps || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64) return (int)(kv_i8 ? launch_flash_decode<64, true>(a, st)
+                                  : launch_flash_decode<64, false>(a, st));
+  if (D == 128) return (int)(kv_i8 ? launch_flash_decode<128, true>(a, st)
+                                   : launch_flash_decode<128, false>(a, st));
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,9 @@
-// Flash (online-softmax) decode attention, one query token per batch row:
-// the device code of decode_attn.cu (TPU kernel #7), shared with attn_out.cu
-// (#10), which runs it before its o_proj, and layer.cu (#11), which runs its
-// current-token variant (SELF) between the layer's QKV and o_proj phases.
+// Flash (online-softmax) decode attention on CUDA cores, one query token per
+// batch row: the attention phase of attn_out.cu (#10), which runs it before
+// its o_proj, and of layer.cu (#11), which runs its current-token variant
+// (SELF) between the layer's QKV and o_proj phases. (The standalone flash
+// decode, #7, is decode_attn.cu's tensor-core kernel; these two
+// keep this one, with its few-row splits from attn_splits.)
 //
 // Numerics of tpu_kquant/ops/pallas_attention.py:_attn_kernel: logits s =
 // (bf16 q . bf16 k) * scale in f32, times the K scale of their slot for int8
@@ -21,10 +23,10 @@
 // the f32 v). Row b with q_pos 0 attends only the current token.
 //
 // Design (simple first: no wgmma, TMA or double buffering): one block per
-// (KV head, batch row, split), 4 warps. Without a split (#7, whose many
-// rows fill the card) a block walks the 64-slot K/V tiles up to its row's
-// last live tile. With splits (#10 and #11 at a few rows, where Hkv = 4
-// blocks a row would walk the cache alone) split z walks tiles [z tps,
+// (KV head, batch row, split), 4 warps. Without a split a block walks the
+// 64-slot K/V tiles up to its row's last live tile. With splits (#10 and
+// #11 at a few rows, where Hkv = 4 blocks a row would walk the cache
+// alone) split z walks tiles [z tps,
 // (z + 1) tps) of them and writes its running max, sum and unnormalised
 // accumulator to a partial buffer, and a combine launch rescales the
 // partials to their common max and divides; split 0 folds the current token

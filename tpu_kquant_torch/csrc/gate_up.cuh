@@ -1,15 +1,37 @@
-// gate/up phase shared by the FFN kernels (ffn.cu: oproj_ffn and ffn):
+// gate/up phase shared by the FFN kernels (ffn.cu: oproj_ffn and ffn;
+// layer.cu, rot.cu through launch_oproj_ffn):
 // act = bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x)))), n = rms_norm, for
 // decode rows (R <= 32), over the fused w_gateup [2F, dim] (gate columns
 // 0..F-1, up columns F..2F-1) of kind q4, q6w or q8, each with bf16 pairs or
 // f32 scales (KQ4, KQ4F, KQ6W, KQ6WF, KQ8, KQ8F of common.cuh).
 //
-// A block recomputes rms(x) for its rows, stages the normalised rows in
-// shared memory in f32 (the norm weight applied without bf16 rounding, as
-// the reference kernels do), and computes its 128 columns j of gate and
-// F + j of up with the GEMV core of common.cuh, so the two outputs that the
-// activation pairs meet in one block and never reach device memory.
-// Grid: (ceil(F / 128), 1, ceil(R / RT)).
+// Replaces the gate/up part of the TPU kernels tpu_kquant/ops/pallas_ffn.py:
+// fused_ffn (_ffn_call, body _ffn_kernel) and fused_oproj_ffn
+// (_oproj_ffn_manual_call, _oproj_ffn_call), which dequantize an F tile of
+// w_gateup in VMEM and feed the normalised rows to the MXU.
+//
+// Bound: memory. At TinyLlama width w_gateup [11264, 2048] q4-sm is 14.4 MB
+// (4.3 us at 3.35 TB/s), at Qwen2.5-1.5B's [17920, 1536] 15.8 MB.
+//
+// Design: gemv.cuh's core (mma.sync bf16 group dots on codes moved exactly
+// into bf16, the scale and min applied once per group, its fragment mapping
+// and load scheme), with one block = 256 columns: gate columns [j, j + 128)
+// (warps 0, 1 of each K row) and up columns [F + j, F + j + 128) (warps 2,
+// 3), so the two outputs that the activation pairs meet in one block.
+// - The K split comes from the phase's own plan (ops/ffn.py:gate_up_plan,
+//   gemv_plan over (kind, 2F, dim)), never from R: grid (ceil(F / 128),
+//   splits). Unsplit, the block forms the activation in its epilogue;
+//   split, its f32 partials go to ws [splits, R, 2F] and gate_up_reduce
+//   adds them in a fixed order and forms it. Only bf16 act [R, F] reaches
+//   device memory beside them.
+// - The norm: every block computes rms(x) of its rows (gu_rstd: 16-byte
+//   loads of every row at once, a fixed order of sums) and stages its K
+//   range of the normalised rows x * rstd * nw (f32, as the reference's
+//   kernels and the plain version keep them) as two bf16 halves, hi =
+//   bf16(v) and lo = bf16(v - hi), so each group dot takes two mmas (q8:
+//   four) and sees v to about 16 bits: the phase is bound by its loads,
+//   not by the tensor cores. Requires dim % 8 == 0 and 16-byte aligned
+//   rows of x and of the norm weight.
 #pragma once
 
 #include "common.cuh"
@@ -26,72 +48,221 @@ struct GateUpArgs {
   const uint32_t* mins;     // f32 mins (KQ4F only)
   __nv_bfloat16* act;       // [R, F]
   int R, dim, F;
+  int cps;                  // chunks per K split (grid.y splits)
+  float* ws;                // [splits, R, 2F] f32 partials where grid.y > 1
 };
 
-template <int KIND, int RT>
-__global__ void __launch_bounds__(THREADS) gate_up_kernel(GateUpArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float rstd[RT];
-  const int r0 = blockIdx.z * RT;
-  float* xs = smem;
-  float* red_g = smem + RT * a.dim;
-  float* red_u = red_g + WARPS * RT * TN;
+__device__ __forceinline__ __nv_bfloat16 gu_act(float g, float u) {
+  g = round_bf16(g), u = round_bf16(u);
+  return __float2bfloat16_rn(g / (1.f + expf(-g)) * u);
+}
+
+// 1 / rms of rows [0, 8 NT) of x [R, dim] (0 past R) into rstd: thread i
+// sums the squares of its 8-element vectors i, i + GV_THREADS, ... of each
+// row (16-byte loads, all in flight together), then the warps' sums are
+// added in warp order. A row's order of sums is the same at any R. Ends
+// with a barrier; red: 8 NT * (GV_THREADS / 32) floats of shared memory.
+template <int NT>
+__device__ void gu_rstd(float* rstd, float* red, const GateUpArgs& a) {
+  constexpr int ROWS = 8 * NT, NW = GV_THREADS / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nv = a.dim / 8;
+  float ss[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    ss[r] = 0.f;
+    if (r < a.R) {
+      for (int v = threadIdx.x; v < nv; v += GV_THREADS) {
+        const uint4 u = *reinterpret_cast<const uint4*>(a.x + (size_t)r * a.dim + 8 * v);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ss[r] = __fmaf_rn(bf16_lo(w[e]), bf16_lo(w[e]), ss[r]);
+          ss[r] = __fmaf_rn(bf16_hi(w[e]), bf16_hi(w[e]), ss[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], o);
+    if (lane == 0) red[r * NW + warp] = ss[r];
+  }
+  __syncthreads();
+  if (threadIdx.x < ROWS) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) t += red[threadIdx.x * NW + w];
+    rstd[threadIdx.x] = threadIdx.x < a.R ? rsqrtf(t / (float)a.dim + a.eps) : 0.f;
+  }
+  __syncthreads();
+}
+
+// Stage rows [0, 8 NT) of n(x) (rows >= R zero) for chunks [c0, c0 + nch) of
+// every segment as gv_stage_x lays x out, the high halves at xs and the low
+// halves ROWS * XS elements on, then each scale group's sum of hi + lo.
+// 16-byte loads of x and of the norm weight.
+template <int KIND, int NT>
+__device__ void gu_stage_x(__nv_bfloat16* xs, float* sums, const GateUpArgs& a,
+                           const float* rstd, int c0, int nch, int XS) {
+  constexpr int NSEG = segments(KIND), G = group_rows(KIND), ROWS = 8 * NT;
+  const int K = a.dim, L = a.cps * CH, S = K / NSEG, vpr = NSEG * L / 8;
+  __nv_bfloat16* lo = xs + (size_t)ROWS * XS;
+  for (int i = threadIdx.x; i < ROWS * vpr; i += GV_THREADS) {
+    const int r = i / vpr, j = i % vpr, seg = j / (L / 8), v = j % (L / 8);
+    uint32_t hw[4] = {0u, 0u, 0u, 0u}, lw[4] = {0u, 0u, 0u, 0u};
+    if (r < a.R && v * 8 < nch * CH) {
+      const int k = seg * S + c0 * CH + v * 8;
+      const uint4 u = *reinterpret_cast<const uint4*>(a.x + (size_t)r * K + k);
+      const float4 n0 = *reinterpret_cast<const float4*>(a.nw + k);
+      const float4 n1 = *reinterpret_cast<const float4*>(a.nw + k + 4);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      const float nw[8] = {n0.x, n0.y, n0.z, n0.w, n1.x, n1.y, n1.z, n1.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v0 = bf16_lo(w[e]) * rstd[r] * nw[2 * e];
+        const float v1 = bf16_hi(w[e]) * rstd[r] * nw[2 * e + 1];
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+        const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+        hw[e] = *reinterpret_cast<const uint32_t*>(&h);
+        lw[e] = *reinterpret_cast<const uint32_t*>(&l);
+      }
+    }
+    const size_t o = (size_t)r * XS + seg * L + v * 8;
+    *reinterpret_cast<uint4*>(xs + o) = make_uint4(hw[0], hw[1], hw[2], hw[3]);
+    *reinterpret_cast<uint4*>(lo + o) = make_uint4(lw[0], lw[1], lw[2], lw[3]);
+  }
+  __syncthreads();
+  const int NG = NSEG * a.cps * (CH / G);
+  for (int i = threadIdx.x; i < ROWS * NG; i += GV_THREADS) {
+    const int r = i / NG, gi = i % NG;
+    const int seg = gi / (a.cps * (CH / G)), lg = gi % (a.cps * (CH / G));
+    const size_t o = (size_t)r * XS + seg * L + lg * G;
+    float s = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < G; q += 2) {
+      const uint32_t h = *reinterpret_cast<const uint32_t*>(xs + o + q);
+      const uint32_t l = *reinterpret_cast<const uint32_t*>(lo + o + q);
+      s = __fadd_rn(s, __fadd_rn(bf16_lo(h), bf16_lo(l)));
+      s = __fadd_rn(s, __fadd_rn(bf16_hi(h), bf16_hi(l)));
+    }
+    sums[gi * ROWS + r] = s;
+  }
+  __syncthreads();
+}
+
+// grid (ceil(F / 128), splits); GV_THREADS threads; dynamic smem
+// gemv_smem_bytes<KIND>(NT, cps, 2). R <= 8 NT.
+template <int KIND, int NT>
+__global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) gate_up_kernel(GateUpArgs a) {
+  extern __shared__ __align__(16) uint8_t gu_smem[];
+  __shared__ float rstd[8 * NT], red[8 * NT * (GV_THREADS / 32)];
+  constexpr int NSEG = segments(KIND), GPC = gv_gpc<KIND>(), ROWS = 8 * NT;
   const int N = 2 * a.F;
-  const int nc = n_chunks_of<KIND>(a.dim);
-  block_rstd<RT>(rstd, a.x, a.R, a.dim, r0, a.eps);
-  stage_x<KIND, RT>(xs, a.x, 0, a.R, a.dim, r0, 0, nc, a.nw, rstd);
-  const int lane = threadIdx.x % 32;
-  const int ng = blockIdx.x * TN + lane * 4;  // gate columns; up = F + gate
-  {
-    float acc[RT][4] = {};
-    gemv_warp<KIND, RT>(acc, a.qs, a.scl, N, a.dim, ng, ng < a.F, 0, nc, xs, a.dim, a.mins);
-    block_reduce<RT>(red_g, acc);
+  const int n_chunks = n_chunks_of<KIND>(a.dim);
+  const int c0 = blockIdx.y * a.cps;
+  const int nch = max(min(n_chunks, c0 + a.cps) - c0, 0);
+  const int L = a.cps * CH, XS = gv_xstride(NSEG * L);
+  auto* xs = reinterpret_cast<__nv_bfloat16*>(gu_smem);
+  float* sums = reinterpret_cast<float*>(gu_smem + (size_t)2 * ROWS * XS * 2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wn = warp % GV_WN, wk = warp / GV_WN;
+  const int j0 = blockIdx.x * (GV_TN / 2);
+  // the lane's 8 code columns: gate j0 + 64 wn + 8g (wn 0, 1), up F + j0 +
+  // 64 (wn - 2) + 8g (wn 2, 3); gv_ld8 zeroes columns past 2F
+  const int n = (wn < 2 ? j0 : a.F + j0 - GV_TN / 2) + wn * 64 + 8 * g;
+  const int ns = n + 2 * t;
+  const bool al8 = N % 8 == 0 && (reinterpret_cast<uintptr_t>(a.qs) & 7) == 0;
+  const GemvArgs ga{nullptr, 0, a.qs, a.scl, a.R, N, a.dim, a.cps, nullptr, nullptr, 0,
+                    nullptr, a.mins};
+  uint2 w[8], sc[4];
+  if (wk < nch) gv_load<KIND>(w, sc, ga, c0 + wk, n, ns, t, al8);
+  gu_rstd<NT>(rstd, red, a);
+  gu_stage_x<KIND, NT>(xs, sums, a, rstd, c0, nch, XS);
+  float acc[NT][4][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int p = 0; p < 4; ++p) acc[j][p][0] = acc[j][p][1] = acc[j][p][2] = acc[j][p][3] = 0.f;
+  const __nv_bfloat16* xb = xs + g * XS + 4 * t;
+  const float* sb = sums + 2 * t;
+  const int chunk_sums = GPC * ROWS;
+  for (int lc = wk; lc < nch; lc += GV_WK) {
+    uint2 wn2[8], sn[4];
+    gv_load<KIND>(wn2, sn, ga, c0 + min(lc + GV_WK, nch - 1), n, ns, t, al8);
+    gv_chunk<KIND, NT, true>(acc, w, sc, xb + lc * CH, XS, sb + lc * chunk_sums, L,
+                             a.cps * chunk_sums, lane, (c0 + lc) & 1, ROWS * XS);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = wn2[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[i] = sn[i];
   }
-  {
-    float acc[RT][4] = {};
-    gemv_warp<KIND, RT>(acc, a.qs, a.scl, N, a.dim, a.F + ng, ng < a.F, 0, nc, xs, a.dim,
-                        a.mins);
-    block_reduce<RT>(red_u, acc);
-  }
-  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
-    const int r = r0 + i / TN, col = blockIdx.x * TN + i % TN;
-    if (r >= a.R || col >= a.F) continue;
-    const float g = round_bf16(red_g[i]), u = round_bf16(red_u[i]);
-    const float silu = g / (1.f + expf(-g));
-    a.act[(size_t)r * a.F + col] = __float2bfloat16_rn(silu * u);
+  float* tile = reinterpret_cast<float*>(gu_smem);
+  gv_combine<NT>(acc, tile, wn, wk, g, t);
+  if (gridDim.y > 1) {  // the split's partials, gate and up columns
+    for (int i = threadIdx.x; i < ROWS * GV_TN / 4; i += GV_THREADS) {
+      const int r = i / (GV_TN / 4), c4 = (i % (GV_TN / 4)) * 4, j = j0 + c4 % (GV_TN / 2);
+      if (r >= a.R || j >= a.F) continue;
+      const size_t o = ((size_t)blockIdx.y * a.R + r) * N + (c4 < GV_TN / 2 ? j : a.F + j);
+      *reinterpret_cast<float4*>(a.ws + o) =
+          *reinterpret_cast<const float4*>(tile + r * GV_TP + c4);
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * GV_TN / 2; i += GV_THREADS) {
+      const int r = i / (GV_TN / 2), c = i % (GV_TN / 2), j = j0 + c;
+      if (r >= a.R || j >= a.F) continue;
+      a.act[(size_t)r * a.F + j] = gu_act(tile[r * GV_TP + c], tile[r * GV_TP + GV_TN / 2 + c]);
+    }
   }
 }
 
-template <int KIND, int RT>
-cudaError_t launch_gate_up_rt(const GateUpArgs& a, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (RT * a.dim + 2 * WARPS * RT * TN);
-  cudaError_t e = cudaFuncSetAttribute(gate_up_kernel<KIND, RT>,
+// act[r, j] from the splits' partials, each sum taken in split order 0, 1, ...
+__global__ void __launch_bounds__(256) gate_up_reduce(const float* ws, int S, int R, int F,
+                                                      __nv_bfloat16* act) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R * F) return;
+  const int r = i / F, j = i % F;
+  float gs = 0.f, us = 0.f;
+  for (int s = 0; s < S; ++s) {
+    const float* p = ws + ((size_t)s * R + r) * 2 * F;
+    gs += p[j], us += p[F + j];
+  }
+  act[i] = gu_act(gs, us);
+}
+
+template <int KIND, int NT>
+cudaError_t launch_gate_up_nt(const GateUpArgs& a, int splits, cudaStream_t st) {
+  const size_t smem = gemv_smem_bytes<KIND>(NT, a.cps, 2);
+  cudaError_t e = cudaFuncSetAttribute(gate_up_kernel<KIND, NT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.F + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
-  gate_up_kernel<KIND, RT><<<grid, THREADS, smem, st>>>(a);
+  dim3 grid((a.F + GV_TN / 2 - 1) / (GV_TN / 2), splits);
+  gate_up_kernel<KIND, NT><<<grid, GV_THREADS, smem, st>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  gate_up_reduce<<<(a.R * a.F + 255) / 256, 256, 0, st>>>(a.ws, splits, a.R, a.F, a.act);
   return cudaGetLastError();
 }
 
 template <int KIND>
-cudaError_t launch_gate_up_k(const GateUpArgs& a, cudaStream_t st) {
-  switch (pick_rt(a.R)) {
-    case 1: return launch_gate_up_rt<KIND, 1>(a, st);
-    case 2: return launch_gate_up_rt<KIND, 2>(a, st);
-    case 4: return launch_gate_up_rt<KIND, 4>(a, st);
-    default: return launch_gate_up_rt<KIND, 8>(a, st);
+cudaError_t launch_gate_up_k(const GateUpArgs& a, int splits, cudaStream_t st) {
+  switch ((a.R + 7) / 8) {
+    case 1: return launch_gate_up_nt<KIND, 1>(a, splits, st);
+    case 2: return launch_gate_up_nt<KIND, 2>(a, splits, st);
+    case 3: return launch_gate_up_nt<KIND, 3>(a, splits, st);
+    case 4: return launch_gate_up_nt<KIND, 4>(a, splits, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// kind: the kind code of w_gateup (KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F)
-inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, cudaStream_t st) {
+// kind: the kind code of w_gateup (KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F);
+// `splits` K splits of a.cps chunks (ops/ffn.py:gate_up_plan)
+inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, int splits, cudaStream_t st) {
+  if (splits > 1 && a.ws == nullptr) return cudaErrorInvalidValue;
   switch (kind) {
-    case KQ4: return launch_gate_up_k<KQ4>(a, st);
-    case KQ4F: return launch_gate_up_k<KQ4F>(a, st);
-    case KQ6W: return launch_gate_up_k<KQ6W>(a, st);
-    case KQ6WF: return launch_gate_up_k<KQ6WF>(a, st);
-    case KQ8: return launch_gate_up_k<KQ8>(a, st);
-    case KQ8F: return launch_gate_up_k<KQ8F>(a, st);
+    case KQ4: return launch_gate_up_k<KQ4>(a, splits, st);
+    case KQ4F: return launch_gate_up_k<KQ4F>(a, splits, st);
+    case KQ6W: return launch_gate_up_k<KQ6W>(a, splits, st);
+    case KQ6WF: return launch_gate_up_k<KQ6WF>(a, splits, st);
+    case KQ8: return launch_gate_up_k<KQ8>(a, splits, st);
+    case KQ8F: return launch_gate_up_k<KQ8F>(a, splits, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -101,15 +272,16 @@ inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, cudaStream_t st
 // (rounding the o_proj sum to bf16 first where round_first, as the
 // reference's attn_out and layer kernels do) -> x2; (B) gate/up on x2 ->
 // act; (C) the down GEMV on act, whose epilogue adds x2 -> out [R, dim].
-// ws: f32 scratch of max(splits_o, splits_d) * R * dim floats.
+// ws: f32 scratch of max(splits_o * R * dim, splits_g * R * 2F, splits_d *
+// R * dim) floats, used by one phase at a time.
 inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
                                     int wo_kind, const void* wo_qs, const void* wo_scl,
                                     const void* wo_mins, int gu_kind, const void* gu_qs,
                                     const void* gu_scl, const void* gu_mins, int dn_kind,
                                     const void* dn_qs, const void* dn_scl, void* x2, void* act,
                                     float* ws, void* out, int R, int dim, int K, int F,
-                                    int cps_o, int splits_o, int cps_d, int splits_d,
-                                    int round_first, cudaStream_t st) {
+                                    int cps_o, int splits_o, int cps_g, int splits_g, int cps_d,
+                                    int splits_d, int round_first, cudaStream_t st) {
   GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_scl),
               R, dim, K, cps_o, ws, x2, 0, static_cast<const __nv_bfloat16*>(x),
               static_cast<const uint32_t*>(wo_mins)};
@@ -119,8 +291,8 @@ inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float
   const auto* x2b = static_cast<const __nv_bfloat16*>(x2);
   GateUpArgs ag{x2b, nw, eps, static_cast<const uint8_t*>(gu_qs),
                 static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
-                static_cast<__nv_bfloat16*>(act), R, dim, F};
-  e = launch_gate_up(gu_kind, ag, st);
+                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws};
+  e = launch_gate_up(gu_kind, ag, splits_g, st);
   if (e != cudaSuccess) return e;
   GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),
               R, dim, F, cps_d, ws, out, 0, x2b, nullptr};

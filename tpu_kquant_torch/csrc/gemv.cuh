@@ -104,12 +104,13 @@ template <int KIND>
 __host__ __device__ constexpr int gv_gpc() { return CH / group_rows(KIND); }
 
 // Dynamic shared memory of gemv_kernel<KIND, NT> at `cps` chunks a split:
-// the staged x [8 NT][xstride] bf16 and the group sums [groups][8 NT] f32,
-// or the output tile [8 NT][GV_TP] f32 that reuses them, whichever is larger.
+// the staged x [8 NT][xstride] bf16 (`copies` of it: gate_up.cuh stages a
+// high and a low bf16 half) and the group sums [groups][8 NT] f32, or the
+// output tile [8 NT][GV_TP] f32 that reuses them, whichever is larger.
 template <int KIND>
-__host__ __device__ inline size_t gemv_smem_bytes(int NT, int cps) {
+__host__ __device__ inline size_t gemv_smem_bytes(int NT, int cps, int copies = 1) {
   const size_t rows = 8 * NT;
-  const size_t x = rows * gv_xstride(segments(KIND) * cps * CH) * 2;
+  const size_t x = copies * rows * gv_xstride(segments(KIND) * cps * CH) * 2;
   const size_t sums = (size_t)segments(KIND) * cps * gv_gpc<KIND>() * rows * 4;
   const size_t tile = rows * GV_TP * 4;
   return x + sums > tile ? x + sums : tile;
@@ -180,23 +181,29 @@ __host__ __device__ constexpr bool has_mins() {
 // its 8 columns at the segment's rows 16s + 4t + e; xb points at row g of
 // n-tile 0 of the staged x at this chunk-segment (+ 4t), sb at its first
 // group's x sums at rows 2t, 2t+1; scale(gg, p, s0, m0, s1, m1) gives the
-// scale and min of columns 2p, 2p+1 at group gg of the chunk-segment.
-template <int KIND, int NT, int FIELD, class Scale>
+// scale and min of columns 2p, 2p+1 at group gg of the chunk-segment. HL:
+// x is staged as two bf16 halves, the low one `loff` elements past the high
+// one, and each group dot takes both (an f32 x to about 16 bits).
+template <int KIND, int NT, int FIELD, class Scale, bool HL = false>
 __device__ __forceinline__ void gv_segment(float (&acc)[NT][4][4], const uint2 (&w)[8],
                                            const __nv_bfloat16* xb, int XS, const float* sb,
-                                           Scale scale) {
+                                           Scale scale, int loff = 0) {
   constexpr int G = group_rows(KIND), STEPS = G / 16, GPC = CH / G, ROWS = 8 * NT;
   constexpr bool Q8 = KIND == KQ8 || KIND == KQ8F;
   constexpr float OFF = gv_offset<KIND>();
 #pragma unroll
   for (int gg = 0; gg < GPC; ++gg) {
-    uint2 b[NT][STEPS];
+    uint2 b[NT][STEPS], bl[HL ? NT : 1][STEPS];
     float2 xsum[NT];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
-      for (int st = 0; st < STEPS; ++st)
+      for (int st = 0; st < STEPS; ++st) {
         b[j][st] = *reinterpret_cast<const uint2*>(xb + j * 8 * XS + (gg * STEPS + st) * 16);
+        if constexpr (HL)
+          bl[j][st] = *reinterpret_cast<const uint2*>(xb + loff + j * 8 * XS +
+                                                      (gg * STEPS + st) * 16);
+      }
       xsum[j] = *reinterpret_cast<const float2*>(sb + gg * ROWS + 8 * j);
     }
 #pragma unroll
@@ -223,8 +230,12 @@ __device__ __forceinline__ void gv_segment(float (&acc)[NT][4][4], const uint2 (
             continue;
           }
           mma_bf16(d, a[st], b[j][st].x, b[j][st].y);
-          if constexpr (Q8)
+          if constexpr (HL) mma_bf16(d, a[st], bl[j][st].x, bl[j][st].y);
+          if constexpr (Q8) {
             mma_bf16(d, ah[st], bf16x2_times16(b[j][st].x), bf16x2_times16(b[j][st].y));
+            if constexpr (HL)
+              mma_bf16(d, ah[st], bf16x2_times16(bl[j][st].x), bf16x2_times16(bl[j][st].y));
+          }
         }
         float* c = acc[j][p];
         if constexpr (TKQ_GV_ABLATE == 2) {
@@ -347,16 +358,18 @@ struct Q4Scale {
   }
 };
 
-// One chunk (32 packed rows) of a q4 or flat kind.
-template <int KIND, int NT>
+// One chunk (32 packed rows) of a q4 or flat kind (HL, loff: gv_segment's).
+template <int KIND, int NT, bool HL = false>
 __device__ __forceinline__ void gv_chunk(float (&acc)[NT][4][4], const uint2 (&w)[8],
                                          const uint2 (&sc)[4], const __nv_bfloat16* xb, int XS,
                                          const float* sb, int seg_stride_x,
-                                         int seg_stride_s, int lane, bool odd) {
+                                         int seg_stride_s, int lane, bool odd, int loff = 0) {
   if constexpr (is_q4(KIND)) {  // the low fold is segment 0, the high fold segment 1
-    gv_segment<KIND, NT, 0>(acc, w, xb, XS, sb, Q4Scale<KIND, 0>{sc, lane});
-    gv_segment<KIND, NT, 1>(acc, w, xb + seg_stride_x, XS, sb + seg_stride_s,
-                            Q4Scale<KIND, 1>{sc, lane});
+    gv_segment<KIND, NT, 0, Q4Scale<KIND, 0>, HL>(acc, w, xb, XS, sb, Q4Scale<KIND, 0>{sc, lane},
+                                                  loff);
+    gv_segment<KIND, NT, 1, Q4Scale<KIND, 1>, HL>(acc, w, xb + seg_stride_x, XS,
+                                                  sb + seg_stride_s, Q4Scale<KIND, 1>{sc, lane},
+                                                  loff);
   } else {
     auto scale = [&](int gg, int p, float& s0, float& m0, float& s1, float& m1) {
       m0 = m1 = 0.f;
@@ -374,7 +387,7 @@ __device__ __forceinline__ void gv_chunk(float (&acc)[NT][4][4], const uint2 (&w
         s1 = __uint_as_float(quad_shfl(sc[0].y, lane, p));
       }
     };
-    gv_segment<KIND, NT, 0>(acc, w, xb, XS, sb, scale);
+    gv_segment<KIND, NT, 0, decltype(scale), HL>(acc, w, xb, XS, sb, scale, loff);
   }
 }
 
@@ -507,14 +520,11 @@ __device__ void gv_stage_x(__nv_bfloat16* xs, float* sums, const void* x, int x_
 }
 
 // The block's result: the two K warps' sums added (warp row 0 + warp row 1)
-// in the shared tile [8 NT][GV_TP], then stored coalesced: the epilogue of
-// store_out into out, or the split's f32 partials into ws.
-// (Args: GemvArgs, or any struct with its R, N, ws, out, out_f32, res and
-// round_first.)
-template <int NT, class Args>
-__device__ void gv_finish(const float (&acc)[NT][4][4], const Args& a, float* tile, int wn,
-                          int wk, int g, int t) {
-  constexpr int ROWS = 8 * NT;
+// in the shared tile [8 NT][GV_TP] (row r, block column c). Ends with a
+// barrier.
+template <int NT>
+__device__ void gv_combine(const float (&acc)[NT][4][4], float* tile, int wn, int wk, int g,
+                           int t) {
   __syncthreads();  // the tile reuses the staged x
   for (int pass = 1; pass >= 0; --pass) {
     if (wk == pass) {
@@ -538,6 +548,16 @@ __device__ void gv_finish(const float (&acc)[NT][4][4], const Args& a, float* ti
     }
     __syncthreads();
   }
+}
+
+// gv_combine, then the tile stored coalesced: the epilogue of store_out into
+// out, or the split's f32 partials into ws. (Args: GemvArgs, or any struct
+// with its R, N, ws, out, out_f32, res and round_first.)
+template <int NT, class Args>
+__device__ void gv_finish(const float (&acc)[NT][4][4], const Args& a, float* tile, int wn,
+                          int wk, int g, int t) {
+  constexpr int ROWS = 8 * NT;
+  gv_combine<NT>(acc, tile, wn, wk, g, t);
   for (int i = threadIdx.x; i < ROWS * GV_TN / 4; i += GV_THREADS) {
     const int r = i / (GV_TN / 4), c4 = (i % (GV_TN / 4)) * 4;
     const int col = blockIdx.x * GV_TN + c4;

@@ -20,7 +20,7 @@
 // stream: oproj_ffn's sequence (gate_up.cuh:launch_oproj_ffn: the o_proj
 // GEMV whose epilogue adds x -> x2; gate/up on x2 -> act; the down GEMV
 // whose epilogue adds x2 -> y), then attn_in.cuh's kernel on y with the
-// next layer's weights. Four launches, six where both GEMVs split K, from
+// next layer's weights. Four launches, seven where the three split K, from
 // one C call: what is saved against the unfused pair is one host call per
 // layer.
 #include "attn_in.cuh"
@@ -41,12 +41,13 @@ extern "C" int tkq_rot(const void* x, const void* attn, const float* nw, float e
                        const void* qk_scl, const void* qk_mins, int v_kind, const void* v_qs,
                        const void* v_scl, const void* v_mins, const float* cosv,
                        const float* sinv, void* qk2, void* v2, int R, int dim, int K, int F,
-                       int n0, int n1, int hd, int cps_o, int splits_o, int cps_d, int splits_d,
-                       void* stream) {
+                       int n0, int n1, int hd, int cps_o, int splits_o, int cps_g, int splits_g,
+                       int cps_d, int splits_d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind,
                                    gu_qs, gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y,
-                                   R, dim, K, F, cps_o, splits_o, cps_d, splits_d, 0, st);
+                                   R, dim, K, F, cps_o, splits_o, cps_g, splits_g, cps_d,
+                                   splits_d, 0, st);
   if (e != cudaSuccess) return (int)e;
   AttnInArgs ai{static_cast<const __nv_bfloat16*>(y),
                 nw2,

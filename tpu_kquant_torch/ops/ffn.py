@@ -27,12 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from tpu_kquant_torch.ops import _build
-from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind, packed_arrays
+from tpu_kquant_torch.ops.qmm import KINDS, gemv_plan, kernel_kind, packed_arrays
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
 counter = _build.LaunchCounter("oproj_ffn")
 ffn_counter = _build.LaunchCounter("ffn")
+gate_up_counter = _build.LaunchCounter("gate_up")
 
 MAX_ROWS = 32
 _P = ctypes.c_void_p
@@ -40,12 +41,16 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #            x   attn nw  eps wo: kind qs scl mins  gu: kind qs scl mins  dn: kind qs scl
 _ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
-             # x2 act ws out R  dim K  F  cps_o splits_o cps_d splits_d stream
-             _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+             # x2 act ws out R  dim K  F  cps_o splits_o cps_g splits_g cps_d splits_d
+             _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             # stream
+             _P]
 #                x   nw  eps gu: kind qs scl mins  dn: kind qs scl
 _FFN_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _I, _P, _P,
-                 # act ws out R  dim F  cps_d splits_d stream
-                 _P, _P, _P, _I, _I, _I, _I, _I, _P]
+                 # act ws out R  dim F  cps_g splits_g cps_d splits_d stream
+                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+#                    x   nw  eps gu: kind qs scl mins  act ws  R   dim F   cps splits stream
+_GATE_UP_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
 _FLAT_KINDS = ("q6w", "q8")  # pallas_ffn.py:_FLAT_KINDS
@@ -108,6 +113,33 @@ def oproj_ffn_enabled(impl: str, wo: QTensor, gu: QTensor, dn: QTensor, rows: in
             and oproj_ffn_supported(wo, gu, dn, rows))
 
 
+def gate_up_plan(code: int, F: int, dim: int) -> tuple[int, int]:
+    """(chunks per split, splits) of the gate/up phase (csrc/gate_up.cuh):
+    ops.qmm.gemv_plan over the fused w_gateup [2F, dim] (a block's 256
+    columns: 128 of gate and the matching 128 of up) with the normalised
+    rows staged as two bf16 halves and no cost a split (its partials, [splits,
+    R, 2F] f32 at R <= 32, cost nothing measurable: tools/gemv_sweep.py
+    --gate-up found the fastest split where the blocks fill one wave of two
+    a SM, PERF.md §6). Never from the row count, as the GEMV's."""
+    return gemv_plan(code, 2 * F, dim, halves=2, split_cost=0.0)
+
+
+def fused_ws_floats(R: int, dim: int, F: int, splits_o: int, splits_g: int,
+                    splits_d: int) -> int:
+    """f32 scratch floats of the FFN sequence (gate_up.cuh:launch_oproj_ffn):
+    the largest of its phases' split partials (o_proj and down [splits, R,
+    dim], gate/up [splits, R, 2F]), which run one at a time."""
+    return max(splits_o * R * dim, splits_g * R * 2 * F if splits_g > 1 else 0,
+               splits_d * R * dim, 1)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (the gate/up phase reads its rows and
+    the norm weight 16 bytes at a time), copied only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> list[tuple[int, list]]:
     """(kind code, [codes, scales, mins or None]) of each weight, checked by
     ops.qmm.packed_arrays (the fused kinds have no high bit plane) and
@@ -120,15 +152,55 @@ def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> list[tuple[int, l
     return out
 
 
-def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
-              dn: QTensor) -> torch.Tensor:
-    """x2 [R, dim] f32 -> x2 + down(act) in f32, unrounded."""
-    xn = x2 * torch.rsqrt((x2 * x2).mean(-1, keepdim=True) + eps) * norm_w.float()
+def gate_up_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float,
+                  gu: QTensor) -> torch.Tensor:
+    """The gate/up phase in plain PyTorch: x [R, dim] -> act [R, F] bf16 =
+    bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x)))), n(x) in f32."""
+    x = x.float()
+    xn = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * norm_w.float()
     gu_out = xn @ dequant_kmajor(gu)
     Fd = gu_out.shape[-1] // 2
     g = gu_out[:, :Fd].to(torch.bfloat16).float()
     u = gu_out[:, Fd:].to(torch.bfloat16).float()
-    act = (F.silu(g) * u).to(torch.bfloat16).float()
+    return (F.silu(g) * u).to(torch.bfloat16)
+
+
+def gate_up(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor) -> torch.Tensor:
+    """The gate/up phase alone (csrc/ffn.cu:tkq_gate_up): x [R, dim] bf16 ->
+    act [R, F] bf16. The main path runs it inside fused_oproj_ffn and
+    fused_ffn; this entry point times it on its own (tools/tile_ab.py) and
+    holds it to gate_up_plain."""
+    if x.device.type == "cpu":
+        gate_up_counter.plain_calls += 1
+        return gate_up_plain(x, norm_w, eps, gu)
+    R, dim = x.shape
+    Fd = int(gu.shape[0]) // 2
+    req = _build.require
+    req(x.device.type == "cuda" and x.dtype == torch.bfloat16 and R <= MAX_ROWS,
+        f"gate_up: x {x.dtype} [{R}, {dim}] on {x.device}")
+    req(gu.shape[-1] == dim and dim % 64 == 0 and Fd % 32 == 0, "gate_up: shape")
+    req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "gate_up: norm weight")
+    ((gu_kind, gu_arrs),) = _fused_arrays("gate_up", x, gu)
+    req(KINDS[gu_kind][0] in ("q4",) + _FLAT_KINDS, f"gate_up: kind {KINDS[gu_kind]}")
+    cps_g, splits_g = gate_up_plan(gu_kind, Fd, dim)
+    act = torch.empty((R, Fd), dtype=torch.bfloat16, device=x.device)
+    ws = torch.empty(fused_ws_floats(R, dim, Fd, 0, splits_g, 0), dtype=torch.float32,
+                     device=x.device)
+    x, nw = _aligned(x), _aligned(norm_w)
+    lib = _build.load("ffn", "tkq_gate_up", _GATE_UP_ARGTYPES)
+    P = _build.ptr
+    rc = lib.tkq_gate_up(P(x), P(nw), float(eps), gu_kind,
+                         *[None if a is None else P(a) for a in gu_arrs], P(act), P(ws), R, dim,
+                         Fd, cps_g, splits_g, _build.stream_ptr(x.device))
+    _build.check(lib, rc, "gate_up")
+    gate_up_counter.launches += 1
+    return act
+
+
+def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
+              dn: QTensor) -> torch.Tensor:
+    """x2 [R, dim] f32 -> x2 + down(act) in f32, unrounded."""
+    act = gate_up_plain(x2, norm_w, eps, gu).float()
     return x2 + act @ dequant_kmajor(dn)
 
 
@@ -156,18 +228,20 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     req(x.dtype == torch.bfloat16, f"ffn: x dtype {x.dtype}")
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "ffn: norm weight")
     (gu_kind, gu_arrs), (dn_kind, dn_arrs) = _fused_arrays("ffn", x, gu, dn)
-    x2d, nw = x2d.contiguous(), norm_w.contiguous()
+    x2d, nw = _aligned(x2d), _aligned(norm_w)
+    cps_g, splits_g = gate_up_plan(gu_kind, Fd, dim)
     cps_d, splits_d = gemv_plan(dn_kind, dim, Fd)
     dev = x.device
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(splits_d * R * dim, dtype=torch.float32, device=dev)
+    ws = torch.empty(fused_ws_floats(R, dim, Fd, 0, splits_g, splits_d), dtype=torch.float32,
+                     device=dev)
     out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     lib = _build.load("ffn", "tkq_ffn", _FFN_ARGTYPES)
     P = _build.ptr
     ptrs = lambda arrs: [None if a is None else P(a) for a in arrs]  # noqa: E731
     rc = lib.tkq_ffn(P(x2d), P(nw), float(eps), gu_kind, *ptrs(gu_arrs), dn_kind,
-                     *ptrs(dn_arrs[:2]), P(act), P(ws), P(out), R, dim, Fd, cps_d, splits_d,
-                     _build.stream_ptr(dev))
+                     *ptrs(dn_arrs[:2]), P(act), P(ws), P(out), R, dim, Fd, cps_g, splits_g,
+                     cps_d, splits_d, _build.stream_ptr(dev))
     _build.check(lib, rc, "ffn")
     ffn_counter.launches += 1
     return out.reshape(*lead, dim)
@@ -201,21 +275,23 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     req(norm_w.shape == (dim,) and norm_w.dtype == torch.float32, "oproj_ffn: norm weight")
     (wo_kind, wo_arrs), (gu_kind, gu_arrs), (dn_kind, dn_arrs) = _fused_arrays(
         "oproj_ffn", x, wo, gu, dn)
-    x2d, a2d, nw = x2d.contiguous(), a2d.contiguous(), norm_w.contiguous()
+    x2d, a2d, nw = x2d.contiguous(), a2d.contiguous(), _aligned(norm_w)
     cps_o, splits_o = gemv_plan(wo_kind, dim, K)
+    cps_g, splits_g = gate_up_plan(gu_kind, Fd, dim)
     cps_d, splits_d = gemv_plan(dn_kind, dim, Fd)
     dev = x.device
     x2 = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(max(splits_o, splits_d) * R * dim, dtype=torch.float32, device=dev)
+    ws = torch.empty(fused_ws_floats(R, dim, Fd, splits_o, splits_g, splits_d),
+                     dtype=torch.float32, device=dev)
     out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     lib = _build.load("ffn", "tkq_oproj_ffn", _ARGTYPES)
     P = _build.ptr
     ptrs = lambda arrs: [None if a is None else P(a) for a in arrs]  # noqa: E731
     rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *ptrs(wo_arrs), gu_kind,
                            *ptrs(gu_arrs), dn_kind, *ptrs(dn_arrs[:2]), P(x2), P(act), P(ws),
-                           P(out), R, dim, K, Fd, cps_o, splits_o, cps_d, splits_d,
-                           _build.stream_ptr(dev))
+                           P(out), R, dim, K, Fd, cps_o, splits_o, cps_g, splits_g, cps_d,
+                           splits_d, _build.stream_ptr(dev))
     _build.check(lib, rc, "oproj_ffn")
     counter.launches += 1
     return out.reshape(*lead, dim)

@@ -31,7 +31,8 @@ import torch
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attn_in import attn_in_plain
 from tpu_kquant_torch.ops.decode_attention import MAX_GROUP, attn_splits
-from tpu_kquant_torch.ops.ffn import _FLAT_KINDS, _ffn_tail, _fused_arrays, _pick_tf
+from tpu_kquant_torch.ops.ffn import (_FLAT_KINDS, _aligned, _ffn_tail, _fused_arrays,
+                                      _pick_tf, fused_ws_floats, gate_up_plan)
 from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
@@ -50,8 +51,10 @@ _W = [_I, _P, _P, _P]  # a weight: kind code, codes, scales, mins
 _ARGTYPES = [_P, _P, _P, _F, *_W, *_W, *_W, *_W, _I, _P, _P, _P, _P,
              # kc skb skh vc svb svh q_pos qk v   att x2  act ws  y
              _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
-             # R  D   H   Hkv hd  S   F   scale tps splits part cps_o splits_o cps_d splits_d
-             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I, _I, _I,
+             # R  D   H   Hkv hd  S   F   scale tps splits part cps_o splits_o
+             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I,
+             # cps_g splits_g cps_d splits_d
+             _I, _I, _I, _I,
              # stream
              _P]
 
@@ -178,6 +181,7 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
     req(c2d.shape == (B, hd // 2), "layer: rope tables must be [B, 1, head_dim / 2]")
     wts = _fused_arrays("layer", x, wqk, wv, wo, gu, dn)
     cps_o, splits_o = gemv_plan(wts[2][0], D, H * hd)
+    cps_g, splits_g = gate_up_plan(wts[3][0], F, D)
     cps_d, splits_d = gemv_plan(wts[4][0], D, F)
     dev = x.device
     n0, n1 = (H + Hkv) * hd, Hkv * hd
@@ -189,13 +193,14 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
         and att.device == dev, "layer: att must be a dense bf16 [B, H * hd] tensor")
     x2 = torch.empty((B, D), dtype=torch.bfloat16, device=dev)
     act = torch.empty((B, F), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(max(splits_o, splits_d) * B * D, dtype=torch.float32, device=dev)
+    ws = torch.empty(fused_ws_floats(B, D, F, splits_o, splits_g, splits_d), dtype=torch.float32,
+                     device=dev)
     y = torch.empty((B, 1, D), dtype=torch.bfloat16, device=dev)
     tps, a_splits = attn_splits(B, Hkv, S)
     part = torch.empty(B * H * a_splits * (hd + 2) if a_splits > 1 else 1, dtype=torch.float32,
                        device=dev)
     qp32 = positions[:, 0].to(torch.int32).contiguous()
-    x2d, anw, fnw = x.reshape(B, D).contiguous(), anw.contiguous(), fnw.contiguous()
+    x2d, anw, fnw = x.reshape(B, D).contiguous(), anw.contiguous(), _aligned(fnw)
     P = _build.ptr
     w_args = []
     for code, arrs in wts[:4]:
@@ -207,8 +212,8 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
                        P(k_cache), k_cache.stride(0), k_cache.stride(1), P(v_cache),
                        v_cache.stride(0), v_cache.stride(1), P(qp32), P(qk), P(v), P(att),
                        P(x2), P(act), P(ws), P(y), B, D, H, Hkv, hd, S, F, float(hd) ** -0.5,
-                       tps, a_splits, P(part), cps_o, splits_o, cps_d, splits_d,
-                       _build.stream_ptr(dev))
+                       tps, a_splits, P(part), cps_o, splits_o, cps_g, splits_g, cps_d,
+                       splits_d, _build.stream_ptr(dev))
     _build.check(lib, rc, "layer")
     counter.launches += 1
     return y, qk[:, H * hd:].reshape(B, 1, Hkv, hd), v.reshape(B, 1, Hkv, hd)

@@ -67,15 +67,16 @@ _SMEM_CAP = 200 * 1024
 # a pipeline step, the H100's SMs; tile_plan's cost model, fitted to a sweep
 # of block heights and splits on the H100 (PERF.md §6, PR 11): a step's time
 # (us) at each block height, a block's fill and epilogue in steps, the rate
-# (bytes / us) at which split partials make their round trip (mostly in
-# L2), the least steps a split takes, the most bytes of partials a call
-# writes
+# (bytes / us) at which split partials make their round trip (refitted to
+# the tile A/B of PERF.md §6: at R = 1024 and 2048 the partials of wo and
+# down moved at ~2.5 TB/s, most of them through device memory), the least
+# steps a split takes, the most bytes of partials a call writes
 TILE_BN = 128
 TILE_BK = 64
 SMS = 132
 STEP_US = {128: 1.0, 256: 1.35}
 FILL_STEPS = 2
-PARTIAL_BYTES_PER_US = 6.7e6
+PARTIAL_BYTES_PER_US = 2.5e6
 MIN_SPLIT_STEPS = 2
 WS_CAP = 64 << 20
 # the GEMV (csrc/gemv.cuh): output columns a block, floats a row of its
@@ -163,13 +164,14 @@ def packed_arrays(qt: QTensor, what: str) -> tuple[int, list]:
     return code, arrs
 
 
-def gemv_smem_bytes(code: int, cps: int, R: int, int8: bool = False) -> int:
+def gemv_smem_bytes(code: int, cps: int, R: int, int8: bool = False, halves: int = 1) -> int:
     """Dynamic shared memory of the GEMV kernel at ``cps`` chunks a split and
     R rows (csrc/gemv.cuh gemv_smem_bytes; int8: csrc/qmm_int8.cu
     int8_smem_bytes): the staged activations of 8 ceil(R / 8) rows (bf16
-    rows of a multiple of 64 plus 16 elements; int8: of 128 plus 16 bytes)
-    and each scale group's sums (int8: its scales and gsums), or the block's
-    f32 output tile, whichever is larger."""
+    rows of a multiple of 64 plus 16 elements, ``halves`` copies of them:
+    csrc/gate_up.cuh stages two; int8: of 128 plus 16 bytes) and each scale
+    group's sums (int8: its scales and gsums), or the block's f32 output
+    tile, whichever is larger."""
     kind = KINDS[code][0]
     seg, gpc = SEGMENTS[kind], 32 // GROUP_SIZE[kind]
     rows = 8 * -(-R // 8)
@@ -177,12 +179,13 @@ def gemv_smem_bytes(code: int, cps: int, R: int, int8: bool = False) -> int:
     if int8:
         staged = rows * (-(-span // 128) * 128 + 16) + 2 * seg * cps * gpc * rows * 4
     else:
-        staged = rows * (-(-span // 64) * 64 + 16) * 2 + seg * cps * gpc * rows * 4
+        staged = halves * rows * (-(-span // 64) * 64 + 16) * 2 + seg * cps * gpc * rows * 4
     return max(staged, rows * GEMV_TP * 4)
 
 
 @functools.lru_cache(maxsize=None)
-def gemv_plan(code: int, N: int, K: int, int8: bool = False) -> tuple[int, int]:
+def gemv_plan(code: int, N: int, K: int, int8: bool = False, halves: int = 1,
+              split_cost: float = GEMV_SPLIT_COST) -> tuple[int, int]:
     """(chunks per split, splits) of the GEMV's K range (csrc/gemv.cuh; int8:
     qmm_int8's kernel), from the kind, N and K alone: never from the row
     count, so that a row's sums are taken in the same order whatever the
@@ -194,7 +197,9 @@ def gemv_plan(code: int, N: int, K: int, int8: bool = False) -> tuple[int, int]:
     up to 16 rows twice the loads are in flight; at 32 rows, one block a
     SM, such a plan runs two waves of half the chunks), counting
     GEMV_BLOCK_CHUNKS of fixed cost a block and GEMV_SPLIT_COST N chunks a
-    split for the partials' round trip."""
+    split for the partials' round trip. ``halves``: gemv_smem_bytes's;
+    ``split_cost``: that round trip's cost (both set by the gate/up phase's
+    plan, ops/ffn.py:gate_up_plan)."""
     kind = KINDS[code][0]
     n_chunks = K // (32 * SEGMENTS[kind])
     tiles = -(-N // GEMV_TN)
@@ -203,9 +208,9 @@ def gemv_plan(code: int, N: int, K: int, int8: bool = False) -> tuple[int, int]:
         cps = -(-n_chunks // s)
         if -(-n_chunks // cps) != s or (s > 1 and cps < 2):
             continue  # another s gives this cps; or a K warp without a chunk
-        if gemv_smem_bytes(code, cps, GEMV_MAX_ROWS, int8) > _SMEM_CAP:
+        if gemv_smem_bytes(code, cps, GEMV_MAX_ROWS, int8, halves) > _SMEM_CAP:
             continue
-        cost = -(-tiles * s // GEMV_WAVE) * (cps + GEMV_BLOCK_CHUNKS) + GEMV_SPLIT_COST * N * s
+        cost = -(-tiles * s // GEMV_WAVE) * (cps + GEMV_BLOCK_CHUNKS) + split_cost * N * s
         if best is None or cost < best[0]:
             best = (cost, cps, s)
     _build.require(best is not None, f"gemv_plan: no split of K={K} fits ({KINDS[code]})")
@@ -223,35 +228,67 @@ def plan_cost(bm: int, tiles: int, n_steps: int, sps: int, R: int, N: int) -> fl
     return waves * (min(sps, n_steps) + FILL_STEPS) * STEP_US[bm] + partials
 
 
+# the row counts tile_split weighs a K split at: a lone 64-token prompt,
+# pp512, the 16 x 64 burst and the 1024-slot tick, pp2048
+TILE_REF_ROWS = (64, 512, 1024, 2048)
+
+
+def _tile_best(R: int, N: int, n_steps: int, sps: int) -> tuple[float, int]:
+    """(cost, bm) of the cheaper block height at R rows and ``sps`` steps a
+    split (the taller block on a tie)."""
+    cols = -(-N // TILE_BN)
+    return min((plan_cost(bm, cols * -(-R // bm), n_steps, sps, R, N), -bm)
+               for bm in (256, 128))
+
+
+@functools.lru_cache(maxsize=None)
+def tile_split(N: int, K: int, code: int) -> int:
+    """Steps per split of the wgmma tile's K range, from the kind, N and K
+    alone: never from the row count, so that a row's sums are taken in the
+    same order whatever the other rows of the call (rows [64 i, 64 i + 64)
+    of a burst of k 64-token prompts equal the 64-row call of the same rows,
+    bit for bit). Of the runs of at least MIN_SPLIT_STEPS steps (for the
+    bit-plane kinds whole packed chunks: SEGMENTS / 2 steps) and the whole
+    K, the one whose plan_cost summed over the row counts of TILE_REF_ROWS
+    (one call at each, at its faster block height) is least: the least
+    time over a lone prompt, pp512, the burst and pp2048 (fewer splits on a
+    tie)."""
+    kind = KINDS[code][0]
+    n_steps = -(-K // TILE_BK)
+    unit = SEGMENTS[kind] // 2 if kind in _PLANE_LIBRARY else 1
+    runs = {n_steps} | {r for r in (-(-(-(-n_steps // s)) // unit) * unit
+                                    for s in range(2, n_steps + 1)) if r >= MIN_SPLIT_STEPS}
+    return min(runs, key=lambda r: (sum(_tile_best(R, N, n_steps, r)[0] for R in TILE_REF_ROWS),
+                                    -r))
+
+
 def tile_plan(R: int, N: int, K: int, code: int) -> tuple[int, int, int, int]:
     """(bm, bn, splits, steps per split) of the wgmma tile at R > 32 rows.
 
     A block computes bm x 128 outputs (bm = 128, or 256: two warpgroups of
     128 rows, each dequantized weight serving twice the rows at 1.35x the
     step time) over a K range of 64-row steps (csrc/qmm_tile.cuh: ceil(K /
-    64) steps). Where a block height's output tiles number fewer than the
-    card's 132 SMs, K may be split into runs of steps: at least
-    MIN_SPLIT_STEPS, for the bit-plane kinds whole packed chunks (32 rows
-    of every segment: SEGMENTS / 2 steps), the partials within WS_CAP
-    bytes. Of these plans, the one plan_cost ranks fastest (the taller
-    block on a tie)."""
-    kind = KINDS[code][0]
+    64) steps). The K split is tile_split's, the same at every R; the block
+    height, which only changes which rows share a block, is the one
+    plan_cost ranks faster at R (the taller on a tie)."""
+    sps = tile_split(N, K, code)
     n_steps = -(-K // TILE_BK)
-    cols = -(-N // TILE_BN)
-    unit = SEGMENTS[kind] // 2 if kind in _PLANE_LIBRARY else 1
-    best = None
-    for bm in (256, 128):
-        tiles = cols * -(-R // bm)
-        runs = [n_steps]
-        if tiles < SMS:
-            runs += [r for r in range(-(-MIN_SPLIT_STEPS // unit) * unit, n_steps, unit)
-                     if -(-n_steps // r) * R * N * 4 <= WS_CAP]
-        for sps in runs:
-            cost = plan_cost(bm, tiles, n_steps, sps, R, N)
-            if best is None or cost < best[0]:
-                best = (cost, bm, sps)
-    _, bm, sps = best
+    bm = -_tile_best(R, N, n_steps, sps)[1]
     return bm, TILE_BN, -(-n_steps // sps), sps
+
+
+def tile_chunks(R: int, N: int, splits: int) -> list[tuple[int, int]]:
+    """(first row, rows) of each tile launch of an R-row call: one launch,
+    or, where the f32 partials of ``splits`` K splits would pass WS_CAP
+    bytes, turns of at most that many rows (a multiple of 256, at least
+    256), the last two evened out where the last would hold 32 rows or
+    fewer (the GEMV's). A row's sums do not depend on its turn."""
+    step = R if splits == 1 else max(256, WS_CAP // (splits * N * 4) // 256 * 256)
+    out = [(r0, min(step, R - r0)) for r0 in range(0, R, step)]
+    if len(out) > 1 and out[-1][1] <= GEMV_MAX_ROWS:
+        (a, n), (_, m) = out[-2], out.pop()
+        out[-1:] = [(a, (n + m) // 2), (a + (n + m) // 2, n + m - (n + m) // 2)]
+    return out
 
 
 def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -278,18 +315,22 @@ def qmm(x: torch.Tensor, qt: QTensor, out_dtype: torch.dtype | None = None) -> t
     if R <= GEMV_MAX_ROWS:
         (cps, splits), mw = gemv_plan(code, N, K), 0
     else:  # the tile reads bf16 rows through TMA: 16-byte aligned
-        bm, _, splits, cps = tile_plan(R, N, K, code)
-        mw = bm // 128
+        _, _, splits, cps = tile_plan(R, N, K, code)
         x2d = x2d.to(torch.bfloat16)
         if x2d.data_ptr() % 16:
             x2d = x2d.clone()
-    ws = torch.empty(splits * R * N if splits > 1 else 0, dtype=torch.float32, device=x.device)
     lib = _build.load(_PLANE_LIBRARY.get(KINDS[code][0], "qmm"), "tkq_qmm", _ARGTYPES)
     P = _build.ptr
     opt = lambda t: None if t is None else P(t)  # noqa: E731
-    rc = lib.tkq_qmm(code, P(x2d), int(x2d.dtype == torch.float32), P(qs), opt(qh), P(scl),
-                     opt(mins), P(out), int(out_dtype == torch.float32), P(ws), R, N, K, cps,
-                     splits, mw, _build.stream_ptr(x.device))
-    _build.check(lib, rc, "qmm")
+    chunks = [(0, R)] if R <= GEMV_MAX_ROWS else tile_chunks(R, N, splits)
+    ws = torch.empty(splits * max(n for _, n in chunks) * N if splits > 1 else 0,
+                     dtype=torch.float32, device=x.device)
+    for r0, rows in chunks:
+        if R > GEMV_MAX_ROWS:
+            mw = tile_plan(rows, N, K, code)[0] // 128
+        rc = lib.tkq_qmm(code, P(x2d[r0:]), int(x2d.dtype == torch.float32), P(qs), opt(qh),
+                         P(scl), opt(mins), P(out[r0:]), int(out_dtype == torch.float32), P(ws),
+                         rows, N, K, cps, splits, mw, _build.stream_ptr(x.device))
+        _build.check(lib, rc, "qmm")
     counter.launches += 1
     return out.reshape(*lead, N)

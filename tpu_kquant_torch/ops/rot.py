@@ -23,7 +23,8 @@ import torch
 
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attn_in import attn_in_plain, attn_in_supported
-from tpu_kquant_torch.ops.ffn import _fused_arrays, oproj_ffn_plain, oproj_ffn_supported
+from tpu_kquant_torch.ops.ffn import (_aligned, _fused_arrays, fused_ws_floats, gate_up_plan,
+                                      oproj_ffn_plain, oproj_ffn_supported)
 from tpu_kquant_torch.ops.qmm import gemv_plan
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -37,8 +38,10 @@ _W = [_I, _P, _P, _P]  # a weight: kind code, codes, scales, mins
 _ARGTYPES = [_P, _P, _P, _F, *_W, *_W, _I, _P, _P, _P, _P, _P, _P, _P,
              # wqk2 wv2  cos sin qk2 v2
              *_W, *_W, _P, _P, _P, _P,
-             # R  dim K   F   n0  n1  hd  cps_o splits_o cps_d splits_d stream
-             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+             # R  dim K   F   n0  n1  hd  cps_o splits_o cps_g splits_g cps_d splits_d
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             # stream
+             _P]
 
 
 def rot_supported(wo: QTensor, gu: QTensor, dn: QTensor, ws2: list[QTensor], rows: int,
@@ -106,14 +109,16 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
         and norm_w.dtype == norm_w2.dtype == torch.float32, "rot: norm weights")
     wts = _fused_arrays("rot", x, wo, gu, dn, wqk2, wv2)
     cps_o, splits_o = gemv_plan(wts[0][0], dim, K)
+    cps_g, splits_g = gate_up_plan(wts[1][0], Fd, dim)
     cps_d, splits_d = gemv_plan(wts[2][0], dim, Fd)
     dev = x.device
     x2d, a2d = x2d.contiguous(), a2d.contiguous()
     c2d, s2d = c2d.float().contiguous(), s2d.float().contiguous()
-    nw, nw2 = norm_w.contiguous(), norm_w2.contiguous()
+    nw, nw2 = _aligned(norm_w), norm_w2.contiguous()
     x2 = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(max(splits_o, splits_d) * R * dim, dtype=torch.float32, device=dev)
+    ws = torch.empty(fused_ws_floats(R, dim, Fd, splits_o, splits_g, splits_d),
+                     dtype=torch.float32, device=dev)
     y = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     qk2 = torch.empty((R, n0), dtype=torch.bfloat16, device=dev)
     v2 = torch.empty((R, n1), dtype=torch.bfloat16, device=dev)
@@ -122,8 +127,8 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
     lib = _build.load("rot", "tkq_rot", _ARGTYPES)
     rc = lib.tkq_rot(P(x2d), P(a2d), P(nw), float(eps), *args[0], *args[1], *args[2][:3],
                      P(x2), P(act), P(ws), P(y), P(nw2), *args[3], *args[4], P(c2d), P(s2d),
-                     P(qk2), P(v2), R, dim, K, Fd, n0, n1, head_dim, cps_o, splits_o, cps_d,
-                     splits_d, _build.stream_ptr(dev))
+                     P(qk2), P(v2), R, dim, K, Fd, n0, n1, head_dim, cps_o, splits_o, cps_g,
+                     splits_g, cps_d, splits_d, _build.stream_ptr(dev))
     _build.check(lib, rc, "rot")
     counter.launches += 1
     return y.reshape(*lead, dim), qk2.reshape(*lead, n0), v2.reshape(*lead, n1)

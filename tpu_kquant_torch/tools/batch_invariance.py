@@ -7,17 +7,34 @@ power limit:
 
 Each check compares row 0 of a batch of 16 with row 0 computed alone, bit
 for bit (torch.equal), and reports the largest difference:
-- ops at TinyLlama-1.1B's widths: ops/norms.py:rms_norm over [16, 2048];
+- ops at TinyLlama-1.1B's widths: ops/norms.py:rms_norm over [16, 2048]
+  and over a burst's [16, 64, 2048] against [1, 64, 2048];
   ops/attention.py's plain branch at a decode step over 128 slots (with
   the deferred append's current token, as the forward calls it) and at a
-  64-token prefill; qmm's tile at a burst of 16 x 64 rows against 64 (the
-  tile plan depends on the row count); qmm's GEMV at 16 rows (a control:
-  its plan does not);
+  64-token prefill; qmm's tile at a burst of 16 x 64 rows against 64 (its
+  K split does not depend on the row count); qmm's GEMV at 16 rows; the
+  flash decode kernel (#7) at 16 rows of 2048 slots (its split plan does
+  not depend on B either);
 - the engine on TinyLlama-1.1B (chip_smoke.py's seed-0 Q4_K_M fixture, 2
   layers): one decode step of 16 rows whose cache row 0 equals a solo
   cache, the logits of row 0; a 16-prompt burst prefill (the batcher's
   admission path) against prompt 0 alone, the last logits and the layers'
-  cache rows.
+  cache rows; and that burst prefill traced op by op (models/llama.py's
+  rms_norm, qmatmul, apply_rope, swiglu and ops/attention.py's
+  attention_decode, each call's output recorded): every call whose row-0
+  output (prompt 0's tokens) differs from the solo run's, in order, so the
+  first names the op that makes the streams differ;
+- with --serving, chip_smoke.py's phase-6 run (TinyLlama-1.1B at full
+  depth, 16 slots of 128, its 64 requests, 12 greedy): for every greedy
+  request, the first step at which the logits it sampled from in the batch
+  (the batcher's tick_logits row) differ from the solo run's (its prompt
+  and the batch's own tokens through a batch-1 engine: prefill, then
+  decode steps), and whether that step's logits came from the admission's
+  prefill or from a decode tick; then the run again up to the earliest
+  such tick, that tick traced op by op (the ops above and models/llama.py's
+  fused_attn_in, fused_oproj_ffn and fused_ffn) against the solo decode
+  step that should equal it: every op whose output for the request's row
+  differs, in order.
 Needs a CUDA card.
 """
 
@@ -58,6 +75,7 @@ def op_checks(smoke, dev) -> list:
     import torch
 
     from tpu_kquant_torch.ops.attention import attention_decode
+    from tpu_kquant_torch.ops.decode_attention import attention_decode_flash
     from tpu_kquant_torch.ops.norms import rms_norm
     from tpu_kquant_torch.ops.qmm import qmm
 
@@ -67,6 +85,9 @@ def op_checks(smoke, dev) -> list:
     x = (rnd(B, 2048) * 2).to(torch.bfloat16)
     w = rnd(2048).abs() + 0.5
     out.append(_cmp("rms_norm [16, 2048] bf16", rms_norm(x, w)[:1], rms_norm(x[:1], w)))
+    xb = (rnd(B, 64, 2048) * 2).to(torch.bfloat16)
+    out.append(_cmp("rms_norm [16, 64, 2048] bf16: prompt 0 of a burst vs alone",
+                    rms_norm(xb, w)[:1], rms_norm(xb[:1], w)))
     H, Hkv, D, S = 32, 4, 64, 128
     k, v = (rnd(B, Hkv, S, D).to(torch.bfloat16) for _ in range(2))
     q = rnd(B, 1, H, D).to(torch.bfloat16)
@@ -92,8 +113,14 @@ def op_checks(smoke, dev) -> list:
         xb = rnd(B * T, K).to(torch.bfloat16)
         out.append(_cmp(f"qmm tile, {label}: rows 0-63 of a 16 x 64 burst vs 64",
                         qmm(xb, wt)[:T], qmm(xb[:T], wt)))
-        out.append(_cmp(f"qmm GEMV, {label}: row 0 of 16 vs alone (control)",
+        out.append(_cmp(f"qmm GEMV, {label}: row 0 of 16 vs alone",
                         qmm(xb[:B], wt)[:1], qmm(xb[:1], wt)))
+    S = 2048
+    k, v = (rnd(B, Hkv, S, D).to(torch.bfloat16) for _ in range(2))
+    pos = torch.full((B, 1), 1500, device=dev)
+    out.append(_cmp("flash decode (#7), 2048 slots: row 0 of 16 vs alone",
+                    attention_decode_flash(q, k, v, pos)[:1],
+                    attention_decode_flash(q[:1], k[:1], v[:1], pos[:1])))
     return out
 
 
@@ -144,12 +171,165 @@ def engine_checks(smoke, dev) -> list:
     l16, _ = many.decode_step(tok, pos, cache)
     l1, _ = one.decode_step(tok[:1], pos[:1], solo)
     out.append(_cmp("engine: decode step of 16 rows, row 0's logits", l16[:1], l1))
+    # the burst prefill op by op: the calls whose row 0 differs
+    traces = [_trace(lambda: eng._step_valid(eng._tensor(toks[:b]), eng._tensor(positions[:b]),
+                                             eng.new_cache(b, max_seq=T), valid[:b]))
+              for eng, b in ((many, B), (one, 1))]
+    for i, ((name, got), (_, alone)) in enumerate(zip(*traces)):
+        row = _cmp(f"engine: burst prefill op {i} ({name}), prompt 0's tokens",
+                   got[:1, :n0], alone[:, :n0])
+        if not row["equal"]:
+            out.append(row)
+    out.append({"check": "engine: burst prefill ops traced", "equal": True,
+                "ops": [name for name, _ in traces[0]]})
+    return out
+
+
+def _trace(run, fused: bool = False) -> list:
+    """(name, output) of every rms_norm, qmatmul, apply_rope and swiglu call
+    of models/llama.py and every attention_decode call while run() runs;
+    fused: also its fused_attn_in, fused_oproj_ffn and fused_ffn calls (a
+    tuple output kept as a tuple)."""
+    from tpu_kquant_torch.models import llama
+    from tpu_kquant_torch.ops import attention
+
+    rec = []
+    names = [(llama, "rms_norm"), (llama, "qmatmul"), (llama, "apply_rope"), (llama, "swiglu"),
+             (attention, "attention_decode")]
+    if fused:
+        names += [(llama, "fused_attn_in"), (llama, "fused_oproj_ffn"), (llama, "fused_ffn")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in names]
+
+    def wrap(fn, name):
+        def f(*a, **kw):
+            y = fn(*a, **kw)
+            rec.append((name, tuple(t.detach().clone() for t in y) if isinstance(y, tuple)
+                        else y.detach().clone()))
+            return y
+        return f
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(fn, name))
+    try:
+        run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return rec
+
+
+def serving_checks(smoke, dev) -> list:
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.serving import ContinuousBatcher
+
+    cfg, params, _ = smoke.load_fixture(tinyllama_1b_config(), "tinyllama-1.1b-q4_k_m-seed0.gguf",
+                                        dev)
+    greedy = {i for i in range(64) if i % 16 < 3}
+    solo_eng = InferenceEngine(cfg, params, max_batch=1, max_seq=128, device=dev)
+    eos = {}
+
+    def requests():
+        rng = np.random.default_rng(7)  # chip_smoke.py serving()'s requests
+        reqs = [smoke.serve_request(i, cfg, rng, greedy=i in greedy) for i in range(64)]
+        for j, i in enumerate(sorted(greedy)[:4]):
+            if i not in eos:
+                eos[i] = solo_eng.generate(
+                    [reqs[i].prompt], max_new_tokens=smoke.SERVE_NEW, top_k=40, top_p=0.95,
+                    repeat_penalty=1.1, penalty_last_n=64)[0][8 + 4 * j]
+            reqs[i].eos_id = eos[i]
+        return reqs
+
+    def serve(reqs, trace_at=None):
+        """Run the 16 slots; record each greedy request's (logits row, from
+        prefill, tick, slot) per step; trace tick trace_at's ops."""
+        eng = InferenceEngine(cfg, params, max_batch=16, max_seq=128, device=dev)
+        cb = ContinuousBatcher(eng)
+        seen: dict = {i: [] for i in greedy}
+        real_tick, n, traced = cb._tick, [0], []
+
+        def tick(sampling):
+            rows = [(b, s.req.rid) for b, s in enumerate(cb.slots)
+                    if s is not None and s.req is not None and s.req.rid in greedy]
+            fresh = cb.state.fresh.clone()
+            if n[0] == trace_at:
+                box = []
+                traced.extend(_trace(lambda: box.append(real_tick(sampling)), fused=True))
+                tok = box[0]
+            else:
+                tok = real_tick(sampling)
+            for b, rid in rows:
+                seen[rid].append((cb.tick_logits[b].clone(), bool(fresh[b]), n[0], b))
+            n[0] += 1
+            return tok
+
+        cb._tick = tick
+        for r in reqs:
+            cb.submit(r)
+        cb.run()
+        return seen, traced
+
+    reqs = requests()
+    seen, _ = serve(reqs)
+    out, earliest = [], None
+    for i in sorted(greedy):
+        r = reqs[i]
+        logits, cache, lens = solo_eng.prefill([r.prompt], solo_eng.new_cache(1))
+        pos, first = int(lens[0]), None
+        for d, (row, fresh, tick_no, b) in enumerate(seen[i][:len(r.output)]):
+            if d:
+                logits, cache = solo_eng.decode_step(
+                    torch.tensor([r.output[d - 1]], device=dev), torch.tensor([pos], device=dev),
+                    cache)
+                pos += 1
+            if not torch.equal(row, logits[0].float()):
+                first = {"step": d, "from_prefill": fresh, "tick": tick_no, "slot": b,
+                         "max_abs_diff": float((row - logits[0].float()).abs().max())}
+                if not fresh and (earliest is None or tick_no < earliest[0]):
+                    earliest = (tick_no, i, d, b)
+                break
+        res = {"check": f"serving: request {i}'s logits against its solo run",
+               "equal": first is None, "first_difference": first, "steps": len(r.output)}
+        print(f"  serving: request {i:2d}: " + ("logits equal at every step" if first is None
+              else f"logits first differ at step {first['step']} "
+                   f"({'prefill' if first['from_prefill'] else 'decode tick'}), max|diff| "
+                   f"{first['max_abs_diff']:.3e}"), flush=True)
+        out.append(res)
+    if earliest is None:
+        return out
+    # the earliest differing decode tick again, op by op, against the solo
+    # decode step of the same request at the same step
+    tick_no, i, d, b = earliest
+    _, batch_ops = serve(requests(), trace_at=tick_no)
+    r = reqs[i]
+    logits, cache, lens = solo_eng.prefill([r.prompt], solo_eng.new_cache(1))
+    pos = int(lens[0])
+    for t in r.output[:d - 1]:
+        logits, cache = solo_eng.decode_step(torch.tensor([t], device=dev),
+                                             torch.tensor([pos], device=dev), cache)
+        pos += 1
+    solo_ops = _trace(lambda: solo_eng.decode_step(
+        torch.tensor([r.output[d - 1]], device=dev), torch.tensor([pos], device=dev), cache),
+        fused=True)
+    for j, ((name, got), (_, alone)) in enumerate(zip(batch_ops, solo_ops)):
+        pairs = list(zip(got, alone)) if isinstance(got, tuple) else [(got, alone)]
+        for k, (g, a) in enumerate(pairs):
+            row = _cmp(f"serving: tick {tick_no} op {j} ({name}{f'[{k}]' if k else ''}), "
+                       f"request {i}'s row", g[b:b + 1], a)
+            if not row["equal"]:
+                out.append(row)
+    out.append({"check": f"serving: tick {tick_no} ops traced", "equal": True,
+                "ops": [name for name, _ in batch_ops]})
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True, help="JSON file the results go to")
+    ap.add_argument("--serving", action="store_true", help="also trace phase 6's serving run")
     args = ap.parse_args()
     import torch
 
@@ -162,6 +342,8 @@ def main() -> int:
     with torch.no_grad():
         res["ops"] = op_checks(smoke, dev)
         res["engine"] = engine_checks(smoke, dev)
+        if args.serving:
+            res["serving"] = serving_checks(smoke, dev)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     print(f"== batch_invariance done [{smoke.gpu_line()}]", flush=True)

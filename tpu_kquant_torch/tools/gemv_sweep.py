@@ -11,6 +11,11 @@ limit:
 --plan    the split plan (ops/qmm.py:gemv_plan) against every other split
           count that fits, at R = 1 and 32: whether its cost model picks
           the fastest split.
+--gate-up the gate/up phase of the fused FFN kernels (ops/ffn.py:gate_up,
+          csrc/gate_up.cuh) at its plan (ops/ffn.py:gate_up_plan) against
+          every other split count that fits, at R = 1 and 8, at
+          TinyLlama's w_gateup [11264, 2048] (q4-sm, q8-sp), Qwen2.5-1.5B's
+          [17920, 1536] and Qwen2.5-7B's [37888, 3584] (q4-sm).
 
 Cases: Mixtral-8x7B's expert gate/up [14336, 4096] q4-sm and down [4096,
 14336] q6w-sp, TinyLlama's lm head [32000, 2048] q6w-sp and q8-sp (Q8_0),
@@ -163,10 +168,59 @@ def plan_sweep(smoke, dev) -> list:
     return out
 
 
+GATE_UP_SHAPES = (("tinyllama gate/up q4-sm", "q4", 5632, 2048),
+                  ("tinyllama gate/up q8-sp", "q8", 5632, 2048),
+                  ("qwen2.5-1.5b gate/up q4-sm", "q4", 8960, 1536),
+                  ("qwen2.5-7b gate/up q4-sm", "q4", 18944, 3584))
+
+
+def gate_up_sweep(smoke, dev) -> list:
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.ops import ffn
+    from tpu_kquant_torch.ops.qmm import (GEMV_MAX_ROWS, KIND_CODE, SEGMENTS, _SMEM_CAP,
+                                          gemv_smem_bytes)
+
+    out = []
+    rng = np.random.default_rng(2)
+    plan = ffn.gate_up_plan
+    for label, kind, F, dim in GATE_UP_SHAPES:
+        code = KIND_CODE[(kind, "sm" if kind == "q4" else "sp")]
+        n_chunks = dim // (32 * SEGMENTS[kind])
+        plans = sorted({(-(-n_chunks // s), -(-n_chunks // -(-n_chunks // s)))
+                        for s in range(1, n_chunks + 1)}, key=lambda p: p[1])
+        plans = [p for p in plans if (p[1] == 1 or p[0] >= 2)
+                 and gemv_smem_bytes(code, p[0], GEMV_MAX_ROWS, halves=2) <= _SMEM_CAP][:16]
+        ws = _weights(smoke, rng, kind, 2 * F, dim, dev)
+        nw = torch.rand(dim, device=dev) + 0.5
+        for R in (1, 8):
+            x = (torch.randn(R, dim, device=dev) * 0.5).to(torch.bfloat16)
+            times = {}
+            try:
+                for p in plans:
+                    ffn.gate_up_plan = lambda code, F, dim, p=p: p
+                    times[p] = smoke.graph_ms(lambda i: ffn.gate_up(x, nw, 1e-5, ws[i % len(ws)]),
+                                              20)
+            finally:
+                ffn.gate_up_plan = plan
+            best = min(times, key=times.get)
+            chosen = plan(code, F, dim)
+            row = {"case": f"{label} R={R}", "plan": chosen, "plan_ms": times.get(chosen),
+                   "best": best, "best_ms": times[best],
+                   "times": {f"{c}x{s}": t for (c, s), t in times.items()}}
+            print(f"  gate/up {row['case']:34s} gate_up_plan {chosen} "
+                  f"{times.get(chosen, float('nan')):.4f} ms, fastest {best} {times[best]:.4f} ms; "
+                  + " ".join(f"{s}:{t * 1e3:.1f}" for (c, s), t in times.items()), flush=True)
+            out.append(row)
+        del ws
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True, help="JSON file the results go to")
-    for flag in ("ablate", "plan"):
+    for flag in ("ablate", "plan", "gate-up"):
         ap.add_argument(f"--{flag}", action="store_true")
     args = ap.parse_args()
     import torch
@@ -182,6 +236,8 @@ def main() -> int:
         res["ablate"] = ablate(smoke, dev, libs)
     if args.plan:
         res["plan"] = plan_sweep(smoke, dev)
+    if args.gate_up:
+        res["gate_up"] = gate_up_sweep(smoke, dev)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     print(f"== gemv_sweep done [{smoke.gpu_line()}]", flush=True)

@@ -8,9 +8,13 @@ can be compared in one run on one card:
 timed (its kernels built under DIR/.cache); the cases and the timing code
 come from this checkout's ``chip_smoke.py``, so both sides run the same
 shapes. Measured, each on the card with its name and power limit:
-- every qmm case of chip_smoke.py's phase 3 with R > 32 (CUDA-graph ms per
-  call over copies of the weight that exceed L2 twice, as phase 3 times
-  them) and its error against qmm_plain;
+- qmm's tile (R > 32) at every weight shape of chip_smoke.py's TILE_CASES
+  at R = 64 (a lone 64-token prompt), 512 (pp512), 1024 (the 16 x 64 burst
+  and the 1024-slot tick) and 2048 (pp2048) (CUDA-graph ms per call over
+  copies of the weight that exceed L2 twice, as phase 3 times them), each
+  with its plan (block height, K splits) and its error against qmm_plain;
+  ``--tile-nosplit`` times the candidate tile plan of one split at every R
+  (the timed package's tile_plan patched to it) under its own tag;
 - TinyLlama-1.1B (Q4_K_M fixture, seed 0, full depth): pp512 and pp2048
   (medians of 3 after a warm run), and the 1024-slot serving tick (1024
   requests of tools_serve_bench.py's mix admitted as one burst on 1024
@@ -26,9 +30,13 @@ shapes. Measured, each on the card with its name and power limit:
   the dequantized weight, the bound, the error), qmm_int8's cases
   (check_qmm_int8) and the fused kernels whose o_proj / down steps it runs
   (check_fused_ffn: attn_in, oproj_ffn, ffn; check_fused_decode: kv_append,
-  attn_out, layer, rot).
-The sections are qmm, prefill, tiny, tick, mixtral, gemv, int8 and fused;
-``--skip`` leaves some out.
+  attn_out, layer, rot), and the gate/up phase alone (ops/ffn.py:gate_up,
+  where the timed package has it) beside oproj_ffn and ffn;
+- flash decode (#7) at every DECODE_CASES case of phase 3 (chip_smoke.py's
+  check_decode_attn: graph and eager ms, plain, SDPA, the bound, the error
+  per row).
+The sections are qmm, prefill, tiny, tick, mixtral, gemv, int8, fused and
+decode; ``--skip`` leaves some out.
 So one call can time a parent's checkout and this one in turns (parent,
 change, change, parent):
 
@@ -97,21 +105,27 @@ def _prefill_ms(eng, prompt) -> list:
     return out
 
 
+TILE_ROWS = (64, 512, 1024, 2048)
+
+
 def qmm_cases(smoke, dev) -> list:
     import numpy as np
     import torch
 
     from tpu_kquant_torch.models.fixtures import random_packed
-    from tpu_kquant_torch.ops.qmm import qmm, qmm_plain
+    from tpu_kquant_torch.ops import qmm as qmm_mod
+    from tpu_kquant_torch.ops.qmm import KIND_CODE, qmm, qmm_plain
 
     rng = np.random.default_rng(0)
     out = []
-    for label, kind, N, K, R, xdt, odt in smoke.qmm_cases():
-        if R <= 32:
-            continue
+    shapes = {}
+    for label, kind, N, K, R, xdt, odt in smoke.TILE_CASES:
+        shapes.setdefault((kind, N, K, xdt, odt), label.rsplit(" R=", 1)[0])
+    for (kind, N, K, xdt, odt), label in shapes.items():
         xdt = torch.float32 if xdt == "f32" else torch.bfloat16
         odt = torch.float32 if odt == "f32" else torch.bfloat16
         base, f32 = (kind[:-1], True) if kind.endswith("f") else (kind, False)
+        code = KIND_CODE[(base, "f32" if f32 else "sp" if base in ("q6w", "q8") else "sm")]
 
         def make():
             return random_packed(rng, base, N, K, f32=f32).to(dev)
@@ -119,15 +133,32 @@ def qmm_cases(smoke, dev) -> list:
         w0 = make()
         n = min(32, max(1, math.ceil(2 * smoke.L2_BYTES / w0.n_bytes)))
         ws = [w0] + [make() for _ in range(n - 1)]
-        x = torch.randn(R, K, device=dev).to(xdt)
-        got = qmm(x, w0, odt)
-        ref = qmm_plain(x, w0, odt)
-        rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
-        ms = smoke.graph_ms(lambda i: qmm(x, ws[i % len(ws)], odt), 40)
-        out.append({"case": label, "ms": ms, "rel_err": rel})
-        print(f"  qmm {label:52s} {ms * 1e3:9.2f} us  rel err {rel:.2e}", flush=True)
+        for R in TILE_ROWS:
+            x = torch.randn(R, K, device=dev).to(xdt)
+            got = qmm(x, w0, odt)
+            ref = qmm_plain(x, w0, odt)
+            rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+            ms = smoke.graph_ms(lambda i: qmm(x, ws[i % len(ws)], odt), 40)
+            bm, _, splits, _ = qmm_mod.tile_plan(R, N, K, code)
+            case = f"{label} R={R}"
+            out.append({"case": case, "R": R, "ms": ms, "rel_err": rel, "bm": bm,
+                        "splits": splits})
+            print(f"  qmm {case:52s} {ms * 1e3:9.2f} us  (bm {bm}, {splits} split"
+                  f"{'s' if splits > 1 else ''})  rel err {rel:.2e}", flush=True)
         del ws
     return out
+
+
+def _one_split(qmm_mod):
+    """Patch the timed package's tile_plan to the candidate of one split at
+    every R (the block height as its own plan picks it)."""
+    plan = qmm_mod.tile_plan
+
+    def one_split(R, N, K, code):
+        bm, bn, _, _ = plan(R, N, K, code)
+        return bm, bn, 1, -(-K // qmm_mod.TILE_BK)
+
+    qmm_mod.tile_plan = one_split
 
 
 def _report(name: str, cases: list) -> list:
@@ -149,7 +180,10 @@ def main() -> int:
     ap.add_argument("--out", required=True, help="JSON file the results go to")
     ap.add_argument("--fixtures", default=str(TREE / ".cache" / "tkq_torch_fixture"))
     ap.add_argument("--skip", default="",
-                    help="comma list of: qmm, prefill, tiny, tick, mixtral, gemv, int8, fused")
+                    help="comma list of: qmm, prefill, tiny, tick, mixtral, gemv, int8, fused, "
+                         "decode")
+    ap.add_argument("--tile-nosplit", action="store_true",
+                    help="time the tile plan of one split at every R (a candidate plan)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -173,6 +207,13 @@ def main() -> int:
     res["build_s"] = _build.build_all()
     print(f"  build {res['build_s']:.1f} s", flush=True)
     fx = Path(args.fixtures)
+    if args.tile_nosplit:
+        from tpu_kquant_torch.ops import qmm as qmm_mod
+
+        _one_split(qmm_mod)
+        res["tile_plan"] = "one split"
+    if "decode" not in skip:
+        res["decode"] = _report("decode", smoke.check_decode_attn(dev))
     if "qmm" not in skip:
         res["qmm"] = qmm_cases(smoke, dev)
     if "gemv" not in skip:
