@@ -32,8 +32,11 @@ Phases, each fatal on failure:
     beside each oproj_ffn and ffn case); then the batch-invariance check
     (fatal): rows of the GEMV paths at R = 16 and 32 against each row
     alone, the tile's 64-row blocks of a 16 x 64 burst against the 64-row
-    calls, and the flash decode's rows at B = 16 and 1024 against each row
-    alone, bit for bit (tolerance 2e-2 of max|ref|;
+    calls, the flash decode's rows at B = 16 and 1024, attn_in's at
+    TinyLlama, Qwen2.5, Mixtral on f32 scales and Q8_0 (its kernel's K split
+    held to the host's attn_in_plan) and the plain decode attention's at 16
+    and 32 rows of 128 slots (bf16 and int8 KV, the deferred append on and
+    off) against each row alone, bit for bit (tolerance 2e-2 of max|ref|;
     qmm_int8 1e-3; the attention kernels 2e-2 of each output row's own
     max|ref|), and time the kernel and the plain version; as yardsticks the
     port never calls, qmm's ``library_ms`` is torch.matmul on the
@@ -59,9 +62,9 @@ Phases, each fatal on failure:
     1.1 over 64, seed 1000 + i): a 2-layer cut of the serving path on the
     card against the CPU with the attention budget lowered so that 8 slots
     pass it (bf16 and int8 KV); 16 slots of 128 serving 64 requests, 12
-    greedy (4 with an eos), each greedy stream held to the same prompt served
-    alone by engine.generate (or differing first where the top-2 logit gap
-    is under 1e-2; the number that differ is printed); 1024 slots of 2048
+    greedy (4 with an eos), each greedy stream equal, token for token, to
+    the same prompt served alone by engine.generate (the number that differ
+    is printed, and any is fatal); 1024 slots of 2048
     serving 1024 requests admitted as one
     burst, on bf16 and then int8 KV: the flash prefill in every layer of the
     burst and the flash decode kernel in every layer of every tick. Each run
@@ -628,10 +631,18 @@ def check_batch_invariance(dev, rng) -> int:
     the 64-row call of those rows (a prompt alone), at TinyLlama's
     projections and every kind code at its wqk. Flash decode (#7): row b of
     a B = 16 and a B = 1024 call on 2048 slots must equal row b alone, at
-    TinyLlama's and Qwen2.5-1.5B's heads on bf16 and int8 KV. Fatal; returns
-    the number of cases checked."""
+    TinyLlama's and Qwen2.5-1.5B's heads on bf16 and int8 KV. attn_in also
+    at Qwen2.5-1.5B (biases, head_dim 128), at Mixtral-8x7B on f32 scales
+    and with Q8_0's q8 in both slots, after its kernel's K split is held to
+    ops/attn_in.py:attn_in_plan at every pair of slot kinds; the plain
+    decode attention (ops/attention.py:attention_plain, the serving cell's
+    16 slots of 128 at TinyLlama's heads) on bf16 and int8 KV, with the
+    deferred append on and off. Fatal; returns the number of cases
+    checked."""
     import torch
 
+    from tpu_kquant_torch.ops import attn_in as attn_in_mod
+    from tpu_kquant_torch.ops.attention import attention_decode
     from tpu_kquant_torch.ops.attn_in import fused_attn_in
     from tpu_kquant_torch.ops.decode_attention import attention_decode_flash
     from tpu_kquant_torch.ops.ffn import fused_ffn, fused_oproj_ffn
@@ -673,6 +684,55 @@ def check_batch_invariance(dev, rng) -> int:
               lambda x, c, s_: fused_attn_in(x, nw, 1e-5, wqk, wv, c, s_, hd, None),
               _act(top, dim, 0.5, dev), torch.rand(top, hd // 2, device=dev),
               torch.rand(top, hd // 2, device=dev))
+    # attn_in's K split: the kernel's own plan against the host's mirror
+    codes = [c for c, (k, _) in enumerate(KINDS) if k in ("q4", "q6w", "q8")]
+    plan_bad = [(qc, vc, w) for qc in codes for vc in codes
+                for w in ((2304, 256, 2048), (1792, 256, 1536), (5120, 1024, MX_DIM))
+                if attn_in_mod.kernel_plan(qc, vc, *w) != attn_in_mod.attn_in_plan(qc, vc, *w)]
+    if plan_bad:
+        raise SystemExit(f"FAIL: attn_in's kernel split differs from attn_in_plan at (qk code, "
+                         f"v code, (n0, n1, D)) {plan_bad[:4]}")
+    n += 1
+    for label, D_, Hq, Hk, hd_, (kq, kv), biased in (
+            ("attn_in (Qwen2.5-1.5B: biases, hd 128)", 1536, 12, 2, 128, ("q4", "q6w"), True),
+            ("attn_in (Mixtral-8x7B, f32 scales)", MX_DIM, 32, 8, 128, ("q4f", "q6wf"), False),
+            ("attn_in (Q8_0: q8 in both slots)", dim, H, Hkv, hd, ("q8", "q8"), False)):
+        wq_, wv_ = (_rand_weights(rng, kq, (Hq + Hk) * hd_, D_, dev),
+                    _rand_weights(rng, kv, Hk * hd_, D_, dev))
+        bias = (torch.randn((Hq + Hk) * hd_, device=dev) * 0.5,
+                torch.randn(Hk * hd_, device=dev) * 0.5) if biased else None
+        nw_ = torch.rand(D_, device=dev) + 0.5
+        same_rows(label, lambda x, c, s_: fused_attn_in(x, nw_, 1e-5, wq_, wv_, c, s_, hd_, bias),
+                  _act(top, D_, 0.5, dev), torch.rand(top, hd_ // 2, device=dev),
+                  torch.rand(top, hd_ // 2, device=dev))
+        del wq_, wv_
+    # the plain decode attention of the serving cell: rows of 128 slots at
+    # TinyLlama's heads, bf16 and int8 KV, the deferred append on and off
+    ga = torch.Generator(device=dev).manual_seed(9)
+    S_ = 128
+    q = torch.randn(top, 1, H, hd, device=dev, generator=ga).to(torch.bfloat16)
+    pos = torch.randint(1, S_, (top, 1), device=dev, generator=ga)
+    kc, vc = (torch.randn(top, 1, Hkv, hd, device=dev, generator=ga).to(torch.bfloat16)
+              for _ in range(2))
+    for int8 in (False, True):
+        if int8:
+            k, v = (torch.randint(-127, 128, (top, Hkv, S_, hd), device=dev, generator=ga,
+                                  dtype=torch.int8) for _ in range(2))
+            ks, vs = (torch.rand(top, Hkv, S_, device=dev, generator=ga) * 0.02 + 0.001
+                      for _ in range(2))
+        else:
+            k, v = (torch.randn(top, Hkv, S_, hd, device=dev, generator=ga).to(torch.bfloat16)
+                    for _ in range(2))
+            ks = vs = torch.ones(top, Hkv, S_, device=dev)
+        sc = (lambda a, b: (a, b)) if int8 else (lambda a, b: None)  # noqa: E731
+        kv = "int8" if int8 else "bf16"
+        same_rows(f"plain decode attention, {kv} KV, 128 slots",
+                  lambda q_, k_, v_, p_, a, b: attention_decode(q_, k_, v_, p_, sc(a, b)),
+                  q, k, v, pos, ks, vs)
+        same_rows(f"plain decode attention, {kv} KV, 128 slots, deferred append",
+                  lambda q_, k_, v_, p_, a, b, c_, d_: attention_decode(
+                      q_, k_, v_, p_, sc(a, b), kv_cur=(c_, d_)),
+                  q, k, v, pos, ks, vs, kc, vc)
     wo, gu, dn = (_rand_weights(rng, "q6w", dim, H * hd, dev),
                   _rand_weights(rng, "q4", 2 * F, dim, dev), _rand_weights(rng, "q6w", dim, F, dev))
     same_rows("oproj_ffn (TinyLlama)", lambda x, a: fused_oproj_ffn(x, a, wo, nw, 1e-5, gu, dn),
@@ -732,8 +792,9 @@ def check_batch_invariance(dev, rng) -> int:
         n += 1
         del q, k, v, scales
         torch.cuda.empty_cache()
-    log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in, oproj_ffn, "
-        f"ffn): every row at R in {INVARIANCE_ROWS} equals the row computed alone; qmm's tile: "
+    log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in at TinyLlama, "
+        f"Qwen2.5, Mixtral f32 and Q8_0 and its split plan, oproj_ffn, ffn, the plain decode "
+        f"attention): every row at R in {INVARIANCE_ROWS} equals the row computed alone; qmm's tile: "
         f"every 64-row block of a 16 x 64 burst equals its 64-row call; flash decode: rows at "
         f"B = 16 and 1024 equal the row alone (torch.equal)")
     return n
@@ -2126,11 +2187,7 @@ def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
             if r.output != want:
                 d = next(j for j, (a, b) in enumerate(zip(r.output + [-1], want + [-2]))
                          if a != b)
-                gap = _top2_gap(solo_eng, r, r.output, d)
-                differ.append((i, d, gap))
-                if gap >= 1e-2:
-                    raise SystemExit(f"FAIL: greedy request {i} differs from its solo run at "
-                                     f"step {d}, where the top-2 gap is {gap:.3e} (>= 1e-2)")
+                differ.append((i, d, _top2_gap(solo_eng, r, r.output, d)))
     eos_hit = sum(1 for r in reqs if r.eos_id is not None and len(r.output) < SERVE_NEW)
     res["b16"] = {"tok_s": cb.stats["tokens_out"] / wall, "ticks": ticks,
                   "ms_per_tick": wall / ticks * 1e3, "wall_s": wall,
@@ -2142,6 +2199,10 @@ def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
         f"{len(rec['singles'])} single admissions; {eos_hit} requests stopped at their eos; "
         f"greedy requests differing from their solo run: {len(differ)} of {len(greedy)} "
         f"(request, step, top-2 gap) {differ}")
+    if differ:
+        raise SystemExit(f"FAIL: {len(differ)} of {len(greedy)} greedy requests served at 16 "
+                         f"slots differ from their solo runs (request, first step, top-2 gap of "
+                         f"the solo logits there): {differ}")
     if profile is not None:
         cb2 = ContinuousBatcher(eng)
         for i in range(B):

@@ -777,6 +777,84 @@ def test_attn_in_kernel_every_slot_kind_matches_plain(card, kinds, R):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("f32", [False, True], ids=["pairs", "f32"])
+@pytest.mark.parametrize("kind", ["q4", "q6w", "q8"])
+def test_attn_in_kernel_rows_match_plain_and_the_row_alone(card, kind, f32):
+    """TinyLlama's attn_in (32 + 4 heads of 64, D = 2048) with `kind` in both
+    slots on bf16 pairs or f32 scales, at R = 1, 2, 8, 16 and 32: against
+    its plain version, one launch counted per call, and each row of every
+    call equal to that row computed alone, bit for bit (the K split and
+    every order of sums come from the kinds and widths, never from R)."""
+    rng = np.random.default_rng(len(kind) + 3 * f32)
+    D, hd, H, Hkv = 2048, 64, 32, 4
+    wqk, wv = packed(kind, (H + Hkv) * hd, D, rng, card, f32), packed(kind, Hkv * hd, D, rng,
+                                                                      card, f32)
+    x = torch.randn(32, D, device=card).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(32, hd // 2, device=card), torch.rand(32, hd // 2, device=card)
+    run = lambda lo, hi: t_attn_in.fused_attn_in(x[lo:hi], nw, 1e-5, wqk, wv,  # noqa: E731
+                                                 cos[lo:hi], sin[lo:hi], hd)
+    alone = [run(r, r + 1) for r in range(32)]
+    for R in (1, 2, 8, 16, 32):
+        launches = t_attn_in.counter.launches
+        got = run(0, R)
+        torch.cuda.synchronize()
+        assert t_attn_in.counter.launches == launches + 1
+        ref = t_attn_in.attn_in_plain(x[:R], nw, 1e-5, wqk, wv, cos[:R], sin[:R], hd)
+        assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL, R
+        for r in range(R):
+            assert all(torch.equal(g[r:r + 1], a) for g, a in zip(got, alone[r])), (R, r)
+
+
+@pytest.mark.cuda
+def test_attn_in_kernel_plan_is_the_host_plan(card):
+    """The kernel's own split (C attn_in_plan) equals ops/attn_in.py's
+    mirror at every pair of slot kinds and the models' widths."""
+    codes = [c for c, (k, _) in enumerate(t_qmm.KINDS) if k in ("q4", "q6w", "q8")]
+    for n0, n1, D in ((2304, 256, 2048), (1792, 256, 1536), (5120, 1024, 4096),
+                      (768, 256, 512), (1536, 512, 1024), (9216, 1024, 8192)):
+        for qk in codes:
+            for v in codes:
+                assert t_attn_in.kernel_plan(qk, v, n0, n1, D) == \
+                    t_attn_in.attn_in_plan(qk, v, n0, n1, D), (qk, v, n0, n1, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("defer", [False, True], ids=["append", "deferred"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_plain_decode_attention_rows_do_not_depend_on_the_batch(card, int8, defer):
+    """The plain decode attention (the serving cell's: 16 rows of 128 slots,
+    TinyLlama's heads) on the card: each row of the 16-row call equals the
+    row computed alone, bit for bit, and the call is within 2e-2 of each
+    (row, head)'s max|ref| of the CPU's einsum form."""
+    g = torch.Generator(device=card).manual_seed(3 + int8 + 2 * defer)
+    B, S, H, Hkv, D = 16, 128, 32, 4, 64
+    q = torch.randn(B, 1, H, D, device=card, generator=g).to(torch.bfloat16)
+    if int8:
+        k, v = (torch.randint(-127, 128, (B, Hkv, S, D), device=card, generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        sc = tuple(torch.rand(B, Hkv, S, device=card, generator=g) * 0.02 + 0.001
+                   for _ in range(2))
+    else:
+        k, v = (torch.randn(B, Hkv, S, D, device=card, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        sc = None
+    pos = torch.randint(1, S, (B, 1), device=card, generator=g)
+    cur = tuple(torch.randn(B, 1, Hkv, D, device=card, generator=g).to(torch.bfloat16)
+                for _ in range(2)) if defer else None
+    sl = lambda t, lo, hi: None if t is None else tuple(u[lo:hi] for u in t)  # noqa: E731
+    got = t_attention.attention_decode(q, k, v, pos, sc, kv_cur=cur)
+    for b in range(B):
+        one = t_attention.attention_decode(q[b:b + 1], k[b:b + 1], v[b:b + 1], pos[b:b + 1],
+                                           sl(sc, b, b + 1), kv_cur=sl(cur, b, b + 1))
+        assert torch.equal(got[b:b + 1], one), b
+    cpu = lambda t: None if t is None else (tuple(u.cpu() for u in t) if isinstance(t, tuple)  # noqa: E731
+                                            else t.cpu())
+    ref = t_attention.attention_plain(cpu(q), cpu(k), cpu(v), cpu(pos), cpu(sc), cpu(cur))
+    assert _row_rel(got.cpu(), ref) < TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 8])
 @pytest.mark.parametrize("kinds,f32", [(("q8", "q8", "q8"), False), (("q8", "q8", "q8"), True),
                                        (("q6w", "q6w", "q6w"), False), (("q4", "q8", "q6w"), True)])

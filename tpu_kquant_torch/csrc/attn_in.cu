@@ -20,24 +20,25 @@
 // wqk [5120, 4096] q4 (15.7 MB) and wv [1024, 4096] q6w (5.2 MB): 20.9 MB,
 // 6.3 us; TinyLlama at Q8_0 (both q8-sp, 8.5 bits a weight) 5.4 MB, 1.6 us.
 //
-// Design: the norm needs the whole row and the rope pairs columns i and
-// i + head_dim/2, so nothing is split along K here. Every block recomputes
-// rstd over the full row (4 KB of bf16 per row, from L2), stages the
-// normalised row in shared memory in f32 (the norm weight is applied
-// without bf16 rounding, as the reference kernel does), and owns 128 output
-// columns, a whole number of heads: after the GEMV core and the warp
-// reduction the block rounds to bf16 and applies the half rotation in
-// shared memory. Blocks past the qk tiles compute wv's columns, unroped.
-// Grid: (ceil(n0/128) + ceil(n1/128), 1, ceil(R / RT)). The device code
-// is attn_in.cuh's, shared with layer.cu and rot.cu.
+// Design (attn_in.cuh): gemv.cuh's tensor-core GEMV core with the norm in
+// front (gate_up.cuh's staging: hi + lo bf16 rows), 128-column blocks of
+// whole heads, a K split from attn_in_plan (kinds and widths, never R)
+// whose splits form a thread-block cluster: every block takes the rows'
+// rms over the whole row, the GEMV's partial tiles are read over
+// distributed shared memory and added in rank order, and the ranks share
+// the epilogue (bf16 round, bias, rope). One launch, no workspace. The
+// earlier CUDA-core kernel (20 blocks over the whole of K at TinyLlama
+// width, 8 rows a block) took 0.0146 ms at TinyLlama R = 1 on an H100 80GB
+// HBM3 (chip_smoke.py phase 3).
 #include "attn_in.cuh"
 
 using namespace tkq;
 
-// Requires D % 64 == 0, n0 and n1 multiples of 4, 128 % hd == 0 (a column
-// tile holds whole heads), R <= 32. qk_kind / v_kind: KQ4, KQ4F, KQ6W,
-// KQ6WF, KQ8 or KQ8F (common.cuh); *_mins: the f32 mins of a KQ4F weight,
-// else null. bqk / bv: f32 biases or both null.
+// Requires D % 512 == 0, n0 and n1 multiples of 128, 128 % hd == 0 (a
+// column block holds whole heads), 1 <= R <= 32, x and nw 16-byte
+// aligned. qk_kind / v_kind: KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F
+// (common.cuh); *_mins: the f32 mins of a KQ4F weight, else null. bqk /
+// bv: f32 biases or both null.
 extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kind,
                            const void* qk_qs, const void* qk_scl, const void* qk_mins,
                            int v_kind, const void* v_qs, const void* v_scl, const void* v_mins,
@@ -65,4 +66,10 @@ extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kin
                static_cast<__nv_bfloat16*>(out1),
                R, D, n0, n1, hd};
   return (int)launch_attn_in(a, static_cast<cudaStream_t>(stream));
+}
+
+// attn_in_plan's split count for the given kinds and widths (0: none fits),
+// for the wrapper's and the card tests' check of ops/attn_in.py's mirror.
+extern "C" int tkq_attn_in_plan(int qk_kind, int v_kind, int n0, int n1, int D) {
+  return attn_in_plan(qk_kind, v_kind, n0, n1, D);
 }

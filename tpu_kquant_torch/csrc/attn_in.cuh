@@ -1,9 +1,57 @@
 // attn_in's device code (TPU kernels #2 / #3; see attn_in.cu for what it
-// replaces, its bound and its design), shared with layer.cu (#11: the
-// layer's QKV phase) and rot.cu (#12: the next layer's QKV phase).
+// replaces and its bound), shared with layer.cu (#11: the layer's QKV
+// phase) and rot.cu (#12: the next layer's QKV phase).
+//
+// Design: gemv.cuh's tensor-core core (mma.sync bf16 group dots on codes
+// moved exactly into bf16, each group's scale and min applied once, all R
+// <= 32 rows of the call in one block padded to 8, 16, 24 or 32, the next
+// chunk's words loaded before the current one is computed), with the norm
+// in front of it as in gate_up.cuh (gv_sumsq, gv_stage_xn: the normalised
+// rows staged as bf16 hi + lo).
+// - Grid (ceil(n0 / 128) + ceil(n1 / 128), splits): a column block holds
+//   128 columns of one slot, whole heads (128 % head_dim == 0 is the
+//   gate); the blocks past the qk columns compute wv's columns, unroped.
+//   Its 8 warps are 2 across the columns (gemv.cuh's 64 a warp) by 4
+//   across the block's chunks, so a warp walks at most a few chunks in
+//   turn: at R = 1 each chunk step waits for its loads (about 1 us on the
+//   H100), and 256-column blocks of 2 K warps took twice the steps
+//   (tools/gemv_sweep.py --attn-in). The K split comes from attn_in_plan
+//   (mirrored by ops/attn_in.py:attn_in_plan): kinds and widths only,
+//   never R.
+// - The splits of one column block form a thread-block cluster along K
+//   (cudaLaunchKernelEx, cluster (1, splits, 1), at most 8: portable).
+//   Every block takes rms(x) of its rows over the whole row (gv_sumsq in
+//   gate_up.cuh's order: the same bits in every block and at any R; a
+//   first version exchanged each split's share over distributed shared
+//   memory, and its extra cluster barrier cost more than re-reading the
+//   row from L2 at decode rows). After the GEMV each block leaves its f32
+//   partial tile [rows, 128] in shared memory; after a cluster barrier
+//   the ranks share out the block's (row, head) units, and each reads
+//   every rank's partials of its units in rank order, adds them, rounds
+//   to bf16, adds the f32 bias, ropes in f32 and stores (each thread's
+//   first unit's rope and bias values loaded at the start). A second
+//   barrier keeps every tile alive until its readers are done. One
+//   launch, no workspace, and each sum in an order fixed by the plan, so a
+//   row at R rows equals the row alone bit for bit.
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "gemv.cuh"
+
+// Sweep builds (tools/gemv_sweep.py --attn-in; never the library's own
+// build): TKQ_AI_SPLITS=s launches s K splits in place of attn_in_plan's.
+// gemv.cuh's TKQ_GV_ABLATE applies to the GEMV core here too (3: the code
+// and scale loads alone). TKQ_AI_ABLATE (wrong results, for timing): 1 =
+// no cluster (a plain launch, each block reads only its own shared
+// memory), 2 = no chunk loop (no weight loads), 3 = the launch alone.
+#ifndef TKQ_AI_SPLITS
+#define TKQ_AI_SPLITS 0
+#endif
+#ifndef TKQ_AI_ABLATE
+#define TKQ_AI_ABLATE 0
+#endif
 
 namespace tkq {
 
@@ -28,96 +76,282 @@ struct AttnInArgs {
   int R, D, n0, n1, hd;
 };
 
-// Stage the normalised rows for a weight of kind KIND and run the block's
-// share of its GEMV over the whole of D.
-template <int KIND, int RT>
-__device__ __forceinline__ void attn_in_gemv(float (&acc)[RT][4], float* xs, const AttnInArgs& a,
-                                             const uint8_t* qs, const uint32_t* scl,
-                                             const uint32_t* mins, int N, int n, int r0,
-                                             const float* rstd) {
-  const int nc = n_chunks_of<KIND>(a.D);
-  stage_x<KIND, RT>(xs, a.x, 0, a.R, a.D, r0, 0, nc, a.nw, rstd);
-  gemv_warp<KIND, RT>(acc, qs, scl, N, a.D, n, n < N, 0, nc, xs, a.D, mins);
+// A block's output columns, its warps across them (64 columns each) and
+// across its chunks, and a row of its partial tile in floats
+constexpr int AI_TN = 128;
+constexpr int AI_WN = 2;
+constexpr int AI_WK = 4;
+constexpr int AI_TP = AI_TN + 8;
+static_assert(AI_WN * AI_WK * 32 == GV_THREADS, "8 warps a block");
+
+// attn_in_plan's constants (ops/attn_in.py mirrors them): the most splits
+// (a portable cluster), blocks a wave (two a SM of the H100's 132: the
+// kernel's occupancy at up to 16 rows), a block's fixed cost in chunk
+// steps (staging, the reduction, the epilogue), the shared memory a block
+// may take at 32 rows
+constexpr int AI_MAX_SPLITS = 8;
+constexpr int AI_WAVE = 2 * 132;
+constexpr int AI_BLOCK_CHUNKS = 4;
+constexpr size_t AI_SMEM_CAP = 200 * 1024;
+
+// Dynamic shared memory of a block of kind `kind` at NT n-tiles and `cps`
+// chunks a split: gemv.cuh's, with the rows staged as two bf16 halves (its
+// output tile of 256 columns is more than the partial tile needs).
+__host__ inline size_t attn_in_smem(int kind, int NT, int cps) {
+  switch (kind) {
+    case KQ4: return gemv_smem_bytes<KQ4>(NT, cps, 2);
+    case KQ4F: return gemv_smem_bytes<KQ4F>(NT, cps, 2);
+    case KQ6W: return gemv_smem_bytes<KQ6W>(NT, cps, 2);
+    case KQ6WF: return gemv_smem_bytes<KQ6WF>(NT, cps, 2);
+    case KQ8: return gemv_smem_bytes<KQ8>(NT, cps, 2);
+    default: return gemv_smem_bytes<KQ8F>(NT, cps, 2);
+  }
 }
 
-// The grid has a few dozen blocks, so one block per SM is enough: the
-// minimum of 1 lets ptxas give the GEMV core the registers it needs.
-// Without it the bias epilogue changed the R = 1 kernel's register
-// allocation and made it 1.6x slower (TinyLlama R=1 on an H100: 22.8
-// against 14.5 us, chip_smoke.py phase 3). The slot's kind is uniform over a
-// block, so the switch does not diverge.
-template <int RT>
-__global__ void __launch_bounds__(THREADS, 1) attn_in_kernel(AttnInArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float rstd[RT];
-  const int tiles0 = (a.n0 + TN - 1) / TN;
+// The K split of attn_in: of the split counts s <= AI_MAX_SPLITS that
+// divide both slots' chunks of D, give each of a block's AI_WK K warps a
+// chunk and fit shared memory at 32 rows, the one of least cost: waves of
+// blocks (AI_WAVE a wave) times the larger slot's chunk steps a warp plus
+// AI_BLOCK_CHUNKS (ties: the fewer splits). Kinds and widths only, never
+// R. 0 where no split fits.
+__host__ inline int attn_in_plan(int qk_kind, int v_kind, int n0, int n1, int D) {
+  const int cols = (n0 + AI_TN - 1) / AI_TN + (n1 + AI_TN - 1) / AI_TN;
+  const int nq = D / (segments(qk_kind) * CH), nv = D / (segments(v_kind) * CH);
+  int best = 0;
+  long best_cost = 0;
+  for (int s = 1; s <= AI_MAX_SPLITS; ++s) {
+    if (nq % s != 0 || nv % s != 0) continue;
+    const int cq = nq / s, cv = nv / s;
+    if (cq < AI_WK || cv < AI_WK) continue;
+    const size_t smem = attn_in_smem(qk_kind, 4, cq) > attn_in_smem(v_kind, 4, cv)
+                            ? attn_in_smem(qk_kind, 4, cq)
+                            : attn_in_smem(v_kind, 4, cv);
+    if (smem > AI_SMEM_CAP) continue;
+    const int steps = ((cq > cv ? cq : cv) + AI_WK - 1) / AI_WK;
+    const long cost = (long)((cols * s + AI_WAVE - 1) / AI_WAVE) * (steps + AI_BLOCK_CHUNKS);
+    if (best == 0 || cost < best_cost) best = s, best_cost = cost;
+  }
+  return best;
+}
+
+// The block's result: its K warps' sums added in warp order 3, 2, 1, 0 in
+// the shared tile [8 NT][AI_TP] (row r, block column c). Ends with a
+// barrier.
+template <int NT>
+__device__ void ai_combine(const float (&acc)[NT][4][4], float* tile, int wn, int wk, int g,
+                           int t) {
+  __syncthreads();  // the tile reuses the staged x
+  for (int pass = AI_WK - 1; pass >= 0; --pass) {
+    if (wk == pass) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int row = 8 * j + 2 * t, col = wn * 64 + 8 * g + 2 * p;
+          float2* t0 = reinterpret_cast<float2*>(tile + row * AI_TP + col);
+          float2* t1 = reinterpret_cast<float2*>(tile + (row + 1) * AI_TP + col);
+          const float* c = acc[j][p];
+          if (pass == AI_WK - 1) {
+            *t0 = make_float2(c[0], c[2]);
+            *t1 = make_float2(c[1], c[3]);
+          } else {
+            const float2 u0 = *t0, u1 = *t1;
+            *t0 = make_float2(__fadd_rn(c[0], u0.x), __fadd_rn(c[2], u0.y));
+            *t1 = make_float2(__fadd_rn(c[1], u1.x), __fadd_rn(c[3], u1.y));
+          }
+        }
+    }
+    __syncthreads();
+  }
+}
+
+// One block of the grid: column block `tile` of slot qk (is_qk) or v, K
+// split blockIdx.y of the cluster's gridDim.y, for a weight of kind KIND.
+template <int KIND, int NT>
+__device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, int tile,
+                                              uint8_t* smem, float* rstd, float* red) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const auto csync = [&] {
+    if constexpr (TKQ_AI_ABLATE == 1) __syncthreads();
+    else cluster.sync();
+  };
+  const auto peer = [&](float* p, int q) {
+    if constexpr (TKQ_AI_ABLATE == 1) return p + 0 * q;
+    else return cluster.map_shared_rank(p, q);
+  };
+  constexpr int NSEG = segments(KIND), GPC = gv_gpc<KIND>(), ROWS = 8 * NT;
+  const int splits = gridDim.y, rank = blockIdx.y;
+  const int N = is_qk ? a.n0 : a.n1;
+  const int cps = n_chunks_of<KIND>(a.D) / splits, c0 = rank * cps;
+  const int L = cps * CH, XS = gv_xstride(NSEG * L);
+  const uint8_t* qs = is_qk ? a.qk_qs : a.v_qs;
+  auto* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* sums = reinterpret_cast<float*>(smem + (size_t)2 * ROWS * XS * 2);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wn = warp % AI_WN, wk = warp / AI_WN;
+  const int n = tile * AI_TN + wn * 64 + 8 * g;  // the lane's 8 code columns
+  const int ns = n + 2 * t;                       // the 2 columns whose scales it loads
+  const bool al8 = N % 8 == 0 && (reinterpret_cast<uintptr_t>(qs) & 7) == 0;
+  const GemvArgs ga{nullptr, 0, qs, is_qk ? a.qk_scl : a.v_scl, a.R, N, a.D, cps, nullptr,
+                    nullptr, 0, nullptr, is_qk ? a.qk_mins : a.v_mins};
+  // the epilogue's (row, head) units u = rank, rank + splits, ... of the
+  // block's R x heads, a pair of columns (f, f + hd / 2) an item; the
+  // thread's first item's rope and bias values load now
+  const int half = a.hd / 2, cols = min(AI_TN, N - tile * AI_TN), heads = cols / a.hd;
+  const int units = (a.R * heads - rank + splits - 1) / splits;
+  const float* bias = is_qk ? a.bqk : a.bv;
+  const auto item = [&](int i, int& r, int& f, int& c) {
+    const int u = rank + (i / half) * splits;
+    f = i % half, r = u / heads, c = (u % heads) * a.hd + f;  // block column of the first half
+  };
+  float pre[4] = {0.f, 0.f, 1.f, 0.f};  // bias of c, of c + half, cos, sin
+  if (threadIdx.x < units * half) {
+    int r, f, c;
+    item(threadIdx.x, r, f, c);
+    if (bias != nullptr) pre[0] = bias[tile * AI_TN + c], pre[1] = bias[tile * AI_TN + c + half];
+    if (is_qk) pre[2] = a.cosv[(size_t)r * half + f], pre[3] = a.sinv[(size_t)r * half + f];
+  }
+  // the first chunk's words are in flight while the rows are normalised
+  uint2 w[8], sc[4];
+  if (TKQ_AI_ABLATE != 2 && wk < cps) gv_load<KIND>(w, sc, ga, c0 + wk, n, ns, t, al8);
+  gv_sumsq<NT>(rstd, red, a.x, a.R, a.D, 1, 0, a.D);
+  if (threadIdx.x < ROWS)
+    rstd[threadIdx.x] = threadIdx.x < a.R ? rsqrtf(rstd[threadIdx.x] / (float)a.D + a.eps) : 0.f;
+  __syncthreads();
+  gv_stage_xn<KIND, NT>(xs, sums, a.x, a.nw, a.R, a.D, cps, rstd, c0, cps, XS);
+  float acc[NT][4][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int p = 0; p < 4; ++p) acc[j][p][0] = acc[j][p][1] = acc[j][p][2] = acc[j][p][3] = 0.f;
+  const __nv_bfloat16* xb = xs + g * XS + 4 * t;
+  const float* sb = sums + 2 * t;
+  const int chunk_sums = GPC * ROWS;
+  for (int lc = wk; lc < (TKQ_AI_ABLATE == 2 ? 0 : cps); lc += AI_WK) {
+    uint2 wn2[8], sn[4];
+    gv_load<KIND>(wn2, sn, ga, c0 + min(lc + AI_WK, cps - 1), n, ns, t, al8);
+    if constexpr (TKQ_GV_ABLATE == 3) {
+      uint32_t v = sc[0].x ^ sc[1].y ^ sc[2].x ^ sc[3].y;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v ^= w[i].x ^ w[i].y;
+      acc[0][0][0] += __uint_as_float(v & 0x007FFFFFu);
+    } else {
+      gv_chunk<KIND, NT, true>(acc, w, sc, xb + lc * CH, XS, sb + lc * chunk_sums, L,
+                               cps * chunk_sums, lane, (c0 + lc) & 1, ROWS * XS);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) w[i] = wn2[i];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sc[i] = sn[i];
+  }
+  float* part = reinterpret_cast<float*>(smem);  // [ROWS][AI_TP]: this split's sums
+  ai_combine<NT>(acc, part, wn, wk, g, t);
+  csync();  // every rank's partial tile is complete
+
+  // the epilogue: each column's sum over the ranks in rank order, bf16, +
+  // bias, the half rotation (qk) in f32, bf16
+  __nv_bfloat16* out = is_qk ? a.out0 : a.out1;
+  for (int i = threadIdx.x; i < units * half; i += GV_THREADS) {
+    int r, f, c;
+    item(i, r, f, c);
+    float p0[AI_MAX_SPLITS], p1[AI_MAX_SPLITS];  // all in flight, then added in rank order
+#pragma unroll
+    for (int q = 0; q < AI_MAX_SPLITS; ++q) {
+      if (q < splits) {
+        const float* pq = peer(part, q) + r * AI_TP;
+        p0[q] = pq[c], p1[q] = pq[c + half];
+      }
+    }
+    float y0 = 0.f, y1 = 0.f;
+#pragma unroll
+    for (int q = 0; q < AI_MAX_SPLITS; ++q)
+      if (q < splits) y0 += p0[q], y1 += p1[q];
+    const int col = tile * AI_TN + c;
+    const bool first = i == threadIdx.x;
+    const float b0 = bias == nullptr ? 0.f : first ? pre[0] : bias[col];
+    const float b1 = bias == nullptr ? 0.f : first ? pre[1] : bias[col + half];
+    y0 = round_bf16(y0) + b0;
+    y1 = round_bf16(y1) + b1;
+    if (is_qk) {
+      const float cs = first ? pre[2] : a.cosv[(size_t)r * half + f];
+      const float sn = first ? pre[3] : a.sinv[(size_t)r * half + f];
+      const float o0 = __fsub_rn(__fmul_rn(y0, cs), __fmul_rn(y1, sn));
+      const float o1 = __fadd_rn(__fmul_rn(y1, cs), __fmul_rn(y0, sn));
+      y0 = o0, y1 = o1;
+    }
+    out[(size_t)r * N + col] = __float2bfloat16_rn(y0);
+    out[(size_t)r * N + col + half] = __float2bfloat16_rn(y1);
+  }
+  csync();  // no rank leaves while another reads its tile
+}
+
+// grid (ceil(n0 / 128) + ceil(n1 / 128), splits), cluster (1, splits, 1);
+// GV_THREADS threads; dynamic smem: the larger slot's attn_in_smem. R <= 8
+// NT. The slot's kind is uniform over a cluster, so the switch does not
+// diverge and every rank reaches the same barriers.
+template <int NT>
+__global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) attn_in_kernel(AttnInArgs a) {
+  if constexpr (TKQ_AI_ABLATE == 3) return;
+  extern __shared__ __align__(16) uint8_t ai_smem[];
+  __shared__ float rstd[8 * NT], red[8 * NT * (GV_THREADS / 32)];
+  const int tiles0 = (a.n0 + AI_TN - 1) / AI_TN;
   const bool is_qk = blockIdx.x < tiles0;
   const int tile = is_qk ? blockIdx.x : blockIdx.x - tiles0;
-  const int N = is_qk ? a.n0 : a.n1;
-  const int r0 = blockIdx.z * RT;
-  float* xs = smem;
-  float* red = smem + RT * a.D;  // the staged row spans D for every kind
-
-  block_rstd<RT>(rstd, a.x, a.R, a.D, r0, a.eps);
-  const int lane = threadIdx.x % 32;
-  const int n = tile * TN + lane * 4;
-  const uint8_t* qs = is_qk ? a.qk_qs : a.v_qs;
-  const uint32_t* scl = is_qk ? a.qk_scl : a.v_scl;
-  const uint32_t* mins = is_qk ? a.qk_mins : a.v_mins;
-  float acc[RT][4] = {};
   switch (is_qk ? a.qk_kind : a.v_kind) {
-    case KQ4: attn_in_gemv<KQ4, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
-    case KQ4F: attn_in_gemv<KQ4F, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
-    case KQ6W: attn_in_gemv<KQ6W, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
-    case KQ6WF: attn_in_gemv<KQ6WF, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
-    case KQ8: attn_in_gemv<KQ8, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
-    default: attn_in_gemv<KQ8F, RT>(acc, xs, a, qs, scl, mins, N, n, r0, rstd); break;
-  }
-  block_reduce<RT>(red, acc);
-  // red[0 .. RT*TN) holds the f32 sums; round to bf16 as the unfused path
-  // does before rope, then add the bias in f32
-  const float* bias = is_qk ? a.bqk : a.bv;
-  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
-    const int col = tile * TN + i % TN;
-    red[RT * TN + i] = round_bf16(red[i]) + (bias != nullptr && col < N ? bias[col] : 0.f);
-  }
-  __syncthreads();
-  const float* y = red + RT * TN;
-  const int half = a.hd / 2;
-  for (int i = threadIdx.x; i < RT * TN; i += THREADS) {
-    const int r = r0 + i / TN, tc = i % TN, col = tile * TN + tc;
-    if (r >= a.R || col >= N) continue;
-    if (!is_qk) {
-      a.out1[(size_t)r * N + col] = __float2bfloat16_rn(y[i]);
-      continue;
-    }
-    const int d = col % a.hd;  // position inside the head
-    const int f = d < half ? d : d - half;
-    const float c = a.cosv[(size_t)r * half + f], s = a.sinv[(size_t)r * half + f];
-    const float v = d < half ? y[i] * c - y[i + half] * s : y[i] * c + y[i - half] * s;
-    a.out0[(size_t)r * N + col] = __float2bfloat16_rn(v);
+    case KQ4: attn_in_block<KQ4, NT>(a, is_qk, tile, ai_smem, rstd, red); break;
+    case KQ4F: attn_in_block<KQ4F, NT>(a, is_qk, tile, ai_smem, rstd, red); break;
+    case KQ6W: attn_in_block<KQ6W, NT>(a, is_qk, tile, ai_smem, rstd, red); break;
+    case KQ6WF: attn_in_block<KQ6WF, NT>(a, is_qk, tile, ai_smem, rstd, red); break;
+    case KQ8: attn_in_block<KQ8, NT>(a, is_qk, tile, ai_smem, rstd, red); break;
+    default: attn_in_block<KQ8F, NT>(a, is_qk, tile, ai_smem, rstd, red); break;
   }
 }
 
-template <int RT>
-cudaError_t launch_attn_in_rt(const AttnInArgs& a, cudaStream_t st) {
-  // staged row + warp partials + rounded copy
-  const size_t smem = sizeof(float) * (RT * a.D + WARPS * RT * TN + RT * TN);
-  cudaError_t e = cudaFuncSetAttribute(attn_in_kernel<RT>,
+template <int NT>
+cudaError_t launch_attn_in_nt(const AttnInArgs& a, int splits, cudaStream_t st) {
+  const int cq = a.D / (segments(a.qk_kind) * CH) / splits;
+  const int cv = a.D / (segments(a.v_kind) * CH) / splits;
+  const size_t sq = attn_in_smem(a.qk_kind, NT, cq), sv = attn_in_smem(a.v_kind, NT, cv);
+  const size_t smem = sq > sv ? sq : sv;
+  cudaError_t e = cudaFuncSetAttribute(attn_in_kernel<NT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.n0 + TN - 1) / TN + (a.n1 + TN - 1) / TN, 1, (a.R + RT - 1) / RT);
-  attn_in_kernel<RT><<<grid, THREADS, smem, st>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.n0 + AI_TN - 1) / AI_TN + (a.n1 + AI_TN - 1) / AI_TN, splits, 1);
+  cfg.blockDim = dim3(GV_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = TKQ_AI_ABLATE == 1 ? 0 : 1;
+  e = cudaLaunchKernelEx(&cfg, attn_in_kernel<NT>, a);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// Picks the rows per block for R rows (R <= 32) and launches.
+// Launches attn_in for R <= 32 rows (one n-tile of 8 rows per 8 rows of R)
+// at the split of attn_in_plan. Requires D % 512 == 0, n0 and n1 multiples
+// of 128, 128 % hd == 0, 16-byte aligned rows of x and the norm weight.
 inline cudaError_t launch_attn_in(const AttnInArgs& a, cudaStream_t st) {
-  switch (pick_rt(a.R)) {
-    case 1: return launch_attn_in_rt<1>(a, st);
-    case 2: return launch_attn_in_rt<2>(a, st);
-    case 4: return launch_attn_in_rt<4>(a, st);
-    default: return launch_attn_in_rt<8>(a, st);
+  const int splits = TKQ_AI_SPLITS > 0 ? TKQ_AI_SPLITS
+                                       : attn_in_plan(a.qk_kind, a.v_kind, a.n0, a.n1, a.D);
+  const int nq = a.D / (segments(a.qk_kind) * CH), nv = a.D / (segments(a.v_kind) * CH);
+  if (splits < 1 || splits > AI_MAX_SPLITS || nq % splits != 0 || nv % splits != 0 ||
+      nq / splits < AI_WK || nv / splits < AI_WK || a.R < 1)
+    return cudaErrorInvalidValue;
+  if (((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.nw)) & 15) != 0)
+    return cudaErrorMisalignedAddress;
+  switch ((a.R + 7) / 8) {
+    case 1: return launch_attn_in_nt<1>(a, splits, st);
+    case 2: return launch_attn_in_nt<2>(a, splits, st);
+    case 3: return launch_attn_in_nt<3>(a, splits, st);
+    case 4: return launch_attn_in_nt<4>(a, splits, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 

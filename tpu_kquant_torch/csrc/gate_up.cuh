@@ -24,14 +24,15 @@
 //   split, its f32 partials go to ws [splits, R, 2F] and gate_up_reduce
 //   adds them in a fixed order and forms it. Only bf16 act [R, F] reaches
 //   device memory beside them.
-// - The norm: every block computes rms(x) of its rows (gu_rstd: 16-byte
-//   loads of every row at once, a fixed order of sums) and stages its K
-//   range of the normalised rows x * rstd * nw (f32, as the reference's
-//   kernels and the plain version keep them) as two bf16 halves, hi =
-//   bf16(v) and lo = bf16(v - hi), so each group dot takes two mmas (q8:
-//   four) and sees v to about 16 bits: the phase is bound by its loads,
-//   not by the tensor cores. Requires dim % 8 == 0 and 16-byte aligned
-//   rows of x and of the norm weight.
+// - The norm: every block computes rms(x) of its rows (gemv.cuh's
+//   gv_sumsq over the whole row: 16-byte loads of every row at once, a
+//   fixed order of sums) and stages its K range of the normalised rows x *
+//   rstd * nw (f32, as the reference's kernels and the plain version keep
+//   them) as two bf16 halves, hi = bf16(v) and lo = bf16(v - hi)
+//   (gv_stage_xn), so each group dot takes two mmas (q8: four) and sees v
+//   to about 16 bits: the phase is bound by its loads, not by the tensor
+//   cores. Requires dim % 8 == 0 and 16-byte aligned rows of x and of the
+//   norm weight.
 #pragma once
 
 #include "common.cuh"
@@ -55,97 +56,6 @@ struct GateUpArgs {
 __device__ __forceinline__ __nv_bfloat16 gu_act(float g, float u) {
   g = round_bf16(g), u = round_bf16(u);
   return __float2bfloat16_rn(g / (1.f + expf(-g)) * u);
-}
-
-// 1 / rms of rows [0, 8 NT) of x [R, dim] (0 past R) into rstd: thread i
-// sums the squares of its 8-element vectors i, i + GV_THREADS, ... of each
-// row (16-byte loads, all in flight together), then the warps' sums are
-// added in warp order. A row's order of sums is the same at any R. Ends
-// with a barrier; red: 8 NT * (GV_THREADS / 32) floats of shared memory.
-template <int NT>
-__device__ void gu_rstd(float* rstd, float* red, const GateUpArgs& a) {
-  constexpr int ROWS = 8 * NT, NW = GV_THREADS / 32;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nv = a.dim / 8;
-  float ss[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    ss[r] = 0.f;
-    if (r < a.R) {
-      for (int v = threadIdx.x; v < nv; v += GV_THREADS) {
-        const uint4 u = *reinterpret_cast<const uint4*>(a.x + (size_t)r * a.dim + 8 * v);
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ss[r] = __fmaf_rn(bf16_lo(w[e]), bf16_lo(w[e]), ss[r]);
-          ss[r] = __fmaf_rn(bf16_hi(w[e]), bf16_hi(w[e]), ss[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], o);
-    if (lane == 0) red[r * NW + warp] = ss[r];
-  }
-  __syncthreads();
-  if (threadIdx.x < ROWS) {
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) t += red[threadIdx.x * NW + w];
-    rstd[threadIdx.x] = threadIdx.x < a.R ? rsqrtf(t / (float)a.dim + a.eps) : 0.f;
-  }
-  __syncthreads();
-}
-
-// Stage rows [0, 8 NT) of n(x) (rows >= R zero) for chunks [c0, c0 + nch) of
-// every segment as gv_stage_x lays x out, the high halves at xs and the low
-// halves ROWS * XS elements on, then each scale group's sum of hi + lo.
-// 16-byte loads of x and of the norm weight.
-template <int KIND, int NT>
-__device__ void gu_stage_x(__nv_bfloat16* xs, float* sums, const GateUpArgs& a,
-                           const float* rstd, int c0, int nch, int XS) {
-  constexpr int NSEG = segments(KIND), G = group_rows(KIND), ROWS = 8 * NT;
-  const int K = a.dim, L = a.cps * CH, S = K / NSEG, vpr = NSEG * L / 8;
-  __nv_bfloat16* lo = xs + (size_t)ROWS * XS;
-  for (int i = threadIdx.x; i < ROWS * vpr; i += GV_THREADS) {
-    const int r = i / vpr, j = i % vpr, seg = j / (L / 8), v = j % (L / 8);
-    uint32_t hw[4] = {0u, 0u, 0u, 0u}, lw[4] = {0u, 0u, 0u, 0u};
-    if (r < a.R && v * 8 < nch * CH) {
-      const int k = seg * S + c0 * CH + v * 8;
-      const uint4 u = *reinterpret_cast<const uint4*>(a.x + (size_t)r * K + k);
-      const float4 n0 = *reinterpret_cast<const float4*>(a.nw + k);
-      const float4 n1 = *reinterpret_cast<const float4*>(a.nw + k + 4);
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-      const float nw[8] = {n0.x, n0.y, n0.z, n0.w, n1.x, n1.y, n1.z, n1.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float v0 = bf16_lo(w[e]) * rstd[r] * nw[2 * e];
-        const float v1 = bf16_hi(w[e]) * rstd[r] * nw[2 * e + 1];
-        const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-        const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
-        hw[e] = *reinterpret_cast<const uint32_t*>(&h);
-        lw[e] = *reinterpret_cast<const uint32_t*>(&l);
-      }
-    }
-    const size_t o = (size_t)r * XS + seg * L + v * 8;
-    *reinterpret_cast<uint4*>(xs + o) = make_uint4(hw[0], hw[1], hw[2], hw[3]);
-    *reinterpret_cast<uint4*>(lo + o) = make_uint4(lw[0], lw[1], lw[2], lw[3]);
-  }
-  __syncthreads();
-  const int NG = NSEG * a.cps * (CH / G);
-  for (int i = threadIdx.x; i < ROWS * NG; i += GV_THREADS) {
-    const int r = i / NG, gi = i % NG;
-    const int seg = gi / (a.cps * (CH / G)), lg = gi % (a.cps * (CH / G));
-    const size_t o = (size_t)r * XS + seg * L + lg * G;
-    float s = 0.f;
-#pragma unroll 4
-    for (int q = 0; q < G; q += 2) {
-      const uint32_t h = *reinterpret_cast<const uint32_t*>(xs + o + q);
-      const uint32_t l = *reinterpret_cast<const uint32_t*>(lo + o + q);
-      s = __fadd_rn(s, __fadd_rn(bf16_lo(h), bf16_lo(l)));
-      s = __fadd_rn(s, __fadd_rn(bf16_hi(h), bf16_hi(l)));
-    }
-    sums[gi * ROWS + r] = s;
-  }
-  __syncthreads();
 }
 
 // grid (ceil(F / 128), splits); GV_THREADS threads; dynamic smem
@@ -174,8 +84,11 @@ __global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) gate_up_kernel(Ga
                     nullptr, a.mins};
   uint2 w[8], sc[4];
   if (wk < nch) gv_load<KIND>(w, sc, ga, c0 + wk, n, ns, t, al8);
-  gu_rstd<NT>(rstd, red, a);
-  gu_stage_x<KIND, NT>(xs, sums, a, rstd, c0, nch, XS);
+  gv_sumsq<NT>(rstd, red, a.x, a.R, a.dim, 1, 0, a.dim);
+  if (threadIdx.x < ROWS)
+    rstd[threadIdx.x] = threadIdx.x < a.R ? rsqrtf(rstd[threadIdx.x] / (float)a.dim + a.eps) : 0.f;
+  __syncthreads();
+  gv_stage_xn<KIND, NT>(xs, sums, a.x, a.nw, a.R, a.dim, a.cps, rstd, c0, nch, XS);
   float acc[NT][4][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)

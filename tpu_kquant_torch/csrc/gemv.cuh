@@ -409,8 +409,8 @@ __device__ __forceinline__ void gv_chunk_planes(float (&acc)[NT][4][4], const Ge
   for (int i = 0; i < 8; ++i)
     h[i] = plane_hb(KIND) > 0 ? gv_ld8(a.qh + gv_row(c, i, t) * a.N, n, a.N, al8)
                               : make_uint2(0u, 0u);
-  // not unrolled: the bodies are large and build time counts (common.cuh's
-  // gemv_warp_planes says the same)
+  // not unrolled: the bodies are large and build time counts (a build of
+  // every library took 95-113 s unrolled, 60 s not, on the H100's host)
 #pragma unroll 1
   for (int tt = 0; tt < NTP; ++tt) {
     uint2 w[8];
@@ -513,6 +513,109 @@ __device__ void gv_stage_x(__nv_bfloat16* xs, float* sums, const void* x, int x_
         s = __fadd_rn(s, bf16_lo(u[e]));
         s = __fadd_rn(s, bf16_hi(u[e]));
       }
+    }
+    sums[gi * ROWS + r] = s;
+  }
+  __syncthreads();
+}
+
+// Sums of squares of rows [0, 8 NT) of x [R, K] bf16 (0 past R) into
+// ss[8 NT], over the elements a block stages: of each of NSEG segments of K
+// / NSEG elements, elements [base, base + L) (the whole row: NSEG 1, base
+// 0, L K). Thread i sums the squares of its 8-element vectors i, i +
+// GV_THREADS, ... of each row (16-byte loads, all in flight together),
+// then the lanes by a butterfly and the warps in warp order, so a row's
+// order of sums is the same at any R. Shared by gate_up.cuh (the row's
+// rms) and attn_in.cuh (one K split's share of it). Ends with a barrier;
+// red: 8 NT * (GV_THREADS / 32) floats of shared memory. x's rows 16-byte
+// aligned.
+template <int NT>
+__device__ void gv_sumsq(float* ss, float* red, const __nv_bfloat16* x, int R, int K, int nseg,
+                         int base, int L) {
+  constexpr int ROWS = 8 * NT, NW = GV_THREADS / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, vps = L / 8, nv = nseg * vps;
+  const int S = K / nseg;
+  float acc[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    acc[r] = 0.f;
+    if (r < R) {
+      for (int v = threadIdx.x; v < nv; v += GV_THREADS) {
+        const int k = (v / vps) * S + base + (v % vps) * 8;
+        const uint4 u = *reinterpret_cast<const uint4*>(x + (size_t)r * K + k);
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[r] = __fmaf_rn(bf16_lo(w[e]), bf16_lo(w[e]), acc[r]);
+          acc[r] = __fmaf_rn(bf16_hi(w[e]), bf16_hi(w[e]), acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+    if (lane == 0) red[r * NW + warp] = acc[r];
+  }
+  __syncthreads();
+  if (threadIdx.x < ROWS) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) t += red[threadIdx.x * NW + w];
+    ss[threadIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// Stage rows [0, 8 NT) of the normalised rows x * rstd * nw (f32, as the
+// reference's kernels keep them; rows >= R zero) for chunks [c0, c0 + nch)
+// of every segment as gv_stage_x lays x out (L = cps * 32 elements a
+// segment), as two bf16 halves: hi = bf16(v) at xs, lo = bf16(v - hi) 8 NT
+// * XS elements on, so a group dot of both sees v to about 16 bits; then
+// each scale group's sum of hi + lo. 16-byte loads of x and of the norm
+// weight (both 16-byte aligned). Shared by gate_up.cuh and attn_in.cuh.
+template <int KIND, int NT>
+__device__ void gv_stage_xn(__nv_bfloat16* xs, float* sums, const __nv_bfloat16* x,
+                            const float* nw, int R, int K, int cps, const float* rstd, int c0,
+                            int nch, int XS) {
+  constexpr int NSEG = segments(KIND), G = group_rows(KIND), ROWS = 8 * NT;
+  const int L = cps * CH, S = K / NSEG, vpr = NSEG * L / 8;
+  __nv_bfloat16* lo = xs + (size_t)ROWS * XS;
+  for (int i = threadIdx.x; i < ROWS * vpr; i += GV_THREADS) {
+    const int r = i / vpr, j = i % vpr, seg = j / (L / 8), v = j % (L / 8);
+    uint32_t hw[4] = {0u, 0u, 0u, 0u}, lw[4] = {0u, 0u, 0u, 0u};
+    if (r < R && v * 8 < nch * CH) {
+      const int k = seg * S + c0 * CH + v * 8;
+      const uint4 u = *reinterpret_cast<const uint4*>(x + (size_t)r * K + k);
+      const float4 n0 = *reinterpret_cast<const float4*>(nw + k);
+      const float4 n1 = *reinterpret_cast<const float4*>(nw + k + 4);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      const float nv[8] = {n0.x, n0.y, n0.z, n0.w, n1.x, n1.y, n1.z, n1.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v0 = bf16_lo(w[e]) * rstd[r] * nv[2 * e];
+        const float v1 = bf16_hi(w[e]) * rstd[r] * nv[2 * e + 1];
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+        const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+        hw[e] = *reinterpret_cast<const uint32_t*>(&h);
+        lw[e] = *reinterpret_cast<const uint32_t*>(&l);
+      }
+    }
+    const size_t o = (size_t)r * XS + seg * L + v * 8;
+    *reinterpret_cast<uint4*>(xs + o) = make_uint4(hw[0], hw[1], hw[2], hw[3]);
+    *reinterpret_cast<uint4*>(lo + o) = make_uint4(lw[0], lw[1], lw[2], lw[3]);
+  }
+  __syncthreads();
+  const int NG = NSEG * cps * (CH / G);
+  for (int i = threadIdx.x; i < ROWS * NG; i += GV_THREADS) {
+    const int r = i / NG, gi = i % NG;
+    const int seg = gi / (cps * (CH / G)), lg = gi % (cps * (CH / G));
+    const size_t o = (size_t)r * XS + seg * L + lg * G;
+    float s = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < G; q += 2) {
+      const uint32_t h = *reinterpret_cast<const uint32_t*>(xs + o + q);
+      const uint32_t l = *reinterpret_cast<const uint32_t*>(lo + o + q);
+      s = __fadd_rn(s, __fadd_rn(bf16_lo(h), bf16_lo(l)));
+      s = __fadd_rn(s, __fadd_rn(bf16_hi(h), bf16_hi(l)));
     }
     sums[gi * ROWS + r] = s;
   }

@@ -14,7 +14,9 @@ on the card":
   drops its deferred append past the budget, so this is every decode step
   of many concurrent sequences: 1024 serving slots of 2048 at TinyLlama
   width (268 MB of logits per layer).
-- Everything else runs the plain branch below in f32.
+- Everything else runs the plain branch (``attention_plain``) in f32; on
+  the card its products are bmm calls of one shape per (row, KV head)
+  pair whatever B is, so a row's result does not depend on the batch.
 Rings, sliding windows and logit softcaps are not ported here (the llama
 forward refuses archs that need them).
 """
@@ -75,10 +77,77 @@ def attention_decode(
     if kv_cur is None and T > 1 and prefill_supported(T, S, D) and big:
         return attention_prefill(q, k_cache, v_cache, q_positions[:, 0], kv_scales)
 
+    return attention_plain(q, k_cache, v_cache, q_positions, kv_scales, kv_cur)
+
+
+# f32 elements of the largest operand that one bmm call of the card's plain
+# branch covers (its pairs per call: this over a (row, KV head) pair's
+# largest operand, never a function of B). A lone row pads its call to this
+# size; many rows take one call per this much.
+PLAIN_CALL_FLOATS = 1 << 20
+
+
+def plain_pairs(T: int, G: int, S: int, D: int) -> int:
+    """(row, KV head) pairs per bmm call of the card's plain branch: from the
+    shapes of one pair alone (its queries T * G, slots S, head_dim D), so
+    the solo row and the row among 16 run the same cuBLAS call shape."""
+    return max(1, PLAIN_CALL_FLOATS // max(T * G * D, S * D, T * G * S))
+
+
+def pairs_f32(t: torch.Tensor, pairs: int) -> torch.Tensor:
+    """t [N, ...] as f32 with at least ``pairs`` entries: fewer are copied
+    into the first N entries of an uninitialised buffer of ``pairs`` (the
+    rest are never read back: each entry's product depends on its own
+    operands only)."""
+    if t.shape[0] >= pairs:
+        return t.float().contiguous()
+    out = torch.empty((pairs, *t.shape[1:]), dtype=torch.float32, device=t.device)
+    out[:t.shape[0]].copy_(t)
+    return out
+
+
+def bmm_fixed(a: torch.Tensor, b: torch.Tensor, pairs: int, real: int) -> torch.Tensor:
+    """The first ``real`` entries of a [N, m, k] @ b [N, k, n] (f32, N >=
+    pairs: see pairs_f32), in bmm calls of exactly ``pairs`` batch entries
+    each: chunks [i, i + pairs), the last one taken as the final ``pairs``
+    entries (overlapping the one before). cuBLAS picks its algorithm, and
+    with it each output's order of sums, from the call's shape, so an
+    entry's result is the same bits whatever N is."""
+    N = a.shape[0]
+    out = a.new_empty((N, a.shape[1], b.shape[2]))
+    for i in range(0, N, pairs):
+        i = min(i, N - pairs)
+        torch.bmm(a[i:i + pairs], b[i:i + pairs], out=out[i:i + pairs])
+    return out[:real]
+
+
+def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=None,
+                    fixed: bool | None = None, parts: dict | None = None) -> torch.Tensor:
+    """attention_decode's plain branch, in f32. ``fixed`` (default: on CUDA
+    tensors) takes its three products (q k^T, the deferred append's current
+    logit, p v) as per-(row, KV head) bmm calls of a fixed shape
+    (``bmm_fixed``, ``plain_pairs``, ``pairs_f32``), so that a row's result does not
+    depend on the other rows of the call: PyTorch's einsum folds the rows
+    into one bmm whose batch count, B x Hkv, steers cuBLAS's choice of
+    algorithm, and with it the order of each f32 sum (a served greedy
+    stream differed from its solo run where such a sum crossed a bf16
+    rounding boundary, tools/batch_invariance.py --serving). Off (the CPU
+    default), the einsums that the tests hold to the JAX package. ``parts``:
+    filled with the f32 logits, probabilities and p v product."""
+    B, T, H, D = q.shape
+    Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
     scale = D ** -0.5
+    fixed = q.is_cuda if fixed is None else fixed
     qf = q.float().reshape(B, T, Hkv, G, D)
-    logits = torch.einsum("bthgd,bhsd->bthgs", qf, k_cache.float()) * scale
+    if fixed:
+        N, pairs = B * Hkv, plain_pairs(T, G, S, D)
+        qn = pairs_f32(qf.permute(0, 2, 1, 3, 4).reshape(N, T * G, D), pairs)
+        kn = pairs_f32(k_cache.reshape(N, S, D), pairs)
+        lg = bmm_fixed(qn, kn.transpose(1, 2), pairs, N)
+        logits = lg.reshape(B, Hkv, T, G, S).permute(0, 2, 1, 3, 4) * scale
+    else:
+        logits = torch.einsum("bthgd,bhsd->bthgs", qf, k_cache.float()) * scale
     if kv_scales is not None:
         ks, vs = kv_scales
         logits = logits * ks.float()[:, None, :, None, :]
@@ -86,18 +155,34 @@ def attention_decode(
     at_cur = None
     if kv_cur is not None:
         k_cur, v_cur = kv_cur
-        l_cur = torch.einsum("bthgd,bthd->bthg", qf, k_cur.float().reshape(B, T, Hkv, D)) * scale
+        if fixed:
+            if T != 1:
+                raise ValueError("attention_plain: the deferred append is a decode step (T = 1)")
+            kc = pairs_f32(k_cur.reshape(N, D, 1), pairs)
+            l_cur = bmm_fixed(qn, kc, pairs, N).reshape(B, 1, Hkv, G) * scale
+        else:
+            l_cur = torch.einsum("bthgd,bthd->bthg", qf,
+                                 k_cur.float().reshape(B, T, Hkv, D)) * scale
         at_cur = (kv_pos[None, None, :] == q_positions[:, :, None])[:, :, None, None, :]
         logits = torch.where(at_cur, l_cur[..., None], logits)
     mask = kv_pos[None, None, :] <= q_positions[:, :, None]  # [B, T, S]
     logits = logits.masked_fill(~mask[:, :, None, None, :], float("-inf"))
     p = torch.softmax(logits, dim=-1)
+    if parts is not None:
+        parts["logits"], parts["p"] = logits, p
     if at_cur is not None:
         p_cur = torch.where(at_cur, p, 0.0).sum(dim=-1)  # [B, T, Hkv, G]
         p = torch.where(at_cur, 0.0, p)
     if kv_scales is not None:
         p = p * vs.float()[:, None, :, None, :]
-    out = torch.einsum("bthgs,bhsd->bthgd", p, v_cache.float())
+    if fixed:
+        pn = pairs_f32(p.permute(0, 2, 1, 3, 4).reshape(N, T * G, S), pairs)
+        pv = bmm_fixed(pn, pairs_f32(v_cache.reshape(N, S, D), pairs), pairs, N)
+        out = pv.reshape(B, Hkv, T, G, D).permute(0, 2, 1, 3, 4)
+    else:
+        out = torch.einsum("bthgs,bhsd->bthgd", p, v_cache.float())
+    if parts is not None:
+        parts["pv"] = out
     if at_cur is not None:
         out = out + p_cur[..., None] * v_cur.float().reshape(B, T, Hkv, 1, D)
     return out.reshape(B, T, H, D).to(q.dtype)

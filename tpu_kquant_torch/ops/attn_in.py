@@ -2,7 +2,11 @@
 qk, one launch.
 
 Kernel: ``csrc/attn_in.cu`` (replaces ``tpu_kquant/ops/pallas_attn_in.py:
-fused_attn_in``, manual and Mosaic-grid variants), decode rows only, for
+fused_attn_in``, manual and Mosaic-grid variants; device code in
+``csrc/attn_in.cuh``: gemv.cuh's tensor-core GEMV core behind the norm, a K
+split from ``attn_in_plan`` whose splits form a thread-block cluster that
+adds its partials in rank order, so a row's result is the same bits at
+any R), decode rows only, for
 the kinds the reference's gate takes in either slot: q4, q6w or q8 (Q4_K_M:
 wqk q4 + wv q6w; Q8_0: both q8; Q6_K: both q6w; Q4_K_S: both q4), each with
 bf16 scale pairs (q4-sm, q6w-sp, q8-sp) or f32 scales (``scales``, and
@@ -18,12 +22,16 @@ projection is rounded to bf16, the bias added in f32, then the rotation
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from tpu_kquant_torch.ops import _build
-from tpu_kquant_torch.ops.qmm import kernel_kind, packed_arrays
+from tpu_kquant_torch.ops.ffn import _aligned
+from tpu_kquant_torch.ops.qmm import (_SMEM_CAP, GEMV_BLOCK_CHUNKS, GEMV_MAX_ROWS, GEMV_WAVE,
+                                      KINDS, SEGMENTS, gemv_smem_bytes, kernel_kind,
+                                      packed_arrays)
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -39,6 +47,43 @@ _ARGTYPES = [_P, _P, ctypes.c_float, _I, _P, _P, _P, _I, _P, _P, _P,
 
 
 _KINDS = ("q4", "q6w", "q8")  # pallas_attn_in.py:_KINDS
+# the most K splits of attn_in (one thread-block cluster of portable size),
+# a block's output columns and its warps across its chunks (csrc/attn_in.cuh)
+ATTN_IN_MAX_SPLITS = 8
+ATTN_IN_TN = 128
+ATTN_IN_WK = 4
+
+
+@functools.lru_cache(maxsize=None)
+def attn_in_plan(qk_code: int, v_code: int, n0: int, n1: int, D: int) -> int:
+    """K splits of the attn_in kernel (csrc/attn_in.cuh:attn_in_plan, which
+    this mirrors and the launch reads): of the counts s <= 8 (a portable
+    cluster) that divide both slots' chunks of D (32 packed rows each), give
+    each of a block's four K warps a chunk and fit shared memory at 32 rows
+    (the rows staged as two bf16 halves), the one of least cost: waves of
+    ceil(n0 / 128) + ceil(n1 / 128) column blocks times s (two blocks a SM)
+    times the larger slot's chunk steps a warp plus a block's fixed cost
+    (ties: the fewer splits). From the kinds and widths alone, never the
+    row count, so a row's sums are taken in the same order at any R."""
+    cols = -(-n0 // ATTN_IN_TN) + -(-n1 // ATTN_IN_TN)
+    nq, nv = (D // (32 * SEGMENTS[KINDS[c][0]]) for c in (qk_code, v_code))
+    best = None
+    for s in range(1, ATTN_IN_MAX_SPLITS + 1):
+        if nq % s or nv % s:
+            continue
+        cq, cv = nq // s, nv // s
+        if min(cq, cv) < ATTN_IN_WK:
+            continue
+        if max(gemv_smem_bytes(qk_code, cq, GEMV_MAX_ROWS, halves=2),
+               gemv_smem_bytes(v_code, cv, GEMV_MAX_ROWS, halves=2)) > _SMEM_CAP:
+            continue
+        steps = -(-max(cq, cv) // ATTN_IN_WK)
+        cost = -(-cols * s // GEMV_WAVE) * (steps + GEMV_BLOCK_CHUNKS)
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    _build.require(best is not None, f"attn_in_plan: no split of D={D} fits "
+                   f"({KINDS[qk_code]}, {KINDS[v_code]})")
+    return best[1]
 
 
 def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: int,
@@ -129,10 +174,10 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     bs = () if biases is None else tuple(biases)
     req(all(a.device == x.device and a.is_contiguous() for a in arrs + bs if a is not None),
         "attn_in: weights and biases must be contiguous on x's device")
-    x2d = x2d.contiguous()
+    attn_in_plan(qk_code, v_code, n0, n1, D)  # raises where no split fits
+    x2d, nw = _aligned(x2d), _aligned(norm_w)
     c2d = c2d.float().contiguous()
     s2d = s2d.float().contiguous()
-    nw = norm_w.contiguous()
     out0 = torch.empty((R, n0), dtype=torch.bfloat16, device=x.device)
     out1 = torch.empty((R, n1), dtype=torch.bfloat16, device=x.device)
     lib = _build.load("attn_in", "tkq_attn_in", _ARGTYPES)
@@ -145,3 +190,12 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     _build.check(lib, rc, "attn_in")
     counter.launches += 1
     return out0.reshape(*lead, n0), out1.reshape(*lead, n1)
+
+
+def kernel_plan(qk_code: int, v_code: int, n0: int, n1: int, D: int) -> int:
+    """The kernel's own split count (C ``tkq_attn_in_plan``; needs the
+    built library), which ``attn_in_plan`` must equal."""
+    lib = _build.load("attn_in", "tkq_attn_in", _ARGTYPES)
+    lib.tkq_attn_in_plan.argtypes = [_I] * 5
+    lib.tkq_attn_in_plan.restype = _I
+    return int(lib.tkq_attn_in_plan(qk_code, v_code, n0, n1, D))

@@ -34,7 +34,14 @@ for bit (torch.equal), and reports the largest difference:
   such tick, that tick traced op by op (the ops above and models/llama.py's
   fused_attn_in, fused_oproj_ffn and fused_ffn) against the solo decode
   step that should equal it: every op whose output for the request's row
-  differs, in order.
+  differs, in order; and for every layer's attention at that tick, the
+  row's cache slots below its position (K and V), its query and current
+  token, then the plain branch's f32 logits, probabilities and p v product
+  for the row in the 16-row call against the 1-row call, both as PyTorch's
+  einsums take them and as ops/attention.py:attention_plain takes them on
+  the card (fixed-shape bmm calls).
+The op checks also hold the plain branch's f32 parts of row 0 of 16 to
+the row alone, for the einsums and for attention_plain's card form.
 Needs a CUDA card.
 """
 
@@ -70,6 +77,68 @@ def _cmp(label, got, alone) -> dict:
     return row
 
 
+def _einsum_parts(q, k, v, pos, kv_scales=None, kv_cur=None) -> dict:
+    """The f32 logits, probabilities and p v product of ops/attention.py's
+    plain branch as it stood before attention_plain (three torch.einsum
+    calls, whatever device)."""
+    import torch
+
+    B, T, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, T, Hkv, H // Hkv, D)
+    logits = torch.einsum("bthgd,bhsd->bthgs", qf, k.float()) * D ** -0.5
+    if kv_scales is not None:
+        logits = logits * kv_scales[0].float()[:, None, :, None, :]
+    kv_pos = torch.arange(S, device=q.device)
+    at_cur = None
+    if kv_cur is not None:
+        l_cur = torch.einsum("bthgd,bthd->bthg", qf,
+                             kv_cur[0].float().reshape(B, T, Hkv, D)) * D ** -0.5
+        at_cur = (kv_pos[None, None, :] == pos[:, :, None])[:, :, None, None, :]
+        logits = torch.where(at_cur, l_cur[..., None], logits)
+    mask = kv_pos[None, None, :] <= pos[:, :, None]
+    logits = logits.masked_fill(~mask[:, :, None, None, :], float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    pp = p if at_cur is None else torch.where(at_cur, 0.0, p)
+    if kv_scales is not None:
+        pp = pp * kv_scales[1].float()[:, None, :, None, :]
+    return {"logits": logits, "p": p, "pv": torch.einsum("bthgs,bhsd->bthgd", pp, v.float())}
+
+
+def _parts(form, *args) -> dict | None:
+    """f32 parts of the plain branch: form "einsum" (the einsums above) or
+    "fixed" (attention_plain's card form; None where the tree has none)."""
+    from tpu_kquant_torch.ops import attention
+
+    if form == "einsum":
+        return _einsum_parts(*args)
+    if not hasattr(attention, "attention_plain"):
+        return None
+    parts: dict = {}
+    attention.attention_plain(*args, fixed=True, parts=parts)
+    return parts
+
+
+def _cmp_parts(label, form, batch_args, solo_args, b=0) -> list:
+    """Row b of the batch call's f32 parts against row 0 of the solo call's."""
+    import torch
+
+    got, alone = _parts(form, *batch_args), _parts(form, *solo_args)
+    if got is None:
+        return []
+    rows = []
+    for key in ("logits", "p", "pv"):
+        g, a = got[key][b:b + 1], alone[key]
+        fin = a.isfinite()
+        row = {"check": f"{label}, f32 {key} ({form})", "equal": bool(torch.equal(g, a)),
+               "max_abs_diff": float((g[fin] - a[fin]).abs().max()) if fin.any() else 0.0,
+               "max_abs": float(a[fin].abs().max()) if fin.any() else 0.0}
+        print(f"  {row['check']:72s} {'equal' if row['equal'] else 'DIFFERS'}  max|diff| "
+              f"{row['max_abs_diff']:.3e} of max|ref| {row['max_abs']:.3e}", flush=True)
+        rows.append(row)
+    return rows
+
+
 def op_checks(smoke, dev) -> list:
     import numpy as np
     import torch
@@ -100,6 +169,17 @@ def op_checks(smoke, dev) -> list:
     out.append(_cmp("plain attention, decode step, 128 slots",
                     attention_decode(q, k, v, pos)[:1],
                     attention_decode(q[:1], k[:1], v[:1], pos[:1])))
+    ki, vi = (torch.randint(-127, 128, (B, Hkv, S, D), device=dev, generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    sc = tuple(torch.rand(B, Hkv, S, device=dev, generator=g) * 0.02 + 0.001 for _ in range(2))
+    for form in ("einsum", "fixed"):
+        for kv, kk, vv, scl in (("bf16", k, v, None), ("int8", ki, vi, sc)):
+            for c in (cur, None):
+                one = lambda t: None if t is None else tuple(x[:1] for x in t)  # noqa: E731
+                out += _cmp_parts(f"plain attention parts, {kv} KV, 128 slots"
+                                  f"{' (deferred append)' if c else ''}", form,
+                                  (q, kk, vv, pos, scl, c),
+                                  (q[:1], kk[:1], vv[:1], pos[:1], one(scl), one(c)))
     T = 64
     qp = rnd(B, T, H, D).to(torch.bfloat16)
     kp, vp = (rnd(B, Hkv, T, D).to(torch.bfloat16) for _ in range(2))
@@ -185,11 +265,12 @@ def engine_checks(smoke, dev) -> list:
     return out
 
 
-def _trace(run, fused: bool = False) -> list:
+def _trace(run, fused: bool = False, args: dict | None = None) -> list:
     """(name, output) of every rms_norm, qmatmul, apply_rope and swiglu call
     of models/llama.py and every attention_decode call while run() runs;
     fused: also its fused_attn_in, fused_oproj_ffn and fused_ffn calls (a
-    tuple output kept as a tuple)."""
+    tuple output kept as a tuple); args: filled with each attention_decode
+    call's arguments (cloned), keyed by its index in the list."""
     from tpu_kquant_torch.models import llama
     from tpu_kquant_torch.ops import attention
 
@@ -200,8 +281,15 @@ def _trace(run, fused: bool = False) -> list:
         names += [(llama, "fused_attn_in"), (llama, "fused_oproj_ffn"), (llama, "fused_ffn")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in names]
 
+    def clone(t):
+        if isinstance(t, tuple):
+            return tuple(clone(x) for x in t)
+        return t.detach().clone() if hasattr(t, "detach") else t
+
     def wrap(fn, name):
         def f(*a, **kw):
+            if args is not None and name == "attention_decode":
+                args[len(rec)] = clone(tuple(a) + tuple(kw.get(n) for n in ("kv_cur",)))
             y = fn(*a, **kw)
             rec.append((name, tuple(t.detach().clone() for t in y) if isinstance(y, tuple)
                         else y.detach().clone()))
@@ -243,6 +331,9 @@ def serving_checks(smoke, dev) -> list:
             reqs[i].eos_id = eos[i]
         return reqs
 
+    batch_args: dict = {}
+    solo_args: dict = {}
+
     def serve(reqs, trace_at=None):
         """Run the 16 slots; record each greedy request's (logits row, from
         prefill, tick, slot) per step; trace tick trace_at's ops."""
@@ -257,7 +348,8 @@ def serving_checks(smoke, dev) -> list:
             fresh = cb.state.fresh.clone()
             if n[0] == trace_at:
                 box = []
-                traced.extend(_trace(lambda: box.append(real_tick(sampling)), fused=True))
+                traced.extend(_trace(lambda: box.append(real_tick(sampling)), fused=True,
+                                     args=batch_args))
                 tok = box[0]
             else:
                 tok = real_tick(sampling)
@@ -313,7 +405,7 @@ def serving_checks(smoke, dev) -> list:
         pos += 1
     solo_ops = _trace(lambda: solo_eng.decode_step(
         torch.tensor([r.output[d - 1]], device=dev), torch.tensor([pos], device=dev), cache),
-        fused=True)
+        fused=True, args=solo_args)
     for j, ((name, got), (_, alone)) in enumerate(zip(batch_ops, solo_ops)):
         pairs = list(zip(got, alone)) if isinstance(got, tuple) else [(got, alone)]
         for k, (g, a) in enumerate(pairs):
@@ -323,6 +415,25 @@ def serving_checks(smoke, dev) -> list:
                 out.append(row)
     out.append({"check": f"serving: tick {tick_no} ops traced", "equal": True,
                 "ops": [name for name, _ in batch_ops]})
+    # each layer's attention at that tick: the row's inputs, then the plain
+    # branch's f32 parts for the row among 16 and alone
+    for layer, j in enumerate(sorted(batch_args)):
+        ba, sa = batch_args[j], solo_args.get(j)
+        if sa is None:
+            continue
+        q, k, v, qpos, scl, cur = (*ba[:4], ba[4] if len(ba) > 5 else None, ba[-1])
+        sq, sk, sv, spos, sscl, scur = (*sa[:4], sa[4] if len(sa) > 5 else None, sa[-1])
+        p = int(qpos[b, 0])
+        label = f"serving: tick {tick_no} layer {layer}"
+        for name, g, a in (("K slots below the position", k[b:b + 1, :, :p], sk[:, :, :p]),
+                           ("V slots below the position", v[b:b + 1, :, :p], sv[:, :, :p]),
+                           ("query", q[b:b + 1], sq),
+                           *((("current k", cur[0][b:b + 1], scur[0]),
+                              ("current v", cur[1][b:b + 1], scur[1])) if cur else ())):
+            out.append(_cmp(f"{label}: {name}, request {i}'s row", g, a))
+        for form in ("einsum", "fixed"):
+            out += _cmp_parts(f"{label} plain attention", form, (q, k, v, qpos, scl, cur),
+                              (sq, sk, sv, spos, sscl, scur), b)
     return out
 
 

@@ -16,6 +16,14 @@ limit:
           every other split count that fits, at R = 1 and 8, at
           TinyLlama's w_gateup [11264, 2048] (q4-sm, q8-sp), Qwen2.5-1.5B's
           [17920, 1536] and Qwen2.5-7B's [37888, 3584] (q4-sm).
+--attn-in attn_in (csrc/attn_in.cuh) at its plan (ops/attn_in.py:
+          attn_in_plan) against every other split count a cluster takes
+          (attn_in.cu built with TKQ_AI_SPLITS = 1, 2, 4, 8), and the
+          ablation builds (full / no mma / no scales / loads only, then no
+          cluster / no chunk loop / the launch alone, at the plan's split),
+          at TinyLlama's Q4_K_M and Q8_0 slots, Qwen2.5-1.5B's
+          (biases, head_dim 128) and Mixtral-8x7B's (f32 scales, bf16 pairs),
+          at R = 1 and 16.
 
 Cases: Mixtral-8x7B's expert gate/up [14336, 4096] q4-sm and down [4096,
 14336] q6w-sp, TinyLlama's lm head [32000, 2048] q6w-sp and q8-sp (Q8_0),
@@ -38,6 +46,10 @@ from pathlib import Path
 TREE = Path(__file__).resolve().parents[2]
 VARIANTS = TREE / ".cache" / "gemv_variants"
 ABLATIONS = {"full": 0, "no mma": 1, "no scales": 2, "loads only": 3}
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may take on the H100
+# attn_in's timing builds (csrc/attn_in.cuh TKQ_AI_ABLATE): its cluster, its
+# chunk loop, everything but the launch taken out
+AI_ABLATIONS = {"no cluster": 1, "no loop": 2, "launch only": 3}
 # (label, kind as chip_smoke._rand_weights names it, N, K)
 SHAPES = (("mixtral gate/up q4-sm", "q4", 14336, 4096),
           ("mixtral down q6w-sp", "q6w", 4096, 14336),
@@ -55,28 +67,30 @@ def _smoke():
     return mod
 
 
-def build_variants(defines: dict[str, list[str]]) -> dict[str, ctypes.CDLL]:
-    """csrc/qmm.cu built once per entry (name -> extra nvcc flags), all in
-    parallel, each loaded with its entry point declared."""
+def build_variants(defines: dict[str, list[str]], source: str = "qmm", fn: str = "tkq_qmm",
+                   argtypes: list | None = None) -> dict[str, ctypes.CDLL]:
+    """csrc/<source>.cu built once per entry (name -> extra nvcc flags), all
+    in parallel, each loaded with its entry point `fn` declared (qmm's by
+    default)."""
     from tpu_kquant_torch.ops import _build
     from tpu_kquant_torch.ops.qmm import _ARGTYPES
 
     VARIANTS.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, flags in defines.items():
-        out = VARIANTS / f"qmm-{name.replace(' ', '_')}.so"
+        out = VARIANTS / f"{source}-{name.replace(' ', '_')}.so"
         cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(out),
-               str(_build.CSRC / "qmm.cu")]
+               str(_build.CSRC / f"{source}.cu")]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (out, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"FAIL: nvcc qmm.cu {defines[name]}:\n{log}")
+            raise SystemExit(f"FAIL: nvcc {source}.cu {defines[name]}:\n{log}")
         lib = ctypes.CDLL(str(out))
-        lib.tkq_qmm.argtypes = _ARGTYPES
-        lib.tkq_qmm.restype = ctypes.c_int
+        getattr(lib, fn).argtypes = argtypes or _ARGTYPES
+        getattr(lib, fn).restype = ctypes.c_int
         lib.tkq_error_string.argtypes = [ctypes.c_int]
         lib.tkq_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -217,10 +231,72 @@ def gate_up_sweep(smoke, dev) -> list:
     return out
 
 
+# (label, qk kind, v kind as chip_smoke._rand_weights names them, D, heads,
+# KV heads, head_dim, biases)
+ATTN_IN_SHAPES = (("tinyllama q4-sm + q6w-sp", "q4", "q6w", 2048, 32, 4, 64, False),
+                  ("tinyllama q8_0 q8-sp + q8-sp", "q8", "q8", 2048, 32, 4, 64, False),
+                  ("qwen2.5-1.5b + biases, hd 128", "q4", "q6w", 1536, 12, 2, 128, True),
+                  ("mixtral q4-f32 + q6w-f32", "q4f", "q6wf", 4096, 32, 8, 128, False),
+                  ("mixtral q4-sm + q6w-sp", "q4", "q6w", 4096, 32, 8, 128, False))
+
+
+def attn_in_sweep(smoke, dev) -> list:
+    """Each case at every split count and ablation build, through the
+    wrapper with its library swapped for the variant's."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.ops import attn_in as ai
+    from tpu_kquant_torch.ops.qmm import SEGMENTS, gemv_smem_bytes, kernel_kind
+
+    splits = {f"splits {s}": [f"-DTKQ_AI_SPLITS={s}"] for s in (1, 2, 4, 8)}
+    abl = {name: [f"-DTKQ_GV_ABLATE={v}"] for name, v in ABLATIONS.items() if v}
+    abl.update({name: [f"-DTKQ_AI_ABLATE={v}"] for name, v in AI_ABLATIONS.items()})
+    libs = build_variants({**splits, **abl}, "attn_in", "tkq_attn_in", ai._ARGTYPES)
+    real_load = ai._build.load
+    out = []
+    rng = np.random.default_rng(3)
+    for label, kq, kv, D, H, Hkv, hd, biased in ATTN_IN_SHAPES:
+        mk = lambda: (smoke._rand_weights(rng, kq, (H + Hkv) * hd, D, dev),  # noqa: E731
+                      smoke._rand_weights(rng, kv, Hkv * hd, D, dev))
+        w0 = mk()
+        ws = smoke._rotation(w0, mk, sum(w.n_bytes for w in w0))
+        plan = ai.attn_in_plan(kernel_kind(w0[0]), kernel_kind(w0[1]), w0[0].shape[0],
+                               w0[1].shape[0], D)
+        nw = torch.rand(D, device=dev) + 0.5
+        bias = (torch.randn(w0[0].shape[0], device=dev), torch.randn(w0[1].shape[0], device=dev)) \
+            if biased else None
+        for R in (1, 16):
+            x = (torch.randn(R, D, device=dev) * 0.5).to(torch.bfloat16)
+            cos, sin = torch.rand(R, hd // 2, device=dev), torch.rand(R, hd // 2, device=dev)
+            run = lambda i: ai.fused_attn_in(x, nw, 1e-5, *ws[i % len(ws)], cos, sin,  # noqa: E731
+                                             hd, bias)
+            row = {"case": f"{label} R={R}", "plan": plan, "full ms": smoke.graph_ms(run, 40)}
+            for name, lib in libs.items():  # every split divides these shapes' chunks
+                if name.startswith("splits"):
+                    sp, nch = int(name.split()[1]), [D // (32 * SEGMENTS[w.kind]) for w in w0]
+                    if any(c % sp or c // sp < ai.ATTN_IN_WK or gemv_smem_bytes(
+                            kernel_kind(w), c // sp, R, halves=2) > SMEM_LIMIT
+                           for c, w in zip(nch, w0)):
+                        row[f"{name} ms"] = None  # a split the kernel does not take here
+                        continue
+                ai._build.load = lambda *a, lib=lib: lib
+                try:
+                    row[f"{name} ms"] = smoke.graph_ms(run, 40)
+                finally:
+                    ai._build.load = real_load
+            print(f"  attn_in {row['case']:36s} plan {plan}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row.items() if k.endswith("ms") and v is not None),
+                flush=True)
+            out.append(row)
+        del ws
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", required=True, help="JSON file the results go to")
-    for flag in ("ablate", "plan", "gate-up"):
+    for flag in ("ablate", "plan", "gate-up", "attn-in"):
         ap.add_argument(f"--{flag}", action="store_true")
     args = ap.parse_args()
     import torch
@@ -238,6 +314,8 @@ def main() -> int:
         res["plan"] = plan_sweep(smoke, dev)
     if args.gate_up:
         res["gate_up"] = gate_up_sweep(smoke, dev)
+    if args.attn_in:
+        res["attn_in"] = attn_in_sweep(smoke, dev)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     print(f"== gemv_sweep done [{smoke.gpu_line()}]", flush=True)

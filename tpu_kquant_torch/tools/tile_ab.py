@@ -36,7 +36,10 @@ shapes. Measured, each on the card with its name and power limit:
   check_decode_attn: graph and eager ms, plain, SDPA, the bound, the error
   per row).
 The sections are qmm, prefill, tiny, tick, mixtral, gemv, int8, fused and
-decode; ``--skip`` leaves some out.
+decode; ``--skip`` leaves some out. ``--profile DIR`` also runs
+chip_smoke.py's profile_steps on TinyLlama-1.1B (one pp512 prefill and 8
+decode steps under torch.profiler at 704 slots: busy shares logged, kernel
+tables into DIR/profile_*_TAG.txt).
 So one call can time a parent's checkout and this one in turns (parent,
 change, change, parent):
 
@@ -182,6 +185,8 @@ def main() -> int:
     ap.add_argument("--skip", default="",
                     help="comma list of: qmm, prefill, tiny, tick, mixtral, gemv, int8, fused, "
                          "decode")
+    ap.add_argument("--profile", type=Path, metavar="DIR",
+                    help="also profile TinyLlama's pp512 prefill and 8 decode steps")
     ap.add_argument("--tile-nosplit", action="store_true",
                     help="time the tile plan of one split at every R (a candidate plan)")
     args = ap.parse_args()
@@ -231,9 +236,14 @@ def main() -> int:
         for c in res["prefill"]:
             print(f"  prefill {c['case']:70s} {c['ms'] * 1e3:9.2f} us  SDPA "
                   f"{c['library_ms'] * 1e3:9.2f} us  row rel err {c['rel_err']:.2e}", flush=True)
-    if not {"tiny", "tick"} <= skip:
+    if not {"tiny", "tick"} <= skip or args.profile:
         cfg, params = _fixture(tinyllama_1b_config(), fx / "tinyllama-1.1b-q4_k_m-seed0.gguf",
                                dev)
+        if args.profile:
+            eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev)
+            tag = "".join(c if c.isalnum() else "_" for c in args.tag)
+            smoke.profile_steps(eng, cfg, dev, args.profile, tag=f"_{tag}")
+            del eng
         rng = np.random.default_rng(2)
         if "tiny" not in skip:
             for n, max_seq in ((512, 704), (2048, 2240)):
