@@ -29,16 +29,19 @@ Phases, each fatal on failure:
     down and Mixtral's expert gate/up and down (TILE_CASES); the gate/up
     phase of the fused FFN kernels alone at every kind their gates take
     (TinyLlama's w_gateup, R = 1 and 8, listed with ffn's cases and timed
-    beside each oproj_ffn and ffn case); then the batch-invariance check
+    beside each oproj_ffn and ffn case); the attention phase of attn_out
+    and layer alone at each of their phase-3 shapes (listed with their
+    cases, SDPA with GQA as the library call); then the batch-invariance check
     (fatal): rows of the GEMV paths at R = 16 and 32 against each row
     alone, the tile's 64-row blocks of a 16 x 64 burst against the 64-row
     calls, the flash decode's rows at B = 16 and 1024, attn_in's at
     TinyLlama, Qwen2.5, Mixtral on f32 scales and Q8_0 (its kernel's K split
     held to the host's attn_in_plan) and the plain decode attention's at 16
     and 32 rows of 128 slots (bf16 and int8 KV, the deferred append on and
-    off) against each row alone, bit for bit (tolerance 2e-2 of max|ref|;
-    qmm_int8 1e-3; the attention kernels 2e-2 of each output row's own
-    max|ref|), and time the kernel and the plain version; as yardsticks the
+    off), attn_out's at B = 16 (bf16 and int8 KV) and layer's at B = 4,
+    ragged positions, against each row alone, bit for bit (tolerance 2e-2
+    of max|ref|; qmm_int8 1e-3; the attention kernels 2e-2 of each output
+    row's own max|ref|), and time the kernel and the plain version; as yardsticks the
     port never calls, qmm's ``library_ms`` is torch.matmul on the
     pre-dequantized weight in the activations' dtype, the attention
     kernels' scaled_dot_product_attention on bf16 (int8 on the dequantized
@@ -637,8 +640,8 @@ def check_batch_invariance(dev, rng) -> int:
     ops/attn_in.py:attn_in_plan at every pair of slot kinds; the plain
     decode attention (ops/attention.py:attention_plain, the serving cell's
     16 slots of 128 at TinyLlama's heads) on bf16 and int8 KV, with the
-    deferred append on and off. Fatal; returns the number of cases
-    checked."""
+    deferred append on and off; then check_fused_invariance (attn_out and
+    layer). Fatal; returns the number of cases checked."""
     import torch
 
     from tpu_kquant_torch.ops import attn_in as attn_in_mod
@@ -792,11 +795,88 @@ def check_batch_invariance(dev, rng) -> int:
         n += 1
         del q, k, v, scales
         torch.cuda.empty_cache()
+    n += check_fused_invariance(dev, rng)
     log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in at TinyLlama, "
         f"Qwen2.5, Mixtral f32 and Q8_0 and its split plan, oproj_ffn, ffn, the plain decode "
         f"attention): every row at R in {INVARIANCE_ROWS} equals the row computed alone; qmm's tile: "
         f"every 64-row block of a 16 x 64 burst equals its 64-row call; flash decode: rows at "
-        f"B = 16 and 1024 equal the row alone (torch.equal)")
+        f"B = 16 and 1024 equal the row alone; attn_out at B = 16 and layer at B = 4, ragged "
+        f"positions: every row equals the row alone (torch.equal)")
+    return n
+
+
+def check_fused_invariance(dev, rng) -> int:
+    """The opt-in fusions' paths (b) and (c) at TinyLlama's shapes and
+    ragged positions: attn_out (#10) at B = 16 on bf16 and int8 KV (its
+    output and head outputs), layer (#11) at B = 4 on f32 scales (y, k_new,
+    v_new and the head outputs) on 704 and 2048 slots; each row of the call
+    must equal, bit for bit, that row computed alone. Fatal; returns the
+    number of cases checked."""
+    import torch
+
+    from tpu_kquant_torch.models.config import RopeParams
+    from tpu_kquant_torch.ops.attn_out import fused_attn_out
+    from tpu_kquant_torch.ops.layer import fused_layer
+    from tpu_kquant_torch.ops.rope import rope_cos_sin
+
+    n = 0
+
+    def same_as_alone(label, fn, B, *xs):
+        nonlocal n
+        full = fn(*(x[:B] for x in xs))
+        bad = [r for r in range(B) if not all(
+            torch.equal(a[r:r + 1], o) for a, o in zip(full, fn(*(x[r:r + 1] for x in xs))))]
+        if bad:
+            raise SystemExit(f"FAIL: batch invariance: {label}: rows {bad[:8]} of B = {B} differ "
+                             f"from the row alone")
+        n += 1
+
+    dim, (H, Hkv, hd), F = 2048, TINY_HEADS, 5632
+    g = torch.Generator(device=dev).manual_seed(6)
+    S_ = FUSED_S
+    ragged = torch.tensor([1, 255, 256, 700, 0, 63, 64, 703] + [40 + 41 * i for i in range(8)],
+                          device=dev)[:, None]
+    wo = _rand_weights(rng, "q6wf", dim, H * hd, dev)
+    x16 = torch.randn(16, 1, dim, device=dev, generator=g).to(torch.bfloat16)
+    q16 = torch.randn(16, 1, H, hd, device=dev, generator=g).to(torch.bfloat16)
+    for int8 in (False, True):
+        if int8:
+            k, v = (torch.randint(-127, 128, (16, Hkv, S_, hd), device=dev, generator=g,
+                                  dtype=torch.int8) for _ in range(2))
+            ks, vs = (torch.rand(16, Hkv, S_, device=dev, generator=g) * 0.02 + 0.001
+                      for _ in range(2))
+        else:
+            k, v = (torch.randn(16, Hkv, S_, hd, device=dev, generator=g).to(torch.bfloat16)
+                    for _ in range(2))
+            ks = vs = torch.ones(16, Hkv, S_, device=dev)
+
+        def attn_out(x_, q_, k_, v_, p_, a, b, int8=int8):
+            att = torch.empty(x_.shape[0], H * hd, dtype=torch.bfloat16, device=dev)
+            return fused_attn_out(x_, q_, k_, v_, p_, (a, b) if int8 else None, wo, att=att), att
+
+        same_as_alone(f"attn_out (TinyLlama, {'int8' if int8 else 'bf16'} KV, {S_} slots)",
+                      attn_out, 16, x16, q16, k, v, ragged, ks, vs)
+        del k, v, ks, vs
+    lw = [_rand_weights(rng, k_, N, K, dev) for k_, N, K in (
+        ("q4f", (H + Hkv) * hd, dim), ("q6wf", Hkv * hd, dim), ("q6wf", dim, H * hd),
+        ("q4f", 2 * F, dim), ("q6wf", dim, F))]
+    anw, fnw = (torch.rand(dim, device=dev, generator=g) + 0.5 for _ in range(2))
+    for positions, S_ in (((1, 255, 256, 700), FUSED_S), ((64, 1000, 1500, 2047), 2048)):
+        pos = torch.tensor(positions, device=dev)[:, None]
+        cos, sin = rope_cos_sin(pos, RopeParams(head_dim=hd, n_rot=hd))
+        x4 = (torch.randn(4, 1, dim, device=dev, generator=g) * 0.5).to(torch.bfloat16)
+        kc, vc = (torch.randn(4, Hkv, S_, hd, device=dev, generator=g).to(torch.bfloat16)
+                  for _ in range(2))
+
+        def layer(x_, p_, c_, s_, k_, v_):
+            att = torch.empty(x_.shape[0], H * hd, dtype=torch.bfloat16, device=dev)
+            return (*fused_layer(x_, p_, anw, fnw, 1e-5, *lw, c_, s_, k_, v_, H, Hkv, att=att),
+                    att)
+
+        same_as_alone(f"layer (TinyLlama, f32 scales, positions {list(positions)}, {S_} slots)",
+                      layer, 4, x4, pos, cos, sin, kc, vc)
+        del kc, vc
+    del lw, wo
     return n
 
 
@@ -1110,18 +1190,71 @@ ATTN_OUT_CASES = (
 )
 FUSED_S = 704
 # layer (f32 scales, path (b)): the rows' positions and the cache's slots;
-# the last case splits the attention into 16 splits of 2 tiles
+# the last case splits the attention into 8 splits of 4 tiles
 LAYER_CASES = (((700,), FUSED_S), ((0,), FUSED_S), ((1,), FUSED_S), ((255,), FUSED_S),
                ((256,), FUSED_S), ((0, 255, 256, 700), FUSED_S), ((1, 255, 256, 700), FUSED_S),
                ((64, 1000, 1500, 2047), 2048))
 
 
-def _splits_note(B: int, Hkv: int, S: int) -> str:
+def _splits_note(S: int) -> str:
     """The attention phase's split over S at these shapes, for the log."""
-    from tpu_kquant_torch.ops.decode_attention import attn_splits
+    from tpu_kquant_torch.ops import decode_attention as da
 
-    tps, n = attn_splits(B, Hkv, S)
-    return f"{n} split{'s' if n > 1 else ''} of {tps} tile{'s' if tps > 1 else ''}"
+    if not hasattr(da, "fused_attn_plan"):  # an older package (tools/tile_ab.py --root)
+        return "the timed package's own split"
+    tps, n = da.fused_attn_plan(S)
+    return f"{n} split{'s' if n > 1 else ''} of {tps} tile{'s' if tps > 1 else ''}, one cluster"
+
+
+def attention_phase_case(label: str, q, k, v, qp, scales=None, kv_cur=None) -> dict:
+    """The attention phase of attn_out / layer alone (ops/decode_attention.py:
+    fused_attention) against its plain version, per (row, head): graph and
+    eager ms, the plain version, SDPA with GQA as the library call (int8 K/V
+    dequantized to bf16 and, with the current token, the cache with slot
+    q_pos holding it, both outside the timed call), and the bound of the
+    live cache slots, q, the current token and the head outputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_kquant_torch.ops import decode_attention as da
+
+    B, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    got = da.fused_attention(q, k, v, qp, scales, kv_cur)
+    torch.cuda.synchronize()
+    if kv_cur is None:
+        plain = lambda i: da.decode_attention_plain(q[:, None], k, v, qp, scales)  # noqa: E731
+        live = float((qp.long() + 1).sum().item())
+        kb, vb = k, v
+        if scales is not None:
+            kb = (k.float() * scales[0][..., None]).to(torch.bfloat16)
+            vb = (v.float() * scales[1][..., None]).to(torch.bfloat16)
+        extra = 0.0
+    else:
+        plain = lambda i: da.attend_with_current(q, k, v, qp, *kv_cur)  # noqa: E731
+        live = float(qp.long().sum().item())
+        rows = torch.arange(B, device=q.device)
+        kb, vb = k.clone(), v.clone()
+        kb[rows, :, qp[:, 0]] = kv_cur[0]
+        vb[rows, :, qp[:, 0]] = kv_cur[1]
+        extra = 2.0 * 2 * B * Hkv * D
+    ref = plain(0).reshape(B, H, D)
+    kv_bytes = 2 * (D * k.element_size() + (4 if scales is not None else 0))
+    nb = 2 * 2.0 * B * H * D + 4 * B + live * Hkv * kv_bytes + extra
+    b, by = bound_ms(nb, 4.0 * (live + (B if kv_cur is not None else 0)) * H * D)
+    mask = (torch.arange(S, device=q.device)[None, :] <= qp)[:, None, None, :]
+    sdpa = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], kb, vb, attn_mask=mask, enable_gqa=True)
+    run = lambda i: da.fused_attention(q, k, v, qp, scales, kv_cur)  # noqa: E731
+    out = {"case": f"attention phase alone: {label}",
+           "max_abs_err": _err(got.reshape(B, H, D), ref)[0],
+           "rel_err": row_rel_err(got.reshape(B, H, D), ref),
+           "library_rel_err": row_rel_err(sdpa(0).reshape(B, H, D), ref),
+           "ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
+           "plain_ms": graph_ms(plain, 4, 3), "library_ms": graph_ms(sdpa, 32),
+           "bound_ms": b, "bound_by": by, "att_splits": _splits_note(S)}
+    del kb, vb
+    return out
 
 
 def check_fused_decode(dev, rng) -> dict:
@@ -1134,10 +1267,14 @@ def check_fused_decode(dev, rng) -> dict:
     weights). The outputs are held per output row (row_rel_err), layer's
     k_new / v_new too, and so is the attention phase of attn_out and layer
     on its own: its bf16 head outputs (the kernels' scratch, through the
-    wrappers' `att`) against the plain attention, per (row, head)."""
+    wrappers' `att`) against the plain attention, per (row, head). After
+    each kernel's fused cases, the attention phase alone
+    (attention_phase_case) at each of attn_out's (B, positions, KV dtype)
+    and at each LAYER_CASES case."""
     import torch
 
     from tpu_kquant_torch.models.config import RopeParams
+    from tpu_kquant_torch.ops import decode_attention as decode_attention_mod
     from tpu_kquant_torch.ops.attn_out import attn_out_plain, attn_out_supported, fused_attn_out
     from tpu_kquant_torch.ops.kv_append import kv_append, kv_append_plain
     from tpu_kquant_torch.ops.layer import fused_layer, layer_plain, layer_supported
@@ -1185,7 +1322,12 @@ def check_fused_decode(dev, rng) -> dict:
             "library_ms": graph_ms(index_put, 16), "bound_ms": b, "bound_by": by})
         del kc, vc, k1, v1
 
-    # attn_out: q as a slice of attn_in's qk row; the cache a layer view
+    # attn_out: q as a slice of attn_in's qk row; the cache a layer view;
+    # the attention phase alone at each of its shapes (where the timed
+    # package has the entry point), listed after the fused cases
+    phase_alone = hasattr(decode_attention_mod, "fused_attention")
+    phases: dict = {"attn_out": [], "layer": []}
+    seen: set = set()
     for label, B, pos, int8, wk in ATTN_OUT_CASES:
         mk = lambda: _rand_weights(rng, wk, dim, H * hd, dev)  # noqa: E731
         w0 = mk()
@@ -1220,12 +1362,17 @@ def check_fused_decode(dev, rng) -> dict:
         out["attn_out"].append({
             "case": label, "max_abs_err": ad,
             "rel_err": max(row_rel_err(got[:, 0], ref[:, 0]), att_rel), "att_rel_err": att_rel,
-            "att_splits": _splits_note(B, Hkv, FUSED_S),
+            "att_splits": _splits_note(FUSED_S),
             "ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
             "plain_ms": graph_ms(lambda i: attn_out_plain(x, q, k, v, qp, sc, w0), 4, 3),
             "library_ms": None,
             "matmul_ms": graph_ms(lambda i: torch.matmul(att, wd[i % len(wd)]), 32),
             "bound_ms": b, "bound_by": by})
+        if phase_alone and (B, pos, int8) not in seen:
+            seen.add((B, pos, int8))
+            phases["attn_out"].append(attention_phase_case(
+                f"B={B} pos {pos - 15}-{pos} {'int8' if int8 else 'bf16'} KV", q[:, 0], k, v, qp,
+                sc))
         del ws, wd, kc, vc
 
     # layer: f32 scales (the load path (b) runs), wo q6w as the fixture's
@@ -1264,15 +1411,23 @@ def check_fused_decode(dev, rng) -> dict:
         out["layer"].append({
             "case": f"B={B} positions {list(positions)}, S {S}, f32 scales",
             "max_abs_err": max(e[0] for e in errs), "rel_err": rel, "att_rel_err": att_rel,
-            "att_splits": _splits_note(B, Hkv, S),
+            "att_splits": _splits_note(S),
             "ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
             "plain_ms": graph_ms(lambda i: layer_plain(x, pos, anw, fnw, 1e-5, *w0, *args), 4, 3),
             "library_ms": None,
             "matmul_ms": graph_ms(lambda i: [torch.matmul(a, w) for a, w in
                                              zip(xs, wd[i % len(wd)])], 32),
             "bound_ms": b, "bound_by": by})
+        if phase_alone:  # q and the current k as slices of a qk row, as attn_in leaves them
+            qk = randn(B, n0)
+            cur = (qk[:, H * hd:].reshape(B, Hkv, hd), randn(B, Hkv, hd))
+            phases["layer"].append(attention_phase_case(
+                f"B={B} positions {list(positions)}, S {S}, the current token",
+                qk[:, : H * hd].reshape(B, H, hd), kc[1], vc[1], pos, kv_cur=cur))
         del kc, vc
     del ws, wd
+    for name, rows in phases.items():
+        out[name] += rows
 
     # rot: oproj_ffn's weights as the fixture's (wo q6w), the next layer's
     # wqk q4 and wv q6w, on bf16 pairs (path (a)) and f32 scales

@@ -1008,9 +1008,58 @@ def test_attn_out_kernel_matches_plain(card, B, pos, int8, wo_kind):
     assert t_ao.counter.launches == launches + 1
     ref = t_ao.attn_out_plain(x, q, k, v, qp, scales, wo, att=att_ref)
     assert _row_rel(got.reshape(B, D), ref.reshape(B, D)) < TOL
-    # the attention phase alone (split over S: B = 1 in 11 splits of one
-    # tile, B = 16 in 4 splits of 3 tiles), per row and head
+    # the attention phase alone (6 splits of 2 tiles in a cluster), per row
+    # and head, and the same bits as the phase's own entry point
     assert _row_rel(att.reshape(B, H, hd), att_ref.reshape(B, H, hd)) < TOL
+    assert torch.equal(att, t_decode.fused_attention(q[:, 0], k, v, qp, scales))
+
+
+# the attention phase of attn_out / layer alone (ops/decode_attention.py:
+# fused_attention): (B, S, H, Hkv, hd, positions, int8 KV, the current token)
+FUSED_ATTN_CASES = {
+    "attn_out B=1 pos 700": (1, 704, 32, 4, 64, [700], False, False),
+    "attn_out B=16 int8 ragged": (16, 704, 32, 4, 64, list(range(0, 704, 44)), True, False),
+    "attn_out hd 128 GQA 6": (2, 512, 12, 2, 128, [37, 511], False, False),
+    "attn_out hd 128 int8 GQA 16": (2, 2048, 32, 2, 128, [0, 2047], True, False),
+    "layer B=4 ragged": (4, 704, 32, 4, 64, [0, 1, 255, 700], False, True),
+    "layer S 100": (4, 100, 16, 4, 64, [0, 63, 64, 99], False, True),
+    "layer hd 128 S 2048": (2, 2048, 12, 2, 128, [64, 2047], False, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FUSED_ATTN_CASES))
+def test_fused_attention_kernel_matches_plain(card, case):
+    B, S, H, Hkv, hd, positions, int8, self_ = FUSED_ATTN_CASES[case]
+    g = torch.Generator(device=card).manual_seed(S + B)
+    q = torch.randn(B, H, hd, device=card, generator=g).to(torch.bfloat16)
+    if int8:
+        k, v = (torch.randint(-127, 128, (B, Hkv, S, hd), device=card, generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        scales = tuple(torch.rand(B, Hkv, S, device=card, generator=g) * 0.02 + 0.001
+                       for _ in range(2))
+    else:
+        k, v = (torch.randn(B, Hkv, S, hd, device=card, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        scales = None
+    cur = tuple(torch.randn(B, Hkv, hd, device=card, generator=g).to(torch.bfloat16)
+                for _ in range(2)) if self_ else None
+    qp = torch.tensor(positions, device=card)[:, None]
+    launches = t_decode.fused_counter.launches
+    got = t_decode.fused_attention(q, k, v, qp, scales, cur)
+    torch.cuda.synchronize()
+    assert t_decode.fused_counter.launches == launches + 1
+    if self_:
+        ref = t_decode.attend_with_current(q, k, v, qp, *cur)
+    else:
+        ref = t_decode.decode_attention_plain(q[:, None], k, v, qp, scales)
+    assert _row_rel(got.reshape(B, H, hd), ref.reshape(B, H, hd)) < TOL
+    # row b alone gives the same bits
+    row = lambda ts, b: None if ts is None else tuple(t[b:b + 1] for t in ts)  # noqa: E731
+    for b in range(B):
+        one = t_decode.fused_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], qp[b:b + 1],
+                                       row(scales, b), row(cur, b))
+        assert torch.equal(one, got[b:b + 1])
 
 
 def _layer_weights(rng, card):
@@ -1051,8 +1100,8 @@ def test_layer_kernel_matches_plain(card, positions, S):
     ref = t_layer.layer_plain(x, pos, anw, fnw, 1e-5, *ws, cos, sin, kc, vc, H, Hkv, att=att_ref)
     for a, b in zip(got, ref):
         assert a.shape == b.shape and _row_rel(a.reshape(B, -1), b.reshape(B, -1)) < TOL
-    # the attention phase alone (S = 2048 at B = 4: 16 splits of 2 tiles),
-    # per row and head
+    # the attention phase alone (S = 2048: 8 splits of 4 tiles in a
+    # cluster), per row and head
     assert _row_rel(att.reshape(B, H, hd), att_ref.reshape(B, H, hd)) < TOL
 
 

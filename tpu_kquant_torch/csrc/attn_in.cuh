@@ -292,6 +292,9 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
 // diverge and every rank reaches the same barriers.
 template <int NT>
 __global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) attn_in_kernel(AttnInArgs a) {
+  // a programmatic dependent (layer.cu's attention) may start now: it waits
+  // for this grid's end before it reads qk / v
+  asm volatile("griddepcontrol.launch_dependents;");
   if constexpr (TKQ_AI_ABLATE == 3) return;
   extern __shared__ __align__(16) uint8_t ai_smem[];
   __shared__ float rstd[8 * NT], red[8 * NT * (GV_THREADS / 32)];

@@ -38,48 +38,19 @@
 //   with 16-byte cp.async by every thread; tile t + 1 and t + 2 are in
 //   flight while tile t is computed. int8 codes and their scales come in
 //   raw and are turned into bf16 in registers as the fragments are built.
-// - Tensor cores, mma.sync.m16n8k16 bf16 (wgmma needs a 64-row M, which
-//   would waste 4-8x at G <= 16 query rows): warp w takes slots [16 w,
-//   16 w + 16) of each tile. QK^T: A = the G query rows of the KV head,
-//   padded to 16 (registers, loaded once), B = 16 K slots (two n-tiles).
-//   The softmax runs on the accumulator fragments (row max and sum by quad
-//   shuffles), and P is re-packed from the C fragment into the A fragment
-//   of P V in registers; V's B fragments come from ldmatrix.trans (bf16)
-//   or from 4-byte loads of four slots' codes (int8). Each warp keeps its
-//   own m, l and accumulator over its slots; at the end of the split the
-//   four are rescaled to their common max, in warp order, through shared
-//   memory.
+// - Tensor cores: decode_attn.cuh's core (mma.sync.m16n8k16 bf16, the
+//   softmax on the accumulator fragments). Each warp keeps its own m, l
+//   and accumulator over its slots; at the end of the split the four are
+//   rescaled to their common max, in warp order, through shared memory.
 // - Units overlap: the next unit's first two tiles are loaded while the
 //   current unit's last tile is computed, and the ring's stages roll on
 //   from unit to unit, so a short context (the serving cell's 1-2 tiles a
 //   row) keeps loads in flight across its units.
-// - Staged rows are padded (bf16: 2 D + 16 bytes; int8: D + 16) so that
-//   ldmatrix's eight 16-byte rows, the int8 K words of eight slots and the
-//   int8 V words of four slots fall on distinct banks.
-// - int8 K fragments take the K axis in the order 16 ks + 4 t + (0..3) (one
-//   4-byte word a lane), and q's A fragment the same order; a dot product
-//   does not depend on it.
-//
-// attn_out.cu (#10) and layer.cu (#11) keep decode_attn.cuh's CUDA-core
-// kernel (their current-token variant and their few-row splits).
-#include "common.cuh"
-#include "hopper.cuh"
-
-// Ablation builds (tools/decode_sweep.py --ablate; never the library's own
-// build): 1 = no mma (its operands folded into the accumulator by integer
-// ops), 2 = no ring (each tile loaded and waited for before it is
-// computed), 3 = the loads alone (the tiles land; nothing is computed).
-#ifndef TKQ_FD_ABLATE
-#define TKQ_FD_ABLATE 0
-#endif
+// decode_attn.cuh also holds the few-row kernel of attn_out.cu (#10) and
+// layer.cu (#11) on the same core; tkq_fused_attn below runs it alone.
+#include "decode_attn.cuh"
 
 namespace tkq {
-
-constexpr int FD_TS = 64;  // cache slots a tile
-constexpr int FD_WARPS = 4;
-constexpr int FD_THREADS = FD_WARPS * 32;
-constexpr int FD_STAGES = 3;
-constexpr float FD_NEG = -1e30f;
 
 struct FlashDecodeArgs {
   const __nv_bfloat16* q;  // [B, H, D]: row b at b * sqb, heads dense (stride D)
@@ -103,204 +74,6 @@ struct FlashDecodeArgs {
   int* items;   // [B * splits] the work list (decode_plan_items), then its
   int* n_items; // length and the next (item, KV head) unit to hand out
 };
-
-template <int D, bool I8>
-struct FdGeom {
-  static constexpr int ROW = D * (I8 ? 1 : 2);    // bytes of a cache row
-  static constexpr int PITCH = ROW + 16;          // bytes of a staged row
-  static constexpr int KV = FD_TS * PITCH;        // K (or V) of one tile
-  static constexpr int STAGE = 2 * KV + (I8 ? 2 * FD_TS * 4 : 0);
-  // the combine's m, l and 32-column chunk of the four warps' accumulators
-  static constexpr int COMBINE = FD_WARPS * 16 * (2 + 33) * 4;
-  static_assert(COMBINE <= STAGE, "the combine takes one ring stage");
-  static constexpr int SMEM = FD_STAGES * STAGE;
-};
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void fd_mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  if constexpr (TKQ_FD_ABLATE == 1) {
-    d[0] = __uint_as_float(__float_as_uint(d[0]) ^ a[0] ^ b0);
-    d[1] = __uint_as_float(__float_as_uint(d[1]) ^ a[1] ^ b1);
-    d[2] = __uint_as_float(__float_as_uint(d[2]) ^ a[2]);
-    d[3] = __uint_as_float(__float_as_uint(d[3]) ^ a[3]);
-    return;
-  }
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the signed bytes J0 (low half) and J1 of u ^ 0x80808080 (the codes + 128)
-// as a bf16x2, exactly: each byte is placed in the mantissa of 2^23 and the
-// offset subtracted in f32
-template <int J0, int J1>
-__device__ __forceinline__ uint32_t i8_bf16x2(uint32_t u) {
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, J0 | 0x7440)) - 8388736.f;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, J1 | 0x7440)) - 8388736.f;
-  return pack_bf16(f0, f1);
-}
-
-// Copy tile t (slots 64 t ...) of the row's K and V (and their scales) into
-// a ring stage: 16 bytes a copy, every thread.
-template <int D, bool I8>
-__device__ __forceinline__ void fd_load(uint32_t st, const FlashDecodeArgs& a, const uint8_t* kg,
-                                        const uint8_t* vg, const float* ksg, const float* vsg,
-                                        int t) {
-  using Gm = FdGeom<D, I8>;
-  constexpr int CPR = Gm::ROW / 16;
-  const size_t off = (size_t)t * FD_TS * Gm::ROW;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < FD_TS * CPR; i += FD_THREADS) {
-    const int r = i / CPR, c = (i % CPR) * 16;
-    cp_async16(st + r * Gm::PITCH + c, kg + off + (size_t)r * Gm::ROW + c);
-    cp_async16(st + Gm::KV + r * Gm::PITCH + c, vg + off + (size_t)r * Gm::ROW + c);
-  }
-  if constexpr (I8) {
-    if (threadIdx.x < 16)
-      cp_async16(st + 2 * Gm::KV + threadIdx.x * 16, ksg + t * FD_TS + threadIdx.x * 4);
-    else if (threadIdx.x < 32)
-      cp_async16(st + 2 * Gm::KV + FD_TS * 4 + (threadIdx.x - 16) * 16,
-                 vsg + t * FD_TS + (threadIdx.x - 16) * 4);
-  }
-}
-
-// One tile of the split (slots s0 .. s0 + 63) in ring stage st (stp: its
-// generic address) for the warp's 16 slots: the logits, the online
-// softmax on the fragments, and P V into o.
-template <int D, bool I8>
-__device__ __forceinline__ void fd_tile(uint32_t st, const uint8_t* stp, const FlashDecodeArgs& a,
-                                        int s0, int qp, const uint32_t (&qa)[D / 16][4],
-                                        float (&m)[2], float (&l)[2], float (&o)[D / 8][4]) {
-  using Gm = FdGeom<D, I8>;
-  constexpr int KS = D / 16, NT = D / 8;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const float* kss = reinterpret_cast<const float*>(stp + 2 * Gm::KV);
-  const float* vss = kss + FD_TS;
-  if constexpr (TKQ_FD_ABLATE == 3) {  // the loads alone: keep the tile's words live
-    o[0][0] += __uint_as_float(*reinterpret_cast<const uint32_t*>(stp + 4 * threadIdx.x) &
-                               0x007FFFFFu);
-    return;
-  }
-
-  // logits of the warp's 16 slots: s[j] = n-tile j (slots 16w + 8j ...)
-  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    if constexpr (I8) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const uint32_t w = *reinterpret_cast<const uint32_t*>(
-                               stp + (16 * warp + 8 * j + g) * Gm::PITCH + 16 * ks + 4 * t) ^
-                           0x80808080u;
-        fd_mma(s[j], qa[ks], i8_bf16x2<0, 1>(w), i8_bf16x2<2, 3>(w));
-      }
-    } else {
-      const int mi = lane / 8;
-      uint32_t kb[4];
-      ldsm_x4(kb, st + (16 * warp + (mi / 2) * 8 + lane % 8) * Gm::PITCH +
-                      (16 * ks + (mi % 2) * 8) * 2);
-      fd_mma(s[0], qa[ks], kb[0], kb[1]);
-      fd_mma(s[1], qa[ks], kb[2], kb[3]);
-    }
-  }
-  // online softmax on the fragments: e = 0, 1 row g, e = 2, 3 row g + 8
-  float mx[2] = {FD_NEG, FD_NEG};
-  bool live[2][4];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int slot = 16 * warp + 8 * j + 2 * t + (e & 1);
-      float x = s[j][e] * a.scale;
-      if constexpr (I8) x *= kss[slot];
-      live[j][e] = s0 + slot <= qp;
-      s[j][e] = live[j][e] ? x : FD_NEG;
-      mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-    }
-  float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float mn = fmaxf(m[h], mx[h]);
-    alpha[h] = expf(m[h] - mn);
-    m[h] = mn;
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = live[j][e] ? expf(s[j][e] - m[e / 2]) : 0.f;
-      rs[e / 2] += p;
-      s[j][e] = I8 ? p * vss[16 * warp + 8 * j + 2 * t + (e & 1)] : p;
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 1);
-    rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
-    l[h] = l[h] * alpha[h] + rs[h];  // the sum before the V scales
-  }
-  // P (bf16) as the A fragment of P V: k-slots 2t, 2t+1 (n-tile 0) and
-  // 2t+8, 2t+9 (n-tile 1) of rows g and g + 8
-  const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                          pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    o[n][0] *= alpha[0], o[n][1] *= alpha[0];
-    o[n][2] *= alpha[1], o[n][3] *= alpha[1];
-  }
-  if constexpr (I8) {
-    // rows 2t, 2t+1, 2t+8, 2t+9 of the warp's slots, columns 32h + 4g ..
-    // + 3: n-tile 4h + c serves column 32h + 4g + c to lane group g
-#pragma unroll
-    for (int h = 0; h < D / 32; ++h) {
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        w[e] = *reinterpret_cast<const uint32_t*>(
-                   stp + Gm::KV + (16 * warp + 2 * t + (e & 1) + 8 * (e / 2)) * Gm::PITCH +
-                   32 * h + 4 * g) ^
-               0x80808080u;
-      const uint32_t lo0 = __byte_perm(w[0], w[1], 0x5140), hi0 = __byte_perm(w[0], w[1], 0x7362);
-      const uint32_t lo1 = __byte_perm(w[2], w[3], 0x5140), hi1 = __byte_perm(w[2], w[3], 0x7362);
-      fd_mma(o[4 * h + 0], pa, i8_bf16x2<0, 1>(lo0), i8_bf16x2<0, 1>(lo1));
-      fd_mma(o[4 * h + 1], pa, i8_bf16x2<2, 3>(lo0), i8_bf16x2<2, 3>(lo1));
-      fd_mma(o[4 * h + 2], pa, i8_bf16x2<0, 1>(hi0), i8_bf16x2<0, 1>(hi1));
-      fd_mma(o[4 * h + 3], pa, i8_bf16x2<2, 3>(hi0), i8_bf16x2<2, 3>(hi1));
-    }
-  } else {
-    const int mi = lane / 8;
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t vb[4];
-      ldsm_x4_t(vb, st + Gm::KV + (16 * warp + (mi % 2) * 8 + lane % 8) * Gm::PITCH +
-                        8 * (n + mi / 2) * 2);
-      fd_mma(o[n], pa, vb[0], vb[1]);
-      fd_mma(o[n + 1], pa, vb[2], vb[3]);
-    }
-  }
-}
 
 // The work list: every live (row, split) pair, rows in order, splits in
 // order, as b * splits + z, and their count; a row's live splits are the
@@ -398,25 +171,13 @@ __global__ void __launch_bounds__(FD_THREADS) decode_attn_mma(const FlashDecodeA
     if (!ahead) {
 #pragma unroll
       for (int i = 0; i < AHEAD; ++i) {
-        if (i < u.nt) fd_load<D, I8>(ring + stage(sb + i), a, u.kg, u.vg, u.ksg, u.vsg, u.t0 + i);
+        if (i < u.nt) fd_load<D, I8>(ring + stage(sb + i), u.kg, u.vg, u.ksg, u.vsg, u.t0 + i);
         cp_commit();
       }
     }
 
-    // q's A fragments: rows g and g + 8 of the KV head's G query rows (zero
-    // past G); K axis 16 ks + (2t, 2t+1, 2t+8, 2t+9), int8: 16 ks + 4t + 0..3
     uint32_t qa[KS][4];
-    {
-      const __nv_bfloat16* q0 = a.q + (size_t)u.b * a.sqb + (size_t)u.hk * G * D;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const int d0 = I8 ? 16 * ks + 4 * t : 16 * ks + 2 * t, d1 = I8 ? d0 + 2 : d0 + 8;
-        qa[ks][0] = g < G ? *reinterpret_cast<const uint32_t*>(q0 + g * D + d0) : 0u;
-        qa[ks][1] = g + 8 < G ? *reinterpret_cast<const uint32_t*>(q0 + (g + 8) * D + d0) : 0u;
-        qa[ks][2] = g < G ? *reinterpret_cast<const uint32_t*>(q0 + g * D + d1) : 0u;
-        qa[ks][3] = g + 8 < G ? *reinterpret_cast<const uint32_t*>(q0 + (g + 8) * D + d1) : 0u;
-      }
-    }
+    fd_q_frags<D, I8>(qa, a.q + (size_t)u.b * a.sqb + (size_t)u.hk * G * D, G);
     float m[2] = {FD_NEG, FD_NEG}, l[2] = {0.f, 0.f};  // rows g, g + 8
     float o[NT][4];
 #pragma unroll
@@ -429,7 +190,7 @@ __global__ void __launch_bounds__(FD_THREADS) decode_attn_mma(const FlashDecodeA
       if constexpr (TKQ_FD_ABLATE == 2) {  // no ring: tile i alone in flight, then computed
         if (i > 0) {
           __syncthreads();
-          fd_load<D, I8>(ring + stage(sb + i), a, u.kg, u.vg, u.ksg, u.vsg, u.t0 + i);
+          fd_load<D, I8>(ring + stage(sb + i), u.kg, u.vg, u.ksg, u.vsg, u.t0 + i);
           cp_commit();
         }
         cp_wait<0>();
@@ -443,7 +204,7 @@ __global__ void __launch_bounds__(FD_THREADS) decode_attn_mma(const FlashDecodeA
           if (next < n_units) v = fd_unit<I8>(a, next);
         }
         if (i + AHEAD < u.nt) {
-          fd_load<D, I8>(ring + stage(sb + i + AHEAD), a, u.kg, u.vg, u.ksg, u.vsg,
+          fd_load<D, I8>(ring + stage(sb + i + AHEAD), u.kg, u.vg, u.ksg, u.vsg,
                          u.t0 + i + AHEAD);
           cp_commit();
         } else if (i == u.nt - 1 && next < n_units) {
@@ -452,7 +213,7 @@ __global__ void __launch_bounds__(FD_THREADS) decode_attn_mma(const FlashDecodeA
 #pragma unroll
           for (int j = 0; j < AHEAD; ++j) {
             if (j < v.nt)
-              fd_load<D, I8>(ring + stage(sb + u.nt + j), a, v.kg, v.vg, v.ksg, v.vsg, v.t0 + j);
+              fd_load<D, I8>(ring + stage(sb + u.nt + j), v.kg, v.vg, v.ksg, v.vsg, v.t0 + j);
             cp_commit();
           }
           ahead = true;
@@ -460,8 +221,8 @@ __global__ void __launch_bounds__(FD_THREADS) decode_attn_mma(const FlashDecodeA
           cp_commit();
         }
       }
-      fd_tile<D, I8>(ring + stage(sb + i), fd_smem + stage(sb + i), a, (u.t0 + i) * FD_TS,
-                     u.qp, qa, m, l, o);
+      fd_tile<D, I8>(ring + stage(sb + i), fd_smem + stage(sb + i), a.scale,
+                     (u.t0 + i) * FD_TS, u.qp + 1, qa, m, l, o);
     }
     __syncthreads();  // the last tile is consumed: its stage takes the warps' states
 
@@ -474,14 +235,11 @@ __global__ void __launch_bounds__(FD_THREADS) decode_attn_mma(const FlashDecodeA
     }
 #pragma unroll
     for (int c = 0; c < D / 32; ++c) {
-      // n-tiles 4c .. 4c + 3 hold columns 32c .. 32c + 31 in both layouts
 #pragma unroll
       for (int n = 4 * c; n < 4 * c + 4; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = I8 ? 8 * t + 4 * (e & 1) + n % 4 : 8 * (n % 4) + 2 * t + (e & 1);
-          co[(warp * 16 + g + 8 * (e / 2)) * CP + col] = o[n][e];
-        }
+        for (int e = 0; e < 4; ++e)
+          co[(warp * 16 + g + 8 * (e / 2)) * CP + fd_out_col<I8>(n, t, e) - 32 * c] = o[n][e];
       __syncthreads();
       for (int i = threadIdx.x; i < G * 32; i += FD_THREADS) {
         const int r = i / 32, col = 32 * c + i % 32;
@@ -596,4 +354,29 @@ extern "C" int tkq_decode_attn(int kv_i8, int D, const void* q, long long sqb, c
   if (D == 128) return (int)(kv_i8 ? launch_flash_decode<128, true>(a, st)
                                    : launch_flash_decode<128, false>(a, st));
   return (int)cudaErrorInvalidValue;
+}
+
+// The few-row attention of attn_out (#10) and layer (#11) alone
+// (decode_attn.cuh:fused_attn_kernel), for timing and checks: as
+// tkq_decode_attn for q and the cache, q_pos int64 [B]; with kn / vn (bf16, row
+// strides sknb / svnb, heads dense) it is layer's variant (slots < q_pos
+// plus the current token, bf16 KV), else attn_out's (slots <= q_pos); out:
+// bf16 [B, H * D]; tps tiles a split, splits = ceil(ceil(S / 64) / tps) <= 8
+// (ops/decode_attention.py:fused_attn_plan). Returns the CUDA error code.
+extern "C" int tkq_fused_attn(int kv_i8, int D, const void* q, long long sqb, const void* k,
+                              long long skb, long long skh, const void* v, long long svb,
+                              long long svh, const float* ks, long long sksb, long long sksh,
+                              const float* vs, long long svsb, long long svsh,
+                              const long long* q_pos,
+                              const void* kn, long long sknb, const void* vn, long long svnb,
+                              void* out, int B, int H, int Hkv, int S, float scale, int tps,
+                              int splits, void* stream) {
+  const FusedAttnArgs a{static_cast<const __nv_bfloat16*>(q), sqb, k, skb, skh, v, svb, svh,
+                        ks, sksb, sksh, vs, svsb, svsh, q_pos,
+                        static_cast<const __nv_bfloat16*>(kn), sknb,
+                        static_cast<const __nv_bfloat16*>(vn), svnb,
+                        static_cast<__nv_bfloat16*>(out), B, H, Hkv, S, scale, tps, splits};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(kn != nullptr ? launch_fused_attn<true>(a, D, kv_i8, st)
+                             : launch_fused_attn<false>(a, D, kv_i8, st));
 }

@@ -186,7 +186,8 @@ inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, int splits, cud
 // reference's attn_out and layer kernels do) -> x2; (B) gate/up on x2 ->
 // act; (C) the down GEMV on act, whose epilogue adds x2 -> out [R, dim].
 // ws: f32 scratch of max(splits_o * R * dim, splits_g * R * 2F, splits_d *
-// R * dim) floats, used by one phase at a time.
+// R * dim) floats, used by one phase at a time. pdl: the o_proj GEMV is a
+// programmatic dependent of the kernel that writes attn (GemvArgs.pdl).
 inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
                                     int wo_kind, const void* wo_qs, const void* wo_scl,
                                     const void* wo_mins, int gu_kind, const void* gu_qs,
@@ -194,11 +195,13 @@ inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float
                                     const void* dn_qs, const void* dn_scl, void* x2, void* act,
                                     float* ws, void* out, int R, int dim, int K, int F,
                                     int cps_o, int splits_o, int cps_g, int splits_g, int cps_d,
-                                    int splits_d, int round_first, cudaStream_t st) {
+                                    int splits_d, int round_first, cudaStream_t st,
+                                    int pdl = 0) {
   GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_scl),
               R, dim, K, cps_o, ws, x2, 0, static_cast<const __nv_bfloat16*>(x),
               static_cast<const uint32_t*>(wo_mins)};
   ao.round_first = round_first;
+  ao.pdl = pdl;
   cudaError_t e = launch_gemv_kind(wo_kind, ao, splits_o, st);
   if (e != cudaSuccess) return e;
   const auto* x2b = static_cast<const __nv_bfloat16*>(x2);

@@ -92,6 +92,10 @@ struct GemvArgs {
   const uint32_t* mins;      // f32 mins [K/g, N] (KQ4F and the f32 bit-plane kinds)
   const uint8_t* qh = nullptr;  // high bit planes (q5, q6, q3)
   int round_first = 0;          // store_out: round acc to bf16 before adding res
+  // launched as a programmatic dependent of the kernel before it on the
+  // stream: its blocks may start (and load their first chunk) while that
+  // kernel runs, and wait for it to end before reading x
+  int pdl = 0;
 };
 
 // bf16 elements a staged x row takes for `span` elements: a multiple of 64
@@ -703,6 +707,7 @@ __global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) gemv_kernel(GemvA
   } else if (wk < nch) {
     gv_prefetch_planes<KIND>(a, c0 + wk, n, t);
   }
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // x is written (GemvArgs.pdl)
   gv_stage_x<KIND, NT>(xs, sums, a.x, a.x_f32, a.R, a.K, c0, nch, a.cps, XS);
   float acc[NT][4][4];
 #pragma unroll
@@ -747,9 +752,18 @@ cudaError_t launch_gemv_nt(const GemvArgs& a, int splits, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(gemv_kernel<KIND, NT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((a.N + GV_TN - 1) / GV_TN, splits);
-  gemv_kernel<KIND, NT><<<grid, GV_THREADS, smem, stream>>>(a);
-  e = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + GV_TN - 1) / GV_TN, splits);
+  cfg.blockDim = dim3(GV_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.pdl ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, gemv_kernel<KIND, NT>, a);
+  if (e == cudaSuccess) e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int RN = a.R * a.N;
   reduce_kernel<<<(RN + 255) / 256, 256, 0, stream>>>(a.ws, splits, RN, a.out, a.out_f32, a.res,

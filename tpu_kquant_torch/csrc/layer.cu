@@ -26,17 +26,19 @@
 // the phases are launches in order on the stream, each reusing a port
 // kernel, with the intermediates in small device buffers (a few KB, in L2):
 //   (QKV)   attn_in.cuh's kernel -> qk [R, (H + Hkv) hd] roped, v [R, Hkv hd];
-//   (ATT)   decode_attn.cuh's current-token kernel, split over S: one block
-//           per (KV head, row, split of tps tiles) over the cache tiles below
-//           q_pos, split 0 folding in the current k / v read from qk / v,
-//           then the combine launch -> att [R, H hd] bf16;
+//   (ATT)   decode_attn.cuh's few-row attention on #7's tensor-core core,
+//           its current-token variant: the cache tiles below q_pos, split
+//           by fused_attn_plan (S alone), the splits of a (KV head, row) one
+//           thread-block cluster that combines them over distributed shared
+//           memory in rank order and then folds in the current k / v read
+//           from qk / v -> att [R, H hd] bf16;
 //   (OPROJ, FFN) oproj_ffn's phases (gate_up.cuh:launch_oproj_ffn): the
 //           split-K GEMV over wo on att, whose epilogue rounds to bf16 and
 //           adds x (round_first) -> x2; gate/up on x2 -> act [R, F]; the
 //           split-K GEMV over w_down on act, whose epilogue adds x2 -> y.
-// Five launches (six with the attention split, up to eight where both GEMVs
-// split K): one C call per layer is what removes the host's per-kernel
-// cost; a persistent single launch with grid barriers is later work.
+// Five launches (up to seven where both GEMVs split K): one C call per
+// layer is what removes the host's per-kernel cost; a persistent single
+// launch with grid barriers is later work.
 #include "attn_in.cuh"
 #include "decode_attn.cuh"
 #include "gate_up.cuh"
@@ -48,10 +50,10 @@ using namespace tkq;
 // Hkv) hd, n1 = Hkv hd. *_kind: common.cuh's kind codes (KQ4, KQ4F, KQ6WF,
 // KQ8F; down KQ6WF or KQ8F), *_mins the f32 mins of a KQ4F weight (else
 // null). kc / vc: the layer's bf16 cache [R, Hkv, S, hd] with dense rows
-// (strides in elements), q_pos: int32 [R], slot q_pos[b] not yet written.
+// (strides in elements), q_pos: int64 [R], slot q_pos[b] not yet written.
 // ws: f32 scratch of max(splits_o * R * D, splits_g * R * 2F, splits_d * R *
-// D) floats; part: f32 scratch of R * H * attn_splits * (hd + 2) floats
-// (attention splits of tps tiles; unused with one split).
+// D) floats; the attention split: fa_splits of tps tiles
+// (fused_attn_plan).
 extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, float eps,
                          int qk_kind, const void* qk_qs, const void* qk_scl, const void* qk_mins,
                          int v_kind, const void* v_qs, const void* v_scl, const void* v_mins,
@@ -59,10 +61,10 @@ extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, floa
                          int gu_kind, const void* gu_qs, const void* gu_scl, const void* gu_mins,
                          int dn_kind, const void* dn_qs, const void* dn_scl, const float* cosv,
                          const float* sinv, const void* kc, long long skb, long long skh,
-                         const void* vc, long long svb, long long svh, const int* q_pos,
+                         const void* vc, long long svb, long long svh, const long long* q_pos,
                          void* qk, void* v, void* att, void* x2, void* act, float* ws, void* y,
                          int R, int D, int H, int Hkv, int hd, int S, int F, float scale,
-                         int tps, int attn_splits, float* part, int cps_o, int splits_o,
+                         int tps, int fa_splits, int cps_o, int splits_o,
                          int cps_g, int splits_g, int cps_d, int splits_d, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n0 = (H + Hkv) * hd, n1 = Hkv * hd;
@@ -89,16 +91,15 @@ extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, floa
   if (e != cudaSuccess) return (int)e;
 
   const auto* qkb = static_cast<const __nv_bfloat16*>(qk);
-  DecodeArgs da{qkb, n0, kc, skb, skh, vc, svb, svh, nullptr, 0, 0, nullptr, 0, 0, q_pos, att,
-                0, R, H, Hkv, S, scale};
-  da.kn = qkb + (size_t)H * hd, da.sknb = n0;
-  da.vn = static_cast<const __nv_bfloat16*>(v), da.svnb = n1;
-  da.tps = tps, da.part = part;
-  e = launch_decode_attn_self(da, hd, attn_splits, st);
+  const FusedAttnArgs da{qkb, n0, kc, skb, skh, vc, svb, svh, nullptr, 0, 0, nullptr, 0, 0,
+                         q_pos, qkb + (size_t)H * hd, n0, static_cast<const __nv_bfloat16*>(v),
+                         n1, static_cast<__nv_bfloat16*>(att), R, H, Hkv, S, scale, tps,
+                         fa_splits};
+  e = launch_fused_attn<true>(da, hd, 0, st, 1);
   if (e != cudaSuccess) return (int)e;
 
   return (int)launch_oproj_ffn(x, att, fnw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind,
                                gu_qs, gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y,
                                R, D, H * hd, F, cps_o, splits_o, cps_g, splits_g, cps_d,
-                               splits_d, 1, st);
+                               splits_d, 1, st, 1);
 }

@@ -28,8 +28,8 @@ import os
 import torch
 
 from tpu_kquant_torch.ops import _build
-from tpu_kquant_torch.ops.decode_attention import KERNEL_HEAD_DIMS, MAX_GROUP, \
-    attn_splits, decode_attention_plain
+from tpu_kquant_torch.ops.decode_attention import KERNEL_HEAD_DIMS, MAX_GROUP, check_cache, \
+    decode_attention_plain, fused_attn_plan
 from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind, packed_arrays, qmm_plain
 from tpu_kquant_torch.quant.qtensor import QTensor
 from tpu_kquant_torch.quant.repack import GROUP_SIZE
@@ -49,8 +49,8 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 #            kv_i8 D   q   sqb k   skb skh v   svb svh ks  ssb ssh vs  svsb svsh q_pos att
 _ARGTYPES = [_I, _I, _P, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _P,
-             # B H  Hkv S   scale tps splits part x  wo: kind qs scl mins ws  out dim cps
-             _I, _I, _I, _I, _F, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+             # B H  Hkv S   scale tps splits x  wo: kind qs scl mins ws  out dim cps
+             _I, _I, _I, _I, _F, _I, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I,
              # splits stream
              _I, _P]
 
@@ -130,16 +130,7 @@ def fused_attn_out(x: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.T
     req(k.dtype == v.dtype == (torch.int8 if quant else torch.bfloat16),
         f"attn_out: k/v dtype {k.dtype}/{v.dtype} with{'' if quant else 'out'} scales")
     req(q_positions.shape == (B, 1), "attn_out: q_positions must be [B, 1]")
-    esz = k.element_size()
-    for t in (k, v):
-        req(t.stride(3) == 1 and t.stride(2) == D, "attn_out: k/v rows must be dense [.., S, D]")
-        req(t.data_ptr() % 16 == 0 and t.stride(0) * esz % 16 == 0
-            and t.stride(1) * esz % 16 == 0, "attn_out: k/v must be 16-byte aligned")
-    if quant:
-        for t in kv_scales:
-            req(t.shape == (B, Hkv, S) and t.dtype == torch.float32 and t.stride(2) == 1
-                and t.device == x.device, "attn_out: scales must be f32 [B, Hkv, S], dense "
-                                          "along S")
+    check_cache("attn_out", k, v, kv_scales)
     wo_kind, (qs, _, scl, mins) = packed_arrays(wo, "attn_out")
     req(qs.device == x.device, "attn_out: wo must be on x's device")
     qb = q[:, 0].to(torch.bfloat16)
@@ -151,19 +142,17 @@ def fused_attn_out(x: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.T
         att = torch.empty((B, H * D), dtype=torch.bfloat16, device=x.device)
     req(att.shape == (B, H * D) and att.dtype == torch.bfloat16 and att.is_contiguous()
         and att.device == x.device, "attn_out: att must be a dense bf16 [B, H * D] tensor")
-    tps, a_splits = attn_splits(B, Hkv, S)
-    part = torch.empty(B * H * a_splits * (D + 2) if a_splits > 1 else 1, dtype=torch.float32,
-                       device=x.device)
+    tps, a_splits = fused_attn_plan(S)
     ws = torch.empty(splits * B * dim, dtype=torch.float32, device=x.device)
     out = torch.empty((B, 1, dim), dtype=torch.bfloat16, device=x.device)
     P = _build.ptr
     scales = [a for t in kv_scales for a in (P(t), t.stride(0), t.stride(1))] if quant \
         else [None, 0, 0] * 2
-    qp32 = q_positions[:, 0].to(torch.int32).contiguous()
+    qp = q_positions[:, 0].long().contiguous()  # read in place: no copy
     lib = _build.load("attn_out", "tkq_attn_out", _ARGTYPES)
     rc = lib.tkq_attn_out(int(quant), D, P(qb), qb.stride(0), P(k), k.stride(0), k.stride(1),
-                          P(v), v.stride(0), v.stride(1), *scales, P(qp32), P(att), B, H, Hkv, S,
-                          float(scale), tps, a_splits, P(part), P(x2d), wo_kind, P(qs), P(scl),
+                          P(v), v.stride(0), v.stride(1), *scales, P(qp), P(att), B, H, Hkv, S,
+                          float(scale), tps, a_splits, P(x2d), wo_kind, P(qs), P(scl),
                           None if mins is None else P(mins), P(ws), P(out), dim, cps, splits,
                           _build.stream_ptr(x.device))
     _build.check(lib, rc, "attn_out")

@@ -30,7 +30,8 @@ import torch
 
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attn_in import attn_in_plain
-from tpu_kquant_torch.ops.decode_attention import MAX_GROUP, attn_splits
+from tpu_kquant_torch.ops.decode_attention import MAX_GROUP, attend_with_current, \
+    fused_attn_plan
 from tpu_kquant_torch.ops.ffn import (_FLAT_KINDS, _aligned, _ffn_tail, _fused_arrays,
                                       _pick_tf, fused_ws_floats, gate_up_plan)
 from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind
@@ -41,7 +42,6 @@ counter = _build.LaunchCounter("layer")
 
 MAX_ROWS = 4
 _KINDS = ("q4",) + _FLAT_KINDS
-_NEG_INF = -1e30
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
@@ -51,8 +51,8 @@ _W = [_I, _P, _P, _P]  # a weight: kind code, codes, scales, mins
 _ARGTYPES = [_P, _P, _P, _F, *_W, *_W, *_W, *_W, _I, _P, _P, _P, _P,
              # kc skb skh vc svb svh q_pos qk v   att x2  act ws  y
              _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
-             # R  D   H   Hkv hd  S   F   scale tps splits part cps_o splits_o
-             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _I, _I,
+             # R  D   H   Hkv hd  S   F   scale tps splits cps_o splits_o
+             _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
              # cps_g splits_g cps_d splits_d
              _I, _I, _I, _I,
              # stream
@@ -93,29 +93,6 @@ def layer_enabled(impl: str, *args) -> bool:
     layer_supported(*args)."""
     return (os.environ.get("TKQ_FUSE_LAYER", "0") == "1" and impl in ("auto", "int8")
             and layer_supported(*args))
-
-
-def attend_with_current(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        positions: torch.Tensor, k_cur: torch.Tensor,
-                        v_cur: torch.Tensor) -> torch.Tensor:
-    """q [B, H, hd]; k / v [B, Hkv, S, hd], slots < positions[b] live;
-    k_cur / v_cur [B, Hkv, hd] the current token's. Returns [B, H * hd]
-    bf16 (module docstring)."""
-    B, H, D = q.shape
-    Hkv, S = k.shape[1], k.shape[2]
-    bf = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
-    qg = bf(q).reshape(B, Hkv, H // Hkv, D)
-    scale = D ** -0.5
-    s = torch.einsum("bhgd,bhsd->bhgs", qg, bf(k)) * scale
-    live = torch.arange(S, device=q.device)[None, :] < positions.reshape(B, 1).long()
-    s = torch.where(live[:, None, None, :], s, _NEG_INF)
-    s_cur = torch.einsum("bhgd,bhd->bhg", qg, bf(k_cur)) * scale
-    m = torch.maximum(s.amax(-1), s_cur)
-    p = torch.exp(s - m[..., None])
-    p_cur = torch.exp(s_cur - m)
-    l = p.sum(-1) + p_cur
-    out = torch.einsum("bhgs,bhsd->bhgd", bf(p), bf(v)) + p_cur[..., None] * bf(v_cur)[:, :, None]
-    return (out / l[..., None]).reshape(B, H * D).to(torch.bfloat16)
 
 
 def layer_plain(x, positions, anw, fnw, eps, wqk, wv, wo, gu, dn, cos, sin, k_cache, v_cache,
@@ -196,10 +173,8 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
     ws = torch.empty(fused_ws_floats(B, D, F, splits_o, splits_g, splits_d), dtype=torch.float32,
                      device=dev)
     y = torch.empty((B, 1, D), dtype=torch.bfloat16, device=dev)
-    tps, a_splits = attn_splits(B, Hkv, S)
-    part = torch.empty(B * H * a_splits * (hd + 2) if a_splits > 1 else 1, dtype=torch.float32,
-                       device=dev)
-    qp32 = positions[:, 0].to(torch.int32).contiguous()
+    tps, a_splits = fused_attn_plan(S)
+    qp = positions[:, 0].long().contiguous()  # read in place: no copy
     x2d, anw, fnw = x.reshape(B, D).contiguous(), anw.contiguous(), _aligned(fnw)
     P = _build.ptr
     w_args = []
@@ -210,9 +185,9 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
     rc = lib.tkq_layer(P(x2d), P(anw), P(fnw), float(eps),
                        *w_args, dn_code, P(dn_arrs[0]), P(dn_arrs[1]), P(c2d), P(s2d),
                        P(k_cache), k_cache.stride(0), k_cache.stride(1), P(v_cache),
-                       v_cache.stride(0), v_cache.stride(1), P(qp32), P(qk), P(v), P(att),
+                       v_cache.stride(0), v_cache.stride(1), P(qp), P(qk), P(v), P(att),
                        P(x2), P(act), P(ws), P(y), B, D, H, Hkv, hd, S, F, float(hd) ** -0.5,
-                       tps, a_splits, P(part), cps_o, splits_o, cps_g, splits_g, cps_d,
+                       tps, a_splits, cps_o, splits_o, cps_g, splits_g, cps_d,
                        splits_d, _build.stream_ptr(dev))
     _build.check(lib, rc, "layer")
     counter.launches += 1

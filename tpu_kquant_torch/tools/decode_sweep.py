@@ -1,13 +1,21 @@
-"""Measure the flash decode kernel (csrc/decode_attn.cu, #7) on the card beyond
-chip_smoke.py's phase 3, each number beside the card's name and power limit:
+"""Measure the flash decode kernel (csrc/decode_attn.cu, #7) and the few-row
+attention of #10 / #11 on the card beyond chip_smoke.py's phase 3, each
+number beside the card's name and power limit:
 
     python3 -m tpu_kquant_torch.tools.decode_sweep --out FILE.json [--ablate] [--crossover]
+        [--fused]
 
 --ablate     decode_attn.cu built with TKQ_FD_ABLATE (1: no mma, 2: no ring:
              each tile loaded and waited for before it is computed, 3: the
              loads alone) beside the full kernel at every DECODE_CASES case
              of chip_smoke.py: where a case's time goes between the loads,
              their overlap with the math, and the tensor-core math.
+--fused      the few-row attention of attn_out (#10) and layer (#11)
+             (csrc/decode_attn.cuh:fused_attn_kernel, through
+             tkq_fused_attn) at FUSED_CASES, full and built with
+             TKQ_FD_ABLATE 1 (no mma) or 3 (loads only) or TKQ_FA_ABLATE=1
+             (no cluster: a plain launch, each split's state left unread by
+             the others; wrong results, for timing).
 --crossover  ops/attention.py's plain branch (the budget raised) beside the
              kernel at decode (T = 1) at TinyLlama's heads, B = 1, 16 and 64,
              S = 704 and 2048, bf16 KV, positions at the cache's end: the
@@ -30,6 +38,18 @@ from pathlib import Path
 TREE = Path(__file__).resolve().parents[2]
 VARIANTS = TREE / ".cache" / "decode_variants"
 ABLATIONS = {"full": 0, "no mma": 1, "no ring": 2, "loads only": 3}
+FUSED_ABLATIONS = {"full": [], "no mma": ["-DTKQ_FD_ABLATE=1"],
+                   "loads only": ["-DTKQ_FD_ABLATE=3"], "no cluster": ["-DTKQ_FA_ABLATE=1"]}
+# the few-row attention at chip_smoke.py's attn_out and layer shapes
+# (TinyLlama's heads): (label, B, S, positions, int8 KV, the current token)
+FUSED_CASES = (
+    ("attn_out B=1 pos 700 bf16", 1, 704, (700,), False, False),
+    ("attn_out B=1 pos 40 bf16", 1, 704, (40,), False, False),
+    ("attn_out B=16 pos 700 int8", 16, 704, (700,) * 16, True, False),
+    ("layer B=1 pos 700", 1, 704, (700,), False, True),
+    ("layer B=1 pos 0", 1, 704, (0,), False, True),
+    ("layer B=4 positions 64, 1000, 1500, 2047", 4, 2048, (64, 1000, 1500, 2047), False, True),
+)
 
 
 def _smoke():
@@ -43,7 +63,7 @@ def build_variants(defines: dict[str, list[str]]) -> dict[str, ctypes.CDLL]:
     """csrc/decode_attn.cu built once per entry (name -> extra nvcc flags),
     all in parallel, each loaded with its entry point declared."""
     from tpu_kquant_torch.ops import _build
-    from tpu_kquant_torch.ops.decode_attention import _ARGTYPES
+    from tpu_kquant_torch.ops.decode_attention import _ARGTYPES, _FUSED_ARGTYPES
 
     VARIANTS.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -61,6 +81,8 @@ def build_variants(defines: dict[str, list[str]]) -> dict[str, ctypes.CDLL]:
         lib = ctypes.CDLL(str(out))
         lib.tkq_decode_attn.argtypes = _ARGTYPES
         lib.tkq_decode_attn.restype = ctypes.c_int
+        lib.tkq_fused_attn.argtypes = _FUSED_ARGTYPES
+        lib.tkq_fused_attn.restype = ctypes.c_int
         lib.tkq_error_string.argtypes = [ctypes.c_int]
         lib.tkq_error_string.restype = ctypes.c_char_p
         libs[name] = lib
@@ -92,6 +114,69 @@ def call(lib, q, k, v, qp, scales):
                              B, H, Hkv, S, float(D) ** -0.5, tps, splits, P(part), P(items),
                              _build.stream_ptr(q.device))
     _build.check(lib, rc, "decode_attn variant")
+    return out
+
+
+def call_fused(lib, q, k, v, qp, scales, cur):
+    """One launch of a variant library's few-row attention, with the
+    arguments of ops/decode_attention.py:fused_attention."""
+    import torch
+
+    from tpu_kquant_torch.ops import _build
+    from tpu_kquant_torch.ops.decode_attention import fused_attn_plan
+
+    B, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    out = torch.empty((B, H * D), dtype=torch.bfloat16, device=q.device)
+    tps, splits = fused_attn_plan(S)
+    P = _build.ptr
+    sc = ([a for t in scales for a in (P(t), t.stride(0), t.stride(1))] if scales
+          else [None, 0, 0] * 2)
+    c = [P(cur[0]), cur[0].stride(0), P(cur[1]), cur[1].stride(0)] if cur else [None, 0, None, 0]
+    rc = lib.tkq_fused_attn(int(scales is not None), D, P(q), q.stride(0), P(k), k.stride(0),
+                            k.stride(1), P(v), v.stride(0), v.stride(1), *sc, P(qp), *c, P(out),
+                            B, H, Hkv, S, float(D) ** -0.5, tps, splits,
+                            _build.stream_ptr(q.device))
+    _build.check(lib, rc, "fused_attn variant")
+    return out
+
+
+def fused(smoke, dev, libs) -> list:
+    """Every FUSED_CASES case in every variant library (graph ms), and the
+    full build's error against the plain version per (row, head)."""
+    import torch
+
+    from tpu_kquant_torch.ops.decode_attention import attend_with_current, decode_attention_plain
+
+    H, Hkv, D = smoke.TINY_HEADS
+    out = []
+    for label, B, S, positions, int8, self_ in FUSED_CASES:
+        g = torch.Generator(device=dev).manual_seed(B + S)
+        q = torch.randn(B, H, D, device=dev, generator=g).to(torch.bfloat16)
+        if int8:
+            k, v = (torch.randint(-127, 128, (B, Hkv, S, D), device=dev, generator=g,
+                                  dtype=torch.int8) for _ in range(2))
+            scales = tuple(torch.rand(B, Hkv, S, device=dev, generator=g) * 0.02 + 0.001
+                           for _ in range(2))
+        else:
+            k, v = (torch.randn(B, Hkv, S, D, device=dev, generator=g).to(torch.bfloat16)
+                    for _ in range(2))
+            scales = None
+        cur = tuple(torch.randn(B, Hkv, D, device=dev, generator=g).to(torch.bfloat16)
+                    for _ in range(2)) if self_ else None
+        qp = torch.tensor(positions, device=dev)
+        got = call_fused(libs["full"], q, k, v, qp, scales, cur)
+        torch.cuda.synchronize()
+        pos = qp[:, None]
+        ref = attend_with_current(q, k, v, pos, *cur) if self_ else \
+            decode_attention_plain(q[:, None], k, v, pos, scales)
+        row = {"case": label,
+               "rel_err": smoke.row_rel_err(got.reshape(B, H, D), ref.reshape(B, H, D))}
+        for name, lib in libs.items():
+            row[name] = smoke.graph_ms(lambda i: call_fused(lib, q, k, v, qp, scales, cur), 32)
+        print(f"  fused {label:44s} " + "  ".join(f"{n} {row[n] * 1e3:7.2f} us" for n in libs)
+              + f"  rel err {row['rel_err']:.2e}", flush=True)
+        out.append(row)
     return out
 
 
@@ -173,6 +258,7 @@ def main() -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--ablate", action="store_true")
     ap.add_argument("--crossover", action="store_true")
+    ap.add_argument("--fused", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -185,6 +271,8 @@ def main() -> int:
     if args.ablate:
         libs = build_variants({n: [f"-DTKQ_FD_ABLATE={v}"] for n, v in ABLATIONS.items()})
         res["ablate"] = ablate(smoke, dev, libs)
+    if args.fused:
+        res["fused"] = fused(smoke, dev, build_variants(FUSED_ABLATIONS))
     if args.crossover:
         res["crossover"] = crossover(smoke, dev)
     res["gpu_after"] = smoke.gpu_line()

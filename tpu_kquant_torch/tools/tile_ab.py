@@ -30,8 +30,10 @@ shapes. Measured, each on the card with its name and power limit:
   the dequantized weight, the bound, the error), qmm_int8's cases
   (check_qmm_int8) and the fused kernels whose o_proj / down steps it runs
   (check_fused_ffn: attn_in, oproj_ffn, ffn; check_fused_decode: kv_append,
-  attn_out, layer, rot), and the gate/up phase alone (ops/ffn.py:gate_up,
-  where the timed package has it) beside oproj_ffn and ffn;
+  attn_out, layer, rot), the gate/up phase alone (ops/ffn.py:gate_up,
+  where the timed package has it) beside oproj_ffn and ffn, and the
+  attention phase of attn_out and layer alone (ops/decode_attention.py:
+  fused_attention, where the timed package has it);
 - flash decode (#7) at every DECODE_CASES case of phase 3 (chip_smoke.py's
   check_decode_attn: graph and eager ms, plain, SDPA, the bound, the error
   per row).
