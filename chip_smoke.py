@@ -31,14 +31,23 @@ Phases, each fatal on failure:
     (TinyLlama's w_gateup, R = 1 and 8, listed with ffn's cases and timed
     beside each oproj_ffn and ffn case); the attention phase of attn_out
     and layer alone at each of their phase-3 shapes (listed with their
-    cases, SDPA with GQA as the library call); then the batch-invariance check
+    cases, SDPA with GQA as the library call); the gemma family's branches
+    (check_gemma): attn_in at head_dim 256 (Gemma-2B's R = 1 and 16,
+    Gemma-2-9B's R = 1), oproj_ffn, ffn and the gate/up phase with GELU at
+    Gemma-2B's widths, layer with GELU at TinyLlama's shapes, rot with GELU
+    and the next layer's head_dim-256 QKV at Gemma-2B's, and the flash
+    decode (8 / 1 heads of 256, B = 16 over 8192 slots, bf16 and int8) and
+    prefill (T = S = 4096, bf16 and int8; a ragged q offset with a window)
+    at head_dim 256; then the batch-invariance check
     (fatal): rows of the GEMV paths at R = 16 and 32 against each row
     alone, the tile's 64-row blocks of a 16 x 64 burst against the 64-row
     calls, the flash decode's rows at B = 16 and 1024, attn_in's at
     TinyLlama, Qwen2.5, Mixtral on f32 scales and Q8_0 (its kernel's K split
     held to the host's attn_in_plan) and the plain decode attention's at 16
     and 32 rows of 128 slots (bf16 and int8 KV, the deferred append on and
-    off), attn_out's at B = 16 (bf16 and int8 KV) and layer's at B = 4,
+    off), attn_in at Gemma-2B's head_dim 256, the flash decode's rows at
+    head_dim 256 (B = 16 and 64), attn_out's at B = 16 (bf16 and int8 KV)
+    and layer's at B = 4,
     ragged positions, against each row alone, bit for bit (tolerance 2e-2
     of max|ref|; qmm_int8 1e-3; the attention kernels 2e-2 of each output
     row's own max|ref|), and time the kernel and the plain version; as yardsticks the
@@ -98,9 +107,9 @@ Phases, each fatal on failure:
     expert's bytes counted (the loop reads all 8 per token).
  9. GGML types: TinyLlama-1.1B at full width under every recipe of the
     reference's quantize tool (models/fixtures.py:target_type), one load
-    at a time: Q8_0 and Q5_K_M at full depth (a 2-layer cut against the
-    CPU, greedy requests of 5, 40 and 200 tokens counted from 0, pp512 and
-    tg128 beside their bounds), then Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M
+    at a time: Q8_0 at full depth (a 2-layer cut against the CPU, greedy
+    requests of 5, 40 and 200 tokens counted from 0, pp512 and tg128 beside
+    their bounds), then Q5_K_M, Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M
     with widen_q6=False (bf16 pairs under impl "auto", then f32 scales
     under impl "int8": qmm_int8's q6 branch) cut to GGML_DEPTH layers (the
     cut is logged as `reduced`), each with the same cut and counted
@@ -147,8 +156,24 @@ Phases, each fatal on failure:
     lab's entry point, at every shape with the counts set to 0 just before
     and read just after (time_chained's marginal times), and
     tools/prefill_lab.py once in-process.
+13. the gemma family: Gemma-2B (google/gemma-2b: 18 layers, dim 2048, 8 / 1
+    heads of 256, ffn 16384, vocab 256000, GELU, tied lm head) at full
+    width and depth: the decode dispatch pinned (attn_in at head_dim 256
+    and oproj_ffn with GELU in every layer, the lm head a qmm), a 2-layer
+    cut against the CPU, greedy requests of 5, 40, 200 and 3000 tokens (the
+    last is bucket 4096: the flash prefill at head_dim 256 in every layer)
+    counted from 0, pp512 and tg128; the 2-layer cut again under
+    TKQ_ROTATE_LAYER=1 (the rot kernel with GELU and head_dim 256), which
+    must launch rot; then Gemma-2-9B (google/gemma-2-9b: post norms,
+    softcaps 50 / 30, a window of 4096 on every other layer, 16 / 8 heads
+    of 256) cut to GEMMA2_DEPTH of its 42 layers (logged as `reduced`): a
+    2-layer check against the CPU.
+Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 its untimed
+recipes, Q5_K_M among them, at GGML_DEPTH = 2 layers (2 and 4 layers, and
+Q5_K_M timed at 22, before phase 13): the smoke's 1200 s limit. The CPU
+side of every cut dequantizes each weight once (cpu_dequant_memo).
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4 to 10, each counted from 0 and checked against the dispatch
+of phases 4 to 10 and 13, each counted from 0 and checked against the dispatch
 gates exactly (the labs' kernels: their wrapper calls in phase 11's
 run_ladder and phase 12's run_sweep, CUDA-graph captures included, replays
 not); the gates in turn
@@ -432,6 +457,8 @@ def check_kernels(dev) -> dict:
     out["qmm_int8"] = check_qmm_int8(dev, rng)
     out["decode_attn"] = check_decode_attn(dev)
     out.update(check_fused_decode(dev, rng))
+    for name, cases in check_gemma(dev, rng).items():
+        out[name] += cases
     report_cases(out)
     check_batch_invariance(dev, rng)
     return out
@@ -619,6 +646,201 @@ def check_fused_ffn(dev, rng) -> dict:
     return out
 
 
+# Gemma-2B (dim 2048, 8 / 1 heads of 256, ffn 16384) and Gemma-2-9B (dim
+# 3584, 16 / 8 heads of 256, ffn 14336), Q4_K_M kinds
+GEMMA_2B = (2048, 8, 1, 256, 16384)
+GEMMA2_9B = (3584, 16, 8, 256, 14336)
+
+
+def check_gemma(dev, rng) -> dict:
+    """The gemma family's branches of the fused kernels against their plain
+    versions, timed as check_kernels' cases: attn_in at head_dim 256
+    (Gemma-2B's wqk q4-sm [2304, 2048] and wv q6w-sp [256, 2048] at R = 1
+    and 16, Gemma-2-9B's [6144, 3584] and [2048, 3584] at R = 1);
+    oproj_ffn (R = 1, 8), ffn (R = 1, 8) and the gate/up phase alone (R = 1)
+    with GELU at Gemma-2B's widths; layer with GELU at TinyLlama's shapes
+    (f32 scales, as path (b) loads them); rot with GELU at Gemma-2B's shapes
+    (R = 1: o_proj, the FFN and the next layer's head_dim-256 QKV). Flash
+    decode and prefill at head_dim 256 are DECODE_CASES' and PREFILL_CASES'
+    gemma rows. Returns {kernel: [case dicts]} to append."""
+    import torch
+
+    from tpu_kquant_torch.ops import ffn as ffn_mod
+    from tpu_kquant_torch.ops.attn_in import attn_in_plain, fused_attn_in
+    from tpu_kquant_torch.ops.layer import fused_layer, layer_plain
+    from tpu_kquant_torch.ops.rope import rope_cos_sin
+    from tpu_kquant_torch.ops.rot import fused_oproj_ffn_attn_in, rot_plain
+    from tpu_kquant_torch.models.config import RopeParams
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    out: dict = {"attn_in": [], "oproj_ffn": [], "ffn": [], "layer": [], "rot": []}
+    deq = lambda ws: [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]  # noqa: E731
+
+    def timed(run, plain, mats, lead_ms=None) -> dict:
+        return {"ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
+                "plain_ms": graph_ms(plain, 2, 3), "library_ms": None, "matmul_ms": mats,
+                **({} if lead_ms is None else {"gate_up_ms": lead_ms})}
+
+    # attn_in at head_dim 256: a column block takes 64 columns of a head's
+    # first half and their rope partners
+    for label, (D_, Hq, Hk, hd, _), R in (("gemma-2b", GEMMA_2B, 1), ("gemma-2b", GEMMA_2B, 16),
+                                           ("gemma-2-9b", GEMMA2_9B, 1)):
+        mk = lambda: (_rand_weights(rng, "q4", (Hq + Hk) * hd, D_, dev),  # noqa: E731
+                      _rand_weights(rng, "q6w", Hk * hd, D_, dev))
+        w0 = mk()
+        nbw = sum(w.n_bytes for w in w0)
+        ws = _rotation(w0, mk, nbw)
+        x = _act(R, D_, 0.5, dev)
+        nw = torch.rand(D_, device=dev) + 0.5
+        cos, sin = rope_cos_sin(torch.randint(0, 8192, (R, 1), device=dev),
+                                RopeParams(head_dim=hd, n_rot=hd, mode="neox"))
+        cos, sin = cos[:, 0], sin[:, 0]
+        g0, g1 = fused_attn_in(x, nw, 1e-6, *w0, cos, sin, hd)
+        torch.cuda.synchronize()
+        r0, r1 = attn_in_plain(x, nw, 1e-6, *w0, cos, sin, hd)
+        e0, e1 = _err(g0, r0), _err(g1, r1)
+        n_out = w0[0].shape[0] + w0[1].shape[0]
+        wcat = [torch.cat(deq(pair), dim=1).contiguous() for pair in ws]
+        b, by = bound_ms(nbw + R * D_ * 2 + D_ * 4 + 2 * R * (hd // 2) * 4 + R * n_out * 2,
+                         2.0 * R * D_ * n_out)
+        out["attn_in"].append({
+            "case": f"{label}: wqk q4-sm + wv q6w-sp, hd 256, D {D_} R={R}",
+            "max_abs_err": max(e0[0], e1[0]), "rel_err": max(e0[1], e1[1]),
+            **timed(lambda i: fused_attn_in(x, nw, 1e-6, *ws[i % len(ws)], cos, sin, hd),
+                    lambda i: attn_in_plain(x, nw, 1e-6, *w0, cos, sin, hd, None),
+                    graph_ms(lambda i: torch.matmul(x, wcat[i % len(wcat)]), 32)),
+            "bound_ms": b, "bound_by": by})
+        del ws, wcat
+
+    # oproj_ffn and ffn with GELU at Gemma-2B's widths (wo q6w, gate/up q4,
+    # down q6w), and the gate/up phase alone
+    dim, H, Hkv, hd, F = GEMMA_2B
+    mk = lambda: (_rand_weights(rng, "q6w", dim, H * hd, dev),  # noqa: E731
+                  _rand_weights(rng, "q4", 2 * F, dim, dev),
+                  _rand_weights(rng, "q6w", dim, F, dev))
+    w0 = mk()
+    nbw = sum(w.n_bytes for w in w0)
+    ws = _rotation(w0, mk, nbw)
+    wd = [deq(t) for t in ws]
+    nw = torch.rand(dim, device=dev) + 0.5
+    for R in (1, 8):
+        x, at, a_f = _act(R, dim, 0.5, dev), _act(R, H * hd, 0.5, dev), _act(R, F, 1.0, dev)
+
+        def oproj(i, plain=False):
+            wo, gu, dn = w0 if plain else ws[i % len(ws)]
+            f = ffn_mod.oproj_ffn_plain if plain else ffn_mod.fused_oproj_ffn
+            return f(x, at, wo, nw, 1e-6, gu, dn, act_fn="gelu")
+
+        def ffn(i, plain=False):
+            _, gu, dn = w0 if plain else ws[i % len(ws)]
+            f = ffn_mod.ffn_plain if plain else ffn_mod.fused_ffn
+            return f(x, nw, 1e-6, gu, dn, act_fn="gelu")
+
+        lead = graph_ms(lambda i: ffn_mod.gate_up(x, nw, 1e-6, ws[i % len(ws)][1], "gelu"), 32)
+        for name, fn, nb, fl, mats in (
+                ("oproj_ffn", oproj, nbw + R * (3 * dim * 2 + H * hd * 2) + dim * 4,
+                 2.0 * R * (H * hd * dim + 3 * dim * F), (at, x, a_f)),
+                ("ffn", ffn, nbw - w0[0].n_bytes + 2 * R * dim * 2 + dim * 4,
+                 2.0 * R * 3 * dim * F, (None, x, a_f))):
+            got = fn(0)
+            torch.cuda.synchronize()
+            ad, rel = _err(got, fn(0, plain=True))
+            b, by = bound_ms(nb, fl)
+            out[name].append({
+                "case": f"gemma-2b GELU: {'wo q6w-sp + ' if name == 'oproj_ffn' else ''}"
+                        f"w_gateup q4-sm [32768, 2048] + w_down q6w-sp R={R}",
+                "max_abs_err": ad, "rel_err": rel,
+                **timed(fn, lambda i, fn=fn: fn(i, plain=True),
+                        graph_ms(lambda i, mats=mats: [
+                    torch.matmul(a, w) for a, w in zip(mats, wd[i % len(wd)]) if a is not None],
+                    32), lead),
+                "bound_ms": b, "bound_by": by})
+    x = _act(1, dim, 0.5, dev)
+    got = ffn_mod.gate_up(x, nw, 1e-6, w0[1], "gelu")
+    torch.cuda.synchronize()
+    ad, rel = _err(got, ffn_mod.gate_up_plain(x, nw, 1e-6, w0[1], "gelu"))
+    b, by = bound_ms(w0[1].n_bytes + dim * 2 + dim * 4 + F * 2, 2.0 * dim * 2 * F)
+    out["ffn"].append({
+        "case": "gate/up phase alone: gemma-2b GELU q4 pairs [32768, 2048] R=1",
+        "max_abs_err": ad, "rel_err": rel,
+        **timed(lambda i: ffn_mod.gate_up(x, nw, 1e-6, ws[i % len(ws)][1], "gelu"),
+                lambda i: ffn_mod.gate_up_plain(x, nw, 1e-6, w0[1], "gelu"),
+                graph_ms(lambda i: torch.matmul(x, wd[i % len(wd)][1]), 32)),
+        "bound_ms": b, "bound_by": by})
+
+    # rot with GELU at Gemma-2B's shapes: the next layer's QKV at head_dim 256
+    n0, n1 = (H + Hkv) * hd, Hkv * hd
+    mk2 = lambda: (_rand_weights(rng, "q4", n0, dim, dev),  # noqa: E731
+                   _rand_weights(rng, "q6w", n1, dim, dev))
+    nxt = [mk2() for _ in ws]
+    nw2 = torch.rand(dim, device=dev) + 0.5
+    x, at = _act(1, dim, 0.5, dev), _act(1, H * hd, 0.5, dev)
+    cos, sin = (torch.rand(1, hd // 2, device=dev) for _ in range(2))
+
+    def rot(i, plain=False):
+        (wo, gu, dn), (wq, wv) = (w0, nxt[0]) if plain else (ws[i % len(ws)], nxt[i % len(ws)])
+        f = rot_plain if plain else fused_oproj_ffn_attn_in
+        return f(x, at, wo, nw, 1e-6, gu, dn, nw2, wq, wv, cos, sin, hd, act_fn="gelu")
+
+    got = rot(0)
+    torch.cuda.synchronize()
+    errs = [_err(a, r) for a, r in zip(got, rot(0, plain=True))]
+    nb2 = sum(w.n_bytes for w in nxt[0])
+    b, by = bound_ms(nbw + nb2 + 2 * (H * hd + 2 * dim + n0 + n1) + 8 * dim + 2 * hd * 4,
+                     2.0 * (dim * (H * hd + 3 * F) + dim * (n0 + n1)))
+    out["rot"].append({
+        "case": "gemma-2b GELU, next layer's QKV at hd 256, R=1 bf16 pairs",
+        "max_abs_err": max(e[0] for e in errs), "rel_err": max(e[1] for e in errs),
+        **timed(rot, lambda i: rot(i, plain=True), None), "bound_ms": b, "bound_by": by})
+    out["rot"][-1]["matmul_ms"] = graph_ms(
+        lambda i: [torch.matmul(a, w) for a, w in zip((at, x, _act(1, F, 1.0, dev)),
+                                                      wd[i % len(wd)])], 32)
+    del ws, wd, nxt
+
+    # layer with GELU at TinyLlama's shapes (the layer gate's head dims are
+    # 64 and 128 in both packages), f32 scales
+    dim, (H, Hkv, hd), F = 2048, TINY_HEADS, 5632
+    n0, n1 = (H + Hkv) * hd, Hkv * hd
+    kinds = (("q4f", n0, dim), ("q6wf", n1, dim), ("q6wf", dim, H * hd), ("q4f", 2 * F, dim),
+             ("q6wf", dim, F))
+    mk_l = lambda: [_rand_weights(rng, k_, N, K, dev) for k_, N, K in kinds]  # noqa: E731
+    w0 = mk_l()
+    nbw = sum(w.n_bytes for w in w0)
+    ws = _rotation(w0, mk_l, nbw)
+    wd = [deq(t) for t in ws]
+    anw, fnw = (torch.rand(dim, device=dev) + 0.5 for _ in range(2))
+    for positions in ((700,), (0, 255, 256, 700)):
+        B = len(positions)
+        pos = torch.tensor(positions, device=dev)[:, None]
+        cos, sin = rope_cos_sin(pos, RopeParams(head_dim=hd, n_rot=hd))
+        x = _act(B, dim, 0.5, dev).reshape(B, 1, dim)
+        kc, vc = (torch.randn(B, Hkv, FUSED_S, hd, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        args = (cos, sin, kc, vc, H, Hkv)
+        got = fused_layer(x, pos, anw, fnw, 1e-5, *w0, *args, act_fn="gelu")
+        torch.cuda.synchronize()
+        ref = layer_plain(x, pos, anw, fnw, 1e-5, *w0, *args, act_fn="gelu")
+        rel = max(row_rel_err(a.reshape(B, -1), r.reshape(B, -1)) for a, r in zip(got, ref))
+        live = float(sum(positions))
+        b, by = bound_ms(nbw + live * Hkv * 2 * hd * 2 + 2 * B * (2 * dim + 2 * n1) + B * 16,
+                         2.0 * B * (dim * (n0 + n1 + H * hd) + 3 * dim * F)
+                         + 4.0 * (live + B) * H * hd)
+        xs = [_act(B, K, 1.0, dev) for _, _, K in kinds]
+        out["layer"].append({
+            "case": f"GELU: B={B} positions {list(positions)}, S {FUSED_S}, f32 scales",
+            "max_abs_err": max(_err(a, r)[0] for a, r in zip(got, ref)), "rel_err": rel,
+            **timed(lambda i: fused_layer(x, pos, anw, fnw, 1e-5, *ws[i % len(ws)], *args,
+                                          act_fn="gelu"),
+                    lambda i: layer_plain(x, pos, anw, fnw, 1e-5, *w0, *args, act_fn="gelu"),
+                    graph_ms(lambda i: [torch.matmul(a, w) for a, w in
+                                        zip(xs, wd[i % len(wd)])], 32)),
+            "bound_ms": b, "bound_by": by})
+        del kc, vc
+    del ws, wd
+    torch.cuda.empty_cache()
+    return out
+
+
 # the batch sizes whose rows the invariance check holds to the row alone
 INVARIANCE_ROWS = (16, 32)
 
@@ -690,7 +912,8 @@ def check_batch_invariance(dev, rng) -> int:
     # attn_in's K split: the kernel's own plan against the host's mirror
     codes = [c for c, (k, _) in enumerate(KINDS) if k in ("q4", "q6w", "q8")]
     plan_bad = [(qc, vc, w) for qc in codes for vc in codes
-                for w in ((2304, 256, 2048), (1792, 256, 1536), (5120, 1024, MX_DIM))
+                for w in ((2304, 256, 2048), (1792, 256, 1536), (5120, 1024, MX_DIM),
+                          (6144, 2048, 3584))
                 if attn_in_mod.kernel_plan(qc, vc, *w) != attn_in_mod.attn_in_plan(qc, vc, *w)]
     if plan_bad:
         raise SystemExit(f"FAIL: attn_in's kernel split differs from attn_in_plan at (qk code, "
@@ -699,7 +922,8 @@ def check_batch_invariance(dev, rng) -> int:
     for label, D_, Hq, Hk, hd_, (kq, kv), biased in (
             ("attn_in (Qwen2.5-1.5B: biases, hd 128)", 1536, 12, 2, 128, ("q4", "q6w"), True),
             ("attn_in (Mixtral-8x7B, f32 scales)", MX_DIM, 32, 8, 128, ("q4f", "q6wf"), False),
-            ("attn_in (Q8_0: q8 in both slots)", dim, H, Hkv, hd, ("q8", "q8"), False)):
+            ("attn_in (Q8_0: q8 in both slots)", dim, H, Hkv, hd, ("q8", "q8"), False),
+            ("attn_in (Gemma-2B: head_dim 256)", dim, 8, 1, 256, ("q4", "q6w"), False)):
         wq_, wv_ = (_rand_weights(rng, kq, (Hq + Hk) * hd_, D_, dev),
                     _rand_weights(rng, kv, Hk * hd_, D_, dev))
         bias = (torch.randn((Hq + Hk) * hd_, device=dev) * 0.5,
@@ -795,13 +1019,46 @@ def check_batch_invariance(dev, rng) -> int:
         n += 1
         del q, k, v, scales
         torch.cuda.empty_cache()
+    # flash decode at head_dim 256 (Gemma-2B's heads): rows of B = 16 and 64
+    # on 4096 slots against the row alone, bf16 and int8 KV
+    for int8 in (False, True):
+        (H, Hkv, D), B, S = GEMMA_HEADS, 64, 4096
+        q = torch.randn(B, 1, H, D, device=dev, generator=g).to(torch.bfloat16)
+        if int8:
+            k, v = (torch.randint(-127, 128, (B, Hkv, S, D), device=dev, generator=g,
+                                  dtype=torch.int8) for _ in range(2))
+            scales = tuple(torch.rand(B, Hkv, S, device=dev, generator=g) * 0.02 + 0.001
+                           for _ in range(2))
+        else:
+            k, v = (torch.randn(B, Hkv, S, D, device=dev, generator=g).to(torch.bfloat16)
+                    for _ in range(2))
+            scales = None
+        qp = torch.randint(0, S, (B, 1), device=dev, generator=g)
+        qp[:4, 0] = torch.tensor([63, 64, S - 1, 0], device=dev)
+
+        def rows(lo, hi):
+            sc = None if scales is None else tuple(t[lo:hi] for t in scales)
+            return attention_decode_flash(q[lo:hi], k[lo:hi], v[lo:hi], qp[lo:hi], sc)
+
+        full, sixteen = rows(0, B), rows(0, 16)
+        bad = [b for b in range(B) if not (torch.equal(full[b:b + 1], rows(b, b + 1))
+                                           and (b >= 16 or torch.equal(sixteen[b:b + 1],
+                                                                       full[b:b + 1])))]
+        if bad:
+            raise SystemExit(f"FAIL: batch invariance: flash decode {H}/{Hkv} heads of {D} "
+                             f"{'int8' if int8 else 'bf16'}: rows {bad[:8]} at B = 16 or {B} "
+                             f"differ from the row alone")
+        n += 1
+        del q, k, v, scales
+        torch.cuda.empty_cache()
     n += check_fused_invariance(dev, rng)
     log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in at TinyLlama, "
-        f"Qwen2.5, Mixtral f32 and Q8_0 and its split plan, oproj_ffn, ffn, the plain decode "
-        f"attention): every row at R in {INVARIANCE_ROWS} equals the row computed alone; qmm's tile: "
-        f"every 64-row block of a 16 x 64 burst equals its 64-row call; flash decode: rows at "
-        f"B = 16 and 1024 equal the row alone; attn_out at B = 16 and layer at B = 4, ragged "
-        f"positions: every row equals the row alone (torch.equal)")
+        f"Qwen2.5, Mixtral f32, Q8_0 and Gemma-2B's head_dim 256 and its split plan, oproj_ffn, "
+        f"ffn, the plain decode attention): every row at R in {INVARIANCE_ROWS} equals the row "
+        f"computed alone; qmm's tile: every 64-row block of a 16 x 64 burst equals its 64-row "
+        f"call; flash decode: rows at B = 16 and 1024 (head_dim 256: 16 and 64) equal the row "
+        f"alone; attn_out at B = 16 and layer at B = 4, ragged positions: every row equals the "
+        f"row alone (torch.equal)")
     return n
 
 
@@ -980,6 +1237,7 @@ def check_qmm_int8(dev, rng) -> list:
 # window on int8 KV):
 # (label, B, T, S, q_starts, int8 KV, window, (H, Hkv, D), q dtype)
 TINY_HEADS, QWEN_HEADS = (32, 4, 64), (12, 2, 128)
+GEMMA_HEADS = (8, 1, 256)  # Gemma-2B's query and KV heads of 256
 PREFILL_CASES = (
     ("T=S=2048 bf16 (pp2048 layer)", 1, 2048, 2048, [0], False, 0, TINY_HEADS, "bfloat16"),
     ("T=S=2048 int8 (pp2048 layer)", 1, 2048, 2048, [0], True, 0, TINY_HEADS, "bfloat16"),
@@ -996,6 +1254,13 @@ PREFILL_CASES = (
      TINY_HEADS, "bfloat16"),
     ("qwen2.5-1.5b: f32 q, hd 128, GQA 6, B=2 T=72 S=384 q_start 100/248 window 96 int8", 2,
      72, 384, [100, 248], True, 96, QWEN_HEADS, "float32"),
+    # head_dim 256: Gemma-2B's 3000-token request is bucket 4096
+    ("gemma-2b: hd 256, 8 / 1 heads, T=S=4096 bf16", 1, 4096, 4096, [0], False, 0,
+     GEMMA_HEADS, "bfloat16"),
+    ("gemma-2b: hd 256, 8 / 1 heads, T=S=4096 int8", 1, 4096, 4096, [0], True, 0,
+     GEMMA_HEADS, "bfloat16"),
+    ("gemma-2b: hd 256, B=2 T=200 S=4352 q_start 1000/3900 window 512 int8", 2, 200, 4352,
+     [1000, 3900], True, 512, GEMMA_HEADS, "bfloat16"),
 )
 
 
@@ -1101,6 +1366,11 @@ DECODE_CASES = (
     ("qwen2.5-1.5b: hd 128, 12 / 2 heads, B=128 S=2048 bf16", 128, 2048, QWEN_HEADS, (0, 2048),
      False),
     ("mixtral: hd 128, 32 / 8 heads, B=64 S=2048 int8", 64, 2048, (32, 8, 128), (0, 2048), True),
+    # head_dim 256 at Gemma-2B's heads, ragged positions over its 8192 context
+    ("gemma-2b: hd 256, 8 / 1 heads, B=16 S=8192 bf16, positions 0-8191", 16, 8192,
+     GEMMA_HEADS, (0, 8192), False),
+    ("gemma-2b: hd 256, 8 / 1 heads, B=16 S=8192 int8, positions 0-8191", 16, 8192,
+     GEMMA_HEADS, (0, 8192), True),
 )
 
 
@@ -1515,10 +1785,12 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
 
     L, lay, D, H = cfg.n_layers, params["layers"][0], cfg.head_dim, cfg.n_heads
     budget = attention.ATTN_PLAIN_MAX_MB
-    flash = rows > 1 and prefill_supported(rows, rows, D) and \
+    softcap = cfg.attn_logit_softcap > 0.0  # keeps both flash kernels off
+    flash = rows > 1 and not softcap and prefill_supported(rows, rows, D) and \
         attention.logits_mb(batch, rows, H, rows) > budget
-    decode = rows == 1 and seq is not None and D % 64 == 0 and seq % 64 == 0 and \
-        (not kv_int8 or seq % 256 == 0) and attention.logits_mb(batch, 1, H, seq) > budget
+    decode = rows == 1 and not softcap and not cfg.sliding_window and seq is not None and \
+        D % 64 == 0 and seq % 64 == 0 and (not kv_int8 or seq % 256 == 0) and \
+        attention.logits_mb(batch, 1, H, seq) > budget
     n_rows = batch * rows
     n = {"prefill": L * flash, "decode_attn": 0, "attn_in": 0, "oproj_ffn": 0, "ffn": 0,
          "qmm": 0, "qmm_int8": 0, "kv_append": 0, "attn_out": 0, "layer": 0, "rot": 0}
@@ -1527,8 +1799,9 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
         n["qmm_int8" if impl == "int8" and int8_eligible(qt, r) else "qmm"] += times
 
     neox = cfg.rope.mode == "neox" and cfg.rope.n_rot == D
-    gu = "w_gateup" in lay and not cfg.is_moe
+    gu = "w_gateup" in lay and not cfg.is_moe and not cfg.post_norms
     if rows == 1 and neox and not cfg.attn_bias and not cfg.is_moe and not kv_int8 and \
+            not softcap and not cfg.sliding_window and \
             "wqk" in lay and gu and layer_enabled(
                 impl, lay["wqk"], lay["wv"], lay["wo"], lay["w_gateup"], lay["w_down"], batch,
                 cfg.dim, H, cfg.n_kv_heads, D):
@@ -1541,8 +1814,9 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
         (seq is None or attention.logits_mb(batch, 1, H, seq) <= budget)
     eager = rows == 1 and not deferred
     n["kv_append"] = L * (eager and seq is not None and kv_append_enabled(kv_int8, 1, batch, seq))
-    a_out = eager and seq is not None and attn_out_enabled(impl, lay["wo"], H, cfg.n_kv_heads,
-                                                           D, batch, seq)
+    a_out = eager and seq is not None and not softcap and not cfg.sliding_window and \
+        not cfg.post_norms and attn_out_enabled(impl, lay["wo"], H, cfg.n_kv_heads, D, batch,
+                                                seq)
     biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
     a_in = neox and "wqk" in lay and \
         attn_in_enabled(lay["wqk"], lay["wv"], n_rows, cfg.dim, D, biases, impl)
@@ -1656,6 +1930,44 @@ def _routing(routes: list, k: int) -> tuple[list, float, float]:
     return sel, margin, torch.cat([r.reshape(-1) for r in routes]).std().item()
 
 
+@contextlib.contextmanager
+def cpu_dequant_memo():
+    """Within the block, dequant_kmajor of a weight held on the CPU is
+    computed once and reused: the plain versions dequantize every weight at
+    every call, and a cut's CPU side calls them for each prompt and step
+    (most of a cut's time, and of the smoke's, before this). Keyed by the
+    packed arrays' addresses, strides, shapes and dtypes and the requested
+    dtype; the weights stay alive and unchanged while the block runs. CUDA
+    weights go to dequant_kmajor itself."""
+    import torch
+
+    from tpu_kquant_torch.ops import attn_in, ffn, layer, qmm
+    from tpu_kquant_torch.quant import codecs
+
+    real = codecs.dequant_kmajor
+    memo: dict = {}
+
+    def cached(qt, dtype=torch.float32):
+        arrs = qt.arrays.items()
+        if not all(isinstance(a, torch.Tensor) and a.device.type == "cpu" for _, a in arrs):
+            return real(qt, dtype)
+        key = (qt.kind, qt.layout, tuple(qt.shape), qt.fold, dtype) + tuple(
+            (k, a.data_ptr(), tuple(a.shape), a.stride(), a.dtype) for k, a in sorted(arrs))
+        if key not in memo:
+            memo[key] = real(qt, dtype)
+        return memo[key]
+
+    mods = (attn_in, ffn, layer, qmm)
+    for m in mods:
+        m.dequant_kmajor = cached
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.dequant_kmajor = real
+        memo.clear()
+
+
 def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
                     kv_quantized: bool = False, depth: int = 2, impl: str = "auto",
                     steps: int = 4) -> None:
@@ -1719,34 +2031,37 @@ def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
 
     moe._routing_weights = spy
     try:
-        for n in lengths:
-            t0 = time.perf_counter()
-            prompt, (lg, tg, rg), tries = draw(n)
-            t_draw = time.perf_counter() - t0
-            lc, tc, rc = run(p_cpu, "cpu", prompt)
-            if cfg.is_moe:
-                # decode steps compare only while both sides were fed the same tokens
-                same = depth + depth * next((i for i in range(steps) if tg[i] != tc[i]), steps)
-                sel, margin, std = _routing(rg[:same], k)
-                sel_c, _, _ = _routing(rc[:same], k)
-                diff = max((a - b).abs().max().item() for a, b in zip(rg[:same], rc[:same]))
-                agree = all(torch.equal(a, b) for a, b in zip(sel, sel_c))
-                n_dec = sum(int(s.numel() // k) for s in sel)
-                log(f"  routing, prompt {n} ({tries} draw(s) in {t_draw:.1f} s for margins >= "
-                    f"{ROUTER_MARGIN} std): {n_dec} decisions (tokens x layers), experts agree "
-                    f"{agree}; smallest card margin {margin:.3e} (router logits std "
-                    f"{std:.3e}), largest card-CPU router logit difference {diff:.3e} "
-                    f"(tolerance: half the margin)")
-                if not (agree and 2 * diff < margin):
-                    raise SystemExit(f"FAIL: the card and the CPU route prompt {n} differently, "
-                                     f"or within their difference (impl {impl})")
-            rel = ((lg - lc).abs().max() / lc.abs().max()).item()
-            top5 = set(torch.topk(lc, 5).indices.tolist())
-            log(f"  {depth}-layer cut, {kv} KV, impl {impl}, prompt {n}: logits rel err "
-                f"{rel:.2e}; greedy card {tg} cpu {tc}")
-            if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
-                raise SystemExit(f"FAIL: card and CPU disagree on the {depth}-layer cut ({kv} "
-                                 f"KV, impl {impl}, prompt {n})")
+        with cpu_dequant_memo():
+            for n in lengths:
+                t0 = time.perf_counter()
+                prompt, (lg, tg, rg), tries = draw(n)
+                t_draw = time.perf_counter() - t0
+                lc, tc, rc = run(p_cpu, "cpu", prompt)
+                if cfg.is_moe:
+                    # decode steps compare only while both sides were fed the same tokens
+                    same = depth + depth * next(
+                        (i for i in range(steps) if tg[i] != tc[i]), steps)
+                    sel, margin, std = _routing(rg[:same], k)
+                    sel_c, _, _ = _routing(rc[:same], k)
+                    diff = max((a - b).abs().max().item() for a, b in zip(rg[:same], rc[:same]))
+                    agree = all(torch.equal(a, b) for a, b in zip(sel, sel_c))
+                    n_dec = sum(int(s.numel() // k) for s in sel)
+                    log(f"  routing, prompt {n} ({tries} draw(s) in {t_draw:.1f} s for margins "
+                        f">= {ROUTER_MARGIN} std): {n_dec} decisions (tokens x layers), experts "
+                        f"agree {agree}; smallest card margin {margin:.3e} (router logits std "
+                        f"{std:.3e}), largest card-CPU router logit difference {diff:.3e} "
+                        f"(tolerance: half the margin)")
+                    if not (agree and 2 * diff < margin):
+                        raise SystemExit(f"FAIL: the card and the CPU route prompt {n} "
+                                         f"differently, or within their difference (impl "
+                                         f"{impl})")
+                rel = ((lg - lc).abs().max() / lc.abs().max()).item()
+                top5 = set(torch.topk(lc, 5).indices.tolist())
+                log(f"  {depth}-layer cut, {kv} KV, impl {impl}, prompt {n}: logits rel err "
+                    f"{rel:.2e}; greedy card {tg} cpu {tc}")
+                if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
+                    raise SystemExit(f"FAIL: card and CPU disagree on the {depth}-layer cut "
+                                     f"({kv} KV, impl {impl}, prompt {n})")
     finally:
         moe._routing_weights = real
 
@@ -2575,7 +2890,8 @@ def qwen2(dev, profile: Path | None = None) -> dict:
 # phase 8: Mixtral-8x7B (MoE; bf16 pairs under impl auto, f32 scales under int8)
 # ---------------------------------------------------------------------------
 
-MIXTRAL_DEPTH = 2  # 2, not 4: a layer's write + load takes over 25 s on the card's host
+MIXTRAL_DEPTH = 1  # a layer's write + load takes over 25 s on the card's host (phase 13 took
+#                   the time a second layer cost)
 MIXTRAL_CONFIGS = (("bf16 pairs, impl auto", "bf16", "auto"),
                    ("f32 scales, impl int8", "f32", "int8"))
 
@@ -2599,7 +2915,7 @@ def mixtral(dev, profile: Path | None = None) -> dict:
         out.setdefault("reduced", (
             f"depth {MIXTRAL_DEPTH} of {full.n_layers} layers: one layer is 0.93 GB of GGUF "
             f"(24 expert matrices of 58.7 M weights) that the host writes and repacks, over "
-            f"25 s a layer, so 2 layers keep the phase near 5 minutes; this run: "
+            f"25 s a layer, so one layer keeps the phase near 2 minutes; this run: "
             f"{(times['write_s'] + times['load_s']) / MIXTRAL_DEPTH:.1f} s a layer for the "
             f"write and the first load"))
         log(f"  reduced: {out['reduced']}")
@@ -2625,7 +2941,7 @@ def mixtral(dev, profile: Path | None = None) -> dict:
 # phase 9: GGML types (the recipes of the reference's quantize tool)
 # ---------------------------------------------------------------------------
 
-GGML_DEPTH = 4  # the untimed recipes' depth (the smoke's time limit)
+GGML_DEPTH = 2  # the untimed recipes' depth (the smoke's time limit; 4 before phase 13)
 # (label, recipe, full depth and timed, load options, impl, a decode step's
 # launches per layer, the lm head's kernel), as the recipe table gives them:
 # Q8_0 and Q6_K fuse every slot; Q5_K_M's, Q3_K_M's and Q2_K's wqk and
@@ -2634,7 +2950,7 @@ GGML_DEPTH = 4  # the untimed recipes' depth (the smoke's time limit)
 # scales under impl "int8", goes to qmm_int8 with every q4 weight.
 GGML_CONFIGS = (
     ("Q8_0", "q8_0", True, {}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
-    ("Q5_K_M", "q5_k_m", True, {}, "auto", {"qmm": 5}, "qmm"),
+    ("Q5_K_M", "q5_k_m", False, {}, "auto", {"qmm": 5}, "qmm"),
     ("Q6_K", "q6_k", False, {}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
     ("Q4_K_S", "q4_k_s", False, {}, "auto", {"attn_in": 1, "qmm": 3}, "qmm"),
     ("Q3_K_M", "q3_k_m", False, {}, "auto", {"qmm": 5}, "qmm"),
@@ -2663,8 +2979,8 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
     """Phase 9: TinyLlama-1.1B at full width under every recipe of the
     reference's quantize tool, one load at a time: the dispatch pinned per
     recipe, a 2-layer cut against the CPU, three greedy requests counted
-    from 0; Q8_0 and Q5_K_M at full depth with pp512 and tg128 beside their
-    bounds, the others cut to GGML_DEPTH layers. Returns the results and the
+    from 0; Q8_0 at full depth with pp512 and tg128 beside their bounds,
+    the others cut to GGML_DEPTH layers (Q5_K_M too since phase 13). Returns the results and the
     requests' launch counts."""
     import dataclasses
 
@@ -2699,6 +3015,64 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
             out[label] = times
         del params
         torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the gemma family (GELU, head_dim 256; gemma2's quirks)
+# ---------------------------------------------------------------------------
+
+GEMMA_MAX_SEQ = 4096 + 128 + 64  # the 3000-token request's bucket + tg128 + 64
+GEMMA2_DEPTH = 2  # Gemma-2-9B's layers on the card (of 42)
+
+
+def gemma(dev, profile: Path | None = None) -> dict:
+    """Phase 13 (module docstring): Gemma-2B at full width and depth, then
+    Gemma-2-9B cut to GEMMA2_DEPTH layers. Returns Gemma-2B's results (its
+    requests' launches under main_path_launches) and the cut."""
+    import dataclasses
+
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import gemma2_9b_config, gemma_2b_config
+
+    cfg, params, times = load_fixture(gemma_2b_config(), "gemma-2b-q4_k_m-seed0.gguf", dev)
+    L = cfg.n_layers
+    # decode: attn_in at head_dim 256 and oproj_ffn with GELU in every
+    # layer, the tied lm head a qmm; the 3000-token request's bucket 4096
+    # runs the flash prefill at head_dim 256 in every layer
+    pin_dispatch(cfg, params, "Gemma-2B",
+                 {"prefill": 0, "attn_in": L, "oproj_ffn": L, "ffn": 0, "qmm": 1, "qmm_int8": 0},
+                 4096)
+    reference_check(cfg, params, dev)
+    res = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 3000),
+                     request_max_seq=GEMMA_MAX_SEQ, profile=profile, tag=" gemma-2b")
+    # the rotated layer boundary: layer 0's rot kernel (GELU, then layer 1's
+    # QKV at head_dim 256), a 2-layer cut against the CPU
+    with switches({"TKQ_ROTATE_LAYER": "1"}):
+        reset_counts()
+        reference_check(cfg, params, dev, lengths=(8,), steps=2)
+        n_rot = counts()["rot"]
+    log(f"  TKQ_ROTATE_LAYER=1: the rot kernel launched {n_rot} times in the 2-layer cut")
+    if n_rot == 0:
+        raise SystemExit("FAIL: Gemma-2B under TKQ_ROTATE_LAYER=1 never launched rot")
+    del params
+    torch.cuda.empty_cache()
+
+    full = gemma2_9b_config()
+    cut = dataclasses.replace(full, n_layers=GEMMA2_DEPTH)
+    out = {**res, **times, "reduced": (
+        f"Gemma-2-9B at depth {GEMMA2_DEPTH} of {full.n_layers} layers, a reference_check "
+        f"only: a layer of its width costs write and load time that the smoke's budget does "
+        f"not have")}
+    log(f"  reduced: {out['reduced']}")
+    cfg, params, t9 = load_fixture(cut, f"gemma-2-9b-{GEMMA2_DEPTH}l-q4_k_m-seed0.gguf", dev)
+    # post norms keep oproj_ffn and ffn off, the softcap keeps the flash
+    # kernels off; attn_in runs at head_dim 256
+    reference_check(cfg, params, dev, lengths=(8,), steps=2, depth=GEMMA2_DEPTH)
+    out["gemma2_9b_cut"] = t9
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3149,6 +3523,10 @@ def main() -> int:
     ggml = ggml_types(dev, args.profile)
     torch.cuda.empty_cache()
 
+    phase("phase 13: the gemma family (Gemma-2B; Gemma-2-9B cut to 2 layers)")
+    gem = gemma(dev, args.profile)
+    torch.cuda.empty_cache()
+
     phase(f"phase 11: the qmm kernel lab (mutation ladder, manual ring) [{gpu_line()}]")
     lab = kernel_lab(dev, cases["qmm"])
 
@@ -3157,13 +3535,14 @@ def main() -> int:
 
     # launches: the sums over the request runs of phases 4, 5 (both KV
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
-    # (both configurations), 9 (every recipe) and 10 (every path), each
-    # counted from 0 and checked exactly
+    # (both configurations), 9 (every recipe), 10 (every path) and 13
+    # (Gemma-2B), each counted from 0 and checked exactly
     runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
             f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
-            *ggml["launches"].values(), *(r["launches"] for r in fused.values())]
+            *ggml["launches"].values(), *(r["launches"] for r in fused.values()),
+            gem["main_path_launches"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-10): {launches}")
+    log(f"  launches on the main path (phases 4-10, 13): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

@@ -470,6 +470,9 @@ PREFILL_CASES = {
     "burst_int8": (1024, 64, 64, 32, 4, 64, [0] * 1024, True, 0),
     "hd128_window_ragged": (2, 72, 384, 12, 2, 128, [100, 248], False, 96),
     "hd128_window_ragged_int8": (2, 72, 384, 12, 2, 128, [100, 248], True, 96),
+    # head_dim 256 (the gemma family; Gemma-2B's 8 / 1 heads)
+    "hd256_t1024_bf16": (1, 1024, 1024, 8, 1, 256, [0], False, 0),
+    "hd256_window_ragged_int8": (2, 72, 640, 8, 1, 256, [100, 500], True, 96),
 }
 
 
@@ -1645,3 +1648,83 @@ def test_rms_norm_rows_do_not_depend_on_the_batch(card, D):
     rows = rms_norm(flat, w)
     for r in (0, 100, 1023):
         assert torch.equal(rows[r:r + 1], rms_norm(flat[r:r + 1], w)), r
+
+
+# the gemma family: GELU in the fused FFN kernels, head_dim 256 in attn_in
+# and the flash decode
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8, 32])
+def test_fused_ffn_kernels_with_gelu_match_plain(card, R):
+    """gate_up, ffn and oproj_ffn with act_fn "gelu" at Gemma-2B's dim and a
+    shorter F, against their plain versions (TOL); gate/up rows at R = 16
+    and 32 equal the row alone, bit for bit."""
+    rng = np.random.default_rng(70 + R)
+    D, F = 2048, 4096
+    wo, gu, dn = q6w(D, D, rng, card), q4(2 * F, D, rng, card), q6w(D, F, rng, card)
+    x = (torch.randn(32, D, device=card) * 0.3).to(torch.bfloat16)
+    attn = (torch.randn(R, D, device=card) * 0.1).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    act = t_ffn.gate_up(x[:R], nw, 1e-6, gu, "gelu")
+    torch.cuda.synchronize()
+    assert _rel(act, t_ffn.gate_up_plain(x[:R], nw, 1e-6, gu, "gelu")) < TOL
+    assert _rel(act, t_ffn.gate_up_plain(x[:R], nw, 1e-6, gu, "silu")) > TOL
+    got = t_ffn.fused_ffn(x[:R], nw, 1e-6, gu, dn, act_fn="gelu")
+    assert _rel(got, t_ffn.ffn_plain(x[:R], nw, 1e-6, gu, dn, "gelu")) < TOL
+    got = t_ffn.fused_oproj_ffn(x[:R], attn, wo, nw, 1e-6, gu, dn, act_fn="gelu")
+    assert _rel(got, t_ffn.oproj_ffn_plain(x[:R], attn, wo, nw, 1e-6, gu, dn, "gelu")) < TOL
+    if R == 32:
+        _solo_rows_equal(lambda a: t_ffn.gate_up(a, nw, 1e-6, gu, "gelu"), (x,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H,Hkv", [(2048, 8, 1), (3584, 16, 8)])
+def test_attn_in_kernel_head_dim_256_matches_plain_and_the_row_alone(card, D, H, Hkv):
+    """attn_in at head_dim 256 (Gemma-2B's and Gemma-2-9B's widths), R = 1,
+    5, 16 against attn_in_plain (TOL); rows at R = 16 and 32 equal the row
+    alone, bit for bit."""
+    rng = np.random.default_rng(D)
+    hd = 256
+    wqk, wv = q4((H + Hkv) * hd, D, rng, card), q6w(Hkv * hd, D, rng, card)
+    x = (torch.randn(32, D, device=card) * 0.5).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(32, hd // 2, device=card), torch.rand(32, hd // 2, device=card)
+    for R in (1, 5, 16):
+        got = t_attn_in.fused_attn_in(x[:R], nw, 1e-6, wqk, wv, cos[:R], sin[:R], hd)
+        torch.cuda.synchronize()
+        ref = t_attn_in.attn_in_plain(x[:R], nw, 1e-6, wqk, wv, cos[:R], sin[:R], hd)
+        assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL, R
+    _solo_rows_equal(lambda a, c, s_: t_attn_in.fused_attn_in(a, nw, 1e-6, wqk, wv, c, s_, hd),
+                     (x, cos, sin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_attn_head_dim_256_matches_plain_and_the_row_alone(card, int8):
+    """#7 at Gemma-2B's 8 / 1 heads of 256, positions at the tiles' and the
+    splits' edges, against decode_attention_plain and its split blocking
+    (per row, TOL); each row of the call equal to the row alone."""
+    H, Hkv, D, S = 8, 1, 256, 2048
+    g = torch.Generator(device=card).manual_seed(256 + int8)
+    tps = t_decode.decode_plan(S, D, int8)[0]
+    pos = [0, 1, 63, 64, 65, 64 * tps - 1, 64 * tps, 2047, 1000]
+    B = len(pos)
+    q = torch.randn(B, 1, H, D, device=card, generator=g).to(torch.bfloat16)
+    if int8:
+        k, v = (torch.randint(-127, 128, (B, Hkv, S, D), device=card, generator=g,
+                              dtype=torch.int8) for _ in range(2))
+        scales = tuple(torch.rand(B, Hkv, S, device=card, generator=g) * 0.02 + 0.001
+                       for _ in range(2))
+    else:
+        k, v = (torch.randn(B, Hkv, S, D, device=card, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        scales = None
+    qp = torch.tensor(pos, device=card)[:, None]
+    got = t_decode.attention_decode_flash(q, k, v, qp, scales)
+    torch.cuda.synchronize()
+    assert _row_rel(got, t_decode.decode_attention_plain(q, k, v, qp, scales)) < TOL
+    assert _row_rel(got, t_decode.decode_attention_split_plain(q, k, v, qp, scales)) < TOL
+    for b in range(B):
+        sc = None if scales is None else tuple(t[b:b + 1] for t in scales)
+        alone = t_decode.attention_decode_flash(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                                qp[b:b + 1], sc)
+        assert torch.equal(got[b:b + 1], alone), b

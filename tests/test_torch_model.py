@@ -230,7 +230,7 @@ def test_entry_points_refuse_what_this_slice_lacks(models):
     with pytest.raises(NotImplementedError):
         ContinuousBatcher(te, mesh=object())
     with pytest.raises(NotImplementedError):
-        t_llama.llama_forward(te.params, dataclasses.replace(te.cfg, final_logit_softcap=30.0),
+        t_llama.llama_forward(te.params, dataclasses.replace(te.cfg, arch="mamba"),
                               torch.tensor([[1]]), torch.tensor([[0]]), te.new_cache(1))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -26,17 +26,20 @@
 // whose splits form a thread-block cluster: every block takes the rows'
 // rms over the whole row, the GEMV's partial tiles are read over
 // distributed shared memory and added in rank order, and the ranks share
-// the epilogue (bf16 round, bias, rope). One launch, no workspace. The
-// earlier CUDA-core kernel (20 blocks over the whole of K at TinyLlama
+// the epilogue (bf16 round, bias, rope). One launch, no workspace. At
+// head_dim 256 (the gemma family) a block's 128 columns are 64 of a head's
+// first half and their 64 rope partners, so each epilogue still holds
+// whole rope pairs. The earlier CUDA-core kernel (20 blocks over the whole of K at TinyLlama
 // width, 8 rows a block) took 0.0146 ms at TinyLlama R = 1 on an H100 80GB
 // HBM3 (chip_smoke.py phase 3).
 #include "attn_in.cuh"
 
 using namespace tkq;
 
-// Requires D % 512 == 0, n0 and n1 multiples of 128, 128 % hd == 0 (a
-// column block holds whole heads), 1 <= R <= 32, x and nw 16-byte
-// aligned. qk_kind / v_kind: KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F
+// Requires D % 512 == 0, n0 and n1 multiples of 128 and of hd, 128 % hd ==
+// 0 (a column block holds whole heads) or hd % 128 == 0 (a block holds 64
+// columns of a head's first half and their rope partners), 1 <= R <= 32, x
+// and nw 16-byte aligned. qk_kind / v_kind: KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F
 // (common.cuh); *_mins: the f32 mins of a KQ4F weight, else null. bqk /
 // bv: f32 biases or both null.
 extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kind,

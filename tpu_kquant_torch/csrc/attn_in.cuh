@@ -9,8 +9,14 @@
 // in front of it as in gate_up.cuh (gv_sumsq, gv_stage_xn: the normalised
 // rows staged as bf16 hi + lo).
 // - Grid (ceil(n0 / 128) + ceil(n1 / 128), splits): a column block holds
-//   128 columns of one slot, whole heads (128 % head_dim == 0 is the
-//   gate); the blocks past the qk columns compute wv's columns, unroped.
+//   128 columns of one slot, so that its epilogue holds every neox rope
+//   pair (c, c + head_dim / 2) it ropes: whole heads where head_dim
+//   divides 128 (64, 128); where head_dim is a multiple of 128 (256, the
+//   gemma family), block h (head_dim / 128) + q takes columns [64 q, 64 q
+//   + 64) of head h's first half and their partners 64 q + head_dim / 2
+//   ... of its second half, each warp's 64 columns one contiguous range
+//   of the weight (ai_col). The blocks past the qk columns compute wv's
+//   columns, unroped.
 //   Its 8 warps are 2 across the columns (gemv.cuh's 64 a warp) by 4
 //   across the block's chunks, so a warp walks at most a few chunks in
 //   turn: at R = 1 each chunk step waits for its loads (about 1 us on the
@@ -165,6 +171,14 @@ __device__ void ai_combine(const float (&acc)[NT][4][4], float* tile, int wn, in
   }
 }
 
+// The slot column of block column c (0 .. 127) of column block `tile` at
+// head dim hd (see the grid above).
+__device__ __forceinline__ int ai_col(int tile, int c, int hd) {
+  if (hd <= AI_TN) return tile * AI_TN + c;
+  const int per = hd / AI_TN, h = tile / per, q = tile % per;
+  return h * hd + (c >= AI_TN / 2 ? hd / 2 : 0) + q * (AI_TN / 2) + c % (AI_TN / 2);
+}
+
 // One block of the grid: column block `tile` of slot qk (is_qk) or v, K
 // split blockIdx.y of the cluster's gridDim.y, for a weight of kind KIND.
 template <int KIND, int NT>
@@ -190,27 +204,34 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
   float* sums = reinterpret_cast<float*>(smem + (size_t)2 * ROWS * XS * 2);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int wn = warp % AI_WN, wk = warp / AI_WN;
-  const int n = tile * AI_TN + wn * 64 + 8 * g;  // the lane's 8 code columns
+  const int n = ai_col(tile, wn * 64 + 8 * g, a.hd);  // the lane's 8 code columns
   const int ns = n + 2 * t;                       // the 2 columns whose scales it loads
   const bool al8 = N % 8 == 0 && (reinterpret_cast<uintptr_t>(qs) & 7) == 0;
   const GemvArgs ga{nullptr, 0, qs, is_qk ? a.qk_scl : a.v_scl, a.R, N, a.D, cps, nullptr,
                     nullptr, 0, nullptr, is_qk ? a.qk_mins : a.v_mins};
   // the epilogue's (row, head) units u = rank, rank + splits, ... of the
-  // block's R x heads, a pair of columns (f, f + hd / 2) an item; the
-  // thread's first item's rope and bias values load now
-  const int half = a.hd / 2, cols = min(AI_TN, N - tile * AI_TN), heads = cols / a.hd;
+  // block's R x heads, a pair of block columns (c, c + bh) an item (bh =
+  // hd / 2 with whole heads, 64 where the block holds a quarter of a
+  // 256-wide head): slot columns (ai_col(c), ai_col(c) + hd / 2), rope
+  // frequency fr; the thread's first item's rope and bias values load now
+  const bool wide = a.hd > AI_TN;
+  const int half = a.hd / 2, bh = wide ? AI_TN / 2 : half;
+  const int heads = wide ? 1 : min(AI_TN, N - tile * AI_TN) / a.hd;
+  const int f0 = wide ? (tile % (a.hd / AI_TN)) * (AI_TN / 2) : 0;  // fr of block column 0
   const int units = (a.R * heads - rank + splits - 1) / splits;
   const float* bias = is_qk ? a.bqk : a.bv;
   const auto item = [&](int i, int& r, int& f, int& c) {
-    const int u = rank + (i / half) * splits;
-    f = i % half, r = u / heads, c = (u % heads) * a.hd + f;  // block column of the first half
+    const int u = rank + (i / bh) * splits;
+    f = i % bh, r = u / heads, c = (u % heads) * a.hd + f;  // block column of the first half
   };
-  float pre[4] = {0.f, 0.f, 1.f, 0.f};  // bias of c, of c + half, cos, sin
-  if (threadIdx.x < units * half) {
+  float pre[4] = {0.f, 0.f, 1.f, 0.f};  // bias of the pair's two columns, cos, sin
+  if (threadIdx.x < units * bh) {
     int r, f, c;
     item(threadIdx.x, r, f, c);
-    if (bias != nullptr) pre[0] = bias[tile * AI_TN + c], pre[1] = bias[tile * AI_TN + c + half];
-    if (is_qk) pre[2] = a.cosv[(size_t)r * half + f], pre[3] = a.sinv[(size_t)r * half + f];
+    const int col = ai_col(tile, c, a.hd);
+    if (bias != nullptr) pre[0] = bias[col], pre[1] = bias[col + half];
+    if (is_qk)
+      pre[2] = a.cosv[(size_t)r * half + f0 + f], pre[3] = a.sinv[(size_t)r * half + f0 + f];
   }
   // the first chunk's words are in flight while the rows are normalised
   uint2 w[8], sc[4];
@@ -252,7 +273,7 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
   // the epilogue: each column's sum over the ranks in rank order, bf16, +
   // bias, the half rotation (qk) in f32, bf16
   __nv_bfloat16* out = is_qk ? a.out0 : a.out1;
-  for (int i = threadIdx.x; i < units * half; i += GV_THREADS) {
+  for (int i = threadIdx.x; i < units * bh; i += GV_THREADS) {
     int r, f, c;
     item(i, r, f, c);
     float p0[AI_MAX_SPLITS], p1[AI_MAX_SPLITS];  // all in flight, then added in rank order
@@ -260,22 +281,22 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
     for (int q = 0; q < AI_MAX_SPLITS; ++q) {
       if (q < splits) {
         const float* pq = peer(part, q) + r * AI_TP;
-        p0[q] = pq[c], p1[q] = pq[c + half];
+        p0[q] = pq[c], p1[q] = pq[c + bh];
       }
     }
     float y0 = 0.f, y1 = 0.f;
 #pragma unroll
     for (int q = 0; q < AI_MAX_SPLITS; ++q)
       if (q < splits) y0 += p0[q], y1 += p1[q];
-    const int col = tile * AI_TN + c;
+    const int col = ai_col(tile, c, a.hd);
     const bool first = i == threadIdx.x;
     const float b0 = bias == nullptr ? 0.f : first ? pre[0] : bias[col];
     const float b1 = bias == nullptr ? 0.f : first ? pre[1] : bias[col + half];
     y0 = round_bf16(y0) + b0;
     y1 = round_bf16(y1) + b1;
     if (is_qk) {
-      const float cs = first ? pre[2] : a.cosv[(size_t)r * half + f];
-      const float sn = first ? pre[3] : a.sinv[(size_t)r * half + f];
+      const float cs = first ? pre[2] : a.cosv[(size_t)r * half + f0 + f];
+      const float sn = first ? pre[3] : a.sinv[(size_t)r * half + f0 + f];
       const float o0 = __fsub_rn(__fmul_rn(y0, cs), __fmul_rn(y1, sn));
       const float o1 = __fadd_rn(__fmul_rn(y1, cs), __fmul_rn(y0, sn));
       y0 = o0, y1 = o1;
@@ -339,13 +360,17 @@ cudaError_t launch_attn_in_nt(const AttnInArgs& a, int splits, cudaStream_t st) 
 
 // Launches attn_in for R <= 32 rows (one n-tile of 8 rows per 8 rows of R)
 // at the split of attn_in_plan. Requires D % 512 == 0, n0 and n1 multiples
-// of 128, 128 % hd == 0, 16-byte aligned rows of x and the norm weight.
+// of 128 and of hd, 128 % hd == 0 or hd % 128 == 0, 16-byte aligned rows
+// of x and the norm weight.
 inline cudaError_t launch_attn_in(const AttnInArgs& a, cudaStream_t st) {
   const int splits = TKQ_AI_SPLITS > 0 ? TKQ_AI_SPLITS
                                        : attn_in_plan(a.qk_kind, a.v_kind, a.n0, a.n1, a.D);
   const int nq = a.D / (segments(a.qk_kind) * CH), nv = a.D / (segments(a.v_kind) * CH);
   if (splits < 1 || splits > AI_MAX_SPLITS || nq % splits != 0 || nv % splits != 0 ||
       nq / splits < AI_WK || nv / splits < AI_WK || a.R < 1)
+    return cudaErrorInvalidValue;
+  if (a.hd < 2 || a.hd % 2 != 0 || (AI_TN % a.hd != 0 && a.hd % AI_TN != 0) ||
+      a.n0 % a.hd != 0 || a.n1 % a.hd != 0 || a.n0 % AI_TN != 0 || a.n1 % AI_TN != 0)
     return cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.nw)) & 15) != 0)
     return cudaErrorMisalignedAddress;

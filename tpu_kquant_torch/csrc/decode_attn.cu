@@ -20,6 +20,11 @@
 // is 4 G D flops a slot (G query heads per KV head: 8 flops a byte of bf16),
 // far below the tensor cores' rate.
 //
+// Head dims 64, 128 and 256 (the gemma family) are instances of one
+// template. At 256 a bf16 stage is 66 KB, so the three-stage ring takes
+// 198 KB (one block a SM), and a lane keeps a 16 x 256 f32 accumulator
+// fragment (128 registers) beside q's fragments; it is the same code.
+//
 // Design (one block = 4 warps = one (KV head, row, split)):
 // - A split over S that does not depend on B: split z of a row walks tiles
 //   [z tps, (z + 1) tps) of 64 slots up to the row's last live tile, tps
@@ -330,7 +335,7 @@ cudaError_t launch_flash_decode(const FlashDecodeArgs& a, cudaStream_t st) {
 using namespace tkq;
 
 // Requires bf16 q with dense heads (row stride sqb in elements), D in {64,
-// 128}, S % 64 == 0, H % Hkv == 0 with H / Hkv <= 16, 16-byte aligned K/V
+// 128, 256}, S % 64 == 0, H % Hkv == 0 with H / Hkv <= 16, 16-byte aligned K/V
 // rows and (int8) scale rows, 0 <= q_pos[b] < S; tps tiles a split, splits
 // = ceil(S / 64 / tps), part: f32 scratch of B * H * splits * (D + 2) floats
 // (unused with one split), items: int32 scratch of B * splits + 2 (the work
@@ -353,6 +358,8 @@ extern "C" int tkq_decode_attn(int kv_i8, int D, const void* q, long long sqb, c
                                   : launch_flash_decode<64, false>(a, st));
   if (D == 128) return (int)(kv_i8 ? launch_flash_decode<128, true>(a, st)
                                    : launch_flash_decode<128, false>(a, st));
+  if (D == 256) return (int)(kv_i8 ? launch_flash_decode<256, true>(a, st)
+                                   : launch_flash_decode<256, false>(a, st));
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,9 +2,10 @@
 // without (ffn): one library, since both instantiate the same gate/up and
 // GEMV kernels for every kind they take.
 //
-// oproj_ffn: x2 = bf16(x + attn @ Wo^T); y = x2 + down(silu(gate(n(x2))) *
-// up(n(x2))) for decode rows (R <= 32), n = rms_norm, gate and up rounded
-// to bf16, their product rounded to bf16.
+// oproj_ffn: x2 = bf16(x + attn @ Wo^T); y = x2 + down(a(gate(n(x2))) *
+// up(n(x2))) for decode rows (R <= 32), n = rms_norm, a = silu or the exact
+// gelu (the gemma family; the `gelu` flag), gate and up rounded to bf16,
+// their product rounded to bf16.
 //
 // Replaces the TPU kernels tpu_kquant/ops/pallas_ffn.py:fused_oproj_ffn,
 // manual variant _oproj_ffn_manual_call (kernel _oproj_ffn_manual_kernel)
@@ -27,7 +28,7 @@
 //   (B) gate/up (gate_up.cuh, shared with ffn): a block recomputes
 //       rms(x2) per row, stages its K range of the normalised rows,
 //       computes its 128 columns j of gate and F + j of up with gemv.cuh's
-//       tensor-core core, rounds both to bf16, writes bf16(silu(gate) * up)
+//       tensor-core core, rounds both to bf16, writes bf16(a(gate) * up)
 //       -> act [R, F] (where K is split, its fixed-order reduce does);
 //   (C) down: split-K GEMV over Wd on act; its reduce adds x2 -> y.
 // Each phase is a launch plus a reduce launch where its K is split (up to
@@ -35,7 +36,7 @@
 // later work. The sequence is gate_up.cuh:launch_oproj_ffn, shared with
 // layer.cu and rot.cu.
 //
-// ffn: y = x + down(bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x))))) for
+// ffn: y = x + down(bf16(a(bf16(gate(n(x)))) * bf16(up(n(x))))) for
 // decode rows (R <= 32), n = rms_norm: the FFN block without o_proj, run
 // where the attention width fails oproj_ffn's K % 1024 gate (qwen2: 12 x 128
 // = 1536).
@@ -53,7 +54,7 @@
 // the down sum in VMEM; blocks here run in no order, so the two phases are
 // separate launches on the stream, as in oproj_ffn's phases B and C:
 //   (B) gate/up (gate_up.cuh): each block owns 128 columns of gate and the
-//       matching 128 of up, so silu(gate) * up is formed in the block (or
+//       matching 128 of up, so a(gate) * up is formed in the block (or
 //       in the fixed-order reduce of a K split) and only the bf16
 //       activation [R, F] is written;
 //   (C) down: gemv.cuh's tensor-core GEMV over w_down on that
@@ -70,18 +71,20 @@ using namespace tkq;
 // *_kind: common.cuh's kind codes (wo and gu: KQ4, KQ6W or KQ8; dn: KQ6W or
 // KQ8; each or its F variant); *_scl the sm / sp pairs or f32 scales,
 // *_mins the f32 mins of a KQ4F weight (else null).
-// cps_* / splits_*: the K split of phases A, B and C. Requires K % 64 ==
-// 0, dim % 64 == 0, F % 32 == 0, R <= 32.
+// cps_* / splits_*: the K split of phases A, B and C. gelu: the
+// activation, 0 silu, 1 gelu. Requires K % 64 == 0, dim % 64 == 0, F % 32
+// == 0, R <= 32.
 extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
                              int wo_kind, const void* wo_qs, const void* wo_scl,
                              const void* wo_mins, int gu_kind, const void* gu_qs,
                              const void* gu_scl, const void* gu_mins, int dn_kind,
                              const void* dn_qs, const void* dn_scl, void* x2, void* act, float* ws,
                              void* out, int R, int dim, int K, int F, int cps_o, int splits_o,
-                             int cps_g, int splits_g, int cps_d, int splits_d, void* stream) {
+                             int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
+                             void* stream) {
   return (int)launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
                                gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, out, R, dim,
-                               K, F, cps_o, splits_o, cps_g, splits_g, cps_d, splits_d, 0,
+                               K, F, cps_o, splits_o, cps_g, splits_g, cps_d, splits_d, 0, gelu,
                                static_cast<cudaStream_t>(stream));
 }
 
@@ -89,16 +92,18 @@ extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, f
 // splits_d * R * dim) floats. gu_kind: KQ4, KQ6W or KQ8, or its F variant
 // (gu_mins: the f32 mins of a KQ4F weight, else null); dn_kind: KQ6W,
 // KQ6WF, KQ8 or KQ8F. cps_g / splits_g, cps_d / splits_d: the K split of
-// phases B and C. Requires dim % 64 == 0, F % 32 == 0, R <= 32.
+// phases B and C; gelu: the activation, 0 silu, 1 gelu. Requires dim % 64
+// == 0, F % 32 == 0, R <= 32.
 extern "C" int tkq_ffn(const void* x, const float* nw, float eps, int gu_kind, const void* gu_qs,
                        const void* gu_scl, const void* gu_mins, int dn_kind, const void* dn_qs,
                        const void* dn_scl, void* act, float* ws, void* out, int R, int dim, int F,
-                       int cps_g, int splits_g, int cps_d, int splits_d, void* stream) {
+                       int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   GateUpArgs ag{xb, nw, eps, static_cast<const uint8_t*>(gu_qs),
                 static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
-                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws};
+                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu};
   cudaError_t e = launch_gate_up(gu_kind, ag, splits_g, st);
   if (e != cudaSuccess) return (int)e;
   GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),
@@ -112,10 +117,10 @@ extern "C" int tkq_ffn(const void* x, const float* nw, float eps, int gu_kind, c
 // it inside tkq_oproj_ffn and tkq_ffn.
 extern "C" int tkq_gate_up(const void* x, const float* nw, float eps, int gu_kind,
                            const void* gu_qs, const void* gu_scl, const void* gu_mins, void* act,
-                           float* ws, int R, int dim, int F, int cps_g, int splits_g,
+                           float* ws, int R, int dim, int F, int cps_g, int splits_g, int gelu,
                            void* stream) {
   GateUpArgs ag{static_cast<const __nv_bfloat16*>(x), nw, eps, static_cast<const uint8_t*>(gu_qs),
                 static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
-                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws};
+                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu};
   return (int)launch_gate_up(gu_kind, ag, splits_g, static_cast<cudaStream_t>(stream));
 }

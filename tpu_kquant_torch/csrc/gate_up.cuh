@@ -1,6 +1,7 @@
 // gate/up phase shared by the FFN kernels (ffn.cu: oproj_ffn and ffn;
 // layer.cu, rot.cu through launch_oproj_ffn):
-// act = bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x)))), n = rms_norm, for
+// act = bf16(a(bf16(gate(n(x)))) * bf16(up(n(x)))), n = rms_norm, a = silu
+// or, for the gemma family, the exact (erf) gelu (GateUpArgs.gelu), for
 // decode rows (R <= 32), over the fused w_gateup [2F, dim] (gate columns
 // 0..F-1, up columns F..2F-1) of kind q4, q6w or q8, each with bf16 pairs or
 // f32 scales (KQ4, KQ4F, KQ6W, KQ6WF, KQ8, KQ8F of common.cuh).
@@ -51,11 +52,20 @@ struct GateUpArgs {
   int R, dim, F;
   int cps;                  // chunks per K split (grid.y splits)
   float* ws;                // [splits, R, 2F] f32 partials where grid.y > 1
+  int gelu;                 // 0: silu, 1: gelu (exact, erf)
 };
 
-__device__ __forceinline__ __nv_bfloat16 gu_act(float g, float u) {
+// The activated product of one (gate, up) pair, in f32 on their bf16
+// roundings, as the TPU kernels form it (pallas_ffn.py:226-231: silu, or
+// jax.nn.gelu(approximate=False) = g (1 + erf(g / sqrt 2)) / 2), rounded to
+// bf16. The activation is a run-time flag, uniform over the launch: it
+// costs one branch a pair in the epilogue and no kernel instance of its
+// own (a template parameter would double every gate/up instance, and with
+// them the build time of ffn, layer and rot).
+__device__ __forceinline__ __nv_bfloat16 gu_act(float g, float u, int gelu) {
   g = round_bf16(g), u = round_bf16(u);
-  return __float2bfloat16_rn(g / (1.f + expf(-g)) * u);
+  const float a = gelu ? g * (erff(g * 0.70710678118654752f) + 1.f) * 0.5f : g / (1.f + expf(-g));
+  return __float2bfloat16_rn(a * u);
 }
 
 // grid (ceil(F / 128), splits); GV_THREADS threads; dynamic smem
@@ -121,14 +131,15 @@ __global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) gate_up_kernel(Ga
     for (int i = threadIdx.x; i < ROWS * GV_TN / 2; i += GV_THREADS) {
       const int r = i / (GV_TN / 2), c = i % (GV_TN / 2), j = j0 + c;
       if (r >= a.R || j >= a.F) continue;
-      a.act[(size_t)r * a.F + j] = gu_act(tile[r * GV_TP + c], tile[r * GV_TP + GV_TN / 2 + c]);
+      a.act[(size_t)r * a.F + j] =
+          gu_act(tile[r * GV_TP + c], tile[r * GV_TP + GV_TN / 2 + c], a.gelu);
     }
   }
 }
 
 // act[r, j] from the splits' partials, each sum taken in split order 0, 1, ...
 __global__ void __launch_bounds__(256) gate_up_reduce(const float* ws, int S, int R, int F,
-                                                      __nv_bfloat16* act) {
+                                                      int gelu, __nv_bfloat16* act) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R * F) return;
   const int r = i / F, j = i % F;
@@ -137,7 +148,7 @@ __global__ void __launch_bounds__(256) gate_up_reduce(const float* ws, int S, in
     const float* p = ws + ((size_t)s * R + r) * 2 * F;
     gs += p[j], us += p[F + j];
   }
-  act[i] = gu_act(gs, us);
+  act[i] = gu_act(gs, us, gelu);
 }
 
 template <int KIND, int NT>
@@ -150,7 +161,8 @@ cudaError_t launch_gate_up_nt(const GateUpArgs& a, int splits, cudaStream_t st) 
   gate_up_kernel<KIND, NT><<<grid, GV_THREADS, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
-  gate_up_reduce<<<(a.R * a.F + 255) / 256, 256, 0, st>>>(a.ws, splits, a.R, a.F, a.act);
+  gate_up_reduce<<<(a.R * a.F + 255) / 256, 256, 0, st>>>(a.ws, splits, a.R, a.F, a.gelu,
+                                                          a.act);
   return cudaGetLastError();
 }
 
@@ -186,8 +198,9 @@ inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, int splits, cud
 // reference's attn_out and layer kernels do) -> x2; (B) gate/up on x2 ->
 // act; (C) the down GEMV on act, whose epilogue adds x2 -> out [R, dim].
 // ws: f32 scratch of max(splits_o * R * dim, splits_g * R * 2F, splits_d *
-// R * dim) floats, used by one phase at a time. pdl: the o_proj GEMV is a
-// programmatic dependent of the kernel that writes attn (GemvArgs.pdl).
+// R * dim) floats, used by one phase at a time. gelu: phase B's activation
+// (0 silu, 1 gelu). pdl: the o_proj GEMV is a programmatic dependent of the
+// kernel that writes attn (GemvArgs.pdl).
 inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
                                     int wo_kind, const void* wo_qs, const void* wo_scl,
                                     const void* wo_mins, int gu_kind, const void* gu_qs,
@@ -195,7 +208,7 @@ inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float
                                     const void* dn_qs, const void* dn_scl, void* x2, void* act,
                                     float* ws, void* out, int R, int dim, int K, int F,
                                     int cps_o, int splits_o, int cps_g, int splits_g, int cps_d,
-                                    int splits_d, int round_first, cudaStream_t st,
+                                    int splits_d, int round_first, int gelu, cudaStream_t st,
                                     int pdl = 0) {
   GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_scl),
               R, dim, K, cps_o, ws, x2, 0, static_cast<const __nv_bfloat16*>(x),
@@ -207,7 +220,7 @@ inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float
   const auto* x2b = static_cast<const __nv_bfloat16*>(x2);
   GateUpArgs ag{x2b, nw, eps, static_cast<const uint8_t*>(gu_qs),
                 static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
-                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws};
+                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu};
   e = launch_gate_up(gu_kind, ag, splits_g, st);
   if (e != cudaSuccess) return e;
   GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),

@@ -53,7 +53,7 @@ using namespace tkq;
 // (strides in elements), q_pos: int64 [R], slot q_pos[b] not yet written.
 // ws: f32 scratch of max(splits_o * R * D, splits_g * R * 2F, splits_d * R *
 // D) floats; the attention split: fa_splits of tps tiles
-// (fused_attn_plan).
+// (fused_attn_plan); gelu: the FFN's activation, 0 silu, 1 gelu.
 extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, float eps,
                          int qk_kind, const void* qk_qs, const void* qk_scl, const void* qk_mins,
                          int v_kind, const void* v_qs, const void* v_scl, const void* v_mins,
@@ -65,7 +65,8 @@ extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, floa
                          void* qk, void* v, void* att, void* x2, void* act, float* ws, void* y,
                          int R, int D, int H, int Hkv, int hd, int S, int F, float scale,
                          int tps, int fa_splits, int cps_o, int splits_o,
-                         int cps_g, int splits_g, int cps_d, int splits_d, void* stream) {
+                         int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n0 = (H + Hkv) * hd, n1 = Hkv * hd;
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -101,5 +102,5 @@ extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, floa
   return (int)launch_oproj_ffn(x, att, fnw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind,
                                gu_qs, gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y,
                                R, D, H * hd, F, cps_o, splits_o, cps_g, splits_g, cps_d,
-                               splits_d, 1, st, 1);
+                               splits_d, 1, gelu, st, 1);
 }

@@ -77,7 +77,13 @@
 //   each takes its faster order. Ping-pong between the two consumer
 //   warpgroups (named barriers, each issuing in turn) moved T = S = 2048 by
 //   under 1% and slowed the burst by 11% (0.326 against 0.293 ms): not kept.
-// - Tiles of 128 slots (64 for int8 KV at head_dim 128, shared memory).
+// - Tiles of 128 slots (64 for int8 KV at head_dim 128 and at head_dim
+//   256, shared memory).
+// - Head dim 256 (the gemma family, PfCfg): one Q buffer and one stage, so
+//   loads and compute take turns; its 64 x 256 f32 accumulator (128
+//   registers a thread) does not fit the 168 registers that 384 threads
+//   leave a thread when ptxas compiles the kernel, so part of it lives in
+//   local memory. Right first: a faster head-256 design is later work.
 #include <cstring>
 
 #include "common.cuh"
@@ -92,25 +98,31 @@
 namespace tkq {
 
 // Tile j's softmax overlapped with tile j - 1's P V (head_dim 64), or each
-// tile's P V, Q K^T and softmax in turn (128); TKQ_PF_ABLATE 4 swaps them
-__host__ __device__ constexpr bool pf_overlap(int D) { return (D == 64) != (TKQ_PF_ABLATE == 4); }
+// tile's P V, Q K^T and softmax in turn (128; 256, whose one stage cannot
+// hold two tiles); TKQ_PF_ABLATE 4 swaps them at 64 and 128
+__host__ __device__ constexpr bool pf_overlap(int D) {
+  return D <= 128 && ((D == 64) != (TKQ_PF_ABLATE == 4));
+}
 constexpr int PF_CONSUMERS = 256;                // two warpgroups
 constexpr int PF_THREADS = PF_CONSUMERS + 128;   // + the producer warpgroup
 constexpr float PF_LOG2E = 1.4426950408889634f;
 constexpr float PF_NEG = -1e30f;
 
 // The kernel's tile geometry for head_dim D and the KV cache's type.
+// Head dim 256 (the gemma family): Q and the output staging take 128 KB, so
+// one Q buffer, tiles of 64 slots and one K/V stage (64 KB) fit; the
+// producer loads tile j + 1 only once tile j is consumed.
 template <int D, bool I8>
 struct PfCfg {
-  static constexpr int BN = (D == 128 && I8) ? 64 : 128;  // cache slots per tile
+  static constexpr int BN = (D == 256 || (D == 128 && I8)) ? 64 : 128;  // cache slots per tile
   static constexpr int NP = D / 64;                         // 128-byte panels of a row
   static constexpr int Q_HALF = 64 * D * 2;                 // one warpgroup's Q (or O) rows
   static constexpr int Q_BUF = 2 * Q_HALF;
-  static constexpr int NQ = D == 64 ? 4 : 2;                // Q buffers: items in flight
+  static constexpr int NQ = D == 64 ? 4 : D == 128 ? 2 : 1;  // Q buffers: items in flight
   static constexpr int KV_TILE = BN * D * 2;                // one bf16 K (or V) tile
   // a stage: K, V (int8 KV: then K and V scales), 1024-byte aligned
   static constexpr int STAGE = (2 * KV_TILE + (I8 ? 2 * BN * 4 : 0) + 1023) / 1024 * 1024;
-  static constexpr int NS = D == 64 ? 4 : (I8 ? 3 : 2);     // stages
+  static constexpr int NS = D == 64 ? 4 : D == 128 ? (I8 ? 3 : 2) : 1;  // stages
   static constexpr int NBAR = 2 * NQ + 2 * NS;
   static constexpr int SMEM = 1024 + (NQ + 1) * Q_BUF + NS * STAGE + NBAR * 8;
 };
@@ -330,12 +342,23 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
                          kk > 0);
       }
     };
-    // O += P V of stage s
+    // O += P V of stage s; at head_dim 256 as two products of N = 128 over
+    // the two halves of V's columns (panels 0-1 and 2-3), whose
+    // accumulators are o's two halves in the same fragment order
     auto pv = [&](int s) {
       const uint32_t vb = smem_u32(ring + s * C::STAGE + C::KV_TILE);
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        Wgmma<D, 1>::rs(o, pf[kk], gmma_desc(vb + kk * 16 * 128, BN * 128, 1024, 1), 1);
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        if constexpr (D <= 128) {
+          Wgmma<D, 1>::rs(o, pf[kk], gmma_desc(vb + kk * 16 * 128, BN * 128, 1024, 1), 1);
+        } else {
+#pragma unroll
+          for (int h = 0; h < D / 128; ++h)
+            Wgmma<128, 1>::rs(*reinterpret_cast<float(*)[64]>(o + 64 * h), pf[kk],
+                              gmma_desc(vb + h * 2 * BN * 128 + kk * 16 * 128, BN * 128, 1024, 1),
+                              1);
+        }
+      }
     };
     // the online softmax of tile j (stage s) on sacc, leaving p (times the
     // V scales) in sacc; returns the rescale of the rows' earlier sums
@@ -432,9 +455,12 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
       ++st;
       for (int j = it.lo + 1; j <= it.hi; ++j, ++st) {
         s = st % NS;
-        mbar_wait(full0 + 8 * s, (st / NS) & 1);
+        // tile j may land in tile j - 1's stage (one stage at head_dim 256):
+        // where P V of tile j - 1 comes first, that stage is released first
+        const auto wait_full = [&] { mbar_wait(full0 + 8 * s, (st / NS) & 1); };
         if constexpr (TKQ_PF_ABLATE == 3) {
           release(prev);
+          wait_full();
         } else if constexpr (!pf_overlap(D)) {  // P V, then Q K^T, then the softmax
           if constexpr (TKQ_PF_ABLATE != 2) {
             wgmma_fence();
@@ -445,6 +471,7 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
             fence_regs(pf);
           }
           release(prev);
+          wait_full();
           wgmma_fence();
           qk(s);
           wgmma_commit();
@@ -457,6 +484,8 @@ __global__ void __launch_bounds__(PF_THREADS, 1)
           pack_p();
         } else {
           // tile j's Q K^T with tile j - 1's P V; tile j's softmax while P V runs
+          static_assert(NS > 1 || !pf_overlap(D), "the overlap needs two stages");
+          wait_full();
           wgmma_fence();
           qk(s);
           wgmma_commit();
@@ -561,7 +590,7 @@ cudaError_t launch_prefill(const void* q, const long long (&sq)[3], const void* 
 
 using namespace tkq;
 
-// Requires bf16 q and out, D in {64, 128}, S % 64 == 0, H % Hkv == 0, the
+// Requires bf16 q and out, D in {64, 128, 256}, S % 64 == 0, H % Hkv == 0, the
 // plan's hw (a divisor of H / Hkv, at most 64), nq = 64 / hw, hg = H / Hkv
 // / hw, nqb = ceil(T / (2 nq)), n_items = B * Hkv * hg * nqb and grid <=
 // n_items blocks; q, out and K/V 16-byte aligned with 16-byte-multiple
@@ -588,5 +617,9 @@ extern "C" int tkq_prefill(int kv_i8, int D, const void* q, long long sqb, long 
     return (int)(kv_i8
                      ? launch_prefill<128, true>(q, sq, k, sk, v, sv, kd, vd, out, a, grid, st)
                      : launch_prefill<128, false>(q, sq, k, sk, v, sv, kd, vd, out, a, grid, st));
+  if (D == 256)
+    return (int)(kv_i8
+                     ? launch_prefill<256, true>(q, sq, k, sk, v, sv, kd, vd, out, a, grid, st)
+                     : launch_prefill<256, false>(q, sq, k, sk, v, sv, kd, vd, out, a, grid, st));
   return (int)cudaErrorInvalidValue;
 }

@@ -41,7 +41,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     attn_bias: bool = False
     sliding_window: int = 0  # 0 = full attention
-    swa_pattern: int = 1
+    swa_pattern: int = 1  # 1 = every layer sliding; N > 1 = layers with i % N == 0
+    #                       sliding, the rest full (gemma2: 2)
     act_fn: str = "silu"  # FFN gate activation ('silu' | 'gelu')
     post_norms: bool = False
     embed_scale: float = 1.0
@@ -51,6 +52,14 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    def layer_window(self, i: int) -> int:
+        """Sliding-window size of layer i (0 = full attention)."""
+        if self.sliding_window <= 0:
+            return 0
+        if self.swa_pattern <= 1 or i % self.swa_pattern == 0:
+            return self.sliding_window
+        return 0
 
     @staticmethod
     def from_gguf(md: dict[str, Any]) -> "ModelConfig":
@@ -133,4 +142,8 @@ class ModelConfig:
             md[f"{a}.expert_used_count"] = self.n_experts_used
         if self.sliding_window:
             md[f"{a}.attention.sliding_window"] = self.sliding_window
+        if self.attn_logit_softcap:
+            md[f"{a}.attn_logit_softcapping"] = self.attn_logit_softcap
+        if self.final_logit_softcap:
+            md[f"{a}.final_logit_softcapping"] = self.final_logit_softcap
         return md

@@ -4,8 +4,9 @@
 of the reference's quantize tool (``RECIPES`` / ``target_type``, copied from
 ``tpu_kquant.tools.quantize``): q4_k_m by default (attn_v, ffn_down and
 output in Q6_K, the other matmul weights Q4_K, norms F32), or q8_0, q6_k,
-q5_k_m, q4_k_s, q3_k_m, q2_k, f16 and bf16; qwen2 adds F32 q/k/v biases, and
-a tied config writes no ``output.weight``. The substring ``"output.weight"``
+q5_k_m, q4_k_s, q3_k_m, q2_k, f16 and bf16; qwen2 adds F32 q/k/v biases,
+gemma2 the F32 ``post_attention_norm`` and ``post_ffw_norm``, and a tied
+config (qwen2's, the gemma family's) writes no ``output.weight``. The substring ``"output.weight"``
 also matches ``attn_output.weight``, in both packages. A MoE config
 (``n_experts``) writes the router ``ffn_gate_inp`` [E, D] and the stacked
 experts ``ffn_{gate,up}_exps`` [E, F, D] and ``ffn_down_exps`` [E, D, F] in
@@ -43,17 +44,32 @@ from tpu_kquant_torch.quant.repack import _bf16_bits
 def tiny_config(arch: str = "llama", n_layers: int = 2, dim: int = 64,
                 n_heads: int = 4, n_kv_heads: int = 2, ffn_dim: int = 128,
                 vocab_size: int = 512, max_seq_len: int = 256, n_experts: int = 0,
-                n_experts_used: int = 0) -> ModelConfig:
-    if arch not in ("llama", "qwen2"):
+                n_experts_used: int = 0, sliding_window: int = 0) -> ModelConfig:
+    if arch not in ("llama", "qwen2", "gemma", "gemma2"):
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
     hd = dim // n_heads
     return ModelConfig(
         arch=arch, n_layers=n_layers, dim=dim, n_heads=n_heads,
         n_kv_heads=n_kv_heads, head_dim=hd, ffn_dim=ffn_dim,
         vocab_size=vocab_size, max_seq_len=max_seq_len,
-        rope=RopeParams(head_dim=hd, n_rot=hd, mode="neox" if arch == "qwen2" else "norm"),
+        rope=RopeParams(head_dim=hd, n_rot=hd, mode="norm" if arch == "llama" else "neox"),
         n_experts=n_experts, n_experts_used=n_experts_used, attn_bias=arch == "qwen2",
+        sliding_window=sliding_window, **_gemma_quirks(arch, dim),
     )
+
+
+def _gemma_quirks(arch: str, dim: int, attn_softcap: float = 50.0,
+                  final_softcap: float = 30.0) -> dict:
+    """The fields ModelConfig.from_gguf sets for the gemma family: GELU,
+    embeddings scaled by sqrt(dim), a tied lm head; gemma2 adds the post
+    norms, every other layer windowed and the two logit softcaps."""
+    q: dict = {}
+    if arch in ("gemma", "gemma2"):
+        q.update(act_fn="gelu", embed_scale=float(dim) ** 0.5, tie_embeddings=True)
+    if arch == "gemma2":
+        q.update(post_norms=True, swa_pattern=2, attn_logit_softcap=attn_softcap,
+                 final_logit_softcap=final_softcap)
+    return q
 
 
 def tinyllama_1b_config() -> ModelConfig:
@@ -75,6 +91,32 @@ def qwen2_5_1_5b_config() -> ModelConfig:
         head_dim=128, ffn_dim=8960, vocab_size=151936, max_seq_len=32768,
         norm_eps=1e-6, rope=RopeParams(head_dim=128, n_rot=128, freq_base=1e6, mode="neox"),
         tie_embeddings=True, attn_bias=True,
+    )
+
+
+def gemma_2b_config() -> ModelConfig:
+    """Gemma-2B (google/gemma-2b's config.json): 18 layers, dim 2048, 8 / 1
+    heads of 256, ffn 16384, vocab 256000, rope theta 1e4, rms eps 1e-6,
+    context 8192, GELU, lm head tied to the embedding."""
+    return ModelConfig(
+        arch="gemma", n_layers=18, dim=2048, n_heads=8, n_kv_heads=1, head_dim=256,
+        ffn_dim=16384, vocab_size=256000, max_seq_len=8192, norm_eps=1e-6,
+        rope=RopeParams(head_dim=256, n_rot=256, mode="neox"), **_gemma_quirks("gemma", 2048),
+    )
+
+
+def gemma2_9b_config() -> ModelConfig:
+    """Gemma-2-9B (google/gemma-2-9b's config.json): 42 layers, dim 3584, 16
+    / 8 heads of 256 (head_dim is not dim / heads), ffn 14336, vocab 256000,
+    rope theta 1e4, rms eps 1e-6, context 8192, a sliding window of 4096 on
+    every other layer, attention and final logit softcaps 50 and 30, post
+    norms, GELU, tied lm head. Its query_pre_attn_scalar is 256 = head_dim,
+    so the logit scale head_dim^-0.5 is the published one."""
+    return ModelConfig(
+        arch="gemma2", n_layers=42, dim=3584, n_heads=16, n_kv_heads=8, head_dim=256,
+        ffn_dim=14336, vocab_size=256000, max_seq_len=8192, norm_eps=1e-6,
+        rope=RopeParams(head_dim=256, n_rot=256, mode="neox"), sliding_window=4096,
+        **_gemma_quirks("gemma2", 3584),
     )
 
 
@@ -225,10 +267,10 @@ DRAW = {GGMLType.Q2_K: random_q2_k, GGMLType.Q3_K: random_q3_k, GGMLType.Q4_K: r
 
 def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05,
                        recipe: str = "q4_k_m") -> str:
-    """Write a llama (dense or MoE) or qwen2 fixture under the quantize
-    tool's ``recipe`` with random blocks drawn from ``seed``."""
-    if cfg.arch not in ("llama", "qwen2"):
-        raise NotImplementedError("the port writes llama and qwen2 fixtures only")
+    """Write a llama (dense or MoE), qwen2, gemma or gemma2 fixture under
+    the quantize tool's ``recipe`` with random blocks drawn from ``seed``."""
+    if cfg.arch not in ("llama", "qwen2", "gemma", "gemma2"):
+        raise NotImplementedError("the port writes llama, qwen2 and gemma fixtures only")
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}; one of {sorted(RECIPES)}")
     rng = np.random.default_rng(seed)
@@ -263,6 +305,9 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         add(p + "attn_norm.weight", (D,))
+        if cfg.post_norms:  # gemma2
+            add(p + "post_attention_norm.weight", (D,))
+            add(p + "post_ffw_norm.weight", (D,))
         add(p + "attn_q.weight", (H * hd, D))
         add(p + "attn_k.weight", (Hkv * hd, D))
         add(p + "attn_v.weight", (Hkv * hd, D))

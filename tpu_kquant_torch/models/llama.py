@@ -27,6 +27,15 @@ qmatmul. Attention
 (ops.attention) runs plain PyTorch, or the flash prefill kernel for long
 prompts; the KV cache is bf16 or int8.
 
+The gemma family follows the reference's quirks: embeddings scaled by
+sqrt(dim), the FFN's exact GELU (``cfg.act_fn``, which every fused FFN
+kernel takes), a tied lm head; gemma2 adds a norm after attention and one
+after the FFN (``post_attn_norm`` / ``post_ffn_norm``, which keep attn_out,
+oproj_ffn, ffn, rot and layer off, as in the reference), an attention logit
+softcap (plain attention only), a sliding window on every other layer
+(``cfg.layer_window``; the layer kernel is off on those layers) and a
+softcap on the f32 logits. Ring (iSWA) cache layouts and mamba raise.
+
 The reference's opt-in decode fusions are read from the environment at
 call time, under the reference's names and defaults, where the reference
 reads them (tpu_kquant/models/llama.py):
@@ -60,7 +69,7 @@ import torch
 from tpu_kquant_torch.models.config import ModelConfig
 from tpu_kquant_torch.models.moe import moe_ffn
 from tpu_kquant_torch.ops import attention
-from tpu_kquant_torch.ops.activations import swiglu
+from tpu_kquant_torch.ops.activations import geglu, swiglu
 from tpu_kquant_torch.ops.attn_in import attn_in_enabled, fused_attn_in
 from tpu_kquant_torch.ops.attn_out import attn_out_enabled, fused_attn_out
 from tpu_kquant_torch.ops.ffn import (
@@ -98,6 +107,7 @@ def llama_layer(
     #   this layer from the previous layer's rot kernel
     next_layer: dict[str, Any] | None = None,  # the next layer's weights, for
     #   the rot kernel (rotated layer boundary)
+    window: int = 0,  # this layer's sliding window (0: full attention)
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor] | None]:
     """One transformer block. Returns (the new residual stream, the next
     layer's (roped qk, v) where the rot kernel computed them, else None)."""
@@ -142,40 +152,53 @@ def llama_layer(
         v_all = v_all[:, :, :kv_attend_len]
         if kv_scales is not None:
             kv_scales = (kv_scales[0][..., :kv_attend_len], kv_scales[1][..., :kv_attend_len])
-    gu = "w_gateup" in layer and not cfg.is_moe
-    if T == 1 and kv_cur is None and attn_out_enabled(impl, layer["wo"], H, Hkv, D, B,
-                                                      int(k_all.shape[2])):
+    # the fused FFN kernels (and attn_out) hold no post norm: gemma2 takes the
+    # unfused path from o_proj on, as in the reference
+    gu = "w_gateup" in layer and not cfg.is_moe and not cfg.post_norms
+    act_fn = cfg.act_fn
+    if T == 1 and kv_cur is None and cfg.attn_logit_softcap == 0.0 and window == 0 \
+            and not cfg.post_norms and attn_out_enabled(impl, layer["wo"], H, Hkv, D, B,
+                                                        int(k_all.shape[2])):
         # attention + o_proj + residual in one call; then the FFN below
         x = fused_attn_out(x, q, k_all, v_all, positions, kv_scales, layer["wo"])
     else:
         attn = attention.attention_decode(q, k_all, v_all, positions, kv_scales,
-                                          kv_cur=kv_cur).reshape(B, T, H * D)
+                                          kv_cur=kv_cur, logit_softcap=cfg.attn_logit_softcap,
+                                          sliding_window=window).reshape(B, T, H * D)
         if gu and next_layer is not None and rot_enabled(
                 impl, layer["wo"], layer["w_gateup"], layer["w_down"],
                 [next_layer["wqk"], next_layer["wv"]], B * T, dim, D):
             y, qk2, v2 = fused_oproj_ffn_attn_in(
                 x, attn, layer["wo"], _norm_w(layer["ffn_norm"]), cfg.norm_eps,
                 layer["w_gateup"], layer["w_down"], _norm_w(next_layer["attn_norm"]),
-                next_layer["wqk"], next_layer["wv"], cos, sin, D)
+                next_layer["wqk"], next_layer["wv"], cos, sin, D, act_fn=act_fn)
             return y, (qk2, v2)
         if gu and oproj_ffn_enabled(impl, layer["wo"], layer["w_gateup"], layer["w_down"],
                                     B * T):
             return fused_oproj_ffn(x, attn, layer["wo"], _norm_w(layer["ffn_norm"]),
-                                   cfg.norm_eps, layer["w_gateup"], layer["w_down"]), None
-        x = x + qmatmul(attn, layer["wo"], impl)
+                                   cfg.norm_eps, layer["w_gateup"], layer["w_down"],
+                                   act_fn=act_fn), None
+        h = qmatmul(attn, layer["wo"], impl)
+        if cfg.post_norms:  # gemma2's norm after attention
+            h = rms_norm(h, _norm_w(layer["post_attn_norm"]), cfg.norm_eps)
+        x = x + h
     if gu and ffn_enabled(impl, layer["w_gateup"], layer["w_down"], B * T):
         return fused_ffn(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps, layer["w_gateup"],
-                         layer["w_down"]), None
+                         layer["w_down"], act_fn=act_fn), None
     h = rms_norm(x, _norm_w(layer["ffn_norm"]), cfg.norm_eps)
     if cfg.is_moe:
         return x + moe_ffn(layer, cfg, h, impl), None
+    act = geglu if act_fn == "gelu" else swiglu
     if "w_gateup" in layer:
         gu_out = qmatmul(h, layer["w_gateup"], impl)
         F = gu_out.shape[-1] // 2
-        act = swiglu(gu_out[..., :F], gu_out[..., F:])
+        a = act(gu_out[..., :F], gu_out[..., F:])
     else:
-        act = swiglu(qmatmul(h, layer["w_gate"], impl), qmatmul(h, layer["w_up"], impl))
-    return x + qmatmul(act, layer["w_down"], impl), None
+        a = act(qmatmul(h, layer["w_gate"], impl), qmatmul(h, layer["w_up"], impl))
+    h = qmatmul(a, layer["w_down"], impl)
+    if cfg.post_norms:  # gemma2's norm after the FFN
+        h = rms_norm(h, _norm_w(layer["post_ffn_norm"]), cfg.norm_eps)
+    return x + h, None
 
 
 def llama_forward(
@@ -193,9 +216,10 @@ def llama_forward(
 ) -> tuple[torch.Tensor, KVCache]:
     """Returns (logits [B, T, vocab] f32 (or [B, 1, vocab]), cache). The
     cache is updated in place."""
-    if cfg.act_fn != "silu" or cfg.post_norms \
-            or cfg.sliding_window or cfg.attn_logit_softcap or cfg.final_logit_softcap:
-        raise NotImplementedError(f"{cfg.arch} quirks are not ported yet")
+    if cfg.arch == "mamba":
+        raise NotImplementedError("recurrent (mamba) models are not ported yet")
+    if hasattr(cache, "is_ring"):
+        raise NotImplementedError("ring (iSWA) KV layouts are not ported yet")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     x = dequant_rows(params["tok_embd"], tokens, dtype=torch.bfloat16)
@@ -218,22 +242,24 @@ def llama_forward(
     # layer_enabled decides per layer
     neox = cfg.rope.mode == "neox" and cfg.rope.n_rot == cfg.head_dim
     whole_layer = T == 1 and neox and not cfg.attn_bias and not cfg.is_moe and \
-        kv_valid is None and not cache.quantized
+        not cfg.post_norms and cfg.attn_logit_softcap == 0.0 and kv_valid is None and \
+        not cache.quantized
     # rotated layer boundaries (reference: rot_arch_ok); rot_enabled decides
     # per pair of layers
-    rotate = neox and not cfg.attn_bias and not cfg.is_moe
+    rotate = neox and not cfg.attn_bias and not cfg.is_moe and not cfg.post_norms
     layers = params["layers"]
     pending: list | None = [] if defer else None
     pending_qkv = None
     for i, layer in enumerate(layers):
-        if whole_layer and "wqk" in layer and "w_gateup" in layer and layer_enabled(
+        if whole_layer and not cfg.layer_window(i) and "wqk" in layer and \
+                "w_gateup" in layer and layer_enabled(
                 impl, layer["wqk"], layer["wv"], layer["wo"], layer["w_gateup"],
                 layer["w_down"], B, cfg.dim, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim):
             x, k_new, v_new = fused_layer(
                 x, positions, _norm_w(layer["attn_norm"]), _norm_w(layer["ffn_norm"]),
                 cfg.norm_eps, layer["wqk"], layer["wv"], layer["wo"], layer["w_gateup"],
                 layer["w_down"], cos, sin, cache.k[i], cache.v[i], cfg.n_heads,
-                cfg.n_kv_heads)
+                cfg.n_kv_heads, act_fn=cfg.act_fn)
             cache.append(i, k_new, v_new, positions)
             # the layer kernel computes its own QKV: a rot kernel's output for
             # this layer is stale and never reaches layer i + 1
@@ -251,7 +277,8 @@ def llama_forward(
             else None
         x, pending_qkv = llama_layer(layer, cfg, x, positions, cos, sin, kv_write,
                                      kv_attend_len=kv_attend_len, impl=impl,
-                                     qkv_in=pending_qkv, next_layer=nxt)
+                                     qkv_in=pending_qkv, next_layer=nxt,
+                                     window=cfg.layer_window(i))
     if pending:
         cache.append_all(torch.stack([kv[0] for kv in pending]),
                          torch.stack([kv[1] for kv in pending]), positions)
@@ -259,4 +286,8 @@ def llama_forward(
     x = rms_norm(x, _norm_w(params["output_norm"]), cfg.norm_eps)
     if logits_last_only:
         x = x[:, -1:, :]
-    return qmatmul(x, params["output"], impl, out_dtype=torch.float32), cache
+    logits = qmatmul(x, params["output"], impl, out_dtype=torch.float32)
+    if cfg.final_logit_softcap > 0.0:
+        cap = cfg.final_logit_softcap
+        logits = torch.tanh(logits / cap) * cap
+    return logits, cache

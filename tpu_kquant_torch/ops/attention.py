@@ -17,8 +17,11 @@ on the card":
 - Everything else runs the plain branch (``attention_plain``) in f32; on
   the card its products are bmm calls of one shape per (row, KV head)
   pair whatever B is, so a row's result does not depend on the batch.
-Rings, sliding windows and logit softcaps are not ported here (the llama
-forward refuses archs that need them).
+gemma2's quirks follow the reference's rules: a logit softcap keeps both
+kernels off (the plain branch applies tanh(logits / cap) * cap after the
+current token's logit is put in and before the mask); a sliding window
+keeps the decode kernel off and rides into the prefill kernel, which
+takes one. Rings (iSWA) are not ported here.
 """
 
 from __future__ import annotations
@@ -51,12 +54,14 @@ def attention_decode(
     q_positions: torch.Tensor,  # [B, T] absolute position of each query
     kv_scales: tuple[torch.Tensor, torch.Tensor] | None = None,  # int8: [B, Hkv, S] each
     kv_cur: tuple[torch.Tensor, torch.Tensor] | None = None,
+    logit_softcap: float = 0.0,
+    sliding_window: int = 0,
 ) -> torch.Tensor:
     """Attention of T query tokens against S cache slots; slot j holds
-    position j and is masked where j > the query's position. Returns
-    [B, T, H, D] in q's dtype. The logit scale is head_dim^-0.5; sliding
-    windows and custom scales wait for an arch that needs them (the
-    flash prefill path, ``ops.prefill``, already takes both).
+    position j and is masked where j > the query's position, and, with a
+    ``sliding_window`` w > 0, where j <= the position - w. Returns
+    [B, T, H, D] in q's dtype. The logit scale is head_dim^-0.5;
+    ``logit_softcap`` c > 0 maps each logit l to tanh(l / c) * c.
 
     kv_scales: int8 KV. The per-token scales are constant along D, so K
     scales multiply logit columns and V scales probability rows.
@@ -71,13 +76,15 @@ def attention_decode(
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     big = logits_mb(B, T, H, S) > ATTN_PLAIN_MAX_MB
-    if (kv_cur is None and T == 1 and D % 64 == 0 and S % 64 == 0
-            and big and (kv_scales is None or S % 256 == 0)):
+    if (kv_cur is None and T == 1 and logit_softcap == 0.0 and sliding_window == 0
+            and D % 64 == 0 and S % 64 == 0 and big and (kv_scales is None or S % 256 == 0)):
         return attention_decode_flash(q, k_cache, v_cache, q_positions, kv_scales)
-    if kv_cur is None and T > 1 and prefill_supported(T, S, D) and big:
-        return attention_prefill(q, k_cache, v_cache, q_positions[:, 0], kv_scales)
+    if kv_cur is None and T > 1 and logit_softcap == 0.0 and prefill_supported(T, S, D) and big:
+        return attention_prefill(q, k_cache, v_cache, q_positions[:, 0], kv_scales,
+                                 sliding_window=sliding_window)
 
-    return attention_plain(q, k_cache, v_cache, q_positions, kv_scales, kv_cur)
+    return attention_plain(q, k_cache, v_cache, q_positions, kv_scales, kv_cur,
+                           logit_softcap=logit_softcap, sliding_window=sliding_window)
 
 
 # f32 elements of the largest operand that one bmm call of the card's plain
@@ -122,7 +129,8 @@ def bmm_fixed(a: torch.Tensor, b: torch.Tensor, pairs: int, real: int) -> torch.
 
 
 def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=None,
-                    fixed: bool | None = None, parts: dict | None = None) -> torch.Tensor:
+                    fixed: bool | None = None, parts: dict | None = None,
+                    logit_softcap: float = 0.0, sliding_window: int = 0) -> torch.Tensor:
     """attention_decode's plain branch, in f32. ``fixed`` (default: on CUDA
     tensors) takes its three products (q k^T, the deferred append's current
     logit, p v) as per-(row, KV head) bmm calls of a fixed shape
@@ -133,7 +141,8 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
     stream differed from its solo run where such a sum crossed a bf16
     rounding boundary, tools/batch_invariance.py --serving). Off (the CPU
     default), the einsums that the tests hold to the JAX package. ``parts``:
-    filled with the f32 logits, probabilities and p v product."""
+    filled with the f32 logits, probabilities and p v product.
+    ``logit_softcap`` and ``sliding_window``: as attention_decode's."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -165,7 +174,11 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
                                  k_cur.float().reshape(B, T, Hkv, D)) * scale
         at_cur = (kv_pos[None, None, :] == q_positions[:, :, None])[:, :, None, None, :]
         logits = torch.where(at_cur, l_cur[..., None], logits)
+    if logit_softcap > 0.0:
+        logits = torch.tanh(logits / logit_softcap) * logit_softcap
     mask = kv_pos[None, None, :] <= q_positions[:, :, None]  # [B, T, S]
+    if sliding_window > 0:
+        mask &= kv_pos[None, None, :] > q_positions[:, :, None] - sliding_window
     logits = logits.masked_fill(~mask[:, :, None, None, :], float("-inf"))
     p = torch.softmax(logits, dim=-1)
     if parts is not None:

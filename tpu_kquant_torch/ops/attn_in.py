@@ -94,17 +94,30 @@ def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: in
     q8 with K = D and N % 128; attn_in_enabled: impl "auto" or "int8", whose
     activation quantization does not reach this kernel), so both packages
     fuse at the same shapes and kinds; then what the kernel itself needs:
-    a scale layout it reads (kernel_kind), head_dim dividing its 128-column
-    tiles, and biases, where given, f32 vectors of the two outputs' widths."""
+    a scale layout it reads (kernel_kind), a head_dim its 128-column blocks
+    hold (``kernel_head_dim``: every head_dim of the ported archs, 64, 128
+    and 256) with whole heads in each slot, and biases, where given, f32
+    vectors of the two outputs' widths."""
     return (
         impl in ("auto", "int8") and rows <= MAX_ROWS and D % 512 == 0
         and all(w.layout == "kmajor" and w.kind in _KINDS and w.shape[-1] == D
                 and w.shape[0] % 128 == 0 and kernel_kind(w) is not None for w in (wqk, wv))
-        and 128 % head_dim == 0
+        and kernel_head_dim(head_dim)
+        and all(int(w.shape[0]) % head_dim == 0 for w in (wqk, wv))
         and (biases is None or all(
             b.dtype == torch.float32 and tuple(b.shape) == (int(w.shape[0]),)
             for b, w in zip(biases, (wqk, wv))))
     )
+
+
+def kernel_head_dim(head_dim: int) -> bool:
+    """Whether the kernel's 128-column blocks take this head_dim: one that
+    divides 128 (a block holds whole heads: 64, 128), or a multiple of 128
+    (256: a block holds 64 columns of a head's first half and their 64
+    rope partners in its second half, csrc/attn_in.cuh). The reference's
+    gate has no head_dim rule; head dims such as 80 or 96 (phi) fit
+    neither and stay on qmatmul here."""
+    return head_dim > 0 and head_dim % 2 == 0 and (128 % head_dim == 0 or head_dim % 128 == 0)
 
 
 def attn_in_enabled(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: int,

@@ -28,7 +28,7 @@ import os
 import torch
 
 from tpu_kquant_torch.ops import _build
-from tpu_kquant_torch.ops.decode_attention import KERNEL_HEAD_DIMS, MAX_GROUP, check_cache, \
+from tpu_kquant_torch.ops.decode_attention import FUSED_HEAD_DIMS, MAX_GROUP, check_cache, \
     decode_attention_plain, fused_attn_plan
 from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind, packed_arrays, qmm_plain
 from tpu_kquant_torch.quant.qtensor import QTensor
@@ -77,7 +77,7 @@ def attn_out_supported(wo: QTensor, H: int, Hkv: int, D: int, rows: int, S: int)
         return False
     if C * dim * (1 if wo.kind == "q4" else 2) > _CHUNK_BYTES_MAX:
         return False
-    return kernel_kind(wo) is not None and D in KERNEL_HEAD_DIMS and H // Hkv <= MAX_GROUP
+    return kernel_kind(wo) is not None and D in FUSED_HEAD_DIMS and H // Hkv <= MAX_GROUP
 
 
 def attn_out_enabled(impl: str, wo: QTensor, H: int, Hkv: int, D: int, rows: int,

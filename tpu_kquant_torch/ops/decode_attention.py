@@ -60,7 +60,8 @@ _ARGTYPES = [_I, _I, _P, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L,
 _FUSED_ARGTYPES = [_I, _I, _P, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L,
                    # q_pos kn sknb vn svnb out B  H  Hkv S  scale           tps splits stream
                    _P, _P, _L, _P, _L, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I, _P]
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # #7's instances (csrc/decode_attn.cu)
+FUSED_HEAD_DIMS = (64, 128)  # the few-row kernel's (#10 / #11: their gates' head dims)
 MAX_GROUP = 16  # query heads per KV head the kernel takes
 TILE = 64  # cache slots a tile
 LANES = 4  # the kernel's warps: warp w takes slots [16 w, 16 w + 16) of each tile
@@ -305,7 +306,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         f"fused_attn: inputs on {q.device} and others")
     req(q.dtype == torch.bfloat16 and q.stride(2) == 1 and q.stride(1) == D,
         "fused_attn: q must be bf16 [B, H, D] with dense heads")
-    req(D in KERNEL_HEAD_DIMS and H % Hkv == 0 and H // Hkv <= MAX_GROUP
+    req(D in FUSED_HEAD_DIMS and H % Hkv == 0 and H // Hkv <= MAX_GROUP
         and k.shape == (B, Hkv, S, D) and v.shape == k.shape,
         f"fused_attn: q {tuple(q.shape)} against k {tuple(k.shape)}, v {tuple(v.shape)}")
     req(k.dtype == v.dtype == (torch.int8 if quant else torch.bfloat16) and not (quant and self_),

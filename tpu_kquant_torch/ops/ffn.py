@@ -1,9 +1,10 @@
 """The FFN block for decode rows, with and without o_proj in front.
 
-- ffn: y = x + down(silu(gate(n(x))) * up(n(x))), n = rms_norm. Kernel
+- ffn: y = x + down(act(gate(n(x))) * up(n(x))), n = rms_norm, act the
+  config's: silu, or the exact (erf) gelu of the gemma family. Kernel
   ``csrc/ffn.cu:tkq_ffn`` (replaces ``tpu_kquant/ops/pallas_ffn.py:
   fused_ffn``), run where the attention width fails oproj_ffn's gate (qwen2).
-- oproj_ffn: x2 = x + attn @ Wo^T; y = x2 + down(silu(gate(n(x2))) *
+- oproj_ffn: x2 = x + attn @ Wo^T; y = x2 + down(act(gate(n(x2))) *
   up(n(x2))). Kernel ``csrc/ffn.cu:tkq_oproj_ffn`` (replaces
   ``tpu_kquant/ops/pallas_ffn.py:fused_oproj_ffn``, manual and Mosaic-grid
   variants).
@@ -43,14 +44,22 @@ _F = ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
              # x2 act ws out R  dim K  F  cps_o splits_o cps_g splits_g cps_d splits_d
              _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             # stream
-             _P]
+             # gelu stream
+             _I, _P]
 #                x   nw  eps gu: kind qs scl mins  dn: kind qs scl
 _FFN_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _I, _P, _P,
-                 # act ws out R  dim F  cps_g splits_g cps_d splits_d stream
-                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
-#                    x   nw  eps gu: kind qs scl mins  act ws  R   dim F   cps splits stream
-_GATE_UP_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+                 # act ws out R  dim F  cps_g splits_g cps_d splits_d gelu stream
+                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+#                    x   nw  eps gu: kind qs scl mins  act ws  R   dim F   cps splits gelu stream
+_GATE_UP_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+ACT_FNS = ("silu", "gelu")  # the kernels' activations: C's `gelu` flag 0 / 1
+
+
+def gelu_flag(act_fn: str) -> int:
+    """The C entry points' `gelu` argument for ``act_fn`` ("silu" or
+    "gelu"); raises ValueError on any other."""
+    _build.require(act_fn in ACT_FNS, f"act_fn must be one of {ACT_FNS}, got {act_fn!r}")
+    return int(act_fn == "gelu")
 
 
 _FLAT_KINDS = ("q6w", "q8")  # pallas_ffn.py:_FLAT_KINDS
@@ -153,26 +162,30 @@ def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> list[tuple[int, l
 
 
 def gate_up_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float,
-                  gu: QTensor) -> torch.Tensor:
+                  gu: QTensor, act_fn: str = "silu") -> torch.Tensor:
     """The gate/up phase in plain PyTorch: x [R, dim] -> act [R, F] bf16 =
-    bf16(silu(bf16(gate(n(x)))) * bf16(up(n(x)))), n(x) in f32."""
+    bf16(act(bf16(gate(n(x)))) * bf16(up(n(x)))), n(x) in f32, act silu or
+    the exact gelu (``act_fn``), in f32."""
+    gelu_flag(act_fn)
     x = x.float()
     xn = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * norm_w.float()
     gu_out = xn @ dequant_kmajor(gu)
     Fd = gu_out.shape[-1] // 2
     g = gu_out[:, :Fd].to(torch.bfloat16).float()
     u = gu_out[:, Fd:].to(torch.bfloat16).float()
-    return (F.silu(g) * u).to(torch.bfloat16)
+    a = F.gelu(g) if act_fn == "gelu" else F.silu(g)
+    return (a * u).to(torch.bfloat16)
 
 
-def gate_up(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor) -> torch.Tensor:
+def gate_up(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
+            act_fn: str = "silu") -> torch.Tensor:
     """The gate/up phase alone (csrc/ffn.cu:tkq_gate_up): x [R, dim] bf16 ->
     act [R, F] bf16. The main path runs it inside fused_oproj_ffn and
     fused_ffn; this entry point times it on its own (tools/tile_ab.py) and
     holds it to gate_up_plain."""
     if x.device.type == "cpu":
         gate_up_counter.plain_calls += 1
-        return gate_up_plain(x, norm_w, eps, gu)
+        return gate_up_plain(x, norm_w, eps, gu, act_fn)
     R, dim = x.shape
     Fd = int(gu.shape[0]) // 2
     req = _build.require
@@ -191,36 +204,35 @@ def gate_up(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor) -> t
     P = _build.ptr
     rc = lib.tkq_gate_up(P(x), P(nw), float(eps), gu_kind,
                          *[None if a is None else P(a) for a in gu_arrs], P(act), P(ws), R, dim,
-                         Fd, cps_g, splits_g, _build.stream_ptr(x.device))
+                         Fd, cps_g, splits_g, gelu_flag(act_fn), _build.stream_ptr(x.device))
     _build.check(lib, rc, "gate_up")
     gate_up_counter.launches += 1
     return act
 
 
 def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
-              dn: QTensor) -> torch.Tensor:
+              dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
     """x2 [R, dim] f32 -> x2 + down(act) in f32, unrounded."""
-    act = gate_up_plain(x2, norm_w, eps, gu).float()
+    act = gate_up_plain(x2, norm_w, eps, gu, act_fn).float()
     return x2 + act @ dequant_kmajor(dn)
 
 
 def ffn_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
-              dn: QTensor) -> torch.Tensor:
+              dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
     """x [R, dim] -> y [R, dim] in x's dtype (bf16 on the decode path)."""
-    return _ffn_tail(x.float(), norm_w, eps, gu, dn).to(x.dtype)
+    return _ffn_tail(x.float(), norm_w, eps, gu, dn, act_fn).to(x.dtype)
 
 
 def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn: QTensor,
               act_fn: str = "silu") -> torch.Tensor:
-    """x [..., dim] bf16 -> [..., dim] bf16."""
-    if act_fn != "silu":
-        raise NotImplementedError(f"activation {act_fn!r} is not ported yet")
+    """x [..., dim] bf16 -> [..., dim] bf16; act_fn "silu" or "gelu"."""
+    gelu = gelu_flag(act_fn)
     dim, Fd = int(dn.shape[0]), int(dn.shape[1])
     lead = x.shape[:-1]
     x2d = x.reshape(-1, dim)
     if x.device.type == "cpu":
         ffn_counter.plain_calls += 1
-        return ffn_plain(x2d, norm_w, eps, gu, dn).reshape(*lead, dim)
+        return ffn_plain(x2d, norm_w, eps, gu, dn, act_fn).reshape(*lead, dim)
     R = x2d.shape[0]
     req = _build.require
     req(x.device.type == "cuda", f"ffn: unsupported device {x.device}")
@@ -241,31 +253,31 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     ptrs = lambda arrs: [None if a is None else P(a) for a in arrs]  # noqa: E731
     rc = lib.tkq_ffn(P(x2d), P(nw), float(eps), gu_kind, *ptrs(gu_arrs), dn_kind,
                      *ptrs(dn_arrs[:2]), P(act), P(ws), P(out), R, dim, Fd, cps_g, splits_g,
-                     cps_d, splits_d, _build.stream_ptr(dev))
+                     cps_d, splits_d, gelu, _build.stream_ptr(dev))
     _build.check(lib, rc, "ffn")
     ffn_counter.launches += 1
     return out.reshape(*lead, dim)
 
 
 def oproj_ffn_plain(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
-                    eps: float, gu: QTensor, dn: QTensor) -> torch.Tensor:
+                    eps: float, gu: QTensor, dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
     """x [R, dim], attn [R, K] bf16 -> y [R, dim] bf16."""
     x2 = (x.float() + attn.float() @ dequant_kmajor(wo)).to(torch.bfloat16).float()
-    return _ffn_tail(x2, norm_w, eps, gu, dn).to(torch.bfloat16)
+    return _ffn_tail(x2, norm_w, eps, gu, dn, act_fn).to(torch.bfloat16)
 
 
 def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
                     eps: float, gu: QTensor, dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
-    """x [..., dim], attn [..., K] bf16 -> [..., dim] bf16."""
-    if act_fn != "silu":
-        raise NotImplementedError(f"activation {act_fn!r} is not ported yet")
+    """x [..., dim], attn [..., K] bf16 -> [..., dim] bf16; act_fn "silu" or
+    "gelu"."""
+    gelu = gelu_flag(act_fn)
     dim, K = int(wo.shape[0]), int(wo.shape[1])
     Fd = int(dn.shape[1])
     lead = x.shape[:-1]
     x2d, a2d = x.reshape(-1, dim), attn.reshape(-1, K)
     if x.device.type == "cpu":
         counter.plain_calls += 1
-        return oproj_ffn_plain(x2d, a2d, wo, norm_w, eps, gu, dn).reshape(*lead, dim)
+        return oproj_ffn_plain(x2d, a2d, wo, norm_w, eps, gu, dn, act_fn).reshape(*lead, dim)
     R = x2d.shape[0]
     req = _build.require
     req(x.device.type == "cuda", f"oproj_ffn: unsupported device {x.device}")
@@ -291,7 +303,7 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *ptrs(wo_arrs), gu_kind,
                            *ptrs(gu_arrs), dn_kind, *ptrs(dn_arrs[:2]), P(x2), P(act), P(ws),
                            P(out), R, dim, K, Fd, cps_o, splits_o, cps_g, splits_g, cps_d,
-                           splits_d, _build.stream_ptr(dev))
+                           splits_d, gelu, _build.stream_ptr(dev))
     _build.check(lib, rc, "oproj_ffn")
     counter.launches += 1
     return out.reshape(*lead, dim)

@@ -15,7 +15,7 @@ rounding points: ``attn_in_plain`` (normalised row f32, projections rounded
 to bf16, then the rope), attention over the live cache slots with p rounded
 to bf16 against bf16 rows plus the current token's f32 p against its v, the
 head outputs rounded to bf16, x2 = bf16(x + bf16(att @ Wo^T)), then the FFN
-tail of ``ops.ffn`` (gate, up and their silu product rounded to bf16, y =
+tail of ``ops.ffn`` (gate, up and their silu or gelu product rounded to bf16, y =
 bf16(x2 + act @ Wd^T)). The TPU kernel also rounds the normalised rows to
 bf16 before its matmuls; the tests hold the two to the reference's
 tolerances.
@@ -33,7 +33,7 @@ from tpu_kquant_torch.ops.attn_in import attn_in_plain
 from tpu_kquant_torch.ops.decode_attention import MAX_GROUP, attend_with_current, \
     fused_attn_plan
 from tpu_kquant_torch.ops.ffn import (_FLAT_KINDS, _aligned, _ffn_tail, _fused_arrays,
-                                      _pick_tf, fused_ws_floats, gate_up_plan)
+                                      _pick_tf, fused_ws_floats, gate_up_plan, gelu_flag)
 from tpu_kquant_torch.ops.qmm import gemv_plan, kernel_kind
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
@@ -55,8 +55,8 @@ _ARGTYPES = [_P, _P, _P, _F, *_W, *_W, *_W, *_W, _I, _P, _P, _P, _P,
              _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
              # cps_g splits_g cps_d splits_d
              _I, _I, _I, _I,
-             # stream
-             _P]
+             # gelu stream
+             _I, _P]
 
 
 def layer_supported(wqk: QTensor, wv: QTensor, wo: QTensor, gu: QTensor, dn: QTensor,
@@ -96,7 +96,7 @@ def layer_enabled(impl: str, *args) -> bool:
 
 
 def layer_plain(x, positions, anw, fnw, eps, wqk, wv, wo, gu, dn, cos, sin, k_cache, v_cache,
-                H: int, Hkv: int, att: torch.Tensor | None = None):
+                H: int, Hkv: int, att: torch.Tensor | None = None, act_fn: str = "silu"):
     """Plain version of fused_layer (module docstring); `att` as
     fused_layer's."""
     B, _, D = x.shape
@@ -110,7 +110,7 @@ def layer_plain(x, positions, anw, fnw, eps, wqk, wv, wo, gu, dn, cos, sin, k_ca
         att.copy_(a)
     h = (a.float() @ dequant_kmajor(wo)).to(torch.bfloat16).float()
     x2 = (x2d.float() + h).to(torch.bfloat16).float()
-    y = _ffn_tail(x2, fnw, eps, gu, dn).to(torch.bfloat16)
+    y = _ffn_tail(x2, fnw, eps, gu, dn, act_fn).to(torch.bfloat16)
     return y.reshape(B, 1, D), k_new.reshape(B, 1, Hkv, hd), v_new.reshape(B, 1, Hkv, hd)
 
 
@@ -124,14 +124,14 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
     Returns (y [B, 1, D], k_new [B, 1, Hkv, hd], v_new [B, 1, Hkv, hd]), bf16;
     the caller appends k_new / v_new. `att`, where given, is a bf16
     [B, H * hd] tensor that receives the attention phase's head outputs (the
-    kernel's scratch), so that a check can hold that phase per row. CPU
-    tensors run the plain version; CUDA tensors launch the kernel or raise."""
-    if act_fn != "silu":
-        raise NotImplementedError(f"activation {act_fn!r} is not ported yet")
+    kernel's scratch), so that a check can hold that phase per row. act_fn:
+    the FFN's activation, "silu" or "gelu". CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
+    gelu = gelu_flag(act_fn)
     if x.device.type == "cpu":
         counter.plain_calls += 1
         return layer_plain(x, positions, anw, fnw, eps, wqk, wv, wo, gu, dn, cos, sin, k_cache,
-                           v_cache, H, Hkv, att)
+                           v_cache, H, Hkv, att, act_fn)
     B, T, D = x.shape
     hd = int(wqk.shape[0]) // (H + Hkv)
     F = int(dn.shape[-1])
@@ -188,7 +188,7 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
                        v_cache.stride(0), v_cache.stride(1), P(qp), P(qk), P(v), P(att),
                        P(x2), P(act), P(ws), P(y), B, D, H, Hkv, hd, S, F, float(hd) ** -0.5,
                        tps, a_splits, cps_o, splits_o, cps_g, splits_g, cps_d,
-                       splits_d, _build.stream_ptr(dev))
+                       splits_d, gelu, _build.stream_ptr(dev))
     _build.check(lib, rc, "layer")
     counter.launches += 1
     return y, qk[:, H * hd:].reshape(B, 1, Hkv, hd), v.reshape(B, 1, Hkv, hd)

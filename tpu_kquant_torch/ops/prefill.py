@@ -59,7 +59,7 @@ _ARGTYPES = [_I, _I, _P, _L, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L, _L, _P, _L,
              _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I,
              # hw nq hg nqb n_items grid stream
              _I, _I, _I, _I, _I, _I, _P]
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 ROWS = 64  # rows of one warpgroup: nq queries x hw heads fit in them
 
 
@@ -75,8 +75,8 @@ class Plan(NamedTuple):
 
 def kv_tile(D: int, int8: bool) -> int:
     """Cache slots per tile of the kernel (csrc/prefill.cu:PfCfg::BN): 64 for
-    int8 KV at head_dim 128 (shared memory), else 128."""
-    return 64 if D == 128 and int8 else 128
+    int8 KV at head_dim 128 and at head_dim 256 (shared memory), else 128."""
+    return 64 if D == 256 or (D == 128 and int8) else 128
 
 
 def heads_per_group(G: int) -> int:

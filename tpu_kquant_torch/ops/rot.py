@@ -24,7 +24,7 @@ import torch
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attn_in import attn_in_plain, attn_in_supported
 from tpu_kquant_torch.ops.ffn import (_aligned, _fused_arrays, fused_ws_floats, gate_up_plan,
-                                      oproj_ffn_plain, oproj_ffn_supported)
+                                      gelu_flag, oproj_ffn_plain, oproj_ffn_supported)
 from tpu_kquant_torch.ops.qmm import gemv_plan
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -40,8 +40,8 @@ _ARGTYPES = [_P, _P, _P, _F, *_W, *_W, _I, _P, _P, _P, _P, _P, _P, _P,
              *_W, *_W, _P, _P, _P, _P,
              # R  dim K   F   n0  n1  hd  cps_o splits_o cps_g splits_g cps_d splits_d
              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             # stream
-             _P]
+             # gelu stream
+             _I, _P]
 
 
 def rot_supported(wo: QTensor, gu: QTensor, dn: QTensor, ws2: list[QTensor], rows: int,
@@ -66,10 +66,11 @@ def rot_enabled(impl: str, wo: QTensor, gu: QTensor, dn: QTensor, ws2: list[QTen
 
 def rot_plain(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
               eps: float, gu: QTensor, dn: QTensor, norm_w2: torch.Tensor, wqk2: QTensor,
-              wv2: QTensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: int):
+              wv2: QTensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: int,
+              act_fn: str = "silu"):
     """x [R, dim], attn [R, K] bf16, cos / sin [R, hd/2] -> (y [R, dim],
     qk2 [R, n0] roped, v2 [R, n1]), bf16."""
-    y = oproj_ffn_plain(x, attn, wo, norm_w, eps, gu, dn)
+    y = oproj_ffn_plain(x, attn, wo, norm_w, eps, gu, dn, act_fn)
     qk2, v2 = attn_in_plain(y, norm_w2, eps, wqk2, wv2, cos, sin, head_dim)
     return y, qk2, v2
 
@@ -80,10 +81,10 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
                             cos: torch.Tensor, sin: torch.Tensor, head_dim: int,
                             act_fn: str = "silu"):
     """x [..., dim], attn [..., K] bf16, cos / sin [..., hd/2] per row ->
-    (y [..., dim], qk2 [..., n0] roped, v2 [..., n1]), bf16. CPU tensors run
-    the plain version; CUDA tensors launch the kernel or raise."""
-    if act_fn != "silu":
-        raise NotImplementedError(f"activation {act_fn!r} is not ported yet")
+    (y [..., dim], qk2 [..., n0] roped, v2 [..., n1]), bf16; act_fn "silu"
+    or "gelu". CPU tensors run the plain version; CUDA tensors launch the
+    kernel or raise."""
+    gelu = gelu_flag(act_fn)
     dim, K = int(wo.shape[0]), int(wo.shape[1])
     Fd = int(dn.shape[1])
     n0, n1 = int(wqk2.shape[0]), int(wv2.shape[0])
@@ -94,7 +95,7 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
     if x.device.type == "cpu":
         counter.plain_calls += 1
         y, qk2, v2 = rot_plain(x2d, a2d, wo, norm_w, eps, gu, dn, norm_w2, wqk2, wv2, c2d, s2d,
-                               head_dim)
+                               head_dim, act_fn)
         return y.reshape(*lead, dim), qk2.reshape(*lead, n0), v2.reshape(*lead, n1)
     R = x2d.shape[0]
     req = _build.require
@@ -128,7 +129,7 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
     rc = lib.tkq_rot(P(x2d), P(a2d), P(nw), float(eps), *args[0], *args[1], *args[2][:3],
                      P(x2), P(act), P(ws), P(y), P(nw2), *args[3], *args[4], P(c2d), P(s2d),
                      P(qk2), P(v2), R, dim, K, Fd, n0, n1, head_dim, cps_o, splits_o, cps_g,
-                     splits_g, cps_d, splits_d, _build.stream_ptr(dev))
+                     splits_g, cps_d, splits_d, gelu, _build.stream_ptr(dev))
     _build.check(lib, rc, "rot")
     counter.launches += 1
     return y.reshape(*lead, dim), qk2.reshape(*lead, n0), v2.reshape(*lead, n1)

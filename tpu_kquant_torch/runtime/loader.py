@@ -7,7 +7,9 @@ kernels read, then copied to ``device`` still packed. Q and K are fused into
 NORM-mode rope is canonicalised to NEOX by permuting q/k output features, so
 every rope downstream is a half rotation. Qwen2-style q/k/v biases load as
 f32 vectors ``bqk`` (``[bq | bk]``, permuted with q/k, beside ``wqk``) and
-``bv``; a file without ``output.weight`` ties the lm head to ``token_embd``.
+``bv``; a file without ``output.weight`` ties the lm head to ``token_embd``
+(qwen2's tied presets, the gemma family). gemma2's post-attention and
+post-FFN norms load as ``post_attn_norm`` / ``post_ffn_norm``.
 A MoE layer (``expert_count`` in the metadata: Mixtral) loads its router
 ``gate_inp`` and its experts stacked to [E, ...] (``experts``: ``w_gate``,
 ``w_up``, ``w_down``), each expert repacked as a 2-D weight.
@@ -33,7 +35,7 @@ from tpu_kquant_torch.quant.repack import (
     widen_q6,
 )
 
-LLAMA_FAMILY = {"llama", "mistral", "qwen2", "tinyllama", "mixtral"}
+LLAMA_FAMILY = {"llama", "mistral", "qwen2", "tinyllama", "mixtral", "gemma", "gemma2"}
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -184,6 +186,9 @@ def load_model(
             "wo": rp(p + "attn_output.weight"),
             "ffn_norm": rp(p + "ffn_norm.weight", "dense"),
         }
+        if cfg.post_norms:  # gemma2's norms after attention and after the FFN
+            layer["post_attn_norm"] = rp(p + "post_attention_norm.weight", "dense")
+            layer["post_ffn_norm"] = rp(p + "post_ffw_norm.weight", "dense")
         wq = host(p + "attn_q.weight")
         wk = host(p + "attn_k.weight")
         if canon_rope:
