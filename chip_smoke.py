@@ -168,12 +168,35 @@ Phases, each fatal on failure:
     softcaps 50 / 30, a window of 4096 on every other layer, 16 / 8 heads
     of 256) cut to GEMMA2_DEPTH of its 42 layers (logged as `reduced`): a
     2-layer check against the CPU.
+14. the front door (front_door): TinyLlama-1.1B at full depth on the
+    seed-0 fixture with its vocab (tokenizer/), each main-path run
+    (the CLIs, context shift, sessions, speculative decoding, perplexity,
+    the bench CLI) counted from 0: the
+    generate CLI (tools/main.py) greedy and sampled, -n 64, its ids equal
+    generate's; context shift (256 slots, a 200-token prompt, 200 new
+    tokens, n_keep 4) on bf16 and int8 KV, and shift_cache and the logits
+    after a shift on a 2-layer cut against the CPU; sessions saved after
+    prefill and 16 tokens, 32 more from a fresh engine equal to the
+    uninterrupted run (bf16, int8; fatal); the rows of 5-token verify
+    windows (engine.step) at B = 1 and 2 equal the decode steps at their
+    positions bit for bit (fatal; a window's launches pinned); one window
+    1900 deep in 2048 slots timed against the decode steps and its
+    attention against one [T, S] call (window_cost); greedy
+    speculative decoding (n_draft 4, 32 tokens): generate_speculative with
+    the target as its own draft (every draft accepted) and with a 2-layer
+    draft of another seed on two rows, DeviceSpeculator's prompt lookup
+    on a repetitive prompt and DeviceSpeculator with the 2-layer draft,
+    each equal to plain greedy on bf16 KV (fatal) and timed beside it;
+    self-draft and prompt lookup on int8 KV (the differing tokens
+    printed); tools/perplexity.py's perplexity over 1024 ids at ctx 512
+    (finite; the 2-layer cut within 1e-3 relative of the CPU's); the bench
+    CLI's table (-p 512 -n 128 -r 2).
 Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 its untimed
 recipes, Q5_K_M among them, at GGML_DEPTH = 2 layers (2 and 4 layers, and
 Q5_K_M timed at 22, before phase 13): the smoke's 1200 s limit. The CPU
 side of every cut dequantizes each weight once (cpu_dequant_memo).
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4 to 10 and 13, each counted from 0 and checked against the dispatch
+of phases 4 to 10, 13 and 14, each counted from 0 and checked against the dispatch
 gates exactly (the labs' kernels: their wrapper calls in phase 11's
 run_ladder and phase 12's run_sweep, CUDA-graph captures included, replays
 not); the gates in turn
@@ -862,7 +885,9 @@ def check_batch_invariance(dev, rng) -> int:
     ops/attn_in.py:attn_in_plan at every pair of slot kinds; the plain
     decode attention (ops/attention.py:attention_plain, the serving cell's
     16 slots of 128 at TinyLlama's heads) on bf16 and int8 KV, with the
-    deferred append on and off; then check_fused_invariance (attn_out and
+    deferred append on and off; the rows of a 5-token verify window (engine.
+    step) against the decode steps at their positions; then
+    check_fused_invariance (attn_out and
     layer). Fatal; returns the number of cases checked."""
     import torch
 
@@ -960,6 +985,37 @@ def check_batch_invariance(dev, rng) -> int:
                   lambda q_, k_, v_, p_, a, b, c_, d_: attention_decode(
                       q_, k_, v_, p_, sc(a, b), kv_cur=(c_, d_)),
                   q, k, v, pos, ks, vs, kc, vc)
+    # a speculative verify window (engine.step: T = 5 tokens at positions
+    # p..p + 4, its rows appended first, each query's own row as kv_cur) on
+    # bf16 KV: row t equals the decode step at p + t (the deferred append's
+    # cache: rows p..p + t - 1 written, the rest stale), bit for bit
+    Tw, Sw = 5, 704
+    qw = torch.randn(2, Tw, H, hd, device=dev, generator=ga).to(torch.bfloat16)
+    kw_, vw_ = (torch.randn(2, Tw, Hkv, hd, device=dev, generator=ga).to(torch.bfloat16)
+                for _ in range(2))
+    pw = torch.tensor([[100], [403]], device=dev) + torch.arange(Tw, device=dev)[None, :]
+    stale = [torch.randn(2, Hkv, Sw, hd, device=dev, generator=ga).to(torch.bfloat16)
+             for _ in range(2)]
+
+    def written(upto):
+        out = [t.clone() for t in stale]
+        for b in range(2):
+            for c, new in zip(out, (kw_, vw_)):
+                c[b][:, pw[b, :upto]] = new[b, :upto].transpose(0, 1)
+        return out
+
+    kc_, vc_ = written(Tw)
+    win = attention_decode(qw, kc_, vc_, pw, None, kv_cur=(kw_, vw_))
+    bad = []
+    for t in range(Tw):
+        kd, vd = written(t)
+        dec = attention_decode(qw[:, t:t + 1], kd, vd, pw[:, t:t + 1], None,
+                               kv_cur=(kw_[:, t:t + 1], vw_[:, t:t + 1]))
+        bad += [t] if not torch.equal(win[:, t:t + 1], dec) else []
+    if bad:
+        raise SystemExit(f"FAIL: verify window: rows {bad} of a {Tw}-token window differ from "
+                         f"the decode step at their positions")
+    n += 1
     wo, gu, dn = (_rand_weights(rng, "q6w", dim, H * hd, dev),
                   _rand_weights(rng, "q4", 2 * F, dim, dev), _rand_weights(rng, "q6w", dim, F, dev))
     same_rows("oproj_ffn (TinyLlama)", lambda x, a: fused_oproj_ffn(x, a, wo, nw, 1e-5, gu, dn),
@@ -1055,7 +1111,8 @@ def check_batch_invariance(dev, rng) -> int:
     log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in at TinyLlama, "
         f"Qwen2.5, Mixtral f32, Q8_0 and Gemma-2B's head_dim 256 and its split plan, oproj_ffn, "
         f"ffn, the plain decode attention): every row at R in {INVARIANCE_ROWS} equals the row "
-        f"computed alone; qmm's tile: every 64-row block of a 16 x 64 burst equals its 64-row "
+        f"computed alone; the rows of a 5-token verify window equal the decode steps at their "
+        f"positions; qmm's tile: every 64-row block of a 16 x 64 burst equals its 64-row "
         f"call; flash decode: rows at B = 16 and 1024 (head_dim 256: 16 and 64) equal the row "
         f"alone; attn_out at B = 16 and layer at B = 4, ragged positions: every row equals the "
         f"row alone (torch.equal)")
@@ -1752,7 +1809,8 @@ def check_fused_decode(dev, rng) -> dict:
 
 
 def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1,
-                      seq: int | None = None, kv_int8: bool = False) -> dict:
+                      seq: int | None = None, kv_int8: bool = False,
+                      attend: int | None = None) -> dict:
     """Launches of one forward of `batch` rows of `rows` tokens, derived from
     the dispatch gates of models/llama.py for this model (every layer has
     layer 0's shapes) under the reference's switches as the environment
@@ -1760,8 +1818,9 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     batch * rows rows, for every projection they leave (a MoE layer's router
     and its E experts' gate, up and down included) and the lm head a qmm, or
     a qmm_int8 where the int8 gate passes under `impl`; the flash prefill
-    kernel in every layer where the plain attention's logits (prefill
-    attends its first T = rows slots) would pass the budget; the flash
+    kernel in every layer where the plain attention's logits over `attend`
+    slots (default: a prefill's first T = rows; engine.step's window: every
+    slot of its cache) would pass the budget and its shape rule holds; the flash
     decode kernel in every layer of a decode step (rows 1) whose logits over
     `seq` cache slots would (`kv_int8`: the int8 gate's S % 256). The
     switches: TKQ_FUSE_ATTN, TKQ_FUSE_OPROJ and TKQ_FUSE_FFN (default on:
@@ -1786,8 +1845,9 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     L, lay, D, H = cfg.n_layers, params["layers"][0], cfg.head_dim, cfg.n_heads
     budget = attention.ATTN_PLAIN_MAX_MB
     softcap = cfg.attn_logit_softcap > 0.0  # keeps both flash kernels off
-    flash = rows > 1 and not softcap and prefill_supported(rows, rows, D) and \
-        attention.logits_mb(batch, rows, H, rows) > budget
+    att = rows if attend is None else attend
+    flash = rows > 1 and not softcap and prefill_supported(rows, att, D) and \
+        attention.logits_mb(batch, rows, H, att) > budget
     decode = rows == 1 and not softcap and not cfg.sliding_window and seq is not None and \
         D % 64 == 0 and seq % 64 == 0 and (not kv_int8 or seq % 256 == 0) and \
         attention.logits_mb(batch, 1, H, seq) > budget
@@ -2084,22 +2144,25 @@ def weight_work(params) -> tuple[int, int]:
             sum(math.prod(qt.shape) for qt in mats))
 
 
+FIXTURE_DIR = ROOT / ".cache" / "tkq_torch_fixture_vocab"  # files with the fixture vocab
+
+
 def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16", recipe: str = "q4_k_m",
-                 widen_q6: bool = True):
-    """Write the seed-0 fixture of `cfg0` under the quantize tool's `recipe`
-    under .cache/ (once) and load it onto the card with `scale_dtype` and
-    `widen_q6`; logs both times."""
+                 widen_q6: bool = True, seed: int = 0):
+    """Write the `seed` fixture of `cfg0` (its vocab included) under the
+    quantize tool's `recipe` under .cache/ (once) and load it onto the card
+    with `scale_dtype` and `widen_q6`; logs both times."""
     import torch
 
     from tpu_kquant_torch.models.fixtures import write_fixture_gguf
     from tpu_kquant_torch.runtime.loader import load_model
 
-    path = ROOT / ".cache" / "tkq_torch_fixture" / name
+    path = FIXTURE_DIR / name
     t0 = time.perf_counter()
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        write_fixture_gguf(tmp, cfg0, seed=0, recipe=recipe)
+        write_fixture_gguf(tmp, cfg0, seed=seed, recipe=recipe)
         os.replace(tmp, path)
     t1 = time.perf_counter()
     cfg, params, _ = load_model(str(path), scale_dtype=scale_dtype, device=dev, widen_q6=widen_q6)
@@ -3425,6 +3488,395 @@ def prefill_lab(dev) -> dict:
     return {"cases": out, "launches": launches, "prod": prod}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the front door (TinyLlama-1.1B, full depth)
+# ---------------------------------------------------------------------------
+
+FD_PROMPT = ("Hello the world, the hello world: a tale of the world and of hello, told "
+             "the other way.")
+FD_SAMPLED = ["--temp", "0.8", "--top-k", "40", "--top-p", "0.95", "--repeat-penalty", "1.1",
+              "--seed", "5"]
+FD_NEW = 32  # speculative streams' length
+FD_DRAFT = 4  # n_draft
+
+
+@contextlib.contextmanager
+def main_run(what: str, total: dict):
+    """One run of the main path: the counts set to 0 just before it and read
+    just after, held to expected_launches summed over the forwards it made
+    (each engine forward recorded with its model, rows, tokens, cache slots,
+    attended slots and KV kind), and added to `total`. Comparison runs,
+    checks against the CPU and launch pins stay outside."""
+    from tpu_kquant_torch.runtime import engine as engine_mod
+
+    real = engine_mod.llama_forward
+    fwd: list = []
+
+    def spy(params, cfg, tokens, positions, cache, *a, **k):
+        B, T = tokens.shape
+        att = k.get("kv_attend_len") or cache.max_seq
+        fwd.append((cfg, params, B, T, cache.max_seq, min(att, cache.max_seq),
+                    cache.quantized, k.get("impl", "auto")))
+        return real(params, cfg, tokens, positions, cache, *a, **k)
+
+    engine_mod.llama_forward = spy
+    reset_counts()
+    try:
+        yield
+    finally:
+        engine_mod.llama_forward = real
+    want: dict = {}
+    for cfg, params, B, T, S, att, q, impl in fwd:
+        want = _add(want, expected_launches(cfg, params, T, impl, batch=B, seq=S, kv_int8=q,
+                                            attend=att))
+    got = check_counts(f"{what} ({len(fwd)} forwards)", want)
+    total.update(_add(total, got))
+
+
+def window_cost(eng, rng, gpu: str) -> dict:
+    """One verify window of FD_DRAFT + 1 tokens 1900 deep in 2048 slots at
+    TinyLlama's full width and depth (B = 1, bf16 KV): engine.step against
+    as many decode steps (eager ms, CUDA events, host time included); and
+    layer 0's attention alone on that cache (device ms in a CUDA graph, and
+    peak device memory): the window's (its products query by query on one
+    f32 copy of the cache, held bit-equal to the decode steps' calls here), the
+    decode steps' T calls, and one [T, S] call (attention_plain without
+    kv_cur: the fixed-shape form a window would take if its rows need not
+    be the decode steps' bits)."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.ops.attention import attention_plain
+
+    T, p, cfg, dev = FD_DRAFT + 1, 1900, eng.cfg, eng.device
+    prompt = rng.integers(10, cfg.vocab_size, p).tolist()
+    _, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+    window = rng.integers(10, cfg.vocab_size, (1, T))
+    pos = lens[:, None] + np.arange(T)
+    out = {"step_ms": time_ms(lambda i: eng.step(window, pos, cache), 10),
+           "decode_steps_ms": time_ms(lambda i: [eng.decode_step(
+               eng._tensor(window[:, t]), eng._tensor(lens + t), cache) for t in range(T)], 10)}
+    k, v = cache.layer_view(0)[:2]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(1, T, cfg.n_heads, cfg.head_dim, generator=gen, device=dev).to(torch.bfloat16)
+    qpos = torch.tensor(pos, device=dev)
+    cur = tuple(c[:, :, p:p + T].transpose(1, 2) for c in (k, v))
+    forms = {
+        "window": lambda i: attention_plain(q, k, v, qpos, kv_cur=cur, fixed=True),
+        "decode_calls": lambda i: torch.cat([attention_plain(
+            q[:, t:t + 1], k, v, qpos[:, t:t + 1], kv_cur=tuple(c[:, t:t + 1] for c in cur),
+            fixed=True) for t in range(T)], 1),
+        "one_call": lambda i: attention_plain(q, k, v, qpos, fixed=True),
+    }
+    if not torch.equal(forms["window"](0), forms["decode_calls"](0)):
+        raise SystemExit("FAIL: the window's attention differs from the decode steps' calls")
+    for name, fn in forms.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(0)
+        torch.cuda.synchronize()
+        out[f"attn_{name}_peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        out[f"attn_{name}_ms"] = graph_ms(fn, 10)
+    log(f"  [{gpu}] a verify window of {T}, 1900 deep in 2048 slots, B = 1: engine.step "
+        f"{out['step_ms']:.3f} ms against {T} decode steps {out['decode_steps_ms']:.3f} ms "
+        f"(eager); layer 0's attention (graph ms, peak MB): the window's "
+        f"{out['attn_window_ms']:.4f}, {out['attn_window_peak_mb']:.2f}; {T} decode calls "
+        f"{out['attn_decode_calls_ms']:.4f}, {out['attn_decode_calls_peak_mb']:.2f}; one "
+        f"[{T}, 2048] call {out['attn_one_call_ms']:.4f}, {out['attn_one_call_peak_mb']:.2f}")
+    return out
+
+
+def _cpu_engine(cfg, params, **kw):
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+
+    return InferenceEngine(cfg, _to_cpu(params), device="cpu", **kw)
+
+
+def front_door(dev) -> dict:
+    """Phase 14: the front door at TinyLlama-1.1B's full width and depth on
+    the seed-0 Q4_K_M fixture with its vocab, each main-path run counted
+    from 0 and checked against the gates (main_run; the comparisons, the
+    2-layer cut and the pins are not counted): the generate CLI (tools/main.py) greedy -n 64 (its ids equal
+    generate's) and sampled (equal generate(seed=...)); context shift
+    (max_seq 256, a 200-token prompt, 200 new tokens, n_keep 4) on bf16 and
+    int8 KV (a shift must happen, every token must come), and on a 2-layer
+    cut against the CPU (shift_cache of one cache: bf16 within one ulp,
+    int8 codes within 1 and scales 1e-6 relative; the logits after a shift
+    within 5e-2 of max|ref| and the greedy token in the CPU's top 5);
+    sessions saved after prefill and 16 tokens, loaded into a fresh engine,
+    32 more equal to the uninterrupted run (bf16 and int8 KV, fatal);
+    verify-window rows equal to decode steps bit for bit (B = 1 and 2,
+    fatal; one window's launches pinned with expected_launches); a window's
+    cost at 2048 slots (window_cost); greedy
+    speculative decoding (bf16 KV, fatal: equal to plain greedy):
+    generate_speculative with the target as its own draft (every draft
+    accepted), with a 2-layer draft of another seed on two rows of other
+    lengths, DeviceSpeculator's prompt lookup on a repetitive prompt and
+    DeviceSpeculator with the 2-layer draft, each timed beside plain greedy
+    (no gain is claimed); speculative streams on int8 KV (the differing
+    tokens are printed, not held); perplexity over 1024 ids at ctx 512
+    (finite; on the 2-layer cut within 1e-3 relative of the CPU's); the
+    bench CLI's table at -p 512 -n 128 -r 2. Returns the launches and the
+    numbers it printed."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.gguf import GGUFReader
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.runtime.kv_cache import KVCache, shift_cache
+    from tpu_kquant_torch.runtime.speculative import DeviceSpeculator, generate_speculative
+    from tpu_kquant_torch.tokenizer import from_gguf_metadata
+    from tpu_kquant_torch.tools import bench_cli, perplexity
+    from tpu_kquant_torch.tools import main as main_cli
+    from tpu_kquant_torch.tools.batch_invariance import window_checks
+
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    name = "tinyllama-1.1b-q4_k_m-seed0.gguf"
+    cfg, params, _ = load_fixture(tinyllama_1b_config(), name, dev)
+    path = str(FIXTURE_DIR / name)
+    tok = from_gguf_metadata(GGUFReader(path).metadata)
+    res: dict = {"gpu": gpu}
+    rng = np.random.default_rng(14)
+    total: dict = {}  # the main path's runs' launches (main_run)
+
+    def engine(max_seq, kv_quantized=False, batch=1, c=cfg, p=params):
+        return InferenceEngine(c, p, max_batch=batch, max_seq=max_seq, device=dev,
+                               kv_quantized=kv_quantized)
+
+    # -- the generate CLI: greedy, then sampled ---------------------------------
+    ids = tok.encode(FD_PROMPT, add_bos=True)
+    for label, extra in (("greedy", []), ("sampled", FD_SAMPLED)):
+        t0 = time.perf_counter()
+        with main_run(f"tools/main.py {label}", total):
+            out = main_cli.run(["-m", path, "-p", FD_PROMPT, "-n", "64", *extra])
+        wall = time.perf_counter() - t0
+        kw = dict(temperature=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1, seed=5) \
+            if extra else {}
+        want = engine(len(ids) + 64 + 16).generate([ids], max_new_tokens=64, eos_id=tok.eos_id,
+                                                   **kw)[0]
+        tps = len(out["ids"]) / out["seconds"]
+        log(f"  [{gpu}] tools/main.py {label} -n 64: {len(out['ids'])} tokens, {tps:.1f} tok/s "
+            f"(generation {out['seconds']:.2f} s; {wall:.1f} s with the CLI's load); ids equal "
+            f"generate's: {out['ids'] == want}; text {out['text'][:48]!r}")
+        if out["ids"] != want or out["text"] != tok.decode(want) or not out["ids"]:
+            raise SystemExit(f"FAIL: tools/main.py {label} differs from generate: {out['ids']} "
+                             f"against {want}")
+        res[f"cli_{label}_tok_s"] = tps
+
+    # -- context shift --------------------------------------------------------
+    prompt = rng.integers(10, cfg.vocab_size, 200).tolist()
+    real_shift = InferenceEngine.shift_context
+    shifts: list = []
+
+    def counted(self, *a, **k):
+        shifts.append(a[2:])
+        return real_shift(self, *a, **k)
+
+    InferenceEngine.shift_context = counted
+    try:
+        for q in (False, True):
+            shifts.clear()
+            t0 = time.perf_counter()
+            kv = "int8" if q else "bf16"
+            with main_run(f"context shift ({kv} KV)", total):
+                got = engine(256, q).generate([prompt], max_new_tokens=200,
+                                              context_shift=True, n_keep=4)[0]
+            log(f"  [{gpu}] context shift, {kv} KV: max_seq 256, prompt 200, 200 new tokens, "
+                f"n_keep 4: {len(got)} tokens, {len(shifts)} shifts (n_keep, n_discard) "
+                f"{shifts}, {time.perf_counter() - t0:.1f} s")
+            if len(got) != 200 or not shifts:
+                raise SystemExit(f"FAIL: context shift on {kv} KV gave {len(got)} tokens "
+                                 f"with {len(shifts)} shifts")
+    finally:
+        InferenceEngine.shift_context = real_shift
+    cut = dataclasses.replace(cfg, n_layers=2)
+    p_cut = {**params, "layers": params["layers"][:2]}
+    with cpu_dequant_memo():
+        for q in (False, True):
+            kv = "int8" if q else "bf16"
+            g_eng = engine(256, q, c=cut, p=p_cut)
+            c_eng = _cpu_engine(cut, p_cut, max_seq=256, kv_quantized=q)
+            gl, g_cache, lens = g_eng.prefill([prompt], g_eng.new_cache(1))
+            cl, c_cache, _ = c_eng.prefill([prompt], c_eng.new_cache(1))
+            # one cache, shifted on both sides
+            mirror = KVCache(*(None if t is None else t.to("cpu", copy=True) for t in
+                               (g_cache.k, g_cache.v, g_cache.k_scale, g_cache.v_scale)))
+            a = shift_cache(KVCache(*(None if t is None else t.clone() for t in
+                                      (g_cache.k, g_cache.v, g_cache.k_scale, g_cache.v_scale))),
+                            4, 126, cut.rope)
+            b = shift_cache(mirror, 4, 126, cut.rope)
+            ak, bk = a.k.cpu().float(), b.k.float()
+            if q:
+                dk = float((ak - bk).abs().max())
+                ds = float(((a.k_scale.cpu() - b.k_scale).abs()
+                            / b.k_scale.abs().clamp_min(1e-30)).max())
+                ok = dk <= 1 and ds <= 1e-6 and torch.equal(a.v.cpu(), b.v)
+                detail = f"codes within {dk:.0f}, scales within {ds:.1e} relative"
+            else:
+                ulps = float(((ak - bk).abs() / (bk.abs() * 2.0 ** -7).clamp_min(1e-30)).max())
+                ok = ulps <= 1 and torch.equal(a.v.cpu(), b.v)
+                detail = f"K within {ulps:.2f} bf16 ulp"
+            # the logits after a shift: both engines shift their own cache
+            tok0 = torch.argmax(gl, -1)
+            g_cache, g_pos = g_eng.shift_context(g_cache, lens, 4, 126)
+            c_cache, c_pos = c_eng.shift_context(c_cache, lens, 4, 126)
+            lg, _ = g_eng.decode_step(tok0, g_pos, g_cache)
+            lc, _ = c_eng.decode_step(tok0.cpu(), c_pos, c_cache)
+            lg, lc = lg[0].float().cpu(), lc[0].float()
+            rel = float((lg - lc).abs().max() / lc.abs().max())
+            top5 = set(torch.topk(lc, 5).indices.tolist())
+            log(f"  [{gpu}] 2-layer cut, {kv} KV: shift_cache on the card against the CPU: "
+                f"{detail}; logits after a shift rel err {rel:.2e}, greedy "
+                f"{int(lg.argmax())} in the CPU's top 5 {sorted(top5)}")
+            if not (ok and rel < 5e-2 and int(lg.argmax()) in top5 and torch.isfinite(lg).all()):
+                raise SystemExit(f"FAIL: context shift on the 2-layer cut ({kv} KV) disagrees "
+                                 f"with the CPU")
+
+    # -- sessions ---------------------------------------------------------------
+    s_prompt = rng.integers(10, cfg.vocab_size, 40).tolist()
+    sess = FIXTURE_DIR.parent / "phase14_session.npz"
+    sess.parent.mkdir(parents=True, exist_ok=True)
+    for q in (False, True):
+        kv = "int8" if q else "bf16"
+        eng = engine(128, q)
+        with main_run(f"session save ({kv} KV)", total):
+            logits, cache, lens = eng.prefill([s_prompt], eng.new_cache(1))
+            first = torch.argmax(logits, -1)
+            head, cache = eng.decode_greedy(first, eng._tensor(lens), cache, 16)
+            eng.save_session(str(sess), cache, lens + 16)
+        want, _ = eng.decode_greedy(head[:, -1], eng._tensor(lens + 16), cache, 32)
+        fresh = engine(128, q)
+        with main_run(f"session load ({kv} KV)", total):
+            back, lens2 = fresh.load_session(str(sess))
+            got, _ = fresh.decode_greedy(head[:, -1], fresh._tensor(lens2), back, 32)
+        same = torch.equal(got, want)
+        log(f"  [{gpu}] session, {kv} KV: saved after prefill + 16, {sess.stat().st_size / 1e6:.1f}"
+            f" MB; 32 tokens from a fresh engine equal the uninterrupted run: {same}")
+        if not same:
+            raise SystemExit(f"FAIL: a session continuation on {kv} KV differs from the "
+                             f"uninterrupted run")
+    sess.unlink()
+
+    # -- verify windows against decode steps, and their launches --------------------
+    w_prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in (37, 61)]
+    rows = window_checks(engine(128), w_prompts[:1], T=FD_DRAFT + 1, seed=1)
+    rows += window_checks(engine(128, batch=2), w_prompts, T=FD_DRAFT + 1, seed=2)
+    if not all(r["equal"] for r in rows):
+        raise SystemExit(f"FAIL: verify-window rows differ from the decode steps at their "
+                         f"positions: {[r['check'] for r in rows if not r['equal']]}")
+    for B in (1, 2):
+        eng = engine(128, batch=B)
+        _, cache, lens = eng.prefill(w_prompts[:B], eng.new_cache(B))
+        before = counts()
+        eng.step(np.full((B, FD_DRAFT + 1), 7), lens[:, None] + np.arange(FD_DRAFT + 1), cache)
+        got = {k: v - before.get(k, 0) for k, v in counts().items()}
+        want = expected_launches(cfg, params, FD_DRAFT + 1, batch=B)
+        pinned = {"attn_in": cfg.n_layers, "oproj_ffn": cfg.n_layers, "qmm": 1}
+        log(f"  verify window of {FD_DRAFT + 1} at B = {B}: launches {_nonzero(got)}, gates "
+            f"{_nonzero(want)}, pinned {pinned}")
+        if _nonzero(got) != _nonzero(want) or _nonzero(want) != pinned:
+            raise SystemExit(f"FAIL: a verify window at B = {B} launched {_nonzero(got)}; "
+                             f"the gates say {_nonzero(want)}, pinned {pinned}")
+    log(f"  [{gpu}] verify windows: {len(rows)} rows (B = 1 and 2, {FD_DRAFT + 1} tokens) "
+        f"equal the decode steps at their positions bit for bit")
+    res["window_cost"] = window_cost(engine(2048), np.random.default_rng(15), gpu)
+
+    # -- speculative decoding ------------------------------------------------------
+    d_cfg, d_params, _ = load_fixture(dataclasses.replace(tinyllama_1b_config(), n_layers=2),
+                                      "tinyllama-1.1b-2l-q4_k_m-seed1.gguf", dev, seed=1)
+    rep_seed = rng.integers(10, cfg.vocab_size, 12).tolist()
+    rep_prompt = rep_seed + engine(64).generate([rep_seed], max_new_tokens=24)[0]
+    cases = (
+        ("generate_speculative, self-draft", [s_prompt], "self"),
+        ("generate_speculative, 2-layer draft (seed 1), two rows", w_prompts, "draft"),
+        ("DeviceSpeculator, n-gram lookup, repetitive prompt", [rep_prompt], "ngram"),
+        ("DeviceSpeculator, 2-layer draft", [s_prompt], "device-draft"),
+    )
+    spec = []
+    for q in (False, True):
+        for label, prompts, how in cases:
+            if q and how != "self" and how != "ngram":
+                continue
+            B = len(prompts)
+            tgt = engine(256, q, batch=B)
+            drf = InferenceEngine(d_cfg, d_params, max_batch=B, max_seq=256, device=dev,
+                                  kv_quantized=q)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = tgt.generate(prompts, max_new_tokens=FD_NEW)
+            t_plain = time.perf_counter() - t0
+            kv = "int8" if q else "bf16"
+            self_draft = engine(256, q, batch=B) if how == "self" else None
+            with main_run(f"{label} ({kv} KV)", total):
+                t0 = time.perf_counter()
+                if how == "self":
+                    got, st = generate_speculative(tgt, self_draft, prompts, FD_NEW,
+                                                   n_draft=FD_DRAFT)
+                elif how == "draft":
+                    got, st = generate_speculative(tgt, drf, prompts, FD_NEW, n_draft=FD_DRAFT)
+                else:
+                    got, st = DeviceSpeculator(tgt, drf if how == "device-draft" else None,
+                                               n_draft=FD_DRAFT, ngram=3).generate(prompts,
+                                                                                   FD_NEW)
+                t_spec = time.perf_counter() - t0
+            n_tok = sum(len(r) for r in want)
+            differ = sum(a != b for r, w in zip(got, want) for a, b in zip(r, w))
+            acc = st["accepted"] / max(1, st["drafted"])
+            row = {"case": label, "kv": kv, "rounds": st["rounds"], "acceptance": acc,
+                   "tok_s": n_tok / t_spec, "plain_tok_s": n_tok / t_plain,
+                   "tokens_differing": differ}
+            spec.append(row)
+            log(f"  [{gpu}] {label}, {kv} KV, n_draft {FD_DRAFT}: {st['rounds']} rounds, "
+                f"acceptance {acc:.1%} ({st['accepted']} of {st['drafted']}), {n_tok / t_spec:.1f} "
+                f"tok/s against plain greedy's {n_tok / t_plain:.1f}; tokens differing from "
+                f"plain greedy: {differ} of {n_tok}")
+            if not q and (got != want or (how == "self" and st["accepted"] != st["drafted"])):
+                raise SystemExit(f"FAIL: {label} on bf16 KV differs from plain greedy or "
+                                 f"rejected a self-draft: {got} against {want}, {st}")
+    res["speculative"] = spec
+    del d_params
+
+    # -- perplexity -----------------------------------------------------------------
+    ppl_ids = rng.integers(3, cfg.vocab_size, 1024).tolist()
+    ppl_eng = engine(512)
+    with main_run("perplexity", total):
+        t0 = time.perf_counter()
+        full = perplexity.perplexity(ppl_eng, ppl_ids, ctx=512)
+        t_ppl = time.perf_counter() - t0
+    cut_g = perplexity.perplexity(engine(512, c=cut, p=p_cut), ppl_ids, ctx=512)
+    with cpu_dequant_memo():
+        cut_c = perplexity.perplexity(_cpu_engine(cut, p_cut, max_seq=512), ppl_ids, ctx=512)
+    rel = abs(cut_g["ppl"] / cut_c["ppl"] - 1)
+    log(f"  [{gpu}] perplexity, 1024 ids at ctx 512: {full['ppl']:.4f} over {full['tokens']} "
+        f"tokens ({full['windows']} windows, {t_ppl:.2f} s); 2-layer cut {cut_g['ppl']:.6f}, "
+        f"CPU {cut_c['ppl']:.6f} (rel {rel:.2e})")
+    if not (math.isfinite(full["ppl"]) and rel < 1e-3):
+        raise SystemExit("FAIL: perplexity is not finite, or the 2-layer cut differs from the "
+                         "CPU's by 1e-3 or more")
+    res["ppl"] = full["ppl"]
+
+    # -- the bench CLI ------------------------------------------------------------
+    t0 = time.perf_counter()
+    with main_run("tools/bench_cli.py", total):
+        res["bench"] = bench_cli.main(["-m", path, "-p", "512", "-n", "128", "-r", "2"])
+    log(f"  [{gpu}] tools/bench_cli.py -p 512 -n 128 -r 2 ({time.perf_counter() - t0:.1f} s "
+        f"with its load):")
+    for line in res["bench"]:
+        log(f"    {line}")
+    res["launches"] = total
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches of phase 14's main-path runs: {_nonzero(total)}")
+    log(f"  phase 14 took {res['seconds']:.1f} s [{gpu}]")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 REPLACES = {
     "qmm": ("tpu_kquant_torch/csrc/qmm.cuh", "tpu_kquant/ops/pallas_qmm.py:287"),
     "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
@@ -3527,6 +3979,10 @@ def main() -> int:
     gem = gemma(dev, args.profile)
     torch.cuda.empty_cache()
 
+    phase(f"phase 14: the front door (TinyLlama-1.1B, full depth) [{gpu_line()}]")
+    front = front_door(dev)
+    torch.cuda.empty_cache()
+
     phase(f"phase 11: the qmm kernel lab (mutation ladder, manual ring) [{gpu_line()}]")
     lab = kernel_lab(dev, cases["qmm"])
 
@@ -3535,14 +3991,15 @@ def main() -> int:
 
     # launches: the sums over the request runs of phases 4, 5 (both KV
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
-    # (both configurations), 9 (every recipe), 10 (every path) and 13
-    # (Gemma-2B), each counted from 0 and checked exactly
+    # (both configurations), 9 (every recipe), 10 (every path), 13
+    # (Gemma-2B) and 14 (its main-path runs), each counted from 0 and
+    # checked exactly
     runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
             f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
             *ggml["launches"].values(), *(r["launches"] for r in fused.values()),
-            gem["main_path_launches"]]
+            gem["main_path_launches"], front["launches"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-10, 13): {launches}")
+    log(f"  launches on the main path (phases 4-10, 13, 14): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

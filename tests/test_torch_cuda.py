@@ -1728,3 +1728,128 @@ def test_decode_attn_head_dim_256_matches_plain_and_the_row_alone(card, int8):
         alone = t_decode.attention_decode_flash(q[b:b + 1], k[b:b + 1], v[b:b + 1],
                                                 qp[b:b + 1], sc)
         assert torch.equal(got[b:b + 1], alone), b
+
+
+@pytest.fixture
+def w1024_engine(card, tmp_path):
+    """A 2-layer model at dim 1024 (the fused kernels' gates pass): attn_in,
+    oproj_ffn and the GEMV lm head at every row count <= 32."""
+    cfg = tiny_config(n_layers=2, dim=1024, n_heads=16, n_kv_heads=4, ffn_dim=1024,
+                      vocab_size=512, max_seq_len=2048)
+    path = write_fixture_gguf(tmp_path / "w1024.gguf", cfg, seed=3, scale=0.05)
+    cfg, params, _ = load_model(str(path), device=card)
+    return lambda B, q=False, max_seq=128: InferenceEngine(
+        cfg, params, max_batch=B, max_seq=max_seq, device=card, kv_quantized=q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+def test_verify_window_rows_equal_decode_steps(w1024_engine, B):
+    """Row t of a speculative verify window (engine.step, T = 5, bf16 KV)
+    equals the decode step at its position bit for bit, at B = 1 and at two
+    rows of other lengths: greedy speculative output is plain greedy's."""
+    from tpu_kquant_torch.tools.batch_invariance import window_checks
+
+    prompts = [[3, 100, 7, 256, 42, 9, 300, 5, 11], [8, 9, 10, 11, 12, 13]][:B]
+    rows = window_checks(w1024_engine(B), prompts, T=5, seed=B)
+    assert all(r["equal"] for r in rows), rows
+
+
+@pytest.mark.cuda
+def test_verify_window_at_a_long_context(w1024_engine, monkeypatch):
+    """Two rows 1500 and 1900 tokens deep in 2048 slots: a window of 8 equals
+    the decode steps bit for bit and takes at most 1.5x a decode step's peak
+    device memory (one f32 copy of the cache for its 8 queries, not one a
+    query). With the budget lowered between a decode step's logits and the
+    window's, the window runs the flash prefill kernel in every layer, as
+    the reference's does, within 5e-2 of max|ref| of the decode steps."""
+    eng = w1024_engine(2, max_seq=2048)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(10, 512, n).tolist() for n in (1500, 1900)]
+    lens = np.array([1500, 1900])
+    window = rng.integers(10, 512, (2, 8))
+
+    def run(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    def decode_rows():
+        _, c, _ = eng.prefill(prompts, eng.new_cache(2))
+        rows, peak = [], 0
+        for t in range(8):
+            (dl, c), m = run(lambda: eng.decode_step(eng._tensor(window[:, t]),
+                                                     eng._tensor(lens + t), c))
+            rows.append(dl)
+            peak = max(peak, m)
+        return torch.stack(rows, 1), peak
+
+    def window_rows():
+        _, c, _ = eng.prefill(prompts, eng.new_cache(2))
+        before = {k: c.launches for k, c in _build.COUNTERS.items()}
+        (wl, _), m = run(lambda: eng.step(window, lens[:, None] + np.arange(8), c))
+        return wl, m, {k: c.launches - before[k] for k, c in _build.COUNTERS.items()}
+
+    dec, dec_peak = decode_rows()
+    win, win_peak, used = window_rows()
+    assert torch.equal(win, dec) and used["prefill"] == 0
+    assert win_peak <= 1.5 * dec_peak, (win_peak, dec_peak)
+    # decode 2 * 16 * 2048 * 4 B = 0.26 MB of logits, the window 2.1 MB
+    monkeypatch.setattr(t_attention, "ATTN_PLAIN_MAX_MB", 1.0)
+    win, _, used = window_rows()
+    assert used["prefill"] == eng.cfg.n_layers
+    assert (win - dec).abs().max() <= 5e-2 * dec.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_shift_cache_on_card_matches_cpu(card, int8):
+    """shift_cache on the card against its CPU run on the same cache: bf16
+    K within one bf16 ulp after rotation, int8 codes within 1 and scales
+    within 1e-6 relative (f32 math in another order), V equal."""
+    from tpu_kquant_torch.models.config import RopeParams
+    from tpu_kquant_torch.runtime.kv_cache import KVCache, shift_cache
+
+    g = torch.Generator().manual_seed(4)
+    L, B, H, S, D = 2, 2, 4, 256, 64
+    if int8:
+        k, v = (torch.randint(-127, 128, (L, B, H, S, D), generator=g, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = (torch.rand(L, B, H, S, generator=g) * 0.02 + 0.001 for _ in range(2))
+        cpu = KVCache(k, v, ks, vs)
+    else:
+        cpu = KVCache(*(torch.randn(L, B, H, S, D, generator=g).to(torch.bfloat16)
+                        for _ in range(2)))
+    dev = KVCache(*(None if t is None else t.to(card) for t in (cpu.k, cpu.v, cpu.k_scale,
+                                                                 cpu.v_scale)))
+    rope = RopeParams(head_dim=D, n_rot=D, mode="neox")
+    want, got = shift_cache(cpu, 4, 100, rope), shift_cache(dev, 4, 100, rope)
+    gk, wk = got.k.cpu().float(), want.k.float()
+    if int8:
+        assert (gk - wk).abs().max() <= 1
+        torch.testing.assert_close(got.k_scale.cpu(), want.k_scale, rtol=1e-6, atol=0)
+        assert torch.equal(got.v_scale.cpu(), want.v_scale)
+    else:
+        assert ((gk - wk).abs() <= wk.abs() * 2.0 ** -7 + 1e-30).all()
+    assert torch.equal(got.v.cpu(), want.v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_session_round_trip_on_card(w1024_engine, tmp_path, int8):
+    """A session saved after prefill and 8 tokens, loaded into a fresh
+    engine: 12 more greedy tokens equal the uninterrupted run's."""
+    eng = w1024_engine(1, int8)
+    prompt = [[3, 100, 7, 256, 42, 9]]
+    logits, cache, lens = eng.prefill(prompt, eng.new_cache(1))
+    toks, cache = eng.decode_greedy(torch.argmax(logits, -1), eng._tensor(lens), cache, 8)
+    eng.save_session(str(tmp_path / "s.npz"), cache, lens + 8)
+    want, _ = eng.decode_greedy(toks[:, -1], eng._tensor(lens + 8), cache, 12)
+    fresh = w1024_engine(1, int8)
+    back, lens2 = fresh.load_session(str(tmp_path / "s.npz"))
+    assert back.k.is_cuda and lens2.tolist() == [14]
+    got, _ = fresh.decode_greedy(toks[:, -1], fresh._tensor(lens2), back, 12)
+    assert torch.equal(got, want)

@@ -221,12 +221,15 @@ def test_rope_matches_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-def test_entry_points_refuse_what_this_slice_lacks(models):
+def test_entry_points_refuse_what_this_slice_lacks(models, tmp_path):
     _, te = models["tiny"]
     with pytest.raises(NotImplementedError):
         InferenceEngine(te.cfg, te.params, kv_layout="iswa", device="cpu")
+    # context shift is ported; a recurrent (mamba) session is not
+    assert len(te.generate([TOKENS], max_new_tokens=2, context_shift=True)[0]) == 2
+    np.savez(tmp_path / "mamba.npz", lengths=np.zeros(1, np.int32), recurrent=np.int32(1))
     with pytest.raises(NotImplementedError):
-        te.generate([TOKENS], max_new_tokens=2, context_shift=True)
+        te.load_session(str(tmp_path / "mamba.npz"))
     with pytest.raises(NotImplementedError):
         ContinuousBatcher(te, mesh=object())
     with pytest.raises(NotImplementedError):

@@ -265,10 +265,33 @@ DRAW = {GGMLType.Q2_K: random_q2_k, GGMLType.Q3_K: random_q3_k, GGMLType.Q4_K: r
         GGMLType.Q5_K: random_q5_k, GGMLType.Q6_K: random_q6_k, GGMLType.Q8_0: random_q8_0}
 
 
+def fixture_vocab(vocab_size: int) -> dict:
+    """The fixture's minimal SPM vocab as GGUF metadata (the reference
+    writer's, key for key): the specials, the 256 byte tokens, a few merged
+    pieces with descending scores, then filler tokens."""
+    toks = ["<unk>", "<s>", "</s>"]
+    toks += [f"<0x{b:02X}>" for b in range(256)]
+    pieces = ["\u2581the", "\u2581a", "he", "ll", "o", "\u2581hello", "\u2581world", "th", "er",
+              "\u2581t"]
+    toks += pieces
+    toks += [f"tok{i}" for i in range(vocab_size - len(toks))]
+    scores = [0.0] * 3 + [0.0] * 256 + [-float(i) for i in range(len(pieces))]
+    scores += [-1000.0] * (vocab_size - len(scores))
+    ttypes = [2, 3, 3] + [6] * 256 + [1] * (vocab_size - 259)
+    return {"tokenizer.ggml.model": "llama",
+            "tokenizer.ggml.tokens": toks[:vocab_size],
+            "tokenizer.ggml.scores": np.array(scores[:vocab_size], np.float32),
+            "tokenizer.ggml.token_type": np.array(ttypes[:vocab_size], np.int32),
+            "tokenizer.ggml.bos_token_id": 1,
+            "tokenizer.ggml.eos_token_id": 2}
+
+
 def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05,
-                       recipe: str = "q4_k_m") -> str:
+                       recipe: str = "q4_k_m", with_tokenizer: bool = True) -> str:
     """Write a llama (dense or MoE), qwen2, gemma or gemma2 fixture under
-    the quantize tool's ``recipe`` with random blocks drawn from ``seed``."""
+    the quantize tool's ``recipe`` with random blocks drawn from ``seed``;
+    ``with_tokenizer`` adds ``fixture_vocab`` (the vocab draws nothing from
+    the seed, so the weights are the same either way)."""
     if cfg.arch not in ("llama", "qwen2", "gemma", "gemma2"):
         raise NotImplementedError("the port writes llama, qwen2 and gemma fixtures only")
     if recipe not in RECIPES:
@@ -278,6 +301,9 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
     for k, v in cfg.to_gguf_metadata().items():
         w.add(k, v)
     w.add("general.name", f"fixture-{cfg.arch}")
+    if with_tokenizer:
+        for k, v in fixture_vocab(cfg.vocab_size).items():
+            w.add(k, v)
 
     def add(name: str, shape: tuple[int, ...]) -> None:
         t = target_type(name, shape, recipe)

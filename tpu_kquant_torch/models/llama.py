@@ -81,6 +81,7 @@ from tpu_kquant_torch.ops.ffn import (
 from tpu_kquant_torch.ops.layer import fused_layer, layer_enabled
 from tpu_kquant_torch.ops.norms import rms_norm
 from tpu_kquant_torch.ops.qmatmul import IMPLS, qmatmul
+from tpu_kquant_torch.ops.qmm import GEMV_MAX_ROWS
 from tpu_kquant_torch.ops.rope import apply_rope, rope_cos_sin
 from tpu_kquant_torch.ops.rot import fused_oproj_ffn_attn_in, rot_enabled
 from tpu_kquant_torch.quant.codecs import dequant_rows
@@ -234,10 +235,23 @@ def llama_forward(
     # attention on the plain branch, so past the logits budget (large B * S)
     # the appends are eager and attention may leave it, as in the reference.
     B, T = tokens.shape
-    defer = T == 1 and kv_valid is None and \
-        os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
+    step_defers = os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
         os.environ.get("TKQ_FUSE_LAYER", "0") != "1" and \
         attention.logits_mb(B, 1, cfg.n_heads, cache.max_seq) <= attention.ATTN_PLAIN_MAX_MB
+    defer = T == 1 and kv_valid is None and step_defers
+    # a window of T > 1 tokens at any positions (engine.step: speculative
+    # verification) on a bf16 cache, within the GEMV's rows and with its
+    # logits within the budget: its rows are appended first, then each query
+    # takes its own (k, v) as kv_cur, which the plain attention runs as the
+    # decode step at that position would. So row t equals the deferred
+    # decode step at position p + t, bit for bit on the card (every kernel
+    # at <= GEMV_MAX_ROWS rows is row-invariant). Past the budget the window
+    # takes the reference's route (the flash prefill kernel where its shape
+    # rule passes), whose rows are not the decode steps' bits. The reference
+    # attends each query's int8 copy instead; int8 caches keep that.
+    window_rows = T > 1 and kv_valid is None and kv_attend_len is None and \
+        not cache.quantized and B * T <= GEMV_MAX_ROWS and step_defers and \
+        attention.logits_mb(B, T, cfg.n_heads, cache.max_seq) <= attention.ATTN_PLAIN_MAX_MB
     # the whole-layer kernel's architecture test (reference: wl_possible);
     # layer_enabled decides per layer
     neox = cfg.rope.mode == "neox" and cfg.rope.n_rot == cfg.head_dim
@@ -271,6 +285,8 @@ def llama_forward(
                 pending.append((k_new, v_new))
                 return (*cache.layer_view(_i), (k_new, v_new))
             cache.append(_i, k_new, v_new, positions)
+            if window_rows:  # the rows as stored, as the reference attends them
+                return (*cache.layer_view(_i), (k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)))
             return cache.layer_view(_i)
 
         nxt = layers[i + 1] if rotate and i + 1 < len(layers) and "wqk" in layers[i + 1] \

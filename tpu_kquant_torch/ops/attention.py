@@ -72,7 +72,11 @@ def attention_decode(
     softmax, its probability is taken out before the V scales apply, and it
     re-enters with the current, unquantized value after. The result equals
     attending the cache after the append; it lets the forward write every
-    layer's new rows in one batched append after the layer loop."""
+    layer's new rows in one batched append after the layer loop. With T > 1
+    (engine.step's window on a bf16 cache within the logits budget, its rows
+    appended first) each query takes its own row so, and the plain branch
+    runs each query as the decode step at its position would
+    (attention_plain)."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     big = logits_mb(B, T, H, S) > ATTN_PLAIN_MAX_MB
@@ -139,10 +143,14 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
     into one bmm whose batch count, B x Hkv, steers cuBLAS's choice of
     algorithm, and with it the order of each f32 sum (a served greedy
     stream differed from its solo run where such a sum crossed a bf16
-    rounding boundary, tools/batch_invariance.py --serving). Off (the CPU
-    default), the einsums that the tests hold to the JAX package. ``parts``:
-    filled with the f32 logits, probabilities and p v product.
-    ``logit_softcap`` and ``sliding_window``: as attention_decode's."""
+    rounding boundary, tools/batch_invariance.py --serving). With kv_cur
+    and T > 1 (engine.step's window) the products are taken query by
+    query, at the decode step's call shapes, on one f32 copy of the cache;
+    the rest is elementwise or a softmax per row, so query t is the decode
+    step at its position bit for bit. Off (the CPU default), the einsums
+    that the tests hold to the JAX package. ``parts``: filled with the f32
+    logits, probabilities and p v product. ``logit_softcap`` and
+    ``sliding_window``: as attention_decode's."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -150,11 +158,20 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
     fixed = q.is_cuda if fixed is None else fixed
     qf = q.float().reshape(B, T, Hkv, G, D)
     if fixed:
-        N, pairs = B * Hkv, plain_pairs(T, G, S, D)
-        qn = pairs_f32(qf.permute(0, 2, 1, 3, 4).reshape(N, T * G, D), pairs)
+        N, Tq = B * Hkv, 1 if kv_cur is not None else T
+        pairs = plain_pairs(Tq, G, S, D)
+        qh = qf.permute(0, 2, 1, 3, 4)  # [B, Hkv, T, G, D]
+
+        def products(a, b) -> torch.Tensor:
+            """a [B, Hkv, T, G, m] @ b(t0) [N, m, n] per chunk of Tq queries
+            -> [B, T, Hkv, G, n]."""
+            out = [bmm_fixed(pairs_f32(a[:, :, t0:t0 + Tq].reshape(N, Tq * G, a.shape[-1]),
+                                       pairs), b(t0), pairs, N).reshape(B, Hkv, Tq, G, -1)
+                   for t0 in range(0, T, Tq)]
+            return (out[0] if len(out) == 1 else torch.cat(out, dim=2)).permute(0, 2, 1, 3, 4)
+
         kn = pairs_f32(k_cache.reshape(N, S, D), pairs)
-        lg = bmm_fixed(qn, kn.transpose(1, 2), pairs, N)
-        logits = lg.reshape(B, Hkv, T, G, S).permute(0, 2, 1, 3, 4) * scale
+        logits = products(qh, lambda t0: kn.transpose(1, 2)) * scale
     else:
         logits = torch.einsum("bthgd,bhsd->bthgs", qf, k_cache.float()) * scale
     if kv_scales is not None:
@@ -165,10 +182,8 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
     if kv_cur is not None:
         k_cur, v_cur = kv_cur
         if fixed:
-            if T != 1:
-                raise ValueError("attention_plain: the deferred append is a decode step (T = 1)")
-            kc = pairs_f32(k_cur.reshape(N, D, 1), pairs)
-            l_cur = bmm_fixed(qn, kc, pairs, N).reshape(B, 1, Hkv, G) * scale
+            l_cur = products(qh, lambda t0: pairs_f32(k_cur[:, t0].reshape(N, D, 1), pairs))
+            l_cur = l_cur[..., 0] * scale
         else:
             l_cur = torch.einsum("bthgd,bthd->bthg", qf,
                                  k_cur.float().reshape(B, T, Hkv, D)) * scale
@@ -189,9 +204,8 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
     if kv_scales is not None:
         p = p * vs.float()[:, None, :, None, :]
     if fixed:
-        pn = pairs_f32(p.permute(0, 2, 1, 3, 4).reshape(N, T * G, S), pairs)
-        pv = bmm_fixed(pn, pairs_f32(v_cache.reshape(N, S, D), pairs), pairs, N)
-        out = pv.reshape(B, Hkv, T, G, D).permute(0, 2, 1, 3, 4)
+        vn = pairs_f32(v_cache.reshape(N, S, D), pairs)
+        out = products(p.permute(0, 2, 1, 3, 4), lambda t0: vn)
     else:
         out = torch.einsum("bthgs,bhsd->bthgd", p, v_cache.float())
     if parts is not None:

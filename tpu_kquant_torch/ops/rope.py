@@ -35,6 +35,19 @@ def rope_cos_sin(positions: torch.Tensor, p: RopeParams) -> tuple[torch.Tensor, 
     return torch.cos(theta) * mscale, torch.sin(theta) * mscale
 
 
+def rope_delta_cos_sin(delta: int, p: RopeParams,
+                       device: str | torch.device = "cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Unit-magnitude tables [n_rot/2] that rotate already-roped K vectors by
+    ``delta`` positions (the KV cache's context shift). Theta is linear in
+    the position even under YaRN, so rope(pos + delta) = rotate(rope(pos),
+    delta); rope_cos_sin folds YaRN's mscale into both tables, and cos at
+    position 0 is exactly mscale, so dividing by it leaves a pure
+    rotation."""
+    c0, _ = rope_cos_sin(torch.zeros((), device=device), p)
+    c, s = rope_cos_sin(torch.tensor(float(delta), device=device), p)
+    return c / c0, s / c0
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                mode: str = "norm") -> torch.Tensor:
     """Rotate the last dim of x [..., H, D]; cos/sin broadcast to [..., 1, D/2].

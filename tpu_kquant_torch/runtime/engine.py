@@ -10,6 +10,11 @@ Only here (and in the slot prefill and the serving burst, whose positions
 are arange(T) too) may attention be bounded to the first T slots
 (kv_attend_len): every query position is below T.
 decode_step(tokens [B]): one token per row; never bounds attention.
+step(tokens [B, T], positions [B, T]): the reference's general ``_step``,
+for T > 1 windows at any positions (speculative verification, perplexity);
+never bounds attention either. Within the GEMV's rows on a bf16 cache, row
+t of a window equals the decode step at its position bit for bit
+(models.llama: window_rows).
 prefill_slot(tokens, cache, slot): one request into batch row ``slot``,
 through a forward over a view of that row, so nothing is copied and the
 other rows stay as they are.
@@ -18,8 +23,12 @@ a CUDA graph is later work. Sampled generation runs ops.sampling's chain
 after each step; row i of a batch draws from the stream of seed + i (the
 serving batcher's per-request seeds use the same streams). ``impl`` is the
 reference's (engine.py:52): "auto", or "int8" for the Q8-activation path of
-ops.qmatmul on weights loaded with ``scale_dtype="f32"``. Rings, sessions
-and context shift raise NotImplementedError in this slice.
+ops.qmatmul on weights loaded with ``scale_dtype="f32"``.
+Context shift (``shift_context``; ``generate(context_shift=True)``, a
+host-stepped loop as in the reference) slides the cache IN PLACE
+(runtime.kv_cache.shift_cache). Sessions (``save_session`` /
+``load_session``) use the reference's npz format, so a file from either
+package loads in the other. Ring (iSWA) layouts raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ from tpu_kquant_torch.ops.sampling import (
     row_keys,
     sample_step,
 )
-from tpu_kquant_torch.runtime.kv_cache import KVCache, slice_batch_row
+from tpu_kquant_torch.runtime.kv_cache import KVCache, shift_cache, slice_batch_row
 from tpu_kquant_torch.runtime.loader import resolve_device
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -96,6 +105,10 @@ class InferenceEngine:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.tensor(np.array(a), dtype=torch.long, device=self.device)
+
+    def _long(self, a) -> torch.Tensor:
+        """A tensor, array or list as int64 on the engine's device."""
+        return a.long().to(self.device) if torch.is_tensor(a) else self._tensor(a)
 
     # -- steps -----------------------------------------------------------------
     @torch.no_grad()
@@ -161,6 +174,15 @@ class InferenceEngine:
         return logits[len(tokens) - 1], cache
 
     @torch.no_grad()
+    def step(self, tokens, positions, cache: KVCache, last_only: bool = False):
+        """tokens [B, T], positions [B, T] (tensors or arrays; contiguous per
+        row, anywhere in the sequence) -> (logits [B, T or 1, V] f32, cache).
+        The reference's ``_step``: attention is never bounded (no
+        kv_attend_len), since the queries may sit mid-sequence."""
+        return llama_forward(self.params, self.cfg, self._long(tokens), self._long(positions),
+                             cache, logits_last_only=last_only, impl=self.impl)
+
+    @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache):
         """tokens [B], positions [B] -> (logits [B, V] f32, cache)."""
         logits, cache = llama_forward(self.params, self.cfg, tokens.long()[:, None],
@@ -205,6 +227,61 @@ class InferenceEngine:
                     cache, keys, penalty_state)
         return torch.stack(out, dim=1), cache, keys, penalty_state
 
+    def shift_context(self, cache: KVCache, positions, n_keep: int, n_discard: int):
+        """Discard positions [n_keep, n_keep + n_discard) from every row and
+        slide the tail down, K re-rotated (in place: shift_cache). Returns
+        (cache, new positions [B] on the device). Every row must hold at
+        least n_keep + n_discard live entries, or it would lose tokens it
+        still attends to."""
+        if self.kv_layout != "unified":
+            raise NotImplementedError("context shift requires the unified KV layout")
+        positions = self._long(positions)
+        low = int(positions.min())
+        if low < n_keep + n_discard:
+            raise ValueError(f"shift of {n_discard} after keep={n_keep} would drop live "
+                             f"entries of a row at position {low}")
+        cache = shift_cache(cache, int(n_keep), int(n_discard), self.cfg.rope)
+        return cache, positions - n_discard
+
+    # -- session persistence ---------------------------------------------------
+    def save_session(self, path: str, cache: KVCache, lengths) -> None:
+        """Write a KV cache and its rows' lengths in the reference's npz
+        format (resume generation without a new prefill): bf16 stored as its
+        uint16 bits, ``kv_dtype`` the dtype's name as bytes, int8 caches with
+        ``k_scale`` / ``v_scale``."""
+        if self.kv_layout != "unified":
+            raise NotImplementedError("sessions require the unified KV layout")
+
+        def enc(t: torch.Tensor) -> np.ndarray:
+            t = t.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                return t.view(torch.int16).numpy().view(np.uint16)
+            return t.numpy()
+
+        name = "int8" if cache.quantized else "bfloat16"
+        arrs = {"lengths": np.asarray(lengths, np.int32), "k": enc(cache.k), "v": enc(cache.v),
+                "kv_dtype": np.frombuffer(name.encode(), np.uint8)}
+        if cache.quantized:
+            arrs["k_scale"] = enc(cache.k_scale)
+            arrs["v_scale"] = enc(cache.v_scale)
+        np.savez(path, **arrs)
+
+    def load_session(self, path: str) -> tuple[KVCache, np.ndarray]:
+        """Read a session written by either package. Returns (cache on the
+        engine's device, lengths [B] numpy)."""
+        with np.load(path) as z:
+            if "recurrent" in z:
+                raise NotImplementedError("recurrent (mamba) sessions are not ported yet")
+            name = bytes(z["kv_dtype"]).decode()
+
+            def dec(a: np.ndarray) -> torch.Tensor:
+                if name == "bfloat16":  # uint16 bits
+                    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(self.device)
+                return torch.from_numpy(a).to(self.device)
+
+            scales = [dec(z[k]) if k in z else None for k in ("k_scale", "v_scale")]
+            return KVCache(dec(z["k"]), dec(z["v"]), *scales), np.array(z["lengths"])
+
     # -- generation ------------------------------------------------------------
     def generate(self, prompts: list[list[int]], max_new_tokens: int = 32,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
@@ -215,15 +292,20 @@ class InferenceEngine:
         """Greedy or sampled generation (the reference's options); returns the
         new ids per row (cut after eos_id). Row i draws from the stream of
         seed + i. Penalties follow llama.cpp's over the last penalty_last_n
-        context tokens. Generation stops at the KV capacity."""
-        if context_shift:
-            raise NotImplementedError("context shift is not ported yet")
+        context tokens. Generation stops at the KV capacity, unless
+        ``context_shift``: then, when the cache is full, half of the
+        (max_seq - n_keep) positions after the first n_keep are discarded
+        and generation goes on (llama.cpp main's --keep), in a loop that
+        the host steps, as the reference's."""
         sc = SamplerConfig(temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
                            repeat_penalty=repeat_penalty, presence_penalty=presence_penalty,
                            frequency_penalty=frequency_penalty, penalty_last_n=penalty_last_n)
         B = len(prompts)
         cache = self.new_cache(B)
         logits, cache, lens = self.prefill(prompts, cache)
+        if context_shift:
+            return self._generate_shifting(logits, cache, lens, prompts, max_new_tokens, sc,
+                                           eos_id, seed, n_keep)
         max_new_tokens = min(max_new_tokens, self.max_seq - int(lens.max()))
         if max_new_tokens <= 0:
             return [[] for _ in range(B)]
@@ -246,4 +328,39 @@ class InferenceEngine:
             if eos_id is not None and eos_id in row:
                 row = row[: row.index(eos_id) + 1]
             out.append(row)
+        return out
+
+    def _generate_shifting(self, logits, cache, lens, prompts, max_new_tokens: int,
+                           sc: SamplerConfig, eos_id, seed: int, n_keep: int):
+        """generate's context-shift loop: one decode step and one sampler
+        step at a time, shifting the cache whenever a row reaches max_seq.
+        Each step draws as decode_sampled's does, so without a shift the
+        tokens are generate's own."""
+        B = len(prompts)
+        plain = sc.is_greedy and not sc.uses_penalties
+        keys = None if plain else row_keys(torch.arange(B) + seed, 0).to(self.device)
+        pstate = (init_penalty_state(prompts, self.cfg.vocab_size, sc.penalty_last_n,
+                                     self.device) if sc.uses_penalties else None)
+        positions = self._tensor(lens)
+        out: list[list[int]] = [[] for _ in range(B)]
+        done = np.zeros(B, bool)
+        tok = None
+        for i in range(max_new_tokens):
+            if i > 0:
+                if int(positions.max()) >= self.max_seq:
+                    n_discard = max(1, (self.max_seq - n_keep) // 2)
+                    cache, positions = self.shift_context(cache, positions, n_keep, n_discard)
+                logits, cache = self.decode_step(tok, positions, cache)
+                positions = positions + 1
+            if plain:
+                tok = greedy(logits).long()
+            else:
+                tok, keys, pstate = sample_step(logits, keys, sc, pstate)
+                tok = tok.long()
+            for b, t in enumerate(tok.tolist()):
+                if not done[b]:
+                    out[b].append(int(t))
+                    done[b] = eos_id is not None and t == eos_id
+            if done.all():
+                break
         return out

@@ -1,7 +1,7 @@
 """KV cache, heads-major [L, B, Hkv, S, D], bf16 or int8 with per-token
-scales: the port of ``tpu_kquant.runtime.kv_cache.KVCache`` and its batch-row
-helpers ``slice_batch_row`` / ``set_batch_row`` (rings and context shift
-belong to later slices).
+scales: the port of ``tpu_kquant.runtime.kv_cache.KVCache``, its batch-row
+helpers ``slice_batch_row`` / ``set_batch_row`` and the context shift
+``shift_cache`` (rings belong to a later slice).
 
 int8 mode stores each (token, kv head) row as int8 codes with one f32 scale,
 amax / 127, chosen at append time (``_quant_i8``); attention folds the K
@@ -25,9 +25,12 @@ from tpu_kquant_torch.ops.kv_append import kv_append, kv_append_enabled
 
 def _quant_i8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """int8 KV quantization over the last axis: amax / 127 f32 scales (a
-    zero scale divides by 1), codes rounded half to even."""
+    zero scale divides by 1), codes rounded half to even. 127 is a full
+    tensor, as in ops.act_quant: CUDA's division by a Python scalar
+    multiplies by its reciprocal."""
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / 127.0
+    amax = xf.abs().amax(dim=-1)
+    scale = amax / torch.full_like(amax, 127.0)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     return torch.round(xf / safe[..., None]).to(torch.int8), scale
 
@@ -119,6 +122,43 @@ class KVCache:
             return (self.k[layer_idx], self.v[layer_idx],
                     (self.k_scale[layer_idx], self.v_scale[layer_idx]))
         return self.k[layer_idx], self.v[layer_idx], None
+
+
+def shift_cache(cache: KVCache, n_keep: int, n_discard: int, rope) -> KVCache:
+    """Context shift: drop positions [n_keep, n_keep + n_discard) and slide
+    the tail down, re-rotating the moved K rows by -n_discard positions (the
+    reference's shift_cache; llama.cpp's seq_rm + seq_add K-shift). Slot j >=
+    n_keep takes slot min(j + n_discard, S - 1). ``rope`` is the rope the
+    forward applied to K: the loader's cfg.rope, NEOX pairing after its q/k
+    permutation. bf16 K is rotated in f32 and rounded; int8 K is
+    dequantized, rotated and requantized with fresh per-(token, head) scales
+    (_quant_i8); V only moves.
+
+    IN PLACE, unlike the reference (JAX donates the cache): each layer's
+    moved rows are gathered into a new tensor first, then written back, so
+    no read sees a row this shift has already written. Returns cache."""
+    from tpu_kquant_torch.ops.rope import apply_rope, rope_delta_cos_sin
+
+    S = cache.max_seq
+    if n_keep >= S:
+        return cache
+    dev = cache.k.device
+    src = torch.clamp(torch.arange(n_keep, S, device=dev) + n_discard, max=S - 1)
+    cos, sin = rope_delta_cos_sin(-n_discard, rope, dev)
+    for layer in range(cache.k.shape[0]):
+        k = cache.k[layer].index_select(2, src)  # [B, Hkv, S - n_keep, D]
+        v = cache.v[layer].index_select(2, src)
+        if cache.quantized:
+            ks = cache.k_scale[layer].index_select(2, src)
+            vs = cache.v_scale[layer].index_select(2, src)
+            k, ks = _quant_i8(apply_rope(k.float() * ks[..., None], cos, sin, rope.mode))
+            cache.k_scale[layer, :, :, n_keep:] = ks
+            cache.v_scale[layer, :, :, n_keep:] = vs
+        else:
+            k = apply_rope(k, cos, sin, rope.mode)
+        cache.k[layer, :, :, n_keep:] = k
+        cache.v[layer, :, :, n_keep:] = v
+    return cache
 
 
 def slice_batch_row(cache: KVCache, slot: int) -> KVCache:

@@ -96,6 +96,20 @@ def _repack_named(r: GGUFReader, name: str, layout: str, pack_pairs: bool,
                  pack_pairs, widen)
 
 
+def _repack_tied(r: GGUFReader, name: str, pack_pairs: bool,
+                 widen: bool) -> tuple[QTensor, QTensor]:
+    """A tied embedding's two layouts (rowmajor for the row gather, kmajor
+    for the lm head) from ONE decode of its blocks: repack's rowmajor arrays
+    are its kmajor ones transposed, before either is packed further. The
+    same bytes as two repacks (tests/test_torch_frontdoor.py)."""
+    ti = r.tensors[name]
+    km = repack(r.tensor_bytes(name), ti.ggml_type, ti.shape, layout="kmajor")
+    if km.layout != "kmajor":  # dense: one layout serves both
+        return km, km
+    rm = QTensor(km.kind, "rowmajor", km.shape, {k: v.T for k, v in km.arrays.items()})
+    return (_pack(rm, "rowmajor", pack_pairs, widen), _pack(km, "kmajor", pack_pairs, widen))
+
+
 def _expert_split(r: GGUFReader, name: str, pack_pairs: bool, widen: bool) -> list[QTensor]:
     """Split a stacked (E, N, K) expert tensor into per-expert kmajor
     QTensors (each expert's bytes are a contiguous slice of the tensor).
@@ -169,17 +183,16 @@ def load_model(
     def rp(name: str, layout: str = "kmajor") -> QTensor:
         return host(name, layout).to(dev)
 
-    params: dict[str, Any] = {
-        "tok_embd": rp("token_embd.weight", "rowmajor"),
-        "output_norm": rp("output_norm.weight", "dense"),
-    }
-    if "output.weight" in r.tensors:
-        params["output"] = rp("output.weight")
-    else:  # tied embeddings: token_embd repacked kmajor for the lm head
-        params["output"] = rp("token_embd.weight", "kmajor")
+    def embeddings() -> dict[str, Any]:
+        norm = rp("output_norm.weight", "dense")
+        if "output.weight" in r.tensors:
+            embd, head = rp("token_embd.weight", "rowmajor"), rp("output.weight")
+        else:  # tied embeddings: token_embd kmajor for the lm head too, one decode
+            embd, head = (t.to(dev) for t in _repack_tied(r, "token_embd.weight", pack_pairs,
+                                                          widen_q6))
+        return {"tok_embd": embd, "output_norm": norm, "output": head}
 
-    layers = []
-    for i in range(cfg.n_layers):
+    def load_layer(i: int) -> dict[str, Any]:
         p = f"blk.{i}."
         layer: dict[str, Any] = {
             "attn_norm": rp(p + "attn_norm.weight", "dense"),
@@ -214,8 +227,7 @@ def load_model(
                 for wname, tname in (("w_gate", "ffn_gate_exps.weight"),
                                      ("w_up", "ffn_up_exps.weight"),
                                      ("w_down", "ffn_down_exps.weight"))}
-            layers.append(layer)
-            continue
+            return layer
         fused_gu = fuse_kmajor([host(p + "ffn_gate.weight"), host(p + "ffn_up.weight")])
         if fused_gu is not None:
             layer["w_gateup"] = fused_gu.to(dev)
@@ -223,7 +235,15 @@ def load_model(
             layer["w_gate"] = rp(p + "ffn_gate.weight")
             layer["w_up"] = rp(p + "ffn_up.weight")
         layer["w_down"] = rp(p + "ffn_down.weight")
-        layers.append(layer)
+        return layer
+
+    # the repacks run on parallel threads (NumPy's array operations release
+    # the GIL): the embeddings and the layers, in any order; the result is
+    # the same as one by one
+    with ThreadPoolExecutor(max_workers=max(1, min(8, os.cpu_count() or 1))) as pool:
+        emb = pool.submit(embeddings)
+        layers = list(pool.map(load_layer, range(cfg.n_layers)))
+        params: dict[str, Any] = emb.result()
     params["layers"] = layers
     return cfg, params, r
 

@@ -42,6 +42,12 @@ for bit (torch.equal), and reports the largest difference:
   the card (fixed-shape bmm calls).
 The op checks also hold the plain branch's f32 parts of row 0 of 16 to
 the row alone, for the einsums and for attention_plain's card form.
+Verify windows (speculative decoding; fatal, the tool exits 1 where one
+differs): on the same 2-layer cut, each row t of a window of T = 5 tokens
+(engine.step) at positions p..p + 4, at B = 1 and at B = 2 rows of other
+lengths, against the decode step at position p + t on a cache that the
+same prefill and the decode steps before it filled (``window_checks``;
+chip_smoke.py phase 14 runs it at full depth).
 Needs a CUDA card.
 """
 
@@ -262,6 +268,32 @@ def engine_checks(smoke, dev) -> list:
             out.append(row)
     out.append({"check": "engine: burst prefill ops traced", "equal": True,
                 "ops": [name for name, _ in traces[0]]})
+    # verify windows (fatal in main): B = 1, then two rows of other lengths
+    two = InferenceEngine(cfg, params, max_batch=2, max_seq=128, device=dev)
+    out += [dict(r, window=True) for r in window_checks(one, prompts[:1])]
+    out += [dict(r, window=True) for r in window_checks(two, prompts[1:3])]
+    return out
+
+
+def window_checks(eng, prompts: list[list[int]], T: int = 5, seed: int = 0) -> list:
+    """Row t of a verify window of T tokens after ``prompts`` (engine.step at
+    positions len + t) against the decode step at that position (both on
+    caches the same prefill filled; the decode steps write theirs one by
+    one), the logits of every row of the batch, bit for bit."""
+    import numpy as np
+    import torch
+
+    B = len(prompts)
+    window = np.random.default_rng(seed).integers(10, eng.cfg.vocab_size, (B, T))
+    c_win, c_dec = eng.new_cache(B), eng.new_cache(B)
+    _, c_win, lens = eng.prefill(prompts, c_win)
+    _, c_dec, _ = eng.prefill(prompts, c_dec)
+    wl, _ = eng.step(window, lens[:, None] + np.arange(T)[None, :], c_win)
+    out = []
+    for t in range(T):
+        dl, c_dec = eng.decode_step(eng._tensor(window[:, t]), eng._tensor(lens + t), c_dec)
+        out.append(_cmp(f"window of {T} at B = {B}: row {t} against the decode step",
+                        wl[:, t], dl))
     return out
 
 
@@ -458,6 +490,10 @@ def main() -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(res, indent=1))
     print(f"== batch_invariance done [{smoke.gpu_line()}]", flush=True)
+    bad = [r["check"] for r in res["engine"] if r.get("window") and not r["equal"]]
+    if bad:
+        print(f"FAIL: verify-window rows differ from their decode steps: {bad}", flush=True)
+        return 1
     return 0
 
 

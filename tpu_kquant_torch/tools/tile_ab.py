@@ -183,7 +183,7 @@ def main() -> int:
     ap.add_argument("--root", required=True, help="checkout whose tpu_kquant_torch is timed")
     ap.add_argument("--tag", required=True)
     ap.add_argument("--out", required=True, help="JSON file the results go to")
-    ap.add_argument("--fixtures", default=str(TREE / ".cache" / "tkq_torch_fixture"))
+    ap.add_argument("--fixtures", default=str(TREE / ".cache" / "tkq_torch_fixture_vocab"))
     ap.add_argument("--skip", default="",
                     help="comma list of: qmm, prefill, tiny, tick, mixtral, gemv, int8, fused, "
                          "decode")
