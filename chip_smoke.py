@@ -38,14 +38,19 @@ Phases, each fatal on failure:
     and the next layer's head_dim-256 QKV at Gemma-2B's, and the flash
     decode (8 / 1 heads of 256, B = 16 over 8192 slots, bf16 and int8) and
     prefill (T = S = 4096, bf16 and int8; a ragged q offset with a window)
-    at head_dim 256; then the batch-invariance check
+    at head_dim 256; the sliding-window family's (check_phi3): attn_in on
+    Phi-3-mini's one wqkv [9216, 3072] as two slots of its bytes at
+    head_dim 96 (R = 1, 16, 32), oproj_ffn at D 3072, F 8192 (R = 1, 8),
+    rot with the next layer's wqkv slots (R = 1), qmm's lm head at N =
+    32064 (R = 1, 32, 512); then the batch-invariance check
     (fatal): rows of the GEMV paths at R = 16 and 32 against each row
     alone, the tile's 64-row blocks of a 16 x 64 burst against the 64-row
     calls, the flash decode's rows at B = 16 and 1024, attn_in's at
     TinyLlama, Qwen2.5, Mixtral on f32 scales and Q8_0 (its kernel's K split
     held to the host's attn_in_plan) and the plain decode attention's at 16
     and 32 rows of 128 slots (bf16 and int8 KV, the deferred append on and
-    off), attn_in at Gemma-2B's head_dim 256, the flash decode's rows at
+    off), attn_in at Gemma-2B's head_dim 256 and on Phi-3-mini's wqkv
+    slots at head_dim 96, the flash decode's rows at
     head_dim 256 (B = 16 and 64), attn_out's at B = 16 (bf16 and int8 KV)
     and layer's at B = 4,
     ragged positions, against each row alone, bit for bit (tolerance 2e-2
@@ -107,14 +112,13 @@ Phases, each fatal on failure:
     expert's bytes counted (the loop reads all 8 per token).
  9. GGML types: TinyLlama-1.1B at full width under every recipe of the
     reference's quantize tool (models/fixtures.py:target_type), one load
-    at a time: Q8_0 at full depth (a 2-layer cut against the CPU, greedy
-    requests of 5, 40 and 200 tokens counted from 0, pp512 and tg128 beside
-    their bounds), then Q5_K_M, Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M
-    with widen_q6=False (bf16 pairs under impl "auto", then f32 scales
-    under impl "int8": qmm_int8's q6 branch) cut to GGML_DEPTH layers (the
-    cut is logged as `reduced`), each with the same cut and counted
-    requests, untimed. Each recipe's decode dispatch is pinned from the
-    recipe table (GGML_CONFIGS).
+    at a time: Q8_0, Q5_K_M, Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M with
+    widen_q6=False (bf16 pairs under impl "auto", then f32 scales under
+    impl "int8": qmm_int8's q6 branch) cut to GGML_DEPTH layers (the cut is
+    logged as `reduced`), each with a 2-layer cut against the CPU and
+    greedy requests of 5, 40 and 200 tokens counted from 0, untimed. Each
+    recipe's decode dispatch is pinned from the recipe table
+    (GGML_CONFIGS).
 10. the reference's opt-in decode fusions (FUSED_PATHS; its switches, read
     at call time by models/llama.py) at TinyLlama-1.1B's full width and
     depth: (a) TKQ_ROTATE_LAYER=1 on phase 4's bf16 load right after phase
@@ -191,12 +195,33 @@ Phases, each fatal on failure:
     printed); tools/perplexity.py's perplexity over 1024 ids at ctx 512
     (finite; the 2-layer cut within 1e-3 relative of the CPU's); the bench
     CLI's table (-p 512 -n 128 -r 2).
-Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 its untimed
-recipes, Q5_K_M among them, at GGML_DEPTH = 2 layers (2 and 4 layers, and
-Q5_K_M timed at 22, before phase 13): the smoke's 1200 s limit. The CPU
-side of every cut dequantizes each weight once (cpu_dequant_memo).
+15. the sliding-window family (sliding_window), run after phase 13:
+    Phi-3-mini-4k (microsoft/Phi-3-mini-4k-instruct: 32 layers, dim 3072,
+    32 / 32 heads of 96, ffn 8192, vocab 32064, window 2047 on every layer,
+    q/k/v in one wqkv) at full width and depth: the decode dispatch pinned
+    (attn_in on wqkv's two slots and oproj_ffn in every layer, the lm head a
+    qmm, on either layout); 2-layer cuts against the CPU on the unified
+    layout (prompts of 8 and 40 tokens) and on the iSWA ring (8), and
+    under TKQ_ROTATE_LAYER=1 (rot with the next layer's wqkv, which must
+    launch); on each layout greedy requests of 5, 40, 200
+    and 3000 tokens (past the window and the ring) counted from 0, pp512
+    and tg128 on 4096 slots (PHI3_TIMED_REPS runs after a warm one); the
+    3000-token prompt's last logits on the ring against the unified
+    layout's (5e-2 of max|ref|); tools/main.py --kv-layout iswa -n 32, its
+    ids equal generate's; then phase 13's Gemma-2-9B cut (a window layer
+    and a full one) on the iSWA layout against the CPU, bf16 and int8 KV,
+    on a 5000-token prompt (past its window of 4096; ring 4608).
+Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 every recipe,
+Q8_0 and Q5_K_M among them, untimed at GGML_DEPTH = 2 layers (2 and 4
+layers, Q5_K_M timed at 22 before phase 13, Q8_0 before phase 15),
+phase 10 one turn of tg128 on and off a path (FUSED_TURNS; 2 before phase
+15), and phases 5, 7 and 13 time pp2048 / tg128@2048, Qwen2.5's and
+Gemma-2B's pp512 / tg128 once each after a warm run (LONG_TIMED_REPS,
+QWEN_TIMED_REPS, GEMMA_TIMED_REPS; medians of 3 before phase 15): the
+smoke's 1200 s limit. The CPU side of every cut
+dequantizes each weight once (cpu_dequant_memo).
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4 to 10, 13 and 14, each counted from 0 and checked against the dispatch
+of phases 4 to 10 and 13 to 15, each counted from 0 and checked against the dispatch
 gates exactly (the labs' kernels: their wrapper calls in phase 11's
 run_ladder and phase 12's run_sweep, CUDA-graph captures included, replays
 not); the gates in turn
@@ -481,6 +506,8 @@ def check_kernels(dev) -> dict:
     out["decode_attn"] = check_decode_attn(dev)
     out.update(check_fused_decode(dev, rng))
     for name, cases in check_gemma(dev, rng).items():
+        out[name] += cases
+    for name, cases in check_phi3(dev, rng).items():
         out[name] += cases
     report_cases(out)
     check_batch_invariance(dev, rng)
@@ -864,6 +891,122 @@ def check_gemma(dev, rng) -> dict:
     return out
 
 
+# Phi-3-mini-4k (dim 3072, 32 / 32 heads of 96, ffn 8192, vocab 32064), Q4_K_M
+# kinds: wqkv q4 [9216, 3072] (one tensor), wo q6w, w_gateup q4, w_down q6w,
+# the lm head q6w [32064, 3072]
+PHI3 = (3072, 32, 32, 96, 8192, 32064)
+
+
+def check_phi3(dev, rng) -> dict:
+    """The sliding-window family's branches against their plain versions,
+    timed as check_kernels' cases: attn_in on Phi-3-mini's one wqkv as
+    qkv_slots' two views (head_dim 96: the paired column map; R = 1, 16,
+    32); oproj_ffn at D 3072, F 8192 (R = 1, 8); rot with the next layer's
+    wqkv at head_dim 96 (R = 1); qmm's lm head at N = 32064 (not a multiple
+    of 128: the GEMV's and the tile's ragged column blocks; R = 1, 32, 512).
+    Returns {kernel: [case dicts]} to append."""
+    import torch
+
+    from tpu_kquant_torch.ops import ffn as ffn_mod
+    from tpu_kquant_torch.ops.attn_in import attn_in_plain, fused_attn_in, qkv_slots
+    from tpu_kquant_torch.ops.rot import fused_oproj_ffn_attn_in, rot_plain
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    dim, H, Hkv, hd, F, V = PHI3
+    n_qkv, n_rope = (H + 2 * Hkv) * hd, (H + Hkv) * hd
+    out: dict = {"qmm": check_qmm(dev, rng, tuple(
+        (f"phi-3-mini lm head q6w-sp [{V}, {dim}] R={R}", "q6w", V, dim, R, "bf", "f32")
+        for R in (1, 32, 512))), "attn_in": [], "oproj_ffn": [], "rot": []}
+    deq = lambda ws: [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]  # noqa: E731
+
+    def timed(run, plain, mats) -> dict:
+        return {"ms": graph_ms(run, 32), "eager_ms": time_ms(run, 32),
+                "plain_ms": graph_ms(plain, 2, 3), "library_ms": None, "matmul_ms": mats}
+
+    # attn_in on the slots of one wqkv: qk (64 heads of 96, roped), v (32)
+    mk = lambda: _rand_weights(rng, "q4", n_qkv, dim, dev)  # noqa: E731
+    w0 = mk()
+    ws = _rotation(w0, mk, w0.n_bytes)
+    slots = [qkv_slots(w, n_rope) for w in ws]
+    wd = [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]
+    nw = torch.rand(dim, device=dev) + 0.5
+    for R in (1, 16, 32):
+        x = _act(R, dim, 0.5, dev)
+        cos, sin = (torch.rand(R, hd // 2, device=dev) for _ in range(2))
+        g0, g1 = fused_attn_in(x, nw, 1e-5, *slots[0], cos, sin, hd)
+        torch.cuda.synchronize()
+        r0, r1 = attn_in_plain(x, nw, 1e-5, *slots[0], cos, sin, hd)
+        e0, e1 = _err(g0, r0), _err(g1, r1)
+        b, by = bound_ms(w0.n_bytes + R * dim * 2 + dim * 4 + 2 * R * (hd // 2) * 4
+                         + R * n_qkv * 2, 2.0 * R * dim * n_qkv)
+        out["attn_in"].append({
+            "case": f"phi-3-mini: wqkv q4-sm [{n_qkv}, {dim}] as 2 slots, hd 96 R={R}",
+            "max_abs_err": max(e0[0], e1[0]), "rel_err": max(e0[1], e1[1]),
+            **timed(lambda i: fused_attn_in(x, nw, 1e-5, *slots[i % len(slots)], cos, sin, hd),
+                    lambda i: attn_in_plain(x, nw, 1e-5, *slots[0], cos, sin, hd),
+                    graph_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), 32)),
+            "bound_ms": b, "bound_by": by})
+
+    # oproj_ffn (wo q6w, gate/up q4, down q6w) at R = 1 and 8, then rot: the
+    # same weights and the next layer's wqkv slots, R = 1
+    mk = lambda: (_rand_weights(rng, "q6w", dim, H * hd, dev),  # noqa: E731
+                  _rand_weights(rng, "q4", 2 * F, dim, dev),
+                  _rand_weights(rng, "q6w", dim, F, dev))
+    f0 = mk()
+    nbf = sum(w.n_bytes for w in f0)
+    fs = _rotation(f0, mk, nbf)
+    fd = [deq(t) for t in fs]
+    nw2 = torch.rand(dim, device=dev) + 0.5
+    for R in (1, 8):
+        x, at, a_f = _act(R, dim, 0.5, dev), _act(R, H * hd, 0.5, dev), _act(R, F, 1.0, dev)
+
+        def oproj(i, plain=False):
+            wo, gu, dn = f0 if plain else fs[i % len(fs)]
+            fn = ffn_mod.oproj_ffn_plain if plain else ffn_mod.fused_oproj_ffn
+            return fn(x, at, wo, nw, 1e-5, gu, dn)
+
+        def mats(i, extra=()):
+            return [torch.matmul(a, w) for a, w in zip((at, x, a_f, *extra),
+                                                      (*fd[i % len(fd)], *(wd[i % len(wd)]
+                                                                          for _ in extra)))]
+
+        got = oproj(0)
+        torch.cuda.synchronize()
+        ad, rel = _err(got, oproj(0, plain=True))
+        b, by = bound_ms(nbf + R * (3 * dim * 2 + H * hd * 2) + dim * 4,
+                         2.0 * R * (H * hd * dim + 3 * dim * F))
+        out["oproj_ffn"].append({
+            "case": f"phi-3-mini: wo q6w-sp + w_gateup q4-sm [{2 * F}, {dim}] + w_down q6w-sp "
+                    f"R={R}", "max_abs_err": ad, "rel_err": rel,
+            **timed(oproj, lambda i: oproj(i, plain=True), graph_ms(mats, 32)),
+            "bound_ms": b, "bound_by": by})
+        if R != 1:
+            continue
+        cos, sin = (torch.rand(1, hd // 2, device=dev) for _ in range(2))
+
+        def rot(i, plain=False):
+            (wo, gu, dn), nxt = (f0, slots[0]) if plain else (fs[i % len(fs)],
+                                                               slots[i % len(slots)])
+            fn = rot_plain if plain else fused_oproj_ffn_attn_in
+            return fn(x, at, wo, nw, 1e-5, gu, dn, nw2, *nxt, cos, sin, hd)
+
+        got = rot(0)
+        torch.cuda.synchronize()
+        errs = [_err(a, r) for a, r in zip(got, rot(0, plain=True))]
+        b, by = bound_ms(nbf + w0.n_bytes + 2 * (H * hd + 2 * dim + n_qkv) + 8 * dim
+                         + 2 * hd * 4, 2.0 * (dim * (H * hd + 3 * F) + dim * n_qkv))
+        out["rot"].append({
+            "case": f"phi-3-mini: next layer's wqkv [{n_qkv}, {dim}] as 2 slots, hd 96, R=1 "
+                    f"bf16 pairs", "max_abs_err": max(e[0] for e in errs),
+            "rel_err": max(e[1] for e in errs),
+            **timed(rot, lambda i: rot(i, plain=True),
+                    graph_ms(lambda i: mats(i, (x,)), 32)),
+            "bound_ms": b, "bound_by": by})
+    del ws, slots, wd, fs, fd
+    torch.cuda.empty_cache()
+    return out
+
+
 # the batch sizes whose rows the invariance check holds to the row alone
 INVARIANCE_ROWS = (16, 32)
 
@@ -938,7 +1081,7 @@ def check_batch_invariance(dev, rng) -> int:
     codes = [c for c, (k, _) in enumerate(KINDS) if k in ("q4", "q6w", "q8")]
     plan_bad = [(qc, vc, w) for qc in codes for vc in codes
                 for w in ((2304, 256, 2048), (1792, 256, 1536), (5120, 1024, MX_DIM),
-                          (6144, 2048, 3584))
+                          (6144, 2048, 3584), (6144, 3072, 3072))
                 if attn_in_mod.kernel_plan(qc, vc, *w) != attn_in_mod.attn_in_plan(qc, vc, *w)]
     if plan_bad:
         raise SystemExit(f"FAIL: attn_in's kernel split differs from attn_in_plan at (qk code, "
@@ -958,6 +1101,16 @@ def check_batch_invariance(dev, rng) -> int:
                   _act(top, D_, 0.5, dev), torch.rand(top, hd_ // 2, device=dev),
                   torch.rand(top, hd_ // 2, device=dev))
         del wq_, wv_
+    # Phi-3-mini: the two slots of one wqkv at head_dim 96 (the paired map)
+    D_, Hq, Hk, hd_, _, _ = PHI3
+    wqkv = _rand_weights(rng, "q4", (Hq + 2 * Hk) * hd_, D_, dev)
+    sl = attn_in_mod.qkv_slots(wqkv, (Hq + Hk) * hd_)
+    nw_ = torch.rand(D_, device=dev) + 0.5
+    same_rows("attn_in (Phi-3-mini: wqkv slots, head_dim 96)",
+              lambda x, c, s_: fused_attn_in(x, nw_, 1e-5, *sl, c, s_, hd_),
+              _act(top, D_, 0.5, dev), torch.rand(top, hd_ // 2, device=dev),
+              torch.rand(top, hd_ // 2, device=dev))
+    del wqkv, sl
     # the plain decode attention of the serving cell: rows of 128 slots at
     # TinyLlama's heads, bf16 and int8 KV, the deferred append on and off
     ga = torch.Generator(device=dev).manual_seed(9)
@@ -1109,7 +1262,8 @@ def check_batch_invariance(dev, rng) -> int:
         torch.cuda.empty_cache()
     n += check_fused_invariance(dev, rng)
     log(f"  batch invariance: {n} cases (qmm at every kind code, qmm_int8, attn_in at TinyLlama, "
-        f"Qwen2.5, Mixtral f32, Q8_0 and Gemma-2B's head_dim 256 and its split plan, oproj_ffn, "
+        f"Qwen2.5, Mixtral f32, Q8_0, Gemma-2B's head_dim 256 and Phi-3-mini's wqkv slots at "
+        f"head_dim 96 and its split plan, oproj_ffn, "
         f"ffn, the plain decode attention): every row at R in {INVARIANCE_ROWS} equals the row "
         f"computed alone; the rows of a 5-token verify window equal the decode steps at their "
         f"positions; qmm's tile: every 64-row block of a 16 x 64 burst equals its 64-row "
@@ -1810,7 +1964,7 @@ def check_fused_decode(dev, rng) -> dict:
 
 def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1,
                       seq: int | None = None, kv_int8: bool = False,
-                      attend: int | None = None) -> dict:
+                      attend: int | None = None, iswa: bool = False) -> dict:
     """Launches of one forward of `batch` rows of `rows` tokens, derived from
     the dispatch gates of models/llama.py for this model (every layer has
     layer 0's shapes) under the reference's switches as the environment
@@ -1830,7 +1984,11 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     the append is not deferred), TKQ_ROTATE_LAYER (rot for every layer but
     the last, whose successor then skips attn_in) and TKQ_KV_APPEND_PALLAS
     (kv_append for each layer's eager append of a decode step on a cache of
-    `seq` slots)."""
+    `seq` slots). phi3's wqkv: attn_in and rot on its two slots
+    (qkv_weights), else one qmm. `iswa` (the forward of an ISWACache): no
+    deferred append, no flash kernel in a ring layer, and a prefill chunk's
+    lm head on one row a sequence (logits_rows)."""
+    from tpu_kquant_torch.models.llama import qkv_weights
     from tpu_kquant_torch.models.moe import _expert_view
     from tpu_kquant_torch.ops import attention
     from tpu_kquant_torch.ops.attn_in import attn_in_enabled
@@ -1848,20 +2006,25 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     att = rows if attend is None else attend
     flash = rows > 1 and not softcap and prefill_supported(rows, att, D) and \
         attention.logits_mb(batch, rows, H, att) > budget
+    # layers whose attention may leave the plain branch: all but a ring's
+    n_flat = L - (sum(cfg.layer_window(i) > 0 for i in range(L)) if iswa else 0)
     decode = rows == 1 and not softcap and not cfg.sliding_window and seq is not None and \
         D % 64 == 0 and seq % 64 == 0 and (not kv_int8 or seq % 256 == 0) and \
         attention.logits_mb(batch, 1, H, seq) > budget
     n_rows = batch * rows
-    n = {"prefill": L * flash, "decode_attn": 0, "attn_in": 0, "oproj_ffn": 0, "ffn": 0,
+    n = {"prefill": n_flat * flash, "decode_attn": 0, "attn_in": 0, "oproj_ffn": 0, "ffn": 0,
          "qmm": 0, "qmm_int8": 0, "kv_append": 0, "attn_out": 0, "layer": 0, "rot": 0}
 
     def mm(qt, times: int, r: int = n_rows) -> None:
         n["qmm_int8" if impl == "int8" and int8_eligible(qt, r) else "qmm"] += times
 
+    head_rows = batch if iswa and rows > 1 else n_rows  # the lm head's rows
+    wqk, wv = qkv_weights(lay, cfg)
+
     neox = cfg.rope.mode == "neox" and cfg.rope.n_rot == D
     gu = "w_gateup" in lay and not cfg.is_moe and not cfg.post_norms
     if rows == 1 and neox and not cfg.attn_bias and not cfg.is_moe and not kv_int8 and \
-            not softcap and not cfg.sliding_window and \
+            not softcap and not cfg.sliding_window and not iswa and \
             "wqk" in lay and gu and layer_enabled(
                 impl, lay["wqk"], lay["wv"], lay["wo"], lay["w_gateup"], lay["w_down"], batch,
                 cfg.dim, H, cfg.n_kv_heads, D):
@@ -1869,7 +2032,7 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
         n["kv_append"] = L * (seq is not None and kv_append_enabled(False, 1, batch, seq))
         mm(params["output"], 1)
         return n
-    deferred = rows == 1 and os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
+    deferred = rows == 1 and not iswa and os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
         os.environ.get("TKQ_FUSE_LAYER", "0") != "1" and \
         (seq is None or attention.logits_mb(batch, 1, H, seq) <= budget)
     eager = rows == 1 and not deferred
@@ -1878,22 +2041,24 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
         not cfg.post_norms and attn_out_enabled(impl, lay["wo"], H, cfg.n_kv_heads, D, batch,
                                                 seq)
     biases = (lay["bqk"], lay["bv"]) if cfg.attn_bias else None
-    a_in = neox and "wqk" in lay and \
-        attn_in_enabled(lay["wqk"], lay["wv"], n_rows, cfg.dim, D, biases, impl)
-    rot = not a_out and neox and not cfg.attn_bias and gu and L > 1 and "wqk" in lay and \
-        rot_enabled(impl, lay["wo"], lay["w_gateup"], lay["w_down"], [lay["wqk"], lay["wv"]],
-                    n_rows, cfg.dim, D)
+    a_in = neox and wqk is not None and \
+        attn_in_enabled(wqk, wv, n_rows, cfg.dim, D, biases, impl)
+    rot = not a_out and neox and not cfg.attn_bias and gu and L > 1 and wqk is not None and \
+        rot_enabled(impl, lay["wo"], lay["w_gateup"], lay["w_down"], [wqk, wv], n_rows,
+                    cfg.dim, D)
     o_ffn = not a_out and gu and oproj_ffn_enabled(impl, lay["wo"], lay["w_gateup"],
                                                    lay["w_down"], n_rows)
     ffn = gu and not o_ffn and ffn_enabled(impl, lay["w_gateup"], lay["w_down"], n_rows)
-    n["decode_attn"] = L * (decode and not a_out)
+    n["decode_attn"] = n_flat * (decode and not a_out)
     n["attn_out"] = L * a_out
     n["rot"] = (L - 1) * rot
     n["attn_in"] = (1 if rot else L) * a_in
     n["oproj_ffn"] = (1 if rot else L) * o_ffn
     n["ffn"] = L * ffn
     if not a_in:  # under rot only the first layer projects its own q/k/v
-        for w in ([lay["wqk"]] if "wqk" in lay else [lay["wq"], lay["wk"]]) + [lay["wv"]]:
+        ws = [lay["wqkv"]] if "wqkv" in lay else \
+            ([lay["wqk"]] if "wqk" in lay else [lay["wq"], lay["wk"]]) + [lay["wv"]]
+        for w in ws:
             mm(w, 1 if rot else L)
     if not (o_ffn or a_out):
         mm(lay["wo"], L)
@@ -1905,32 +2070,33 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
         for w in ([lay["w_gateup"]] if "w_gateup" in lay else [lay["w_gate"], lay["w_up"]]) + \
                 [lay["w_down"]]:
             mm(w, L)
-    mm(params["output"], 1)
+    mm(params["output"], 1, head_rows)
     return n
 
 
 def pin_dispatch(cfg, params, what: str, decode: dict, long_rows: int, impl: str = "auto",
                  prefill64: dict | None = None, seq: int | None = None,
-                 kv_int8: bool = False) -> None:
+                 kv_int8: bool = False, flash_layers: int | None = None) -> None:
     """Hold the gates themselves to the dispatch this model is meant to run,
     stated from its config and not by the gates: `decode` is one decode
     step's launches (under `impl`, on a cache of `seq` slots, int8 where
     `kv_int8`), `prefill64` (where given) a 64-row prefill's, and a prefill
-    of `long_rows` rows runs the flash prefill kernel in every layer.
-    Without this, a gate that began to refuse would lower the expected
-    counts with the launches, and the exact checks would still pass."""
+    of `long_rows` rows runs the flash prefill kernel in `flash_layers`
+    layers (default: every layer). Without this, a gate that began to
+    refuse would lower the expected counts with the launches, and the exact
+    checks would still pass."""
     got = expected_launches(cfg, params, 1, impl, seq=seq, kv_int8=kv_int8)
     got64 = expected_launches(cfg, params, 64, impl)
     n = expected_launches(cfg, params, long_rows, impl)["prefill"]
+    want_n = cfg.n_layers if flash_layers is None else flash_layers
     decode = {k: decode.get(k, 0) for k in got}
     prefill64 = None if prefill64 is None else {k: prefill64.get(k, 0) for k in got64}
     log(f"  dispatch of {what}: decode step {_nonzero(got)}, 64-row prefill {_nonzero(got64)}, "
         f"prefill kernel in {n} layers at {long_rows} rows")
-    if got != decode or n != cfg.n_layers or (prefill64 is not None and got64 != prefill64):
+    if got != decode or n != want_n or (prefill64 is not None and got64 != prefill64):
         raise SystemExit(f"FAIL: {what}: the gates dispatch a decode step as {got}, a 64-row "
                          f"prefill as {got64} and a {long_rows}-row prefill to the prefill "
-                         f"kernel in {n} layers; expected {decode}, {prefill64} and "
-                         f"{cfg.n_layers}")
+                         f"kernel in {n} layers; expected {decode}, {prefill64} and {want_n}")
 
 
 def _nonzero(d: dict) -> dict:
@@ -2029,12 +2195,14 @@ def cpu_dequant_memo():
 
 
 def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
-                    kv_quantized: bool = False, depth: int = 2, impl: str = "auto",
-                    steps: int = 4) -> None:
+                    kv_quantized: bool | tuple = False, depth: int = 2, impl: str = "auto",
+                    steps: int = 4, kv_layout: str = "unified") -> None:
     """A `depth`-layer cut of the loaded model on the card (kernels) against
-    the same cut on the CPU (plain versions): prefill of each prompt length
-    (8 rows: fused kernels; 40: qmm; 1100: bucket 2048, the flash prefill),
-    then `steps` greedy decode steps. For a MoE model the router logits of
+    the same cut on the CPU (plain versions), both on `kv_layout`: prefill
+    of each prompt length (8 rows: fused kernels; 40: qmm; 1100: bucket
+    2048, the flash prefill), then `steps` greedy decode steps, on a bf16
+    or int8 KV cache (`kv_quantized`; a tuple: each in turn, over one CPU
+    copy of the weights, dequantized once). For a MoE model the router logits of
     every call are recorded on both sides, and the experts selected for
     every prompt token, decode step and layer must agree. The agreement must
     not be luck: the smallest router margin of the card's run (k-th against
@@ -2054,7 +2222,6 @@ def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
     p_gpu = {**params, "layers": params["layers"][:depth]}
     p_cpu = _to_cpu(p_gpu)
     rng = np.random.default_rng(1)
-    kv = "int8" if kv_quantized else "bf16"
     k = cfg.n_experts_used
     seen: list = []
     real = moe._routing_weights
@@ -2065,8 +2232,8 @@ def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
 
     def run(p, d, prompt):
         seen.clear()
-        eng = InferenceEngine(cut, p, max_seq=max_seq, kv_quantized=kv_quantized, device=d,
-                              impl=impl)
+        eng = InferenceEngine(cut, p, max_seq=max_seq, kv_quantized=quant, device=d,
+                              impl=impl, kv_layout=kv_layout)
         cache = eng.new_cache(1)
         logits, cache, lens = eng.prefill([prompt], cache)
         first = torch.argmax(logits, -1)
@@ -2092,36 +2259,39 @@ def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
     moe._routing_weights = spy
     try:
         with cpu_dequant_memo():
-            for n in lengths:
-                t0 = time.perf_counter()
-                prompt, (lg, tg, rg), tries = draw(n)
-                t_draw = time.perf_counter() - t0
-                lc, tc, rc = run(p_cpu, "cpu", prompt)
-                if cfg.is_moe:
-                    # decode steps compare only while both sides were fed the same tokens
-                    same = depth + depth * next(
-                        (i for i in range(steps) if tg[i] != tc[i]), steps)
-                    sel, margin, std = _routing(rg[:same], k)
-                    sel_c, _, _ = _routing(rc[:same], k)
-                    diff = max((a - b).abs().max().item() for a, b in zip(rg[:same], rc[:same]))
-                    agree = all(torch.equal(a, b) for a, b in zip(sel, sel_c))
-                    n_dec = sum(int(s.numel() // k) for s in sel)
-                    log(f"  routing, prompt {n} ({tries} draw(s) in {t_draw:.1f} s for margins "
-                        f">= {ROUTER_MARGIN} std): {n_dec} decisions (tokens x layers), experts "
-                        f"agree {agree}; smallest card margin {margin:.3e} (router logits std "
-                        f"{std:.3e}), largest card-CPU router logit difference {diff:.3e} "
-                        f"(tolerance: half the margin)")
-                    if not (agree and 2 * diff < margin):
-                        raise SystemExit(f"FAIL: the card and the CPU route prompt {n} "
-                                         f"differently, or within their difference (impl "
-                                         f"{impl})")
-                rel = ((lg - lc).abs().max() / lc.abs().max()).item()
-                top5 = set(torch.topk(lc, 5).indices.tolist())
-                log(f"  {depth}-layer cut, {kv} KV, impl {impl}, prompt {n}: logits rel err "
-                    f"{rel:.2e}; greedy card {tg} cpu {tc}")
-                if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
-                    raise SystemExit(f"FAIL: card and CPU disagree on the {depth}-layer cut "
-                                     f"({kv} KV, impl {impl}, prompt {n})")
+            for quant in (kv_quantized if isinstance(kv_quantized, tuple) else (kv_quantized,)):
+                kv = "int8" if quant else "bf16"
+                for n in lengths:
+                    t0 = time.perf_counter()
+                    prompt, (lg, tg, rg), tries = draw(n)
+                    t_draw = time.perf_counter() - t0
+                    lc, tc, rc = run(p_cpu, "cpu", prompt)
+                    if cfg.is_moe:
+                        # decode steps compare only while both sides were fed the same tokens
+                        same = depth + depth * next(
+                            (i for i in range(steps) if tg[i] != tc[i]), steps)
+                        sel, margin, std = _routing(rg[:same], k)
+                        sel_c, _, _ = _routing(rc[:same], k)
+                        diff = max((a - b).abs().max().item()
+                                   for a, b in zip(rg[:same], rc[:same]))
+                        agree = all(torch.equal(a, b) for a, b in zip(sel, sel_c))
+                        n_dec = sum(int(s.numel() // k) for s in sel)
+                        log(f"  routing, prompt {n} ({tries} draw(s) in {t_draw:.1f} s for "
+                            f"margins >= {ROUTER_MARGIN} std): {n_dec} decisions (tokens x "
+                            f"layers), experts agree {agree}; smallest card margin {margin:.3e} "
+                            f"(router logits std {std:.3e}), largest card-CPU router logit "
+                            f"difference {diff:.3e} (tolerance: half the margin)")
+                        if not (agree and 2 * diff < margin):
+                            raise SystemExit(f"FAIL: the card and the CPU route prompt {n} "
+                                             f"differently, or within their difference (impl "
+                                             f"{impl})")
+                    rel = ((lg - lc).abs().max() / lc.abs().max()).item()
+                    top5 = set(torch.topk(lc, 5).indices.tolist())
+                    log(f"  {depth}-layer cut, {kv} KV, {kv_layout}, impl {impl}, prompt {n}: "
+                        f"logits rel err {rel:.2e}; greedy card {tg} cpu {tc}")
+                    if not (torch.isfinite(lg).all() and rel < 5e-2 and tg[0] in top5):
+                        raise SystemExit(f"FAIL: card and CPU disagree on the {depth}-layer cut "
+                                         f"({kv} KV, impl {impl}, prompt {n})")
     finally:
         moe._routing_weights = real
 
@@ -2176,15 +2346,17 @@ def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16", recipe: str = 
 
 
 def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: int = 704,
-               profile: Path | None = None, tag: str = "", impl: str = "auto") -> dict:
-    """The main path of one loaded model under `impl`: greedy requests of
-    `request_lengths` tokens (16 new tokens each) on a `request_max_seq`
-    bf16 cache, counted from 0 and checked against the dispatch gates, then
-    pp512 and tg128 on a 704-slot cache (512 + 128 + 64)."""
+               profile: Path | None = None, tag: str = "", impl: str = "auto",
+               kv_layout: str = "unified", timed_max_seq: int = 704, reps: int = 3) -> dict:
+    """The main path of one loaded model under `impl` on `kv_layout`: greedy
+    requests of `request_lengths` tokens (16 new tokens each) on a
+    `request_max_seq` bf16 cache, counted from 0 and checked against the
+    dispatch gates (main_run), then pp512 and tg128 on a `timed_max_seq`
+    cache (704: 512 + 128 + 64), medians of `reps` after a warm run."""
     import numpy as np
     import torch
 
-    from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
 
     # bounds of the two timed workloads, from the loaded weights: decode
     # reads every matmul weight once per token (KV and activations left
@@ -2196,64 +2368,57 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
         f"weights), pp512 {pp_bound[0]:.4f} ms ({pp_bound[1]}: {2 * 512 * macs / 1e12:.3f} "
         f"TFLOP of matmuls)")
 
+    def engine(max_seq):
+        return InferenceEngine(cfg, params, max_batch=1, max_seq=max_seq, device=dev, impl=impl,
+                               kv_layout=kv_layout)
+
     # the main path: requests of different prompt lengths, greedy
     rng = np.random.default_rng(2)
-    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=request_max_seq, device=dev,
-                          impl=impl)
+    eng = engine(request_max_seq)
     prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in request_lengths]
     torch.cuda.synchronize()
-    reset_counts()
-    answers = []
-    want: dict = {}
-    for pr in prompts:
-        ans = eng.generate([pr], max_new_tokens=16)[0]
-        answers.append(ans)
-        want = _add(want, expected_launches(cfg, params, min(_bucket(len(pr)), eng.max_seq),
-                                            impl))
-        want = _add(want, expected_launches(cfg, params, 1, impl), 15)
-    torch.cuda.synchronize()
-    main_counts = check_counts(f"the {len(prompts)} requests{tag}", want)
+    main_counts: dict = {}
+    with main_run(f"the {len(prompts)} requests{tag}", main_counts):
+        answers = [eng.generate([pr], max_new_tokens=16)[0] for pr in prompts]
+        torch.cuda.synchronize()
     for pr, ans in zip(prompts, answers):
         log(f"  request of {len(pr)} tokens -> {ans}")
         if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
             raise SystemExit("FAIL: a request did not get 16 valid tokens")
     del eng
 
-    # pp512: bucketed prefill of a 512-token prompt (warmed once; median of 3)
-    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl=impl)
+    # pp512: bucketed prefill of a 512-token prompt (warmed once; median of reps)
+    eng = engine(timed_max_seq)
     prompt = rng.integers(10, cfg.vocab_size, 512).tolist()
     eng.prefill([prompt], eng.new_cache(1))
     pp = []
-    for _ in range(3):
+    for _ in range(reps):
         cache = eng.new_cache(1)
         torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        logits, cache, lens = eng.prefill([prompt], cache)
-        torch.cuda.synchronize()
-        pp.append(time.perf_counter() - t0)
-        check_counts(f"pp512{tag}", expected_launches(cfg, params, 512, impl))
-    pp_s = sorted(pp)[1]
+        with main_run(f"pp512{tag}", {}):
+            t0 = time.perf_counter()
+            logits, cache, lens = eng.prefill([prompt], cache)
+            torch.cuda.synchronize()
+            pp.append(time.perf_counter() - t0)
+    pp_s = sorted(pp)[len(pp) // 2]
     if not (logits.shape == (1, cfg.vocab_size) and torch.isfinite(logits).all()):
         raise SystemExit("FAIL: pp512 logits are not finite [1, vocab]")
 
     # tg128: 128 greedy decode steps after the 512-token prefill (warmed
-    # once; median of 3, each after a fresh prefill)
+    # once; median of reps, each after a fresh prefill)
     first = torch.argmax(logits, -1)
     eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 4)
     tg = []
-    for _ in range(3):
+    for _ in range(reps):
         logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
         first = torch.argmax(logits, -1)
         torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
-        torch.cuda.synchronize()
-        tg.append(time.perf_counter() - t0)
-        check_counts(f"tg128{tag}",
-                     {k: 128 * v for k, v in expected_launches(cfg, params, 1, impl).items()})
-    tg_s = sorted(tg)[1]
+        with main_run(f"tg128{tag}", {}):
+            t0 = time.perf_counter()
+            toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
+            torch.cuda.synchronize()
+            tg.append(time.perf_counter() - t0)
+    tg_s = sorted(tg)[len(tg) // 2]
     step_logits, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
     if not torch.isfinite(step_logits).all():
         raise SystemExit("FAIL: decode logits are not finite")
@@ -2268,7 +2433,7 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
     log(f"  [{gpu_line()}]{tag} depth {cfg.n_layers}: pp512 {res['pp512_tok_s']:.1f} tok/s "
         f"({res['pp512_ms']:.2f} ms; bound {pp_bound[0]:.4f} ms), tg128 "
         f"{res['tg128_tok_s']:.1f} tok/s ({res['tg128_ms_per_tok']:.3f} ms/token; bound "
-        f"{tg_bound[0]:.4f}); medians of 3: pp512 runs "
+        f"{tg_bound[0]:.4f}); medians of {reps}: pp512 runs "
         f"{', '.join(f'{512 / t:.1f}' for t in pp)} tok/s, tg128 runs "
         f"{', '.join(f'{v:.1f}' for v in res['tg128_tok_s_all'])} tok/s")
     return res
@@ -2316,6 +2481,7 @@ def profile_steps(eng, cfg, dev, out: Path, n_prompt: int = 512, tag: str = "") 
 # ---------------------------------------------------------------------------
 
 LONG_MAX_SEQ = 2048 + 128 + 64  # bench.py's sizing: prompt + tg128 + 64
+LONG_TIMED_REPS = 1  # pp2048 and tg128@2048: one run after a warm one (3 before phase 15)
 
 
 def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
@@ -2358,11 +2524,11 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
             if len(ans) != 16 or not all(0 <= t < cfg.vocab_size for t in ans):
                 raise SystemExit("FAIL: a long request did not get 16 valid tokens")
 
-        # pp2048 (warmed once; median of 3)
+        # pp2048 (warmed once; median of LONG_TIMED_REPS)
         prompt = rng.integers(10, cfg.vocab_size, 2048).tolist()
         eng.prefill([prompt], eng.new_cache(1))
         pp = []
-        for _ in range(3):
+        for _ in range(LONG_TIMED_REPS):
             cache = eng.new_cache(1)
             torch.cuda.synchronize()
             reset_counts()
@@ -2375,10 +2541,10 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
             raise SystemExit("FAIL: pp2048 logits are not finite [1, vocab]")
 
         # tg128 at depth 2048: 128 greedy steps after the 2048-token prefill
-        # (warmed once; median of 3, each after a fresh prefill)
+        # (warmed once; median of LONG_TIMED_REPS, each after a fresh prefill)
         eng.decode_greedy(torch.argmax(logits, -1), torch.tensor(lens, device=dev), cache, 4)
         tg = []
-        for _ in range(3):
+        for _ in range(LONG_TIMED_REPS):
             logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
             first = torch.argmax(logits, -1)
             torch.cuda.synchronize()
@@ -2396,7 +2562,7 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
         # depth ~2112 (the mean over the 128 steps), read once
         kv_row = 2 * L * Hkv * (D * (1 if quant else 2) + (4 if quant else 0))
         tg_bound = bound_ms(w_bytes + kv_row * (2048 + 64), 2.0 * macs)
-        pp_s, tg_s = sorted(pp)[1], sorted(tg)[1]
+        pp_s, tg_s = sorted(pp)[len(pp) // 2], sorted(tg)[len(tg) // 2]
         res[kv] = {"pp2048_tok_s": 2048 / pp_s, "pp2048_ms": pp_s * 1e3,
                    "pp2048_tok_s_all": [2048 / t for t in pp],
                    "tg128_at_2048_tok_s": 128 / tg_s, "tg128_at_2048_ms_per_tok": tg_s / 128 * 1e3,
@@ -2406,7 +2572,7 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
         log(f"  [{gpu_line()}] {kv} KV: pp2048 {r['pp2048_tok_s']:.1f} tok/s "
             f"({r['pp2048_ms']:.2f} ms; bound {pp_bound[0]:.3f} ms, {pp_bound[1]}), tg128@2048 "
             f"{r['tg128_at_2048_tok_s']:.1f} tok/s ({r['tg128_at_2048_ms_per_tok']:.3f} ms/token; "
-            f"bound {tg_bound[0]:.4f}); medians of 3: pp2048 runs "
+            f"bound {tg_bound[0]:.4f}); medians of {LONG_TIMED_REPS}: pp2048 runs "
             f"{', '.join(f'{v:.1f}' for v in r['pp2048_tok_s_all'])}, tg128@2048 runs "
             f"{', '.join(f'{v:.1f}' for v in r['tg128_at_2048_tok_s_all'])} tok/s")
         for x in (r["pp2048_tok_s"], r["tg128_at_2048_tok_s"]):
@@ -2829,6 +2995,7 @@ FUSED_PATHS = (
      {"TKQ_FUSE_ATTN_OUT": "1", "TKQ_DEFER_APPEND": "0", "TKQ_KV_APPEND_PALLAS": "1"}, "auto",
      ({"attn_in": 1, "attn_out": 1, "ffn": 1}, {"qmm": 1}), True, 1, True),
 )
+FUSED_TURNS = 1  # tg128's turns of on, off a path (2 before phase 15: the smoke's 1200 s)
 SWITCHES = ("TKQ_KV_APPEND_PALLAS", "TKQ_FUSE_ATTN_OUT", "TKQ_DEFER_APPEND", "TKQ_FUSE_LAYER",
             "TKQ_ROTATE_LAYER", "TKQ_FUSE_OPROJ")
 
@@ -2852,9 +3019,9 @@ def switches(env: dict):
 
 
 def tg128_on_off(cfg, params, dev, env: dict, impl: str, kv_quantized: bool,
-                 reps: int = 2) -> dict:
+                 reps: int = FUSED_TURNS) -> dict:
     """tg128 (128 greedy steps after a 512-token prefill on a 704-slot
-    cache) with the switches `env` on and off, in turns on, off, on, off
+    cache) with the switches `env` on and off, `reps` turns of on, off
     (after one warm run of each); the on-runs' launches checked against the
     gates. Returns tok/s per run and the medians."""
     import numpy as np
@@ -2922,7 +3089,8 @@ def fused_path(dev, cfg, params, label: str, env: dict, impl: str, decode: tuple
         t = res["tg128"]
         log(f"  [{gpu_line()}] {label}: tg128 switches on {t['on_median']:.1f} tok/s (runs "
             f"{', '.join(f'{v:.1f}' for v in t['on'])}), off {t['off_median']:.1f} tok/s "
-            f"(runs {', '.join(f'{v:.1f}' for v in t['off'])}), in turns on, off, on, off")
+            f"(runs {', '.join(f'{v:.1f}' for v in t['off'])}), {FUSED_TURNS} turn(s) of on, "
+            f"off")
     return res
 
 
@@ -2931,6 +3099,7 @@ def fused_path(dev, cfg, params, label: str, env: dict, impl: str, decode: tuple
 # ---------------------------------------------------------------------------
 
 QWEN_MAX_SEQ = 4096 + 128 + 64  # the 3000-token request's bucket + tg128 + 64
+QWEN_TIMED_REPS = 1  # pp512 and tg128: one run after a warm one (3 before phase 15)
 
 
 def qwen2(dev, profile: Path | None = None) -> dict:
@@ -2945,7 +3114,8 @@ def qwen2(dev, profile: Path | None = None) -> dict:
                   "qmm_int8": 0}, 4096)
     reference_check(cfg, params, dev, lengths=(8, 40, 1100), max_seq=LONG_MAX_SEQ)
     res = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 3000),
-                     request_max_seq=QWEN_MAX_SEQ, profile=profile, tag=" qwen2.5-1.5b")
+                     request_max_seq=QWEN_MAX_SEQ, profile=profile, tag=" qwen2.5-1.5b",
+                     reps=QWEN_TIMED_REPS)
     return {**res, **times}
 
 
@@ -3004,7 +3174,8 @@ def mixtral(dev, profile: Path | None = None) -> dict:
 # phase 9: GGML types (the recipes of the reference's quantize tool)
 # ---------------------------------------------------------------------------
 
-GGML_DEPTH = 2  # the untimed recipes' depth (the smoke's time limit; 4 before phase 13)
+GGML_DEPTH = 2  # every recipe's depth, untimed (the smoke's time limit: 4 before phase
+#                 13; Q8_0 at full depth and timed before phase 15)
 # (label, recipe, full depth and timed, load options, impl, a decode step's
 # launches per layer, the lm head's kernel), as the recipe table gives them:
 # Q8_0 and Q6_K fuse every slot; Q5_K_M's, Q3_K_M's and Q2_K's wqk and
@@ -3012,7 +3183,7 @@ GGML_DEPTH = 2  # the untimed recipes' depth (the smoke's time limit; 4 before p
 # q4, which both FFN gates refuse; unwidened q6 is fused nowhere and, on f32
 # scales under impl "int8", goes to qmm_int8 with every q4 weight.
 GGML_CONFIGS = (
-    ("Q8_0", "q8_0", True, {}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
+    ("Q8_0", "q8_0", False, {}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
     ("Q5_K_M", "q5_k_m", False, {}, "auto", {"qmm": 5}, "qmm"),
     ("Q6_K", "q6_k", False, {}, "auto", {"attn_in": 1, "oproj_ffn": 1}, "qmm"),
     ("Q4_K_S", "q4_k_s", False, {}, "auto", {"attn_in": 1, "qmm": 3}, "qmm"),
@@ -3042,8 +3213,9 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
     """Phase 9: TinyLlama-1.1B at full width under every recipe of the
     reference's quantize tool, one load at a time: the dispatch pinned per
     recipe, a 2-layer cut against the CPU, three greedy requests counted
-    from 0; Q8_0 at full depth with pp512 and tg128 beside their bounds,
-    the others cut to GGML_DEPTH layers (Q5_K_M too since phase 13). Returns the results and the
+    from 0; each cut to GGML_DEPTH layers (Q5_K_M since phase 13, Q8_0
+    since phase 15; a recipe marked timed in GGML_CONFIGS runs at full depth
+    with pp512 and tg128 beside their bounds). Returns the results and the
     requests' launch counts."""
     import dataclasses
 
@@ -3053,8 +3225,8 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
 
     full = tinyllama_1b_config()
     out: dict = {"launches": {}, "reduced": (
-        f"Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M (widen_q6=False, two loads) at depth "
-        f"{GGML_DEPTH} of {full.n_layers} layers, untimed: the smoke's time limit")}
+        f"Q8_0, Q5_K_M, Q6_K, Q4_K_S, Q3_K_M, Q2_K and Q4_K_M (widen_q6=False, two loads) at "
+        f"depth {GGML_DEPTH} of {full.n_layers} layers, untimed: the smoke's time limit")}
     log(f"  reduced: {out['reduced']}")
     for label, recipe, timed, load_kw, impl, per_layer, head in GGML_CONFIGS:
         phase(f"phase 9: TinyLlama-1.1B {label}")
@@ -3087,12 +3259,14 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
 
 GEMMA_MAX_SEQ = 4096 + 128 + 64  # the 3000-token request's bucket + tg128 + 64
 GEMMA2_DEPTH = 2  # Gemma-2-9B's layers on the card (of 42)
+GEMMA_TIMED_REPS = 1  # Gemma-2B's pp512 / tg128: one run after a warm one (3 before phase 15)
 
 
 def gemma(dev, profile: Path | None = None) -> dict:
     """Phase 13 (module docstring): Gemma-2B at full width and depth, then
     Gemma-2-9B cut to GEMMA2_DEPTH layers. Returns Gemma-2B's results (its
-    requests' launches under main_path_launches) and the cut."""
+    requests' launches under main_path_launches) and the cut, loaded
+    (``gemma2_9b``: cfg, params)."""
     import dataclasses
 
     import torch
@@ -3109,7 +3283,8 @@ def gemma(dev, profile: Path | None = None) -> dict:
                  4096)
     reference_check(cfg, params, dev)
     res = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 3000),
-                     request_max_seq=GEMMA_MAX_SEQ, profile=profile, tag=" gemma-2b")
+                     request_max_seq=GEMMA_MAX_SEQ, profile=profile, tag=" gemma-2b",
+                     reps=GEMMA_TIMED_REPS)
     # the rotated layer boundary: layer 0's rot kernel (GELU, then layer 1's
     # QKV at head_dim 256), a 2-layer cut against the CPU
     with switches({"TKQ_ROTATE_LAYER": "1"}):
@@ -3134,9 +3309,143 @@ def gemma(dev, profile: Path | None = None) -> dict:
     # kernels off; attn_in runs at head_dim 256
     reference_check(cfg, params, dev, lengths=(8,), steps=2, depth=GEMMA2_DEPTH)
     out["gemma2_9b_cut"] = t9
+    out["gemma2_9b"] = (cfg, params)  # phase 15 runs it on the iSWA layout
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the sliding-window family (Phi-3-mini-4k on both KV layouts;
+# Gemma-2-9B's cut on the iSWA layout)
+# ---------------------------------------------------------------------------
+
+PHI3_MAX_SEQ = 4096  # Phi-3-mini-4k's context: the 3000-token request's bucket
+PHI3_TIMED_REPS = 1  # pp512 and tg128 on each layout: one timed run after a warm one
+GEMMA2_LONG = 5000  # past Gemma-2-9B's window of 4096: its ring of 4608 wraps
+
+
+def sliding_window(dev, g9, profile: Path | None = None) -> dict:
+    """Phase 15 (module docstring): Phi-3-mini-4k at full width and depth on
+    the unified and the iSWA layout, then phase 13's Gemma-2-9B cut `g9`
+    (cfg, params) on the iSWA layout against the CPU. Returns the main
+    path's launches (end_to_end's requests on both layouts and the CLI run)
+    and the numbers it printed."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.gguf import GGUFReader
+    from tpu_kquant_torch.models.fixtures import phi3_mini_4k_config
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.tokenizer import from_gguf_metadata
+    from tpu_kquant_torch.tools import main as main_cli
+
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    steps: dict = {}  # wall seconds of each step, logged at the end
+
+    def lap(what: str) -> None:
+        steps[what] = time.perf_counter() - t_phase - sum(steps.values())
+
+    name = "phi3-mini-4k-q4_k_m-seed0.gguf"
+    cfg, params, times = load_fixture(phi3_mini_4k_config(), name, dev)
+    L = cfg.n_layers
+    res: dict = {"gpu": gpu, **times}
+    # decode: attn_in on wqkv's two slots and oproj_ffn in every layer, the
+    # lm head a qmm, on either layout; no flash prefill at head_dim 96 (the
+    # kernel's D % 64) and none on a ring
+    step = {"attn_in": L, "oproj_ffn": L, "qmm": 1}
+    pin_dispatch(cfg, params, "Phi-3-mini-4k", step, PHI3_MAX_SEQ, flash_layers=0)
+    ring_step = _nonzero(expected_launches(cfg, params, 1, iswa=True))
+    if ring_step != step:
+        raise SystemExit(f"FAIL: Phi-3-mini-4k on the iSWA layout: a decode step dispatches as "
+                         f"{ring_step}, expected {step}")
+    lap("write, load, pins")
+
+    # (b) 2-layer cuts against the CPU on both layouts (the ring's wrap
+    # against the CPU is (d)'s, against the unified layout (c)'s); (e) the
+    # unified cut under TKQ_ROTATE_LAYER=1 must launch rot with the next
+    # layer's wqkv slots
+    reference_check(cfg, params, dev)
+    reference_check(cfg, params, dev, lengths=(8,), max_seq=PHI3_MAX_SEQ, steps=2,
+                    kv_layout="iswa")
+    with switches({"TKQ_ROTATE_LAYER": "1"}):
+        reset_counts()
+        reference_check(cfg, params, dev, lengths=(8,), steps=2)
+        n_rot = counts()["rot"]
+    log(f"  TKQ_ROTATE_LAYER=1: the rot kernel launched {n_rot} times in the 2-layer cut")
+    if n_rot == 0:
+        raise SystemExit("FAIL: Phi-3-mini-4k under TKQ_ROTATE_LAYER=1 never launched rot")
+    lap("cuts against the CPU")
+
+    # (a) the main path at full depth on each layout: requests of 5-3000
+    # tokens (3000 passes the window and the ring), pp512, tg128
+    launches: dict = {}
+    for layout in ("unified", "iswa"):
+        t0 = time.perf_counter()
+        r = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 3000),
+                       request_max_seq=PHI3_MAX_SEQ, timed_max_seq=PHI3_MAX_SEQ,
+                       kv_layout=layout, reps=PHI3_TIMED_REPS, tag=f" phi-3-mini {layout}",
+                       profile=profile)
+        r["seconds"] = time.perf_counter() - t0
+        launches = _add(launches, r["main_path_launches"])
+        res[layout] = r
+        lap(f"{layout}: requests, pp512, tg128")
+
+    # (c) the ring against the unified layout on the 3000-token prompt
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(10, cfg.vocab_size, 3000).tolist()
+    last = {}
+    for layout in ("unified", "iswa"):
+        eng = InferenceEngine(cfg, params, max_seq=PHI3_MAX_SEQ, device=dev, kv_layout=layout)
+        cache = eng.new_cache(1)
+        last[layout] = eng.prefill([prompt], cache)[0][0].float()
+        if layout == "iswa":
+            log(f"  ring of {cache.ring} slots (window {cfg.sliding_window} + chunk "
+                f"{eng.iswa_chunk}), {len(prompt)} prompt tokens")
+        del eng, cache
+    rel = float((last["iswa"] - last["unified"]).abs().max() / last["unified"].abs().max())
+    same_top = int(last["iswa"].argmax()) == int(last["unified"].argmax())
+    res["iswa_vs_unified_rel"] = rel
+    log(f"  [{gpu}] 3000-token prompt at full depth: last logits on the ring against the "
+        f"unified layout rel err {rel:.2e}, same top token {same_top}")
+    if not (torch.isfinite(last["iswa"]).all() and rel < 5e-2):
+        raise SystemExit(f"FAIL: the iSWA layout's logits differ from the unified layout's "
+                         f"({rel:.3e})")
+    lap("ring against unified")
+
+    # the generate CLI on the ring (its own load), its ids equal generate's
+    path = str(FIXTURE_DIR / name)
+    tok = from_gguf_metadata(GGUFReader(path).metadata)
+    ids = tok.encode(FD_PROMPT, add_bos=True)
+    t0 = time.perf_counter()
+    with main_run("tools/main.py --kv-layout iswa", launches):
+        out = main_cli.run(["-m", path, "-p", FD_PROMPT, "-n", "32", "--kv-layout", "iswa",
+                            "--max-seq", str(PHI3_MAX_SEQ)])
+    wall = time.perf_counter() - t0
+    want = InferenceEngine(cfg, params, max_seq=PHI3_MAX_SEQ, device=dev,
+                           kv_layout="iswa").generate([ids], max_new_tokens=32,
+                                                      eos_id=tok.eos_id)[0]
+    res["cli_tok_s"] = len(out["ids"]) / out["seconds"]
+    log(f"  [{gpu}] tools/main.py --kv-layout iswa -n 32: {len(out['ids'])} tokens, "
+        f"{res['cli_tok_s']:.1f} tok/s (generation {out['seconds']:.2f} s; {wall:.1f} s with "
+        f"the CLI's load); ids equal generate's: {out['ids'] == want}")
+    if out["ids"] != want or not out["ids"]:
+        raise SystemExit(f"FAIL: tools/main.py --kv-layout iswa differs from generate: "
+                         f"{out['ids']} against {want}")
     del params
     torch.cuda.empty_cache()
-    return out
+    lap("the CLI")
+
+    # (d) Gemma-2-9B's cut (a window layer and a full one) on the iSWA
+    # layout against the CPU, bf16 and int8 KV, a prompt past the window
+    cfg9, params9 = g9
+    reference_check(cfg9, params9, dev, lengths=(GEMMA2_LONG,), max_seq=GEMMA2_LONG + 64,
+                    kv_quantized=(False, True), steps=2, depth=cfg9.n_layers, kv_layout="iswa")
+    lap("gemma-2-9b cut on the ring")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15 took {res['seconds']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in steps.items()))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3516,7 +3825,7 @@ def main_run(what: str, total: dict):
         B, T = tokens.shape
         att = k.get("kv_attend_len") or cache.max_seq
         fwd.append((cfg, params, B, T, cache.max_seq, min(att, cache.max_seq),
-                    cache.quantized, k.get("impl", "auto")))
+                    cache.quantized, k.get("impl", "auto"), hasattr(cache, "is_ring")))
         return real(params, cfg, tokens, positions, cache, *a, **k)
 
     engine_mod.llama_forward = spy
@@ -3526,9 +3835,9 @@ def main_run(what: str, total: dict):
     finally:
         engine_mod.llama_forward = real
     want: dict = {}
-    for cfg, params, B, T, S, att, q, impl in fwd:
+    for cfg, params, B, T, S, att, q, impl, iswa in fwd:
         want = _add(want, expected_launches(cfg, params, T, impl, batch=B, seq=S, kv_int8=q,
-                                            attend=att))
+                                            attend=att, iswa=iswa))
     got = check_counts(f"{what} ({len(fwd)} forwards)", want)
     total.update(_add(total, got))
 
@@ -3979,6 +4288,10 @@ def main() -> int:
     gem = gemma(dev, args.profile)
     torch.cuda.empty_cache()
 
+    phase(f"phase 15: the sliding-window family (Phi-3-mini-4k; iSWA rings) [{gpu_line()}]")
+    swa = sliding_window(dev, gem.pop("gemma2_9b"), args.profile)
+    torch.cuda.empty_cache()
+
     phase(f"phase 14: the front door (TinyLlama-1.1B, full depth) [{gpu_line()}]")
     front = front_door(dev)
     torch.cuda.empty_cache()
@@ -3992,14 +4305,14 @@ def main() -> int:
     # launches: the sums over the request runs of phases 4, 5 (both KV
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
     # (both configurations), 9 (every recipe), 10 (every path), 13
-    # (Gemma-2B) and 14 (its main-path runs), each counted from 0 and
-    # checked exactly
+    # (Gemma-2B), 14 (its main-path runs) and 15 (both layouts and the CLI),
+    # each counted from 0 and checked exactly
     runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
             f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
             *ggml["launches"].values(), *(r["launches"] for r in fused.values()),
-            gem["main_path_launches"], front["launches"]]
+            gem["main_path_launches"], front["launches"], swa["launches"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-10, 13, 14): {launches}")
+    log(f"  launches on the main path (phases 4-10, 13-15): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

@@ -881,12 +881,13 @@ def test_oproj_ffn_and_ffn_kernels_every_slot_kind_match_plain(card, kinds, f32,
     assert _rel(got_ffn, t_ffn.ffn_plain(x, nw, 1e-5, gu, dn)) < TOL
 
 
-def _card_against_cpu(card, path, load_kw, impl, prompts):
+def _card_against_cpu(card, path, load_kw, impl, prompts, **eng_kw):
     """Prefill each prompt and take 3 decode steps fed the same tokens, on the
-    card and on the CPU; logits within 5e-2 of max|ref| and the card's top
-    token in the CPU's top 3. Returns the card's launches per counter."""
+    card and on the CPU (engines of 64 slots, with ``eng_kw``); logits within
+    5e-2 of max|ref| and the card's top token in the CPU's top 3. Returns
+    the card's launches per counter."""
     engines = [InferenceEngine(*load_model(path, device=d, **load_kw)[:2], max_seq=64,
-                               device=d, impl=impl) for d in (card, "cpu")]
+                               device=d, impl=impl, **eng_kw) for d in (card, "cpu")]
     launches = {k: c.launches for k, c in _build.COUNTERS.items()}
     for prompt in prompts:
         outs = []
@@ -1853,3 +1854,87 @@ def test_session_round_trip_on_card(w1024_engine, tmp_path, int8):
     assert back.k.is_cuda and lens2.tolist() == [14]
     got, _ = fresh.decode_greedy(toks[:, -1], fresh._tensor(lens2), back, 12)
     assert torch.equal(got, want)
+
+
+# -- the sliding-window family: phi3's wqkv at head_dim 96, the iSWA ring ---------
+
+PHI3 = dict(D=3072, H=32, Hkv=32, hd=96, F=8192)  # Phi-3-mini-4k's widths
+
+
+@pytest.mark.cuda
+def test_attn_in_kernel_phi3_wqkv_slots_match_plain_and_the_row_alone(card):
+    """attn_in on Phi-3-mini-4k's wqkv q4-sm [9216, 3072] as qkv_slots' two
+    views (head_dim 96: a block's 64 first-half columns and their rope
+    partners; both slots read at wqkv's row stride): R = 1, 5, 16, 32
+    against attn_in_plain (TOL), one launch a call; the same bits as on
+    contiguous copies of the slots; rows at R = 16 and 32 equal the row
+    alone, bit for bit."""
+    D, H, Hkv, hd = (PHI3[k] for k in ("D", "H", "Hkv", "hd"))
+    rng = np.random.default_rng(96)
+    wqkv = packed("q4", (H + 2 * Hkv) * hd, D, rng, card)
+    wqk, wv = t_attn_in.qkv_slots(wqkv, (H + Hkv) * hd)
+    copies = [QTensor(w.kind, w.layout, w.shape, {k: v.contiguous() for k, v in w.arrays.items()})
+              for w in (wqk, wv)]
+    x = (torch.randn(32, D, device=card) * 0.5).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(32, hd // 2, device=card), torch.rand(32, hd // 2, device=card)
+    for R in (1, 5, 16, 32):
+        assert t_attn_in.attn_in_supported(wqk, wv, R, D, hd)
+        launches = t_attn_in.counter.launches
+        got = t_attn_in.fused_attn_in(x[:R], nw, 1e-5, wqk, wv, cos[:R], sin[:R], hd)
+        torch.cuda.synchronize()
+        assert t_attn_in.counter.launches == launches + 1
+        ref = t_attn_in.attn_in_plain(x[:R], nw, 1e-5, wqk, wv, cos[:R], sin[:R], hd)
+        assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL, R
+        again = t_attn_in.fused_attn_in(x[:R], nw, 1e-5, *copies, cos[:R], sin[:R], hd)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), R
+    _solo_rows_equal(lambda a, c, s_: t_attn_in.fused_attn_in(a, nw, 1e-5, wqk, wv, c, s_, hd),
+                     (x, cos, sin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8])
+def test_rot_kernel_phi3_next_wqkv_matches_plain(card, R):
+    """#12 at Phi-3-mini-4k's widths: wo q6w [3072, 3072], w_gateup q4
+    [16384, 3072], w_down q6w [3072, 8192], then the next layer's wqkv
+    [9216, 3072] as qkv_slots' views at head_dim 96; against rot_plain
+    (TOL), one launch a call."""
+    from tpu_kquant_torch.ops import rot as t_rot
+
+    D, H, Hkv, hd, F = (PHI3[k] for k in ("D", "H", "Hkv", "hd", "F"))
+    rng = np.random.default_rng(12 + R)
+    wo, gu, dn, wqkv = (packed(kind, N, K, rng, card) for kind, N, K in (
+        ("q6w", D, H * hd), ("q4", 2 * F, D), ("q6w", D, F), ("q4", (H + 2 * Hkv) * hd, D)))
+    slots = t_attn_in.qkv_slots(wqkv, (H + Hkv) * hd)
+    g = torch.Generator(device=card).manual_seed(R)
+    x, attn = ((torch.randn(R, D, device=card, generator=g) * 0.5).to(torch.bfloat16)
+               for _ in range(2))
+    nw, nw2 = (torch.rand(D, device=card, generator=g) + 0.5 for _ in range(2))
+    cos, sin = (torch.rand(R, hd // 2, device=card, generator=g) for _ in range(2))
+    assert t_rot.rot_supported(wo, gu, dn, list(slots), R, D, hd)
+    launches = t_rot.counter.launches
+    got = t_rot.fused_oproj_ffn_attn_in(x, attn, wo, nw, 1e-5, gu, dn, nw2, *slots, cos, sin, hd)
+    torch.cuda.synchronize()
+    assert t_rot.counter.launches == launches + 1
+    ref = t_rot.rot_plain(x, attn, wo, nw, 1e-5, gu, dn, nw2, *slots, cos, sin, hd)
+    assert max(_rel(a, b) for a, b in zip(got, ref)) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("kv_layout", ["unified", "iswa"])
+def test_phi3_engine_on_card_matches_cpu(card, tmp_path, kv_layout, kv_quantized):
+    """A 2-layer phi3 at dim 512 (4 + 4 heads of 96, a window of 24) on the
+    card against the CPU, on the unified layout and on the iSWA ring (24 +
+    16 = 40, rounded to 48 slots; a 60-token prompt prefills in 4 chunks of
+    16 and wraps it): attn_in runs on wqkv's slots in both layers of every
+    forward of at most 32 rows: 3 decode steps a prompt, the 8-token
+    prompt's bucket of 16 and, on the ring, each 16-token chunk."""
+    cfg = tiny_config(arch="phi3", n_layers=2, dim=512, n_heads=4, n_kv_heads=4, ffn_dim=256,
+                      vocab_size=512, sliding_window=24)
+    cfg = dataclasses.replace(cfg, head_dim=96, rope=dataclasses.replace(cfg.rope, head_dim=96,
+                                                                         n_rot=96))
+    path = write_fixture_gguf(tmp_path / "phi3.gguf", cfg, seed=3)
+    used = _card_against_cpu(card, path, {}, "auto", [list(range(3, 11)), list(range(3, 63))],
+                             kv_layout=kv_layout, kv_quantized=kv_quantized, iswa_chunk=16)
+    assert used["attn_in"] == 2 * (2 * 3 + (1 + 4 if kv_layout == "iswa" else 1))

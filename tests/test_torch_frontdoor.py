@@ -452,7 +452,8 @@ def test_main_raises_without_a_card(paths):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_main.main(["-m", paths["target"]])
-    with pytest.raises(NotImplementedError):
+    # --kv-layout iswa runs on a sliding-window arch; this llama has no window
+    with pytest.raises(ValueError, match="sliding-window"):
         t_main.main(["-m", paths["target"], "--kv-layout", "iswa", "--device", "cpu"])
     with pytest.raises(ValueError, match="scale_dtype"):
         t_main.main(["-m", paths["target"], "--scale-dtype", "f16", "--device", "cpu"])

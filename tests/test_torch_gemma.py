@@ -370,14 +370,16 @@ def test_attn_in_plain_hd256_matches_pallas(R):
 def test_attn_in_head_dim_rule():
     """The reference's attn_in gate has no head_dim rule; the port's takes
     every head_dim its 128-column blocks hold (dividing 128, or a multiple
-    of it) with whole heads in each slot."""
-    assert all(t_attn_in.kernel_head_dim(h) for h in (32, 64, 128, 256, 512))
-    assert not any(t_attn_in.kernel_head_dim(h) for h in (0, 80, 96, 192))
+    of 32: phi3's 96, the gemma family's 256) with whole heads in each
+    slot. Head dims no ported family uses, such as phi2's 80, stay on
+    qmatmul."""
+    assert all(t_attn_in.kernel_head_dim(h) for h in (32, 64, 96, 128, 192, 256, 512))
+    assert not any(t_attn_in.kernel_head_dim(h) for h in (0, 48, 80, 112))
     rng = np.random.default_rng(3)
     wqk, wv = mk_q4(768, 512, rng), mk_q6w(256, 512, rng)
     assert j_attn_in_supported([wqk, wv], 1, 512)
     assert t_attn_in.attn_in_supported(_port(wqk), _port(wv), 1, 512, 256)
-    assert not t_attn_in.attn_in_supported(_port(wqk), _port(wv), 1, 512, 96)
+    assert not t_attn_in.attn_in_supported(_port(wqk), _port(wv), 1, 512, 80)
 
 
 # (B, S, H, Hkv, positions, int8 KV, the Pallas tile)

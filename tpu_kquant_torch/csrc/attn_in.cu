@@ -26,28 +26,37 @@
 // whose splits form a thread-block cluster: every block takes the rows'
 // rms over the whole row, the GEMV's partial tiles are read over
 // distributed shared memory and added in rank order, and the ranks share
-// the epilogue (bf16 round, bias, rope). One launch, no workspace. At
-// head_dim 256 (the gemma family) a block's 128 columns are 64 of a head's
-// first half and their 64 rope partners, so each epilogue still holds
-// whole rope pairs. The earlier CUDA-core kernel (20 blocks over the whole of K at TinyLlama
-// width, 8 rows a block) took 0.0146 ms at TinyLlama R = 1 on an H100 80GB
-// HBM3 (chip_smoke.py phase 3).
+// the epilogue (bf16 round, bias, rope). One launch, no workspace. Where
+// head_dim does not divide 128 (256, the gemma family; 96, phi3) a block's
+// 128 columns are 64 columns of its heads' first halves, in runs of 8, and
+// their 64 rope partners, so each epilogue still holds whole rope pairs.
+// phi3's pre-fused wqkv (one tensor, ops/attn_in.py:qkv_slots) runs as two
+// slots over its bytes: qk its first (H + Hkv) hd columns, v the rest,
+// each with the full row stride (ld0, ld1), as the reference's one-slot
+// call ropes output 0's first (H + Hkv) hd columns and pads the v columns
+// with cos 1, sin 0 (pallas_attn_in.py:rope_tables_full, n_pad). At
+// Phi-3-mini-4k width it reads wqkv [9216, 3072] q4-sm once: 17.7 MB, 5.3
+// us at 3.35 TB/s. The earlier CUDA-core kernel (20 blocks over the whole
+// of K at TinyLlama width, 8 rows a block) took 0.0146 ms at TinyLlama R =
+// 1 on an H100 80GB HBM3 (chip_smoke.py phase 3).
 #include "attn_in.cuh"
 
 using namespace tkq;
 
 // Requires D % 512 == 0, n0 and n1 multiples of 128 and of hd, 128 % hd ==
-// 0 (a column block holds whole heads) or hd % 128 == 0 (a block holds 64
-// columns of a head's first half and their rope partners), 1 <= R <= 32, x
-// and nw 16-byte aligned. qk_kind / v_kind: KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F
+// 0 (a column block holds whole heads) or hd % 16 == 0 (a block holds 64
+// columns of its heads' first halves and their rope partners), 1 <= R <=
+// 32, x and nw 16-byte aligned. qk_kind / v_kind: KQ4, KQ4F, KQ6W, KQ6WF, KQ8 or KQ8F
 // (common.cuh); *_mins: the f32 mins of a KQ4F weight, else null. bqk /
-// bv: f32 biases or both null.
+// bv: f32 biases or both null. ld0 / ld1: the row strides (columns, a
+// multiple of 4) of wqk's and wv's packed arrays, 0 where they are n0 /
+// n1 (a slot that is a column range of a wider weight).
 extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kind,
                            const void* qk_qs, const void* qk_scl, const void* qk_mins,
                            int v_kind, const void* v_qs, const void* v_scl, const void* v_mins,
                            const float* cosv, const float* sinv, const float* bqk,
                            const float* bv, void* out0, void* out1, int R, int D, int n0, int n1,
-                           int hd, void* stream) {
+                           int hd, int ld0, int ld1, void* stream) {
   const auto fused_kind = [](int k) { return is_q4(k) || is_flat(k); };
   if (!fused_kind(qk_kind) || !fused_kind(v_kind)) return (int)cudaErrorInvalidValue;
   AttnInArgs a{static_cast<const __nv_bfloat16*>(x),
@@ -67,7 +76,7 @@ extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kin
                bv,
                static_cast<__nv_bfloat16*>(out0),
                static_cast<__nv_bfloat16*>(out1),
-               R, D, n0, n1, hd};
+               R, D, n0, n1, hd, ld0, ld1};
   return (int)launch_attn_in(a, static_cast<cudaStream_t>(stream));
 }
 

@@ -11,12 +11,19 @@
 // - Grid (ceil(n0 / 128) + ceil(n1 / 128), splits): a column block holds
 //   128 columns of one slot, so that its epilogue holds every neox rope
 //   pair (c, c + head_dim / 2) it ropes: whole heads where head_dim
-//   divides 128 (64, 128); where head_dim is a multiple of 128 (256, the
-//   gemma family), block h (head_dim / 128) + q takes columns [64 q, 64 q
-//   + 64) of head h's first half and their partners 64 q + head_dim / 2
-//   ... of its second half, each warp's 64 columns one contiguous range
-//   of the weight (ai_col). The blocks past the qk columns compute wv's
-//   columns, unroped.
+//   divides 128 (64, 128); otherwise (head_dim a multiple of 16: 96, phi3;
+//   256, the gemma family) its first 64 columns are 8 runs of 8 columns
+//   from the first halves of the slot's heads, taken in order, and its
+//   last 64 their partners head_dim / 2 further on (ai_col): a lane's 8
+//   code columns are one contiguous run of the weight either way. At 256
+//   block h (head_dim / 128) + q takes columns [64 q, 64 q + 64) of head
+//   h's first half and their partners; at 96 a block's 8 runs span two
+//   heads and a third of another. The blocks past the qk columns compute
+//   wv's columns, unroped.
+// - A slot's packed arrays may be a column range of a wider weight: ld0 /
+//   ld1 are their row strides in columns (0: the slot's width). So
+//   phi3's one fused wqkv [(H + 2 Hkv) hd, D] runs as two slots over the
+//   same bytes, qk its first (H + Hkv) hd columns (roped), v the rest.
 //   Its 8 warps are 2 across the columns (gemv.cuh's 64 a warp) by 4
 //   across the block's chunks, so a warp walks at most a few chunks in
 //   turn: at R = 1 each chunk step waits for its loads (about 1 us on the
@@ -80,6 +87,7 @@ struct AttnInArgs {
   __nv_bfloat16* out0;     // [R, n0] roped qk
   __nv_bfloat16* out1;     // [R, n1] v
   int R, D, n0, n1, hd;
+  int ld0 = 0, ld1 = 0;    // row strides (columns) of wqk's / wv's packed arrays; 0: n0 / n1
 };
 
 // A block's output columns, its warps across them (64 columns each) and
@@ -172,11 +180,13 @@ __device__ void ai_combine(const float (&acc)[NT][4][4], float* tile, int wn, in
 }
 
 // The slot column of block column c (0 .. 127) of column block `tile` at
-// head dim hd (see the grid above).
+// head dim hd (see the grid above): whole heads where hd divides AI_TN;
+// else run p = 8 tile + (c % 64) / 8 of the slot's first-half runs (hd / 16
+// a head) for c < 64, and its partner half a head on for c >= 64.
 __device__ __forceinline__ int ai_col(int tile, int c, int hd) {
-  if (hd <= AI_TN) return tile * AI_TN + c;
-  const int per = hd / AI_TN, h = tile / per, q = tile % per;
-  return h * hd + (c >= AI_TN / 2 ? hd / 2 : 0) + q * (AI_TN / 2) + c % (AI_TN / 2);
+  if (AI_TN % hd == 0) return tile * AI_TN + c;
+  const int runs = hd / 16, p = tile * (AI_TN / 16) + (c % (AI_TN / 2)) / 8;
+  return (p / runs) * hd + (c >= AI_TN / 2 ? hd / 2 : 0) + (p % runs) * 8 + c % 8;
 }
 
 // One block of the grid: column block `tile` of slot qk (is_qk) or v, K
@@ -196,7 +206,7 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
   };
   constexpr int NSEG = segments(KIND), GPC = gv_gpc<KIND>(), ROWS = 8 * NT;
   const int splits = gridDim.y, rank = blockIdx.y;
-  const int N = is_qk ? a.n0 : a.n1;
+  const int N = is_qk ? a.n0 : a.n1, ld = is_qk ? a.ld0 : a.ld1;
   const int cps = n_chunks_of<KIND>(a.D) / splits, c0 = rank * cps;
   const int L = cps * CH, XS = gv_xstride(NSEG * L);
   const uint8_t* qs = is_qk ? a.qk_qs : a.v_qs;
@@ -206,32 +216,32 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
   const int wn = warp % AI_WN, wk = warp / AI_WN;
   const int n = ai_col(tile, wn * 64 + 8 * g, a.hd);  // the lane's 8 code columns
   const int ns = n + 2 * t;                       // the 2 columns whose scales it loads
-  const bool al8 = N % 8 == 0 && (reinterpret_cast<uintptr_t>(qs) & 7) == 0;
-  const GemvArgs ga{nullptr, 0, qs, is_qk ? a.qk_scl : a.v_scl, a.R, N, a.D, cps, nullptr,
+  // the packed arrays' row stride stands in for N in the loads (their
+  // bound tests pass: the block's columns lie within the slot)
+  const bool al8 = ld % 8 == 0 && (reinterpret_cast<uintptr_t>(qs) & 7) == 0;
+  const GemvArgs ga{nullptr, 0, qs, is_qk ? a.qk_scl : a.v_scl, a.R, ld, a.D, cps, nullptr,
                     nullptr, 0, nullptr, is_qk ? a.qk_mins : a.v_mins};
-  // the epilogue's (row, head) units u = rank, rank + splits, ... of the
-  // block's R x heads, a pair of block columns (c, c + bh) an item (bh =
-  // hd / 2 with whole heads, 64 where the block holds a quarter of a
-  // 256-wide head): slot columns (ai_col(c), ai_col(c) + hd / 2), rope
-  // frequency fr; the thread's first item's rope and bias values load now
-  const bool wide = a.hd > AI_TN;
-  const int half = a.hd / 2, bh = wide ? AI_TN / 2 : half;
-  const int heads = wide ? 1 : min(AI_TN, N - tile * AI_TN) / a.hd;
-  const int f0 = wide ? (tile % (a.hd / AI_TN)) * (AI_TN / 2) : 0;  // fr of block column 0
+  // the epilogue's units u = rank, rank + splits, ... of the block's R x
+  // heads (whole heads; else one unit a row), a pair of block columns (c, c
+  // + bh) an item (bh = hd / 2 with whole heads, else 64): slot columns
+  // (col = ai_col(c), col + hd / 2), rope frequency col % hd; the thread's
+  // first item's rope and bias values load now
+  const bool whole = AI_TN % a.hd == 0;
+  const int half = a.hd / 2, bh = whole ? half : AI_TN / 2;
+  const int heads = whole ? min(AI_TN, N - tile * AI_TN) / a.hd : 1;
   const int units = (a.R * heads - rank + splits - 1) / splits;
   const float* bias = is_qk ? a.bqk : a.bv;
-  const auto item = [&](int i, int& r, int& f, int& c) {
+  const auto item = [&](int i, int& r, int& c) {
     const int u = rank + (i / bh) * splits;
-    f = i % bh, r = u / heads, c = (u % heads) * a.hd + f;  // block column of the first half
+    r = u / heads, c = (u % heads) * a.hd + i % bh;  // block column of the first half
   };
   float pre[4] = {0.f, 0.f, 1.f, 0.f};  // bias of the pair's two columns, cos, sin
   if (threadIdx.x < units * bh) {
-    int r, f, c;
-    item(threadIdx.x, r, f, c);
-    const int col = ai_col(tile, c, a.hd);
+    int r, c;
+    item(threadIdx.x, r, c);
+    const int col = ai_col(tile, c, a.hd), f = col % a.hd;
     if (bias != nullptr) pre[0] = bias[col], pre[1] = bias[col + half];
-    if (is_qk)
-      pre[2] = a.cosv[(size_t)r * half + f0 + f], pre[3] = a.sinv[(size_t)r * half + f0 + f];
+    if (is_qk) pre[2] = a.cosv[(size_t)r * half + f], pre[3] = a.sinv[(size_t)r * half + f];
   }
   // the first chunk's words are in flight while the rows are normalised
   uint2 w[8], sc[4];
@@ -274,8 +284,8 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
   // bias, the half rotation (qk) in f32, bf16
   __nv_bfloat16* out = is_qk ? a.out0 : a.out1;
   for (int i = threadIdx.x; i < units * bh; i += GV_THREADS) {
-    int r, f, c;
-    item(i, r, f, c);
+    int r, c;
+    item(i, r, c);
     float p0[AI_MAX_SPLITS], p1[AI_MAX_SPLITS];  // all in flight, then added in rank order
 #pragma unroll
     for (int q = 0; q < AI_MAX_SPLITS; ++q) {
@@ -288,15 +298,15 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
 #pragma unroll
     for (int q = 0; q < AI_MAX_SPLITS; ++q)
       if (q < splits) y0 += p0[q], y1 += p1[q];
-    const int col = ai_col(tile, c, a.hd);
+    const int col = ai_col(tile, c, a.hd), f = col % a.hd;
     const bool first = i == threadIdx.x;
     const float b0 = bias == nullptr ? 0.f : first ? pre[0] : bias[col];
     const float b1 = bias == nullptr ? 0.f : first ? pre[1] : bias[col + half];
     y0 = round_bf16(y0) + b0;
     y1 = round_bf16(y1) + b1;
     if (is_qk) {
-      const float cs = first ? pre[2] : a.cosv[(size_t)r * half + f0 + f];
-      const float sn = first ? pre[3] : a.sinv[(size_t)r * half + f0 + f];
+      const float cs = first ? pre[2] : a.cosv[(size_t)r * half + f];
+      const float sn = first ? pre[3] : a.sinv[(size_t)r * half + f];
       const float o0 = __fsub_rn(__fmul_rn(y0, cs), __fmul_rn(y1, sn));
       const float o1 = __fadd_rn(__fmul_rn(y1, cs), __fmul_rn(y0, sn));
       y0 = o0, y1 = o1;
@@ -360,16 +370,22 @@ cudaError_t launch_attn_in_nt(const AttnInArgs& a, int splits, cudaStream_t st) 
 
 // Launches attn_in for R <= 32 rows (one n-tile of 8 rows per 8 rows of R)
 // at the split of attn_in_plan. Requires D % 512 == 0, n0 and n1 multiples
-// of 128 and of hd, 128 % hd == 0 or hd % 128 == 0, 16-byte aligned rows
-// of x and the norm weight.
-inline cudaError_t launch_attn_in(const AttnInArgs& a, cudaStream_t st) {
+// of 128 and of hd, 128 % hd == 0 or hd % 16 == 0, row strides ld0 >= n0
+// and ld1 >= n1 (0: n0, n1) that keep the code and scale loads aligned
+// (multiples of 4), 16-byte aligned rows of x and the norm weight.
+inline cudaError_t launch_attn_in(const AttnInArgs& args, cudaStream_t st) {
+  AttnInArgs a = args;
+  if (a.ld0 == 0) a.ld0 = a.n0;
+  if (a.ld1 == 0) a.ld1 = a.n1;
+  if (a.ld0 < a.n0 || a.ld1 < a.n1 || a.ld0 % 4 != 0 || a.ld1 % 4 != 0)
+    return cudaErrorInvalidValue;
   const int splits = TKQ_AI_SPLITS > 0 ? TKQ_AI_SPLITS
                                        : attn_in_plan(a.qk_kind, a.v_kind, a.n0, a.n1, a.D);
   const int nq = a.D / (segments(a.qk_kind) * CH), nv = a.D / (segments(a.v_kind) * CH);
   if (splits < 1 || splits > AI_MAX_SPLITS || nq % splits != 0 || nv % splits != 0 ||
       nq / splits < AI_WK || nv / splits < AI_WK || a.R < 1)
     return cudaErrorInvalidValue;
-  if (a.hd < 2 || a.hd % 2 != 0 || (AI_TN % a.hd != 0 && a.hd % AI_TN != 0) ||
+  if (a.hd < 2 || a.hd % 2 != 0 || (AI_TN % a.hd != 0 && a.hd % 16 != 0) ||
       a.n0 % a.hd != 0 || a.n1 % a.hd != 0 || a.n0 % AI_TN != 0 || a.n1 % AI_TN != 0)
     return cudaErrorInvalidValue;
   if (((reinterpret_cast<uintptr_t>(a.x) | reinterpret_cast<uintptr_t>(a.nw)) & 15) != 0)

@@ -32,7 +32,8 @@ using namespace tkq;
 // w_down, the scratch x2, act, ws and the output y [R, dim]; then as
 // tkq_attn_in (attn_in.cu) on y with the next layer's norm nw2, wqk2 (kind
 // qk_kind) and wv2 (v_kind), cos / sin [R, hd / 2] f32, writing qk2 [R, n0]
-// (roped) and v2 [R, n1], bf16. gelu: the FFN's activation, 0 silu, 1 gelu.
+// (roped) and v2 [R, n1], bf16; ld0 / ld1 as tkq_attn_in's (phi3's wqkv as
+// two slots). gelu: the FFN's activation, 0 silu, 1 gelu.
 extern "C" int tkq_rot(const void* x, const void* attn, const float* nw, float eps, int wo_kind,
                        const void* wo_qs, const void* wo_scl, const void* wo_mins, int gu_kind,
                        const void* gu_qs, const void* gu_scl, const void* gu_mins, int dn_kind,
@@ -41,8 +42,9 @@ extern "C" int tkq_rot(const void* x, const void* attn, const float* nw, float e
                        const void* qk_scl, const void* qk_mins, int v_kind, const void* v_qs,
                        const void* v_scl, const void* v_mins, const float* cosv,
                        const float* sinv, void* qk2, void* v2, int R, int dim, int K, int F,
-                       int n0, int n1, int hd, int cps_o, int splits_o, int cps_g, int splits_g,
-                       int cps_d, int splits_d, int gelu, void* stream) {
+                       int n0, int n1, int hd, int ld0, int ld1, int cps_o, int splits_o,
+                       int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
+                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind,
                                    gu_qs, gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y,
@@ -66,6 +68,6 @@ extern "C" int tkq_rot(const void* x, const void* attn, const float* nw, float e
                 nullptr,
                 static_cast<__nv_bfloat16*>(qk2),
                 static_cast<__nv_bfloat16*>(v2),
-                R, dim, n0, n1, hd};
+                R, dim, n0, n1, hd, ld0, ld1};
   return (int)launch_attn_in(ai, st);
 }

@@ -5,8 +5,12 @@ of the reference's quantize tool (``RECIPES`` / ``target_type``, copied from
 ``tpu_kquant.tools.quantize``): q4_k_m by default (attn_v, ffn_down and
 output in Q6_K, the other matmul weights Q4_K, norms F32), or q8_0, q6_k,
 q5_k_m, q4_k_s, q3_k_m, q2_k, f16 and bf16; qwen2 adds F32 q/k/v biases,
-gemma2 the F32 ``post_attention_norm`` and ``post_ffw_norm``, and a tied
-config (qwen2's, the gemma family's) writes no ``output.weight``. The substring ``"output.weight"``
+gemma2 the F32 ``post_attention_norm`` and ``post_ffw_norm``, phi3 its
+pre-fused ``attn_qkv`` [(H + 2 Hkv) hd, D] (rows q, k, v: HF's
+``qkv_proj``) and ``ffn_up`` [2F, D] (gate rows, then up: HF's
+``gate_up_proj``) with no ``attn_q/k/v`` and no ``ffn_gate``, as the
+reference writes them, and a tied config (qwen2's, the gemma family's)
+writes no ``output.weight``. The substring ``"output.weight"``
 also matches ``attn_output.weight``, in both packages. A MoE config
 (``n_experts``) writes the router ``ffn_gate_inp`` [E, D] and the stacked
 experts ``ffn_{gate,up}_exps`` [E, F, D] and ``ffn_down_exps`` [E, D, F] in
@@ -45,7 +49,7 @@ def tiny_config(arch: str = "llama", n_layers: int = 2, dim: int = 64,
                 n_heads: int = 4, n_kv_heads: int = 2, ffn_dim: int = 128,
                 vocab_size: int = 512, max_seq_len: int = 256, n_experts: int = 0,
                 n_experts_used: int = 0, sliding_window: int = 0) -> ModelConfig:
-    if arch not in ("llama", "qwen2", "gemma", "gemma2"):
+    if arch not in ("llama", "qwen2", "gemma", "gemma2", "phi3"):
         raise NotImplementedError(f"arch {arch!r} is not ported yet")
     hd = dim // n_heads
     return ModelConfig(
@@ -117,6 +121,19 @@ def gemma2_9b_config() -> ModelConfig:
         ffn_dim=14336, vocab_size=256000, max_seq_len=8192, norm_eps=1e-6,
         rope=RopeParams(head_dim=256, n_rot=256, mode="neox"), sliding_window=4096,
         **_gemma_quirks("gemma2", 3584),
+    )
+
+
+def phi3_mini_4k_config() -> ModelConfig:
+    """Phi-3-mini-4k-instruct (microsoft/Phi-3-mini-4k-instruct's
+    config.json): 32 layers, dim 3072, 32 / 32 heads of 96, ffn 8192, vocab
+    32064, context 4096, rope theta 1e4 with no scaling, rms eps 1e-5, a
+    sliding window of 2047 on every layer, untied lm head; q/k/v and
+    gate/up stored pre-fused (attn_qkv, ffn_up)."""
+    return ModelConfig(
+        arch="phi3", n_layers=32, dim=3072, n_heads=32, n_kv_heads=32, head_dim=96,
+        ffn_dim=8192, vocab_size=32064, max_seq_len=4096, norm_eps=1e-5,
+        rope=RopeParams(head_dim=96, n_rot=96, mode="neox"), sliding_window=2047,
     )
 
 
@@ -288,12 +305,13 @@ def fixture_vocab(vocab_size: int) -> dict:
 
 def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05,
                        recipe: str = "q4_k_m", with_tokenizer: bool = True) -> str:
-    """Write a llama (dense or MoE), qwen2, gemma or gemma2 fixture under
-    the quantize tool's ``recipe`` with random blocks drawn from ``seed``;
-    ``with_tokenizer`` adds ``fixture_vocab`` (the vocab draws nothing from
-    the seed, so the weights are the same either way)."""
-    if cfg.arch not in ("llama", "qwen2", "gemma", "gemma2"):
-        raise NotImplementedError("the port writes llama, qwen2 and gemma fixtures only")
+    """Write a llama (dense or MoE), qwen2, gemma, gemma2 or phi3 fixture
+    under the quantize tool's ``recipe`` with random blocks drawn from
+    ``seed``; ``with_tokenizer`` adds ``fixture_vocab`` (the vocab draws
+    nothing from the seed, so the weights are the same either way). The
+    tensors, their shapes, types and order are the reference writer's."""
+    if cfg.arch not in ("llama", "qwen2", "gemma", "gemma2", "phi3"):
+        raise NotImplementedError("the port writes llama, qwen2, gemma and phi3 fixtures only")
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}; one of {sorted(RECIPES)}")
     rng = np.random.default_rng(seed)
@@ -334,9 +352,12 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
         if cfg.post_norms:  # gemma2
             add(p + "post_attention_norm.weight", (D,))
             add(p + "post_ffw_norm.weight", (D,))
-        add(p + "attn_q.weight", (H * hd, D))
-        add(p + "attn_k.weight", (Hkv * hd, D))
-        add(p + "attn_v.weight", (Hkv * hd, D))
+        if cfg.arch == "phi3":  # pre-fused QKV, one tensor (HF qkv_proj order)
+            add(p + "attn_qkv.weight", ((H + 2 * Hkv) * hd, D))
+        else:
+            add(p + "attn_q.weight", (H * hd, D))
+            add(p + "attn_k.weight", (Hkv * hd, D))
+            add(p + "attn_v.weight", (Hkv * hd, D))
         if cfg.arch == "qwen2":  # attention biases, F32
             for bn, bd in (("attn_q.bias", H * hd), ("attn_k.bias", Hkv * hd),
                            ("attn_v.bias", Hkv * hd)):
@@ -349,6 +370,10 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
             add(p + "ffn_gate_exps.weight", (E, F, D))
             add(p + "ffn_up_exps.weight", (E, F, D))
             add(p + "ffn_down_exps.weight", (E, D, F))
+            continue
+        if cfg.arch == "phi3":  # pre-fused gate+up (HF gate_up_proj order)
+            add(p + "ffn_up.weight", (2 * F, D))
+            add(p + "ffn_down.weight", (D, F))
             continue
         add(p + "ffn_gate.weight", (F, D))
         add(p + "ffn_up.weight", (F, D))

@@ -2,7 +2,8 @@
 (``llama_forward`` / ``llama_layer``, unrolled over layers).
 
 Params: {'tok_embd': QTensor(rowmajor), 'output_norm', 'output',
-         'layers': [{'attn_norm', 'wqk' (or 'wq', 'wk'), 'wv', 'wo',
+         'layers': [{'attn_norm', 'wqk' (or 'wq', 'wk'), 'wv' (phi3: one
+                     'wqkv' in their place), 'wo',
                      'ffn_norm', 'w_gateup' (or 'w_gate', 'w_up'), 'w_down',
                      and with cfg.attn_bias f32 'bqk' ([bq | bk]), 'bv';
                      a MoE layer has 'gate_inp' and 'experts' ({'w_gate',
@@ -34,7 +35,19 @@ after the FFN (``post_attn_norm`` / ``post_ffn_norm``, which keep attn_out,
 oproj_ffn, ffn, rot and layer off, as in the reference), an attention logit
 softcap (plain attention only), a sliding window on every other layer
 (``cfg.layer_window``; the layer kernel is off on those layers) and a
-softcap on the f32 logits. Ring (iSWA) cache layouts and mamba raise.
+softcap on the f32 logits. mamba raises.
+
+phi3 keeps q, k and v in one weight, ``wqkv``, as the reference does: the
+attn_in kernel (and the rot kernel's next-layer phase) takes it as the two
+slots of ops.attn_in.qkv_slots (qk roped, v not), the plain path as one
+qmatmul whose output splits into q, k and v (reference llama.py:66-128).
+
+On the iSWA layout (runtime.kv_cache.ISWACache) each layer appends its own
+rows before its attention (no deferred append; the pad tokens of a prefill
+chunk, ``kv_valid``, leave the ring as it is), a ring layer attends with
+``ring_last`` (its rows' last written position), which keeps the flash
+kernels off, and neither attn_out nor the layer kernel runs (reference
+llama.py:136-142, :320-356, :404-413).
 
 The reference's opt-in decode fusions are read from the environment at
 call time, under the reference's names and defaults, where the reference
@@ -70,7 +83,7 @@ from tpu_kquant_torch.models.config import ModelConfig
 from tpu_kquant_torch.models.moe import moe_ffn
 from tpu_kquant_torch.ops import attention
 from tpu_kquant_torch.ops.activations import geglu, swiglu
-from tpu_kquant_torch.ops.attn_in import attn_in_enabled, fused_attn_in
+from tpu_kquant_torch.ops.attn_in import attn_in_enabled, fused_attn_in, qkv_slots
 from tpu_kquant_torch.ops.attn_out import attn_out_enabled, fused_attn_out
 from tpu_kquant_torch.ops.ffn import (
     ffn_enabled,
@@ -85,11 +98,19 @@ from tpu_kquant_torch.ops.qmm import GEMV_MAX_ROWS
 from tpu_kquant_torch.ops.rope import apply_rope, rope_cos_sin
 from tpu_kquant_torch.ops.rot import fused_oproj_ffn_attn_in, rot_enabled
 from tpu_kquant_torch.quant.codecs import dequant_rows
-from tpu_kquant_torch.runtime.kv_cache import KVCache
+from tpu_kquant_torch.runtime.kv_cache import ISWACache, KVCache
 
 
 def _norm_w(qt) -> torch.Tensor:
     return qt.arrays["w"]
+
+
+def qkv_weights(layer: dict[str, Any], cfg: ModelConfig):
+    """A layer's attn_in slots (wqk, wv): phi3's wqkv as qkv_slots' two
+    views, else the loaded wqk and wv (None where q and k are apart)."""
+    if "wqkv" in layer:
+        return qkv_slots(layer["wqkv"], (cfg.n_heads + cfg.n_kv_heads) * cfg.head_dim)
+    return layer.get("wqk"), layer.get("wv")
 
 
 def llama_layer(
@@ -99,7 +120,7 @@ def llama_layer(
     positions: torch.Tensor,  # [B, T]
     cos: torch.Tensor,  # [B, T, head_dim/2] f32
     sin: torch.Tensor,
-    kv_write: Callable,  # (k, v) -> (k_all, v_all, scales[, kv_cur])
+    kv_write: Callable,  # (k, v) -> (k_all, v_all, scales, kv_cur, ring_last)
     kv_attend_len: int | None = None,  # attention reads only cache slots
     #   [0, kv_attend_len): valid ONLY when every query position is below it
     #   (bucketed prefill, positions = arange(T))
@@ -115,28 +136,35 @@ def llama_layer(
     B, T, dim = x.shape
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     biases = (layer["bqk"], layer["bv"]) if cfg.attn_bias else None
+    wqk, wv = qkv_weights(layer, cfg)
     if qkv_in is not None:
         qk, v = qkv_in
         q = qk[..., : H * D].reshape(B, T, H, D)
         k = qk[..., H * D:].reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
-    elif cfg.rope.mode == "neox" and cfg.rope.n_rot == D and "wqk" in layer and \
-            attn_in_enabled(layer["wqk"], layer["wv"], B * T, dim, D, biases, impl):
-        qk, v = fused_attn_in(x, _norm_w(layer["attn_norm"]), cfg.norm_eps, layer["wqk"],
-                              layer["wv"], cos, sin, D, biases)
+    elif cfg.rope.mode == "neox" and cfg.rope.n_rot == D and wqk is not None and \
+            attn_in_enabled(wqk, wv, B * T, dim, D, biases, impl):
+        qk, v = fused_attn_in(x, _norm_w(layer["attn_norm"]), cfg.norm_eps, wqk, wv, cos, sin,
+                              D, biases)
         q = qk[..., : H * D].reshape(B, T, H, D)
         k = qk[..., H * D:].reshape(B, T, Hkv, D)
         v = v.reshape(B, T, Hkv, D)
     else:
         h = rms_norm(x, _norm_w(layer["attn_norm"]), cfg.norm_eps)
-        if "wqk" in layer:
+        if "wqkv" in layer:  # phi3: one product, split into q, k, v
+            qkv = qmatmul(h, layer["wqkv"], impl)
+            q = qkv[..., : H * D].reshape(B, T, H, D)
+            k = qkv[..., H * D: (H + Hkv) * D].reshape(B, T, Hkv, D)
+            v = qkv[..., (H + Hkv) * D:].reshape(B, T, Hkv, D)
+        elif "wqk" in layer:
             qk = qmatmul(h, layer["wqk"], impl)
             q = qk[..., : H * D].reshape(B, T, H, D)
             k = qk[..., H * D:].reshape(B, T, Hkv, D)
+            v = qmatmul(h, layer["wv"], impl).reshape(B, T, Hkv, D)
         else:
             q = qmatmul(h, layer["wq"], impl).reshape(B, T, H, D)
             k = qmatmul(h, layer["wk"], impl).reshape(B, T, Hkv, D)
-        v = qmatmul(h, layer["wv"], impl).reshape(B, T, Hkv, D)
+            v = qmatmul(h, layer["wv"], impl).reshape(B, T, Hkv, D)
         if cfg.attn_bias:  # bf16 + f32: q/k/v become f32, as in the reference
             q = q + layer["bqk"][: H * D].reshape(H, D)
             k = k + layer["bqk"][H * D:].reshape(Hkv, D)
@@ -144,10 +172,9 @@ def llama_layer(
         q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :], cfg.rope.mode)
         k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :], cfg.rope.mode)
 
-    view = kv_write(k, v)
-    k_all, v_all, kv_scales = view[:3]
-    kv_cur = view[3] if len(view) == 4 else None
-    if kv_attend_len is not None and kv_cur is None and kv_attend_len < k_all.shape[2]:
+    k_all, v_all, kv_scales, kv_cur, ring_last = kv_write(k, v)
+    if kv_attend_len is not None and kv_cur is None and ring_last is None and \
+            kv_attend_len < k_all.shape[2]:
         # views of the cache, no copy
         k_all = k_all[:, :, :kv_attend_len]
         v_all = v_all[:, :, :kv_attend_len]
@@ -157,22 +184,24 @@ def llama_layer(
     # unfused path from o_proj on, as in the reference
     gu = "w_gateup" in layer and not cfg.is_moe and not cfg.post_norms
     act_fn = cfg.act_fn
-    if T == 1 and kv_cur is None and cfg.attn_logit_softcap == 0.0 and window == 0 \
-            and not cfg.post_norms and attn_out_enabled(impl, layer["wo"], H, Hkv, D, B,
-                                                        int(k_all.shape[2])):
+    if T == 1 and kv_cur is None and ring_last is None and cfg.attn_logit_softcap == 0.0 \
+            and window == 0 and not cfg.post_norms and \
+            attn_out_enabled(impl, layer["wo"], H, Hkv, D, B, int(k_all.shape[2])):
         # attention + o_proj + residual in one call; then the FFN below
         x = fused_attn_out(x, q, k_all, v_all, positions, kv_scales, layer["wo"])
     else:
         attn = attention.attention_decode(q, k_all, v_all, positions, kv_scales,
                                           kv_cur=kv_cur, logit_softcap=cfg.attn_logit_softcap,
-                                          sliding_window=window).reshape(B, T, H * D)
-        if gu and next_layer is not None and rot_enabled(
-                impl, layer["wo"], layer["w_gateup"], layer["w_down"],
-                [next_layer["wqk"], next_layer["wv"]], B * T, dim, D):
+                                          sliding_window=window,
+                                          ring_last=ring_last).reshape(B, T, H * D)
+        ws2 = (None, None) if next_layer is None else qkv_weights(next_layer, cfg)
+        if gu and ws2[0] is not None and rot_enabled(
+                impl, layer["wo"], layer["w_gateup"], layer["w_down"], list(ws2), B * T, dim,
+                D):
             y, qk2, v2 = fused_oproj_ffn_attn_in(
                 x, attn, layer["wo"], _norm_w(layer["ffn_norm"]), cfg.norm_eps,
-                layer["w_gateup"], layer["w_down"], _norm_w(next_layer["attn_norm"]),
-                next_layer["wqk"], next_layer["wv"], cos, sin, D, act_fn=act_fn)
+                layer["w_gateup"], layer["w_down"], _norm_w(next_layer["attn_norm"]), *ws2,
+                cos, sin, D, act_fn=act_fn)
             return y, (qk2, v2)
         if gu and oproj_ffn_enabled(impl, layer["wo"], layer["w_gateup"], layer["w_down"],
                                     B * T):
@@ -213,14 +242,15 @@ def llama_forward(
     impl: str = "auto",  # see the module docstring
     kv_valid: torch.Tensor | None = None,  # [B, T] bool, the non-pad slots: on the
     #   unified cache it only turns the deferred append off, as in the reference
-    #   (pads are overwritten before any query attends them)
-) -> tuple[torch.Tensor, KVCache]:
+    #   (pads are overwritten before any query attends them); on the iSWA
+    #   layout pads leave the ring as it is
+    logits_rows: torch.Tensor | None = None,  # [B] one row of each sequence to
+    #   take logits of (the iSWA prefill's last prompt token), in place of all T
+) -> tuple[torch.Tensor, KVCache | ISWACache]:
     """Returns (logits [B, T, vocab] f32 (or [B, 1, vocab]), cache). The
     cache is updated in place."""
     if cfg.arch == "mamba":
         raise NotImplementedError("recurrent (mamba) models are not ported yet")
-    if hasattr(cache, "is_ring"):
-        raise NotImplementedError("ring (iSWA) KV layouts are not ported yet")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     x = dequant_rows(params["tok_embd"], tokens, dtype=torch.bfloat16)
@@ -235,7 +265,8 @@ def llama_forward(
     # attention on the plain branch, so past the logits budget (large B * S)
     # the appends are eager and attention may leave it, as in the reference.
     B, T = tokens.shape
-    step_defers = os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
+    iswa = isinstance(cache, ISWACache)
+    step_defers = not iswa and os.environ.get("TKQ_DEFER_APPEND", "1") == "1" and \
         os.environ.get("TKQ_FUSE_LAYER", "0") != "1" and \
         attention.logits_mb(B, 1, cfg.n_heads, cache.max_seq) <= attention.ATTN_PLAIN_MAX_MB
     defer = T == 1 and kv_valid is None and step_defers
@@ -257,7 +288,7 @@ def llama_forward(
     neox = cfg.rope.mode == "neox" and cfg.rope.n_rot == cfg.head_dim
     whole_layer = T == 1 and neox and not cfg.attn_bias and not cfg.is_moe and \
         not cfg.post_norms and cfg.attn_logit_softcap == 0.0 and kv_valid is None and \
-        not cache.quantized
+        not cache.quantized and not iswa
     # rotated layer boundaries (reference: rot_arch_ok); rot_enabled decides
     # per pair of layers
     rotate = neox and not cfg.attn_bias and not cfg.is_moe and not cfg.post_norms
@@ -281,16 +312,21 @@ def llama_forward(
             continue
 
         def kv_write(k_new, v_new, _i=i):
+            """(k_all, v_all, scales, kv_cur, ring_last) for layer _i's attention."""
             if pending is not None:
                 pending.append((k_new, v_new))
-                return (*cache.layer_view(_i), (k_new, v_new))
+                return (*cache.layer_view(_i), (k_new, v_new), None)
+            if iswa:
+                cache.append(_i, k_new, v_new, positions, valid=kv_valid)
+                return (*cache.layer_view(_i), None,
+                        positions[:, -1] if cache.is_ring(_i) else None)
             cache.append(_i, k_new, v_new, positions)
             if window_rows:  # the rows as stored, as the reference attends them
-                return (*cache.layer_view(_i), (k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)))
-            return cache.layer_view(_i)
+                return (*cache.layer_view(_i), (k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)),
+                        None)
+            return (*cache.layer_view(_i), None, None)
 
-        nxt = layers[i + 1] if rotate and i + 1 < len(layers) and "wqk" in layers[i + 1] \
-            else None
+        nxt = layers[i + 1] if rotate and i + 1 < len(layers) else None
         x, pending_qkv = llama_layer(layer, cfg, x, positions, cos, sin, kv_write,
                                      kv_attend_len=kv_attend_len, impl=impl,
                                      qkv_in=pending_qkv, next_layer=nxt,
@@ -300,7 +336,9 @@ def llama_forward(
                          torch.stack([kv[1] for kv in pending]), positions)
 
     x = rms_norm(x, _norm_w(params["output_norm"]), cfg.norm_eps)
-    if logits_last_only:
+    if logits_rows is not None:
+        x = x[torch.arange(B, device=x.device), logits_rows][:, None]
+    elif logits_last_only:
         x = x[:, -1:, :]
     logits = qmatmul(x, params["output"], impl, out_dtype=torch.float32)
     if cfg.final_logit_softcap > 0.0:

@@ -21,7 +21,9 @@ gemma2's quirks follow the reference's rules: a logit softcap keeps both
 kernels off (the plain branch applies tanh(logits / cap) * cap after the
 current token's logit is put in and before the mask); a sliding window
 keeps the decode kernel off and rides into the prefill kernel, which
-takes one. Rings (iSWA) are not ported here.
+takes one. A ring (the iSWA layout's window layers, ``ring_last``) keeps
+both kernels off: the plain branch recovers each slot's position from the
+row's last written one (attention.py:191-200 of the reference).
 """
 
 from __future__ import annotations
@@ -56,12 +58,18 @@ def attention_decode(
     kv_cur: tuple[torch.Tensor, torch.Tensor] | None = None,
     logit_softcap: float = 0.0,
     sliding_window: int = 0,
+    ring_last: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Attention of T query tokens against S cache slots; slot j holds
     position j and is masked where j > the query's position, and, with a
     ``sliding_window`` w > 0, where j <= the position - w. Returns
     [B, T, H, D] in q's dtype. The logit scale is head_dim^-0.5;
     ``logit_softcap`` c > 0 maps each logit l to tanh(l / c) * c.
+
+    ring_last [B]: the cache is a ring of S slots (runtime.kv_cache.
+    ISWACache), the row's last written position ``ring_last``: slot j holds
+    position last - ((last - j) mod S), and a slot whose position is
+    negative (not yet written) is masked.
 
     kv_scales: int8 KV. The per-token scales are constant along D, so K
     scales multiply logit columns and V scales probability rows.
@@ -80,15 +88,17 @@ def attention_decode(
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     big = logits_mb(B, T, H, S) > ATTN_PLAIN_MAX_MB
-    if (kv_cur is None and T == 1 and logit_softcap == 0.0 and sliding_window == 0
-            and D % 64 == 0 and S % 64 == 0 and big and (kv_scales is None or S % 256 == 0)):
+    kernel_ok = kv_cur is None and ring_last is None and logit_softcap == 0.0
+    if (kernel_ok and T == 1 and sliding_window == 0 and D % 64 == 0 and S % 64 == 0 and big
+            and (kv_scales is None or S % 256 == 0)):
         return attention_decode_flash(q, k_cache, v_cache, q_positions, kv_scales)
-    if kv_cur is None and T > 1 and logit_softcap == 0.0 and prefill_supported(T, S, D) and big:
+    if kernel_ok and T > 1 and prefill_supported(T, S, D) and big:
         return attention_prefill(q, k_cache, v_cache, q_positions[:, 0], kv_scales,
                                  sliding_window=sliding_window)
 
     return attention_plain(q, k_cache, v_cache, q_positions, kv_scales, kv_cur,
-                           logit_softcap=logit_softcap, sliding_window=sliding_window)
+                           logit_softcap=logit_softcap, sliding_window=sliding_window,
+                           ring_last=ring_last)
 
 
 # f32 elements of the largest operand that one bmm call of the card's plain
@@ -134,7 +144,8 @@ def bmm_fixed(a: torch.Tensor, b: torch.Tensor, pairs: int, real: int) -> torch.
 
 def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=None,
                     fixed: bool | None = None, parts: dict | None = None,
-                    logit_softcap: float = 0.0, sliding_window: int = 0) -> torch.Tensor:
+                    logit_softcap: float = 0.0, sliding_window: int = 0,
+                    ring_last: torch.Tensor | None = None) -> torch.Tensor:
     """attention_decode's plain branch, in f32. ``fixed`` (default: on CUDA
     tensors) takes its three products (q k^T, the deferred append's current
     logit, p v) as per-(row, KV head) bmm calls of a fixed shape
@@ -149,8 +160,9 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
     the rest is elementwise or a softmax per row, so query t is the decode
     step at its position bit for bit. Off (the CPU default), the einsums
     that the tests hold to the JAX package. ``parts``: filled with the f32
-    logits, probabilities and p v product. ``logit_softcap`` and
-    ``sliding_window``: as attention_decode's."""
+    logits, probabilities and p v product. ``logit_softcap``,
+    ``sliding_window`` and ``ring_last``: as attention_decode's (the ring
+    changes only the mask)."""
     B, T, H, D = q.shape
     Hkv, S = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -177,7 +189,10 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
     if kv_scales is not None:
         ks, vs = kv_scales
         logits = logits * ks.float()[:, None, :, None, :]
-    kv_pos = torch.arange(S, device=q.device)
+    kv_pos = torch.arange(S, device=q.device)[None, None, :]  # [1, 1, S]
+    if ring_last is not None:  # each slot's position on the row's ring: [B, 1, S]
+        last = ring_last.long()[:, None, None]
+        kv_pos = last - torch.remainder(last - kv_pos, S)
     at_cur = None
     if kv_cur is not None:
         k_cur, v_cur = kv_cur
@@ -187,13 +202,15 @@ def attention_plain(q, k_cache, v_cache, q_positions, kv_scales=None, kv_cur=Non
         else:
             l_cur = torch.einsum("bthgd,bthd->bthg", qf,
                                  k_cur.float().reshape(B, T, Hkv, D)) * scale
-        at_cur = (kv_pos[None, None, :] == q_positions[:, :, None])[:, :, None, None, :]
+        at_cur = (kv_pos == q_positions[:, :, None])[:, :, None, None, :]
         logits = torch.where(at_cur, l_cur[..., None], logits)
     if logit_softcap > 0.0:
         logits = torch.tanh(logits / logit_softcap) * logit_softcap
-    mask = kv_pos[None, None, :] <= q_positions[:, :, None]  # [B, T, S]
+    mask = kv_pos <= q_positions[:, :, None]  # [B, T, S]
+    if ring_last is not None:
+        mask &= kv_pos >= 0  # slots not written yet
     if sliding_window > 0:
-        mask &= kv_pos[None, None, :] > q_positions[:, :, None] - sliding_window
+        mask &= kv_pos > q_positions[:, :, None] - sliding_window
     logits = logits.masked_fill(~mask[:, :, None, None, :], float("-inf"))
     p = torch.softmax(logits, dim=-1)
     if parts is not None:

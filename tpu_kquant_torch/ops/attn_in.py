@@ -13,6 +13,14 @@ bf16 scale pairs (q4-sm, q6w-sp, q8-sp) or f32 scales (``scales``, and
 ``mins`` for q4), with or without qwen2's f32 biases (``biases = (bqk [n0],
 bv [n1])``, bqk = [bq | bk]).
 
+phi3's pre-fused ``wqkv`` (one tensor [(H + 2 Hkv) hd, D], loaded as one)
+runs as the two slots ``qkv_slots`` gives: views of its packed arrays, qk
+its first (H + Hkv) hd columns and v the rest, each with wqkv's row
+stride, so the kernel reads the tensor's own bytes once. The reference
+passes ``ws = [wqkv]`` and ropes output 0 with tables whose last Hkv hd
+columns are cos 1, sin 0 (``rope_tables_full(..., n_pad)``): the same
+function, its one output the two outputs side by side.
+
 ``attn_in_plain`` is the same function in plain PyTorch, in f32 with the
 kernel's rounding points: the normalised row is not rounded, each
 projection is rounded to bf16, the bias added in f32, then the rotation
@@ -31,7 +39,7 @@ from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.ffn import _aligned
 from tpu_kquant_torch.ops.qmm import (_SMEM_CAP, GEMV_BLOCK_CHUNKS, GEMV_MAX_ROWS, GEMV_WAVE,
                                       KINDS, SEGMENTS, gemv_smem_bytes, kernel_kind,
-                                      packed_arrays)
+                                      packed_arrays, row_stride)
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
@@ -42,8 +50,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #            x   nw  eps              qk: kind qs scl mins v: kind qs scl mins
 _ARGTYPES = [_P, _P, ctypes.c_float, _I, _P, _P, _P, _I, _P, _P, _P,
-             # cos sin bqk bv out0 out1 R  D  n0 n1 hd stream
-             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+             # cos sin bqk bv out0 out1 R  D  n0 n1 hd ld0 ld1 stream
+             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 _KINDS = ("q4", "q6w", "q8")  # pallas_attn_in.py:_KINDS
@@ -95,9 +103,12 @@ def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: in
     activation quantization does not reach this kernel), so both packages
     fuse at the same shapes and kinds; then what the kernel itself needs:
     a scale layout it reads (kernel_kind), a head_dim its 128-column blocks
-    hold (``kernel_head_dim``: every head_dim of the ported archs, 64, 128
-    and 256) with whole heads in each slot, and biases, where given, f32
-    vectors of the two outputs' widths."""
+    hold (``kernel_head_dim``: every head_dim of the ported archs, 64, 96,
+    128 and 256) with whole heads in each slot, and biases, where given, f32
+    vectors of the two outputs' widths. On phi3's ``qkv_slots`` the
+    reference's rule is on wqkv's whole width ((H + 2 Hkv) hd % 128), this
+    one on each slot's; they agree wherever Hkv hd % 128 == 0 (Phi-3-mini:
+    3072)."""
     return (
         impl in ("auto", "int8") and rows <= MAX_ROWS and D % 512 == 0
         and all(w.layout == "kmajor" and w.kind in _KINDS and w.shape[-1] == D
@@ -112,12 +123,28 @@ def attn_in_supported(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: in
 
 def kernel_head_dim(head_dim: int) -> bool:
     """Whether the kernel's 128-column blocks take this head_dim: one that
-    divides 128 (a block holds whole heads: 64, 128), or a multiple of 128
-    (256: a block holds 64 columns of a head's first half and their 64
-    rope partners in its second half, csrc/attn_in.cuh). The reference's
-    gate has no head_dim rule; head dims such as 80 or 96 (phi) fit
-    neither and stay on qmatmul here."""
-    return head_dim > 0 and head_dim % 2 == 0 and (128 % head_dim == 0 or head_dim % 128 == 0)
+    divides 128 (a block holds whole heads: 64, 128), or a multiple of 32
+    (96, phi3; 256, the gemma family: a block holds 64 columns of its
+    heads' first halves, in runs of 8, and their 64 rope partners,
+    csrc/attn_in.cuh:ai_col). The reference's gate has no head_dim rule.
+    The column map itself needs only head_dim % 16; the gate keeps to the
+    multiples of 32 that the ported families use and the card checks
+    cover, so 80 (phi2, not ported) stays on qmatmul."""
+    return head_dim > 0 and head_dim % 2 == 0 and (128 % head_dim == 0 or head_dim % 32 == 0)
+
+
+def qkv_slots(wqkv: QTensor, n_rope: int) -> tuple[QTensor, QTensor]:
+    """phi3's pre-fused wqkv as attn_in's two slots: (qk, v), QTensors of
+    shapes (n_rope, K) and (N - n_rope, K) whose arrays are column views of
+    wqkv's (no copy; each keeps wqkv's row stride). n_rope = (H + Hkv) hd,
+    the columns the rope takes."""
+    N, K = (int(d) for d in wqkv.shape)
+
+    def part(lo: int, hi: int) -> QTensor:
+        return QTensor(wqkv.kind, wqkv.layout, (hi - lo, K),
+                       {k: v[..., lo:hi] for k, v in wqkv.arrays.items()}, wqkv.tp, wqkv.fold)
+
+    return part(0, n_rope), part(n_rope, N)
 
 
 def attn_in_enabled(wqk: QTensor, wv: QTensor, rows: int, D: int, head_dim: int,
@@ -161,7 +188,7 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [..., D] bf16; cos/sin [..., hd/2] per row of x; biases (bqk [n0],
     bv [n1]) f32 or None. Returns (qk [..., n0] with rope applied, v
-    [..., n1]), bf16."""
+    [..., n1]), bf16. wqk / wv may be qkv_slots' views of one wqkv."""
     D = x.shape[-1]
     lead = x.shape[:-1]
     n0, n1 = int(wqk.shape[0]), int(wv.shape[0])
@@ -181,12 +208,13 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     req(n0 % head_dim == 0 and c2d.shape == (R, half) and s2d.shape == (R, half),
         "attn_in: rope tables must be [rows, head_dim / 2]")
     req(norm_w.shape == (D,) and norm_w.dtype == torch.float32, "attn_in: norm weight")
-    qk_code, qk_arrs = packed_arrays(wqk, "attn_in")
-    v_code, v_arrs = packed_arrays(wv, "attn_in")
+    qk_code, qk_arrs = packed_arrays(wqk, "attn_in", strided=True)
+    v_code, v_arrs = packed_arrays(wv, "attn_in", strided=True)
     arrs = (qk_arrs[0], qk_arrs[2], qk_arrs[3], v_arrs[0], v_arrs[2], v_arrs[3])
     bs = () if biases is None else tuple(biases)
-    req(all(a.device == x.device and a.is_contiguous() for a in arrs + bs if a is not None),
-        "attn_in: weights and biases must be contiguous on x's device")
+    req(all(a.device == x.device for a in arrs if a is not None)
+        and all(b.device == x.device and b.is_contiguous() for b in bs),
+        "attn_in: weights and biases must be on x's device, biases contiguous")
     attn_in_plan(qk_code, v_code, n0, n1, D)  # raises where no split fits
     x2d, nw = _aligned(x2d), _aligned(norm_w)
     c2d = c2d.float().contiguous()
@@ -199,7 +227,7 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     ptrs = [None if a is None else P(a) for a in arrs]
     rc = lib.tkq_attn_in(P(x2d), P(nw), float(eps), qk_code, *ptrs[:3], v_code, *ptrs[3:],
                          P(c2d), P(s2d), *bias_ptrs, P(out0), P(out1), R, D, n0, n1, head_dim,
-                         _build.stream_ptr(x.device))
+                         row_stride(arrs[0]), row_stride(arrs[3]), _build.stream_ptr(x.device))
     _build.check(lib, rc, "attn_in")
     counter.launches += 1
     return out0.reshape(*lead, n0), out1.reshape(*lead, n1)

@@ -149,13 +149,15 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor) -> list[tuple[int, list]]:
+def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor,
+                  strided: bool = False) -> list[tuple[int, list]]:
     """(kind code, [codes, scales, mins or None]) of each weight, checked by
-    ops.qmm.packed_arrays (the fused kinds have no high bit plane) and
-    required on x's device."""
+    ops.qmm.packed_arrays (the fused kinds have no high bit plane; strided:
+    column views of a wider weight are taken) and required on x's
+    device."""
     out = []
     for qt in ws:
-        code, (qs, _, scl, mins) = packed_arrays(qt, what)
+        code, (qs, _, scl, mins) = packed_arrays(qt, what, strided)
         _build.require(qs.device == x.device, f"{what}: weights must be on x's device")
         out.append((code, [qs, scl, mins]))
     return out

@@ -129,12 +129,14 @@ def k_ok(code: int, K: int) -> bool:
     return K % (64 if kind == "q4" or (kind == "q8" and side == "sp") else 32) == 0
 
 
-def packed_arrays(qt: QTensor, what: str) -> tuple[int, list]:
+def packed_arrays(qt: QTensor, what: str, strided: bool = False) -> tuple[int, list]:
     """(kind code, [qs, qh, scales, mins]) of a kmajor weight the kernels
     read (qh / mins None where the kind has none), after checking every
     array's dtype, shape and contiguity; raises NotImplementedError for a
     kind or layout the kernels do not read and ValueError for a K they do
-    not take."""
+    not take. ``strided``: the arrays may instead be column ranges of a
+    wider weight's (attn_in's slots of phi3's wqkv, attn_in.qkv_slots):
+    contiguous rows, one row stride (``row_stride``) for all of them."""
     code = kernel_kind(qt)
     if code is None:
         raise NotImplementedError(
@@ -159,9 +161,19 @@ def packed_arrays(qt: QTensor, what: str) -> tuple[int, list]:
     req(all(t.dtype == torch.float32 and t.shape == (side_rows, N)
             for t in (scl, mins) if t is not None), f"{what}: side arrays of {kind}-{side}")
     arrs = [a["qs"], qh, scl, mins]
-    req(all(t.device == arrs[0].device and t.is_contiguous() for t in arrs if t is not None),
+    ld = row_stride(arrs[0]) if strided else N
+    req(all(t.device == arrs[0].device and row_stride(t) == ld and ld % 4 == 0
+            for t in arrs if t is not None),
         f"{what}: packed arrays must be contiguous on one device")
     return code, arrs
+
+
+def row_stride(t: torch.Tensor) -> int:
+    """The row stride, in elements, of a 2-D array whose rows are
+    contiguous; -1 for any other layout."""
+    if t.dim() != 2 or (t.stride(1) != 1 and t.shape[1] > 1) or t.stride(0) < t.shape[1]:
+        return -1
+    return t.stride(0)
 
 
 def gemv_smem_bytes(code: int, cps: int, R: int, int8: bool = False, halves: int = 1) -> int:

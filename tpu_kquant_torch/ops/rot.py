@@ -1,6 +1,7 @@
 """rot: the rotated layer boundary, one C call: layer i's o_proj, residual
 and FFN block (oproj_ffn), then layer i + 1's attention input (attn_in: rms
-norm, wqk / wv, bf16 round, NEOX rope) on its output.
+norm, wqk / wv or the two slots of phi3's wqkv (ops.attn_in.qkv_slots),
+bf16 round, NEOX rope) on its output.
 
 Kernel: ``csrc/rot.cu`` (replaces ``tpu_kquant/ops/attic/pallas_rot.py:
 fused_oproj_ffn_attn_in``; the reference keeps it in ``attic``, measured as
@@ -25,7 +26,7 @@ from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attn_in import attn_in_plain, attn_in_supported
 from tpu_kquant_torch.ops.ffn import (_aligned, _fused_arrays, fused_ws_floats, gate_up_plan,
                                       gelu_flag, oproj_ffn_plain, oproj_ffn_supported)
-from tpu_kquant_torch.ops.qmm import gemv_plan
+from tpu_kquant_torch.ops.qmm import gemv_plan, row_stride
 from tpu_kquant_torch.quant.qtensor import QTensor
 
 counter = _build.LaunchCounter("rot")
@@ -38,8 +39,10 @@ _W = [_I, _P, _P, _P]  # a weight: kind code, codes, scales, mins
 _ARGTYPES = [_P, _P, _P, _F, *_W, *_W, _I, _P, _P, _P, _P, _P, _P, _P,
              # wqk2 wv2  cos sin qk2 v2
              *_W, *_W, _P, _P, _P, _P,
-             # R  dim K   F   n0  n1  hd  cps_o splits_o cps_g splits_g cps_d splits_d
-             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             # R  dim K   F   n0  n1  hd  ld0 ld1 cps_o splits_o cps_g splits_g cps_d
+             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             # splits_d
+             _I,
              # gelu stream
              _I, _P]
 
@@ -108,7 +111,7 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
         "rot: rope tables must be [rows, head_dim / 2]")
     req(norm_w.shape == norm_w2.shape == (dim,)
         and norm_w.dtype == norm_w2.dtype == torch.float32, "rot: norm weights")
-    wts = _fused_arrays("rot", x, wo, gu, dn, wqk2, wv2)
+    wts = _fused_arrays("rot", x, wo, gu, dn) + _fused_arrays("rot", x, wqk2, wv2, strided=True)
     cps_o, splits_o = gemv_plan(wts[0][0], dim, K)
     cps_g, splits_g = gate_up_plan(wts[1][0], Fd, dim)
     cps_d, splits_d = gemv_plan(wts[2][0], dim, Fd)
@@ -128,8 +131,9 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
     lib = _build.load("rot", "tkq_rot", _ARGTYPES)
     rc = lib.tkq_rot(P(x2d), P(a2d), P(nw), float(eps), *args[0], *args[1], *args[2][:3],
                      P(x2), P(act), P(ws), P(y), P(nw2), *args[3], *args[4], P(c2d), P(s2d),
-                     P(qk2), P(v2), R, dim, K, Fd, n0, n1, head_dim, cps_o, splits_o, cps_g,
-                     splits_g, cps_d, splits_d, gelu, _build.stream_ptr(dev))
+                     P(qk2), P(v2), R, dim, K, Fd, n0, n1, head_dim, row_stride(wts[3][1][0]),
+                     row_stride(wts[4][1][0]), cps_o, splits_o, cps_g, splits_g, cps_d, splits_d,
+                     gelu, _build.stream_ptr(dev))
     _build.check(lib, rc, "rot")
     counter.launches += 1
     return y.reshape(*lead, dim), qk2.reshape(*lead, n0), v2.reshape(*lead, n1)

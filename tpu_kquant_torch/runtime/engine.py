@@ -28,7 +28,15 @@ Context shift (``shift_context``; ``generate(context_shift=True)``, a
 host-stepped loop as in the reference) slides the cache IN PLACE
 (runtime.kv_cache.shift_cache). Sessions (``save_session`` /
 ``load_session``) use the reference's npz format, so a file from either
-package loads in the other. Ring (iSWA) layouts raise NotImplementedError.
+package loads in the other.
+kv_layout "iswa" (the reference's; llama.cpp's llama_kv_cache_unified_iswa)
+needs a sliding-window arch: its window layers keep a ring of window +
+``iswa_chunk`` slots (rounded up to 16, at most max_seq;
+runtime.kv_cache.ISWACache) in place of max_seq, and a prompt prefills in
+chunks of the largest bucket within ring - window tokens (``_prefill_iswa``),
+so every query finds its whole window in the ring and no pad wraps onto a
+live slot. Slot prefill (serving), context shift and sessions stay on the
+unified layout, as in the reference.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from tpu_kquant_torch.ops.sampling import (
     row_keys,
     sample_step,
 )
-from tpu_kquant_torch.runtime.kv_cache import KVCache, shift_cache, slice_batch_row
+from tpu_kquant_torch.runtime.kv_cache import ISWACache, KVCache, shift_cache, slice_batch_row
 from tpu_kquant_torch.runtime.loader import resolve_device
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
@@ -76,16 +84,22 @@ class InferenceEngine:
         kv_layout: str = "unified",
         device: str | torch.device = "cuda",
         impl: str = "auto",
+        iswa_chunk: int = 512,
     ):
         """params must already live on ``device`` (load_model(device=...)).
         kv_quantized: int8 KV cache with per-token scales. impl: "auto" or
-        "int8" (module docstring)."""
-        if kv_layout != "unified":
-            raise NotImplementedError(f"kv_layout {kv_layout!r} is not ported yet")
+        "int8" (module docstring). kv_layout: "unified" or "iswa" (a
+        sliding-window arch only); iswa_chunk: the prefill chunk its rings
+        make room for."""
+        if kv_layout not in ("unified", "iswa"):
+            raise ValueError(f"kv_layout must be 'unified' or 'iswa', got {kv_layout!r}")
+        if kv_layout == "iswa" and cfg.sliding_window <= 0:
+            raise ValueError("kv_layout='iswa' needs a sliding-window arch")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.impl = impl
         self.kv_layout = kv_layout
+        self.iswa_chunk = iswa_chunk
         self.device = resolve_device(device)
         pdev = _param_device(params)
         if pdev.type != self.device.type:
@@ -96,11 +110,19 @@ class InferenceEngine:
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_quantized = kv_quantized
 
-    def new_cache(self, batch: int | None = None, max_seq: int | None = None) -> KVCache:
+    def new_cache(self, batch: int | None = None,
+                  max_seq: int | None = None) -> KVCache | ISWACache:
         """A zeroed cache of ``batch`` rows (max_batch) and ``max_seq`` slots
-        (the engine's; serving's burst asks for a prefill bucket's T)."""
-        return KVCache.create(self.cfg.n_layers, batch or self.max_batch,
-                              max_seq or self.max_seq, self.cfg.n_kv_heads, self.cfg.head_dim,
+        (the engine's; serving's burst asks for a prefill bucket's T); on
+        the iSWA layout the window layers' rings hold ``ring`` slots."""
+        cfg, batch, max_seq = self.cfg, batch or self.max_batch, max_seq or self.max_seq
+        if self.kv_layout == "iswa":
+            # window + a prefill chunk, as llama.cpp's n_swa + n_ubatch
+            ring = min(max_seq, -(-(cfg.sliding_window + self.iswa_chunk) // 16) * 16)
+            return ISWACache.create([cfg.layer_window(i) for i in range(cfg.n_layers)], batch,
+                                    max_seq, ring, cfg.n_kv_heads, cfg.head_dim,
+                                    device=self.device, quantized=self.kv_quantized)
+        return KVCache.create(cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim,
                               device=self.device, quantized=self.kv_quantized)
 
     def _tensor(self, a) -> torch.Tensor:
@@ -119,6 +141,8 @@ class InferenceEngine:
         lens = np.array([len(t) for t in token_rows], np.int64)
         if int(lens.max()) > self.max_seq:
             raise ValueError(f"prompt length {int(lens.max())} exceeds max_seq {self.max_seq}")
+        if self.kv_layout == "iswa":
+            return self._prefill_iswa(token_rows, cache, lens)
         T = min(_bucket(int(lens.max())), self.max_seq)
         toks = np.zeros((B, T), np.int64)
         for i, row in enumerate(token_rows):
@@ -130,17 +154,50 @@ class InferenceEngine:
         last = logits[torch.arange(B, device=self.device), self._tensor(lens - 1)]
         return last, cache, lens
 
+    def _prefill_iswa(self, token_rows: list[list[int]], cache: ISWACache, lens: np.ndarray):
+        """The iSWA layout's prefill, in chunks of C tokens, C the largest
+        bucket <= ring - window: a chunk's queries find their whole window
+        in the ring, and its pad tokens (kv_valid) leave it as it is. Each
+        chunk takes logits only at each row's last prompt token (its
+        ``logits_rows``; rows that end elsewhere are dropped), the
+        reference's last logits without its [B, T, vocab] of the rest. A
+        chunk ends at max_seq, as the unified prefill's bucket does (the
+        reference's last bucket may pass it, and a full layer's write then
+        lands clamped onto earlier slots). Returns (last_logits [B, V] f32,
+        cache, lengths)."""
+        B, W = len(token_rows), self.cfg.sliding_window
+        if cache.ring - W < PREFILL_BUCKETS[0]:
+            raise ValueError(f"iswa ring {cache.ring} too small for window {W}")
+        C = max(b for b in PREFILL_BUCKETS if b <= cache.ring - W)
+        maxlen = int(lens.max())
+        last = torch.zeros((B, self.cfg.vocab_size), dtype=torch.float32, device=self.device)
+        for c0 in range(0, maxlen, C):
+            T = min(_bucket(min(C, maxlen - c0)), C, self.max_seq - c0)
+            toks = np.zeros((B, T), np.int64)
+            for i, row in enumerate(token_rows):
+                seg = row[c0:c0 + T]
+                toks[i, : len(seg)] = seg
+            positions = np.broadcast_to(c0 + np.arange(T), (B, T))
+            valid = torch.from_numpy(positions < lens[:, None]).to(self.device)
+            end = np.clip(lens - 1 - c0, 0, T - 1)
+            logits, cache = self._step_valid(self._tensor(toks), self._tensor(positions), cache,
+                                             valid, logits_rows=self._tensor(end))
+            here = torch.from_numpy((lens - 1 >= c0) & (lens - 1 < c0 + T)).to(self.device)
+            last = torch.where(here[:, None], logits[:, 0], last)
+        return last, cache, lens
+
     @torch.no_grad()
-    def _step_valid(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache,
-                    kv_valid: torch.Tensor):
-        """Forward over [B, T] tokens whose positions are arange(T) per row,
-        with the pad mask ``kv_valid`` [B, T] (serving's admission burst).
-        Attention reads only the first T slots. Returns (logits [B, T, V]
-        f32, cache)."""
+    def _step_valid(self, tokens: torch.Tensor, positions: torch.Tensor, cache,
+                    kv_valid: torch.Tensor, logits_rows: torch.Tensor | None = None):
+        """Forward over [B, T] tokens with the pad mask ``kv_valid`` [B, T]:
+        serving's admission burst (positions arange(T) per row: attention
+        reads only the first T slots) and the iSWA prefill's chunks (any
+        positions; logits at ``logits_rows`` only). Returns (logits [B, T or
+        1, V] f32, cache)."""
         T = tokens.shape[1]
         kw = {"kv_attend_len": T} if self.kv_layout == "unified" and T > 1 else {}
         return llama_forward(self.params, self.cfg, tokens, positions, cache, impl=self.impl,
-                             kv_valid=kv_valid, **kw)
+                             kv_valid=kv_valid, logits_rows=logits_rows, **kw)
 
     @torch.no_grad()
     def _prefill_slot(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache,
@@ -148,8 +205,8 @@ class InferenceEngine:
         """Prefill one sequence [1, T] (positions arange(T)) into batch row
         ``slot``: the forward runs over a view of the row, so its appends
         land in ``cache`` and no other row is touched. Attention reads only
-        the first T slots, on the unified layout (the only one ported).
-        Returns (logits [T, V] f32, cache)."""
+        the first T slots. Unified layout only (prefill_slot). Returns
+        (logits [T, V] f32, cache)."""
         T = tokens.shape[1]
         kw = {"kv_attend_len": T} if self.kv_layout == "unified" and T > 1 else {}
         logits, _ = llama_forward(self.params, self.cfg, tokens, positions,

@@ -1,7 +1,8 @@
 """KV cache, heads-major [L, B, Hkv, S, D], bf16 or int8 with per-token
 scales: the port of ``tpu_kquant.runtime.kv_cache.KVCache``, its batch-row
-helpers ``slice_batch_row`` / ``set_batch_row`` and the context shift
-``shift_cache`` (rings belong to a later slice).
+helpers ``slice_batch_row`` / ``set_batch_row``, the context shift
+``shift_cache`` and the iSWA layout ``ISWACache`` (full-attention layers
+keep every slot, sliding-window layers a ring).
 
 int8 mode stores each (token, kv head) row as int8 codes with one f32 scale,
 amax / 127, chosen at append time (``_quant_i8``); attention folds the K
@@ -122,6 +123,93 @@ class KVCache:
             return (self.k[layer_idx], self.v[layer_idx],
                     (self.k_scale[layer_idx], self.v_scale[layer_idx]))
         return self.k[layer_idx], self.v[layer_idx], None
+
+
+@dataclasses.dataclass
+class ISWACache:
+    """The iSWA layout (the reference's ISWACache; llama.cpp's
+    llama_kv_cache_unified_iswa): two stacked caches, the full-attention
+    layers' of max_seq slots and the sliding-window layers' RING of ``ring``
+    slots (position p in slot p % ring), so a window layer's KV memory is
+    bounded by its window, not by the context. ``layer_map`` gives each
+    model layer's (kind, index): ("full", i) or ("swa", i). Written in
+    place, as KVCache."""
+
+    full: KVCache | None  # [L_full, B, Hkv, max_seq, D]
+    swa: KVCache | None  # [L_swa, B, Hkv, ring, D]
+    layer_map: tuple
+    ring: int
+
+    @staticmethod
+    def create(windows: list[int], batch: int, max_seq: int, ring: int, n_kv_heads: int,
+               head_dim: int, device: str | torch.device = "cuda",
+               quantized: bool = False) -> "ISWACache":
+        """windows: each layer's sliding window (0: full attention)."""
+        lmap = []
+        for w in windows:
+            kind = "swa" if w > 0 else "full"
+            lmap.append((kind, sum(k == kind for k, _ in lmap)))
+
+        def mk(kind: str, slots: int) -> KVCache | None:
+            n = sum(k == kind for k, _ in lmap)
+            return KVCache.create(n, batch, slots, n_kv_heads, head_dim, device,
+                                  quantized) if n else None
+
+        return ISWACache(mk("full", max_seq), mk("swa", ring), tuple(lmap), ring)
+
+    @property
+    def quantized(self) -> bool:
+        return (self.full or self.swa).quantized
+
+    @property
+    def max_seq(self) -> int:
+        return (self.full or self.swa).max_seq
+
+    def append(self, layer_idx: int, k_new: torch.Tensor, v_new: torch.Tensor,
+               positions: torch.Tensor, valid: torch.Tensor | None = None) -> "ISWACache":
+        """Write layer ``layer_idx``'s rows k_new / v_new [B, T, Hkv, D] at
+        ``positions`` [B, T]: a full layer's at the positions, a ring
+        layer's at positions % ring. A decode step (T = 1) writes through
+        KVCache.append; a prefill chunk (it may wrap the ring) scatters each
+        row's tokens and, where ``valid`` [B, T] is given, leaves the slots
+        of its pad tokens as they are: a pad's slot may hold that row's live
+        history, unlike on the unified layout. In place; returns self."""
+        kind, li = self.layer_map[layer_idx]
+        if kind == "full":
+            self.full.append(li, k_new, v_new, positions)
+            return self
+        slots = torch.remainder(positions, self.ring)
+        if k_new.shape[1] == 1:
+            self.swa.append(li, k_new, v_new, slots)
+            return self
+        c = self.swa
+        b = torch.arange(k_new.shape[0], device=slots.device)[:, None]
+
+        def scat(full: torch.Tensor, val: torch.Tensor) -> None:
+            # the advanced indices (b, slots), split by the head axis, lead:
+            # the gathered / written shape is [B, T, Hkv(, D)]
+            val = val.to(full.dtype)
+            if valid is not None:
+                keep = valid.reshape(valid.shape + (1,) * (val.dim() - 2))
+                val = torch.where(keep, val, full[li, b, :, slots])
+            full[li, b, :, slots] = val
+
+        if c.quantized:
+            kq, ks = _quant_i8(k_new)
+            vq, vs = _quant_i8(v_new)
+            for full, val in ((c.k, kq), (c.v, vq), (c.k_scale, ks), (c.v_scale, vs)):
+                scat(full, val)
+        else:
+            scat(c.k, k_new)
+            scat(c.v, v_new)
+        return self
+
+    def layer_view(self, layer_idx: int):
+        kind, li = self.layer_map[layer_idx]
+        return (self.full if kind == "full" else self.swa).layer_view(li)
+
+    def is_ring(self, layer_idx: int) -> bool:
+        return self.layer_map[layer_idx][0] == "swa"
 
 
 def shift_cache(cache: KVCache, n_keep: int, n_discard: int, rope) -> KVCache:

@@ -9,7 +9,12 @@ every rope downstream is a half rotation. Qwen2-style q/k/v biases load as
 f32 vectors ``bqk`` (``[bq | bk]``, permuted with q/k, beside ``wqk``) and
 ``bv``; a file without ``output.weight`` ties the lm head to ``token_embd``
 (qwen2's tied presets, the gemma family). gemma2's post-attention and
-post-FFN norms load as ``post_attn_norm`` / ``post_ffn_norm``.
+post-FFN norms load as ``post_attn_norm`` / ``post_ffn_norm``. phi3's
+pre-fused tensors load as they are, as the reference's fused load does:
+``attn_qkv`` (rows q, k, v, HF's ``qkv_proj`` order) as ``wqkv``, which
+ops.attn_in runs as two slots over its bytes (``qkv_slots``), and
+``ffn_up`` [2F, D] (gate rows, then up) as ``w_gateup``, the layout
+fuse_kmajor builds from two tensors.
 A MoE layer (``expert_count`` in the metadata: Mixtral) loads its router
 ``gate_inp`` and its experts stacked to [E, ...] (``experts``: ``w_gate``,
 ``w_up``, ``w_down``), each expert repacked as a 2-D weight.
@@ -35,7 +40,7 @@ from tpu_kquant_torch.quant.repack import (
     widen_q6,
 )
 
-LLAMA_FAMILY = {"llama", "mistral", "qwen2", "tinyllama", "mixtral", "gemma", "gemma2"}
+LLAMA_FAMILY = {"llama", "mistral", "qwen2", "tinyllama", "mixtral", "gemma", "gemma2", "phi3"}
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -165,8 +170,6 @@ def load_model(
     cfg = ModelConfig.from_gguf(r.metadata)
     if cfg.arch not in LLAMA_FAMILY:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
-    if "blk.0.attn_qkv.weight" in r.tensors:
-        raise NotImplementedError("fused-QKV exports are not ported yet")
     if "blk.0.attn_q.bias" in r.tensors:  # qwen2-style attention biases
         cfg = dataclasses.replace(cfg, attn_bias=True)
 
@@ -202,17 +205,25 @@ def load_model(
         if cfg.post_norms:  # gemma2's norms after attention and after the FFN
             layer["post_attn_norm"] = rp(p + "post_attention_norm.weight", "dense")
             layer["post_ffn_norm"] = rp(p + "post_ffw_norm.weight", "dense")
-        wq = host(p + "attn_q.weight")
-        wk = host(p + "attn_k.weight")
-        if canon_rope:
-            wq = permute_out_features(wq, q_perm)
-            wk = permute_out_features(wk, k_perm)
-        fused_qk = fuse_kmajor([wq, wk])
-        if fused_qk is not None:
-            layer["wqk"] = fused_qk.to(dev)
+        if p + "attn_qkv.weight" in r.tensors:  # phi3: q, k and v in one tensor
+            wqkv = host(p + "attn_qkv.weight")
+            if canon_rope:
+                nq, nkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+                wqkv = permute_out_features(wqkv, np.concatenate(
+                    [q_perm, nq + k_perm, nq + nkv + np.arange(nkv)]))
+            layer["wqkv"] = wqkv.to(dev)
         else:
-            layer["wq"], layer["wk"] = wq.to(dev), wk.to(dev)
-        layer["wv"] = rp(p + "attn_v.weight")
+            wq = host(p + "attn_q.weight")
+            wk = host(p + "attn_k.weight")
+            if canon_rope:
+                wq = permute_out_features(wq, q_perm)
+                wk = permute_out_features(wk, k_perm)
+            fused_qk = fuse_kmajor([wq, wk])
+            if fused_qk is not None:
+                layer["wqk"] = fused_qk.to(dev)
+            else:
+                layer["wq"], layer["wk"] = wq.to(dev), wk.to(dev)
+            layer["wv"] = rp(p + "attn_v.weight")
         if cfg.attn_bias:
             bq, bk = r.tensor_float(p + "attn_q.bias"), r.tensor_float(p + "attn_k.bias")
             if canon_rope:
@@ -227,6 +238,10 @@ def load_model(
                 for wname, tname in (("w_gate", "ffn_gate_exps.weight"),
                                      ("w_up", "ffn_up_exps.weight"),
                                      ("w_down", "ffn_down_exps.weight"))}
+            return layer
+        if p + "ffn_gate.weight" not in r.tensors:  # phi3: ffn_up is [gate | up]
+            layer["w_gateup"] = rp(p + "ffn_up.weight")
+            layer["w_down"] = rp(p + "ffn_down.weight")
             return layer
         fused_gu = fuse_kmajor([host(p + "ffn_gate.weight"), host(p + "ffn_up.weight")])
         if fused_gu is not None:
@@ -256,7 +271,7 @@ def params_from_numpy(params_np: Any, device: str | torch.device = "cuda") -> An
     keys; dicts and lists are walked (a MoE layer's ``experts`` dict of
     stacked QTensors and its ``gate_inp`` cross as they are); bare arrays
     become tensors. A layer's ``bq`` and ``bk`` become the port's fused
-    ``bqk``."""
+    ``bqk``; phi3's ``wqkv`` crosses as the one tensor it is."""
     dev = resolve_device(device)
 
     def conv(v: Any) -> Any:

@@ -33,8 +33,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--impl", default="auto", choices=list(IMPLS))
     ap.add_argument("--kv-int8", action="store_true", help="INT8 KV cache")
     ap.add_argument("--kv-layout", default="unified", choices=["unified", "iswa"],
-                    help="iswa: ring-buffer KV for sliding-window layers (not ported: "
-                         "the engine raises)")
+                    help="iswa: ring-buffer KV for sliding-window layers (llama.cpp "
+                         "unified_iswa equivalent; needs a sliding-window arch)")
     ap.add_argument("--max-seq", type=int, default=None)
     ap.add_argument("--scale-dtype", default="bf16", choices=["bf16", "f32", "f16"],
                     help="per-group scale layout (f16 is not ported: the loader raises)")
