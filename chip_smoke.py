@@ -26,7 +26,9 @@ Phases, each fatal on failure:
     and q4 in both slots (R = 1, 16), oproj_ffn and ffn with q8 in every
     slot (R = 1, 8); and qmm's wgmma tile at the 1024-slot serving tick (R
     = 1024) and pp2048 (R = 2048) on TinyLlama's wqk, wv, wo, gate/up and
-    down and Mixtral's expert gate/up and down (TILE_CASES); the gate/up
+    down and Mixtral's expert gate/up and down (TILE_CASES); qmm at
+    Mamba-2.8B's ssm_in, ssm_x, ssm_dt (q8 on f32 scales at K = 160), ssm_out
+    and tied lm head (N = 50280), R = 1, 16 and 512 (MAMBA_QMM); the gate/up
     phase of the fused FFN kernels alone at every kind their gates take
     (TinyLlama's w_gateup, R = 1 and 8, listed with ffn's cases and timed
     beside each oproj_ffn and ffn case); the attention phase of attn_out
@@ -162,7 +164,7 @@ Phases, each fatal on failure:
     tools/prefill_lab.py once in-process.
 13. the gemma family: Gemma-2B (google/gemma-2b: 18 layers, dim 2048, 8 / 1
     heads of 256, ffn 16384, vocab 256000, GELU, tied lm head) at full
-    width and depth: the decode dispatch pinned (attn_in at head_dim 256
+    width, GEMMA_DEPTH = 9 of its 18 layers: the decode dispatch pinned (attn_in at head_dim 256
     and oproj_ffn with GELU in every layer, the lm head a qmm), a 2-layer
     cut against the CPU, greedy requests of 5, 40, 200 and 3000 tokens (the
     last is bucket 4096: the flash prefill at head_dim 256 in every layer)
@@ -198,10 +200,12 @@ Phases, each fatal on failure:
 15. the sliding-window family (sliding_window), run after phase 13:
     Phi-3-mini-4k (microsoft/Phi-3-mini-4k-instruct: 32 layers, dim 3072,
     32 / 32 heads of 96, ffn 8192, vocab 32064, window 2047 on every layer,
-    q/k/v in one wqkv) at full width and depth: the decode dispatch pinned
+    q/k/v in one wqkv) at full width, PHI3_DEPTH = 16 of its 32 layers: the
+    decode dispatch pinned
     (attn_in on wqkv's two slots and oproj_ffn in every layer, the lm head a
     qmm, on either layout); 2-layer cuts against the CPU on the unified
-    layout (prompts of 8 and 40 tokens) and on the iSWA ring (8), and
+    layout (prompts of 8 and 40 tokens) and on the iSWA ring (8; and
+    PHI3_RING_LONG = 2600 on int8 KV, past the window, wrapping the ring), and
     under TKQ_ROTATE_LAYER=1 (rot with the next layer's wqkv, which must
     launch); on each layout greedy requests of 5, 40, 200
     and 3000 tokens (past the window and the ring) counted from 0, pp512
@@ -209,8 +213,30 @@ Phases, each fatal on failure:
     3000-token prompt's last logits on the ring against the unified
     layout's (5e-2 of max|ref|); tools/main.py --kv-layout iswa -n 32, its
     ids equal generate's; then phase 13's Gemma-2-9B cut (a window layer
-    and a full one) on the iSWA layout against the CPU, bf16 and int8 KV,
-    on a 5000-token prompt (past its window of 4096; ring 4608).
+    and a full one) on the iSWA layout against the CPU, bf16 KV
+    (GEMMA2_RING_KV; int8 too before phase 16, now Phi-3's), on a
+    5000-token prompt (past its window of 4096; ring 4608).
+16. the recurrent family (recurrent), run after phase 14: Mamba-2.8B
+    (state-spaces/mamba-2.8b-hf: 64 layers, d_model 2560, d_inner 5120,
+    d_state 16, d_conv 4, dt_rank 160, vocab 50280, tied lm head) at full
+    width and depth, written with weights of std MAMBA_SCALE: the dispatch
+    pinned (every matmul on qmm's kernel, 4 x 64 + 1 = 257 launches a
+    decode step and a prefill, no plain version; the prefill's five shapes
+    on the tile, ssm_x and ssm_dt included); mamba_layer_scan's rows at B =
+    16 (T = 1 and 64) equal to each row alone, bit for bit; its peak device
+    memory on a 16-row burst of 2048 tokens under one [16, 2048, d_inner,
+    d_state] f32 tensor (MAMBA_BURST; the scan goes in chunks); a 2-layer cut
+    against the CPU (a right-padded prefill of 5 and 200 tokens and 16
+    decode steps: logits, the first greedy token in the CPU's top 5, the
+    final conv and ssm states); the last logits' dependence on earlier
+    tokens; greedy requests of 5-512 tokens counted from 0, pp512 and
+    tg128 (one timed run each); a session saved after a prompt and
+    continued equal to the uninterrupted run; the generate CLI, its ids
+    equal generate's; serving 64 requests on 16 slots, 10 at once and then
+    one a tick (MAMBA_WAVES), so bursts and single admissions both refill
+    slots that finished requests held, each of the 4 greedy streams
+    (MAMBA_GREEDY: a single and a burst admission, each into a fresh and a
+    reused slot) equal to its solo run.
 Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 every recipe,
 Q8_0 and Q5_K_M among them, untimed at GGML_DEPTH = 2 layers (2 and 4
 layers, Q5_K_M timed at 22 before phase 13, Q8_0 before phase 15),
@@ -221,7 +247,7 @@ QWEN_TIMED_REPS, GEMMA_TIMED_REPS; medians of 3 before phase 15): the
 smoke's 1200 s limit. The CPU side of every cut
 dequantizes each weight once (cpu_dequant_memo).
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4 to 10 and 13 to 15, each counted from 0 and checked against the dispatch
+of phases 4 to 10 and 13 to 16, each counted from 0 and checked against the dispatch
 gates exactly (the labs' kernels: their wrapper calls in phase 11's
 run_ladder and phase 12's run_sweep, CUDA-graph captures included, replays
 not); the gates in turn
@@ -239,6 +265,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -336,11 +363,17 @@ def _rand_weights(rng, kind: str, N: int, K: int, dev):
     return random_packed(rng, kind[:-1] if f32 else kind, N, K, f32=f32).to(dev)
 
 
-def _rotation(w0, make, one_bytes: int) -> list:
-    """w0 and enough fresh copies to exceed L2 twice, so every timed launch
-    reads its weights from device memory, as the model's layer loop does."""
+def _rotation(w0, one_bytes: int) -> list:
+    """w0 (a packed weight, or a tuple or list of them) and enough device
+    copies of it to exceed L2 twice, so every timed launch reads its weights
+    from device memory, as the model's layer loop does. Copies, not fresh
+    draws: L2 holds addresses, and packing fresh weights on the host is
+    slow."""
+    def copy(w):
+        return type(w)(copy(x) for x in w) if isinstance(w, (tuple, list)) else w.clone()
+
     n = min(32, max(1, math.ceil(2 * L2_BYTES / one_bytes)))
-    return [w0] + [make() for _ in range(n - 1)]
+    return [w0] + [copy(w0) for _ in range(n - 1)]
 
 
 def _err(got, ref) -> tuple[float, float]:
@@ -359,6 +392,15 @@ def row_rel_err(got, ref) -> float:
 
 
 MX_DIM, MX_FFN, MX_VOCAB = 4096, 14336, 32000  # Mixtral-8x7B's dim, expert ffn, vocab
+# Mamba-2.8B's packed matmuls at Q4_K_M (label, kind, N, K, out dtype): ssm_dt's
+# K = dt_rank 160 takes Q8_0, whose 5 scale groups stay f32 under bf16 pairs
+# (odd), the GEMV at 5 chunks and the tile's half step at K % 64 = 32
+MB_DIM, MB_INNER, MB_DT_RANK, MB_VOCAB = 2560, 5120, 160, 50280
+MAMBA_QMM = (("ssm_in q4-sm", "q4", 2 * MB_INNER, MB_DIM, "bf"),
+             ("ssm_x q4-sm", "q4", MB_DT_RANK + 32, MB_INNER, "bf"),
+             ("ssm_dt q8-f32", "q8f", MB_INNER, MB_DT_RANK, "bf"),
+             ("ssm_out q4-sm", "q4", MB_DIM, MB_INNER, "bf"),
+             ("tied lm head q4-sm", "q4", MB_VOCAB, MB_DIM, "f32"))
 
 
 # phase 9's kinds at TinyLlama's shapes (gate/up [11264, 2048], wqk [2304,
@@ -426,7 +468,9 @@ QMM_CASES = (
     ("mixtral: lm head q6w-f32 R=1", "q6wf", MX_VOCAB, MX_DIM, 1, "bf", "f32"),
     ("mixtral: wqk q4-sm R=512", "q4", 5120, MX_DIM, 512, "bf", "bf"),
     ("mixtral: wv q6w-f32 R=512", "q6wf", 1024, MX_DIM, 512, "bf", "bf"),
-    *((label, kind, N, K, R, "bf", o) for label, kind, N, K, R, o in GGML_QMM_CASES))
+    *((label, kind, N, K, R, "bf", o) for label, kind, N, K, R, o in GGML_QMM_CASES),
+    *((f"mamba-2.8b: {label} R={R}", kind, N, K, R, "bf", o)
+      for label, kind, N, K, o in MAMBA_QMM for R in (1, 16, 512)))
 
 # the tile at the 1024-slot serving tick (R = 1024) and pp2048 (R = 2048):
 # TinyLlama's wqk, wv, wo, gate/up and down, Mixtral's expert gate/up and
@@ -469,7 +513,7 @@ def check_qmm(dev, rng, cases) -> list:
     for label, kind, N, K, R, xdt, odt in cases:
         xdt, odt = (f32 if xdt == "f32" else bf), (f32 if odt == "f32" else bf)
         w0 = _rand_weights(rng, kind, N, K, dev)
-        ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
+        ws = _rotation(w0, w0.n_bytes)
         x = _act(R, K, dev=dev) if xdt == bf else torch.randn(R, K, device=dev)  # f32: not bf16
         got = qmm(x, w0, odt)
         torch.cuda.synchronize()
@@ -559,7 +603,7 @@ def check_fused_ffn(dev, rng) -> dict:
                          _rand_weights(rng, kv, Hk * hd_, D_, dev))
         w0 = mk_in()
         nbw = sum(w.n_bytes for w in w0)
-        ws = _rotation(w0, mk_in, nbw)
+        ws = _rotation(w0, nbw)
         x = act(R, D_, 0.5)
         nw = torch.rand(D_, device=dev) + 0.5
         cos, sin = torch.rand(R, hd_ // 2, device=dev), torch.rand(R, hd_ // 2, device=dev)
@@ -600,7 +644,7 @@ def check_fused_ffn(dev, rng) -> dict:
                           _rand_weights(rng, kd, dim, F, dev))
         w0 = mk_ffn()
         nbw = sum(w.n_bytes for w in w0)
-        ws = _rotation(w0, mk_ffn, nbw)
+        ws = _rotation(w0, nbw)
         x, at = act(R, dim, 0.5), act(R, H * hd, 0.5)
         nw = torch.rand(dim, device=dev) + 0.5
 
@@ -640,7 +684,7 @@ def check_fused_ffn(dev, rng) -> dict:
                       _rand_weights(rng, kd, D_, F_, dev))
         w0 = mk()
         nbw = sum(w.n_bytes for w in w0)
-        ws = _rotation(w0, mk, nbw)
+        ws = _rotation(w0, nbw)
         wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in pair] for pair in ws]
         nw = torch.rand(D_, device=dev) + 0.5
         for R in (1, 8):
@@ -672,7 +716,7 @@ def check_fused_ffn(dev, rng) -> dict:
     if gate_up is not None:
         for kg in ("q4", "q4f", "q6w", "q6wf", "q8", "q8f"):
             w0 = _rand_weights(rng, kg, 2 * F, dim, dev)
-            ws = _rotation([w0], lambda: [_rand_weights(rng, kg, 2 * F, dim, dev)], w0.n_bytes)
+            ws = _rotation([w0], w0.n_bytes)
             wd = [dequant_kmajor(w[0], torch.bfloat16).contiguous() for w in ws]
             nw = torch.rand(dim, device=dev) + 0.5
             for R in (1, 8):
@@ -739,7 +783,7 @@ def check_gemma(dev, rng) -> dict:
                       _rand_weights(rng, "q6w", Hk * hd, D_, dev))
         w0 = mk()
         nbw = sum(w.n_bytes for w in w0)
-        ws = _rotation(w0, mk, nbw)
+        ws = _rotation(w0, nbw)
         x = _act(R, D_, 0.5, dev)
         nw = torch.rand(D_, device=dev) + 0.5
         cos, sin = rope_cos_sin(torch.randint(0, 8192, (R, 1), device=dev),
@@ -770,7 +814,7 @@ def check_gemma(dev, rng) -> dict:
                   _rand_weights(rng, "q6w", dim, F, dev))
     w0 = mk()
     nbw = sum(w.n_bytes for w in w0)
-    ws = _rotation(w0, mk, nbw)
+    ws = _rotation(w0, nbw)
     wd = [deq(t) for t in ws]
     nw = torch.rand(dim, device=dev) + 0.5
     for R in (1, 8):
@@ -856,7 +900,7 @@ def check_gemma(dev, rng) -> dict:
     mk_l = lambda: [_rand_weights(rng, k_, N, K, dev) for k_, N, K in kinds]  # noqa: E731
     w0 = mk_l()
     nbw = sum(w.n_bytes for w in w0)
-    ws = _rotation(w0, mk_l, nbw)
+    ws = _rotation(w0, nbw)
     wd = [deq(t) for t in ws]
     anw, fnw = (torch.rand(dim, device=dev) + 0.5 for _ in range(2))
     for positions in ((700,), (0, 255, 256, 700)):
@@ -926,7 +970,7 @@ def check_phi3(dev, rng) -> dict:
     # attn_in on the slots of one wqkv: qk (64 heads of 96, roped), v (32)
     mk = lambda: _rand_weights(rng, "q4", n_qkv, dim, dev)  # noqa: E731
     w0 = mk()
-    ws = _rotation(w0, mk, w0.n_bytes)
+    ws = _rotation(w0, w0.n_bytes)
     slots = [qkv_slots(w, n_rope) for w in ws]
     wd = [dequant_kmajor(w, torch.bfloat16).contiguous() for w in ws]
     nw = torch.rand(dim, device=dev) + 0.5
@@ -954,7 +998,7 @@ def check_phi3(dev, rng) -> dict:
                   _rand_weights(rng, "q6w", dim, F, dev))
     f0 = mk()
     nbf = sum(w.n_bytes for w in f0)
-    fs = _rotation(f0, mk, nbf)
+    fs = _rotation(f0, nbf)
     fd = [deq(t) for t in fs]
     nw2 = torch.rand(dim, device=dev) + 0.5
     for R in (1, 8):
@@ -1015,7 +1059,8 @@ def check_batch_invariance(dev, rng) -> int:
     """Row r of a call with R in INVARIANCE_ROWS rows must equal, bit for
     bit (torch.equal), that row computed alone (R = 1): qmm at every kind
     code at TinyLlama's wqk [2304, 2048] and Mixtral's wo [4096, 4096] (f32
-    out), qmm_int8 (q4-f32 at Mixtral's expert gate/up, q6-f32 at
+    out) and at Mamba-2.8B's five shapes (MAMBA_QMM), rms_norm at widths
+    1536-4096 on rows whose squares span many binades, qmm_int8 (q4-f32 at Mixtral's expert gate/up, q6-f32 at
     TinyLlama's down), attn_in and oproj_ffn at TinyLlama's widths and ffn
     at Qwen2.5-1.5B's (bf16 out, their main path's). qmm's tile: rows [64 i,
     64 i + 64) of a 16 x 64 burst (the batcher's burst prefill) must equal
@@ -1039,6 +1084,7 @@ def check_batch_invariance(dev, rng) -> int:
     from tpu_kquant_torch.ops.attn_in import fused_attn_in
     from tpu_kquant_torch.ops.decode_attention import attention_decode_flash
     from tpu_kquant_torch.ops.ffn import fused_ffn, fused_oproj_ffn
+    from tpu_kquant_torch.ops.norms import rms_norm
     from tpu_kquant_torch.ops.qmm import KINDS, qmm
     from tpu_kquant_torch.ops.qmm_int8 import qmm_int8
 
@@ -1066,6 +1112,18 @@ def check_batch_invariance(dev, rng) -> int:
             w = _rand_weights(rng, k, N, K, dev)
             same_rows(f"qmm {kind}-{side} [{N}, {K}]", lambda x: qmm(x, w, f32),
                       _act(top, K, dev=dev))
+    for label, k, N, K, _o in MAMBA_QMM:
+        w = _rand_weights(rng, k, N, K, dev)
+        same_rows(f"qmm mamba-2.8b {label} [{N}, {K}]", lambda x: qmm(x, w, f32),
+                  _act(top, K, dev=dev))
+    # rms_norm on rows whose squares span many binades (their sums are
+    # inexact, so a reduction order that follows the row count shows)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for D in (1536, 2048, 2560, 3072, 3584, 4096):
+        xw = (torch.randn(top, D, generator=gen, device=dev)
+              * torch.exp(2 * torch.randn(top, D, generator=gen, device=dev))).to(torch.bfloat16)
+        nw_ = torch.rand(D, generator=gen, device=dev) + 0.5
+        same_rows(f"rms_norm D={D}, x over many binades", lambda x: rms_norm(x, nw_, 1e-5), xw)
     for k, N, K in (("q4f", MX_FFN, MX_DIM), ("q6f", 2048, 5632)):
         w = _rand_weights(rng, k, N, K, dev)
         same_rows(f"qmm_int8 {k} [{N}, {K}]", lambda x: qmm_int8(x, w, f32), _act(top, K, dev=dev))
@@ -1418,7 +1476,7 @@ def check_qmm_int8(dev, rng) -> list:
                                       ("lm head", 32000, 2048, torch.float32))
               for R in (1, 8, 16, 32))):
         w0 = _rand_weights(rng, kind, N, K, dev)
-        ws = _rotation(w0, lambda: _rand_weights(rng, kind, N, K, dev), w0.n_bytes)
+        ws = _rotation(w0, w0.n_bytes)
         xr = torch.randn(R, K, device=dev).to(torch.bfloat16)
         # held in f32: one bf16 rounding of an output moves it by up to 2^-8
         got = qmm_int8(xr, w0, torch.float32)
@@ -1812,7 +1870,7 @@ def check_fused_decode(dev, rng) -> dict:
     for label, B, pos, int8, wk in ATTN_OUT_CASES:
         mk = lambda: _rand_weights(rng, wk, dim, H * hd, dev)  # noqa: E731
         w0 = mk()
-        ws = _rotation(w0, mk, w0.n_bytes)
+        ws = _rotation(w0, w0.n_bytes)
         x = randn(B, 1, dim)
         q = randn(B, 1, n0)[..., : H * hd].reshape(B, 1, H, hd)
         shape = (2, B, Hkv, FUSED_S, hd)
@@ -1862,7 +1920,7 @@ def check_fused_decode(dev, rng) -> dict:
     mk_l = lambda: [_rand_weights(rng, k_, N, K, dev) for k_, N, K in kinds]  # noqa: E731
     w0 = mk_l()
     nbw = sum(w.n_bytes for w in w0)
-    ws = _rotation(w0, mk_l, nbw)
+    ws = _rotation(w0, nbw)
     wd = [deq(t) for t in ws]
     anw, fnw = (torch.rand(dim, device=dev, generator=g) + 0.5 for _ in range(2))
     for positions, S in LAYER_CASES:
@@ -1919,7 +1977,7 @@ def check_fused_decode(dev, rng) -> dict:
         mk_r = lambda: [_rand_weights(rng, k_, N, K, dev) for k_, N, K in kinds]  # noqa: E731
         w0 = mk_r()
         nbw = sum(w.n_bytes for w in w0)
-        ws = _rotation(w0, mk_r, nbw)
+        ws = _rotation(w0, nbw)
         wd = [deq(t) for t in ws]
         nw, nw2 = (torch.rand(dim, device=dev, generator=g) + 0.5 for _ in range(2))
         for R in (1, 8):
@@ -1987,7 +2045,8 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     `seq` slots). phi3's wqkv: attn_in and rot on its two slots
     (qkv_weights), else one qmm. `iswa` (the forward of an ISWACache): no
     deferred append, no flash kernel in a ring layer, and a prefill chunk's
-    lm head on one row a sequence (logits_rows)."""
+    lm head on one row a sequence (logits_rows). A recurrent model (mamba)
+    runs qmm for its packed matmuls and nothing else, at any rows."""
     from tpu_kquant_torch.models.llama import qkv_weights
     from tpu_kquant_torch.models.moe import _expert_view
     from tpu_kquant_torch.ops import attention
@@ -2001,6 +2060,12 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     from tpu_kquant_torch.ops.rot import rot_enabled
 
     L, lay, D, H = cfg.n_layers, params["layers"][0], cfg.head_dim, cfg.n_heads
+    if cfg.is_recurrent:  # mamba: its packed matmuls a layer and the lm head, any rows
+        n = dict.fromkeys(("prefill", "decode_attn", "attn_in", "oproj_ffn", "ffn", "qmm_int8",
+                           "kv_append", "attn_out", "layer", "rot"), 0)
+        mats = [lay[k] for k in ("ssm_in", "ssm_x", "ssm_dt", "ssm_out") if lay[k].kind != "dense"]
+        n["qmm"] = L * len(mats) + 1
+        return n
     budget = attention.ATTN_PLAIN_MAX_MB
     softcap = cfg.attn_logit_softcap > 0.0  # keeps both flash kernels off
     att = rows if attend is None else attend
@@ -2318,10 +2383,11 @@ FIXTURE_DIR = ROOT / ".cache" / "tkq_torch_fixture_vocab"  # files with the fixt
 
 
 def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16", recipe: str = "q4_k_m",
-                 widen_q6: bool = True, seed: int = 0):
-    """Write the `seed` fixture of `cfg0` (its vocab included) under the
-    quantize tool's `recipe` under .cache/ (once) and load it onto the card
-    with `scale_dtype` and `widen_q6`; logs both times."""
+                 widen_q6: bool = True, seed: int = 0, scale: float = 0.05):
+    """Write the `seed` fixture of `cfg0` (its vocab included; weights of
+    std `scale`) under the quantize tool's `recipe` under .cache/ (once) and
+    load it onto the card with `scale_dtype` and `widen_q6`; logs both
+    times."""
     import torch
 
     from tpu_kquant_torch.models.fixtures import write_fixture_gguf
@@ -2332,7 +2398,7 @@ def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16", recipe: str = 
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        write_fixture_gguf(tmp, cfg0, seed=seed, recipe=recipe)
+        write_fixture_gguf(tmp, cfg0, seed=seed, recipe=recipe, scale=scale)
         os.replace(tmp, path)
     t1 = time.perf_counter()
     cfg, params, _ = load_model(str(path), scale_dtype=scale_dtype, device=dev, widen_q6=widen_q6)
@@ -2439,6 +2505,12 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
     return res
 
 
+# qmm's kernels as the profiler names them: the GEMV, the tile and the
+# split-K reduce of tpu_kquant_torch/csrc (namespace tkq), not PyTorch's own
+# at::native::reduce_kernel
+QMM_KERNEL = re.compile(r"\btkq::(gemv|tile|reduce)_kernel\b")
+
+
 def profile_steps(eng, cfg, dev, out: Path, n_prompt: int = 512, tag: str = "") -> None:
     """--profile DIR: torch.profiler over one prefill of `n_prompt` tokens
     and 8 decode steps; kernel tables go to DIR/profile_*.txt, busy shares
@@ -2474,6 +2546,10 @@ def profile_steps(eng, cfg, dev, out: Path, n_prompt: int = 512, tag: str = "") 
         log(f"  profile {what}: wall {wall * 1e3:.2f} ms (profiler on), device kernels "
             f"{dev_ms:.2f} ms ({100 * dev_ms / (wall * 1e3):.1f}% busy); top: "
             + "; ".join(f"{k[:36]} {v:.2f} ms" for k, v in top))
+        if cfg.is_recurrent:  # qmm's kernels (GEMV, tile, split reduce) against the rest
+            q_ms = sum(v for k, v in by_name.items() if QMM_KERNEL.search(k))
+            log(f"  profile {what}: qmm {q_ms:.2f} ms ({100 * q_ms / dev_ms:.1f}% of device "
+                f"time), the plain ops (scan, conv, norms, copies) {dev_ms - q_ms:.2f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -3259,11 +3335,12 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
 
 GEMMA_MAX_SEQ = 4096 + 128 + 64  # the 3000-token request's bucket + tg128 + 64
 GEMMA2_DEPTH = 2  # Gemma-2-9B's layers on the card (of 42)
+GEMMA_DEPTH = 9  # Gemma-2B's layers on the card (of 18; all before phase 16: the 1200 s)
 GEMMA_TIMED_REPS = 1  # Gemma-2B's pp512 / tg128: one run after a warm one (3 before phase 15)
 
 
 def gemma(dev, profile: Path | None = None) -> dict:
-    """Phase 13 (module docstring): Gemma-2B at full width and depth, then
+    """Phase 13 (module docstring): Gemma-2B at full width and GEMMA_DEPTH, then
     Gemma-2-9B cut to GEMMA2_DEPTH layers. Returns Gemma-2B's results (its
     requests' launches under main_path_launches) and the cut, loaded
     (``gemma2_9b``: cfg, params)."""
@@ -3273,8 +3350,11 @@ def gemma(dev, profile: Path | None = None) -> dict:
 
     from tpu_kquant_torch.models.fixtures import gemma2_9b_config, gemma_2b_config
 
-    cfg, params, times = load_fixture(gemma_2b_config(), "gemma-2b-q4_k_m-seed0.gguf", dev)
+    full = gemma_2b_config()
+    cfg, params, times = load_fixture(dataclasses.replace(full, n_layers=GEMMA_DEPTH),
+                                      f"gemma-2b-{GEMMA_DEPTH}l-q4_k_m-seed0.gguf", dev)
     L = cfg.n_layers
+    log(f"  reduced: Gemma-2B at depth {L} of {full.n_layers} layers (the smoke's 1200 s)")
     # decode: attn_in at head_dim 256 and oproj_ffn with GELU in every
     # layer, the tied lm head a qmm; the 3000-token request's bucket 4096
     # runs the flash prefill at head_dim 256 in every layer
@@ -3320,15 +3400,21 @@ def gemma(dev, profile: Path | None = None) -> dict:
 
 PHI3_MAX_SEQ = 4096  # Phi-3-mini-4k's context: the 3000-token request's bucket
 PHI3_TIMED_REPS = 1  # pp512 and tg128 on each layout: one timed run after a warm one
+PHI3_DEPTH = 16  # Phi-3-mini-4k's layers on the card (of 32; all before phase 16: the 1200 s)
 GEMMA2_LONG = 5000  # past Gemma-2-9B's window of 4096: its ring of 4608 wraps
+GEMMA2_RING_KV = (False,)  # the ring cut's KV kinds: bf16 (int8 wraps Phi-3's ring below;
+#                            Gemma-2-9B's int8 CPU side took 40-44 s of the 1200 s)
+PHI3_RING_LONG = 2600  # past Phi-3-mini's window of 2047: its ring of 2560 wraps
 
 
 def sliding_window(dev, g9, profile: Path | None = None) -> dict:
-    """Phase 15 (module docstring): Phi-3-mini-4k at full width and depth on
+    """Phase 15 (module docstring): Phi-3-mini-4k at full width and PHI3_DEPTH on
     the unified and the iSWA layout, then phase 13's Gemma-2-9B cut `g9`
     (cfg, params) on the iSWA layout against the CPU. Returns the main
     path's launches (end_to_end's requests on both layouts and the CLI run)
     and the numbers it printed."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3345,9 +3431,11 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
     def lap(what: str) -> None:
         steps[what] = time.perf_counter() - t_phase - sum(steps.values())
 
-    name = "phi3-mini-4k-q4_k_m-seed0.gguf"
-    cfg, params, times = load_fixture(phi3_mini_4k_config(), name, dev)
+    full = phi3_mini_4k_config()
+    name = f"phi3-mini-4k-{PHI3_DEPTH}l-q4_k_m-seed0.gguf"
+    cfg, params, times = load_fixture(dataclasses.replace(full, n_layers=PHI3_DEPTH), name, dev)
     L = cfg.n_layers
+    log(f"  reduced: Phi-3-mini-4k at depth {L} of {full.n_layers} layers (the smoke's 1200 s)")
     res: dict = {"gpu": gpu, **times}
     # decode: attn_in on wqkv's two slots and oproj_ffn in every layer, the
     # lm head a qmm, on either layout; no flash prefill at head_dim 96 (the
@@ -3360,13 +3448,17 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
                          f"{ring_step}, expected {step}")
     lap("write, load, pins")
 
-    # (b) 2-layer cuts against the CPU on both layouts (the ring's wrap
-    # against the CPU is (d)'s, against the unified layout (c)'s); (e) the
+    # (b) 2-layer cuts against the CPU on both layouts (8 tokens; on the
+    # ring also PHI3_RING_LONG tokens on int8 KV, which wrap it; the bf16
+    # ring's wrap against the CPU is (d)'s, against the unified layout
+    # (c)'s); (e) the
     # unified cut under TKQ_ROTATE_LAYER=1 must launch rot with the next
     # layer's wqkv slots
     reference_check(cfg, params, dev)
     reference_check(cfg, params, dev, lengths=(8,), max_seq=PHI3_MAX_SEQ, steps=2,
                     kv_layout="iswa")
+    reference_check(cfg, params, dev, lengths=(PHI3_RING_LONG,), max_seq=PHI3_MAX_SEQ, steps=2,
+                    kv_quantized=True, kv_layout="iswa")
     with switches({"TKQ_ROTATE_LAYER": "1"}):
         reset_counts()
         reference_check(cfg, params, dev, lengths=(8,), steps=2)
@@ -3436,15 +3528,427 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
     lap("the CLI")
 
     # (d) Gemma-2-9B's cut (a window layer and a full one) on the iSWA
-    # layout against the CPU, bf16 and int8 KV, a prompt past the window
+    # layout against the CPU, bf16 KV (GEMMA2_RING_KV), a prompt past the window
     cfg9, params9 = g9
     reference_check(cfg9, params9, dev, lengths=(GEMMA2_LONG,), max_seq=GEMMA2_LONG + 64,
-                    kv_quantized=(False, True), steps=2, depth=cfg9.n_layers, kv_layout="iswa")
+                    kv_quantized=GEMMA2_RING_KV, steps=2, depth=cfg9.n_layers, kv_layout="iswa")
     lap("gemma-2-9b cut on the ring")
     res["launches"] = launches
     res["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 15 took {res['seconds']:.1f} s: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in steps.items()))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the recurrent family (Mamba-2.8B, full width and depth)
+# ---------------------------------------------------------------------------
+
+# the writer's weight std for Mamba-2.8B: at the default 0.05 the SSM's
+# output is so small beside the residual stream that the last logits hardly
+# depend on the earlier tokens (a 4-layer cut: 0.6% of max|logits| on the
+# CPU), and the state checks below would see little; at 0.1 they move by
+# more than max|logits| (PERF.md §4)
+MAMBA_SCALE = 0.1
+MAMBA_MAX_SEQ = 2048  # Mamba-2.8B's context
+MAMBA_SERVE = (16, 128, 64)  # slots, cache length, requests
+# (requests submitted, ticks stepped after): 10 at once (a burst into fresh
+# slots), then one a tick (six single admissions into fresh slots, then a
+# queue); every request makes 48 tokens, so the first ten retire together
+# (a burst into their slots) and the next six one a tick (single admissions
+# into slots that finished requests held), and so on
+MAMBA_WAVES = ((10, 1),) + ((1, 1),) * 54
+# the greedy requests, one of each admission: 4 a burst into fresh slots,
+# 12 a single admission into a fresh slot, 20 a burst and 28 a single
+# admission into reused slots (the admissions are logged, and a phase
+# without a greedy single admission into a reused slot fails); 8 before the
+# smoke's 1200 s ran short, their solo runs 23 s on a slow host
+MAMBA_GREEDY = (4, 12, 20, 28)
+MAMBA_BURST = (16, 2048)  # rows and tokens of the scan's memory check
+MAMBA_TOL = 5e-2  # the 2-layer cut: logits and final states against the CPU, of max|ref|
+
+
+def mamba_pins(cfg, params, dev) -> None:
+    """Pinned dispatch: every matmul weight is packed for qmm's kernel; a
+    decode step and a 64-token prefill each launch qmm 4 L + 1 times and
+    run no plain version, and the prefill's matmuls (ssm_x and ssm_dt among
+    them) take the tile."""
+    import torch
+
+    from tpu_kquant_torch.ops import _build
+    from tpu_kquant_torch.ops import qmm as qmm_mod
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+
+    L = cfg.n_layers
+    mats = {k: params["layers"][0][k] for k in ("ssm_in", "ssm_x", "ssm_dt", "ssm_out")}
+    mats["lm head"] = params["output"]
+    kinds = {k: qmm_mod.KINDS[qmm_mod.kernel_kind(w)] for k, w in mats.items()
+             if w.kind != "dense" and qmm_mod.kernel_kind(w) is not None}
+    log(f"  Mamba-2.8B's matmuls: " + ", ".join(
+        f"{k} {'-'.join(kinds[k]) if k in kinds else mats[k].kind} {list(mats[k].shape)}"
+        for k in mats))
+    if len(kinds) != len(mats) or any(
+            qmm_mod.kernel_kind(lay[k]) is None for lay in params["layers"]
+            for k in ("ssm_in", "ssm_x", "ssm_dt", "ssm_out")):
+        raise SystemExit("FAIL: Mamba-2.8B: a matmul weight is not one qmm's kernel reads")
+    want = expected_launches(cfg, params, 1)
+    if want["qmm"] != 4 * L + 1 or sum(want.values()) != want["qmm"]:
+        raise SystemExit(f"FAIL: Mamba-2.8B: the gates dispatch a forward as {_nonzero(want)}, "
+                         f"expected qmm {4 * L + 1}")
+    eng = InferenceEngine(cfg, params, max_seq=128, device=dev)
+    tiles: set = set()
+    real = qmm_mod.tile_plan
+
+    def spy(R, N, K, code):
+        tiles.add((int(N), int(K)))
+        return real(R, N, K, code)
+
+    cache = eng.new_cache(1)
+    for what, run in (("64-token prefill", lambda: eng.prefill([list(range(10, 74))], cache)),
+                      ("decode step", lambda: eng.decode_step(
+                          torch.tensor([5], device=dev), torch.tensor([64], device=dev),
+                          cache))):
+        reset_counts()
+        plain0 = {k: c.plain_calls for k, c in _build.COUNTERS.items()}
+        qmm_mod.tile_plan = spy
+        try:
+            run()
+        finally:
+            qmm_mod.tile_plan = real
+        torch.cuda.synchronize()
+        plain = {k: c.plain_calls - plain0[k] for k, c in _build.COUNTERS.items()
+                 if c.plain_calls != plain0[k]}
+        check_counts(f"Mamba-2.8B's {what}", want)
+        if plain:
+            raise SystemExit(f"FAIL: Mamba-2.8B's {what} ran plain versions: {plain}")
+        if what.startswith("64"):
+            shapes = {tuple(int(d) for d in w.shape) for w in mats.values()}
+            log(f"  the 64-token prefill's tile calls at (N, K) {sorted(tiles)}")
+            if not shapes <= tiles:
+                raise SystemExit(f"FAIL: Mamba-2.8B's prefill left {sorted(shapes - tiles)} "
+                                 f"off the tile")
+            tiles.clear()
+        elif tiles:
+            raise SystemExit(f"FAIL: Mamba-2.8B's decode step took the tile at {tiles}")
+
+
+def mamba_scan_invariance(cfg, params, dev) -> None:
+    """mamba_layer_scan on layer 0: each row of a 16-row call (T = 1, the
+    GEMV; T = 64, the tile), with random inputs and states, equals the row
+    computed alone, bit for bit (output, conv and SSM states): the plain
+    ops' reductions are sums over fixed small axes. Fatal."""
+    import torch
+
+    from tpu_kquant_torch.models.mamba import mamba_layer_scan
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lay = params["layers"][0]
+    for T in (1, 64):
+        B = 16
+        x = (torch.randn(B, T, cfg.dim, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        conv = torch.randn(B, cfg.ssm_d_conv - 1, cfg.ssm_d_inner, generator=gen, device=dev)
+        ssm = torch.randn(B, cfg.ssm_d_inner, cfg.ssm_d_state, generator=gen, device=dev)
+        valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+        valid[1::2, T // 2 + 1:] = False  # right-padded rows
+        got = mamba_layer_scan(lay, cfg, x, conv, ssm, valid)
+        bad = [b for b in range(B)
+               if not all(torch.equal(g[b:b + 1], o) for g, o in zip(got, mamba_layer_scan(
+                   lay, cfg, x[b:b + 1], conv[b:b + 1], ssm[b:b + 1], valid[b:b + 1])))]
+        log(f"  mamba_layer_scan at B = 16, T = {T}: rows differing from the row alone: {bad}")
+        if bad:
+            raise SystemExit(f"FAIL: mamba_layer_scan's rows {bad} at B = 16, T = {T} differ "
+                             f"from the rows computed alone")
+
+
+def mamba_cut(cfg, params, dev, depth: int = 2, lengths=(5, 200), steps: int = 16) -> dict:
+    """A `depth`-layer cut on the card against the CPU's plain versions: a
+    right-padded prefill of two rows (`lengths` tokens), then `steps` decode
+    steps fed the CPU's greedy tokens: every step's logits within MAMBA_TOL
+    of max|ref|, the card's first greedy token in the CPU's top 5, and the
+    final conv and ssm states within MAMBA_TOL of max|ref|."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    p_gpu = {**params, "layers": params["layers"][:depth]}
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(10, cfg.vocab_size, n).tolist() for n in lengths]
+    runs = {}
+    with cpu_dequant_memo():
+        for d, p in (("cpu", _to_cpu(p_gpu)), (dev, p_gpu)):
+            eng = InferenceEngine(cut, p, max_batch=len(prompts), max_seq=512, device=d)
+            logits, cache, lens = eng.prefill(prompts, eng.new_cache(len(prompts)))
+            seq = [logits.float().cpu()]
+            toks = runs["cpu"]["toks"] if "cpu" in runs else []
+            pos = torch.tensor(lens, device=d)
+            for i in range(steps):
+                if d == "cpu":
+                    toks.append(torch.argmax(seq[-1], -1))
+                logits, cache = eng.decode_step(toks[i].to(d), pos + i, cache)
+                seq.append(logits.float().cpu())
+            runs["cpu" if d == "cpu" else "card"] = {
+                "logits": seq, "toks": toks, "conv": cache.conv.cpu(), "ssm": cache.ssm.cpu()}
+    c, g = runs["cpu"], runs["card"]
+    rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g["logits"],
+                                                                            c["logits"]))
+    top5 = all(int(g["logits"][0][b].argmax()) in torch.topk(c["logits"][0][b], 5).indices
+               for b in range(len(prompts)))
+    steps_top5 = sum(int(a[b].argmax()) in torch.topk(r[b], 5).indices
+                     for a, r in zip(g["logits"], c["logits"]) for b in range(len(prompts)))
+    st = {k: float((g[k] - c[k]).abs().max() / c[k].abs().max()) for k in ("conv", "ssm")}
+    log(f"  {depth}-layer cut, prompts of {list(lengths)} tokens (one right-padded prefill) and "
+        f"{steps} decode steps: logits rel err {rel:.2e} (worst step), first greedy token in "
+        f"the CPU's top 5: {top5}, every step's in its top 5: {steps_top5} of "
+        f"{len(g['logits']) * len(prompts)}; final states rel err conv {st['conv']:.2e}, ssm "
+        f"{st['ssm']:.2e}")
+    if not (all(torch.isfinite(x).all() for x in g["logits"]) and rel < MAMBA_TOL and top5
+            and max(st.values()) < MAMBA_TOL):
+        raise SystemExit("FAIL: Mamba-2.8B's cut on the card disagrees with the CPU")
+    return {"logits_rel": rel, **{f"{k}_rel": v for k, v in st.items()}}
+
+
+def mamba_serving(cfg, params, dev) -> dict:
+    """16 slots, 64 of tools_serve_bench.py's requests (prompts of 32-63
+    tokens, 48 new; MAMBA_GREEDY greedy, the rest sampled), submitted as
+    MAMBA_WAVES (10, then one a tick), counted from 0 (main_run). Fatal: a
+    lost request or non-finite logits; no single admission into a slot that
+    a finished request held, or none of a greedy request (the slot prefill
+    that zeroes the reused row); a greedy stream that differs from its solo
+    engine.generate, token for token."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.serving import ContinuousBatcher
+
+    B, max_seq, n = MAMBA_SERVE
+    rng = np.random.default_rng(17)
+    greedy = set(MAMBA_GREEDY)
+    reqs = [serve_request(i, cfg, rng, greedy=i in greedy) for i in range(n)]
+    solo_eng = InferenceEngine(cfg, params, max_batch=1, max_seq=max_seq, device=dev)
+    t0 = time.perf_counter()
+    solo = {i: solo_eng.generate([reqs[i].prompt], max_new_tokens=SERVE_NEW, top_k=40,
+                                 top_p=0.95, repeat_penalty=1.1, penalty_last_n=64)[0]
+            for i in sorted(greedy)}
+    t_solo = time.perf_counter() - t0
+    eng = InferenceEngine(cfg, params, max_batch=B, max_seq=max_seq, device=dev)
+    cb = ContinuousBatcher(eng)
+    rec = instrument(cb)
+    # which admissions refill a slot that an earlier request held
+    index = {id(r): i for i, r in enumerate(reqs)}
+    held: set = set()
+    adm: dict = {"burst fresh": [], "burst reused": [], "single fresh": [], "single reused": []}
+    real_burst, real_admit = cb._admit_burst, cb._admit
+
+    def burst(pairs):
+        for b, r in pairs:
+            adm["burst reused" if b in held else "burst fresh"].append(index[id(r)])
+            held.add(b)
+        return real_burst(pairs)
+
+    def admit(b, req):
+        adm["single reused" if b in held else "single fresh"].append(index[id(req)])
+        held.add(b)
+        return real_admit(b, req)
+
+    cb._admit_burst, cb._admit = burst, admit
+    launches: dict = {}
+    torch.cuda.synchronize()
+    with main_run(f"serving Mamba-2.8B, {B} slots", launches):
+        t0 = time.perf_counter()
+        first = 0
+        for count, ticks_after in MAMBA_WAVES:
+            for r in reqs[first:first + count]:
+                cb.submit(r)
+            first += count
+            for _ in range(ticks_after):
+                cb.step()
+        done = cb.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ticks = cb.stats["steps"]
+    if not (first == n and sum(1 for r in reqs if r.done) == n
+            and bool(torch.stack(rec["finite"]).all())
+            and all(len(r.output) == SERVE_NEW for r in reqs)):
+        raise SystemExit(f"FAIL: serving Mamba-2.8B lost a request or saw non-finite logits "
+                         f"({len(done)} done at the end)")
+    differ = [(i, next(j for j, (a, b) in enumerate(zip(reqs[i].output, solo[i])) if a != b))
+              for i in sorted(greedy) if reqs[i].output != solo[i]]
+    greedy_adm = {k: sorted(greedy & set(v)) for k, v in adm.items()}
+    res = {"tok_s": cb.stats["tokens_out"] / wall, "ticks": ticks,
+           "ms_per_tick": wall / ticks * 1e3, "bursts": rec["bursts"],
+           "singles": len(rec["singles"]), "admissions": {k: len(v) for k, v in adm.items()},
+           "greedy_admissions": greedy_adm, "solo_s": t_solo, "greedy_differ": differ,
+           "launches": launches}
+    log(f"  [{gpu_line()}] serving Mamba-2.8B, {B} slots: {n} requests (10, then one a tick), "
+        f"{cb.stats['tokens_out']} tokens in {wall:.3f} s wall = {res['tok_s']:.1f} tok/s; "
+        f"{ticks} ticks, {res['ms_per_tick']:.2f} ms/tick; bursts {rec['bursts']}, "
+        f"{len(rec['singles'])} single admissions; admissions "
+        + ", ".join(f"{k} {len(v)} (greedy {greedy_adm[k]})" for k, v in adm.items())
+        + f"; greedy streams differing from their solo runs ({t_solo:.1f} s): "
+        f"{len(differ)} of {len(greedy)} {differ}")
+    if not adm["single reused"] or not greedy_adm["single reused"]:
+        raise SystemExit(f"FAIL: serving Mamba-2.8B made no single admission of a greedy "
+                         f"request into a slot a finished request held: {adm}")
+    if differ:
+        raise SystemExit(f"FAIL: {len(differ)} of {len(greedy)} greedy Mamba-2.8B streams "
+                         f"served at {B} slots differ from their solo runs: {differ}")
+    del cb, eng, solo_eng
+    _collect()
+    return res
+
+
+def mamba_burst_memory(cfg, params, dev) -> dict:
+    """mamba_layer_scan on layer 0 over a MAMBA_BURST burst (16 rows of 2048
+    tokens, right-padded rows among them): its peak device memory above
+    what was allocated before, against one [16, 2048, d_inner, d_state] f32
+    tensor, the size that dA, dBx and the kept states each had before the
+    scan went in chunks. Fatal if the peak reaches it."""
+    import torch
+
+    from tpu_kquant_torch.models.mamba import SCAN_CHUNK_ELEMS, mamba_layer_scan
+
+    B, T = MAMBA_BURST
+    di, ds = cfg.ssm_d_inner, cfg.ssm_d_state
+    gen = torch.Generator(device=dev).manual_seed(18)
+    x = (torch.randn(B, T, cfg.dim, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+    conv = torch.zeros(B, cfg.ssm_d_conv - 1, di, device=dev)
+    ssm = torch.zeros(B, di, ds, device=dev)
+    valid = torch.ones(B, T, dtype=torch.bool, device=dev)
+    valid[1::2, T // 2:] = False
+    _collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = mamba_layer_scan(params["layers"][0], cfg, x, conv, ssm, valid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    whole = 4 * B * T * di * ds
+    finite = all(bool(torch.isfinite(o).all()) for o in out)
+    log(f"  mamba_layer_scan over a burst of {B} x {T} tokens: peak device memory "
+        f"{peak / 1e9:.3f} GB above its inputs ({wall:.2f} s; chunks of "
+        f"{max(1, SCAN_CHUNK_ELEMS // (B * di * ds))} steps), against one whole "
+        f"[{B}, {T}, {di}, {ds}] f32 tensor of {whole / 1e9:.3f} GB; finite: {finite}")
+    if not (finite and peak < whole):
+        raise SystemExit(f"FAIL: mamba_layer_scan's {B} x {T} burst peaked at {peak / 1e9:.3f} "
+                         f"GB (or gave non-finite values)")
+    del x, conv, ssm, valid, out
+    _collect()
+    return {"peak_gb": peak / 1e9, "whole_gb": whole / 1e9, "seconds": wall}
+
+
+def recurrent(dev, profile: Path | None = None) -> dict:
+    """Phase 16 (module docstring): Mamba-2.8B at full width and depth.
+    Returns the main path's launches and the numbers it printed."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.gguf import GGUFReader
+    from tpu_kquant_torch.models.fixtures import mamba_2_8b_config
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.tokenizer import from_gguf_metadata
+    from tpu_kquant_torch.tools import main as main_cli
+
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    steps: dict = {}
+
+    def lap(what: str) -> None:
+        steps[what] = time.perf_counter() - t_phase - sum(steps.values())
+
+    name = f"mamba-2.8b-q4_k_m-scale{MAMBA_SCALE}-seed0.gguf"
+    cfg, params, times = load_fixture(mamba_2_8b_config(), name, dev, scale=MAMBA_SCALE)
+    res: dict = {"gpu": gpu, **times}
+    w_bytes, _ = weight_work(params)
+    state_bytes = 2 * 4 * cfg.n_layers * (cfg.ssm_d_conv - 1 + cfg.ssm_d_state) * cfg.ssm_d_inner
+    res["decode_bytes"] = w_bytes + state_bytes
+    log(f"  a decode step reads {w_bytes / 1e9:.4f} GB of weights and side arrays and reads "
+        f"and writes {state_bytes / 1e6:.2f} MB of state: bound "
+        f"{bound_ms(res['decode_bytes'], 0)[0]:.4f} ms")
+    mamba_pins(cfg, params, dev)
+    mamba_scan_invariance(cfg, params, dev)
+    res["burst_memory"] = mamba_burst_memory(cfg, params, dev)
+    lap("write, load, pins, invariance, memory")
+
+    res["cut"] = mamba_cut(cfg, params, dev)
+    lap("2-layer cut against the CPU")
+
+    # the state must matter, or the session and serving checks see nothing
+    eng = InferenceEngine(cfg, params, max_seq=MAMBA_MAX_SEQ, device=dev)
+    a, b = [5, 6, 7, 8, 9, 10, 11, 12], [50, 60, 70, 80, 90, 100, 11, 12]
+    la, lb = (eng.prefill([p], eng.new_cache(1))[0][0].float() for p in (a, b))
+    res["history_rel"] = float((la - lb).abs().max() / la.abs().max())
+    log(f"  two 8-token prompts that share their last two tokens: last logits differ by "
+        f"{res['history_rel']:.3e} of max|logits|")
+    if not res["history_rel"] > 1e-2:
+        raise SystemExit("FAIL: Mamba-2.8B's logits do not depend on the earlier tokens")
+    del eng
+
+    # the main path at full depth: requests of 5-512 tokens, pp512, tg128
+    r = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 512),
+                   request_max_seq=MAMBA_MAX_SEQ, reps=1, tag=" mamba-2.8b", profile=profile)
+    launches = dict(r["main_path_launches"])
+    res["e2e"] = r
+    lap("requests, pp512, tg128")
+
+    # a session saved after the prompt, continued from a fresh engine
+    rng = np.random.default_rng(16)
+    prompt = rng.integers(10, cfg.vocab_size, 100).tolist()
+    eng = InferenceEngine(cfg, params, max_seq=MAMBA_MAX_SEQ, device=dev)
+    path = str(ROOT / ".cache" / "tkq_mamba_session.npz")
+    with main_run("Mamba-2.8B session", launches):
+        logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
+        first = torch.argmax(logits, -1)
+        eng.save_session(path, cache, lens)
+        cache2, lens2 = InferenceEngine(cfg, params, max_seq=MAMBA_MAX_SEQ,
+                                        device=dev).load_session(path)
+        resumed, _ = eng.decode_greedy(first, torch.tensor(lens2, device=dev), cache2, 32)
+        straight = eng.generate([prompt], max_new_tokens=33)[0]
+    os.remove(path)
+    same = [int(first[0])] + resumed[0].tolist() == straight
+    log(f"  session saved after a 100-token prompt, 32 tokens from a fresh engine equal to the "
+        f"uninterrupted run: {same}")
+    if not same:
+        raise SystemExit("FAIL: a resumed Mamba-2.8B session differs from the run it continues")
+    del eng, cache, cache2
+    lap("session")
+
+    # the generate CLI (its own load), its ids equal generate's
+    fpath = str(FIXTURE_DIR / name)
+    tok = from_gguf_metadata(GGUFReader(fpath).metadata)
+    ids = tok.encode(FD_PROMPT, add_bos=True)
+    t0 = time.perf_counter()
+    with main_run("tools/main.py on Mamba-2.8B", launches):
+        out = main_cli.run(["-m", fpath, "-p", FD_PROMPT, "-n", "32"])
+    wall = time.perf_counter() - t0
+    want = InferenceEngine(cfg, params, max_seq=len(ids) + 48, device=dev).generate(
+        [ids], max_new_tokens=32, eos_id=tok.eos_id)[0]
+    res["cli_tok_s"] = len(out["ids"]) / out["seconds"]
+    log(f"  [{gpu}] tools/main.py -n 32 on Mamba-2.8B: {len(out['ids'])} tokens, "
+        f"{res['cli_tok_s']:.1f} tok/s ({wall:.1f} s with the CLI's load); ids equal "
+        f"generate's: {out['ids'] == want}")
+    if out["ids"] != want or not out["ids"]:
+        raise SystemExit(f"FAIL: tools/main.py on Mamba-2.8B differs from generate: "
+                         f"{out['ids']} against {want}")
+    _collect()
+    lap("the CLI")
+
+    res["serving"] = mamba_serving(cfg, params, dev)
+    launches = _add(launches, res["serving"]["launches"])
+    lap("serving")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  launches of phase 16's main-path runs: {_nonzero(launches)}")
+    log(f"  phase 16 took {res['seconds']:.1f} s [{gpu}]: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in steps.items()))
+    del params
+    _collect()
     return res
 
 
@@ -3818,7 +4322,7 @@ def main_run(what: str, total: dict):
     checks against the CPU and launch pins stay outside."""
     from tpu_kquant_torch.runtime import engine as engine_mod
 
-    real = engine_mod.llama_forward
+    real, real_m = engine_mod.llama_forward, engine_mod.mamba_forward
     fwd: list = []
 
     def spy(params, cfg, tokens, positions, cache, *a, **k):
@@ -3828,12 +4332,17 @@ def main_run(what: str, total: dict):
                     cache.quantized, k.get("impl", "auto"), hasattr(cache, "is_ring")))
         return real(params, cfg, tokens, positions, cache, *a, **k)
 
-    engine_mod.llama_forward = spy
+    def spy_m(params, cfg, tokens, positions, cache, *a, **k):
+        B, T = tokens.shape
+        fwd.append((cfg, params, B, T, None, None, False, k.get("impl", "auto"), False))
+        return real_m(params, cfg, tokens, positions, cache, *a, **k)
+
+    engine_mod.llama_forward, engine_mod.mamba_forward = spy, spy_m
     reset_counts()
     try:
         yield
     finally:
-        engine_mod.llama_forward = real
+        engine_mod.llama_forward, engine_mod.mamba_forward = real, real_m
     want: dict = {}
     for cfg, params, B, T, S, att, q, impl, iswa in fwd:
         want = _add(want, expected_launches(cfg, params, T, impl, batch=B, seq=S, kv_int8=q,
@@ -4296,6 +4805,9 @@ def main() -> int:
     front = front_door(dev)
     torch.cuda.empty_cache()
 
+    phase(f"phase 16: the recurrent family (Mamba-2.8B, full depth) [{gpu_line()}]")
+    mamba = recurrent(dev, args.profile)
+
     phase(f"phase 11: the qmm kernel lab (mutation ladder, manual ring) [{gpu_line()}]")
     lab = kernel_lab(dev, cases["qmm"])
 
@@ -4305,14 +4817,15 @@ def main() -> int:
     # launches: the sums over the request runs of phases 4, 5 (both KV
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
     # (both configurations), 9 (every recipe), 10 (every path), 13
-    # (Gemma-2B), 14 (its main-path runs) and 15 (both layouts and the CLI),
-    # each counted from 0 and checked exactly
+    # (Gemma-2B), 14 (its main-path runs), 15 (both layouts and the CLI) and
+    # 16 (Mamba-2.8B's requests, session, CLI and serving), each counted from
+    # 0 and checked exactly
     runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
             f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
             *ggml["launches"].values(), *(r["launches"] for r in fused.values()),
-            gem["main_path_launches"], front["launches"], swa["launches"]]
+            gem["main_path_launches"], front["launches"], swa["launches"], mamba["launches"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-10, 13-15): {launches}")
+    log(f"  launches on the main path (phases 4-10, 13-16): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

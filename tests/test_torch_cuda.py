@@ -1938,3 +1938,91 @@ def test_phi3_engine_on_card_matches_cpu(card, tmp_path, kv_layout, kv_quantized
     used = _card_against_cpu(card, path, {}, "auto", [list(range(3, 11)), list(range(3, 63))],
                              kv_layout=kv_layout, kv_quantized=kv_quantized, iswa_chunk=16)
     assert used["attn_in"] == 2 * (2 * 3 + (1 + 4 if kv_layout == "iswa" else 1))
+
+
+# -- the recurrent family (mamba): qmm at Mamba-2.8B's shapes, the engine ----------
+
+MAMBA_SHAPES = [("q4", 10240, 2560, False), ("q4", 192, 5120, False), ("q8", 5120, 160, True),
+                ("q4", 2560, 5120, False), ("q4", 50280, 2560, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 16, 33, 512])
+@pytest.mark.parametrize("kind,N,K,f32", MAMBA_SHAPES,
+                         ids=["ssm_in", "ssm_x", "ssm_dt", "ssm_out", "lm_head"])
+def test_qmm_kernel_mamba_shapes_match_plain_and_the_row_alone(card, kind, N, K, f32, R):
+    """qmm at Mamba-2.8B's Q4_K_M matmuls: ssm_dt q8 on f32 scales at K =
+    160 (the GEMV's 5 chunks; the tile's half step at K % 64 = 32), ssm_x's
+    ragged second column block (N = 192), the tied lm head's N = 50280;
+    row 0 alone equals row 0 of the call, bit for bit."""
+    rng = np.random.default_rng(N + R)
+    w = packed(kind, N, K, rng, card, f32=f32)
+    x = (torch.randn(R, K, device=card) * 0.5).to(torch.bfloat16)
+    got = t_qmm.qmm(x, w, torch.float32)
+    assert _rel(got, t_qmm.qmm_plain(x, w, torch.float32)) < TOL
+    if R <= t_qmm.GEMV_MAX_ROWS:
+        assert torch.equal(t_qmm.qmm(x[:1], w, torch.float32), got[:1])
+
+
+@pytest.mark.cuda
+def test_mamba_engine_on_card_matches_cpu(card, tmp_path):
+    """A 2-layer mamba at dim 512 (ssm_dt q8 on f32 scales at K = 32) on
+    the card against the CPU: a right-padded prefill of 7 and 40 tokens,
+    then 4 decode steps fed the CPU's tokens (logits and final states
+    within TOL of max|ref|); qmm launches 4 x 2 + 1 times a forward, no
+    plain version runs; served greedy streams equal their solo runs."""
+    from tpu_kquant_torch.models.fixtures import tiny_mamba_config
+
+    path = write_fixture_gguf(tmp_path / "m.gguf", tiny_mamba_config(dim=512), seed=2, scale=0.2)
+    prompts = [list(range(3, 10)), list(range(3, 43))]
+    runs = {}
+    for d in ("cpu", card):
+        cfg, params, _ = load_model(path, device=d)
+        eng = InferenceEngine(cfg, params, max_batch=2, max_seq=96, device=d)
+        _build.COUNTERS["qmm"].reset()
+        plain0 = _build.COUNTERS["qmm"].plain_calls
+        logits, cache, lens = eng.prefill(prompts, eng.new_cache(2))
+        seq = [logits.float().cpu()]
+        toks = runs["cpu"]["toks"] if "cpu" in runs else []
+        for i in range(4):
+            if d == "cpu":
+                toks.append(seq[-1].argmax(-1))
+            logits, cache = eng.decode_step(toks[i].to(d), torch.tensor(lens, device=d) + i,
+                                            cache)
+            seq.append(logits.float().cpu())
+        runs["cpu" if d == "cpu" else "card"] = {
+            "seq": seq, "toks": toks, "conv": cache.conv.cpu(), "ssm": cache.ssm.cpu(),
+            "launches": _build.COUNTERS["qmm"].launches,
+            "plain": _build.COUNTERS["qmm"].plain_calls - plain0}
+    c, g = runs["cpu"], runs["card"]
+    assert g["launches"] == 5 * 9 and g["plain"] == 0
+    assert max(_rel(a, b) for a, b in zip(g["seq"], c["seq"])) < TOL
+    assert _rel(g["conv"], c["conv"]) < TOL and _rel(g["ssm"], c["ssm"]) < TOL
+    reqs = [Request(prompt=p, max_new_tokens=8) for p in prompts + [list(range(50, 70))]]
+    cb = ContinuousBatcher(eng)
+    for r in reqs:
+        cb.submit(r)
+    cb.run()
+    for r in reqs:
+        assert r.output == eng.generate([r.prompt], max_new_tokens=8)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2048, 2560, 3072, 4096])
+def test_rms_norm_rows_over_many_binades_do_not_depend_on_the_batch(card, D):
+    """rms_norm's staged sum of squares on rows whose squares span many
+    binades (inexact f32 sums, so any reduction order that follows the row
+    count shows): every row of 16 equals the row alone, bit for bit. With a
+    second stage of D / 32 sums in one reduction, PyTorch took 64 lanes for
+    one row and 32 for 16 at D = 2560, and Mamba-2.8B's served rows parted
+    from their solo runs."""
+    from tpu_kquant_torch.ops.norms import rms_norm
+
+    g = torch.Generator(device=card).manual_seed(D)
+    for _ in range(8):
+        x = (torch.randn(16, D, device=card, generator=g)
+             * torch.exp(2 * torch.randn(16, D, device=card, generator=g))).to(torch.bfloat16)
+        w = torch.rand(D, device=card, generator=g) + 0.5
+        rows = rms_norm(x, w)
+        for r in range(16):
+            assert torch.equal(rows[r:r + 1], rms_norm(x[r:r + 1], w)), r

@@ -318,3 +318,26 @@ def test_kernel_sources_are_registered():
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
     assert set(_build.COUNTERS) >= {"qmm", "attn_in", "oproj_ffn", "ffn", "prefill"}
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 80, 1024, 2560, 4097])
+def test_staged_sum_spans_at_most_32_and_sums(n, monkeypatch):
+    """ops/norms.py:staged_sum, the card's sum of squares: every reduction it
+    makes spans at most 32 elements (so PyTorch's lanes never follow the
+    row count), and it is the sum within f32 rounding."""
+    from tpu_kquant_torch.ops import norms
+
+    spans = []
+    real = torch.Tensor.sum
+
+    def spy(self, *a, **k):
+        spans.append(self.shape[-1])
+        return real(self, *a, **k)
+
+    v = torch.from_numpy(np.random.default_rng(n).standard_normal((3, n)).astype(np.float32))
+    monkeypatch.setattr(torch.Tensor, "sum", spy)
+    got = norms.staged_sum(v)
+    monkeypatch.undo()
+    assert got.shape == (3, 1) and max(spans) <= norms.SPAN
+    np.testing.assert_allclose(got.numpy()[:, 0], v.double().sum(-1).numpy(), rtol=1e-5,
+                               atol=1e-5)

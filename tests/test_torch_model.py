@@ -17,6 +17,7 @@ from tpu_kquant.models.fixtures import tiny_config, write_fixture_gguf
 from tpu_kquant.runtime import InferenceEngine as JEngine
 from tpu_kquant.runtime import load_model as jload
 from tpu_kquant_torch.models import llama as t_llama
+from tpu_kquant_torch.models.mamba import RecurrentCache
 from tpu_kquant_torch.ops import _build
 from tpu_kquant_torch.ops.attention import attention_decode
 from tpu_kquant_torch.runtime import engine as t_engine
@@ -227,16 +228,21 @@ def test_entry_points_refuse_what_this_slice_lacks(models, tmp_path):
     # sliding window stays
     with pytest.raises(ValueError, match="sliding-window"):
         InferenceEngine(te.cfg, te.params, kv_layout="iswa", device="cpu")
-    # context shift is ported; a recurrent (mamba) session is not
+    # context shift is ported, and recurrent (mamba) sessions: such a file
+    # loads as a RecurrentCache; a recurrent engine refuses int8 KV, as the
+    # reference's does
     assert len(te.generate([TOKENS], max_new_tokens=2, context_shift=True)[0]) == 2
-    np.savez(tmp_path / "mamba.npz", lengths=np.zeros(1, np.int32), recurrent=np.int32(1))
-    with pytest.raises(NotImplementedError):
-        te.load_session(str(tmp_path / "mamba.npz"))
+    conv, ssm = np.ones((2, 1, 3, 8), np.float32), np.full((2, 1, 8, 4), 2.0, np.float32)
+    np.savez(tmp_path / "mamba.npz", lengths=np.full(1, 5, np.int32), conv=conv, ssm=ssm,
+             recurrent=np.int32(1))
+    cache, lens = te.load_session(str(tmp_path / "mamba.npz"))
+    assert isinstance(cache, RecurrentCache) and list(lens) == [5]
+    assert np.array_equal(cache.conv.numpy(), conv) and np.array_equal(cache.ssm.numpy(), ssm)
     with pytest.raises(NotImplementedError):
         ContinuousBatcher(te, mesh=object())
-    with pytest.raises(NotImplementedError):
-        t_llama.llama_forward(te.params, dataclasses.replace(te.cfg, arch="mamba"),
-                              torch.tensor([[1]]), torch.tensor([[0]]), te.new_cache(1))
+    with pytest.raises(ValueError, match="recurrent"):
+        InferenceEngine(dataclasses.replace(te.cfg, arch="mamba"), te.params,
+                        kv_quantized=True, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             InferenceEngine(te.cfg, te.params)

@@ -1,5 +1,7 @@
 """Model hyperparameters from GGUF metadata (the port's copy of
-``tpu_kquant.models.config``, with its own ``RopeParams``)."""
+``tpu_kquant.models.config``, with its own ``RopeParams``). A ``mamba``
+file gives a recurrent config: no attention heads, the SSM widths in the
+``ssm_*`` fields (``is_recurrent``)."""
 
 from __future__ import annotations
 
@@ -48,10 +50,19 @@ class ModelConfig:
     embed_scale: float = 1.0
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
+    # recurrent (mamba) SSM hparams: llama.cpp's recurrent memory backend
+    ssm_d_conv: int = 0
+    ssm_d_inner: int = 0
+    ssm_d_state: int = 0
+    ssm_dt_rank: int = 0
 
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def is_recurrent(self) -> bool:
+        return self.arch == "mamba"
 
     def layer_window(self, i: int) -> int:
         """Sliding-window size of layer i (0 = full attention)."""
@@ -69,7 +80,18 @@ class ModelConfig:
             return md.get(f"{arch}.{key}", default)
 
         if arch == "mamba":
-            raise NotImplementedError("recurrent (mamba) models are not ported yet")
+            vocab = md.get(f"{arch}.vocab_size")
+            if vocab is None:
+                vocab = len(md.get("tokenizer.ggml.tokens", []))
+            return ModelConfig(
+                arch=arch, n_layers=int(g("block_count")), dim=int(g("embedding_length")),
+                n_heads=0, n_kv_heads=0, head_dim=0, ffn_dim=0, vocab_size=int(vocab),
+                max_seq_len=int(g("context_length", 4096)),
+                norm_eps=float(g("attention.layer_norm_rms_epsilon", 1e-5)),
+                rope=RopeParams(head_dim=0, n_rot=0, mode="neox"),
+                ssm_d_conv=int(g("ssm.conv_kernel")), ssm_d_inner=int(g("ssm.inner_size")),
+                ssm_d_state=int(g("ssm.state_size")), ssm_dt_rank=int(g("ssm.time_step_rank")),
+            )
         n_heads = int(g("attention.head_count"))
         dim = int(g("embedding_length"))
         head_dim = int(g("attention.key_length", dim // n_heads))
@@ -123,6 +145,19 @@ class ModelConfig:
     def to_gguf_metadata(self) -> dict[str, Any]:
         """Inverse of from_gguf, used by the fixture writer."""
         a = self.arch
+        if self.is_recurrent:
+            return {
+                "general.architecture": a,
+                f"{a}.block_count": self.n_layers,
+                f"{a}.context_length": self.max_seq_len,
+                f"{a}.embedding_length": self.dim,
+                f"{a}.attention.layer_norm_rms_epsilon": self.norm_eps,
+                f"{a}.ssm.conv_kernel": self.ssm_d_conv,
+                f"{a}.ssm.inner_size": self.ssm_d_inner,
+                f"{a}.ssm.state_size": self.ssm_d_state,
+                f"{a}.ssm.time_step_rank": self.ssm_dt_rank,
+                f"{a}.vocab_size": self.vocab_size,
+            }
         md: dict[str, Any] = {
             "general.architecture": a,
             f"{a}.block_count": self.n_layers,

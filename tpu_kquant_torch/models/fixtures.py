@@ -37,6 +37,8 @@ quantization of any float tensor.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from tpu_kquant_torch.gguf import GGMLType, GGUFWriter, row_size
@@ -74,6 +76,28 @@ def _gemma_quirks(arch: str, dim: int, attn_softcap: float = 50.0,
         q.update(post_norms=True, swa_pattern=2, attn_logit_softcap=attn_softcap,
                  final_logit_softcap=final_softcap)
     return q
+
+
+def tiny_mamba_config(n_layers: int = 2, dim: int = 64, vocab_size: int = 512,
+                      max_seq_len: int = 256, d_state: int = 16, d_conv: int = 4,
+                      expand: int = 2) -> ModelConfig:
+    """A tiny mamba (recurrent) config, the reference's: d_inner = expand *
+    dim, dt_rank ceil(dim / 16) (HF's "auto")."""
+    return ModelConfig(
+        arch="mamba", n_layers=n_layers, dim=dim, n_heads=0, n_kv_heads=0, head_dim=0,
+        ffn_dim=0, vocab_size=vocab_size, max_seq_len=max_seq_len,
+        rope=RopeParams(head_dim=0, n_rot=0), ssm_d_conv=d_conv, ssm_d_inner=expand * dim,
+        ssm_d_state=d_state, ssm_dt_rank=max(1, -(-dim // 16)),
+    )
+
+
+def mamba_2_8b_config() -> ModelConfig:
+    """Mamba-2.8B (state-spaces/mamba-2.8b-hf's config.json): 64 layers,
+    d_model 2560, d_inner 5120 (expand 2), d_state 16, d_conv 4, dt_rank
+    160 ("auto": ceil(2560 / 16)), vocab 50280, rms eps 1e-5, lm head tied
+    to the embedding, context 2048."""
+    return dataclasses.replace(tiny_mamba_config(n_layers=64, dim=2560, vocab_size=50280,
+                                                 max_seq_len=2048), tie_embeddings=True)
 
 
 def tinyllama_1b_config() -> ModelConfig:
@@ -305,13 +329,19 @@ def fixture_vocab(vocab_size: int) -> dict:
 
 def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.05,
                        recipe: str = "q4_k_m", with_tokenizer: bool = True) -> str:
-    """Write a llama (dense or MoE), qwen2, gemma, gemma2 or phi3 fixture
-    under the quantize tool's ``recipe`` with random blocks drawn from
-    ``seed``; ``with_tokenizer`` adds ``fixture_vocab`` (the vocab draws
-    nothing from the seed, so the weights are the same either way). The
-    tensors, their shapes, types and order are the reference writer's."""
-    if cfg.arch not in ("llama", "qwen2", "gemma", "gemma2", "phi3"):
-        raise NotImplementedError("the port writes llama, qwen2, gemma and phi3 fixtures only")
+    """Write a llama (dense or MoE), qwen2, gemma, gemma2, phi3 or mamba
+    fixture under the quantize tool's ``recipe`` with random blocks drawn
+    from ``seed``; ``with_tokenizer`` adds ``fixture_vocab`` (the vocab
+    draws nothing from the seed, so the weights are the same either way).
+    The tensors, their shapes, types and order are the reference writer's:
+    a mamba layer's ``ssm_in`` [2 di, D], ``ssm_x`` [dt_rank + 2 ds, di],
+    ``ssm_dt`` [di, dt_rank] and ``ssm_out`` [D, di] under the recipe (a
+    dt_rank no block divides: Q8_0 where it is a multiple of 32, else F16),
+    then its conv taps [di, dc], conv bias, dt bias, A_log [di, ds] and D in
+    F32, drawn like the norms."""
+    if cfg.arch not in ("llama", "qwen2", "gemma", "gemma2", "phi3", "mamba"):
+        raise NotImplementedError("the port writes llama, qwen2, gemma, phi3 and mamba "
+                                  "fixtures only")
     if recipe not in RECIPES:
         raise ValueError(f"unknown recipe {recipe!r}; one of {sorted(RECIPES)}")
     rng = np.random.default_rng(seed)
@@ -346,6 +376,19 @@ def write_fixture_gguf(path, cfg: ModelConfig, seed: int = 0, scale: float = 0.0
     add("output_norm.weight", (D,))
     if not cfg.tie_embeddings:
         add("output.weight", (V, D))
+    if cfg.is_recurrent:
+        di, ds, dc, dtr = cfg.ssm_d_inner, cfg.ssm_d_state, cfg.ssm_d_conv, cfg.ssm_dt_rank
+        for i in range(cfg.n_layers):
+            p = f"blk.{i}."
+            add(p + "attn_norm.weight", (D,))
+            add(p + "ssm_in.weight", (2 * di, D))
+            add(p + "ssm_x.weight", (dtr + 2 * ds, di))
+            add(p + "ssm_dt.weight", (di, dtr))
+            add(p + "ssm_out.weight", (D, di))
+            for nm, shape in (("ssm_conv1d.weight", (di, dc)), ("ssm_conv1d.bias", (di,)),
+                              ("ssm_dt.bias", (di,)), ("ssm_a", (di, ds)), ("ssm_d", (di,))):
+                w.add_float(p + nm, rng.standard_normal(shape).astype(np.float32) * scale)
+        return str(w.write())
     for i in range(cfg.n_layers):
         p = f"blk.{i}."
         add(p + "attn_norm.weight", (D,))

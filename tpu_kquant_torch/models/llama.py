@@ -35,7 +35,8 @@ after the FFN (``post_attn_norm`` / ``post_ffn_norm``, which keep attn_out,
 oproj_ffn, ffn, rot and layer off, as in the reference), an attention logit
 softcap (plain attention only), a sliding window on every other layer
 (``cfg.layer_window``; the layer kernel is off on those layers) and a
-softcap on the f32 logits. mamba raises.
+softcap on the f32 logits. A recurrent config (mamba) runs
+models.mamba.mamba_forward, which the engine picks, as the reference's does.
 
 phi3 keeps q, k and v in one weight, ``wqkv``, as the reference does: the
 attn_in kernel (and the rot kernel's next-layer phase) takes it as the two
@@ -249,8 +250,6 @@ def llama_forward(
 ) -> tuple[torch.Tensor, KVCache | ISWACache]:
     """Returns (logits [B, T, vocab] f32 (or [B, 1, vocab]), cache). The
     cache is updated in place."""
-    if cfg.arch == "mamba":
-        raise NotImplementedError("recurrent (mamba) models are not ported yet")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     x = dequant_rows(params["tok_embd"], tokens, dtype=torch.bfloat16)

@@ -37,6 +37,15 @@ chunks of the largest bucket within ring - window tokens (``_prefill_iswa``),
 so every query finds its whole window in the ring and no pad wraps onto a
 live slot. Slot prefill (serving), context shift and sessions stay on the
 unified layout, as in the reference.
+A recurrent config (mamba: ``cfg.is_recurrent``) runs models.mamba's
+forward on a ``RecurrentCache`` (the unified layout, a bf16 forward, f32
+state; the constructor refuses iSWA and int8 KV, as the reference's does,
+and the port has no stacked-layer forward). Its prefill masks the right
+pads (``_step_valid``), since a recurrent update is forever where a pad KV
+slot is overwritten later; the slot prefill zeroes the reused row first;
+``decode_step(valid=)`` leaves the rows marked False as they were (serving's
+fresh and idle rows); sessions hold the ``conv`` / ``ssm`` state
+(``recurrent`` = 1, the reference's keys); context shift raises.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ import torch
 
 from tpu_kquant_torch.models.config import ModelConfig
 from tpu_kquant_torch.models.llama import llama_forward
+from tpu_kquant_torch.models.mamba import RecurrentCache, mamba_forward
 from tpu_kquant_torch.ops.qmatmul import IMPLS
 from tpu_kquant_torch.ops.sampling import (
     SamplerConfig,
@@ -95,6 +105,8 @@ class InferenceEngine:
             raise ValueError(f"kv_layout must be 'unified' or 'iswa', got {kv_layout!r}")
         if kv_layout == "iswa" and cfg.sliding_window <= 0:
             raise ValueError("kv_layout='iswa' needs a sliding-window arch")
+        if cfg.is_recurrent and (kv_layout != "unified" or kv_quantized):
+            raise ValueError("recurrent archs use the default unified layout and fp state")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.impl = impl
@@ -111,11 +123,15 @@ class InferenceEngine:
         self.kv_quantized = kv_quantized
 
     def new_cache(self, batch: int | None = None,
-                  max_seq: int | None = None) -> KVCache | ISWACache:
+                  max_seq: int | None = None) -> KVCache | ISWACache | RecurrentCache:
         """A zeroed cache of ``batch`` rows (max_batch) and ``max_seq`` slots
         (the engine's; serving's burst asks for a prefill bucket's T); on
-        the iSWA layout the window layers' rings hold ``ring`` slots."""
+        the iSWA layout the window layers' rings hold ``ring`` slots; a
+        recurrent model's state has no slots."""
         cfg, batch, max_seq = self.cfg, batch or self.max_batch, max_seq or self.max_seq
+        if cfg.is_recurrent:
+            return RecurrentCache.create(cfg.n_layers, batch, cfg.ssm_d_conv, cfg.ssm_d_inner,
+                                         cfg.ssm_d_state, device=self.device)
         if self.kv_layout == "iswa":
             # window + a prefill chunk, as llama.cpp's n_swa + n_ubatch
             ring = min(max_seq, -(-(cfg.sliding_window + self.iswa_chunk) // 16) * 16)
@@ -131,6 +147,12 @@ class InferenceEngine:
     def _long(self, a) -> torch.Tensor:
         """A tensor, array or list as int64 on the engine's device."""
         return a.long().to(self.device) if torch.is_tensor(a) else self._tensor(a)
+
+    def _forward(self, tokens: torch.Tensor, positions: torch.Tensor, cache, **kw):
+        """The model's forward (mamba's for a recurrent config, else the
+        llama family's), looked up at call time, under the engine's impl."""
+        fwd = mamba_forward if self.cfg.is_recurrent else llama_forward
+        return fwd(self.params, self.cfg, tokens, positions, cache, impl=self.impl, **kw)
 
     # -- steps -----------------------------------------------------------------
     @torch.no_grad()
@@ -148,9 +170,14 @@ class InferenceEngine:
         for i, row in enumerate(token_rows):
             toks[i, : len(row)] = row
         positions = np.broadcast_to(np.arange(T), (B, T))
-        kw = {"kv_attend_len": T} if T > 1 else {}
-        logits, cache = llama_forward(self.params, self.cfg, self._tensor(toks),
-                                      self._tensor(positions), cache, impl=self.impl, **kw)
+        if self.cfg.is_recurrent:  # a pad step must not move the state
+            valid = torch.from_numpy(positions < lens[:, None]).to(self.device)
+            logits, cache = self._step_valid(self._tensor(toks), self._tensor(positions), cache,
+                                             valid)
+        else:
+            kw = {"kv_attend_len": T} if T > 1 else {}
+            logits, cache = self._forward(self._tensor(toks), self._tensor(positions), cache,
+                                          **kw)
         last = logits[torch.arange(B, device=self.device), self._tensor(lens - 1)]
         return last, cache, lens
 
@@ -196,8 +223,8 @@ class InferenceEngine:
         1, V] f32, cache)."""
         T = tokens.shape[1]
         kw = {"kv_attend_len": T} if self.kv_layout == "unified" and T > 1 else {}
-        return llama_forward(self.params, self.cfg, tokens, positions, cache, impl=self.impl,
-                             kv_valid=kv_valid, logits_rows=logits_rows, **kw)
+        return self._forward(tokens, positions, cache, kv_valid=kv_valid,
+                             logits_rows=logits_rows, **kw)
 
     @torch.no_grad()
     def _prefill_slot(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache,
@@ -205,13 +232,14 @@ class InferenceEngine:
         """Prefill one sequence [1, T] (positions arange(T)) into batch row
         ``slot``: the forward runs over a view of the row, so its appends
         land in ``cache`` and no other row is touched. Attention reads only
-        the first T slots. Unified layout only (prefill_slot). Returns
+        the first T slots. A recurrent row is zeroed first: it still holds
+        the previous request's final state, and the forward starts from the
+        row it is given. Unified layout only (prefill_slot). Returns
         (logits [T, V] f32, cache)."""
         T = tokens.shape[1]
         kw = {"kv_attend_len": T} if self.kv_layout == "unified" and T > 1 else {}
-        logits, _ = llama_forward(self.params, self.cfg, tokens, positions,
-                                  slice_batch_row(cache, slot), impl=self.impl,
-                                  kv_valid=kv_valid, **kw)
+        row = cache.row(slot).zero_() if self.cfg.is_recurrent else slice_batch_row(cache, slot)
+        logits, _ = self._forward(tokens, positions, row, kv_valid=kv_valid, **kw)
         return logits[0], cache
 
     def prefill_slot(self, tokens: list[int], cache: KVCache, slot: int):
@@ -236,15 +264,19 @@ class InferenceEngine:
         row, anywhere in the sequence) -> (logits [B, T or 1, V] f32, cache).
         The reference's ``_step``: attention is never bounded (no
         kv_attend_len), since the queries may sit mid-sequence."""
-        return llama_forward(self.params, self.cfg, self._long(tokens), self._long(positions),
-                             cache, logits_last_only=last_only, impl=self.impl)
+        return self._forward(self._long(tokens), self._long(positions), cache,
+                             logits_last_only=last_only)
 
     @torch.no_grad()
-    def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache):
-        """tokens [B], positions [B] -> (logits [B, V] f32, cache)."""
-        logits, cache = llama_forward(self.params, self.cfg, tokens.long()[:, None],
-                                      positions.long()[:, None], cache, logits_last_only=True,
-                                      impl=self.impl)
+    def decode_step(self, tokens: torch.Tensor, positions: torch.Tensor, cache: KVCache,
+                    valid: torch.Tensor | None = None):
+        """tokens [B], positions [B] -> (logits [B, V] f32, cache). ``valid``
+        [B] bool, recurrent models only: the rows marked False keep their
+        state as it was (serving's fresh and idle rows; their logits are not
+        used)."""
+        kw = {} if valid is None else {"kv_valid": valid[:, None]}
+        logits, cache = self._forward(tokens.long()[:, None], positions.long()[:, None], cache,
+                                      logits_last_only=True, **kw)
         return logits[:, 0, :], cache
 
     @torch.no_grad()
@@ -290,7 +322,7 @@ class InferenceEngine:
         (cache, new positions [B] on the device). Every row must hold at
         least n_keep + n_discard live entries, or it would lose tokens it
         still attends to."""
-        if self.kv_layout != "unified":
+        if self.kv_layout != "unified" or self.cfg.is_recurrent:
             raise NotImplementedError("context shift requires the unified KV layout")
         positions = self._long(positions)
         low = int(positions.min())
@@ -305,9 +337,15 @@ class InferenceEngine:
         """Write a KV cache and its rows' lengths in the reference's npz
         format (resume generation without a new prefill): bf16 stored as its
         uint16 bits, ``kv_dtype`` the dtype's name as bytes, int8 caches with
-        ``k_scale`` / ``v_scale``."""
+        ``k_scale`` / ``v_scale``. A recurrent state is its f32 ``conv`` and
+        ``ssm`` arrays and ``recurrent`` = 1."""
         if self.kv_layout != "unified":
             raise NotImplementedError("sessions require the unified KV layout")
+        if self.cfg.is_recurrent:
+            np.savez(path, lengths=np.asarray(lengths, np.int32),
+                     conv=cache.conv.detach().cpu().numpy(),
+                     ssm=cache.ssm.detach().cpu().numpy(), recurrent=np.int32(1))
+            return
 
         def enc(t: torch.Tensor) -> np.ndarray:
             t = t.detach().cpu()
@@ -323,12 +361,14 @@ class InferenceEngine:
             arrs["v_scale"] = enc(cache.v_scale)
         np.savez(path, **arrs)
 
-    def load_session(self, path: str) -> tuple[KVCache, np.ndarray]:
+    def load_session(self, path: str) -> tuple[KVCache | RecurrentCache, np.ndarray]:
         """Read a session written by either package. Returns (cache on the
         engine's device, lengths [B] numpy)."""
         with np.load(path) as z:
             if "recurrent" in z:
-                raise NotImplementedError("recurrent (mamba) sessions are not ported yet")
+                state = [torch.from_numpy(np.array(z[k], np.float32)).to(self.device)
+                         for k in ("conv", "ssm")]
+                return RecurrentCache(*state), np.array(z["lengths"])
             name = bytes(z["kv_dtype"]).decode()
 
             def dec(a: np.ndarray) -> torch.Tensor:

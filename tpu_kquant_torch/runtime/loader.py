@@ -18,6 +18,11 @@ fuse_kmajor builds from two tensors.
 A MoE layer (``expert_count`` in the metadata: Mixtral) loads its router
 ``gate_inp`` and its experts stacked to [E, ...] (``experts``: ``w_gate``,
 ``w_up``, ``w_down``), each expert repacked as a 2-D weight.
+A ``mamba`` file (``_load_mamba``, the reference's) loads per layer the
+matmul weights ``ssm_in``, ``ssm_x``, ``ssm_dt`` and ``ssm_out``, repacked
+like any other (an F16 ``ssm_dt`` becomes a ``dense`` QTensor), and its SSM
+side arrays as dense f32 tensors: ``conv_w`` [d_inner, d_conv], ``conv_b``,
+``dt_b``, ``A_log`` [d_inner, d_state] and ``Dd``.
 """
 
 from __future__ import annotations
@@ -146,7 +151,7 @@ def load_model(
     device: str | torch.device = "cuda",
     widen_q6: bool = True,
 ) -> tuple[ModelConfig, dict[str, Any], GGUFReader]:
-    """Load a llama-family GGUF model onto ``device``. Every GGML type the
+    """Load a llama-family or mamba GGUF model onto ``device``. Every GGML type the
     reference loads is repacked (quant.repack): Q2_K, Q3_K, Q4_K / Q4_0 /
     Q4_1, Q5_K / Q5_0 / Q5_1, Q6_K and Q8_0 into the kinds q2 ... q8; float
     and other types become dense.
@@ -168,6 +173,8 @@ def load_model(
     pack_pairs = scale_dtype == "bf16"
     r = GGUFReader(path)
     cfg = ModelConfig.from_gguf(r.metadata)
+    if cfg.is_recurrent:
+        return _load_mamba(r, cfg, dev, pack_pairs, widen_q6)
     if cfg.arch not in LLAMA_FAMILY:
         raise NotImplementedError(f"architecture {cfg.arch!r} is not ported yet")
     if "blk.0.attn_q.bias" in r.tensors:  # qwen2-style attention biases
@@ -185,15 +192,6 @@ def load_model(
 
     def rp(name: str, layout: str = "kmajor") -> QTensor:
         return host(name, layout).to(dev)
-
-    def embeddings() -> dict[str, Any]:
-        norm = rp("output_norm.weight", "dense")
-        if "output.weight" in r.tensors:
-            embd, head = rp("token_embd.weight", "rowmajor"), rp("output.weight")
-        else:  # tied embeddings: token_embd kmajor for the lm head too, one decode
-            embd, head = (t.to(dev) for t in _repack_tied(r, "token_embd.weight", pack_pairs,
-                                                          widen_q6))
-        return {"tok_embd": embd, "output_norm": norm, "output": head}
 
     def load_layer(i: int) -> dict[str, Any]:
         p = f"blk.{i}."
@@ -256,7 +254,58 @@ def load_model(
     # the GIL): the embeddings and the layers, in any order; the result is
     # the same as one by one
     with ThreadPoolExecutor(max_workers=max(1, min(8, os.cpu_count() or 1))) as pool:
-        emb = pool.submit(embeddings)
+        emb = pool.submit(_embeddings, r, dev, pack_pairs, widen_q6)
+        layers = list(pool.map(load_layer, range(cfg.n_layers)))
+        params: dict[str, Any] = emb.result()
+    params["layers"] = layers
+    return cfg, params, r
+
+
+def _embeddings(r: GGUFReader, dev: torch.device, pack_pairs: bool,
+                widen: bool) -> dict[str, Any]:
+    """tok_embd (rowmajor), output_norm and the lm head (kmajor; tied to
+    token_embd where the file has no ``output.weight``) on ``dev``."""
+    def rp(name: str, layout: str = "kmajor") -> QTensor:
+        return _repack_named(r, name, layout, pack_pairs, widen).to(dev)
+
+    norm = rp("output_norm.weight", "dense")
+    if "output.weight" in r.tensors:
+        embd, head = rp("token_embd.weight", "rowmajor"), rp("output.weight")
+    else:  # tied embeddings: token_embd kmajor for the lm head too, one decode
+        embd, head = (t.to(dev) for t in _repack_tied(r, "token_embd.weight", pack_pairs,
+                                                      widen))
+    return {"tok_embd": embd, "output_norm": norm, "output": head}
+
+
+def _load_mamba(r: GGUFReader, cfg: ModelConfig, dev: torch.device, pack_pairs: bool,
+                widen: bool) -> tuple[ModelConfig, dict[str, Any], GGUFReader]:
+    """The mamba (recurrent) arch, llama.cpp's ``blk.N.ssm_*`` tensor names
+    (reference: ``tpu_kquant/runtime/loader.py:_load_mamba``): the matmul
+    weights repack like any other arch; the SSM side parameters are small
+    f32 tensors kept dense. Layers repack on parallel threads, as
+    load_model's do."""
+    di, dc, ds = cfg.ssm_d_inner, cfg.ssm_d_conv, cfg.ssm_d_state
+
+    def f32(name: str, shape: tuple[int, ...]) -> torch.Tensor:
+        a = np.ascontiguousarray(r.tensor_float(name), np.float32).reshape(shape)
+        return torch.from_numpy(a).to(dev)
+
+    def load_layer(i: int) -> dict[str, Any]:
+        p = f"blk.{i}."
+        layer: dict[str, Any] = {
+            "attn_norm": _repack_named(r, p + "attn_norm.weight", "dense", pack_pairs,
+                                       widen).to(dev)}
+        for key in ("ssm_in", "ssm_x", "ssm_dt", "ssm_out"):
+            layer[key] = _repack_named(r, p + key + ".weight", "kmajor", pack_pairs,
+                                       widen).to(dev)
+        layer.update(conv_w=f32(p + "ssm_conv1d.weight", (di, dc)),
+                     conv_b=f32(p + "ssm_conv1d.bias", (di,)),
+                     dt_b=f32(p + "ssm_dt.bias", (di,)), A_log=f32(p + "ssm_a", (di, ds)),
+                     Dd=f32(p + "ssm_d", (di,)))
+        return layer
+
+    with ThreadPoolExecutor(max_workers=max(1, min(8, os.cpu_count() or 1))) as pool:
+        emb = pool.submit(_embeddings, r, dev, pack_pairs, widen)
         layers = list(pool.map(load_layer, range(cfg.n_layers)))
         params: dict[str, Any] = emb.result()
     params["layers"] = layers

@@ -19,6 +19,11 @@ decode steps a round, as the reference's, so its cache never holds the
 last draft token's K/V: after a round that accepted every draft, the
 draft attends that stale slot. Only the draft's proposals can change by
 it, never the output.
+
+A recurrent model (mamba) is refused as target and as draft: its state
+cannot take back a rejected draft, which the verify forward has already
+folded in. The reference runs it all the same, and its stream then parts
+from plain greedy (tests/test_torch_mamba.py pins both).
 """
 
 from __future__ import annotations
@@ -28,6 +33,12 @@ import torch
 
 from tpu_kquant_torch.ops.sampling import greedy
 from tpu_kquant_torch.runtime.engine import InferenceEngine
+
+
+def _refuse_recurrent(*engines: InferenceEngine | None) -> None:
+    if any(e is not None and e.cfg.is_recurrent for e in engines):
+        raise NotImplementedError("speculative decoding of a recurrent (mamba) model: its "
+                                  "state cannot drop a rejected draft")
 
 
 def generate_speculative(
@@ -41,6 +52,7 @@ def generate_speculative(
     """Greedy speculative generation, stepped by the host. Returns (tokens
     per row, stats): {'rounds', 'drafted', 'accepted'}; accepted / drafted
     is the draft's acceptance rate."""
+    _refuse_recurrent(target, draft)
     B = len(prompts)
     t_cache = target.new_cache(B)
     d_cache = draft.new_cache(B)
@@ -120,6 +132,7 @@ class DeviceSpeculator:
 
     def __init__(self, target: InferenceEngine, draft: InferenceEngine | None,
                  n_draft: int = 6, ngram: int = 3, accept_all: bool = False):
+        _refuse_recurrent(target, draft)
         self.target = target
         self.draft = draft
         self.n_draft = n_draft

@@ -36,6 +36,13 @@ of 2048 would not fit beside the first) and copies each row's T slots into
 its batch row with one indexed write per cache tensor. Slots past T keep
 what they held: they lie past each row's position, so they are masked
 until a decode step writes them.
+
+On a recurrent model (mamba) a dummy decode would not be overwritten: a
+state update is forever. So a tick's decode step takes ``valid`` = active
+and not fresh, and the fresh and idle rows keep their pre-tick state, bit
+for bit (the reference restores them after the step, scheduler.py:162-185);
+a reused slot's prefill starts from zeros (engine._prefill_slot), and the
+burst prefills into a fresh state whose rows are copied into their slots.
 """
 
 from __future__ import annotations
@@ -231,7 +238,8 @@ class ContinuousBatcher:
         """One decode step of every slot and the sampler chain, all on the
         device; returns the sampled tokens [B] (i64, on the device)."""
         st = self.state
-        logits, self.cache = self.engine.decode_step(st.toks, st.poss, self.cache)
+        valid = (st.active & ~st.fresh) if self.engine.cfg.is_recurrent else None
+        logits, self.cache = self.engine.decode_step(st.toks, st.poss, self.cache, valid)
         l = torch.where(st.fresh[:, None], st.pending, logits.float())
         self.tick_logits = l
         if sampling:
@@ -388,7 +396,11 @@ class ContinuousBatcher:
         self.stats["dispatches"] += 1
         tmp = eng.new_cache(k, max_seq=T)
         logits, tmp = eng._step_valid(eng._tensor(toks), eng._tensor(positions), tmp, valid)
-        set_batch_rows(self.cache, tmp, torch.tensor(slots, dtype=torch.long).to(self.device))
+        idx = torch.tensor(slots, dtype=torch.long).to(self.device)
+        if eng.cfg.is_recurrent:
+            self.cache.set_rows(tmp, idx)
+        else:
+            set_batch_rows(self.cache, tmp, idx)
         del tmp
         last = logits[torch.arange(k, device=self.device), eng._tensor(lens - 1)]
         del logits

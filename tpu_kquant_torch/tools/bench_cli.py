@@ -48,7 +48,7 @@ def run_bench(model_path: str, pp: int, tg: int, batch: int, reps: int, impl: st
         prompt = rng.integers(10, cfg.vocab_size, pp).tolist()
         rows = [prompt] * batch
         cache = eng.new_cache(batch)
-        _sync(cache.k[0, 0, 0, 0])
+        _sync(cache.ssm[0, 0, 0] if cfg.is_recurrent else cache.k[0, 0, 0, 0])
         t0 = time.time()
         logits, cache, lens = eng.prefill(rows, cache)
         _sync(logits)
