@@ -219,9 +219,10 @@ Phases, each fatal on failure:
 16. the recurrent family (recurrent), run after phase 14: Mamba-2.8B
     (state-spaces/mamba-2.8b-hf: 64 layers, d_model 2560, d_inner 5120,
     d_state 16, d_conv 4, dt_rank 160, vocab 50280, tied lm head) at full
-    width and depth, written with weights of std MAMBA_SCALE: the dispatch
-    pinned (every matmul on qmm's kernel, 4 x 64 + 1 = 257 launches a
-    decode step and a prefill, no plain version; the prefill's five shapes
+    width and MAMBA_DEPTH = 32 of its 64 layers (all 64 before phase 17),
+    written with weights of std MAMBA_SCALE: the dispatch pinned (every
+    matmul on qmm's kernel, 4 L + 1 launches a decode step and a prefill,
+    no plain version; the prefill's five shapes
     on the tile, ssm_x and ssm_dt included); mamba_layer_scan's rows at B =
     16 (T = 1 and 64) equal to each row alone, bit for bit; its peak device
     memory on a 16-row burst of 2048 tokens under one [16, 2048, d_inner,
@@ -237,9 +238,30 @@ Phases, each fatal on failure:
     slots that finished requests held, each of the 4 greedy streams
     (MAMBA_GREEDY: a single and a burst admission, each into a fresh and a
     reused slot) equal to its solo run.
+17. the quantizer and the converter (quantizer), run after phase 16: (a)
+    csrc/quantize.cu's Q4_K, Q6_K and Q8_0 kernels against their plain
+    versions on the card, bit for bit, on whole tensors of TinyLlama's
+    shapes at the types q4_k_m gives them (QUANT_CASES; ffn_gate also Q8_0)
+    and on tests/test_native.py's six edge cases, their first 64 rows
+    against the port's NumPy copy, each timed (graph and eager) beside its
+    bound (FP64 / FP32 operations or bytes); (b) TinyLlama-1.1B's F16
+    fixture (seed 0, written by a process started with phase 2,
+    start_f16_fixture) requantized to q4_k_m on the card by
+    tools/quantize.py: the wall time and its parts, the output's types
+    against the recipe, layer 0's tensors and the lm head (64 rows each)
+    against the NumPy copy, the quantize launches one a converted tensor,
+    then the result loaded (bf16 scales) and a 32-token prompt run: its
+    first greedy token in the F16 model's top 5, the logits' correlation;
+    (c) tools/ppl_delta.py at TinyLlama's full width cut to PPL_DEPTH = 4
+    layers (copied from (b)'s file), --types q8_0,q6_k,q4_k_m --ctx 256
+    --max-windows 2 on a text of the fixture vocab's words: KL ordered
+    q4_k_m > q6_k > q8_0 and q8_0's |dppl| under 1/512 of ppl (the
+    reference test's |dppl| < 1 at its ppl of 512), the windows on qmm's
+    tile.
 Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 every recipe,
 Q8_0 and Q5_K_M among them, untimed at GGML_DEPTH = 2 layers (2 and 4
 layers, Q5_K_M timed at 22 before phase 13, Q8_0 before phase 15),
+phase 16 Mamba-2.8B at MAMBA_DEPTH = 32 of 64 layers (64 before phase 17),
 phase 10 one turn of tg128 on and off a path (FUSED_TURNS; 2 before phase
 15), and phases 5, 7 and 13 time pp2048 / tg128@2048, Qwen2.5's and
 Gemma-2B's pp512 / tg128 once each after a warm run (LONG_TIMED_REPS,
@@ -248,7 +270,8 @@ smoke's 1200 s limit. The CPU side of every cut
 dequantizes each weight once (cpu_dequant_memo).
 Launch counts in the kernels' JSON line are the sums over the request runs
 of phases 4 to 10 and 13 to 16, each counted from 0 and checked against the dispatch
-gates exactly (the labs' kernels: their wrapper calls in phase 11's
+gates exactly (the quantizers': phase 17's requantize and ppl_delta runs,
+each counted from 0, one launch a converted tensor; the labs' kernels: their wrapper calls in phase 11's
 run_ladder and phase 12's run_sweep, CUDA-graph captures included, replays
 not); the gates in turn
 are held to each model's decode and long
@@ -3541,7 +3564,7 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the recurrent family (Mamba-2.8B, full width and depth)
+# phase 16: the recurrent family (Mamba-2.8B, full width, MAMBA_DEPTH layers)
 # ---------------------------------------------------------------------------
 
 # the writer's weight std for Mamba-2.8B: at the default 0.05 the SSM's
@@ -3550,6 +3573,7 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
 # CPU), and the state checks below would see little; at 0.1 they move by
 # more than max|logits| (PERF.md §4)
 MAMBA_SCALE = 0.1
+MAMBA_DEPTH = 32  # Mamba-2.8B's layers on the card (of 64; all before phase 17: the 1200 s)
 MAMBA_MAX_SEQ = 2048  # Mamba-2.8B's context
 MAMBA_SERVE = (16, 128, 64)  # slots, cache length, requests
 # (requests submitted, ticks stepped after): 10 at once (a burst into fresh
@@ -3844,8 +3868,11 @@ def mamba_burst_memory(cfg, params, dev) -> dict:
 
 
 def recurrent(dev, profile: Path | None = None) -> dict:
-    """Phase 16 (module docstring): Mamba-2.8B at full width and depth.
-    Returns the main path's launches and the numbers it printed."""
+    """Phase 16 (module docstring): Mamba-2.8B at full width and MAMBA_DEPTH
+    of its 64 layers. Returns the main path's launches and the numbers it
+    printed."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3862,8 +3889,10 @@ def recurrent(dev, profile: Path | None = None) -> dict:
     def lap(what: str) -> None:
         steps[what] = time.perf_counter() - t_phase - sum(steps.values())
 
-    name = f"mamba-2.8b-q4_k_m-scale{MAMBA_SCALE}-seed0.gguf"
-    cfg, params, times = load_fixture(mamba_2_8b_config(), name, dev, scale=MAMBA_SCALE)
+    name = f"mamba-2.8b-{MAMBA_DEPTH}l-q4_k_m-scale{MAMBA_SCALE}-seed0.gguf"
+    cfg, params, times = load_fixture(
+        dataclasses.replace(mamba_2_8b_config(), n_layers=MAMBA_DEPTH), name, dev,
+        scale=MAMBA_SCALE)
     res: dict = {"gpu": gpu, **times}
     w_bytes, _ = weight_work(params)
     state_bytes = 2 * 4 * cfg.n_layers * (cfg.ssm_d_conv - 1 + cfg.ssm_d_state) * cfg.ssm_d_inner
@@ -4695,6 +4724,324 @@ def front_door(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the quantizer and the converter
+# ---------------------------------------------------------------------------
+
+FP64_FLOPS = 34e12  # H100 SXM FP64 without tensor cores (NVIDIA's data sheet)
+FP32_FLOPS = 67e12  # H100 SXM FP32 without tensor cores
+# TinyLlama-1.1B's raw tensors at the types q4_k_m gives them (ffn_gate also
+# under q8_0): (label, type name, N, K)
+QUANT_CASES = (("attn_q", "Q4_K", 2048, 2048), ("ffn_gate", "Q4_K", 5632, 2048),
+               ("attn_v", "Q6_K", 256, 2048), ("ffn_down", "Q6_K", 2048, 5632),
+               ("output", "Q6_K", 32000, 2048), ("ffn_gate q8_0", "Q8_0", 5632, 2048))
+QUANT_HEAD = {"quantize_q4k": "ffn_gate", "quantize_q6k": "output",
+              "quantize_q80": "ffn_gate q8_0"}
+QUANT_NUMPY_ROWS = 64  # rows held to the NumPy copy (it takes ~1 s a million values)
+PPL_DEPTH = 4  # (c): TinyLlama's layers under ppl_delta (of 22)
+PPL_TYPES = "q8_0,q6_k,q4_k_m"
+QUANT_PROMPT = 32  # (b): the prompt held to the F16 model's top 5
+
+
+def quant_bound(t, n: int) -> tuple[float, str]:
+    """The least time of quantizing n values to t: the larger of its bytes
+    over 3.35 TB/s and its f64 / f32 operations over their peaks."""
+    from tpu_kquant_torch.ops import quantize as qops
+
+    b, f64, f32 = qops.work(t, n)
+    tb, to = b / HBM_BYTES_PER_S, max(f64 / FP64_FLOPS, f32 / FP32_FLOPS)
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def _edge_values(n: int):
+    """tests/test_native.py's six edge cases, each n values (n % 512 == 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    half = np.concatenate([np.zeros(n // 2), rng.standard_normal(n // 2)])
+    return {"zeros": np.zeros(n), "constant": np.full(n, 3.25),
+            "plus-minus-one": np.tile([1.0, -1.0], n // 2), "half-zeros": half,
+            "x100": rng.standard_normal(n) * 100.0, "x0.01": rng.standard_normal(n) * 0.01}
+
+
+def check_quantizers(dev) -> dict:
+    """Part (a): each quantize kernel against its plain version on the card,
+    bit for bit, on whole tensors of TinyLlama's shapes (seeded Gaussian
+    values of std 0.05) and on the edge cases, and the first rows against
+    the port's NumPy copy; timed graph and eager. Returns {kernel: cases}."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.gguf import GGMLType
+    from tpu_kquant_torch.ops import quantize as qops
+    from tpu_kquant_torch.quant import numpy_codecs
+
+    names = {GGMLType.Q4_K: "quantize_q4k", GGMLType.Q6_K: "quantize_q6k",
+             GGMLType.Q8_0: "quantize_q80"}
+    out: dict = {n: [] for n in names.values()}
+    for t in names:
+        for label, x in _edge_values(8192).items():
+            xt = torch.from_numpy(x.astype(np.float32)).to(dev)
+            k, p = qops.QUANTIZERS[t](xt), qops.PLAIN[t](xt)
+            want = numpy_codecs.quantize(x.astype(np.float32), t)
+            if not (torch.equal(k, p) and np.array_equal(k.cpu().numpy(), want)):
+                raise SystemExit(f"FAIL: {names[t]} differs on the edge case {label}")
+    log(f"  edge cases ({', '.join(_edge_values(512))}): every kernel equals its plain "
+        "version and the NumPy copy, bit for bit")
+    gen = torch.Generator(device=dev)
+    for i, (label, tname, N, K) in enumerate(QUANT_CASES):
+        t = GGMLType[tname]
+        gen.manual_seed(i)
+        x = torch.randn(N, K, generator=gen, device=dev) * 0.05
+        fn, plain = qops.QUANTIZERS[t], qops.PLAIN[t]
+        k = fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = plain(x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        same = torch.equal(k, p)
+        rows = k.numel() // N * QUANT_NUMPY_ROWS
+        np_same = np.array_equal(k[:rows].cpu().numpy(), numpy_codecs.quantize(
+            x[:QUANT_NUMPY_ROWS].cpu().numpy(), t))
+        del p
+        iters = max(2, min(50, int(2e8 // (N * K))))
+        ms = graph_ms(lambda _: fn(x), iters)
+        eager = time_ms(lambda _: fn(x), iters)
+        bms, by = quant_bound(t, N * K)
+        case = {"case": f"{label} [{N}, {K}] {tname}", "max_abs_err": 0.0 if same else
+                float("nan"), "rel_err": 0.0 if same else float("nan"), "ms": ms,
+                "eager_ms": eager, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                "library_ms": None, "numpy_rows_equal": np_same, "bit_exact": same,
+                "tensor": label}
+        out[names[t]].append(case)
+        log(f"  {names[t]:13s} {case['case']:32s} bit-exact {same} (NumPy, {QUANT_NUMPY_ROWS} "
+            f"rows: {np_same})  kernel {ms:8.3f} ms (eager {eager:8.3f})  plain "
+            f"{plain_ms:9.2f} ms  bound {bms:7.3f} ms ({by})")
+        if not (same and np_same):
+            raise SystemExit(f"FAIL: {names[t]} {case['case']} is not the plain version's / "
+                             "the NumPy copy's bytes")
+        del x, k
+    torch.cuda.empty_cache()
+    return out
+
+
+def _expected_quant_launches(types: dict, src_types: dict) -> dict:
+    """The quantize kernels' launches of one requantize: one a tensor whose
+    type changes to Q4_K, Q6_K or Q8_0."""
+    from tpu_kquant_torch.gguf import GGMLType
+
+    names = {GGMLType.Q4_K: "quantize_q4k", GGMLType.Q6_K: "quantize_q6k",
+             GGMLType.Q8_0: "quantize_q80"}
+    want = dict.fromkeys(names.values(), 0)
+    for name, t in types.items():
+        if t in names and t != src_types[name]:
+            want[names[t]] += 1
+    return want
+
+
+def _logits(eng, prompt: list) -> "torch.Tensor":
+    import torch
+
+    cache = eng.new_cache(1)
+    logits, _, _ = eng.prefill([prompt], cache)
+    return logits[0].float()
+
+
+def _corr(a, b) -> float:
+    a, b = a.double() - a.double().mean(), b.double() - b.double().mean()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+F16_NAME = "tinyllama-1.1b-f16-seed0.gguf"
+
+
+def start_f16_fixture() -> subprocess.Popen:
+    """Write (b)'s F16 TinyLlama-1.1B fixture in a process of its own while
+    phase 2's nvcc processes leave cores idle: its 1.1 G normal draws take
+    ~40 s of one core. Phase 17 waits for it (requantize_tinyllama)."""
+    code = ("import os, sys, time; t0 = time.perf_counter(); sys.path.insert(0, sys.argv[1])\n"
+            "from tpu_kquant_torch.models.fixtures import tinyllama_1b_config, "
+            "write_fixture_gguf\n"
+            "tmp = sys.argv[2] + '.tmp'\n"
+            "write_fixture_gguf(tmp, tinyllama_1b_config(), seed=0, recipe='f16')\n"
+            "os.replace(tmp, sys.argv[2]); print(time.perf_counter() - t0)\n")
+    FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(FIXTURE_DIR / F16_NAME)],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def requantize_tinyllama(dev, gpu: str, writer: subprocess.Popen | None = None) -> dict:
+    """Part (b): TinyLlama-1.1B's F16 fixture (seed 0, full width and depth)
+    requantized to q4_k_m on the card; its types against the recipe, layer
+    0's tensors and the lm head (QUANT_NUMPY_ROWS rows each) against the
+    NumPy copy, then the result loaded and run beside the F16 model."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.gguf import GGUFReader
+    from tpu_kquant_torch.models.fixtures import tinyllama_1b_config, write_fixture_gguf
+    from tpu_kquant_torch.quant import numpy_codecs
+    from tpu_kquant_torch.quant.repack import dequantize
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.runtime.loader import load_model
+    from tpu_kquant_torch.tools.quantize import requantize, target_type
+
+    FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
+    f16 = FIXTURE_DIR / F16_NAME
+    q4 = FIXTURE_DIR / "tinyllama-1.1b-f16-seed0-requantized-q4_k_m.gguf"
+    t0 = time.perf_counter()
+    how = "written here"
+    if writer is not None:
+        out, _ = writer.communicate()
+        if writer.returncode != 0:
+            raise SystemExit(f"FAIL: the F16 fixture's writer exited with {writer.returncode}")
+        how = f"written in the background since phase 2 in {float(out):.1f} s"
+    if not f16.exists():
+        write_fixture_gguf(f16, tinyllama_1b_config(), seed=0, recipe="f16")
+    t1 = time.perf_counter()
+    log(f"  F16 fixture {f16.name} ({f16.stat().st_size / 1e9:.2f} GB): {how}; waited "
+        f"{t1 - t0:.1f} s for it")
+    reset_counts()
+    stats = requantize(str(f16), str(q4), "q4_k_m", verbose=False, device=str(dev))
+    got = counts()
+    sec = stats["seconds"]
+    log(f"  requantize F16 -> q4_k_m on the card: {sec['total']:.2f} s wall = host dequantize "
+        f"{sec['dequantize']:.2f} + copies {sec['copies']:.2f} + kernels (synchronised) "
+        f"{sec['quantize_card']:.3f} + host quantize {sec['quantize_host']:.3f} + reading and "
+        f"writing {sec['rest']:.2f}; {stats['bytes_in'] / 1e9:.3f} GB -> "
+        f"{stats['bytes_out'] / 1e9:.3f} GB [{gpu}]")
+    with GGUFReader(str(f16)) as rf, GGUFReader(str(q4)) as rq:
+        src = {k: v.ggml_type for k, v in rf.tensors.items()}
+        want = _expected_quant_launches(stats["types"], src)
+        check_counts("requantize (b)", want)
+        kinds: dict = {}
+        for name, ti in rq.tensors.items():
+            t = target_type(name, ti.shape, "q4_k_m")
+            if ti.ggml_type != t or stats["types"][name] != t:
+                raise SystemExit(f"FAIL: {name} is {ti.ggml_type.name}, the recipe says {t.name}")
+            kinds[t.name] = kinds.get(t.name, 0) + 1
+        log(f"  output types as q4_k_m gives them: {kinds}")
+        for name in [n for n in rq.tensors if n.startswith("blk.0.")] + ["output.weight"]:
+            ti = rq.tensors[name]
+            if len(ti.shape) == 1:
+                continue
+            rows = min(QUANT_NUMPY_ROWS, ti.shape[0])
+            n_src = rows * ti.shape[1]
+            x = dequantize(rf.tensor_bytes(name)[: n_src * 2], src[name], (rows, ti.shape[1]))
+            want_b = numpy_codecs.quantize(x, ti.ggml_type)
+            if not np.array_equal(np.asarray(rq.tensor_bytes(name)[: want_b.size]), want_b):
+                raise SystemExit(f"FAIL: {name}'s first {rows} rows differ from the NumPy copy")
+        log(f"  layer 0's tensors and the lm head: the first {QUANT_NUMPY_ROWS} rows equal "
+            "the NumPy copy's bytes")
+    t2 = time.perf_counter()
+    cq, pq, _ = load_model(str(q4), scale_dtype="bf16", device=dev)
+    c16, p16, _ = load_model(str(f16), device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    draws = np.random.default_rng(17).integers(3, cq.vocab_size, QUANT_PROMPT - 1)
+    prompt = [1] + [int(v) for v in draws]
+    lq = _logits(InferenceEngine(cq, pq, max_batch=1, max_seq=64, device=dev), prompt)
+    l16 = _logits(InferenceEngine(c16, p16, max_batch=1, max_seq=64, device=dev), prompt)
+    top5 = torch.topk(l16, 5).indices.tolist()
+    first = int(lq.argmax())
+    corr = _corr(lq, l16)
+    log(f"  loads: q4_k_m (bf16 scales) and F16 in {t3 - t2:.1f} s; a {QUANT_PROMPT}-token "
+        f"prompt: q4_k_m's first greedy token {first}, F16's top 5 {top5}; logits' correlation "
+        f"{corr:.5f}; finite {bool(torch.isfinite(lq).all())}")
+    if first not in top5 or not torch.isfinite(lq).all() or lq.shape != l16.shape:
+        raise SystemExit("FAIL: the requantized TinyLlama's first token is not in the F16 "
+                         "model's top 5")
+    del pq, p16
+    torch.cuda.empty_cache()
+    return {"launches": got, "seconds": sec, "corr": corr, "load_s": t3 - t2,
+            "write_s": t1 - t0, "f16": f16}
+
+
+def _cut_gguf(src, dst, depth: int) -> None:
+    """A copy of the llama GGUF `src` cut to its first `depth` layers."""
+    from tpu_kquant_torch.gguf import GGUFReader, GGUFWriter
+
+    with GGUFReader(str(src)) as r:
+        w = GGUFWriter(dst)
+        for k, v in r.metadata.items():
+            w.add(k, depth if k.endswith(".block_count") else v)
+        for name, ti in r.tensors.items():
+            if not name.startswith("blk.") or int(name.split(".")[1]) < depth:
+                w.add_tensor(name, ti.shape, ti.ggml_type, lambda n=name: r.tensor_bytes(n))
+        w.write()
+
+
+def ppl_ladder(dev, gpu: str, full_f16) -> dict:
+    """Part (c): tools/ppl_delta.py at TinyLlama's full width cut to
+    PPL_DEPTH layers (full_f16's, (b)'s F16 fixture), --types PPL_TYPES --ctx 256 --max-windows 2, on a text
+    of the fixture vocab's words; KL must fall q4_k_m > q6_k > q8_0 and
+    q8_0's dppl be near-lossless: |dppl| < 1 at the reference test's ppl of
+    512 (tests/test_quantize_tool.py: vocab 512), so |dppl| / ppl < 1 / 512
+    here, where a random model's ppl sits near the vocab, 32000."""
+    import numpy as np
+
+    from tpu_kquant_torch.gguf import GGUFReader
+    from tpu_kquant_torch.tools import ppl_delta
+    from tpu_kquant_torch.tools.quantize import target_type
+
+    f16 = FIXTURE_DIR / f"tinyllama-1.1b-{PPL_DEPTH}l-f16-seed0.gguf"
+    t0 = time.perf_counter()
+    if not f16.exists():
+        _cut_gguf(full_f16, f16, PPL_DEPTH)
+    log(f"  {f16.name}: the first {PPL_DEPTH} layers of {full_f16.name} (with its embeddings, "
+        f"norm and lm head), copied in {time.perf_counter() - t0:.1f} s")
+    words = ["hello", "world", "the", "a", "tell", "her", "other", "hell", "to", "the"]
+    text = FIXTURE_DIR / "ppl_text.txt"
+    text.write_text(" ".join(np.random.default_rng(3).choice(words, 1200)))
+    with GGUFReader(str(f16)) as r:
+        src = {k: (v.ggml_type, v.shape) for k, v in r.tensors.items()}
+    want: dict = {}
+    for recipe in PPL_TYPES.split(","):
+        types = {k: target_type(k, s, recipe) for k, (_, s) in src.items()}
+        want = _add(want, _expected_quant_launches(types, {k: t for k, (t, _) in src.items()}))
+    out = FIXTURE_DIR / "ppl_delta.json"
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = ppl_delta.main(["--model", str(f16), "--text", str(text), "--types", PPL_TYPES,
+                           "--ctx", "256", "--max-windows", "2", "--device", str(dev),
+                           "--json-out", str(out)])
+    got = check_counts("ppl_delta (c)", want)
+    secs = time.perf_counter() - t0
+    if got.get("qmm", 0) == 0:
+        raise SystemExit("FAIL: ppl_delta's quantized windows never launched qmm")
+    kl = {r["type"]: r["kl"] for r in rows}
+    log(f"  ppl_delta at {PPL_DEPTH} of 22 layers, full width: {secs:.1f} s; KL {kl}; "
+        f"dppl {[r['dppl'] for r in rows]}; top-1 {[r['top1'] for r in rows]} [{gpu}]")
+    if not kl["q4_k_m"] > kl["q6_k"] > kl["q8_0"]:
+        raise SystemExit(f"FAIL: KL is not ordered q4_k_m > q6_k > q8_0: {kl}")
+    base = json.loads(out.read_text())["base_ppl"]
+    dq8 = [r["dppl"] for r in rows if r["type"] == "q8_0"][0]
+    log(f"  base ppl {base}; |dppl(q8_0)| / ppl = {abs(dq8) / base:.2e} (limit 1/512)")
+    if not abs(dq8) / base < 1 / 512:
+        raise SystemExit(f"FAIL: |dppl(q8_0)| = {abs(dq8)} at ppl {base}: not near-lossless")
+    return {"launches": got, "rows": rows, "seconds": secs, "base_ppl": base}
+
+
+def quantizer(dev, writer: subprocess.Popen | None = None) -> dict:
+    """Phase 17: (a) the kernels against their plain versions, (b)
+    TinyLlama-1.1B requantized on the card (its F16 fixture from `writer`,
+    start_f16_fixture's process) and run, (c) ppl_delta's ladder. The
+    launches of (b)'s requantize and (c)'s run are the main path's."""
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    cases = check_quantizers(dev)
+    t1 = time.perf_counter()
+    req = requantize_tinyllama(dev, gpu, writer)
+    t2 = time.perf_counter()
+    ppl = ppl_ladder(dev, gpu, req["f16"])
+    t3 = time.perf_counter()
+    log(f"  phase 17 took {t3 - t0:.1f} s: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, "
+        f"(c) {t3 - t2:.1f} [{gpu}]")
+    return {"cases": cases, "launches": _add(req["launches"], ppl["launches"]),
+            "seconds": t3 - t0}
+
+
 REPLACES = {
     "qmm": ("tpu_kquant_torch/csrc/qmm.cuh", "tpu_kquant/ops/pallas_qmm.py:287"),
     "attn_in": ("tpu_kquant_torch/csrc/attn_in.cu", "tpu_kquant/ops/pallas_attn_in.py:567"),
@@ -4715,6 +5062,10 @@ REPLACES = {
     "prefill_lab_a": ("tpu_kquant_torch/csrc/prefill_lab.cu", "tools_prefill_lab2.py:69"),
     "prefill_lab_b": ("tpu_kquant_torch/csrc/prefill_lab.cu", "tools_prefill_lab2.py:156"),
     "prefill_lab_g": ("tpu_kquant_torch/csrc/prefill_lab.cu", "tools_prefill_lab3.py:122"),
+    # no pallas_call: the reference's host quantizers (its native library's)
+    "quantize_q4k": ("tpu_kquant_torch/csrc/quantize.cu", "csrc/tkq.cpp:364"),
+    "quantize_q6k": ("tpu_kquant_torch/csrc/quantize.cu", "csrc/tkq.cpp:419"),
+    "quantize_q80": ("tpu_kquant_torch/csrc/quantize.cu", "csrc/tkq.cpp:477"),
 }
 
 
@@ -4749,6 +5100,21 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     phase("phase 2: build")
+    writer = start_f16_fixture()  # phase 17's F16 fixture, on cores nvcc leaves idle
+    try:
+        return run_phases(args, dev, writer, t_start)
+    finally:
+        if writer.poll() is None:
+            writer.kill()
+            writer.wait()
+
+
+def run_phases(args, dev, writer, t_start: float) -> int:
+    """Phases 2-17, then the kernels' JSON line and the last line."""
+    import torch
+
+    from tpu_kquant_torch.ops import _build
+
     log(f"  built {', '.join(_build.SOURCES)} in {_build.build_all():.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     log("  per library, wall s when reaped (in this order; all ran in parallel) / nvcc CPU s: "
@@ -4805,8 +5171,13 @@ def main() -> int:
     front = front_door(dev)
     torch.cuda.empty_cache()
 
-    phase(f"phase 16: the recurrent family (Mamba-2.8B, full depth) [{gpu_line()}]")
+    phase(f"phase 16: the recurrent family (Mamba-2.8B, {MAMBA_DEPTH} of 64 layers) "
+          f"[{gpu_line()}]")
     mamba = recurrent(dev, args.profile)
+    torch.cuda.empty_cache()
+
+    phase(f"phase 17: the quantizer and the converter (TinyLlama-1.1B) [{gpu_line()}]")
+    quant = quantizer(dev, writer)
 
     phase(f"phase 11: the qmm kernel lab (mutation ladder, manual ring) [{gpu_line()}]")
     lab = kernel_lab(dev, cases["qmm"])
@@ -4823,9 +5194,10 @@ def main() -> int:
     runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
             f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
             *ggml["launches"].values(), *(r["launches"] for r in fused.values()),
-            gem["main_path_launches"], front["launches"], swa["launches"], mamba["launches"]]
+            gem["main_path_launches"], front["launches"], swa["launches"], mamba["launches"],
+            quant["launches"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-10, 13-16): {launches}")
+    log(f"  launches on the main path (phases 4-10, 13-17): {launches}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]
@@ -4835,6 +5207,19 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": launches[name],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "case": head["case"], "cases": cs})
+    # the quantizers: launches of phase 17's requantize and ppl_delta runs;
+    # the headline cases are QUANT_HEAD's
+    for name, cs in quant["cases"].items():
+        src, rep = REPLACES[name]
+        n = quant["launches"].get(name, 0)
+        if n == 0:
+            raise SystemExit(f"FAIL: kernel {name} was never launched on the main path")
+        head = [c for c in cs if c["tensor"] == QUANT_HEAD[name]][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n,
             "max_abs_err": head["max_abs_err"], "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "case": head["case"], "cases": cs})

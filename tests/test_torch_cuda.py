@@ -2026,3 +2026,36 @@ def test_rms_norm_rows_over_many_binades_do_not_depend_on_the_batch(card, D):
         rows = rms_norm(x, w)
         for r in range(16):
             assert torch.equal(rows[r:r + 1], rms_norm(x[r:r + 1], w)), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", ["Q4_K", "Q6_K", "Q8_0"])
+def test_quantize_kernels_give_the_numpy_bytes(card, t):
+    """csrc/quantize.cu against its plain version and the port's NumPy copy,
+    bit for bit: tests/test_native.py's edge cases, a Gaussian tensor at
+    TinyLlama's ffn_down shape (the NumPy copy on its first 16 rows), and
+    the codec's card route; the kernel runs only on the card."""
+    from tpu_kquant_torch.gguf import GGMLType
+    from tpu_kquant_torch.ops import quantize as t_quant
+    from tpu_kquant_torch.quant import numpy_codecs
+
+    t = GGMLType[t]
+    rng = np.random.default_rng(1)
+    cases = [np.zeros(512), np.full(512, 3.25), np.tile([1.0, -1.0], 256),
+             np.concatenate([np.zeros(256), rng.standard_normal(256)]),
+             rng.standard_normal(256 * 64) * 100.0, rng.standard_normal(256 * 64) * 0.01]
+    for x in cases:
+        x = x.astype(np.float32)
+        xt = torch.from_numpy(x).to(card)
+        got = t_quant.QUANTIZERS[t](xt)
+        assert torch.equal(got, t_quant.PLAIN[t](xt))
+        np.testing.assert_array_equal(got.cpu().numpy(), numpy_codecs.quantize(x, t))
+        np.testing.assert_array_equal(numpy_codecs.quantize(xt, t), numpy_codecs.quantize(x, t))
+    g = torch.Generator(device=card).manual_seed(0)
+    w = torch.randn(2048, 5632, device=card, generator=g) * 0.05
+    launches = t_quant.counters[t].launches
+    got = t_quant.QUANTIZERS[t](w)
+    assert t_quant.counters[t].launches == launches + 1
+    assert torch.equal(got, t_quant.PLAIN[t](w))
+    head = numpy_codecs.quantize(w[:16].cpu().numpy(), t)
+    np.testing.assert_array_equal(got[:head.size].cpu().numpy(), head)

@@ -88,6 +88,25 @@ extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, f
                                static_cast<cudaStream_t>(stream));
 }
 
+// tkq_oproj_ffn with the o_proj epilogue's rounding order (round_first: 1
+// rounds the o_proj result to bf16 before adding x, as layer.cu's TPU kernel
+// does) and programmatic dependent launch of the o_proj GEMV (pdl). The
+// entry layer.cu and rot.cu call through the address their wrappers pass,
+// so that they compile none of these kernels again.
+extern "C" int tkq_oproj_ffn_ex(const void* x, const void* attn, const float* nw, float eps,
+                                int wo_kind, const void* wo_qs, const void* wo_scl,
+                                const void* wo_mins, int gu_kind, const void* gu_qs,
+                                const void* gu_scl, const void* gu_mins, int dn_kind,
+                                const void* dn_qs, const void* dn_scl, void* x2, void* act,
+                                float* ws, void* out, int R, int dim, int K, int F, int cps_o,
+                                int splits_o, int cps_g, int splits_g, int cps_d, int splits_d,
+                                int gelu, int round_first, int pdl, void* stream) {
+  return (int)launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
+                               gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, out, R, dim,
+                               K, F, cps_o, splits_o, cps_g, splits_g, cps_d, splits_d,
+                               round_first, gelu, static_cast<cudaStream_t>(stream), pdl);
+}
+
 // x, act (scratch), out: bf16; ws: f32 scratch of max(splits_g * R * 2F,
 // splits_d * R * dim) floats. gu_kind: KQ4, KQ6W or KQ8, or its F variant
 // (gu_mins: the f32 mins of a KQ4F weight, else null); dn_kind: KQ6W,

@@ -25,26 +25,29 @@
 // intermediate in VMEM from phase to phase. CUDA blocks run in no order, so
 // the phases are launches in order on the stream, each reusing a port
 // kernel, with the intermediates in small device buffers (a few KB, in L2):
-//   (QKV)   attn_in.cuh's kernel -> qk [R, (H + Hkv) hd] roped, v [R, Hkv hd];
+//   (QKV)   attn_in.cu's entry point -> qk [R, (H + Hkv) hd] roped, v [R, Hkv hd];
 //   (ATT)   decode_attn.cuh's few-row attention on #7's tensor-core core,
 //           its current-token variant: the cache tiles below q_pos, split
 //           by fused_attn_plan (S alone), the splits of a (KV head, row) one
 //           thread-block cluster that combines them over distributed shared
 //           memory in rank order and then folds in the current k / v read
 //           from qk / v -> att [R, H hd] bf16;
-//   (OPROJ, FFN) oproj_ffn's phases (gate_up.cuh:launch_oproj_ffn): the
+//   (OPROJ, FFN) oproj_ffn's phases (ffn.cu's tkq_oproj_ffn_ex): the
 //           split-K GEMV over wo on att, whose epilogue rounds to bf16 and
 //           adds x (round_first) -> x2; gate/up on x2 -> act [R, F]; the
 //           split-K GEMV over w_down on act, whose epilogue adds x2 -> y.
 // Five launches (up to seven where both GEMVs split K): one C call per
 // layer is what removes the host's per-kernel cost; a persistent single
-// launch with grid barriers is later work.
-#include "attn_in.cuh"
+// launch with grid barriers is later work. The QKV and the o_proj / FFN
+// phases are attn_in.cu's and ffn.cu's entry points (tkq_attn_in,
+// tkq_oproj_ffn_ex), called through the addresses the wrapper passes
+// (entries.cuh): their kernels are compiled once, in those libraries.
 #include "decode_attn.cuh"
-#include "gate_up.cuh"
+#include "entries.cuh"
 
 using namespace tkq;
 
+// attn_in / oproj_ffn: the addresses of tkq_attn_in and tkq_oproj_ffn_ex.
 // x, y, x2 (scratch), qk, v (outputs), att, act (scratch): bf16. R <= 4,
 // D % 512 == 0, hd 64 or 128, H % Hkv == 0 with H / Hkv <= 16, n0 = (H +
 // Hkv) hd, n1 = Hkv hd. *_kind: common.cuh's kind codes (KQ4, KQ4F, KQ6WF,
@@ -54,7 +57,8 @@ using namespace tkq;
 // ws: f32 scratch of max(splits_o * R * D, splits_g * R * 2F, splits_d * R *
 // D) floats; the attention split: fa_splits of tps tiles
 // (fused_attn_plan); gelu: the FFN's activation, 0 silu, 1 gelu.
-extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, float eps,
+extern "C" int tkq_layer(AttnInEntry attn_in, OprojFfnEntry oproj_ffn, const void* x,
+                         const float* anw, const float* fnw, float eps,
                          int qk_kind, const void* qk_qs, const void* qk_scl, const void* qk_mins,
                          int v_kind, const void* v_qs, const void* v_scl, const void* v_mins,
                          int wo_kind, const void* wo_qs, const void* wo_scl, const void* wo_mins,
@@ -67,40 +71,20 @@ extern "C" int tkq_layer(const void* x, const float* anw, const float* fnw, floa
                          int tps, int fa_splits, int cps_o, int splits_o,
                          int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n0 = (H + Hkv) * hd, n1 = Hkv * hd;
-  const auto* xb = static_cast<const __nv_bfloat16*>(x);
-  AttnInArgs ai{xb,
-                anw,
-                eps,
-                qk_kind,
-                static_cast<const uint8_t*>(qk_qs),
-                static_cast<const uint32_t*>(qk_scl),
-                static_cast<const uint32_t*>(qk_mins),
-                v_kind,
-                static_cast<const uint8_t*>(v_qs),
-                static_cast<const uint32_t*>(v_scl),
-                static_cast<const uint32_t*>(v_mins),
-                cosv,
-                sinv,
-                nullptr,
-                nullptr,
-                static_cast<__nv_bfloat16*>(qk),
-                static_cast<__nv_bfloat16*>(v),
-                R, D, n0, n1, hd};
-  cudaError_t e = launch_attn_in(ai, st);
-  if (e != cudaSuccess) return (int)e;
+  int rc = attn_in(x, anw, eps, qk_kind, qk_qs, qk_scl, qk_mins, v_kind, v_qs, v_scl, v_mins,
+                   cosv, sinv, nullptr, nullptr, qk, v, R, D, n0, n1, hd, 0, 0, stream);
+  if (rc != 0) return rc;
 
   const auto* qkb = static_cast<const __nv_bfloat16*>(qk);
   const FusedAttnArgs da{qkb, n0, kc, skb, skh, vc, svb, svh, nullptr, 0, 0, nullptr, 0, 0,
                          q_pos, qkb + (size_t)H * hd, n0, static_cast<const __nv_bfloat16*>(v),
                          n1, static_cast<__nv_bfloat16*>(att), R, H, Hkv, S, scale, tps,
                          fa_splits};
-  e = launch_fused_attn<true>(da, hd, 0, st, 1);
+  const cudaError_t e = launch_fused_attn<true>(da, hd, 0, static_cast<cudaStream_t>(stream), 1);
   if (e != cudaSuccess) return (int)e;
 
-  return (int)launch_oproj_ffn(x, att, fnw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind,
-                               gu_qs, gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y,
-                               R, D, H * hd, F, cps_o, splits_o, cps_g, splits_g, cps_d,
-                               splits_d, 1, gelu, st, 1);
+  return oproj_ffn(x, att, fnw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs, gu_scl,
+                   gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y, R, D, H * hd, F, cps_o,
+                   splits_o, cps_g, splits_g, cps_d, splits_d, gelu, 1, 1, stream);
 }

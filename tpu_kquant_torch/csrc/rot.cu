@@ -19,22 +19,29 @@
 // CUDA blocks run in no order, so the phases are launches in order on the
 // stream: oproj_ffn's sequence (gate_up.cuh:launch_oproj_ffn: the o_proj
 // GEMV whose epilogue adds x -> x2; gate/up on x2 -> act; the down GEMV
-// whose epilogue adds x2 -> y), then attn_in.cuh's kernel on y with the
+// whose epilogue adds x2 -> y), then attn_in's kernel on y with the
 // next layer's weights. Four launches, seven where the three split K, from
 // one C call: what is saved against the unfused pair is one host call per
-// layer.
-#include "attn_in.cuh"
-#include "gate_up.cuh"
+// layer. Both parts are ffn.cu's and attn_in.cu's entry points
+// (tkq_oproj_ffn_ex, tkq_attn_in), called through the addresses the wrapper
+// passes (entries.cuh): their kernels are compiled once, in those libraries.
+#include <cuda_runtime.h>
 
-using namespace tkq;
+#include "entries.cuh"
 
+extern "C" const char* tkq_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// oproj_ffn / attn_in: the addresses of tkq_oproj_ffn_ex and tkq_attn_in.
 // As tkq_oproj_ffn (ffn.cu) for x, attn, the ffn norm nw, wo, w_gateup,
 // w_down, the scratch x2, act, ws and the output y [R, dim]; then as
 // tkq_attn_in (attn_in.cu) on y with the next layer's norm nw2, wqk2 (kind
 // qk_kind) and wv2 (v_kind), cos / sin [R, hd / 2] f32, writing qk2 [R, n0]
 // (roped) and v2 [R, n1], bf16; ld0 / ld1 as tkq_attn_in's (phi3's wqkv as
 // two slots). gelu: the FFN's activation, 0 silu, 1 gelu.
-extern "C" int tkq_rot(const void* x, const void* attn, const float* nw, float eps, int wo_kind,
+extern "C" int tkq_rot(OprojFfnEntry oproj_ffn, AttnInEntry attn_in, const void* x,
+                       const void* attn, const float* nw, float eps, int wo_kind,
                        const void* wo_qs, const void* wo_scl, const void* wo_mins, int gu_kind,
                        const void* gu_qs, const void* gu_scl, const void* gu_mins, int dn_kind,
                        const void* dn_qs, const void* dn_scl, void* x2, void* act, float* ws,
@@ -45,29 +52,10 @@ extern "C" int tkq_rot(const void* x, const void* attn, const float* nw, float e
                        int n0, int n1, int hd, int ld0, int ld1, int cps_o, int splits_o,
                        int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
                        void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind,
-                                   gu_qs, gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y,
-                                   R, dim, K, F, cps_o, splits_o, cps_g, splits_g, cps_d,
-                                   splits_d, 0, gelu, st);
-  if (e != cudaSuccess) return (int)e;
-  AttnInArgs ai{static_cast<const __nv_bfloat16*>(y),
-                nw2,
-                eps,
-                qk_kind,
-                static_cast<const uint8_t*>(qk_qs),
-                static_cast<const uint32_t*>(qk_scl),
-                static_cast<const uint32_t*>(qk_mins),
-                v_kind,
-                static_cast<const uint8_t*>(v_qs),
-                static_cast<const uint32_t*>(v_scl),
-                static_cast<const uint32_t*>(v_mins),
-                cosv,
-                sinv,
-                nullptr,
-                nullptr,
-                static_cast<__nv_bfloat16*>(qk2),
-                static_cast<__nv_bfloat16*>(v2),
-                R, dim, n0, n1, hd, ld0, ld1};
-  return (int)launch_attn_in(ai, st);
+  const int rc = oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
+                           gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y, R, dim, K, F,
+                           cps_o, splits_o, cps_g, splits_g, cps_d, splits_d, gelu, 0, 0, stream);
+  if (rc != 0) return rc;
+  return attn_in(y, nw2, eps, qk_kind, qk_qs, qk_scl, qk_mins, v_kind, v_qs, v_scl, v_mins, cosv,
+                 sinv, nullptr, nullptr, qk2, v2, R, dim, n0, n1, hd, ld0, ld1, stream);
 }

@@ -3,6 +3,8 @@
 Tensors are added as raw ggml bytes, or as a zero-argument callable that
 returns them; ``write`` streams each tensor to the file in turn, so a model
 of a billion parameters never has to sit in host memory twice.
+``add_values`` adds float values that are quantized only when the file is
+written (on the card for Q4_K, Q6_K and Q8_0 when ``device`` is CUDA).
 """
 
 from __future__ import annotations
@@ -116,6 +118,22 @@ class GGUFWriter:
         """An F32 tensor from float values."""
         a = np.ascontiguousarray(array, "<f4")
         self.add_tensor(name, a.shape, GGMLType.F32, a.reshape(-1).view(np.uint8))
+
+    def n_bytes(self, name: str) -> int:
+        """The encoded size of tensor ``name``, from its shape and type."""
+        _, shape, ggml_type, _ = next(t for t in self._tensors if t[0] == name)
+        return row_size(ggml_type, int(np.prod(shape)))
+
+    def add_values(self, name: str, values: np.ndarray, ggml_type: GGMLType,
+                   device=None) -> None:
+        """A tensor of float ``values`` encoded as ``ggml_type`` by
+        ``quant.numpy_codecs.quantize`` (on ``device``) when the file is
+        written: the reference writer's ``add_tensor(name, array,
+        ggml_type)``."""
+        from tpu_kquant_torch.quant.numpy_codecs import quantize
+
+        self.add_tensor(name, values.shape, ggml_type,
+                        lambda: quantize(values, ggml_type, device))
 
     def write(self) -> Path:
         head = bytearray(struct.pack("<IIqq", GGUF_MAGIC, GGUF_VERSION,

@@ -1,8 +1,8 @@
 """Fixture models: GGUF files of a real architecture with random weights.
 
 ``write_fixture_gguf`` writes the llama tensor inventory with a type recipe
-of the reference's quantize tool (``RECIPES`` / ``target_type``, copied from
-``tpu_kquant.tools.quantize``): q4_k_m by default (attn_v, ffn_down and
+of the quantize tool (``tools/quantize.py``: ``RECIPES`` / ``target_type``,
+the reference's): q4_k_m by default (attn_v, ffn_down and
 output in Q6_K, the other matmul weights Q4_K, norms F32), or q8_0, q6_k,
 q5_k_m, q4_k_s, q3_k_m, q2_k, f16 and bf16; qwen2 adds F32 q/k/v biases,
 gemma2 the F32 ``post_attention_norm`` and ``post_ffw_norm``, phi3 its
@@ -15,11 +15,12 @@ also matches ``attn_output.weight``, in both packages. A MoE config
 (``n_experts``) writes the router ``ffn_gate_inp`` [E, D] and the stacked
 experts ``ffn_{gate,up}_exps`` [E, F, D] and ``ffn_down_exps`` [E, D, F] in
 place of the FFN weights, under the same recipe, as the reference writes
-them. Unlike the reference it does not quantize float weights: the port has
-no fast quantizer (NumPy K-quant search takes seconds per 2048x2048 tensor,
-some twenty minutes for a 1.1B model), so it DRAWS valid blocks directly,
-each type's ``d`` set so that weights have standard deviation about
-``scale`` (0.05 by default) and every sub-block is centred:
+them. Unlike the reference it does not quantize float weights, though the
+port has a fast quantizer (``ops/quantize.py``'s kernels on the card,
+``tools/quantize.py:requantize`` from an F16 fixture): it DRAWS valid blocks
+directly, so that every file written before the quantizer existed keeps its
+weights, each type's ``d`` set so that weights have standard deviation
+about ``scale`` (0.05 by default) and every sub-block is centred:
 
 - Q4_K: 4-bit codes, 6-bit sub-scales ``sc`` in [32, 63], mins ``m`` within
   4 of ``sc``, ``dmin = 7.5 d`` (codes average 7.5).
@@ -42,9 +43,10 @@ import dataclasses
 import numpy as np
 
 from tpu_kquant_torch.gguf import GGMLType, GGUFWriter, row_size
-from tpu_kquant_torch.gguf.constants import block_size, type_size
+from tpu_kquant_torch.gguf.constants import type_size
 from tpu_kquant_torch.models.config import ModelConfig, RopeParams
 from tpu_kquant_torch.quant.repack import _bf16_bits
+from tpu_kquant_torch.tools.quantize import RECIPES, target_type  # noqa: F401
 
 
 def tiny_config(arch: str = "llama", n_layers: int = 2, dim: int = 64,
@@ -172,49 +174,6 @@ def mixtral_8x7b_config() -> ModelConfig:
         rope=RopeParams(head_dim=128, n_rot=128, freq_base=1000000.0),
         n_experts=8, n_experts_used=2,
     )
-
-
-RECIPES = {
-    "q4_k_m": None,  # mixed; see target_type
-    "q4_k_s": None,
-    "q8_0": GGMLType.Q8_0,
-    "q6_k": GGMLType.Q6_K,
-    "q5_k_m": None,
-    "q3_k_m": None,  # mixed: Q3_K base, Q4_K / Q5_K bumps
-    "q2_k": None,  # mixed: Q2_K base, Q4_K attn_v
-    "f16": GGMLType.F16,
-    "bf16": GGMLType.BF16,
-}
-
-
-def target_type(name: str, shape, recipe: str) -> GGMLType:
-    """The reference quantize tool's type for a tensor under ``recipe``
-    (``tpu_kquant/tools/quantize.py:_target_type``)."""
-    if name.endswith("_norm.weight") or len(shape) == 1:
-        return GGMLType.F32
-    uniform = RECIPES.get(recipe)
-    if uniform is not None:
-        t = uniform
-    elif recipe == "q2_k":
-        t = GGMLType.Q2_K
-        if "attn_v" in name:
-            t = GGMLType.Q4_K
-        elif "output.weight" in name:
-            t = GGMLType.Q6_K
-    elif recipe == "q3_k_m":
-        t = GGMLType.Q3_K
-        if any(s in name for s in ("attn_v", "ffn_down", "attn_output")):
-            t = GGMLType.Q4_K
-        elif "output.weight" in name:
-            t = GGMLType.Q5_K
-    else:
-        t = GGMLType.Q5_K if recipe == "q5_k_m" else GGMLType.Q4_K
-        if recipe.endswith("_m") and any(
-                s in name for s in ("attn_v", "ffn_down", "output.weight")):
-            t = GGMLType.Q6_K
-    if shape[-1] % block_size(t) != 0:  # block-size feasibility fallbacks
-        return GGMLType.Q8_0 if shape[-1] % 32 == 0 else GGMLType.F16
-    return t
 
 
 def _f16_bytes(x: np.ndarray) -> np.ndarray:

@@ -27,9 +27,12 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".cache" / "tkq_torch_build"
 SOURCES = ("qmm", "qmm_q56", "qmm_q23", "attn_in", "ffn", "prefill", "qmm_int8", "decode_attn",
-           "kv_append", "attn_out", "layer", "rot", "kernel_lab", "prefill_lab")
+           "kv_append", "attn_out", "layer", "rot", "kernel_lab", "prefill_lab", "quantize")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# flags of one source on top of NVCC_FLAGS: the quantizers round every
+# multiply and add on its own, as the NumPy code they reproduce does
+EXTRA_FLAGS = {"quantize": ["-fmad=false"]}
 
 
 class LaunchCounter:
@@ -53,6 +56,7 @@ COUNTERS: dict[str, LaunchCounter] = {}
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _declared: set[tuple[str, str]] = set()  # (library, entry point) with argtypes set
+_addresses: dict[tuple[str, str], ctypes.c_void_p] = {}  # (library, entry point) -> address
 
 
 def nvcc_path() -> str:
@@ -72,7 +76,7 @@ def _lib_path(name: str) -> Path:
     for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, [])).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -91,7 +95,8 @@ def build_all() -> float:
     procs = []
     for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     errors = []
@@ -118,18 +123,36 @@ def _children_cpu() -> float:
     return u.ru_utime + u.ru_stime
 
 
+def _library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (all sources are built first
+    if needed); the caller holds ``_lock``."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib.tkq_error_string.argtypes = [ctypes.c_int]
+        lib.tkq_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def address(name: str, fn: str) -> ctypes.c_void_p:
+    """The address of C entry point ``fn`` of library ``name``, for a kernel
+    library that calls another's entry point (layer.cu and rot.cu call
+    attn_in.cu's and ffn.cu's: csrc/entries.cuh)."""
+    with _lock:
+        if (name, fn) not in _addresses:
+            _addresses[name, fn] = ctypes.c_void_p(
+                ctypes.cast(getattr(_library(name), fn), ctypes.c_void_p).value)
+        return _addresses[name, fn]
+
+
 def load(name: str, fn: str, argtypes: list) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (all sources are built first
     if needed), with entry point ``fn`` declared to take ``argtypes`` and
     return an int error code."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            build_all()
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            lib.tkq_error_string.argtypes = [ctypes.c_int]
-            lib.tkq_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+        lib = _library(name)
         if (name, fn) not in _declared:
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

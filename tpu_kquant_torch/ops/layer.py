@@ -47,8 +47,9 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _W = [_I, _P, _P, _P]  # a weight: kind code, codes, scales, mins
-#            x   anw fnw eps  wqk, wv, wo, gu       dn: kind qs scl  cos sin
-_ARGTYPES = [_P, _P, _P, _F, *_W, *_W, *_W, *_W, _I, _P, _P, _P, _P,
+#            attn_in oproj_ffn (entry addresses) x anw fnw eps  wqk, wv, wo, gu
+#            dn: kind qs scl  cos sin
+_ARGTYPES = [_P, _P, _P, _P, _P, _F, *_W, *_W, *_W, *_W, _I, _P, _P, _P, _P,
              # kc skb skh vc svb svh q_pos qk v   att x2  act ws  y
              _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P,
              # R  D   H   Hkv hd  S   F   scale tps splits cps_o splits_o
@@ -182,7 +183,9 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
         w_args += [code] + [None if a is None else P(a) for a in arrs]
     dn_code, dn_arrs = wts[4]
     lib = _build.load("layer", "tkq_layer", _ARGTYPES)
-    rc = lib.tkq_layer(P(x2d), P(anw), P(fnw), float(eps),
+    rc = lib.tkq_layer(_build.address("attn_in", "tkq_attn_in"),
+                       _build.address("ffn", "tkq_oproj_ffn_ex"), P(x2d), P(anw), P(fnw),
+                       float(eps),
                        *w_args, dn_code, P(dn_arrs[0]), P(dn_arrs[1]), P(c2d), P(s2d),
                        P(k_cache), k_cache.stride(0), k_cache.stride(1), P(v_cache),
                        v_cache.stride(0), v_cache.stride(1), P(qp), P(qk), P(v), P(att),

@@ -35,8 +35,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _W = [_I, _P, _P, _P]  # a weight: kind code, codes, scales, mins
-#            x   attn nw  eps wo  gu   dn: kind qs scl  x2  act ws  y   nw2
-_ARGTYPES = [_P, _P, _P, _F, *_W, *_W, _I, _P, _P, _P, _P, _P, _P, _P,
+#            oproj_ffn attn_in (entry addresses) x attn nw eps wo gu
+#            dn: kind qs scl  x2  act ws  y   nw2
+_ARGTYPES = [_P, _P, _P, _P, _P, _F, *_W, *_W, _I, _P, _P, _P, _P, _P, _P, _P,
              # wqk2 wv2  cos sin qk2 v2
              *_W, *_W, _P, _P, _P, _P,
              # R  dim K   F   n0  n1  hd  ld0 ld1 cps_o splits_o cps_g splits_g cps_d
@@ -129,7 +130,9 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
     P = _build.ptr
     args = [[code] + [None if a is None else P(a) for a in arrs] for code, arrs in wts]
     lib = _build.load("rot", "tkq_rot", _ARGTYPES)
-    rc = lib.tkq_rot(P(x2d), P(a2d), P(nw), float(eps), *args[0], *args[1], *args[2][:3],
+    rc = lib.tkq_rot(_build.address("ffn", "tkq_oproj_ffn_ex"),
+                     _build.address("attn_in", "tkq_attn_in"), P(x2d), P(a2d), P(nw), float(eps),
+                     *args[0], *args[1], *args[2][:3],
                      P(x2), P(act), P(ws), P(y), P(nw2), *args[3], *args[4], P(c2d), P(s2d),
                      P(qk2), P(v2), R, dim, K, Fd, n0, n1, head_dim, row_stride(wts[3][1][0]),
                      row_stride(wts[4][1][0]), cps_o, splits_o, cps_g, splits_g, cps_d, splits_d,

@@ -67,11 +67,15 @@ def _rope_neox_perm(n_feats: int, head_dim: int) -> np.ndarray:
 
 
 def permute_out_features(qt: QTensor, perm: np.ndarray) -> QTensor:
-    """Reorder a kmajor weight's output features (N is the last axis of
-    every packed array, so the bit layout is untouched)."""
-    if qt.layout != "kmajor":
+    """Reorder a weight's output features: N is the last axis of every
+    kmajor packed array (the bit layout is untouched) and the first of a
+    dense weight (an F32 / F16 / BF16 file's)."""
+    if qt.layout == "kmajor":
+        arrays = {k: np.ascontiguousarray(np.asarray(v)[:, perm]) for k, v in qt.arrays.items()}
+    elif qt.layout == "dense":
+        arrays = {"w": np.ascontiguousarray(np.asarray(qt.arrays["w"])[perm])}
+    else:
         raise ValueError(f"cannot permute layout {qt.layout!r}")
-    arrays = {k: np.ascontiguousarray(np.asarray(v)[:, perm]) for k, v in qt.arrays.items()}
     return QTensor(qt.kind, qt.layout, qt.shape, arrays)
 
 

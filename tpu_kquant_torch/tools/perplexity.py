@@ -15,15 +15,22 @@ import torch
 
 
 @torch.no_grad()
-def nll_of_window(engine, tokens: list[int]) -> tuple[float, int]:
-    """Summed negative log-likelihood of tokens[1:] given their prefixes,
-    and their count."""
+def window_logprobs(engine, tokens: list[int]) -> torch.Tensor:
+    """f32 log-probabilities [T, vocab] of the token after each of the
+    window's T tokens: one engine.step over a fresh cache."""
     cache = engine.new_cache(1)
     T = len(tokens)
     toks = torch.tensor([tokens], dtype=torch.long)
     logits, _ = engine.step(toks, torch.arange(T)[None, :], cache)
-    logp = torch.log_softmax(logits[0, : T - 1].float(), dim=-1)
-    tgt = toks[0, 1:].to(logp.device)
+    return torch.log_softmax(logits[0].float(), dim=-1)
+
+
+def nll_of_window(engine, tokens: list[int]) -> tuple[float, int]:
+    """Summed negative log-likelihood of tokens[1:] given their prefixes,
+    and their count."""
+    T = len(tokens)
+    logp = window_logprobs(engine, tokens)[: T - 1]
+    tgt = torch.tensor(tokens[1:], dtype=torch.long, device=logp.device)
     nll = -logp.gather(1, tgt[:, None]).sum()
     return float(nll), T - 1
 
