@@ -219,10 +219,9 @@ Phases, each fatal on failure:
 16. the recurrent family (recurrent), run after phase 14: Mamba-2.8B
     (state-spaces/mamba-2.8b-hf: 64 layers, d_model 2560, d_inner 5120,
     d_state 16, d_conv 4, dt_rank 160, vocab 50280, tied lm head) at full
-    width and MAMBA_DEPTH = 32 of its 64 layers (all 64 before phase 17),
-    written with weights of std MAMBA_SCALE: the dispatch pinned (every
-    matmul on qmm's kernel, 4 L + 1 launches a decode step and a prefill,
-    no plain version; the prefill's five shapes
+    width and depth, written with weights of std MAMBA_SCALE: the dispatch
+    pinned (every matmul on qmm's kernel, 4 x 64 + 1 = 257 launches a
+    decode step and a prefill, no plain version; the prefill's five shapes
     on the tile, ssm_x and ssm_dt included); mamba_layer_scan's rows at B =
     16 (T = 1 and 64) equal to each row alone, bit for bit; its peak device
     memory on a 16-row burst of 2048 tokens under one [16, 2048, d_inner,
@@ -261,7 +260,6 @@ Phases, each fatal on failure:
 Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 every recipe,
 Q8_0 and Q5_K_M among them, untimed at GGML_DEPTH = 2 layers (2 and 4
 layers, Q5_K_M timed at 22 before phase 13, Q8_0 before phase 15),
-phase 16 Mamba-2.8B at MAMBA_DEPTH = 32 of 64 layers (64 before phase 17),
 phase 10 one turn of tg128 on and off a path (FUSED_TURNS; 2 before phase
 15), and phases 5, 7 and 13 time pp2048 / tg128@2048, Qwen2.5's and
 Gemma-2B's pp512 / tg128 once each after a warm run (LONG_TIMED_REPS,
@@ -3564,7 +3562,7 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the recurrent family (Mamba-2.8B, full width, MAMBA_DEPTH layers)
+# phase 16: the recurrent family (Mamba-2.8B, full width and depth)
 # ---------------------------------------------------------------------------
 
 # the writer's weight std for Mamba-2.8B: at the default 0.05 the SSM's
@@ -3573,7 +3571,6 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
 # CPU), and the state checks below would see little; at 0.1 they move by
 # more than max|logits| (PERF.md §4)
 MAMBA_SCALE = 0.1
-MAMBA_DEPTH = 32  # Mamba-2.8B's layers on the card (of 64; all before phase 17: the 1200 s)
 MAMBA_MAX_SEQ = 2048  # Mamba-2.8B's context
 MAMBA_SERVE = (16, 128, 64)  # slots, cache length, requests
 # (requests submitted, ticks stepped after): 10 at once (a burst into fresh
@@ -3868,11 +3865,8 @@ def mamba_burst_memory(cfg, params, dev) -> dict:
 
 
 def recurrent(dev, profile: Path | None = None) -> dict:
-    """Phase 16 (module docstring): Mamba-2.8B at full width and MAMBA_DEPTH
-    of its 64 layers. Returns the main path's launches and the numbers it
-    printed."""
-    import dataclasses
-
+    """Phase 16 (module docstring): Mamba-2.8B at full width and depth.
+    Returns the main path's launches and the numbers it printed."""
     import numpy as np
     import torch
 
@@ -3889,10 +3883,8 @@ def recurrent(dev, profile: Path | None = None) -> dict:
     def lap(what: str) -> None:
         steps[what] = time.perf_counter() - t_phase - sum(steps.values())
 
-    name = f"mamba-2.8b-{MAMBA_DEPTH}l-q4_k_m-scale{MAMBA_SCALE}-seed0.gguf"
-    cfg, params, times = load_fixture(
-        dataclasses.replace(mamba_2_8b_config(), n_layers=MAMBA_DEPTH), name, dev,
-        scale=MAMBA_SCALE)
+    name = f"mamba-2.8b-q4_k_m-scale{MAMBA_SCALE}-seed0.gguf"
+    cfg, params, times = load_fixture(mamba_2_8b_config(), name, dev, scale=MAMBA_SCALE)
     res: dict = {"gpu": gpu, **times}
     w_bytes, _ = weight_work(params)
     state_bytes = 2 * 4 * cfg.n_layers * (cfg.ssm_d_conv - 1 + cfg.ssm_d_state) * cfg.ssm_d_inner
@@ -4856,10 +4848,14 @@ def _corr(a, b) -> float:
 F16_NAME = "tinyllama-1.1b-f16-seed0.gguf"
 
 
-def start_f16_fixture() -> subprocess.Popen:
+def start_f16_fixture() -> subprocess.Popen | None:
     """Write (b)'s F16 TinyLlama-1.1B fixture in a process of its own while
     phase 2's nvcc processes leave cores idle: its 1.1 G normal draws take
-    ~40 s of one core. Phase 17 waits for it (requantize_tinyllama)."""
+    ~40 s of one core. Phase 17 waits for it (requantize_tinyllama). None
+    when the fixture directory already holds it, as load_fixture reuses the
+    others."""
+    if (FIXTURE_DIR / F16_NAME).exists():
+        return None
     code = ("import os, sys, time; t0 = time.perf_counter(); sys.path.insert(0, sys.argv[1])\n"
             "from tpu_kquant_torch.models.fixtures import tinyllama_1b_config, "
             "write_fixture_gguf\n"
@@ -4891,7 +4887,7 @@ def requantize_tinyllama(dev, gpu: str, writer: subprocess.Popen | None = None) 
     f16 = FIXTURE_DIR / F16_NAME
     q4 = FIXTURE_DIR / "tinyllama-1.1b-f16-seed0-requantized-q4_k_m.gguf"
     t0 = time.perf_counter()
-    how = "written here"
+    how = "reused from the fixture directory" if f16.exists() else "written here"
     if writer is not None:
         out, _ = writer.communicate()
         if writer.returncode != 0:
@@ -5104,7 +5100,7 @@ def main() -> int:
     try:
         return run_phases(args, dev, writer, t_start)
     finally:
-        if writer.poll() is None:
+        if writer is not None and writer.poll() is None:
             writer.kill()
             writer.wait()
 
@@ -5171,8 +5167,7 @@ def run_phases(args, dev, writer, t_start: float) -> int:
     front = front_door(dev)
     torch.cuda.empty_cache()
 
-    phase(f"phase 16: the recurrent family (Mamba-2.8B, {MAMBA_DEPTH} of 64 layers) "
-          f"[{gpu_line()}]")
+    phase(f"phase 16: the recurrent family (Mamba-2.8B, full depth) [{gpu_line()}]")
     mamba = recurrent(dev, args.profile)
     torch.cuda.empty_cache()
 

@@ -1,5 +1,5 @@
 // The C entry points of attn_in.cu (tkq_attn_in) and ffn.cu
-// (tkq_oproj_ffn_ex) as layer.cu and rot.cu call them: through the
+// (tkq_oproj_ffn) as layer.cu and rot.cu call them: through the
 // addresses their wrappers pass (ops/_build.py:address), so that the
 // kernels of those phases are compiled once, in their own libraries, and
 // not again inside layer's and rot's (which made those two the build's

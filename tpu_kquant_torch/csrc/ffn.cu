@@ -72,8 +72,12 @@ using namespace tkq;
 // KQ8; each or its F variant); *_scl the sm / sp pairs or f32 scales,
 // *_mins the f32 mins of a KQ4F weight (else null).
 // cps_* / splits_*: the K split of phases A, B and C. gelu: the
-// activation, 0 silu, 1 gelu. Requires K % 64 == 0, dim % 64 == 0, F % 32
-// == 0, R <= 32.
+// activation, 0 silu, 1 gelu. round_first: 1 rounds the o_proj result to
+// bf16 before adding x (layer.cu's TPU kernel's order), 0 adds in f32 then
+// rounds. pdl: programmatic dependent launch of the o_proj GEMV. Requires
+// K % 64 == 0, dim % 64 == 0, F % 32 == 0, R <= 32. layer.cu and rot.cu
+// call it through the address their wrappers pass, so that they compile
+// none of these kernels again.
 extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
                              int wo_kind, const void* wo_qs, const void* wo_scl,
                              const void* wo_mins, int gu_kind, const void* gu_qs,
@@ -81,26 +85,7 @@ extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, f
                              const void* dn_qs, const void* dn_scl, void* x2, void* act, float* ws,
                              void* out, int R, int dim, int K, int F, int cps_o, int splits_o,
                              int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
-                             void* stream) {
-  return (int)launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
-                               gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, out, R, dim,
-                               K, F, cps_o, splits_o, cps_g, splits_g, cps_d, splits_d, 0, gelu,
-                               static_cast<cudaStream_t>(stream));
-}
-
-// tkq_oproj_ffn with the o_proj epilogue's rounding order (round_first: 1
-// rounds the o_proj result to bf16 before adding x, as layer.cu's TPU kernel
-// does) and programmatic dependent launch of the o_proj GEMV (pdl). The
-// entry layer.cu and rot.cu call through the address their wrappers pass,
-// so that they compile none of these kernels again.
-extern "C" int tkq_oproj_ffn_ex(const void* x, const void* attn, const float* nw, float eps,
-                                int wo_kind, const void* wo_qs, const void* wo_scl,
-                                const void* wo_mins, int gu_kind, const void* gu_qs,
-                                const void* gu_scl, const void* gu_mins, int dn_kind,
-                                const void* dn_qs, const void* dn_scl, void* x2, void* act,
-                                float* ws, void* out, int R, int dim, int K, int F, int cps_o,
-                                int splits_o, int cps_g, int splits_g, int cps_d, int splits_d,
-                                int gelu, int round_first, int pdl, void* stream) {
+                             int round_first, int pdl, void* stream) {
   return (int)launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
                                gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, out, R, dim,
                                K, F, cps_o, splits_o, cps_g, splits_g, cps_d, splits_d,

@@ -32,7 +32,7 @@
 //           thread-block cluster that combines them over distributed shared
 //           memory in rank order and then folds in the current k / v read
 //           from qk / v -> att [R, H hd] bf16;
-//   (OPROJ, FFN) oproj_ffn's phases (ffn.cu's tkq_oproj_ffn_ex): the
+//   (OPROJ, FFN) oproj_ffn's phases (ffn.cu's tkq_oproj_ffn): the
 //           split-K GEMV over wo on att, whose epilogue rounds to bf16 and
 //           adds x (round_first) -> x2; gate/up on x2 -> act [R, F]; the
 //           split-K GEMV over w_down on act, whose epilogue adds x2 -> y.
@@ -40,14 +40,14 @@
 // layer is what removes the host's per-kernel cost; a persistent single
 // launch with grid barriers is later work. The QKV and the o_proj / FFN
 // phases are attn_in.cu's and ffn.cu's entry points (tkq_attn_in,
-// tkq_oproj_ffn_ex), called through the addresses the wrapper passes
+// tkq_oproj_ffn), called through the addresses the wrapper passes
 // (entries.cuh): their kernels are compiled once, in those libraries.
 #include "decode_attn.cuh"
 #include "entries.cuh"
 
 using namespace tkq;
 
-// attn_in / oproj_ffn: the addresses of tkq_attn_in and tkq_oproj_ffn_ex.
+// attn_in / oproj_ffn: the addresses of tkq_attn_in and tkq_oproj_ffn.
 // x, y, x2 (scratch), qk, v (outputs), att, act (scratch): bf16. R <= 4,
 // D % 512 == 0, hd 64 or 128, H % Hkv == 0 with H / Hkv <= 16, n0 = (H +
 // Hkv) hd, n1 = Hkv hd. *_kind: common.cuh's kind codes (KQ4, KQ4F, KQ6WF,

@@ -23,7 +23,7 @@
 // next layer's weights. Four launches, seven where the three split K, from
 // one C call: what is saved against the unfused pair is one host call per
 // layer. Both parts are ffn.cu's and attn_in.cu's entry points
-// (tkq_oproj_ffn_ex, tkq_attn_in), called through the addresses the wrapper
+// (tkq_oproj_ffn, tkq_attn_in), called through the addresses the wrapper
 // passes (entries.cuh): their kernels are compiled once, in those libraries.
 #include <cuda_runtime.h>
 
@@ -33,7 +33,7 @@ extern "C" const char* tkq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// oproj_ffn / attn_in: the addresses of tkq_oproj_ffn_ex and tkq_attn_in.
+// oproj_ffn / attn_in: the addresses of tkq_oproj_ffn and tkq_attn_in.
 // As tkq_oproj_ffn (ffn.cu) for x, attn, the ffn norm nw, wo, w_gateup,
 // w_down, the scratch x2, act, ws and the output y [R, dim]; then as
 // tkq_attn_in (attn_in.cu) on y with the next layer's norm nw2, wqk2 (kind

@@ -44,8 +44,8 @@ _F = ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
              # x2 act ws out R  dim K  F  cps_o splits_o cps_g splits_g cps_d splits_d
              _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             # gelu stream
-             _I, _P]
+             # gelu round_first pdl stream
+             _I, _I, _I, _P]
 #                x   nw  eps gu: kind qs scl mins  dn: kind qs scl
 _FFN_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _I, _P, _P,
                  # act ws out R  dim F  cps_g splits_g cps_d splits_d gelu stream
@@ -305,7 +305,7 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *ptrs(wo_arrs), gu_kind,
                            *ptrs(gu_arrs), dn_kind, *ptrs(dn_arrs[:2]), P(x2), P(act), P(ws),
                            P(out), R, dim, K, Fd, cps_o, splits_o, cps_g, splits_g, cps_d,
-                           splits_d, gelu, _build.stream_ptr(dev))
+                           splits_d, gelu, 0, 0, _build.stream_ptr(dev))
     _build.check(lib, rc, "oproj_ffn")
     counter.launches += 1
     return out.reshape(*lead, dim)

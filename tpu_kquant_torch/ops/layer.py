@@ -184,7 +184,7 @@ def fused_layer(x: torch.Tensor, positions: torch.Tensor, anw: torch.Tensor, fnw
     dn_code, dn_arrs = wts[4]
     lib = _build.load("layer", "tkq_layer", _ARGTYPES)
     rc = lib.tkq_layer(_build.address("attn_in", "tkq_attn_in"),
-                       _build.address("ffn", "tkq_oproj_ffn_ex"), P(x2d), P(anw), P(fnw),
+                       _build.address("ffn", "tkq_oproj_ffn"), P(x2d), P(anw), P(fnw),
                        float(eps),
                        *w_args, dn_code, P(dn_arrs[0]), P(dn_arrs[1]), P(c2d), P(s2d),
                        P(k_cache), k_cache.stride(0), k_cache.stride(1), P(v_cache),

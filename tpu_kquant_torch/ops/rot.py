@@ -130,7 +130,7 @@ def fused_oproj_ffn_attn_in(x: torch.Tensor, attn: torch.Tensor, wo: QTensor,
     P = _build.ptr
     args = [[code] + [None if a is None else P(a) for a in arrs] for code, arrs in wts]
     lib = _build.load("rot", "tkq_rot", _ARGTYPES)
-    rc = lib.tkq_rot(_build.address("ffn", "tkq_oproj_ffn_ex"),
+    rc = lib.tkq_rot(_build.address("ffn", "tkq_oproj_ffn"),
                      _build.address("attn_in", "tkq_attn_in"), P(x2d), P(a2d), P(nw), float(eps),
                      *args[0], *args[1], *args[2][:3],
                      P(x2), P(act), P(ws), P(y), P(nw2), *args[3], *args[4], P(c2d), P(s2d),

@@ -18,6 +18,8 @@ Raw-bytes dequantization lives in ``quant/repack.py:dequantize``.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from tpu_kquant_torch.gguf.constants import GGMLType, block_size
@@ -518,14 +520,17 @@ def _on_card(x, device) -> bool:
     return getattr(x, "is_cuda", False)
 
 
-def quantize(x, ggml_type: GGMLType, device=None) -> np.ndarray:
+def quantize(x, ggml_type: GGMLType, device=None, seconds: dict | None = None) -> np.ndarray:
     """Encode float values (a numpy array or a torch tensor) into raw ggml
     bytes: a flat uint8 numpy array, in row-major element order.
 
     Q4_K, Q6_K and Q8_0 run on the card's kernels (``ops/quantize.py``) when
     ``x`` is a CUDA tensor or ``device`` is a CUDA device; the bytes are the
-    NumPy code's. Everything else is host NumPy."""
+    NumPy code's. Everything else is host NumPy. With ``seconds``, the time
+    taken is added to its "copies" and "quantize_card" (the kernel,
+    synchronised on either side) or to its "quantize_host"."""
     t = GGMLType(ggml_type)
+    t0 = time.perf_counter()
     if _on_card(x, device) and t in DEVICE_TYPES:
         import torch
 
@@ -533,7 +538,24 @@ def quantize(x, ggml_type: GGMLType, device=None) -> np.ndarray:
 
         dev = torch.device(device) if device is not None else x.device
         xt = torch.as_tensor(x).to(device=dev, dtype=torch.float32).reshape(-1)
-        return qops.QUANTIZERS[t](xt).cpu().numpy()
+        if seconds is None:
+            return qops.QUANTIZERS[t](xt).cpu().numpy()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        out = qops.QUANTIZERS[t](xt)
+        torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        raw = out.cpu().numpy()
+        seconds["copies"] += (t1 - t0) + (time.perf_counter() - t2)
+        seconds["quantize_card"] += t2 - t1
+        return raw
+    raw = _quantize_host(x, t)
+    if seconds is not None:
+        seconds["quantize_host"] += time.perf_counter() - t0
+    return raw
+
+
+def _quantize_host(x, t: GGMLType) -> np.ndarray:
     if not isinstance(x, np.ndarray):
         x = x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
     x = np.asarray(x, np.float32)

@@ -76,24 +76,8 @@ def _encoder(reader: GGUFReader, name: str, target: GGMLType, dev: torch.device,
     def encode() -> np.ndarray:
         t0 = time.perf_counter()
         f32 = dequantize(reader.tensor_bytes(name), ti.ggml_type, ti.shape)
-        t1 = time.perf_counter()
-        seconds["dequantize"] += t1 - t0
-        if dev.type != "cuda" or target not in numpy_codecs.DEVICE_TYPES:
-            raw = numpy_codecs.quantize(f32, target)
-            seconds["quantize_host"] += time.perf_counter() - t1
-            return raw
-        from tpu_kquant_torch.ops import quantize as qops
-
-        x = torch.from_numpy(f32.reshape(-1)).to(dev)
-        torch.cuda.synchronize(dev)
-        t2 = time.perf_counter()
-        out = qops.QUANTIZERS[target](x)
-        torch.cuda.synchronize(dev)
-        t3 = time.perf_counter()
-        raw = out.cpu().numpy()
-        seconds["copies"] += (t2 - t1) + (time.perf_counter() - t3)
-        seconds["quantize_card"] += t3 - t2
-        return raw
+        seconds["dequantize"] += time.perf_counter() - t0
+        return numpy_codecs.quantize(f32, target, dev, seconds)
 
     return encode
 
