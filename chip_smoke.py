@@ -68,7 +68,12 @@ Phases, each fatal on failure:
     load onto the card, check a 2-layer cut against the plain versions on
     the CPU, answer three greedy requests of different prompt lengths with
     the launch counters set to 0 just before and read just after, then time
-    pp512 and tg128;
+    pp512 and tg128; tg128 on one cache whose decode step (runtime.graphs)
+    is captured in the warm run, timed two runs a side replaying it and in
+    the plain loop (plain, graph, graph, plain), every run's tokens and
+    last logits equal bit for bit, and decode_sampled (temperature, top-k,
+    top-p, repeat penalty) as a graph against the plain loop, tokens, last
+    logits, keys and penalty state equal bit for bit;
  5. long prompts, on a bf16 and then an int8 KV cache of 2240 slots (2048 +
     128 + 64, bench.py's sizing): a 2-layer cut prefilling a 1100-token
     prompt (bucket 2048: the flash prefill kernel) on the card against the
@@ -87,8 +92,12 @@ Phases, each fatal on failure:
     serving 1024 requests admitted as one
     burst, on bf16 and then int8 KV: the flash prefill in every layer of the
     burst and the flash decode kernel in every layer of every tick. Each run
-    is counted from 0 and checked against the gates; tokens/s (wall), ticks
-    and wall per tick are printed. Then phase 4's fixture loaded with f32
+    is counted from 0 and checked against the gates (the ticks the device
+    ran); tokens/s (wall), ticks and wall per tick are printed. At 16 slots
+    the same 64 requests are served again per tick (max_chunk 1) and by the
+    graph and the plain batcher two runs a side (plain, graph, graph,
+    plain; tok/s and ms a tick), every stream equal to the chunked run's.
+    Then phase 4's fixture loaded with f32
     scales under impl "int8": attn_in and oproj_ffn on f32 scales, three
     greedy requests, counted;
  7. Qwen2.5-1.5B at full width and depth (28 layers; q/k/v biases, tied lm
@@ -209,7 +218,9 @@ Phases, each fatal on failure:
     under TKQ_ROTATE_LAYER=1 (rot with the next layer's wqkv, which must
     launch); on each layout greedy requests of 5, 40, 200
     and 3000 tokens (past the window and the ring) counted from 0, pp512
-    and tg128 on 4096 slots (PHI3_TIMED_REPS runs after a warm one); the
+    and tg128 on 4096 slots (PHI3_TIMED_REPS runs after a warm one; then
+    phase 4's graph-against-plain A/B of tg128, tokens and last logits
+    equal bit for bit); the
     3000-token prompt's last logits on the ring against the unified
     layout's (5e-2 of max|ref|); tools/main.py --kv-layout iswa -n 32, its
     ids equal generate's; then phase 13's Gemma-2-9B cut (a window layer
@@ -230,13 +241,15 @@ Phases, each fatal on failure:
     decode steps: logits, the first greedy token in the CPU's top 5, the
     final conv and ssm states); the last logits' dependence on earlier
     tokens; greedy requests of 5-512 tokens counted from 0, pp512 and
-    tg128 (one timed run each); a session saved after a prompt and
+    tg128 (one timed run each; then phase 4's graph-against-plain A/B of
+    tg128, tokens and last logits equal bit for bit); a session saved after a prompt and
     continued equal to the uninterrupted run; the generate CLI, its ids
     equal generate's; serving 64 requests on 16 slots, 10 at once and then
     one a tick (MAMBA_WAVES), so bursts and single admissions both refill
     slots that finished requests held, each of the 4 greedy streams
     (MAMBA_GREEDY: a single and a burst admission, each into a fresh and a
-    reused slot) equal to its solo run.
+    reused slot) equal to its solo run, and every stream of the same waves
+    served per tick (max_chunk 1) equal to the chunked run's.
 17. the quantizer and the converter (quantizer), run after phase 16: (a)
     csrc/quantize.cu's Q4_K, Q6_K and Q8_0 kernels against their plain
     versions on the card, bit for bit, on whole tensors of TinyLlama's
@@ -266,6 +279,13 @@ Gemma-2B's pp512 / tg128 once each after a warm run (LONG_TIMED_REPS,
 QWEN_TIMED_REPS, GEMMA_TIMED_REPS; medians of 3 before phase 15): the
 smoke's 1200 s limit. The CPU side of every cut
 dequantizes each weight once (cpu_dequant_memo).
+The decode loops and the serving tick run as CUDA graphs (runtime.graphs):
+a kernel wrapper counts at the warm run, the capture's calls are taken back
+and every replay adds them, so the counts are launches; main_run holds a
+run to the forwards it ran eagerly and, for each replay, those its step
+captured (record_captures), and logs its graph launches and the counted
+kernel launches inside and outside them. A capture that fails (a host read
+in the step raises under set_sync_debug_mode("error")) ends the smoke.
 Launch counts in the kernels' JSON line are the sums over the request runs
 of phases 4 to 10 and 13 to 16, each counted from 0 and checked against the dispatch
 gates exactly (the quantizers': phase 17's requantize and ppl_delta runs,
@@ -2323,7 +2343,10 @@ def reference_check(cfg, params, dev, lengths=(8, 40), max_seq: int = 128,
         cache = eng.new_cache(1)
         logits, cache, lens = eng.prefill([prompt], cache)
         first = torch.argmax(logits, -1)
-        toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=d), cache, steps)
+        # the routing spy reads every step's router logits on the host, which
+        # a captured step may not: a MoE model's steps take the plain loop
+        toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=d), cache, steps,
+                                        plain=cfg.is_moe)
         # prompt rows of the prefill calls, then the decode steps' single rows
         routes = [r[0, :len(prompt)] for r in seen[:depth]] + [r[0] for r in seen[depth:]]
         return logits[0].float().cpu(), [int(first[0])] + toks[0].cpu().tolist(), routes
@@ -2432,17 +2455,67 @@ def load_fixture(cfg0, name: str, dev, scale_dtype: str = "bf16", recipe: str = 
     return cfg, params, {"write_s": t1 - t0, "load_s": t2 - t1}
 
 
+def refill(eng, prompt: list, cache):
+    """Prefill one prompt into `cache` anew, zeroed first (a recurrent state
+    starts from the cache it is given). Returns (the first greedy token [1],
+    its position [1]) on the card."""
+    import torch
+
+    from tpu_kquant_torch.runtime.graphs import cache_tensors
+
+    for t in cache_tensors(cache):
+        t.zero_()
+    logits, _, lens = eng.prefill([prompt], cache)
+    return torch.argmax(logits, -1), torch.tensor(lens, device=eng.device)
+
+
+AB_SAMPLER = dict(temperature=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1)  # phase 6's chain
+
+
+def sampled_graph_check(eng, prompt: list, tag: str) -> None:
+    """decode_sampled (AB_SAMPLER, penalties over 64) for 32 steps on the
+    captured step and on the plain loop from the same prefilled cache:
+    tokens, the last step's logits, keys and penalty state equal bit for
+    bit (fatal)."""
+    import torch
+
+    from tpu_kquant_torch.ops.sampling import SamplerConfig, init_penalty_state, row_keys
+
+    sc = SamplerConfig(**AB_SAMPLER)
+    cache, out = eng.new_cache(1), {}
+    for plain in (True, False):
+        first, pos = refill(eng, prompt, cache)
+        keys = row_keys(torch.tensor([7]), 0).to(eng.device)
+        state = init_penalty_state([prompt], eng.cfg.vocab_size, 64, eng.device)
+        toks, _, keys, state = eng.decode_sampled(first, pos, cache, 32, sc, keys, state,
+                                                  plain=plain)
+        out[plain] = (toks, eng.last_logits.clone(), keys, *state)
+    same = [torch.equal(a, b) for a, b in zip(out[True], out[False])]
+    log(f"  sampled decode{tag} (32 steps, {AB_SAMPLER}): graph against the plain loop, "
+        f"tokens / last logits / keys / penalty state equal: {same}")
+    if not all(same):
+        raise SystemExit(f"FAIL: the sampled decode loop's graph differs from the plain loop"
+                         f"{tag}: {same}")
+
+
 def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: int = 704,
                profile: Path | None = None, tag: str = "", impl: str = "auto",
-               kv_layout: str = "unified", timed_max_seq: int = 704, reps: int = 3) -> dict:
+               kv_layout: str = "unified", timed_max_seq: int = 704, reps: int = 3,
+               ab: bool = False, sampled: bool = False) -> dict:
     """The main path of one loaded model under `impl` on `kv_layout`: greedy
     requests of `request_lengths` tokens (16 new tokens each) on a
     `request_max_seq` bf16 cache, counted from 0 and checked against the
     dispatch gates (main_run), then pp512 and tg128 on a `timed_max_seq`
-    cache (704: 512 + 128 + 64), medians of `reps` after a warm run."""
+    cache (704: 512 + 128 + 64), medians of `reps` after a warm run. tg128
+    runs on one cache, prefilled anew before each run, so the decode loop's
+    graph is captured in the warm run and no timed run captures; with `ab`,
+    its runs are two a side of the graph and the plain loop (plain, graph,
+    graph, plain), every run's tokens and last logits equal bit for bit
+    (fatal); with `sampled`, also sampled_graph_check."""
     import numpy as np
     import torch
 
+    from tpu_kquant_torch.runtime import graphs
     from tpu_kquant_torch.runtime.engine import InferenceEngine
 
     # bounds of the two timed workloads, from the loaded weights: decode
@@ -2492,21 +2565,38 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
         raise SystemExit("FAIL: pp512 logits are not finite [1, vocab]")
 
     # tg128: 128 greedy decode steps after the 512-token prefill (warmed
-    # once; median of reps, each after a fresh prefill)
-    first = torch.argmax(logits, -1)
-    eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 4)
-    tg = []
-    for _ in range(reps):
-        logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
-        first = torch.argmax(logits, -1)
+    # once, which captures; median of reps, or the A/B's turns)
+    cache = eng.new_cache(1)
+    captures = graphs.STATS.captures
+    eng.decode_greedy(*refill(eng, prompt, cache), cache, 4)
+    capture = ((graphs.STATS.capture_ms[-1], graphs.STATS.pool_bytes[-1])
+               if graphs.STATS.captures > captures else (None, None))
+    tg: dict = {True: [], False: []}
+    runs = []
+    for plain in ((True, False, False, True) if ab else (False,) * reps):
+        first, pos = refill(eng, prompt, cache)
         torch.cuda.synchronize()
-        with main_run(f"tg128{tag}", {}):
+        with main_run(f"tg128{tag}{' (plain loop)' if plain else ''}", {}):
             t0 = time.perf_counter()
-            toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
+            toks, cache = eng.decode_greedy(first, pos, cache, 128, plain=plain)
             torch.cuda.synchronize()
-            tg.append(time.perf_counter() - t0)
-    tg_s = sorted(tg)[len(tg) // 2]
-    step_logits, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
+            tg[plain].append(time.perf_counter() - t0)
+        runs.append((toks, eng.last_logits.clone()))
+    tg_s = sorted(tg[False])[len(tg[False]) // 2]
+    if ab:
+        same = all(torch.equal(a, runs[0][0]) and torch.equal(b, runs[0][1]) for a, b in runs)
+        cap = ("no capture" if capture[0] is None else
+               f"capture {capture[0]:.1f} ms, graph pool {capture[1] / 1e6:.1f} MB")
+        log(f"  [{gpu_line()}]{tag} tg128, graph against the plain loop (plain, graph, graph, "
+            f"plain): graph {', '.join(f'{128 / t:.1f}' for t in tg[False])} tok/s, plain "
+            f"{', '.join(f'{128 / t:.1f}' for t in tg[True])} tok/s; {cap}; tokens and last "
+            f"logits equal bit for bit: {same}")
+        if not same:
+            raise SystemExit(f"FAIL:{tag} the decode loop's graph differs from the plain loop "
+                             f"(tokens or last logits)")
+    if sampled:
+        sampled_graph_check(eng, prompt, tag)
+    step_logits, _ = eng.decode_step(toks[:, -1], pos + 128, cache)
     if not torch.isfinite(step_logits).all():
         raise SystemExit("FAIL: decode logits are not finite")
     if profile is not None:
@@ -2514,13 +2604,15 @@ def end_to_end(dev, cfg, params, request_lengths=(5, 40, 200), request_max_seq: 
     res = {"depth": cfg.n_layers, "pp512_tok_s": 512 / pp_s, "pp512_ms": pp_s * 1e3,
            "pp512_ms_all": [t * 1e3 for t in pp],
            "tg128_tok_s": 128 / tg_s, "tg128_ms_per_tok": tg_s / 128 * 1e3,
-           "tg128_tok_s_all": [128 / t for t in tg],
+           "tg128_tok_s_all": [128 / t for t in tg[False]],
+           "tg128_plain_tok_s_all": [128 / t for t in tg[True]],
+           "capture_ms": capture[0], "pool_bytes": capture[1],
            "main_path_launches": main_counts, "tg_bound_ms_per_tok": tg_bound[0],
            "pp512_bound_ms": pp_bound[0], "weight_bytes": w_bytes}
     log(f"  [{gpu_line()}]{tag} depth {cfg.n_layers}: pp512 {res['pp512_tok_s']:.1f} tok/s "
         f"({res['pp512_ms']:.2f} ms; bound {pp_bound[0]:.4f} ms), tg128 "
         f"{res['tg128_tok_s']:.1f} tok/s ({res['tg128_ms_per_tok']:.3f} ms/token; bound "
-        f"{tg_bound[0]:.4f}); medians of {reps}: pp512 runs "
+        f"{tg_bound[0]:.4f}); medians of {len(pp)} / {len(tg[False])}: pp512 runs "
         f"{', '.join(f'{512 / t:.1f}' for t in pp)} tok/s, tg128 runs "
         f"{', '.join(f'{v:.1f}' for v in res['tg128_tok_s_all'])} tok/s")
     return res
@@ -2534,8 +2626,8 @@ QMM_KERNEL = re.compile(r"\btkq::(gemv|tile|reduce)_kernel\b")
 
 def profile_steps(eng, cfg, dev, out: Path, n_prompt: int = 512, tag: str = "") -> None:
     """--profile DIR: torch.profiler over one prefill of `n_prompt` tokens
-    and 8 decode steps; kernel tables go to DIR/profile_*.txt, busy shares
-    to the log."""
+    and 8 decode steps, replayed from the captured step and in the plain
+    loop; kernel tables go to DIR/profile_*.txt, busy shares to the log."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -2546,9 +2638,11 @@ def profile_steps(eng, cfg, dev, out: Path, n_prompt: int = 512, tag: str = "") 
     logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
     first = torch.argmax(logits, -1)
     pos = torch.tensor(lens, device=dev)
-    eng.decode_greedy(first, pos, cache, 2)
+    eng.decode_greedy(first, pos, cache, 2)  # captures the decode step
     for what, run in ((f"prefill{tag}", lambda: eng.prefill([prompt], eng.new_cache(1))),
-                      (f"decode{tag}", lambda: eng.decode_greedy(first, pos + 2, cache, 8))):
+                      (f"decode{tag}", lambda: eng.decode_greedy(first, pos + 2, cache, 8)),
+                      (f"decode_plain{tag}",
+                       lambda: eng.decode_greedy(first, pos + 2, cache, 8, plain=True))):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2638,21 +2732,21 @@ def long_prompts(cfg, params, dev, profile: Path | None = None) -> dict:
             raise SystemExit("FAIL: pp2048 logits are not finite [1, vocab]")
 
         # tg128 at depth 2048: 128 greedy steps after the 2048-token prefill
-        # (warmed once; median of LONG_TIMED_REPS, each after a fresh prefill)
-        eng.decode_greedy(torch.argmax(logits, -1), torch.tensor(lens, device=dev), cache, 4)
+        # (warmed once, which captures the step; median of LONG_TIMED_REPS,
+        # each after a prefill anew into the same cache)
+        eng.decode_greedy(*refill(eng, prompt, cache), cache, 4)
         tg = []
         for _ in range(LONG_TIMED_REPS):
-            logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
-            first = torch.argmax(logits, -1)
+            first, pos = refill(eng, prompt, cache)
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
-            toks, cache = eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
+            toks, cache = eng.decode_greedy(first, pos, cache, 128)
             torch.cuda.synchronize()
             tg.append(time.perf_counter() - t0)
             check_counts(f"tg128@2048 ({kv} KV)",
                          {k: 128 * v for k, v in expected_launches(cfg, params, 1).items()})
-        step, _ = eng.decode_step(toks[:, -1], torch.tensor(lens + 128, device=dev), cache)
+        step, _ = eng.decode_step(toks[:, -1], pos + 128, cache)
         if not torch.isfinite(step).all():
             raise SystemExit(f"FAIL: decode logits at depth 2176 are not finite ({kv} KV)")
         # decode bound per token: every weight byte plus the cache rows up to
@@ -2762,12 +2856,13 @@ def serve_request(i: int, cfg, rng, greedy: bool = False, eos: int | None = None
 
 def instrument(cb) -> dict:
     """Record a batcher's admissions ((k, T) of each burst, T of each single
-    admission) and whether every tick's logits were finite (a device flag
-    per tick; read once at the end)."""
+    admission). Whether every tick's logits were finite is the batcher's own
+    device flag, cb.logits_finite (a replayed chunk keeps only its last
+    tick's logits)."""
     from tpu_kquant_torch.runtime.engine import _bucket
 
-    rec: dict = {"bursts": [], "singles": [], "finite": []}
-    real_burst, real_admit, real_tick = cb._admit_burst, cb._admit, cb._tick
+    rec: dict = {"bursts": [], "singles": []}
+    real_burst, real_admit = cb._admit_burst, cb._admit
     T = lambda reqs: min(_bucket(max(len(r.prompt) for r in reqs)),  # noqa: E731
                          cb.engine.max_seq)
 
@@ -2779,12 +2874,7 @@ def instrument(cb) -> dict:
         rec["singles"].append(T([req]))
         return real_admit(b, req)
 
-    def tick(sampling):
-        tok = real_tick(sampling)
-        rec["finite"].append(cb.tick_logits.isfinite().all())
-        return tok
-
-    cb._admit_burst, cb._admit, cb._tick = burst, admit, tick
+    cb._admit_burst, cb._admit = burst, admit
     return rec
 
 
@@ -2792,7 +2882,7 @@ def serving_launches(cfg, params, rec: dict, ticks: int, B: int, max_seq: int,
                      kv_int8: bool) -> dict:
     """What the gates launch for a serving run: each burst's [k, T] prefill,
     each single admission's [1, T], and `ticks` decode steps of B rows over
-    max_seq slots."""
+    max_seq slots (the ticks the device ran: the batcher's ticks_run)."""
     want: dict = {}
     for k, T in rec["bursts"]:
         want = _add(want, expected_launches(cfg, params, T, batch=k))
@@ -2924,14 +3014,38 @@ def profile_ticks(cb, out: Path, tag: str, n: int = 4) -> None:
         + "; ".join(f"{k[:40]} {v:.2f} ms" for k, v in top))
 
 
+def serve_copies(eng, specs: list, plain: bool | None = None,
+                 max_chunk: int | None = None) -> tuple[list, float, dict]:
+    """Serve copies of `specs` (unserved Requests) on a new batcher, all
+    submitted at once. Returns (their streams, wall s, the batcher's stats)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_kquant_torch.serving import ContinuousBatcher
+
+    cb = ContinuousBatcher(eng, plain=plain)
+    reqs = [dataclasses.replace(r, output=[]) for r in specs]
+    for r in reqs:
+        cb.submit(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb.run(max_chunk=max_chunk)
+    torch.cuda.synchronize()
+    return [r.output for r in reqs], time.perf_counter() - t0, dict(cb.stats)
+
+
 def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
             profile: Path | None = None) -> dict:
     """Phase 6 (module docstring): `big` is the large configuration's slots
     and cache length. Returns each configuration's numbers and its launch
     counts."""
+    import dataclasses
+
     import numpy as np
     import torch
 
+    from tpu_kquant_torch.runtime import graphs
     from tpu_kquant_torch.runtime.engine import InferenceEngine
     from tpu_kquant_torch.serving import ContinuousBatcher
 
@@ -2954,20 +3068,31 @@ def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
     for j, i in enumerate(sorted(greedy)[:4]):
         reqs[i].eos_id = solo[i][8 + 4 * j]
     eng = InferenceEngine(cfg, params, max_batch=B, max_seq=max_seq, device=dev)
+    specs = [dataclasses.replace(r, output=[]) for r in reqs]  # unserved, for the runs below
     cb = ContinuousBatcher(eng)
     rec = instrument(cb)
     for r in reqs:
         cb.submit(r)
     torch.cuda.synchronize()
+    replays, inside = graphs.STATS.replays, sum(graphs.STATS.replayed_launches.values())
     reset_counts()
     t0 = time.perf_counter()
     done = cb.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ticks = cb.stats["steps"]
-    res["launches"]["b16"] = check_counts(
-        "serving, 16 slots", serving_launches(cfg, params, rec, ticks, B, max_seq, False))
-    if not (len(done) == 64 and bool(torch.stack(rec["finite"]).all())):
+    res["launches"]["b16"] = got = check_counts(
+        "serving, 16 slots",
+        serving_launches(cfg, params, rec, cb.stats["ticks_run"], B, max_seq, False))
+    inside = sum(graphs.STATS.replayed_launches.values()) - inside
+    st = cb.stats
+    log(f"  serving, 16 slots: {st['ticks_run']} ticks run ({ticks} counted), "
+        f"{graphs.STATS.replays - replays} graph launches: {st['chunks']} chunks of "
+        f"{st['chunk_ticks'] / max(st['chunks'], 1):.1f} on average and "
+        f"{st['ticks_run'] - st['chunk_ticks']} admission ticks, one host read each; counted "
+        f"kernel launches {inside} inside graphs, {sum(got.values()) - inside} outside (the "
+        f"admissions' prefills)")
+    if not (len(done) == 64 and bool(cb.logits_finite)):
         raise SystemExit("FAIL: serving at 16 slots lost a request or saw non-finite logits")
     differ = []
     for r in reqs:
@@ -2999,6 +3124,27 @@ def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
         raise SystemExit(f"FAIL: {len(differ)} of {len(greedy)} greedy requests served at 16 "
                          f"slots differ from their solo runs (request, first step, top-2 gap of "
                          f"the solo logits there): {differ}")
+    # per tick against the chunks, then the graph against the plain batcher
+    # (plain, graph, graph, plain): every stream equal to the run above
+    streams = [r.output for r in reqs]
+    outs, per_tick, _ = serve_copies(eng, specs, max_chunk=1)
+    differ = ["per tick"] if outs != streams else []
+    ab: dict = {True: [], False: []}
+    for i, plain in enumerate((True, False, False, True)):
+        outs, w, st = serve_copies(eng, specs, plain=plain)
+        ab[plain].append((st["tokens_out"] / w, w / st["steps"] * 1e3))
+        differ += [f"A/B run {i} (plain {plain})"] if outs != streams else []
+    res["b16"]["per_tick_tok_s"] = sum(len(o) for o in streams) / per_tick
+    res["b16"]["ab"] = {"graph": ab[False], "plain": ab[True]}
+    log(f"  [{gpu_line()}] serving 16 slots x 128, graph against the plain batcher (plain, "
+        f"graph, graph, plain), tok/s and ms/tick: graph "
+        f"{', '.join(f'{t:.1f} / {m:.2f}' for t, m in ab[False])}, plain "
+        f"{', '.join(f'{t:.1f} / {m:.2f}' for t, m in ab[True])}; per tick (max_chunk 1) "
+        f"{res['b16']['per_tick_tok_s']:.1f} tok/s; runs whose 64 streams differ from the "
+        f"chunked run's: {differ}")
+    if differ:
+        raise SystemExit(f"FAIL: serving at 16 slots: streams of {differ} differ from the "
+                         f"chunked graph run's")
     if profile is not None:
         cb2 = ContinuousBatcher(eng)
         for i in range(B):
@@ -3033,15 +3179,17 @@ def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
         ticks = cb.stats["steps"]
         L = cfg.n_layers
         got = check_counts(f"serving, {B} slots ({kv} KV)",
-                           serving_launches(cfg, params, rec, ticks, B, max_seq, quant))
-        if got["decode_attn"] != L * ticks or got["prefill"] != L * len(rec["bursts"]) \
+                           serving_launches(cfg, params, rec, cb.stats["ticks_run"], B, max_seq,
+                                            quant))
+        if got["decode_attn"] != L * cb.stats["ticks_run"] \
+                or got["prefill"] != L * len(rec["bursts"]) \
                 or rec["bursts"] != [(B, 64)] or rec["singles"]:
             raise SystemExit(f"FAIL: {B} slots ({kv} KV): flash decode {got['decode_attn']} "
                              f"launches for {ticks} ticks, prefill {got['prefill']} for bursts "
                              f"{rec['bursts']}")
         n_tok = cb.stats["tokens_out"]
         if not (len(done) == B and all(len(r.output) == SERVE_NEW for r in reqs)
-                and bool(torch.stack(rec["finite"]).all())):
+                and bool(cb.logits_finite)):
             raise SystemExit(f"FAIL: {B} slots ({kv} KV): a request lacks tokens or a tick's "
                              f"logits are not finite")
         wall = t2 - t0
@@ -3053,9 +3201,10 @@ def serving(cfg, params, dev, big: tuple[int, int] = (1024, 2048),
         r = res[f"b{B}_{kv}"]
         log(f"  [{gpu_line()}] serving {B} slots x {max_seq}, {kv} KV: {n_tok} tokens in "
             f"{wall:.3f} s wall = {r['tok_s']:.1f} tok/s; the burst ({B} x 64 prefill) and first tick "
-            f"{r['burst_and_first_tick_s']:.3f} s, then {ticks - 1} ticks at "
-            f"{r['ms_per_tick']:.2f} ms/tick; flash decode launched {got['decode_attn']} = "
-            f"{L} x {ticks} ticks, flash prefill {got['prefill']} = {L} x 1 burst")
+            f"{r['burst_and_first_tick_s']:.3f} s (the tick's capture included), then "
+            f"{ticks - 1} ticks at {r['ms_per_tick']:.2f} ms/tick; flash decode launched "
+            f"{got['decode_attn']} = {L} x {cb.stats['ticks_run']} ticks run, flash prefill "
+            f"{got['prefill']} = {L} x 1 burst")
         del cb
         _collect()
         if profile is not None:
@@ -3118,9 +3267,10 @@ def switches(env: dict):
 def tg128_on_off(cfg, params, dev, env: dict, impl: str, kv_quantized: bool,
                  reps: int = FUSED_TURNS) -> dict:
     """tg128 (128 greedy steps after a 512-token prefill on a 704-slot
-    cache) with the switches `env` on and off, `reps` turns of on, off
-    (after one warm run of each); the on-runs' launches checked against the
-    gates. Returns tok/s per run and the medians."""
+    cache, one for each setting) with the switches `env` on and off, `reps`
+    turns of on, off (after one warm run of each, which captures the decode
+    step); the on-runs' launches checked against the gates. Returns tok/s
+    per run and the medians."""
     import numpy as np
     import torch
 
@@ -3129,15 +3279,15 @@ def tg128_on_off(cfg, params, dev, env: dict, impl: str, kv_quantized: bool,
     eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev, impl=impl,
                           kv_quantized=kv_quantized)
     prompt = np.random.default_rng(3).integers(10, cfg.vocab_size, 512).tolist()
+    caches = {on: eng.new_cache(1) for on in (True, False)}  # the warm runs capture on them
 
     def run(on: bool, check: bool) -> float:
         with switches(env if on else {}):
-            logits, cache, lens = eng.prefill([prompt], eng.new_cache(1))
-            first = torch.argmax(logits, -1)
+            first, pos = refill(eng, prompt, caches[on])
             torch.cuda.synchronize()
             reset_counts()
             t0 = time.perf_counter()
-            eng.decode_greedy(first, torch.tensor(lens, device=dev), cache, 128)
+            eng.decode_greedy(first, pos, caches[on], 128)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             if check:
@@ -3497,7 +3647,7 @@ def sliding_window(dev, g9, profile: Path | None = None) -> dict:
         r = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 3000),
                        request_max_seq=PHI3_MAX_SEQ, timed_max_seq=PHI3_MAX_SEQ,
                        kv_layout=layout, reps=PHI3_TIMED_REPS, tag=f" phi-3-mini {layout}",
-                       profile=profile)
+                       profile=profile, ab=True)
         r["seconds"] = time.perf_counter() - t0
         launches = _add(launches, r["main_path_launches"])
         res[layout] = r
@@ -3739,7 +3889,10 @@ def mamba_serving(cfg, params, dev) -> dict:
     lost request or non-finite logits; no single admission into a slot that
     a finished request held, or none of a greedy request (the slot prefill
     that zeroes the reused row); a greedy stream that differs from its solo
-    engine.generate, token for token."""
+    engine.generate, token for token; a stream of the same waves served per
+    tick (max_chunk 1) that differs from the chunked run's."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3750,6 +3903,7 @@ def mamba_serving(cfg, params, dev) -> dict:
     rng = np.random.default_rng(17)
     greedy = set(MAMBA_GREEDY)
     reqs = [serve_request(i, cfg, rng, greedy=i in greedy) for i in range(n)]
+    specs = [dataclasses.replace(r, output=[]) for r in reqs]  # unserved, for the per-tick run
     solo_eng = InferenceEngine(cfg, params, max_batch=1, max_seq=max_seq, device=dev)
     t0 = time.perf_counter()
     solo = {i: solo_eng.generate([reqs[i].prompt], max_new_tokens=SERVE_NEW, top_k=40,
@@ -3793,7 +3947,7 @@ def mamba_serving(cfg, params, dev) -> dict:
         wall = time.perf_counter() - t0
     ticks = cb.stats["steps"]
     if not (first == n and sum(1 for r in reqs if r.done) == n
-            and bool(torch.stack(rec["finite"]).all())
+            and bool(cb.logits_finite)
             and all(len(r.output) == SERVE_NEW for r in reqs)):
         raise SystemExit(f"FAIL: serving Mamba-2.8B lost a request or saw non-finite logits "
                          f"({len(done)} done at the end)")
@@ -3818,7 +3972,25 @@ def mamba_serving(cfg, params, dev) -> dict:
     if differ:
         raise SystemExit(f"FAIL: {len(differ)} of {len(greedy)} greedy Mamba-2.8B streams "
                          f"served at {B} slots differ from their solo runs: {differ}")
-    del cb, eng, solo_eng
+    per_tick = ContinuousBatcher(eng)
+    first = 0
+    t0 = time.perf_counter()
+    for count, ticks_after in MAMBA_WAVES:
+        for r in specs[first:first + count]:
+            per_tick.submit(r)
+        first += count
+        for _ in range(ticks_after):
+            per_tick.step()
+    per_tick.run(max_chunk=1)
+    torch.cuda.synchronize()
+    res["per_tick_s"] = time.perf_counter() - t0
+    n_diff = sum(a.output != b.output for a, b in zip(specs, reqs))
+    log(f"  the same waves served per tick (max_chunk 1) in {res['per_tick_s']:.2f} s: streams "
+        f"differing from the chunked run's: {n_diff} of {n}")
+    if n_diff:
+        raise SystemExit(f"FAIL: {n_diff} Mamba-2.8B streams served per tick differ from the "
+                         f"chunked run's")
+    del cb, per_tick, eng, solo_eng
     _collect()
     return res
 
@@ -3913,7 +4085,8 @@ def recurrent(dev, profile: Path | None = None) -> dict:
 
     # the main path at full depth: requests of 5-512 tokens, pp512, tg128
     r = end_to_end(dev, cfg, params, request_lengths=(5, 40, 200, 512),
-                   request_max_seq=MAMBA_MAX_SEQ, reps=1, tag=" mamba-2.8b", profile=profile)
+                   request_max_seq=MAMBA_MAX_SEQ, reps=1, tag=" mamba-2.8b", profile=profile,
+                   ab=True)
     launches = dict(r["main_path_launches"])
     res["e2e"] = r
     lap("requests, pp512, tg128")
@@ -4334,41 +4507,83 @@ FD_NEW = 32  # speculative streams' length
 FD_DRAFT = 4  # n_draft
 
 
+# a captured step's number (runtime.graphs) -> the launches expected of the
+# forwards it captured; main_run adds them once a replay (record_captures)
+CAPTURED: dict = {}
+
+
+def forward_launches(params, cfg, tokens, cache, k: dict) -> dict:
+    """expected_launches of one engine forward as it is called: its model,
+    rows, tokens, cache slots, attended slots, KV kind and layout."""
+    B, T = tokens.shape
+    if cfg.is_recurrent:
+        return expected_launches(cfg, params, T, k.get("impl", "auto"), batch=B)
+    att = k.get("kv_attend_len") or cache.max_seq
+    return expected_launches(cfg, params, T, k.get("impl", "auto"), batch=B, seq=cache.max_seq,
+                             kv_int8=cache.quantized, attend=min(att, cache.max_seq),
+                             iswa=hasattr(cache, "is_ring"))
+
+
+def record_captures() -> None:
+    """Wrap the engine's forwards for the whole run: a forward called while
+    a step is being captured records the launches expected of it under the
+    step's number (CAPTURED)."""
+    from tpu_kquant_torch.runtime import engine as engine_mod
+    from tpu_kquant_torch.runtime import graphs
+
+    for name in ("llama_forward", "mamba_forward"):
+        def spy(params, cfg, tokens, positions, cache, *a, _real=getattr(engine_mod, name), **k):
+            seq = graphs.capturing()
+            if seq is not None:
+                CAPTURED.setdefault(seq, []).append(forward_launches(params, cfg, tokens, cache,
+                                                                     k))
+            return _real(params, cfg, tokens, positions, cache, *a, **k)
+
+        setattr(engine_mod, name, spy)
+
+
 @contextlib.contextmanager
 def main_run(what: str, total: dict):
     """One run of the main path: the counts set to 0 just before it and read
-    just after, held to expected_launches summed over the forwards it made
-    (each engine forward recorded with its model, rows, tokens, cache slots,
-    attended slots and KV kind), and added to `total`. Comparison runs,
-    checks against the CPU and launch pins stay outside."""
+    just after, held to expected_launches summed over the forwards it ran:
+    each eager engine forward as called, and each replay of a captured step
+    (runtime.graphs) as the forwards of its capture (CAPTURED; a capture
+    itself launches nothing); the sum added to `total`. Logs the graph
+    launches and the counted kernel launches outside graphs. Comparison
+    runs, checks against the CPU and launch pins stay outside."""
     from tpu_kquant_torch.runtime import engine as engine_mod
+    from tpu_kquant_torch.runtime import graphs
 
     real, real_m = engine_mod.llama_forward, engine_mod.mamba_forward
-    fwd: list = []
+    want: dict = {}
+    n_fwd = 0
 
-    def spy(params, cfg, tokens, positions, cache, *a, **k):
-        B, T = tokens.shape
-        att = k.get("kv_attend_len") or cache.max_seq
-        fwd.append((cfg, params, B, T, cache.max_seq, min(att, cache.max_seq),
-                    cache.quantized, k.get("impl", "auto"), hasattr(cache, "is_ring")))
-        return real(params, cfg, tokens, positions, cache, *a, **k)
+    def spy(params, cfg, tokens, positions, cache, *a, _real=real, **k):
+        nonlocal want, n_fwd
+        if graphs.capturing() is None:
+            want = _add(want, forward_launches(params, cfg, tokens, cache, k))
+            n_fwd += 1
+        return _real(params, cfg, tokens, positions, cache, *a, **k)
 
-    def spy_m(params, cfg, tokens, positions, cache, *a, **k):
-        B, T = tokens.shape
-        fwd.append((cfg, params, B, T, None, None, False, k.get("impl", "auto"), False))
-        return real_m(params, cfg, tokens, positions, cache, *a, **k)
-
-    engine_mod.llama_forward, engine_mod.mamba_forward = spy, spy_m
+    engine_mod.llama_forward = spy
+    engine_mod.mamba_forward = lambda *a, **k: spy(*a, _real=real_m, **k)
+    by_step, replayed = dict(graphs.STATS.by_step), dict(graphs.STATS.replayed_launches)
     reset_counts()
     try:
         yield
     finally:
         engine_mod.llama_forward, engine_mod.mamba_forward = real, real_m
-    want: dict = {}
-    for cfg, params, B, T, S, att, q, impl, iswa in fwd:
-        want = _add(want, expected_launches(cfg, params, T, impl, batch=B, seq=S, kv_int8=q,
-                                            attend=att, iswa=iswa))
-    got = check_counts(f"{what} ({len(fwd)} forwards)", want)
+    replays = 0
+    for seq, n in graphs.STATS.by_step.items():
+        n -= by_step.get(seq, 0)
+        replays += n
+        for fwd in CAPTURED.get(seq, []) if n else []:
+            want = _add(want, fwd, n)
+            n_fwd += n
+    inside = sum(graphs.STATS.replayed_launches.values()) - sum(replayed.values())
+    got = check_counts(f"{what} ({n_fwd} forwards; {replays} graph launches)", want)
+    log(f"  {what}: {replays} graph launches, {inside} counted kernel launches inside them, "
+        f"{sum(got.values()) - inside} outside")
     total.update(_add(total, got))
 
 
@@ -5111,6 +5326,7 @@ def run_phases(args, dev, writer, t_start: float) -> int:
 
     from tpu_kquant_torch.ops import _build
 
+    record_captures()
     log(f"  built {', '.join(_build.SOURCES)} in {_build.build_all():.1f} s "
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     log("  per library, wall s when reaped (in this order; all ran in parallel) / nvcc CPU s: "
@@ -5128,7 +5344,7 @@ def run_phases(args, dev, writer, t_start: float) -> int:
                  {"prefill": 0, "attn_in": L, "oproj_ffn": L, "ffn": 0, "qmm": 1, "qmm_int8": 0},
                  2048)
     reference_check(cfg, params, dev)
-    e2e = end_to_end(dev, cfg, params, profile=args.profile)
+    e2e = end_to_end(dev, cfg, params, profile=args.profile, ab=True, sampled=True)
 
     phase("phase 5: long prompts (bf16 and int8 KV)")
     long = long_prompts(cfg, params, dev, args.profile)

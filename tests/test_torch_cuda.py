@@ -2059,3 +2059,123 @@ def test_quantize_kernels_give_the_numpy_bytes(card, t):
     assert torch.equal(got, t_quant.PLAIN[t](w))
     head = numpy_codecs.quantize(w[:16].cpu().numpy(), t)
     np.testing.assert_array_equal(got[:head.size].cpu().numpy(), head)
+
+
+# -- the decode loop and the serving tick as CUDA graphs (runtime.graphs) ------------
+
+
+def _graph_counts():
+    from tpu_kquant_torch.runtime import graphs
+
+    return graphs.STATS.captures, graphs.STATS.replays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quantized", [False, True], ids=["bf16", "int8"])
+def test_decode_loops_as_graphs_equal_the_plain_loops(w1024_engine, kv_quantized):
+    """decode_greedy and decode_sampled (temperature, top-k, top-p,
+    penalties) replaying the captured step against the plain loop on the
+    same prefilled caches: tokens, the last step's logits, keys and penalty
+    state equal bit for bit; the first call captures once (its warm run is
+    the first step) and replays the rest, a second call on the same cache
+    replays every step; the launch counts are the plain loop's. The
+    capture runs under set_sync_debug_mode("error") (StepGraph) and leaves
+    the mode as it was."""
+    from tpu_kquant_torch.ops.sampling import SamplerConfig, init_penalty_state, row_keys
+
+    eng = w1024_engine(2, kv_quantized)
+    prompts = [[3, 100, 7, 256, 42, 9, 300, 5, 11], [8, 9, 10, 11, 12, 13]]
+    sc = SamplerConfig(temperature=0.8, top_k=40, top_p=0.95, repeat_penalty=1.1)
+    lens = eng._tensor([len(p) for p in prompts])
+    first = torch.tensor([5, 6], device=eng.device)
+    runs = {}
+    for plain in (True, False):
+        cache = eng.prefill(prompts, eng.new_cache(2))[1]
+        torch.cuda.synchronize()
+        before, graphs0 = _build.launch_counts(), _graph_counts()
+        greedy, _ = eng.decode_greedy(first, lens, cache, 12, plain=plain)
+        greedy2, _ = eng.decode_greedy(greedy[:, -1], lens + 12, cache, 12, plain=plain)
+        g_logits = eng.last_logits.clone()
+        keys = row_keys(torch.arange(2) + 3, 0).to(eng.device)
+        state = init_penalty_state(prompts, eng.cfg.vocab_size, 64, eng.device)
+        sampled, _, keys, state = eng.decode_sampled(first, lens + 24, cache, 12, sc, keys,
+                                                     state, plain=plain)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        runs[plain] = dict(toks=(greedy, greedy2, sampled), logits=(g_logits, eng.last_logits),
+                           keys=keys, state=state, graphs=tuple(
+                               a - b for a, b in zip(_graph_counts(), graphs0)),
+                           launches={k: after[k] - before.get(k, 0) for k in after})
+    p, g = runs[True], runs[False]
+    assert all(torch.equal(a, b) for a, b in zip(p["toks"], g["toks"]))
+    assert all(torch.equal(a, b) for a, b in zip(p["logits"], g["logits"]))
+    assert torch.equal(p["keys"], g["keys"])
+    assert all(torch.equal(a, b) for a, b in zip(p["state"], g["state"]))
+    assert p["graphs"] == (0, 0) and g["graphs"] == (2, 11 + 12 + 11)
+    assert p["launches"] == g["launches"] and p["launches"]["attn_in"] == 2 * 36
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_serving_tick_and_chunk_as_graphs_equal_the_plain_batcher(w1024_engine):
+    """The batcher replaying its captured tick (per tick and in chunks)
+    against the plain batcher: the same streams (greedy with an eos, and
+    sampled) and finite logits; in chunks, the same stats, and attn_in's
+    launches differ from the plain run's by 2 (layers) a tick the device
+    ran more (ticks_run)."""
+    specs = [dict(prompt=[3, 100, 7], max_new_tokens=20),
+             dict(prompt=[9, 300], max_new_tokens=9, temperature=0.9, top_k=20, top_p=0.9,
+                  repeat_penalty=1.2, seed=11),
+             dict(prompt=[17, 5, 11, 2], max_new_tokens=13),
+             dict(prompt=list(range(40, 70)), max_new_tokens=16, temperature=0.7, seed=4),
+             dict(prompt=[250, 9], max_new_tokens=11)]
+    eng = w1024_engine(4)
+    eos = eng.generate([specs[0]["prompt"]], max_new_tokens=20)[0][6]
+    specs[0]["eos_id"] = eos
+    runs = []
+    for plain, max_chunk in ((True, None), (False, None), (False, 1)):
+        cb = ContinuousBatcher(eng, seed=2, plain=plain)
+        for s in specs:
+            cb.submit(Request(**s))
+        torch.cuda.synchronize()
+        before = _build.launch_counts()
+        done = sorted(cb.run(max_chunk=max_chunk), key=lambda r: r.rid)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+        runs.append(([r.output for r in done], dict(cb.stats),
+                     {k: after[k] - before.get(k, 0) for k in after}, bool(cb.logits_finite)))
+    (po, ps, pl, pf), (go, gs, gl, gf), (to, ts, tl, tf) = runs
+    assert po == go == to and po[0][-1] == eos and pf and gf and tf
+    # per tick, a finished row's slot is refilled a tick sooner than at the
+    # end of its chunk: the same tokens in fewer ticks
+    keys = ("prefills", "tokens_out", "tokens_in")
+    assert [ps[k] for k in keys] == [gs[k] for k in keys] == [ts[k] for k in keys]
+    assert ps["steps"] == gs["steps"] and ps["dispatches"] == gs["dispatches"]
+    assert gl["attn_in"] - pl["attn_in"] == 2 * (gs["ticks_run"] - ps["ticks_run"])
+
+
+@pytest.mark.cuda
+def test_mamba_decode_loop_as_graph_equals_the_plain_loop(card, tmp_path):
+    """A 2-layer mamba at dim 512: the graph loop against the plain loop on
+    the same prefilled state, tokens, last logits and final state bit for
+    bit; served greedy streams (replayed chunks) equal their solo runs."""
+    from tpu_kquant_torch.models.fixtures import tiny_mamba_config
+
+    path = write_fixture_gguf(tmp_path / "m.gguf", tiny_mamba_config(dim=512), seed=2, scale=0.2)
+    cfg, params, _ = load_model(path, device=card)
+    eng = InferenceEngine(cfg, params, max_batch=2, max_seq=96, device=card)
+    prompts = [list(range(3, 10)), list(range(3, 43))]
+    out = {}
+    for plain in (True, False):
+        logits, cache, lens = eng.prefill(prompts, eng.new_cache(2))
+        toks, cache = eng.decode_greedy(torch.argmax(logits, -1), eng._tensor(lens), cache, 16,
+                                        plain=plain)
+        out[plain] = (toks, eng.last_logits.clone(), cache.conv.clone(), cache.ssm.clone())
+    assert all(torch.equal(a, b) for a, b in zip(out[True], out[False]))
+    reqs = [Request(prompt=p, max_new_tokens=12) for p in prompts + [list(range(50, 70))]]
+    cb = ContinuousBatcher(eng)
+    for r in reqs:
+        cb.submit(r)
+    cb.run()
+    for r in reqs:
+        assert r.output == eng.generate([r.prompt], max_new_tokens=12)[0]

@@ -38,7 +38,9 @@ EXTRA_FLAGS = {"quantize": ["-fmad=false"]}
 class LaunchCounter:
     """Counts of one kernel's wrapper calls: ``launches`` where it launched
     the CUDA kernel, ``plain_calls`` where it ran the plain PyTorch version
-    (CPU tensors). Nothing else touches them."""
+    (CPU tensors). Besides the wrappers, only a CUDA graph touches them
+    (runtime.graphs): its capture takes back the calls it recorded
+    (``take_back``) and each replay adds them (``add_launches``)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -52,6 +54,29 @@ class LaunchCounter:
 
 
 COUNTERS: dict[str, LaunchCounter] = {}
+
+
+def launch_counts() -> dict[str, int]:
+    """Every counter's ``launches`` as they stand."""
+    return {k: c.launches for k, c in COUNTERS.items()}
+
+
+def take_back(before: dict[str, int]) -> dict[str, int]:
+    """Set every counter's ``launches`` back to ``before`` (a counter made
+    since: to 0) and return what was added since, where nonzero: the
+    wrapper calls of a CUDA-graph capture, which launch nothing."""
+    delta = {}
+    for k, c in COUNTERS.items():
+        if c.launches != before.get(k, 0):
+            delta[k] = c.launches - before.get(k, 0)
+        c.launches = before.get(k, 0)
+    return delta
+
+
+def add_launches(delta: dict[str, int]) -> None:
+    """Add a captured graph's launches (``take_back``'s delta) at a replay."""
+    for k, d in delta.items():
+        COUNTERS[k].launches += d
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -18,10 +18,21 @@ t of a window equals the decode step at its position bit for bit
 prefill_slot(tokens, cache, slot): one request into batch row ``slot``,
 through a forward over a view of that row, so nothing is copied and the
 other rows stay as they are.
-The decode loops are plain Python loops of decode steps; capturing them in
-a CUDA graph is later work. Sampled generation runs ops.sampling's chain
-after each step; row i of a batch draws from the stream of seed + i (the
-serving batcher's per-request seeds use the same streams). ``impl`` is the
+decode_greedy / decode_sampled: n decode steps, the sampler chain after
+each, on the device with no host read until the caller reads. On a CUDA
+device each step is a replay of one captured step (runtime.graphs: the
+reference's one-dispatch ``_decode_loop`` / ``_decode_loop_sampled``): the
+step reads its token and position from static buffers, writes its token
+into column ``col`` of a [B, LOOP_WIDTH] buffer and feeds the next step
+from its own outputs, so the host issues one graph launch a step. The graph
+is keyed on the batch, the cache's tensors, the sampler configuration and
+the forward's switches (``_loop``); a new cache costs one capture, whose
+warm run is the loop's first step. On the CPU, or with ``plain=True``, the
+loop is the plain Python loop of decode steps; ``plain=False`` on the CPU
+runs the captured step's body eagerly. Sampled generation runs
+ops.sampling's chain after each step; row i of a batch draws from the
+stream of seed + i (the serving batcher's per-request seeds use the same
+streams). ``impl`` is the
 reference's (engine.py:52): "auto", or "int8" for the Q8-activation path of
 ops.qmatmul on weights loaded with ``scale_dtype="f32"``.
 Context shift (``shift_context``; ``generate(context_shift=True)``, a
@@ -50,6 +61,7 @@ fresh and idle rows); sessions hold the ``conv`` / ``ssm`` state
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import numpy as np
@@ -66,10 +78,18 @@ from tpu_kquant_torch.ops.sampling import (
     row_keys,
     sample_step,
 )
+from tpu_kquant_torch.runtime.graphs import (
+    GraphCache,
+    StepGraph,
+    cache_tensors,
+    switches,
+    tensor_key,
+)
 from tpu_kquant_torch.runtime.kv_cache import ISWACache, KVCache, shift_cache, slice_batch_row
 from tpu_kquant_torch.runtime.loader import resolve_device
 
 PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+LOOP_WIDTH = 256  # columns of a decode loop's token buffer; longer loops go in turns
 
 
 def _bucket(n: int) -> int:
@@ -81,6 +101,22 @@ def _bucket(n: int) -> int:
 
 def _param_device(params: dict[str, Any]) -> torch.device:
     return next(iter(params["tok_embd"].arrays.values())).device
+
+
+@dataclasses.dataclass
+class _Loop:
+    """A decode loop's static tensors and its captured step (module
+    docstring): the step's token and position [B], the token buffer's next
+    column [1] and the buffer [B, LOOP_WIDTH] (i64), the sampler's keys [B,
+    2] and penalty state (sampled loops)."""
+
+    tok: torch.Tensor
+    pos: torch.Tensor
+    col: torch.Tensor
+    out: torch.Tensor
+    keys: torch.Tensor | None
+    pstate: tuple | None
+    graph: StepGraph
 
 
 class InferenceEngine:
@@ -121,6 +157,8 @@ class InferenceEngine:
         self.max_batch = max_batch
         self.max_seq = max_seq or cfg.max_seq_len
         self.kv_quantized = kv_quantized
+        self._graphs = GraphCache()
+        self.last_logits: torch.Tensor | None = None  # [B, V]: the last loop's last step
 
     def new_cache(self, batch: int | None = None,
                   max_seq: int | None = None) -> KVCache | ISWACache | RecurrentCache:
@@ -279,42 +317,113 @@ class InferenceEngine:
                                       logits_last_only=True, **kw)
         return logits[:, 0, :], cache
 
+    def _plain(self, plain: bool | None) -> bool:
+        return self.device.type != "cuda" if plain is None else plain
+
     @torch.no_grad()
     def decode_greedy(self, first_tok: torch.Tensor, start_pos: torch.Tensor,
-                      cache: KVCache, n_steps: int):
+                      cache: KVCache, n_steps: int, plain: bool | None = None):
         """[B] first tokens at positions start_pos -> ([B, n_steps] greedy
         tokens that follow, cache). Stays on the device: the host reads
-        nothing until the caller does."""
-        tok, pos = first_tok.long(), start_pos.long()
-        out = []
-        for _ in range(n_steps):
-            logits, cache = self.decode_step(tok, pos, cache)
-            tok = greedy(logits).long()
-            pos = pos + 1
-            out.append(tok)
-        if not out:
-            return torch.empty((first_tok.shape[0], 0), dtype=torch.long,
-                               device=self.device), cache
-        return torch.stack(out, dim=1), cache
+        nothing until the caller does. A CUDA device replays the captured
+        step (module docstring); the CPU, or ``plain=True``, runs the plain
+        loop."""
+        if self._plain(plain) or n_steps == 0:
+            tok, pos = first_tok.long(), start_pos.long()
+            out = []
+            for _ in range(n_steps):
+                logits, cache = self.decode_step(tok, pos, cache)
+                tok = greedy(logits).long()
+                pos = pos + 1
+                out.append(tok)
+                self.last_logits = logits
+            if not out:
+                return torch.empty((first_tok.shape[0], 0), dtype=torch.long,
+                                   device=self.device), cache
+            return torch.stack(out, dim=1), cache
+        loop = self._loop(cache, first_tok.shape[0])
+        return self._run_loop(loop, cache, first_tok, start_pos, n_steps, None), cache
 
     @torch.no_grad()
     def decode_sampled(self, first_tok: torch.Tensor, start_pos: torch.Tensor, cache: KVCache,
-                       n_steps: int, sc: SamplerConfig, keys: torch.Tensor, penalty_state=None):
+                       n_steps: int, sc: SamplerConfig, keys: torch.Tensor, penalty_state=None,
+                       plain: bool | None = None):
         """decode_greedy with the whole sampler chain after every step:
-        ([B, n_steps] tokens, cache, keys, penalty state). Stays on the
-        device."""
-        tok, pos = first_tok.long(), start_pos.long()
-        out = []
-        for _ in range(n_steps):
-            logits, cache = self.decode_step(tok, pos, cache)
-            tok, keys, penalty_state = sample_step(logits, keys, sc, penalty_state)
+        ([B, n_steps] tokens, cache, keys, penalty state (updated in place)).
+        Stays on the device."""
+        if self._plain(plain) or n_steps == 0:
+            tok, pos = first_tok.long(), start_pos.long()
+            out = []
+            for _ in range(n_steps):
+                logits, cache = self.decode_step(tok, pos, cache)
+                tok, keys, penalty_state = sample_step(logits, keys, sc, penalty_state)
+                tok = tok.long()
+                pos = pos + 1
+                out.append(tok)
+                self.last_logits = logits
+            if not out:
+                return (torch.empty((first_tok.shape[0], 0), dtype=torch.long,
+                                    device=self.device), cache, keys, penalty_state)
+            return torch.stack(out, dim=1), cache, keys, penalty_state
+        loop = self._loop(cache, first_tok.shape[0], sc, keys, penalty_state)
+        if keys is not None:
+            loop.keys.copy_(keys)
+        for mine, theirs in zip(loop.pstate or (), penalty_state or ()):
+            mine.copy_(theirs)
+        toks = self._run_loop(loop, cache, first_tok, start_pos, n_steps, sc)
+        for mine, theirs in zip(loop.pstate or (), penalty_state or ()):
+            theirs.copy_(mine)
+        return toks, cache, None if keys is None else loop.keys.clone(), penalty_state
+
+    def _loop(self, cache, B: int, sc: SamplerConfig | None = None, keys=None,
+              pstate=None) -> _Loop:
+        """The captured decode step of B rows on this cache (module
+        docstring), made on first use; ``sc`` None: greedy."""
+        tensors = cache_tensors(cache)
+        key = (B, sc, keys is None, tuple(tuple(t.shape) for t in pstate or ()), switches(),
+               type(cache).__name__, tensor_key(tensors))
+
+        def make() -> _Loop:
+            z = lambda *s: torch.zeros(s, dtype=torch.long, device=self.device)  # noqa: E731
+            return _Loop(z(B), z(B), z(1), z(B, LOOP_WIDTH),
+                         None if sc is None or keys is None else z(B, 2),
+                         None if pstate is None else tuple(torch.empty_like(t) for t in pstate),
+                         StepGraph(self.device))
+
+        return self._graphs.get(key, make, tensors)
+
+    def _loop_step(self, loop: _Loop, cache, sc: SamplerConfig | None):
+        """The captured step: one decode step of loop.tok at loop.pos, the
+        sampler, the token into loop.out's column loop.col, then the next
+        step's token and position. Returns (logits,)."""
+        logits, _ = self.decode_step(loop.tok, loop.pos, cache)
+        if sc is None:
+            tok = greedy(logits).long()
+        else:
+            tok, keys, _ = sample_step(logits, loop.keys, sc, loop.pstate)
             tok = tok.long()
-            pos = pos + 1
-            out.append(tok)
-        if not out:
-            return (torch.empty((first_tok.shape[0], 0), dtype=torch.long, device=self.device),
-                    cache, keys, penalty_state)
-        return torch.stack(out, dim=1), cache, keys, penalty_state
+            if keys is not None:
+                loop.keys.copy_(keys)
+        loop.out.index_copy_(1, loop.col, tok[:, None])
+        loop.tok.copy_(tok)
+        loop.pos.add_(1)
+        loop.col.add_(1)
+        return (logits,)
+
+    def _run_loop(self, loop: _Loop, cache, first_tok, start_pos, n_steps: int,
+                  sc: SamplerConfig | None) -> torch.Tensor:
+        """n_steps runs of the loop's step from (first_tok, start_pos), in
+        turns of LOOP_WIDTH columns. Returns the [B, n_steps] tokens."""
+        loop.tok.copy_(first_tok)
+        loop.pos.copy_(start_pos)
+        parts = []
+        for s0 in range(0, n_steps, LOOP_WIDTH):
+            k = min(LOOP_WIDTH, n_steps - s0)
+            loop.col.zero_()
+            for _ in range(k):
+                (self.last_logits,) = loop.graph.run(self._loop_step, loop, cache, sc)
+            parts.append(loop.out[:, :k].clone())
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
     def shift_context(self, cache: KVCache, positions, n_keep: int, n_discard: int):
         """Discard positions [n_keep, n_keep + n_discard) from every row and

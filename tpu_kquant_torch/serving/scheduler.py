@@ -25,9 +25,29 @@ field with one masked write.
 
 Between admissions, ``run`` takes chunks of up to MAX_CHUNK ticks
 (``step_chunk``): rows whose sampled token is their eos freeze on the device
-and the chunk ends early once no row is active (one 4-byte read per tick);
-the sampled tokens come back once per chunk. Token streams equal per-tick
-stepping.
+(the reference's ``_tick_n_fn``), and the sampled tokens come back once per
+chunk. Token streams equal per-tick stepping.
+
+On a CUDA device the tick is a replay of one captured step (runtime.graphs;
+one graph for greedy ticks, one for sampled, on the batcher's cache and
+``_DevState``): the tick, then on the device the eos freeze, its tokens into
+the next row of the chunk's record ([MAX_CHUNK, B] tokens, then the next
+row and the count of ticks that began with a live row) and a running "all
+logits finite" flag (``logits_finite``). A chunk of n ticks is n replays and
+one host read of the record; the admission tick (``step``) is one replay
+and one read of its [B] tokens. Where the reference's device loop stops once
+no row is live, the replayed chunk runs its n ticks, the last ones on an
+all-inactive batch; such a tick changes nothing the host reads later: no
+row's token or position moves (both follow ``active``), a recurrent row's
+state does not (``valid`` = active and not fresh), no row is fresh, and the
+penalty rings and ``steps`` it does move belong to rows whose requests are
+done, which retirement parks and the next admission writes over; its tokens
+lie past ``count``, which the host reads. ``stats["ticks_run"]`` counts the
+ticks the device ran, these included (``chunk_ticks`` those of chunks, in
+``chunks`` chunks). On the CPU, or with ``plain=True``,
+the tick is the plain eager one and the chunk the plain loop, which ends
+once no row is active (one 4-byte read per tick); ``plain=False`` on the CPU
+runs the captured step's body eagerly.
 
 The admission burst prefills the k waiting requests as one [k, T] forward
 over a temporary cache of T slots (T the prompts' bucket; the reference
@@ -63,6 +83,7 @@ from tpu_kquant_torch.ops.sampling import (
     update_penalty_state_rows,
 )
 from tpu_kquant_torch.runtime.engine import InferenceEngine, _bucket
+from tpu_kquant_torch.runtime.graphs import GraphCache, StepGraph, switches
 from tpu_kquant_torch.runtime.kv_cache import set_batch_rows
 
 
@@ -147,12 +168,23 @@ class ContinuousBatcher:
     PENALTY_WINDOW_CAP = 128  # ring size; per-row last_n <= cap
     MAX_CHUNK = 32  # ticks per chunk at most
 
-    def __init__(self, engine: InferenceEngine, seed: int = 0, mesh=None):
+    def __init__(self, engine: InferenceEngine, seed: int = 0, mesh=None,
+                 plain: bool | None = None):
+        """plain: the eager tick and chunk loop (default: on the CPU only;
+        module docstring)."""
         if mesh is not None:
             raise NotImplementedError("serving over a device mesh waits for parallel/")
         self.engine = engine
         self.B = B = engine.max_batch
         self.device = engine.device
+        self.plain = engine.device.type != "cuda" if plain is None else plain
+        self._graphs = GraphCache()
+        # the chunk's record: [MAX_CHUNK, B] tokens, then (next row, count)
+        self._record = torch.zeros(self.MAX_CHUNK * B + 2, dtype=torch.long,
+                                   device=self.device)
+        self._rows = self._record[:-2].view(self.MAX_CHUNK, B)
+        self._next_row, self._count = self._record[-2:-1], self._record[-1:]
+        self.logits_finite = torch.ones((), dtype=torch.bool, device=self.device)
         self.cache = engine.new_cache(B)
         self.slots = [_Slot() for _ in range(B)]
         self.queue: deque[Request] = deque()
@@ -164,7 +196,8 @@ class ContinuousBatcher:
         self.tick_logits: torch.Tensor | None = None  # [B, V] the last tick sampled from
         self.stats = {
             "steps": 0, "prefills": 0, "tokens_out": 0, "tokens_in": 0,
-            "wall_s": 0.0, "batch_occupancy_sum": 0,
+            "wall_s": 0.0, "batch_occupancy_sum": 0, "ticks_run": 0, "chunks": 0,
+            "chunk_ticks": 0,
             # tick, chunk, admission and retirement calls, counted where the
             # reference counts its device dispatches
             "dispatches": 0,
@@ -242,6 +275,7 @@ class ContinuousBatcher:
         logits, self.cache = self.engine.decode_step(st.toks, st.poss, self.cache, valid)
         l = torch.where(st.fresh[:, None], st.pending, logits.float())
         self.tick_logits = l
+        self.logits_finite.logical_and_(l.isfinite().all())
         if sampling:
             l = apply_penalties_rows(l, st.counts, st.rps, st.pps, st.fps)
             tok = sample_rows(l, torch.stack([st.seeds, st.steps], dim=1), st.temps,
@@ -257,26 +291,58 @@ class ContinuousBatcher:
         st.steps.add_(1)
         return tok
 
+    @torch.no_grad()
+    def _graph_tick(self, sampling: bool) -> tuple:
+        """The captured step (module docstring): the tick, then the eos
+        freeze, the tokens into the record's next row, the count of ticks
+        that began with a live row. Returns (tokens [B], tick logits)."""
+        st = self.state
+        live = st.active.any()
+        tok = self._tick(sampling)
+        st.active.logical_and_(~((st.eos >= 0) & (tok == st.eos)))
+        self._rows.index_copy_(0, self._next_row, tok[None])
+        self._next_row.add_(1)
+        self._count.add_(live.long())
+        return tok, self.tick_logits
+
+    def _replay_tick(self, sampling: bool) -> torch.Tensor:
+        """One run of the captured tick (greedy or sampled); returns its
+        tokens [B]."""
+        graph = self._graphs.get((sampling, switches()), lambda: StepGraph(self.device))
+        tok, self.tick_logits = graph.run(self._graph_tick, sampling)
+        return tok
+
     def step_chunk(self, n: int, on_token=None) -> None:
         """Up to n ticks with no admission between them. A row whose sampled
         token is its eos goes inactive on the device (its token and position
-        freeze) and the chunk ends once no row is active; ``count`` ticks
-        ran. The tokens come to the host once, at the end."""
+        freeze); ``count`` ticks began with an active row. The tokens come
+        to the host once, at the end (module docstring)."""
         t_start = time.perf_counter()
         occupancy = self.active
         sampling = self._sampling_live()
         st = self.state
-        toks = []
-        for _ in range(n):
-            tok = self._tick(sampling)
-            hit = st.active & (st.eos >= 0) & (tok == st.eos)
-            st.active.logical_and_(~hit)
-            toks.append(tok)
-            if not bool(st.active.any()):  # the exit test: one 4-byte read
-                break
+        if self.plain:
+            toks = []
+            for _ in range(n):
+                tok = self._tick(sampling)
+                hit = st.active & (st.eos >= 0) & (tok == st.eos)
+                st.active.logical_and_(~hit)
+                toks.append(tok)
+                if not bool(st.active.any()):  # the exit test: one 4-byte read
+                    break
+            sampled = torch.stack(toks).cpu().numpy()  # [count, B]
+            count = len(toks)
+        else:
+            self._record[-2:].zero_()
+            for _ in range(n):
+                self._replay_tick(sampling)
+            record = self._record.cpu().numpy()  # the chunk's one host read
+            count = int(record[-1])
+            sampled = record[:-2].reshape(self.MAX_CHUNK, self.B)
         self.stats["dispatches"] += 1
-        sampled = torch.stack(toks).cpu().numpy()  # [count, B]
-        count = len(toks)
+        self.stats["chunks"] += 1
+        self.stats["chunk_ticks"] += count if self.plain else n
+        self.stats["ticks_run"] += count if self.plain else n
         for j in range(count):
             for b, slot in enumerate(self.slots):
                 req = slot.req
@@ -310,8 +376,13 @@ class ContinuousBatcher:
             self._admit_burst(pairs)
         if self.active == 0:
             return
-        tok = self._tick(self._sampling_live())
+        if self.plain:
+            tok = self._tick(self._sampling_live())
+        else:
+            self._record[-2:].zero_()
+            tok = self._replay_tick(self._sampling_live())
         self.stats["dispatches"] += 1
+        self.stats["ticks_run"] += 1
         sampled = tok.cpu().numpy()  # the tick's only host sync
         for b, slot in enumerate(self.slots):
             if slot.req is None:

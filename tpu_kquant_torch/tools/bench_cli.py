@@ -6,7 +6,10 @@ the port of ``tpu_kquant.tools.bench_cli``:
 The backend column names the card (torch.cuda.get_device_name()), or "cpu"
 under ``--device cpu``, whose numbers time PyTorch's CPU kernels and are
 no device measurement. Each timed part ends by reading a value back and
-``torch.cuda.synchronize()``.
+``torch.cuda.synchronize()``. Every rep clears one cache (zeroes it, as
+llama-bench clears its KV cache), so on the card the decode loop's captured
+step (runtime.graphs) is captured in the warm-up rep and replayed in the
+timed ones.
 
 Usage:
   python -m tpu_kquant_torch.tools.bench_cli -m M.gguf -p 512 -n 128 -r 2 [--device cpu]
@@ -35,6 +38,7 @@ def run_bench(model_path: str, pp: int, tg: int, batch: int, reps: int, impl: st
     """Returns (cfg, size MiB, parameter count, pp t/s per rep, tg t/s per
     rep); rep 0 is a warm-up and is not kept."""
     from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.runtime.graphs import cache_tensors
     from tpu_kquant_torch.runtime.loader import load_model
 
     cfg, params, reader = load_model(model_path, scale_dtype=scale_dtype, device=device)
@@ -44,10 +48,12 @@ def run_bench(model_path: str, pp: int, tg: int, batch: int, reps: int, impl: st
                           max_seq=min(cfg.max_seq_len, pp + tg + 64), impl=impl, device=device)
     rng = np.random.default_rng(0)
     pps, tgs = [], []
+    cache = eng.new_cache(batch)
     for rep in range(reps + 1):  # rep 0: warm-up
         prompt = rng.integers(10, cfg.vocab_size, pp).tolist()
         rows = [prompt] * batch
-        cache = eng.new_cache(batch)
+        for t in cache_tensors(cache):
+            t.zero_()
         _sync(cache.ssm[0, 0, 0] if cfg.is_recurrent else cache.k[0, 0, 0, 0])
         t0 = time.time()
         logits, cache, lens = eng.prefill(rows, cache)
