@@ -73,7 +73,10 @@ Phases, each fatal on failure:
     the plain loop (plain, graph, graph, plain), every run's tokens and
     last logits equal bit for bit, and decode_sampled (temperature, top-k,
     top-p, repeat penalty) as a graph against the plain loop, tokens, last
-    logits, keys and penalty state equal bit for bit;
+    logits, keys and penalty state equal bit for bit; then tg128 under
+    TKQ_INT8_FOLDS=1 (the fixture's q6w wo sends every decode step to #5,
+    which folds the q4 gate/up), plain against graph, counted and equal bit
+    for bit (tg128_ab);
  5. long prompts, on a bf16 and then an int8 KV cache of 2240 slots (2048 +
     128 + 64, bench.py's sizing): a 2-layer cut prefilling a 1100-token
     prompt (bucket 2048: the flash prefill kernel) on the card against the
@@ -173,7 +176,7 @@ Phases, each fatal on failure:
     tools/prefill_lab.py once in-process.
 13. the gemma family: Gemma-2B (google/gemma-2b: 18 layers, dim 2048, 8 / 1
     heads of 256, ffn 16384, vocab 256000, GELU, tied lm head) at full
-    width, GEMMA_DEPTH = 9 of its 18 layers: the decode dispatch pinned (attn_in at head_dim 256
+    width, GEMMA_DEPTH = 6 of its 18 layers: the decode dispatch pinned (attn_in at head_dim 256
     and oproj_ffn with GELU in every layer, the lm head a qmm), a 2-layer
     cut against the CPU, greedy requests of 5, 40, 200 and 3000 tokens (the
     last is bucket 4096: the flash prefill at head_dim 256 in every layer)
@@ -209,7 +212,7 @@ Phases, each fatal on failure:
 15. the sliding-window family (sliding_window), run after phase 13:
     Phi-3-mini-4k (microsoft/Phi-3-mini-4k-instruct: 32 layers, dim 3072,
     32 / 32 heads of 96, ffn 8192, vocab 32064, window 2047 on every layer,
-    q/k/v in one wqkv) at full width, PHI3_DEPTH = 16 of its 32 layers: the
+    q/k/v in one wqkv) at full width, PHI3_DEPTH = 8 of its 32 layers: the
     decode dispatch pinned
     (attn_in on wqkv's two slots and oproj_ffn in every layer, the lm head a
     qmm, on either layout); 2-layer cuts against the CPU on the unified
@@ -257,7 +260,7 @@ Phases, each fatal on failure:
     and on tests/test_native.py's six edge cases, their first 64 rows
     against the port's NumPy copy, each timed (graph and eager) beside its
     bound (FP64 / FP32 operations or bytes); (b) TinyLlama-1.1B's F16
-    fixture (seed 0, written by a process started with phase 2,
+    fixture (seed 0, written by a process started after phase 2's build,
     start_f16_fixture) requantized to q4_k_m on the card by
     tools/quantize.py: the wall time and its parts, the output's types
     against the recipe, layer 0's tensors and the lm head (64 rows each)
@@ -269,7 +272,26 @@ Phases, each fatal on failure:
     --max-windows 2 on a text of the fixture vocab's words: KL ordered
     q4_k_m > q6_k > q8_0 and q8_0's |dppl| under 1/512 of ppl (the
     reference test's |dppl| < 1 at its ppl of 512), the windows on qmm's
-    tile.
+    tile;
+18. Llama-3-8B at full width and depth (32 layers, dim 4096, 32 / 8 heads
+    of 128, ffn 14336, vocab 128256, rope base 5e5; its Q4_K_M fixture
+    written by a process started after phase 2's build,
+    start_llama3_fixture):
+    load, pin_dispatch (attn_in and oproj_ffn a layer and the GEMV lm head
+    a decode step, the flash prefill in every layer at 2048 rows), a
+    2-layer cut against the CPU, end_to_end (three requests, pp512, tg128)
+    and tg128 plain against graph bit for bit (tg128_ab), 32 requests on 16
+    slots of 128 (every eighth greedy, each equal to its run alone); then
+    tg128 and
+    the serving run again under TKQ_Q4_MXU_MINS=0 and under
+    TKQ_INT8_FOLDS=1 (L3_FOLD_ENVS): the fold dispatch pinned at a decode
+    step and a 16-row tick, the folded launches counted apart
+    ("attn_in.folded", "oproj_ffn.folded") and required, each greedy stream
+    equal to the request repeated in all 16 rows of one generate (the
+    TPU's choice, and with it the function, changes at 8 rows). Phase 3
+    holds the folded kernels to their plain folded forms (check_folds: each
+    within TOL and its mean error below a quarter of its fold gap) and
+    their rows to the rows alone (check_batch_invariance).
 Phase 8 runs Mixtral at MIXTRAL_DEPTH = 1 layer and phase 9 every recipe,
 Q8_0 and Q5_K_M among them, untimed at GGML_DEPTH = 2 layers (2 and 4
 layers, Q5_K_M timed at 22 before phase 13, Q8_0 before phase 15),
@@ -287,7 +309,8 @@ captured (record_captures), and logs its graph launches and the counted
 kernel launches inside and outside them. A capture that fails (a host read
 in the step raises under set_sync_debug_mode("error")) ends the smoke.
 Launch counts in the kernels' JSON line are the sums over the request runs
-of phases 4 to 10 and 13 to 16, each counted from 0 and checked against the dispatch
+of phases 4 to 10, 13 to 16 and 18 (folded launches among attn_in's,
+oproj_ffn's and ffn's), each counted from 0 and checked against the dispatch
 gates exactly (the quantizers': phase 17's requantize and ppl_delta runs,
 each counted from 0, one launch a converted tensor; the labs' kernels: their wrapper calls in phase 11's
 run_ladder and phase 12's run_sweep, CUDA-graph captures included, replays
@@ -594,8 +617,14 @@ def check_kernels(dev) -> dict:
         out[name] += cases
     for name, cases in check_phi3(dev, rng).items():
         out[name] += cases
+    t0 = time.perf_counter()
+    for name, cases in check_folds(dev, rng).items():
+        out[name] += cases
+    log(f"  check_folds took {time.perf_counter() - t0:.1f} s")
     report_cases(out)
+    t0 = time.perf_counter()
     check_batch_invariance(dev, rng)
+    log(f"  check_batch_invariance took {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -778,6 +807,160 @@ def check_fused_ffn(dev, rng) -> dict:
                     "matmul_ms": graph_ms(lambda i: torch.matmul(x, wd[i % len(wd)]), 64),
                     "bound_ms": b, "bound_by": by})
             del ws, wd
+    return out
+
+
+# Llama-3-8B (dim 4096, 32 / 8 heads of 128, ffn 14336); the (dim, ffn) of
+# check_folds' TinyLlama-1.1B and Qwen2.5-1.5B cases
+L3_DIM, L3_H, L3_HKV, L3_HD, L3_FFN = 4096, 32, 8, 128, 14336
+FOLD_TINY, FOLD_QWEN = (2048, 5632), (1536, 8960)
+
+
+def _fold_gap(got, ref, off, x=None) -> tuple[float, float]:
+    """(mean |got - ref|, the fold gap mean |ref - off|) of the block's
+    delta (output minus residual x where given), in f32: a folded kernel
+    against its plain folded form, and that form against the unfolded
+    one."""
+    got, ref, off = (t.float() - (0 if x is None else x.float()) for t in (got, ref, off))
+    return (got - ref).abs().mean().item(), (ref - off).abs().mean().item()
+
+
+def check_folds(dev, rng) -> dict:
+    """The int8 folds of #3, #5 and #6 (ops/dequant.py) against their plain
+    folded forms, each under the switches that make the TPU's dispatch fold
+    there: attn_in at Llama-3-8B's wqk [5120, 4096] q4-sm + wv [1024, 4096]
+    q6w-sp, R = 16 under TKQ_Q4_MXU_MINS=0 (the "auto" rule) and R = 1
+    under TKQ_INT8_FOLDS=1 TKQ_MANUAL_ATTN_IN=0; oproj_ffn at TinyLlama's
+    fixture layout (wo q6w-sp, gate/up q4-sm [11264, 2048]) R = 1 and 8,
+    and at Llama-3-8B's gate/up [28672, 4096] R = 1 and 8 with wo q6w-sp
+    and with wo q4-sm (TKQ_MANUAL_OPROJ=0); ffn at Qwen2.5-1.5B's q4
+    gate/up on f32 scales R = 1 and 8 and on pairs R = 1. Beside them the
+    same kernels unfolded at Llama-3-8B's widths (phase 18's decode). Each
+    folded case must be within TOL of its plain folded form and its mean
+    |error| below a quarter of its fold gap (the plain folded form against
+    the plain unfolded one), and must have launched the folded branch
+    (fatal). Timed as the other fused cases: matmul_ms the bf16 matmuls of
+    the dequantized weights."""
+    import torch
+
+    from tpu_kquant_torch.ops import attn_in as ai
+    from tpu_kquant_torch.ops import ffn as ffn_mod
+    from tpu_kquant_torch.quant.codecs import dequant_kmajor
+
+    out: dict = {"attn_in": [], "oproj_ffn": [], "ffn": []}
+    folds1 = {"TKQ_INT8_FOLDS": "1"}
+
+    def held(name, label, env, run, plain, fold_plain, ctr, x, nbw, io_bytes, macs, mats):
+        """Run the case under `env`: the kernel once (checked), timed."""
+        with switches(env):
+            n0 = ctr.launches + ctr.plain_calls
+            got = run(0)
+            torch.cuda.synchronize()
+            folded = ctr.launches + ctr.plain_calls - n0
+            ref = fold_plain(bool(env))
+            first = lambda t: t[0] if isinstance(t, tuple) else t  # noqa: E731
+            ad, rel = _err(first(got), first(ref))
+            c = {"case": label, "max_abs_err": ad, "rel_err": rel}
+            if env:
+                err, gap = _fold_gap(first(got), first(ref), first(fold_plain(False)), x)
+                c.update(mean_err=err, fold_gap=gap, folded_launches=folded)
+                log(f"  {name} {label}: mean |err| {err:.3e}, fold gap {gap:.3e} "
+                    f"(ratio {err / max(gap, 1e-30):.3f}); folded launches {folded}")
+                if folded != 1 or not (gap > 0 and err < gap / 4):
+                    raise SystemExit(f"FAIL: {name} {label}: folded launches {folded}, mean "
+                                     f"|err| {err:.3e} not below a quarter of the fold gap "
+                                     f"{gap:.3e}")
+            elif folded:
+                raise SystemExit(f"FAIL: {name} {label} folded under the default switches")
+            b, by = bound_ms(nbw + io_bytes, 2.0 * macs[0] + macs[1])  # int8 ops at half cost
+            c.update(ms=graph_ms(run, 64), eager_ms=time_ms(run, 64),
+                     plain_ms=graph_ms(lambda i: plain(), 4, 3), library_ms=None,
+                     matmul_ms=graph_ms(mats, 64), bound_ms=b, bound_by=by)
+        out[name].append(c)
+
+    # attn_in (#3)
+    D, H, Hkv, hd = L3_DIM, L3_H, L3_HKV, L3_HD
+    w0 = (_rand_weights(rng, "q4", (H + Hkv) * hd, D, dev),
+          _rand_weights(rng, "q6w", Hkv * hd, D, dev))
+    nbw = sum(w.n_bytes for w in w0)
+    ws = _rotation(w0, nbw)
+    wcat = [torch.cat([dequant_kmajor(w, torch.bfloat16) for w in pair], dim=1).contiguous()
+            for pair in ws[:4]]
+    nw = torch.rand(D, device=dev) + 0.5
+    n_out = (H + 2 * Hkv) * hd
+    for label, env, R in (("llama-3-8b: wqk q4-sm + wv q6w-sp R=1", {}, 1),
+                          ("llama-3-8b: wqk q4-sm + wv q6w-sp R=16", {}, 16),
+                          ("llama-3-8b folded (TKQ_Q4_MXU_MINS=0, auto) R=16",
+                           {"TKQ_Q4_MXU_MINS": "0"}, 16),
+                          ("llama-3-8b folded (TKQ_INT8_FOLDS=1 TKQ_MANUAL_ATTN_IN=0) R=1",
+                           {**folds1, "TKQ_MANUAL_ATTN_IN": "0"}, 1)):
+        x = _act(R, D, 0.5, dev)
+        cos, sin = torch.rand(R, hd // 2, device=dev), torch.rand(R, hd // 2, device=dev)
+        args = (x, nw, 1e-5)
+        q_macs = R * D * (H + Hkv) * hd
+        held("attn_in", label, env,
+             lambda i: ai.fused_attn_in(*args, *ws[i % len(ws)], cos, sin, hd),
+             lambda: ai.attn_in_plain(*args, *w0, cos, sin, hd, fold=bool(env)),
+             lambda f: ai.attn_in_plain(*args, *w0, cos, sin, hd, fold=f),
+             ai.fold_counter, None, nbw,
+             R * D * 2 + D * 4 + 2 * R * (hd // 2) * 4 + R * n_out * 2,
+             (R * D * n_out - (q_macs if env else 0), q_macs if env else 0),
+             lambda i: torch.matmul(x, wcat[i % len(wcat)]))
+    del ws, wcat
+
+    # oproj_ffn (#5): one weight trio a layout, its cases in turn
+    q6_env = folds1
+    q4_env = {**folds1, "TKQ_MANUAL_OPROJ": "0"}
+    for dim, F_, ko, cases in (
+            (*FOLD_TINY, "q6w", (("tinyllama", q6_env, 1), ("tinyllama", q6_env, 8))),
+            (D, L3_FFN, "q6w", (("llama-3-8b", {}, 1), ("llama-3-8b", {}, 8),
+                                ("llama-3-8b", q6_env, 1), ("llama-3-8b", q6_env, 8))),
+            (D, L3_FFN, "q4", (("llama-3-8b", q4_env, 1), ("llama-3-8b", q4_env, 8)))):
+        w0 = (_rand_weights(rng, ko, dim, dim, dev), _rand_weights(rng, "q4", 2 * F_, dim, dev),
+              _rand_weights(rng, "q6w", dim, F_, dev))
+        nbw = sum(w.n_bytes for w in w0)
+        ws = _rotation(w0, nbw)
+        wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in trio] for trio in ws[:2]]
+        nw_ = torch.rand(dim, device=dev) + 0.5
+        side = "sm" if ko == "q4" else "sp"
+        for model, env, R in cases:
+            label = (f"{model}: wo {ko}-{side} + w_gateup q4-sm + w_down q6w-sp"
+                     + (", folded" if env else "")
+                     + (" (TKQ_MANUAL_OPROJ=0)" if "TKQ_MANUAL_OPROJ" in env else "") + f" R={R}")
+            x, at = _act(R, dim, 0.5, dev), _act(R, dim, 0.5, dev)
+            fwo = bool(env) and ko == "q4"
+            xs = [at, x, _act(R, F_, 1.0, dev)]
+            i8 = R * (dim * dim * fwo + dim * 2 * F_) if env else 0
+            held("oproj_ffn", label, env,
+                 lambda i: ffn_mod.fused_oproj_ffn(x, at, ws[i % len(ws)][0], nw_, 1e-5,
+                                                   *ws[i % len(ws)][1:]),
+                 lambda: ffn_mod.oproj_ffn_plain(x, at, w0[0], nw_, 1e-5, *w0[1:],
+                                                 folds=(fwo, bool(env)), round_first=bool(env)),
+                 lambda f: ffn_mod.oproj_ffn_plain(x, at, w0[0], nw_, 1e-5, *w0[1:],
+                                                   folds=(fwo and f, f), round_first=f),
+                 ffn_mod.fold_counter, x, nbw, R * (3 * dim * 2 + dim * 2) + dim * 4,
+                 (R * (dim * dim + 3 * dim * F_) - i8, i8),
+                 lambda i: [torch.matmul(a, w) for a, w in zip(xs, wd[i % len(wd)])])
+        del ws, wd
+
+    # ffn (#6)
+    dim, F_ = FOLD_QWEN
+    for kg, R in (("q4f", 1), ("q4f", 8), ("q4", 1)):
+        w0 = (_rand_weights(rng, kg, 2 * F_, dim, dev), _rand_weights(rng, "q6w", dim, F_, dev))
+        nbw = sum(w.n_bytes for w in w0)
+        ws = _rotation(w0, nbw)
+        wd = [[dequant_kmajor(w, torch.bfloat16).contiguous() for w in pair] for pair in ws[:2]]
+        x, nw_ = _act(R, dim, 0.5, dev), torch.rand(dim, device=dev) + 0.5
+        xs = [x, _act(R, F_, 1.0, dev)]
+        side = "f32" if kg == "q4f" else "sm"
+        held("ffn", f"qwen2.5-1.5b: w_gateup q4-{side} + w_down q6w-sp, folded R={R}", folds1,
+             lambda i: ffn_mod.fused_ffn(x, nw_, 1e-6, *ws[i % len(ws)]),
+             lambda: ffn_mod.ffn_plain(x, nw_, 1e-6, *w0, fold=True),
+             lambda f: ffn_mod.ffn_plain(x, nw_, 1e-6, *w0, fold=f),
+             ffn_mod.ffn_fold_counter, x, nbw, 2 * R * dim * 2 + dim * 4,
+             (R * dim * F_, R * dim * 2 * F_),
+             lambda i: [torch.matmul(a, w) for a, w in zip(xs, wd[i % len(wd)])])
+        del ws, wd
     return out
 
 
@@ -1114,7 +1297,9 @@ def check_batch_invariance(dev, rng) -> int:
     ops/attn_in.py:attn_in_plan at every pair of slot kinds; the plain
     decode attention (ops/attention.py:attention_plain, the serving cell's
     16 slots of 128 at TinyLlama's heads) on bf16 and int8 KV, with the
-    deferred append on and off; the rows of a 5-token verify window (engine.
+    deferred append on and off; the int8 folds of attn_in (Llama-3-8B),
+    oproj_ffn (TinyLlama, wo q6w and q4) and ffn (TinyLlama, Qwen2.5-1.5B
+    on f32 scales); the rows of a 5-token verify window (engine.
     step) against the decode steps at their positions; then
     check_fused_invariance (attn_out and
     layer). Fatal; returns the number of cases checked."""
@@ -1210,6 +1395,7 @@ def check_batch_invariance(dev, rng) -> int:
               _act(top, D_, 0.5, dev), torch.rand(top, hd_ // 2, device=dev),
               torch.rand(top, hd_ // 2, device=dev))
     del wqkv, sl
+    check_fold_invariance(dev, rng, same_rows)
     # the plain decode attention of the serving cell: rows of 128 slots at
     # TinyLlama's heads, bf16 and int8 KV, the deferred append on and off
     ga = torch.Generator(device=dev).manual_seed(9)
@@ -1370,6 +1556,44 @@ def check_batch_invariance(dev, rng) -> int:
         f"alone; attn_out at B = 16 and layer at B = 4, ragged positions: every row equals the "
         f"row alone (torch.equal)")
     return n
+
+
+def check_fold_invariance(dev, rng, same_rows) -> None:
+    """check_batch_invariance's folded cases: the int8 folds of attn_in
+    (Llama-3-8B), oproj_ffn (TinyLlama, wo q6w and q4) and ffn (TinyLlama,
+    Qwen2.5-1.5B on f32 scales). Each row's 32-groups are quantized alone,
+    so a folded row is the row alone bit for bit (the manual variants off,
+    so that every row count folds). `same_rows(label, fn, *xs)`: the check."""
+    import torch
+
+    from tpu_kquant_torch.ops.attn_in import fused_attn_in
+    from tpu_kquant_torch.ops.ffn import fused_ffn, fused_oproj_ffn
+
+    top = max(INVARIANCE_ROWS)
+    (dim, F), (qd, qf) = FOLD_TINY, FOLD_QWEN
+    with switches({"TKQ_INT8_FOLDS": "1", "TKQ_MANUAL_ATTN_IN": "0", "TKQ_MANUAL_OPROJ": "0"}):
+        wq_, wv_ = (_rand_weights(rng, "q4", (L3_H + L3_HKV) * L3_HD, L3_DIM, dev),
+                    _rand_weights(rng, "q6w", L3_HKV * L3_HD, L3_DIM, dev))
+        nw_ = torch.rand(L3_DIM, device=dev) + 0.5
+        same_rows("attn_in folded (Llama-3-8B: wqk q4-sm, wv q6w-sp)",
+                  lambda x, c, s_: fused_attn_in(x, nw_, 1e-5, wq_, wv_, c, s_, L3_HD),
+                  _act(top, L3_DIM, 0.5, dev), torch.rand(top, L3_HD // 2, device=dev),
+                  torch.rand(top, L3_HD // 2, device=dev))
+        del wq_, wv_
+        gu_, dn_ = _rand_weights(rng, "q4", 2 * F, dim, dev), _rand_weights(rng, "q6w", dim, F,
+                                                                            dev)
+        nw = torch.rand(dim, device=dev) + 0.5
+        for ko in ("q6w", "q4"):
+            wo_ = _rand_weights(rng, ko, dim, dim, dev)
+            same_rows(f"oproj_ffn folded (TinyLlama: wo {ko}, w_gateup q4-sm)",
+                      lambda x, a: fused_oproj_ffn(x, a, wo_, nw, 1e-5, gu_, dn_),
+                      _act(top, dim, 0.5, dev), _act(top, dim, 0.5, dev))
+        same_rows("ffn folded (TinyLlama: w_gateup q4-sm)",
+                  lambda x: fused_ffn(x, nw, 1e-5, gu_, dn_), _act(top, dim, 0.5, dev))
+        wf = (_rand_weights(rng, "q4f", 2 * qf, qd, dev), _rand_weights(rng, "q6w", qd, qf, dev))
+        nw_ = torch.rand(qd, device=dev) + 0.5
+        same_rows("ffn folded (Qwen2.5-1.5B: w_gateup q4-f32)",
+                  lambda x: fused_ffn(x, nw_, 1e-6, *wf), _act(top, qd, 0.5, dev))
 
 
 def check_fused_invariance(dev, rng) -> int:
@@ -2083,7 +2307,10 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     the append is not deferred), TKQ_ROTATE_LAYER (rot for every layer but
     the last, whose successor then skips attn_in) and TKQ_KV_APPEND_PALLAS
     (kv_append for each layer's eager append of a decode step on a cache of
-    `seq` slots). phi3's wqkv: attn_in and rot on its two slots
+    `seq` slots); the int8 folds (ops/dequant.py: TKQ_INT8_FOLDS,
+    TKQ_Q4_MXU_MINS, TKQ_MANUAL_ATTN_IN, TKQ_MANUAL_OPROJ): the launches of
+    attn_in, oproj_ffn and ffn that fold also count as "attn_in.folded",
+    "oproj_ffn.folded" and "ffn.folded". phi3's wqkv: attn_in and rot on its two slots
     (qkv_weights), else one qmm. `iswa` (the forward of an ISWACache): no
     deferred append, no flash kernel in a ring layer, and a prefill chunk's
     lm head on one row a sequence (logits_rows). A recurrent model (mamba)
@@ -2092,7 +2319,9 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     from tpu_kquant_torch.models.moe import _expert_view
     from tpu_kquant_torch.ops import attention
     from tpu_kquant_torch.ops.attn_in import attn_in_enabled
+    from tpu_kquant_torch.ops.attn_in import folds as attn_in_folds
     from tpu_kquant_torch.ops.attn_out import attn_out_enabled
+    from tpu_kquant_torch.ops.dequant import ffn_folds, oproj_ffn_folds
     from tpu_kquant_torch.ops.ffn import ffn_enabled, oproj_ffn_enabled
     from tpu_kquant_torch.ops.kv_append import kv_append_enabled
     from tpu_kquant_torch.ops.layer import layer_enabled
@@ -2103,7 +2332,7 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     L, lay, D, H = cfg.n_layers, params["layers"][0], cfg.head_dim, cfg.n_heads
     if cfg.is_recurrent:  # mamba: its packed matmuls a layer and the lm head, any rows
         n = dict.fromkeys(("prefill", "decode_attn", "attn_in", "oproj_ffn", "ffn", "qmm_int8",
-                           "kv_append", "attn_out", "layer", "rot"), 0)
+                           "kv_append", "attn_out", "layer", "rot", *FOLDED), 0)
         mats = [lay[k] for k in ("ssm_in", "ssm_x", "ssm_dt", "ssm_out") if lay[k].kind != "dense"]
         n["qmm"] = L * len(mats) + 1
         return n
@@ -2119,7 +2348,8 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
         attention.logits_mb(batch, 1, H, seq) > budget
     n_rows = batch * rows
     n = {"prefill": n_flat * flash, "decode_attn": 0, "attn_in": 0, "oproj_ffn": 0, "ffn": 0,
-         "qmm": 0, "qmm_int8": 0, "kv_append": 0, "attn_out": 0, "layer": 0, "rot": 0}
+         "qmm": 0, "qmm_int8": 0, "kv_append": 0, "attn_out": 0, "layer": 0, "rot": 0,
+         **dict.fromkeys(FOLDED, 0)}
 
     def mm(qt, times: int, r: int = n_rows) -> None:
         n["qmm_int8" if impl == "int8" and int8_eligible(qt, r) else "qmm"] += times
@@ -2161,6 +2391,12 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
     n["attn_in"] = (1 if rot else L) * a_in
     n["oproj_ffn"] = (1 if rot else L) * o_ffn
     n["ffn"] = L * ffn
+    if a_in and attn_in_folds(wqk, wv, n_rows, biases):
+        n["attn_in.folded"] = n["attn_in"]
+    if o_ffn and any(oproj_ffn_folds(lay["wo"], lay["w_gateup"], lay["w_down"], n_rows)):
+        n["oproj_ffn.folded"] = n["oproj_ffn"]
+    if ffn and ffn_folds(lay["w_gateup"]):
+        n["ffn.folded"] = n["ffn"]
     if not a_in:  # under rot only the first layer projects its own q/k/v
         ws = [lay["wqkv"]] if "wqkv" in lay else \
             ([lay["wqk"]] if "wqk" in lay else [lay["wq"], lay["wk"]]) + [lay["wv"]]
@@ -2178,6 +2414,10 @@ def expected_launches(cfg, params, rows: int, impl: str = "auto", batch: int = 1
             mm(w, L)
     mm(params["output"], 1, head_rows)
     return n
+
+
+# the counters of the launches that fold (ops/attn_in.py, ops/ffn.py)
+FOLDED = ("attn_in.folded", "oproj_ffn.folded", "ffn.folded")
 
 
 def pin_dispatch(cfg, params, what: str, decode: dict, long_rows: int, impl: str = "auto",
@@ -3243,7 +3483,8 @@ FUSED_PATHS = (
 )
 FUSED_TURNS = 1  # tg128's turns of on, off a path (2 before phase 15: the smoke's 1200 s)
 SWITCHES = ("TKQ_KV_APPEND_PALLAS", "TKQ_FUSE_ATTN_OUT", "TKQ_DEFER_APPEND", "TKQ_FUSE_LAYER",
-            "TKQ_ROTATE_LAYER", "TKQ_FUSE_OPROJ")
+            "TKQ_ROTATE_LAYER", "TKQ_FUSE_OPROJ", "TKQ_INT8_FOLDS", "TKQ_Q4_MXU_MINS",
+            "TKQ_GROUP_SCALE", "TKQ_MANUAL_ATTN_IN", "TKQ_MANUAL_OPROJ")
 
 
 @contextlib.contextmanager
@@ -3506,7 +3747,8 @@ def ggml_types(dev, profile: Path | None = None) -> dict:
 
 GEMMA_MAX_SEQ = 4096 + 128 + 64  # the 3000-token request's bucket + tg128 + 64
 GEMMA2_DEPTH = 2  # Gemma-2-9B's layers on the card (of 42)
-GEMMA_DEPTH = 9  # Gemma-2B's layers on the card (of 18; all before phase 16: the 1200 s)
+GEMMA_DEPTH = 6  # Gemma-2B's layers on the card (of 18; all before phase 16, 9 before phase
+#                  18: the 1200 s)
 GEMMA_TIMED_REPS = 1  # Gemma-2B's pp512 / tg128: one run after a warm one (3 before phase 15)
 
 
@@ -3571,7 +3813,8 @@ def gemma(dev, profile: Path | None = None) -> dict:
 
 PHI3_MAX_SEQ = 4096  # Phi-3-mini-4k's context: the 3000-token request's bucket
 PHI3_TIMED_REPS = 1  # pp512 and tg128 on each layout: one timed run after a warm one
-PHI3_DEPTH = 16  # Phi-3-mini-4k's layers on the card (of 32; all before phase 16: the 1200 s)
+PHI3_DEPTH = 8  # Phi-3-mini-4k's layers on the card (of 32; all before phase 16, 16 before
+#                 phase 18: the 1200 s)
 GEMMA2_LONG = 5000  # past Gemma-2-9B's window of 4096: its ring of 4608 wraps
 GEMMA2_RING_KV = (False,)  # the ring cut's KV kinds: bf16 (int8 wraps Phi-3's ring below;
 #                            Gemma-2-9B's int8 CPU side took 40-44 s of the 1200 s)
@@ -4932,6 +5175,205 @@ def front_door(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 18: Llama-3-8B at full width and depth, and the int8 folds
+# ---------------------------------------------------------------------------
+
+L3_NAME = "llama-3-8b-q4_k_m-seed0.gguf"
+# the fold switches of phase 18's second and third runs (ops/dequant.py):
+# "auto" with the MXU mins off folds attn_in at 8B widths wherever the TPU
+# takes the grid (the 16-row ticks); TKQ_INT8_FOLDS=1 also folds oproj_ffn's
+# q4 gate/up at every row count (the fixture's q6w wo sends decode to #5)
+L3_FOLD_ENVS = (("TKQ_Q4_MXU_MINS=0", {"TKQ_Q4_MXU_MINS": "0"}),
+                ("TKQ_INT8_FOLDS=1", {"TKQ_INT8_FOLDS": "1"}))
+L3_SERVE = (16, 128, 32)  # slots, cache length, requests (every eighth greedy)
+
+
+def start_llama3_fixture() -> subprocess.Popen | None:
+    """Write phase 18's Llama-3-8B Q4_K_M fixture (seed 0, its vocab, 32
+    layers, ~4.9 GB) in a process of its own from the end of phase 2 (beside
+    the build it took 26 s from nvcc), as load_fixture would write it. None
+    when the file is there already."""
+    if (FIXTURE_DIR / L3_NAME).exists():
+        return None
+    code = ("import os, sys, time; t0 = time.perf_counter(); sys.path.insert(0, sys.argv[1])\n"
+            "from tpu_kquant_torch.models.fixtures import llama3_8b_config, write_fixture_gguf\n"
+            "tmp = sys.argv[2] + '.tmp'\n"
+            "write_fixture_gguf(tmp, llama3_8b_config(), seed=0, recipe='q4_k_m', scale=0.05)\n"
+            "os.replace(tmp, sys.argv[2]); print(time.perf_counter() - t0)\n")
+    FIXTURE_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(FIXTURE_DIR / L3_NAME)],
+                            stdout=subprocess.PIPE, text=True)
+
+
+def tg128_ab(cfg, params, dev, tag: str) -> dict:
+    """tg128 after a 512-token prompt on one 704-slot cache, refilled
+    before each run: a warm run (it captures the step), then the plain
+    loop and the graph, each counted from 0 (main_run); their tokens and
+    last logits equal bit for bit (fatal). One run a side: a plain run of
+    Llama-3-8B takes ~7 s. Returns the rates and the launches."""
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+
+    eng = InferenceEngine(cfg, params, max_batch=1, max_seq=704, device=dev)
+    prompt = np.random.default_rng(2).integers(10, cfg.vocab_size, 512).tolist()
+    cache = eng.new_cache(1)
+    eng.decode_greedy(*refill(eng, prompt, cache), cache, 4)
+    launches: dict = {}
+    tg: dict = {True: [], False: []}
+    runs = []
+    for plain in (True, False):
+        first, pos = refill(eng, prompt, cache)
+        torch.cuda.synchronize()
+        with main_run(f"tg128{tag}{' (plain loop)' if plain else ''}", launches):
+            t0 = time.perf_counter()
+            toks, cache = eng.decode_greedy(first, pos, cache, 128, plain=plain)
+            torch.cuda.synchronize()
+            tg[plain].append(time.perf_counter() - t0)
+        runs.append((toks, eng.last_logits.clone()))
+    same = all(torch.equal(a, runs[0][0]) and torch.equal(b, runs[0][1]) for a, b in runs)
+    log(f"  [{gpu_line()}]{tag} tg128 (plain, graph): graph "
+        f"{', '.join(f'{128 / t:.1f}' for t in tg[False])} tok/s, plain "
+        f"{', '.join(f'{128 / t:.1f}' for t in tg[True])} tok/s; tokens and last logits "
+        f"equal bit for bit: {same}")
+    if not same:
+        raise SystemExit(f"FAIL:{tag} the decode loop's graph differs from the plain loop")
+    return {"tg128_tok_s_all": [128 / t for t in tg[False]],
+            "tg128_plain_tok_s_all": [128 / t for t in tg[True]], "launches": launches}
+
+
+def l3_serving(cfg, params, dev, tag: str, alone_at_b: bool) -> dict:
+    """L3_SERVE's requests (serve_request: 32-63 prompt tokens, 48 new, every
+    eighth greedy) on a ContinuousBatcher of 16 slots, counted from 0 and
+    held to the gates (serving_launches); every greedy stream must equal
+    its run alone (fatal): a batch-1 generate, or where `alone_at_b` (the
+    fold runs, whose function changes at 8 rows with the TPU's choice of
+    variant) the request repeated in all 16 rows of one generate, so that
+    its decode steps run at the ticks' row count."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_kquant_torch.runtime.engine import InferenceEngine
+    from tpu_kquant_torch.serving import ContinuousBatcher
+
+    B, max_seq, n = L3_SERVE
+    rng = np.random.default_rng(11)
+    greedy = {i for i in range(n) if i % 8 == 0}
+    reqs = [serve_request(i, cfg, rng, greedy=i in greedy) for i in range(n)]
+    eng = InferenceEngine(cfg, params, max_batch=B, max_seq=max_seq, device=dev)
+    solo_eng = eng if alone_at_b else InferenceEngine(cfg, params, max_batch=1,
+                                                      max_seq=max_seq, device=dev)
+    kw = dict(max_new_tokens=SERVE_NEW, top_k=40, top_p=0.95, repeat_penalty=1.1,
+              penalty_last_n=64)
+    solo = {}
+    for i in sorted(greedy):
+        rows = solo_eng.generate([reqs[i].prompt] * (B if alone_at_b else 1), **kw)
+        if any(r != rows[0] for r in rows):
+            raise SystemExit(f"FAIL: Llama-3-8B{tag}: copies of request {i} in one batch "
+                             f"differ")
+        solo[i] = rows[0]
+    cb = ContinuousBatcher(eng)
+    rec = instrument(cb)
+    for r in (dataclasses.replace(r, output=[]) for r in reqs):
+        cb.submit(r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = sorted(cb.run(), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = check_counts(f"Llama-3-8B serving{tag}",
+                       serving_launches(cfg, params, rec, cb.stats["ticks_run"], B, max_seq,
+                                        False))
+    if not (len(done) == n and bool(cb.logits_finite)):
+        raise SystemExit(f"FAIL: Llama-3-8B serving{tag} lost a request or saw non-finite "
+                         f"logits")
+    differ = [(r.rid, next(j for j, (a, b) in enumerate(zip(r.output + [-1], solo[r.rid] + [-2]))
+                          if a != b))
+              for r in done if r.rid in greedy and r.output != solo[r.rid]]
+    res = {"tok_s": cb.stats["tokens_out"] / wall, "wall_s": wall, "ticks": cb.stats["steps"],
+           "launches": got, "folded": {k: got.get(k, 0) for k in FOLDED}, "differ": differ}
+    log(f"  [{gpu_line()}] Llama-3-8B serving{tag}, {B} slots x {max_seq}: {n} requests, "
+        f"{cb.stats['tokens_out']} tokens in {wall:.3f} s = {res['tok_s']:.1f} tok/s, "
+        f"{res['ticks']} ticks; folded launches {res['folded']}; greedy streams differing from "
+        f"their runs alone{' (16 copies)' if alone_at_b else ''}: {len(differ)} of "
+        f"{len(greedy)} {differ}")
+    if differ:
+        raise SystemExit(f"FAIL: Llama-3-8B serving{tag}: greedy streams differ from their runs "
+                         f"alone (request, first step): {differ}")
+    return res
+
+
+def llama3(dev, writer: subprocess.Popen | None, profile: Path | None = None) -> dict:
+    """Phase 18 (module docstring). Returns its numbers and the launches of
+    its main-path runs."""
+    import torch
+
+    from tpu_kquant_torch.models.fixtures import llama3_8b_config
+
+    t_phase = time.perf_counter()
+    steps: dict = {}  # wall seconds of each step, logged at the end
+
+    def lap(what: str) -> None:
+        steps[what] = time.perf_counter() - t_phase - sum(steps.values())
+
+    if writer is not None:
+        out, _ = writer.communicate()
+        if writer.returncode != 0:
+            raise SystemExit(f"FAIL: the Llama-3-8B fixture writer exited {writer.returncode}")
+        log(f"  fixture writer (started after phase 2's build): {float(out.strip()):.1f} s; "
+            f"waited {time.perf_counter() - t_phase:.1f} s for it here")
+    cfg0 = llama3_8b_config()
+    cfg, params, times = load_fixture(cfg0, L3_NAME, dev)
+    L = cfg.n_layers
+    shape = lambda c: (c.n_layers, c.dim, c.n_heads, c.n_kv_heads, c.ffn_dim,  # noqa: E731
+                       c.vocab_size, c.rope.freq_base)
+    if shape(cfg) != shape(cfg0):
+        raise SystemExit(f"FAIL: Llama-3-8B loaded as {shape(cfg)}, not {shape(cfg0)}")
+    pin_dispatch(cfg, params, "Llama-3-8B", {"attn_in": L, "oproj_ffn": L, "qmm": 1}, 2048)
+    lap("wait, load, pins")
+    reference_check(cfg, params, dev)
+    lap("2-layer cut against the CPU")
+    res = {"load": times, "runs": []}
+    # requests, pp512 and tg128 (graph; tg128_ab holds it to the plain loop)
+    res["default"] = end_to_end(dev, cfg, params, tag=" Llama-3-8B", profile=profile, reps=2)
+    res["default_ab"] = tg128_ab(cfg, params, dev, " Llama-3-8B")
+    res["runs"] += [res["default"]["main_path_launches"], res["default_ab"]["launches"]]
+    lap("requests, pp512, tg128")
+    res["serve"] = {"default": l3_serving(cfg, params, dev, "", False)}
+    res["runs"].append(res["serve"]["default"]["launches"])
+    lap("serving")
+    for label, env in L3_FOLD_ENVS:
+        with switches(env):
+            # the pins: a decode step and a 16-row tick, as the gates say now
+            step = expected_launches(cfg, params, 1, seq=704)
+            tick = expected_launches(cfg, params, 1, batch=L3_SERVE[0], seq=L3_SERVE[1])
+            log(f"  {label}: decode step {_nonzero(step)}; 16-row tick {_nonzero(tick)}")
+            want_step = L if env.get("TKQ_INT8_FOLDS") == "1" else 0
+            if (step["oproj_ffn.folded"], step["attn_in.folded"], tick["attn_in.folded"]) != \
+                    (want_step, 0, L):
+                raise SystemExit(f"FAIL: Llama-3-8B {label}: the fold dispatch is {step} at a "
+                                 f"decode step and {tick} at a 16-row tick")
+            tg = tg128_ab(cfg, params, dev, f" Llama-3-8B {label}")
+            srv = l3_serving(cfg, params, dev, f" {label}", True)
+        folded = _add(tg["launches"], srv["launches"])
+        if folded.get("attn_in.folded", 0) == 0 or (
+                env.get("TKQ_INT8_FOLDS") == "1" and folded.get("oproj_ffn.folded", 0) == 0):
+            raise SystemExit(f"FAIL: Llama-3-8B {label}: no folded launch ({_nonzero(folded)})")
+        res["serve"][label], res[label] = srv, tg
+        res["runs"] += [tg["launches"], srv["launches"]]
+        lap(f"{label}: tg128, serving")
+    log(f"  phase 18 took {sum(steps.values()):.1f} s [{gpu_line()}]: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in steps.items()))
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the quantizer and the converter
 # ---------------------------------------------------------------------------
 
@@ -5064,9 +5506,8 @@ F16_NAME = "tinyllama-1.1b-f16-seed0.gguf"
 
 
 def start_f16_fixture() -> subprocess.Popen | None:
-    """Write (b)'s F16 TinyLlama-1.1B fixture in a process of its own while
-    phase 2's nvcc processes leave cores idle: its 1.1 G normal draws take
-    ~40 s of one core. Phase 17 waits for it (requantize_tinyllama). None
+    """Write (b)'s F16 TinyLlama-1.1B fixture in a process of its own from
+    the end of phase 2: its 1.1 G normal draws take ~40-70 s of one core. Phase 17 waits for it (requantize_tinyllama). None
     when the fixture directory already holds it, as load_fixture reuses the
     others."""
     if (FIXTURE_DIR / F16_NAME).exists():
@@ -5107,7 +5548,7 @@ def requantize_tinyllama(dev, gpu: str, writer: subprocess.Popen | None = None) 
         out, _ = writer.communicate()
         if writer.returncode != 0:
             raise SystemExit(f"FAIL: the F16 fixture's writer exited with {writer.returncode}")
-        how = f"written in the background since phase 2 in {float(out):.1f} s"
+        how = f"written in the background since phase 2's build in {float(out):.1f} s"
     if not f16.exists():
         write_fixture_gguf(f16, tinyllama_1b_config(), seed=0, recipe="f16")
     t1 = time.perf_counter()
@@ -5311,17 +5752,21 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     phase("phase 2: build")
-    writer = start_f16_fixture()  # phase 17's F16 fixture, on cores nvcc leaves idle
+    # phase 17's F16 and phase 18's Llama-3-8B fixtures are written after the
+    # build (run_phases), on cores the card's phases leave idle: beside the
+    # 15 nvcc processes they slowed the build (65.9 -> 91.7 s with both)
+    writers = {"f16": None, "llama3": None}
     try:
-        return run_phases(args, dev, writer, t_start)
+        return run_phases(args, dev, writers, t_start)
     finally:
-        if writer is not None and writer.poll() is None:
-            writer.kill()
-            writer.wait()
+        for w in writers.values():
+            if w is not None and w.poll() is None:
+                w.kill()
+                w.wait()
 
 
-def run_phases(args, dev, writer, t_start: float) -> int:
-    """Phases 2-17, then the kernels' JSON line and the last line."""
+def run_phases(args, dev, writers: dict, t_start: float) -> int:
+    """Phases 2-18, then the kernels' JSON line and the last line."""
     import torch
 
     from tpu_kquant_torch.ops import _build
@@ -5331,6 +5776,7 @@ def run_phases(args, dev, writer, t_start: float) -> int:
         f"into {_build.BUILD_DIR.relative_to(ROOT)}")
     log("  per library, wall s when reaped (in this order; all ran in parallel) / nvcc CPU s: "
         + ", ".join(f"{k} {w:.1f} / {c:.1f}" for k, (w, c) in _build.BUILD_TIMES.items()))
+    writers["f16"], writers["llama3"] = start_f16_fixture(), start_llama3_fixture()
 
     phase(f"phase 3: kernels vs plain versions on the card [{gpu_line()}]")
     cases = check_kernels(dev)
@@ -5345,6 +5791,13 @@ def run_phases(args, dev, writer, t_start: float) -> int:
                  2048)
     reference_check(cfg, params, dev)
     e2e = end_to_end(dev, cfg, params, profile=args.profile, ab=True, sampled=True)
+    # the int8 folds at TinyLlama: its q6w wo sends every decode step to #5,
+    # which folds the q4 gate/up
+    with switches({"TKQ_INT8_FOLDS": "1"}):
+        fold_tg = tg128_ab(cfg, params, dev, " TinyLlama-1.1B TKQ_INT8_FOLDS=1")
+    if fold_tg["launches"].get("oproj_ffn.folded", 0) == 0:
+        raise SystemExit("FAIL: TinyLlama-1.1B under TKQ_INT8_FOLDS=1 launched no folded "
+                         "oproj_ffn")
 
     phase("phase 5: long prompts (bf16 and int8 KV)")
     long = long_prompts(cfg, params, dev, args.profile)
@@ -5388,7 +5841,11 @@ def run_phases(args, dev, writer, t_start: float) -> int:
     torch.cuda.empty_cache()
 
     phase(f"phase 17: the quantizer and the converter (TinyLlama-1.1B) [{gpu_line()}]")
-    quant = quantizer(dev, writer)
+    quant = quantizer(dev, writers["f16"])
+    torch.cuda.empty_cache()
+
+    phase(f"phase 18: Llama-3-8B (full width and depth; the int8 folds) [{gpu_line()}]")
+    l3 = llama3(dev, writers["llama3"], args.profile)
 
     phase(f"phase 11: the qmm kernel lab (mutation ladder, manual ring) [{gpu_line()}]")
     lab = kernel_lab(dev, cases["qmm"])
@@ -5400,15 +5857,18 @@ def run_phases(args, dev, writer, t_start: float) -> int:
     # kinds), 6 (the three serving runs and the f32-scale requests), 7, 8
     # (both configurations), 9 (every recipe), 10 (every path), 13
     # (Gemma-2B), 14 (its main-path runs), 15 (both layouts and the CLI) and
-    # 16 (Mamba-2.8B's requests, session, CLI and serving), each counted from
-    # 0 and checked exactly
-    runs = [e2e["main_path_launches"], *long["launches"].values(), *serve["launches"].values(),
+    # 16 (Mamba-2.8B's requests, session, CLI and serving), 17 and 18
+    # (Llama-3-8B's requests, timed runs and serving under each switch
+    # setting), each counted from 0 and checked exactly
+    runs = [e2e["main_path_launches"], fold_tg["launches"], *long["launches"].values(),
+            *serve["launches"].values(),
             f32_counts, qwen["main_path_launches"], *mix["launches"].values(),
             *ggml["launches"].values(), *(r["launches"] for r in fused.values()),
             gem["main_path_launches"], front["launches"], swa["launches"], mamba["launches"],
-            quant["launches"]]
+            quant["launches"], *l3["runs"]]
     launches = {name: sum(r.get(name, 0) for r in runs) for name in cases}
-    log(f"  launches on the main path (phases 4-10, 13-17): {launches}")
+    log(f"  launches on the main path (phases 4-10, 13-18): {launches}; of them folded "
+        f"(int8 folds): {({k: sum(r.get(k, 0) for r in runs) for k in FOLDED})}")
     kernels = []
     for name, cs in cases.items():
         src, rep = REPLACES[name]

@@ -2179,3 +2179,131 @@ def test_mamba_decode_loop_as_graph_equals_the_plain_loop(card, tmp_path):
     cb.run()
     for r in reqs:
         assert r.output == eng.generate([r.prompt], max_new_tokens=12)[0]
+
+
+# -- the int8 folds of the grid kernels #3, #5 and #6 (ops/dequant.py) ---------------
+
+
+def _fold_check(got, plain_fold, plain_off):
+    """The kernel's folded output against its plain folded form: within TOL
+    of max|ref|, and its mean |error| below a quarter of the fold gap (the
+    plain folded form against the plain unfolded one)."""
+    got, ref, off = (t.float() for t in (got, plain_fold, plain_off))
+    gap = (ref - off).abs().mean().item()
+    err = (got - ref).abs().mean().item()
+    assert gap > 0 and err < gap / 4, (err, gap)
+    assert _rel(got, ref) < TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qkind,R", [("q4", 1), ("q4", 8), ("q4", 16), ("q4f", 16)])
+def test_attn_in_folds_match_plain(card, qkind, R, monkeypatch):
+    """#3 folded at Llama-3-8B's widths (wqk [5120, 4096] q4, wv [1024,
+    4096] q6w-sp); a row of the call equals the row alone, bit for bit."""
+    monkeypatch.setenv("TKQ_INT8_FOLDS", "1")
+    monkeypatch.setenv("TKQ_MANUAL_ATTN_IN", "0")
+    rng = np.random.default_rng(R)
+    D, hd, H, Hkv = 4096, 128, 32, 8
+    wqk, wv = WEIGHTS[qkind]((H + Hkv) * hd, D, rng, card), q6w(Hkv * hd, D, rng, card)
+    x = torch.randn(R, D, device=card).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    cos, sin = torch.rand(R, hd // 2, device=card), torch.rand(R, hd // 2, device=card)
+    folds = t_attn_in.fold_counter.launches
+    got = t_attn_in.fused_attn_in(x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    torch.cuda.synchronize()
+    assert t_attn_in.fold_counter.launches == folds + 1
+    args = (x, nw, 1e-5, wqk, wv, cos, sin, hd)
+    ref = t_attn_in.attn_in_plain(*args, fold=True)
+    off = t_attn_in.attn_in_plain(*args, fold=False)
+    _fold_check(got[0], ref[0], off[0])
+    monkeypatch.setenv("TKQ_INT8_FOLDS", "0")  # the flat wv slot does not fold
+    assert torch.equal(got[1], t_attn_in.fused_attn_in(*args)[1])
+    monkeypatch.setenv("TKQ_INT8_FOLDS", "1")
+    alone = t_attn_in.fused_attn_in(x[:1], nw, 1e-5, wqk, wv, cos[:1], sin[:1], hd)
+    assert torch.equal(alone[0], got[0][:1]) and torch.equal(alone[1], got[1][:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wo_kind,F,R", [("q6w", 5632, 1), ("q6w", 5632, 8), ("q6w", 14336, 8),
+                                         ("q4", 14336, 1), ("q4", 14336, 8), ("q4f", 5632, 3)])
+def test_oproj_ffn_folds_match_plain(card, wo_kind, F, R, monkeypatch):
+    """#5 folded: gate/up always (q4), wo where it is q4 (the production
+    layout asks for the grid with TKQ_MANUAL_OPROJ=0); TinyLlama's and
+    Llama-3-8B's FFN widths; the row alone equals the row in the call."""
+    monkeypatch.setenv("TKQ_INT8_FOLDS", "1")
+    monkeypatch.setenv("TKQ_MANUAL_OPROJ", "0")
+    rng = np.random.default_rng(R + F)
+    D = 2048 if F == 5632 else 4096
+    wo = WEIGHTS[wo_kind](D, D, rng, card)
+    gu, dn = (q4f if wo_kind == "q4f" else q4)(2 * F, D, rng, card), q6w(D, F, rng, card)
+    x = (torch.randn(R, D, device=card) * 0.5).to(torch.bfloat16)
+    attn = (torch.randn(R, D, device=card) * 0.5).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    folds = t_ffn.fold_counter.launches
+    got = t_ffn.fused_oproj_ffn(x, attn, wo, nw, 1e-5, gu, dn)
+    torch.cuda.synchronize()
+    assert t_ffn.fold_counter.launches == folds + 1
+    fold_wo = wo.kind == "q4"
+    ref = t_ffn.oproj_ffn_plain(x, attn, wo, nw, 1e-5, gu, dn, folds=(fold_wo, True),
+                                round_first=True)
+    off = t_ffn.oproj_ffn_plain(x, attn, wo, nw, 1e-5, gu, dn)
+    _fold_check(got - x, ref - x, off - x)
+    alone = t_ffn.fused_oproj_ffn(x[:1], attn[:1], wo, nw, 1e-5, gu, dn)
+    assert torch.equal(alone, got[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gkind,R", [("q4", 1), ("q4", 8), ("q4f", 8), ("q4", 32)])
+def test_ffn_and_gate_up_folds_match_plain(card, gkind, R, monkeypatch):
+    """#6 folded (Qwen2.5-1.5B's FFN widths) and the gate/up phase alone."""
+    monkeypatch.setenv("TKQ_INT8_FOLDS", "1")
+    rng = np.random.default_rng(R)
+    D, F = 1536, 8960
+    gu, dn = WEIGHTS[gkind](2 * F, D, rng, card), q6w(D, F, rng, card)
+    x = (torch.randn(R, D, device=card) * 0.5).to(torch.bfloat16)
+    nw = torch.rand(D, device=card) + 0.5
+    folds = t_ffn.ffn_fold_counter.launches
+    got = t_ffn.fused_ffn(x, nw, 1e-6, gu, dn)
+    torch.cuda.synchronize()
+    assert t_ffn.ffn_fold_counter.launches == folds + 1
+    _fold_check(got - x, t_ffn.ffn_plain(x, nw, 1e-6, gu, dn, fold=True) - x,
+                t_ffn.ffn_plain(x, nw, 1e-6, gu, dn) - x)
+    assert torch.equal(t_ffn.fused_ffn(x[:1], nw, 1e-6, gu, dn), got[:1])
+    act = t_ffn.gate_up(x, nw, 1e-6, gu, fold=True)
+    _fold_check(act, t_ffn.gate_up_plain(x, nw, 1e-6, gu, fold=True),
+                t_ffn.gate_up_plain(x, nw, 1e-6, gu))
+
+
+@pytest.mark.cuda
+def test_graph_captured_without_folds_does_not_replay_with_them(w1024_engine, monkeypatch):
+    """TKQ_INT8_FOLDS keys the graph cache (runtime.graphs.SWITCHES): after
+    the switch the loop captures anew, its replays launch the folded
+    oproj_ffn (wo q6w: the grid at every row count), and its tokens equal
+    the plain loop's under the same switch."""
+    from tpu_kquant_torch.runtime import graphs
+
+    eng = w1024_engine(1)
+    cache = eng.new_cache(1)
+    prompt = [3, 100, 7, 256, 42, 9]
+
+    def refill():
+        for t in graphs.cache_tensors(cache):
+            t.zero_()
+        logits, _, lens = eng.prefill([prompt], cache)
+        return torch.argmax(logits, -1), eng._tensor(lens)
+
+    monkeypatch.delenv("TKQ_INT8_FOLDS", raising=False)
+    eng.decode_greedy(*refill(), cache, 4, plain=False)
+    captures = graphs.STATS.captures
+    eng.decode_greedy(*refill(), cache, 4, plain=False)
+    assert graphs.STATS.captures == captures  # the same cache and switches: replays
+    monkeypatch.setenv("TKQ_INT8_FOLDS", "1")
+    out = {}
+    for plain in (True, False):
+        first, lens = refill()  # its 6-row prefill folds too (oproj_ffn at 6 rows)
+        folds = t_ffn.fold_counter.launches
+        out[plain] = eng.decode_greedy(first, lens, cache, 8, plain=plain)[0]
+        torch.cuda.synchronize()
+        assert t_ffn.fold_counter.launches - folds == 2 * 8
+    assert graphs.STATS.captures == captures + 1
+    assert torch.equal(out[True], out[False])

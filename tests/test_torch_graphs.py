@@ -225,6 +225,29 @@ def test_loops_are_keyed_on_cache_and_switches(paths, monkeypatch):
     assert len(te._graphs) == te._graphs.maxsize
 
 
+@pytest.mark.parametrize("name,value", [("TKQ_INT8_FOLDS", "1"), ("TKQ_Q4_MXU_MINS", "0"),
+                                        ("TKQ_GROUP_SCALE", "1"), ("TKQ_MANUAL_ATTN_IN", "0"),
+                                        ("TKQ_MANUAL_OPROJ", "0")])
+def test_fold_switches_key_the_loops(paths, name, value, monkeypatch):
+    """The int8 folds' switches and the TPU's choice of manual variants
+    (ops/dequant.py) key the captured steps: a step captured before the
+    switch is not the one run after it."""
+    from tpu_kquant_torch.runtime import graphs
+
+    assert name in graphs.SWITCHES
+    monkeypatch.delenv(name, raising=False)
+    _, te = _pair(paths["llama"])
+    lens = torch.tensor([len(p) for p in PROMPTS])
+    first = torch.tensor([5, 6])
+    cache = te.prefill(PROMPTS, te.new_cache(2))[1]
+    te.decode_greedy(first, lens, cache, 2, plain=False)
+    te.decode_greedy(first, lens, cache, 2, plain=False)
+    assert len(te._graphs) == 1
+    monkeypatch.setenv(name, value)
+    te.decode_greedy(first, lens, cache, 2, plain=False)
+    assert len(te._graphs) == 2
+
+
 # -- the serving chunk ---------------------------------------------------------------
 
 

@@ -50,13 +50,14 @@ using namespace tkq;
 // (common.cuh); *_mins: the f32 mins of a KQ4F weight, else null. bqk /
 // bv: f32 biases or both null. ld0 / ld1: the row strides (columns, a
 // multiple of 4) of wqk's and wv's packed arrays, 0 where they are n0 /
-// n1 (a slot that is a column range of a wider weight).
+// n1 (a slot that is a column range of a wider weight). fold: the int8
+// folds of the q4 slots (the grid variant's branch; attn_in.cuh).
 extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kind,
                            const void* qk_qs, const void* qk_scl, const void* qk_mins,
                            int v_kind, const void* v_qs, const void* v_scl, const void* v_mins,
                            const float* cosv, const float* sinv, const float* bqk,
                            const float* bv, void* out0, void* out1, int R, int D, int n0, int n1,
-                           int hd, int ld0, int ld1, void* stream) {
+                           int hd, int ld0, int ld1, int fold, void* stream) {
   const auto fused_kind = [](int k) { return is_q4(k) || is_flat(k); };
   if (!fused_kind(qk_kind) || !fused_kind(v_kind)) return (int)cudaErrorInvalidValue;
   AttnInArgs a{static_cast<const __nv_bfloat16*>(x),
@@ -76,7 +77,7 @@ extern "C" int tkq_attn_in(const void* x, const float* nw, float eps, int qk_kin
                bv,
                static_cast<__nv_bfloat16*>(out0),
                static_cast<__nv_bfloat16*>(out1),
-               R, D, n0, n1, hd, ld0, ld1};
+               R, D, n0, n1, hd, ld0, ld1, fold};
   return (int)launch_attn_in(a, static_cast<cudaStream_t>(stream));
 }
 

@@ -46,12 +46,19 @@
 //   barrier keeps every tile alive until its readers are done. One
 //   launch, no workspace, and each sum in an order fixed by the plan, so a
 //   row at R rows equals the row alone bit for bit.
+// - The int8 folds of the grid variant (#3; AttnInArgs.fold, a run-time
+//   flag that applies to the q4 slots: tpu_kquant/ops/pallas_attn_in.py:
+//   171-179): a q4 block quantizes its K range of the normalised rows to
+//   int8 per 32-group in shared memory (int8.cuh:i8_stage_xn, in place of
+//   the bf16 halves) and runs its codes on int8 tensor cores
+//   (i8_q4_chunk); the epilogue is the same. Each row is quantized alone.
 #pragma once
 
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "gemv.cuh"
+#include "int8.cuh"
 
 // Sweep builds (tools/gemv_sweep.py --attn-in; never the library's own
 // build): TKQ_AI_SPLITS=s launches s K splits in place of attn_in_plan's.
@@ -88,6 +95,7 @@ struct AttnInArgs {
   __nv_bfloat16* out1;     // [R, n1] v
   int R, D, n0, n1, hd;
   int ld0 = 0, ld1 = 0;    // row strides (columns) of wqk's / wv's packed arrays; 0: n0 / n1
+  int fold = 0;            // the int8 folds of the q4 slots (int8.cuh)
 };
 
 // A block's output columns, its warps across them (64 columns each) and
@@ -250,7 +258,17 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
   if (threadIdx.x < ROWS)
     rstd[threadIdx.x] = threadIdx.x < a.R ? rsqrtf(rstd[threadIdx.x] / (float)a.D + a.eps) : 0.f;
   __syncthreads();
-  gv_stage_xn<KIND, NT>(xs, sums, a.x, a.nw, a.R, a.D, cps, rstd, c0, cps, XS);
+  // the folds' staging: int8 rows [ROWS][XQS], then the groups' scales
+  // and gsums [2 cps][ROWS] each (less than the bf16 halves take)
+  const bool fold = is_q4(KIND) && a.fold;
+  const int XQS = i8_xqstride(NSEG * L);
+  auto* xq = reinterpret_cast<int8_t*>(smem);
+  float* sx = reinterpret_cast<float*>(smem + (size_t)ROWS * XQS);
+  float* sg = sx + (size_t)NSEG * cps * ROWS;
+  if (fold)
+    i8_stage_xn<NT>(xq, sx, sg, a.x, a.nw, a.R, a.D, cps, rstd, c0, cps, XQS);
+  else
+    gv_stage_xn<KIND, NT>(xs, sums, a.x, a.nw, a.R, a.D, cps, rstd, c0, cps, XS);
   float acc[NT][4][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -267,6 +285,10 @@ __device__ __forceinline__ void attn_in_block(const AttnInArgs& a, bool is_qk, i
 #pragma unroll
       for (int i = 0; i < 8; ++i) v ^= w[i].x ^ w[i].y;
       acc[0][0][0] += __uint_as_float(v & 0x007FFFFFu);
+    } else if (fold) {
+      if constexpr (is_q4(KIND))
+        i8_q4_chunk<KIND, NT>(acc, w, sc, xq + g * XQS + 4 * t + lc * CH, XQS, L,
+                              sx + lc * ROWS + 2 * t, sg + lc * ROWS + 2 * t, cps * ROWS, lane);
     } else {
       gv_chunk<KIND, NT, true>(acc, w, sc, xb + lc * CH, XS, sb + lc * chunk_sums, L,
                                cps * chunk_sums, lane, (c0 + lc) & 1, ROWS * XS);

@@ -74,7 +74,10 @@ using namespace tkq;
 // cps_* / splits_*: the K split of phases A, B and C. gelu: the
 // activation, 0 silu, 1 gelu. round_first: 1 rounds the o_proj result to
 // bf16 before adding x (layer.cu's TPU kernel's order), 0 adds in f32 then
-// rounds. pdl: programmatic dependent launch of the o_proj GEMV. Requires
+// rounds. pdl: programmatic dependent launch of the o_proj GEMV. fold_wo /
+// fold_gu: the int8 folds of a q4 wo / w_gateup (launch_oproj_ffn; ws then
+// also holds the quantized attention output: ops/ffn.py:fused_ws_floats).
+// Requires
 // K % 64 == 0, dim % 64 == 0, F % 32 == 0, R <= 32. layer.cu and rot.cu
 // call it through the address their wrappers pass, so that they compile
 // none of these kernels again.
@@ -85,29 +88,30 @@ extern "C" int tkq_oproj_ffn(const void* x, const void* attn, const float* nw, f
                              const void* dn_qs, const void* dn_scl, void* x2, void* act, float* ws,
                              void* out, int R, int dim, int K, int F, int cps_o, int splits_o,
                              int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
-                             int round_first, int pdl, void* stream) {
+                             int round_first, int pdl, int fold_wo, int fold_gu, void* stream) {
   return (int)launch_oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
                                gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, out, R, dim,
                                K, F, cps_o, splits_o, cps_g, splits_g, cps_d, splits_d,
-                               round_first, gelu, static_cast<cudaStream_t>(stream), pdl);
+                               round_first, gelu, static_cast<cudaStream_t>(stream), pdl, fold_wo,
+                               fold_gu);
 }
 
 // x, act (scratch), out: bf16; ws: f32 scratch of max(splits_g * R * 2F,
 // splits_d * R * dim) floats. gu_kind: KQ4, KQ6W or KQ8, or its F variant
 // (gu_mins: the f32 mins of a KQ4F weight, else null); dn_kind: KQ6W,
 // KQ6WF, KQ8 or KQ8F. cps_g / splits_g, cps_d / splits_d: the K split of
-// phases B and C; gelu: the activation, 0 silu, 1 gelu. Requires dim % 64
-// == 0, F % 32 == 0, R <= 32.
+// phases B and C; gelu: the activation, 0 silu, 1 gelu; fold: the int8
+// folds of a q4 w_gateup. Requires dim % 64 == 0, F % 32 == 0, R <= 32.
 extern "C" int tkq_ffn(const void* x, const float* nw, float eps, int gu_kind, const void* gu_qs,
                        const void* gu_scl, const void* gu_mins, int dn_kind, const void* dn_qs,
                        const void* dn_scl, void* act, float* ws, void* out, int R, int dim, int F,
-                       int cps_g, int splits_g, int cps_d, int splits_d, int gelu,
+                       int cps_g, int splits_g, int cps_d, int splits_d, int gelu, int fold,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   GateUpArgs ag{xb, nw, eps, static_cast<const uint8_t*>(gu_qs),
                 static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
-                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu};
+                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu, fold};
   cudaError_t e = launch_gate_up(gu_kind, ag, splits_g, st);
   if (e != cudaSuccess) return (int)e;
   GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),
@@ -117,14 +121,14 @@ extern "C" int tkq_ffn(const void* x, const float* nw, float eps, int gu_kind, c
 
 // The gate/up phase alone (phase B of both entry points): act [R, F] bf16
 // from x [R, dim] bf16; ws: f32 scratch of splits_g * R * 2F floats (unused
-// with one split). Timed on its own by tools/tile_ab.py; the main path runs
-// it inside tkq_oproj_ffn and tkq_ffn.
+// with one split); fold: its int8 folds (q4). Timed on its own by
+// tools/tile_ab.py; the main path runs it inside tkq_oproj_ffn and tkq_ffn.
 extern "C" int tkq_gate_up(const void* x, const float* nw, float eps, int gu_kind,
                            const void* gu_qs, const void* gu_scl, const void* gu_mins, void* act,
                            float* ws, int R, int dim, int F, int cps_g, int splits_g, int gelu,
-                           void* stream) {
+                           int fold, void* stream) {
   GateUpArgs ag{static_cast<const __nv_bfloat16*>(x), nw, eps, static_cast<const uint8_t*>(gu_qs),
                 static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
-                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu};
+                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu, fold};
   return (int)launch_gate_up(gu_kind, ag, splits_g, static_cast<cudaStream_t>(stream));
 }

@@ -34,10 +34,19 @@
 //   to about 16 bits: the phase is bound by its loads, not by the tensor
 //   cores. Requires dim % 8 == 0 and 16-byte aligned rows of x and of the
 //   norm weight.
+// - The int8 folds (GateUpArgs.fold, a run-time flag; q4 only: the grid
+//   kernels' branch, tpu_kquant/ops/pallas_ffn.py:154-162, :201-204): the
+//   block quantizes its K range of the normalised rows to int8 per
+//   32-group in shared memory (int8.cuh:i8_stage_xn, in place of the bf16
+//   halves) and runs the codes against them on int8 tensor cores
+//   (i8_q4_chunk, qmm_int8's core): each group's exact integer sum takes
+//   its scale and min once. A row is quantized alone, so it stays
+//   batch-invariant.
 #pragma once
 
 #include "common.cuh"
 #include "gemv.cuh"
+#include "int8.cuh"
 
 namespace tkq {
 
@@ -53,6 +62,7 @@ struct GateUpArgs {
   int cps;                  // chunks per K split (grid.y splits)
   float* ws;                // [splits, R, 2F] f32 partials where grid.y > 1
   int gelu;                 // 0: silu, 1: gelu (exact, erf)
+  int fold = 0;             // q4 only: the int8 folds (int8.cuh)
 };
 
 // The activated product of one (gate, up) pair, in f32 on their bf16
@@ -98,7 +108,17 @@ __global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) gate_up_kernel(Ga
   if (threadIdx.x < ROWS)
     rstd[threadIdx.x] = threadIdx.x < a.R ? rsqrtf(rstd[threadIdx.x] / (float)a.dim + a.eps) : 0.f;
   __syncthreads();
-  gv_stage_xn<KIND, NT>(xs, sums, a.x, a.nw, a.R, a.dim, a.cps, rstd, c0, nch, XS);
+  // the folds' staging: int8 rows [ROWS][XQS], then the groups' scales
+  // and gsums [2 cps][ROWS] each (less than the bf16 halves take)
+  const bool fold = is_q4(KIND) && a.fold;
+  const int XQS = i8_xqstride(NSEG * L);
+  auto* xq = reinterpret_cast<int8_t*>(gu_smem);
+  float* sx = reinterpret_cast<float*>(gu_smem + (size_t)ROWS * XQS);
+  float* sg = sx + (size_t)NSEG * a.cps * ROWS;
+  if (fold)
+    i8_stage_xn<NT>(xq, sx, sg, a.x, a.nw, a.R, a.dim, a.cps, rstd, c0, nch, XQS);
+  else
+    gv_stage_xn<KIND, NT>(xs, sums, a.x, a.nw, a.R, a.dim, a.cps, rstd, c0, nch, XS);
   float acc[NT][4][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -110,8 +130,18 @@ __global__ void __launch_bounds__(GV_THREADS, NT <= 2 ? 2 : 1) gate_up_kernel(Ga
   for (int lc = wk; lc < nch; lc += GV_WK) {
     uint2 wn2[8], sn[4];
     gv_load<KIND>(wn2, sn, ga, c0 + min(lc + GV_WK, nch - 1), n, ns, t, al8);
-    gv_chunk<KIND, NT, true>(acc, w, sc, xb + lc * CH, XS, sb + lc * chunk_sums, L,
-                             a.cps * chunk_sums, lane, (c0 + lc) & 1, ROWS * XS);
+    if constexpr (is_q4(KIND)) {
+      if (fold)
+        i8_q4_chunk<KIND, NT>(acc, w, sc, xq + g * XQS + 4 * t + lc * CH, XQS, L,
+                              sx + lc * ROWS + 2 * t, sg + lc * ROWS + 2 * t, a.cps * ROWS,
+                              lane);
+      else
+        gv_chunk<KIND, NT, true>(acc, w, sc, xb + lc * CH, XS, sb + lc * chunk_sums, L,
+                                 a.cps * chunk_sums, lane, (c0 + lc) & 1, ROWS * XS);
+    } else {
+      gv_chunk<KIND, NT, true>(acc, w, sc, xb + lc * CH, XS, sb + lc * chunk_sums, L,
+                               a.cps * chunk_sums, lane, (c0 + lc) & 1, ROWS * XS);
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i) w[i] = wn2[i];
 #pragma unroll
@@ -181,6 +211,7 @@ cudaError_t launch_gate_up_k(const GateUpArgs& a, int splits, cudaStream_t st) {
 // `splits` K splits of a.cps chunks (ops/ffn.py:gate_up_plan)
 inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, int splits, cudaStream_t st) {
   if (splits > 1 && a.ws == nullptr) return cudaErrorInvalidValue;
+  if (a.fold && !is_q4(kind)) return cudaErrorInvalidValue;
   switch (kind) {
     case KQ4: return launch_gate_up_k<KQ4>(a, splits, st);
     case KQ4F: return launch_gate_up_k<KQ4F>(a, splits, st);
@@ -200,7 +231,11 @@ inline cudaError_t launch_gate_up(int kind, const GateUpArgs& a, int splits, cud
 // ws: f32 scratch of max(splits_o * R * dim, splits_g * R * 2F, splits_d *
 // R * dim) floats, used by one phase at a time. gelu: phase B's activation
 // (0 silu, 1 gelu). pdl: the o_proj GEMV is a programmatic dependent of the
-// kernel that writes attn (GemvArgs.pdl).
+// kernel that writes attn (GemvArgs.pdl). fold_wo (a q4 wo): phase A
+// quantizes attn per 32-group (quantize_kernel) into ws after its split
+// partials (int8 [R, K], then its scales and gsums [R, K / 32] f32 each)
+// and runs int8.cuh's GEMV with the same epilogue; fold_gu: phase B's int8
+// folds (GateUpArgs.fold). Where wo folds, ws holds those too.
 inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float* nw, float eps,
                                     int wo_kind, const void* wo_qs, const void* wo_scl,
                                     const void* wo_mins, int gu_kind, const void* gu_qs,
@@ -209,18 +244,37 @@ inline cudaError_t launch_oproj_ffn(const void* x, const void* attn, const float
                                     float* ws, void* out, int R, int dim, int K, int F,
                                     int cps_o, int splits_o, int cps_g, int splits_g, int cps_d,
                                     int splits_d, int round_first, int gelu, cudaStream_t st,
-                                    int pdl = 0) {
-  GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs), static_cast<const uint32_t*>(wo_scl),
-              R, dim, K, cps_o, ws, x2, 0, static_cast<const __nv_bfloat16*>(x),
-              static_cast<const uint32_t*>(wo_mins)};
-  ao.round_first = round_first;
-  ao.pdl = pdl;
-  cudaError_t e = launch_gemv_kind(wo_kind, ao, splits_o, st);
+                                    int pdl = 0, int fold_wo = 0, int fold_gu = 0) {
+  cudaError_t e;
+  if (fold_wo) {
+    if (!is_q4(wo_kind) || K % 64 != 0) return cudaErrorInvalidValue;
+    float* qa = ws + (splits_o > 1 ? (size_t)splits_o * R * dim : 0);
+    auto* xq = reinterpret_cast<int8_t*>(qa);
+    float* xs = qa + (size_t)R * K / 4;
+    float* gs = xs + (size_t)R * K / 32;
+    const size_t n = (size_t)R * K;
+    quantize_kernel<32><<<(unsigned)((n / 32 + WARPS - 1) / WARPS), THREADS, 0, st>>>(
+        attn, 0, xq, xs, gs, n);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    Int8Args ai{xq, xs, gs, static_cast<const uint8_t*>(wo_qs), nullptr,
+                static_cast<const uint32_t*>(wo_scl), static_cast<const uint32_t*>(wo_mins),
+                R, dim, K, cps_o, ws, x2, 0, static_cast<const __nv_bfloat16*>(x),
+                round_first};
+    e = launch_int8_q4(wo_kind, ai, splits_o, st);
+  } else {
+    GemvArgs ao{attn, 0, static_cast<const uint8_t*>(wo_qs),
+                static_cast<const uint32_t*>(wo_scl), R, dim, K, cps_o, ws, x2, 0,
+                static_cast<const __nv_bfloat16*>(x), static_cast<const uint32_t*>(wo_mins)};
+    ao.round_first = round_first;
+    ao.pdl = pdl;
+    e = launch_gemv_kind(wo_kind, ao, splits_o, st);
+  }
   if (e != cudaSuccess) return e;
   const auto* x2b = static_cast<const __nv_bfloat16*>(x2);
   GateUpArgs ag{x2b, nw, eps, static_cast<const uint8_t*>(gu_qs),
                 static_cast<const uint32_t*>(gu_scl), static_cast<const uint32_t*>(gu_mins),
-                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu};
+                static_cast<__nv_bfloat16*>(act), R, dim, F, cps_g, ws, gelu, fold_gu};
   e = launch_gate_up(gu_kind, ag, splits_g, st);
   if (e != cudaSuccess) return e;
   GemvArgs ad{act, 0, static_cast<const uint8_t*>(dn_qs), static_cast<const uint32_t*>(dn_scl),

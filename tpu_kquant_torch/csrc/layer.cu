@@ -73,7 +73,7 @@ extern "C" int tkq_layer(AttnInEntry attn_in, OprojFfnEntry oproj_ffn, const voi
                          void* stream) {
   const int n0 = (H + Hkv) * hd, n1 = Hkv * hd;
   int rc = attn_in(x, anw, eps, qk_kind, qk_qs, qk_scl, qk_mins, v_kind, v_qs, v_scl, v_mins,
-                   cosv, sinv, nullptr, nullptr, qk, v, R, D, n0, n1, hd, 0, 0, stream);
+                   cosv, sinv, nullptr, nullptr, qk, v, R, D, n0, n1, hd, 0, 0, 0, stream);
   if (rc != 0) return rc;
 
   const auto* qkb = static_cast<const __nv_bfloat16*>(qk);
@@ -86,5 +86,5 @@ extern "C" int tkq_layer(AttnInEntry attn_in, OprojFfnEntry oproj_ffn, const voi
 
   return oproj_ffn(x, att, fnw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs, gu_scl,
                    gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y, R, D, H * hd, F, cps_o,
-                   splits_o, cps_g, splits_g, cps_d, splits_d, gelu, 1, 1, stream);
+                   splits_o, cps_g, splits_g, cps_d, splits_d, gelu, 1, 1, 0, 0, stream);
 }

@@ -54,8 +54,9 @@ extern "C" int tkq_rot(OprojFfnEntry oproj_ffn, AttnInEntry attn_in, const void*
                        void* stream) {
   const int rc = oproj_ffn(x, attn, nw, eps, wo_kind, wo_qs, wo_scl, wo_mins, gu_kind, gu_qs,
                            gu_scl, gu_mins, dn_kind, dn_qs, dn_scl, x2, act, ws, y, R, dim, K, F,
-                           cps_o, splits_o, cps_g, splits_g, cps_d, splits_d, gelu, 0, 0, stream);
+                           cps_o, splits_o, cps_g, splits_g, cps_d, splits_d, gelu, 0, 0, 0, 0,
+                           stream);
   if (rc != 0) return rc;
   return attn_in(y, nw2, eps, qk_kind, qk_qs, qk_scl, qk_mins, v_kind, v_qs, v_scl, v_mins, cosv,
-                 sinv, nullptr, nullptr, qk2, v2, R, dim, n0, n1, hd, ld0, ld1, stream);
+                 sinv, nullptr, nullptr, qk2, v2, R, dim, n0, n1, hd, ld0, ld1, 0, stream);
 }

@@ -112,6 +112,27 @@ def tinyllama_1b_config() -> ModelConfig:
     )
 
 
+def llama3_8b_config() -> ModelConfig:
+    """Meta-Llama-3-8B (its config.json): 32 layers, dim 4096, 32 / 8 heads
+    of 128, ffn 14336, vocab 128256, rope theta 5e5, context 8192."""
+    return ModelConfig(
+        arch="llama", n_layers=32, dim=4096, n_heads=32, n_kv_heads=8,
+        head_dim=128, ffn_dim=14336, vocab_size=128256, max_seq_len=8192,
+        rope=RopeParams(head_dim=128, n_rot=128, freq_base=500000.0),
+    )
+
+
+def llama3_70b_config() -> ModelConfig:
+    """Meta-Llama-3-70B (its config.json): 80 layers, dim 8192, 64 / 8 heads
+    of 128, ffn 28672, vocab 128256, rope theta 5e5, context 8192. About 40
+    GB at Q4_K_M: a config only here, until the port shards a model."""
+    return ModelConfig(
+        arch="llama", n_layers=80, dim=8192, n_heads=64, n_kv_heads=8,
+        head_dim=128, ffn_dim=28672, vocab_size=128256, max_seq_len=8192,
+        rope=RopeParams(head_dim=128, n_rot=128, freq_base=500000.0),
+    )
+
+
 def qwen2_5_1_5b_config() -> ModelConfig:
     """Qwen2.5-1.5B-Instruct (its config.json): 28 layers, dim 1536, 12/2
     heads of 128, ffn 8960, vocab 151936, rope theta 1e6, rms eps 1e-6,

@@ -15,8 +15,8 @@ multiplied by a reciprocal), ``torch.round`` rounds half to even as
 gsum are 0. The divisor 127 is a full tensor: PyTorch's CUDA division by a
 Python scalar multiplies by its reciprocal, which moves some scales by an
 ulp and with them codes near .5. Plain PyTorch on any device: the kernel's
-own quantization (``csrc/qmm_int8.cu:quantize_kernel``) is held to it on
-the card.
+own quantization (``csrc/int8.cuh:quantize_kernel``, and ``i8_stage_xn``
+for the int8 folds of ``ops.dequant``) is held to it on the card.
 """
 
 from __future__ import annotations

@@ -25,6 +25,15 @@ function, its one output the two outputs side by side.
 kernel's rounding points: the normalised row is not rounded, each
 projection is rounded to bf16, the bias added in f32, then the rotation
 (the order of the reference's epilogue, pallas_attn_in.py:237-254).
+
+The int8 folds of the grid variant (#3, pallas_attn_in.py:171-179): where
+``ops.dequant.attn_in_folds`` holds at call time (TKQ_INT8_FOLDS=1, or
+"auto" at 8B widths with TKQ_Q4_MXU_MINS=0, wherever the TPU would not take
+the manual variant), every q4 slot runs ``ops.dequant.int8_group_fold`` on
+the normalised rows: the kernel quantizes each row's 32-groups to int8 in
+shared memory and runs the codes on int8 tensor cores (``csrc/int8.cuh``),
+a run-time flag of the same launch. Such launches also count on
+``fold_counter``.
 """
 
 from __future__ import annotations
@@ -36,22 +45,23 @@ import os
 import torch
 
 from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.ops.dequant import attn_in_folds, project
 from tpu_kquant_torch.ops.ffn import _aligned
 from tpu_kquant_torch.ops.qmm import (_SMEM_CAP, GEMV_BLOCK_CHUNKS, GEMV_MAX_ROWS, GEMV_WAVE,
                                       KINDS, SEGMENTS, gemv_smem_bytes, kernel_kind,
                                       packed_arrays, row_stride)
-from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
 
 counter = _build.LaunchCounter("attn_in")
+fold_counter = _build.LaunchCounter("attn_in.folded")  # the launches (or plain calls) that fold
 
 MAX_ROWS = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 #            x   nw  eps              qk: kind qs scl mins v: kind qs scl mins
 _ARGTYPES = [_P, _P, ctypes.c_float, _I, _P, _P, _P, _I, _P, _P, _P,
-             # cos sin bqk bv out0 out1 R  D  n0 n1 hd ld0 ld1 stream
-             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+             # cos sin bqk bv out0 out1 R  D  n0 n1 hd ld0 ld1 fold stream
+             _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 
 
 _KINDS = ("q4", "q6w", "q8")  # pallas_attn_in.py:_KINDS
@@ -170,12 +180,13 @@ def _rope_neox(y: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: 
 def attn_in_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTensor,
                   wv: QTensor, cos: torch.Tensor, sin: torch.Tensor, head_dim: int,
                   biases: tuple[torch.Tensor, torch.Tensor] | None = None,
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [R, D] bf16, cos/sin [R, hd/2] -> (roped qk [R, n0], v [R, n1]) bf16."""
+                  fold: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [R, D] bf16, cos/sin [R, hd/2] -> (roped qk [R, n0], v [R, n1]) bf16;
+    ``fold``: the q4 slots take the int8 group fold."""
     xf = x.float()
     xn = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps) * norm_w.float()
-    qk = (xn @ dequant_kmajor(wqk)).to(torch.bfloat16).float()
-    v = (xn @ dequant_kmajor(wv)).to(torch.bfloat16).float()
+    qk = project(xn, wqk, fold).to(torch.bfloat16).float()
+    v = project(xn, wv, fold).to(torch.bfloat16).float()
     if biases is not None:
         qk, v = qk + biases[0].float(), v + biases[1].float()
     qk = _rope_neox(qk, cos.float(), sin.float(), head_dim)
@@ -195,11 +206,13 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     half = head_dim // 2
     x2d = x.reshape(-1, D)
     c2d, s2d = cos.reshape(-1, half), sin.reshape(-1, half)
+    R = x2d.shape[0]
+    fold = folds(wqk, wv, R, biases)
     if x.device.type == "cpu":
         counter.plain_calls += 1
-        qk, v = attn_in_plain(x2d, norm_w, eps, wqk, wv, c2d, s2d, head_dim, biases)
+        fold_counter.plain_calls += fold
+        qk, v = attn_in_plain(x2d, norm_w, eps, wqk, wv, c2d, s2d, head_dim, biases, fold)
         return qk.reshape(*lead, n0), v.reshape(*lead, n1)
-    R = x2d.shape[0]
     req = _build.require
     req(x.device.type == "cuda", f"attn_in: unsupported device {x.device}")
     req(attn_in_supported(wqk, wv, R, D, head_dim, biases),
@@ -227,10 +240,26 @@ def fused_attn_in(x: torch.Tensor, norm_w: torch.Tensor, eps: float, wqk: QTenso
     ptrs = [None if a is None else P(a) for a in arrs]
     rc = lib.tkq_attn_in(P(x2d), P(nw), float(eps), qk_code, *ptrs[:3], v_code, *ptrs[3:],
                          P(c2d), P(s2d), *bias_ptrs, P(out0), P(out1), R, D, n0, n1, head_dim,
-                         row_stride(arrs[0]), row_stride(arrs[3]), _build.stream_ptr(x.device))
+                         row_stride(arrs[0]), row_stride(arrs[3]), int(fold),
+                         _build.stream_ptr(x.device))
     _build.check(lib, rc, "attn_in")
     counter.launches += 1
+    fold_counter.launches += fold
     return out0.reshape(*lead, n0), out1.reshape(*lead, n1)
+
+
+def folds(wqk: QTensor, wv: QTensor, rows: int,
+          biases: tuple[torch.Tensor, torch.Tensor] | None = None) -> bool:
+    """Whether a call at ``rows`` rows folds its q4 slots now
+    (``ops.dequant.attn_in_folds`` on the reference's weight list: phi3's
+    ``qkv_slots``, column views of one wqkv, are one weight there)."""
+    qs = wqk.arrays["qs"]
+    if isinstance(qs, torch.Tensor) and row_stride(qs) > qs.shape[-1]:
+        ws = [QTensor(wqk.kind, wqk.layout, (int(wqk.shape[0]) + int(wv.shape[0]),
+                                             int(wqk.shape[1])), {})]
+    else:
+        ws = [wqk, wv]
+    return attn_in_folds(ws, biases, rows)
 
 
 def kernel_plan(qk_code: int, v_code: int, n0: int, n1: int, D: int) -> int:

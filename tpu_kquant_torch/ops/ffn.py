@@ -17,6 +17,17 @@ every slot; Q6_K: q6w in every slot), each weight with bf16 scale pairs
 ``ffn_plain`` and ``oproj_ffn_plain`` are the same functions in plain
 PyTorch with the kernels' rounding points: x2, gate, up and their activated
 product are rounded to bf16, the sums are f32.
+
+The int8 folds of the grid variants (#5, #6; pallas_ffn.py:154-162, :201-204,
+:474-477, :543): where ``ops.dequant.ffn_folds`` / ``oproj_ffn_folds`` hold
+at call time (TKQ_INT8_FOLDS=1, and for oproj_ffn wherever the TPU would
+not take the manual variant #4), a q4 gate/up runs
+``ops.dequant.int8_group_fold`` on the normalised rows and a q4 o_proj on
+the attention output. In the kernels the gate/up phase quantizes each
+row's 32-groups in shared memory (a run-time flag of ``gate_up.cuh``), and
+the folded o_proj quantizes the attention output into the scratch and runs
+``csrc/int8.cuh``'s int8 GEMV with the residual epilogue. Such launches
+also count on ``fold_counter`` / ``ffn_fold_counter``.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_kquant_torch.ops import _build
+from tpu_kquant_torch.ops.dequant import _FLAT_KINDS, ffn_folds, oproj_ffn_folds, project
 from tpu_kquant_torch.ops.qmm import KINDS, gemv_plan, kernel_kind, packed_arrays
 from tpu_kquant_torch.quant.codecs import dequant_kmajor
 from tpu_kquant_torch.quant.qtensor import QTensor
@@ -35,6 +47,9 @@ from tpu_kquant_torch.quant.qtensor import QTensor
 counter = _build.LaunchCounter("oproj_ffn")
 ffn_counter = _build.LaunchCounter("ffn")
 gate_up_counter = _build.LaunchCounter("gate_up")
+# the launches (or plain calls) of oproj_ffn / ffn that fold a slot
+fold_counter = _build.LaunchCounter("oproj_ffn.folded")
+ffn_fold_counter = _build.LaunchCounter("ffn.folded")
 
 MAX_ROWS = 32
 _P = ctypes.c_void_p
@@ -44,14 +59,15 @@ _F = ctypes.c_float
 _ARGTYPES = [_P, _P, _P, _F, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P,
              # x2 act ws out R  dim K  F  cps_o splits_o cps_g splits_g cps_d splits_d
              _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-             # gelu round_first pdl stream
-             _I, _I, _I, _P]
+             # gelu round_first pdl fold_wo fold_gu stream
+             _I, _I, _I, _I, _I, _P]
 #                x   nw  eps gu: kind qs scl mins  dn: kind qs scl
 _FFN_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _I, _P, _P,
-                 # act ws out R  dim F  cps_g splits_g cps_d splits_d gelu stream
-                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
-#                    x   nw  eps gu: kind qs scl mins  act ws  R   dim F   cps splits gelu stream
-_GATE_UP_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+                 # act ws out R  dim F  cps_g splits_g cps_d splits_d gelu fold stream
+                 _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+#                    x   nw  eps gu: kind qs scl mins  act ws  R   dim F   cps splits gelu fold
+_GATE_UP_ARGTYPES = [_P, _P, _F, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P]  # stream
 ACT_FNS = ("silu", "gelu")  # the kernels' activations: C's `gelu` flag 0 / 1
 
 
@@ -62,7 +78,6 @@ def gelu_flag(act_fn: str) -> int:
     return int(act_fn == "gelu")
 
 
-_FLAT_KINDS = ("q6w", "q8")  # pallas_ffn.py:_FLAT_KINDS
 _VMEM_CHUNK_ELEMS = 2_700_000  # pallas_attn_in.py:_VMEM_CHUNK_ELEMS
 
 
@@ -134,11 +149,15 @@ def gate_up_plan(code: int, F: int, dim: int) -> tuple[int, int]:
 
 
 def fused_ws_floats(R: int, dim: int, F: int, splits_o: int, splits_g: int,
-                    splits_d: int) -> int:
+                    splits_d: int, fold_k: int = 0) -> int:
     """f32 scratch floats of the FFN sequence (gate_up.cuh:launch_oproj_ffn):
     the largest of its phases' split partials (o_proj and down [splits, R,
-    dim], gate/up [splits, R, 2F]), which run one at a time."""
-    return max(splits_o * R * dim, splits_g * R * 2 * F if splits_g > 1 else 0,
+    dim], gate/up [splits, R, 2F]), which run one at a time; ``fold_k``: a
+    folded o_proj's depth K, whose phase also holds the quantized attention
+    output after its partials (int8 [R, K], its scales and group sums [R, K
+    / 32] f32 each)."""
+    quant = R * fold_k // 4 + 2 * (R * fold_k // 32)
+    return max(splits_o * R * dim + quant, splits_g * R * 2 * F if splits_g > 1 else 0,
                splits_d * R * dim, 1)
 
 
@@ -164,14 +183,15 @@ def _fused_arrays(what: str, x: torch.Tensor, *ws: QTensor,
 
 
 def gate_up_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float,
-                  gu: QTensor, act_fn: str = "silu") -> torch.Tensor:
+                  gu: QTensor, act_fn: str = "silu", fold: bool = False) -> torch.Tensor:
     """The gate/up phase in plain PyTorch: x [R, dim] -> act [R, F] bf16 =
     bf16(act(bf16(gate(n(x)))) * bf16(up(n(x)))), n(x) in f32, act silu or
-    the exact gelu (``act_fn``), in f32."""
+    the exact gelu (``act_fn``), in f32; ``fold``: a q4 gate/up takes the
+    int8 group fold."""
     gelu_flag(act_fn)
     x = x.float()
     xn = x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * norm_w.float()
-    gu_out = xn @ dequant_kmajor(gu)
+    gu_out = project(xn, gu, fold)
     Fd = gu_out.shape[-1] // 2
     g = gu_out[:, :Fd].to(torch.bfloat16).float()
     u = gu_out[:, Fd:].to(torch.bfloat16).float()
@@ -180,14 +200,14 @@ def gate_up_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float,
 
 
 def gate_up(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
-            act_fn: str = "silu") -> torch.Tensor:
+            act_fn: str = "silu", fold: bool = False) -> torch.Tensor:
     """The gate/up phase alone (csrc/ffn.cu:tkq_gate_up): x [R, dim] bf16 ->
-    act [R, F] bf16. The main path runs it inside fused_oproj_ffn and
-    fused_ffn; this entry point times it on its own (tools/tile_ab.py) and
-    holds it to gate_up_plain."""
+    act [R, F] bf16 (``fold``: a q4 gate/up folded). The main path runs it
+    inside fused_oproj_ffn and fused_ffn; this entry point times it on its
+    own (tools/tile_ab.py) and holds it to gate_up_plain."""
     if x.device.type == "cpu":
         gate_up_counter.plain_calls += 1
-        return gate_up_plain(x, norm_w, eps, gu, act_fn)
+        return gate_up_plain(x, norm_w, eps, gu, act_fn, fold)
     R, dim = x.shape
     Fd = int(gu.shape[0]) // 2
     req = _build.require
@@ -206,23 +226,25 @@ def gate_up(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
     P = _build.ptr
     rc = lib.tkq_gate_up(P(x), P(nw), float(eps), gu_kind,
                          *[None if a is None else P(a) for a in gu_arrs], P(act), P(ws), R, dim,
-                         Fd, cps_g, splits_g, gelu_flag(act_fn), _build.stream_ptr(x.device))
+                         Fd, cps_g, splits_g, gelu_flag(act_fn), int(fold and gu.kind == "q4"),
+                         _build.stream_ptr(x.device))
     _build.check(lib, rc, "gate_up")
     gate_up_counter.launches += 1
     return act
 
 
 def _ffn_tail(x2: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
-              dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
+              dn: QTensor, act_fn: str = "silu", fold: bool = False) -> torch.Tensor:
     """x2 [R, dim] f32 -> x2 + down(act) in f32, unrounded."""
-    act = gate_up_plain(x2, norm_w, eps, gu, act_fn).float()
+    act = gate_up_plain(x2, norm_w, eps, gu, act_fn, fold).float()
     return x2 + act @ dequant_kmajor(dn)
 
 
 def ffn_plain(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor,
-              dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
-    """x [R, dim] -> y [R, dim] in x's dtype (bf16 on the decode path)."""
-    return _ffn_tail(x.float(), norm_w, eps, gu, dn, act_fn).to(x.dtype)
+              dn: QTensor, act_fn: str = "silu", fold: bool = False) -> torch.Tensor:
+    """x [R, dim] -> y [R, dim] in x's dtype (bf16 on the decode path);
+    ``fold``: a q4 gate/up takes the int8 group fold."""
+    return _ffn_tail(x.float(), norm_w, eps, gu, dn, act_fn, fold).to(x.dtype)
 
 
 def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn: QTensor,
@@ -232,9 +254,11 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     dim, Fd = int(dn.shape[0]), int(dn.shape[1])
     lead = x.shape[:-1]
     x2d = x.reshape(-1, dim)
+    fold = ffn_folds(gu)
     if x.device.type == "cpu":
         ffn_counter.plain_calls += 1
-        return ffn_plain(x2d, norm_w, eps, gu, dn, act_fn).reshape(*lead, dim)
+        ffn_fold_counter.plain_calls += fold
+        return ffn_plain(x2d, norm_w, eps, gu, dn, act_fn, fold).reshape(*lead, dim)
     R = x2d.shape[0]
     req = _build.require
     req(x.device.type == "cuda", f"ffn: unsupported device {x.device}")
@@ -255,17 +279,26 @@ def fused_ffn(x: torch.Tensor, norm_w: torch.Tensor, eps: float, gu: QTensor, dn
     ptrs = lambda arrs: [None if a is None else P(a) for a in arrs]  # noqa: E731
     rc = lib.tkq_ffn(P(x2d), P(nw), float(eps), gu_kind, *ptrs(gu_arrs), dn_kind,
                      *ptrs(dn_arrs[:2]), P(act), P(ws), P(out), R, dim, Fd, cps_g, splits_g,
-                     cps_d, splits_d, gelu, _build.stream_ptr(dev))
+                     cps_d, splits_d, gelu, int(fold), _build.stream_ptr(dev))
     _build.check(lib, rc, "ffn")
     ffn_counter.launches += 1
+    ffn_fold_counter.launches += fold
     return out.reshape(*lead, dim)
 
 
 def oproj_ffn_plain(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
-                    eps: float, gu: QTensor, dn: QTensor, act_fn: str = "silu") -> torch.Tensor:
-    """x [R, dim], attn [R, K] bf16 -> y [R, dim] bf16."""
-    x2 = (x.float() + attn.float() @ dequant_kmajor(wo)).to(torch.bfloat16).float()
-    return _ffn_tail(x2, norm_w, eps, gu, dn, act_fn).to(torch.bfloat16)
+                    eps: float, gu: QTensor, dn: QTensor, act_fn: str = "silu",
+                    folds: tuple[bool, bool] = (False, False),
+                    round_first: bool = False) -> torch.Tensor:
+    """x [R, dim], attn [R, K] bf16 -> y [R, dim] bf16; ``folds``: (a q4
+    o_proj, a q4 gate/up) takes the int8 group fold; ``round_first``: the
+    o_proj sum is rounded to bf16 before the residual is added (the grid
+    variant's order, which fused_oproj_ffn computes where it folds)."""
+    o = project(attn.float(), wo, folds[0])
+    if round_first:
+        o = o.to(torch.bfloat16).float()
+    x2 = (x.float() + o).to(torch.bfloat16).float()
+    return _ffn_tail(x2, norm_w, eps, gu, dn, act_fn, folds[1]).to(torch.bfloat16)
 
 
 def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: torch.Tensor,
@@ -277,10 +310,18 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     Fd = int(dn.shape[1])
     lead = x.shape[:-1]
     x2d, a2d = x.reshape(-1, dim), attn.reshape(-1, K)
+    R = x2d.shape[0]
+    folds = oproj_ffn_folds(wo, gu, dn, R)
+    # a fold runs the grid variant's function (#5), which rounds the o_proj
+    # sum to bf16 before the residual (pallas_ffn.py:531-536); unfolded,
+    # the sum is added in f32 and rounded once, the manual variant's order
+    # (#4, pallas_ffn.py:908), at every row count (ROADMAP, Queue 3)
+    round_first = any(folds)
     if x.device.type == "cpu":
         counter.plain_calls += 1
-        return oproj_ffn_plain(x2d, a2d, wo, norm_w, eps, gu, dn, act_fn).reshape(*lead, dim)
-    R = x2d.shape[0]
+        fold_counter.plain_calls += any(folds)
+        return oproj_ffn_plain(x2d, a2d, wo, norm_w, eps, gu, dn, act_fn, folds,
+                               round_first).reshape(*lead, dim)
     req = _build.require
     req(x.device.type == "cuda", f"oproj_ffn: unsupported device {x.device}")
     req(oproj_ffn_supported(wo, gu, dn, R), "oproj_ffn: unsupported layout or shape")
@@ -290,14 +331,15 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     (wo_kind, wo_arrs), (gu_kind, gu_arrs), (dn_kind, dn_arrs) = _fused_arrays(
         "oproj_ffn", x, wo, gu, dn)
     x2d, a2d, nw = x2d.contiguous(), a2d.contiguous(), _aligned(norm_w)
-    cps_o, splits_o = gemv_plan(wo_kind, dim, K)
+    # a folded o_proj runs the int8 GEMV, whose plan counts its own staging
+    cps_o, splits_o = gemv_plan(wo_kind, dim, K, int8=folds[0])
     cps_g, splits_g = gate_up_plan(gu_kind, Fd, dim)
     cps_d, splits_d = gemv_plan(dn_kind, dim, Fd)
     dev = x.device
     x2 = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     act = torch.empty((R, Fd), dtype=torch.bfloat16, device=dev)
-    ws = torch.empty(fused_ws_floats(R, dim, Fd, splits_o, splits_g, splits_d),
-                     dtype=torch.float32, device=dev)
+    ws = torch.empty(fused_ws_floats(R, dim, Fd, splits_o, splits_g, splits_d,
+                                     K if folds[0] else 0), dtype=torch.float32, device=dev)
     out = torch.empty((R, dim), dtype=torch.bfloat16, device=dev)
     lib = _build.load("ffn", "tkq_oproj_ffn", _ARGTYPES)
     P = _build.ptr
@@ -305,7 +347,9 @@ def fused_oproj_ffn(x: torch.Tensor, attn: torch.Tensor, wo: QTensor, norm_w: to
     rc = lib.tkq_oproj_ffn(P(x2d), P(a2d), P(nw), float(eps), wo_kind, *ptrs(wo_arrs), gu_kind,
                            *ptrs(gu_arrs), dn_kind, *ptrs(dn_arrs[:2]), P(x2), P(act), P(ws),
                            P(out), R, dim, K, Fd, cps_o, splits_o, cps_g, splits_g, cps_d,
-                           splits_d, gelu, 0, 0, _build.stream_ptr(dev))
+                           splits_d, gelu, int(round_first), 0, int(folds[0]), int(folds[1]),
+                           _build.stream_ptr(dev))
     _build.check(lib, rc, "oproj_ffn")
     counter.launches += 1
+    fold_counter.launches += any(folds)
     return out.reshape(*lead, dim)

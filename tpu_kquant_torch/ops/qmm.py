@@ -178,7 +178,7 @@ def row_stride(t: torch.Tensor) -> int:
 
 def gemv_smem_bytes(code: int, cps: int, R: int, int8: bool = False, halves: int = 1) -> int:
     """Dynamic shared memory of the GEMV kernel at ``cps`` chunks a split and
-    R rows (csrc/gemv.cuh gemv_smem_bytes; int8: csrc/qmm_int8.cu
+    R rows (csrc/gemv.cuh gemv_smem_bytes; int8: csrc/int8.cuh
     int8_smem_bytes): the staged activations of 8 ceil(R / 8) rows (bf16
     rows of a multiple of 64 plus 16 elements, ``halves`` copies of them:
     csrc/gate_up.cuh stages two; int8: of 128 plus 16 bytes) and each scale

@@ -50,9 +50,12 @@ import torch
 from tpu_kquant_torch.ops import _build, attention
 
 # the switches the forward reads from the environment at call time
-# (models/llama.py and the gates of ops/{attn_in,ffn,attn_out,layer,rot,kv_append}.py)
+# (models/llama.py, the gates of ops/{attn_in,ffn,attn_out,layer,rot,kv_append}.py,
+# and ops/dequant.py's int8 folds and the TPU's choice of manual variants)
 SWITCHES = ("TKQ_DEFER_APPEND", "TKQ_FUSE_LAYER", "TKQ_FUSE_ATTN", "TKQ_FUSE_OPROJ",
-            "TKQ_FUSE_FFN", "TKQ_FUSE_ATTN_OUT", "TKQ_ROTATE_LAYER", "TKQ_KV_APPEND_PALLAS")
+            "TKQ_FUSE_FFN", "TKQ_FUSE_ATTN_OUT", "TKQ_ROTATE_LAYER", "TKQ_KV_APPEND_PALLAS",
+            "TKQ_INT8_FOLDS", "TKQ_Q4_MXU_MINS", "TKQ_GROUP_SCALE", "TKQ_MANUAL_ATTN_IN",
+            "TKQ_MANUAL_OPROJ")
 
 
 def switches() -> tuple:

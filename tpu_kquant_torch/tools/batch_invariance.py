@@ -42,6 +42,10 @@ for bit (torch.equal), and reports the largest difference:
   the card (fixed-shape bmm calls).
 The op checks also hold the plain branch's f32 parts of row 0 of 16 to
 the row alone, for the einsums and for attention_plain's card form.
+Folded cases (``fold_checks``; chip_smoke.py phase 3 runs them, fatal):
+the int8 folds of attn_in (#3, Llama-3-8B's wqk / wv), oproj_ffn (#5,
+TinyLlama's layout and a q4 wo) and ffn (#6), each row quantized alone, so
+row 0 of 16 equals the row alone bit for bit.
 Verify windows (speculative decoding; fatal, the tool exits 1 where one
 differs): on the same 2-layer cut, each row t of a window of T = 5 tokens
 (engine.step) at positions p..p + 4, at B = 1 and at B = 2 rows of other
@@ -207,6 +211,25 @@ def op_checks(smoke, dev) -> list:
     out.append(_cmp("flash decode (#7), 2048 slots: row 0 of 16 vs alone",
                     attention_decode_flash(q, k, v, pos)[:1],
                     attention_decode_flash(q[:1], k[:1], v[:1], pos[:1])))
+    return out
+
+
+def fold_checks(smoke, dev) -> list:
+    """chip_smoke.py's check_fold_invariance (the int8 folds under
+    TKQ_INT8_FOLDS=1 with the manual variants off), each case reported as
+    row 0 of 16 against the row alone."""
+    import numpy as np
+
+    out = []
+
+    def row0(label, fn, *xs):
+        tup = lambda y: y if isinstance(y, tuple) else (y,)  # noqa: E731
+        got, alone = tup(fn(*(x[:B] for x in xs))), tup(fn(*(x[:1] for x in xs)))
+        for i, (g, a) in enumerate(zip(got, alone)):
+            part = f", output {i}" if len(got) > 1 else ""
+            out.append(_cmp(f"{label}{part}: row 0 of 16 vs alone", g[:1], a))
+
+    smoke.check_fold_invariance(dev, np.random.default_rng(1), row0)
     return out
 
 
@@ -483,7 +506,7 @@ def main() -> int:
     res = {"gpu": smoke.gpu_line()}
     print(f"== batch_invariance [{res['gpu']}]", flush=True)
     with torch.no_grad():
-        res["ops"] = op_checks(smoke, dev)
+        res["ops"] = op_checks(smoke, dev) + fold_checks(smoke, dev)
         res["engine"] = engine_checks(smoke, dev)
         if args.serving:
             res["serving"] = serving_checks(smoke, dev)
